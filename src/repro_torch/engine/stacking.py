@@ -1,0 +1,93 @@
+"""Host-side preprocessing for the stacked engine: every partition's
+blocked-CSR aggregation structure padded into uniform ``(P, ...)`` arrays.
+
+Counterpart of ``repro/engine/stacking.py`` (``_local_csr``,
+``_stack_blocks``, ``build_stacked_vjp_blocks``), copied unchanged apart
+from the kernel's ``row_ptr`` that the stacked dict also carries.
+Partitions have ragged edge counts, so each partition's
+:class:`EdgeBlocks` is padded to the fleet-wide ``(num_blocks,
+edges_per_block)``; padding slots carry ``mask == 0`` and lie outside every
+``row_ptr`` range.  The reference's ``stack_pytrees`` is ``torch.stack``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..graph.distributed import PartitionedGraph
+from ..kernels.segment_agg import (BEC, BN, block_row_ptr, build_edge_blocks,
+                                   build_transpose_blocks)
+
+__all__ = ["StackedBlocks", "build_stacked_vjp_blocks"]
+
+
+@dataclass(frozen=True)
+class StackedBlocks:
+    """Per-partition blocked CSR, padded to common shapes (leading axis P)."""
+
+    num_blocks: int            # nb (common across partitions)
+    edges_per_block: int       # BE (fleet-wide max, multiple of BEC)
+    src: np.ndarray            # (P, nb, BE) int32 local source ids, pad -> 0
+    local_dst: np.ndarray      # (P, nb, BE) int32 in [0, BN)
+    mask: np.ndarray           # (P, nb, BE) float32
+    deg: np.ndarray            # (P, nb, BN) float32 (>=1 where real)
+
+
+def _local_csr(pg: PartitionedGraph, p: int) -> tuple[np.ndarray, np.ndarray]:
+    """Rebuild partition p's local CSR (dst-major, ascending — the order
+    build_partitioned_graph emits) from its padded edge arrays."""
+    real = pg.edge_mask[p] > 0
+    src = pg.edge_src[p][real].astype(np.int64)
+    dst = pg.edge_dst[p][real].astype(np.int64)
+    counts = np.bincount(dst, minlength=pg.max_nodes)
+    indptr = np.zeros(pg.max_nodes + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return indptr, src
+
+
+def _stack_blocks(per_part, num_parts: int, bn: int) -> StackedBlocks:
+    """Pad a list of per-partition EdgeBlocks to fleet-common shapes
+    (at least one block so an all-empty fleet still yields a valid grid)."""
+    nb = max(1, max(b.num_blocks for b in per_part))
+    be = max(b.edges_per_block for b in per_part)
+    P = num_parts
+    src = np.zeros((P, nb, be), dtype=np.int32)
+    ldst = np.zeros((P, nb, be), dtype=np.int32)
+    mask = np.zeros((P, nb, be), dtype=np.float32)
+    deg = np.ones((P, nb, bn), dtype=np.float32)
+    for p, b in enumerate(per_part):
+        src[p, : b.num_blocks, : b.edges_per_block] = b.src
+        ldst[p, : b.num_blocks, : b.edges_per_block] = b.local_dst
+        mask[p, : b.num_blocks, : b.edges_per_block] = b.mask
+        deg[p, : b.num_blocks] = b.deg
+    return StackedBlocks(num_blocks=nb, edges_per_block=be,
+                         src=src, local_dst=ldst, mask=mask, deg=deg)
+
+
+def _stack_vjp_dict(fwd_list, bwd_list, num_parts: int, bn: int) -> dict:
+    """Pair per-partition forward + transpose EdgeBlocks into the flat
+    ``segment_mean_op`` blocks dict, each side padded fleet-wide."""
+    f = _stack_blocks(fwd_list, num_parts, bn)
+    b = _stack_blocks(bwd_list, num_parts, bn)
+    return {"src": f.src, "dst": f.local_dst, "mask": f.mask, "deg": f.deg,
+            "row_ptr": block_row_ptr(f.local_dst, f.mask, bn),
+            "t_src": b.src, "t_dst": b.local_dst, "t_mask": b.mask}
+
+
+def build_stacked_vjp_blocks(pg: PartitionedGraph, bn: int = BN,
+                             bec: int = BEC) -> dict:
+    """Stacked paired forward/transpose block structure for the whole-space
+    aggregation (``segment_mean_op`` over all ``max_nodes`` local rows):
+    the forward is dst-blocked CSR, the transpose is the CSC-ordered mirror
+    over the same edges (read by the backward kernel of the training
+    slice)."""
+    fwds, bwds = [], []
+    for p in range(pg.num_parts):
+        indptr, indices = _local_csr(pg, p)
+        fwds.append(build_edge_blocks(indptr, indices, bn=bn, bec=bec))
+        real = pg.edge_mask[p] > 0
+        bwds.append(build_transpose_blocks(
+            pg.edge_src[p][real], pg.edge_dst[p][real], pg.max_nodes,
+            bn=bn, bec=bec))
+    return _stack_vjp_dict(fwds, bwds, pg.num_parts, bn)

@@ -1,0 +1,14 @@
+from .csr import CSRGraph
+from .synthetic import SyntheticSpec, make_benchmark, BENCHMARKS
+from .sage import GraphSAGE, SAGELayer
+from .distributed import (PartitionedGraph, RecomputePlanner,
+                          build_partitioned_graph, make_distributed_forward,
+                          make_export_forward, make_kernel_mean_agg,
+                          make_ref_mean_agg)
+
+__all__ = [
+    "CSRGraph", "SyntheticSpec", "make_benchmark", "BENCHMARKS",
+    "GraphSAGE", "SAGELayer", "PartitionedGraph", "RecomputePlanner",
+    "build_partitioned_graph", "make_distributed_forward",
+    "make_export_forward", "make_kernel_mean_agg", "make_ref_mean_agg",
+]

@@ -1,0 +1,582 @@
+"""Distributed graph storage + halo exchange, stacked on one device.
+
+Counterpart of ``repro/graph/distributed.py``.  The NumPy half —
+:class:`PartitionedGraph`, :func:`build_partitioned_graph` and
+:class:`RecomputePlanner` — is copied from the reference unchanged, so the
+port builds bitwise the same padded arrays.  Each partition owns a
+contiguous local index space:
+
+    [0, n_int)                interior owned nodes: every in-neighbour is
+                              local, so their aggregation needs NO halo data
+    [n_int, n_own)            boundary owned nodes: >= 1 in-neighbour lives
+                              on another partition
+    [n_own, n_own + n_halo)   halo slots (1-hop remote in-neighbours, recv'd)
+    [n_local, maxN)           padding, with ONE trash row at ``trash_row``
+                              (== maxN - 1) never referenced by a real edge
+
+The device half is the reference's ``mode="stacked"`` path, written out:
+all P partitions live in ``(P, ...)`` tensors on one device, and the
+``vmap``-batched ``all_to_all`` of the reference is the index transpose
+``recv[q][p] = sent[p][q]`` of the ``(P, P, maxS, D)`` send buffer.  The
+compressed, cached and overlapped forwards join with ROADMAP items 8
+and 10.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .csr import CSRGraph
+
+__all__ = ["PartitionedGraph", "build_partitioned_graph",
+           "make_distributed_forward", "make_export_forward",
+           "RecomputePlanner", "make_ref_mean_agg", "make_kernel_mean_agg"]
+
+
+@dataclass
+class PartitionedGraph:
+    """Stacked, padded per-partition arrays (leading axis = partition)."""
+
+    num_parts: int
+    n_own: np.ndarray          # (P,) owned-node counts
+    n_int: np.ndarray          # (P,) interior counts (first n_int owned rows)
+    n_halo: np.ndarray         # (P,) halo counts
+    max_nodes: int             # padded local size (incl. trash row)
+    own_cap: int               # max(n_own): static owned-row cap
+    features: np.ndarray       # (P, maxN, D)   halo+pad rows zero
+    labels: np.ndarray         # (P, maxN)      -1 on non-owned
+    edge_src: np.ndarray       # (P, maxE) local ids  (pad -> trash row)
+    edge_dst: np.ndarray       # (P, maxE) local ids  (pad -> trash row)
+    edge_mask: np.ndarray      # (P, maxE) float32
+    int_src: np.ndarray        # (P, maxEi) interior-dst edges (owned src only)
+    int_dst: np.ndarray        # (P, maxEi) dst in [0, n_int)  (pad -> own_cap)
+    int_mask: np.ndarray       # (P, maxEi) float32
+    bnd_src: np.ndarray        # (P, maxEb) boundary-dst edges (owned+halo src)
+    bnd_dst: np.ndarray        # (P, maxEb) dst in [n_int, n_own) (pad -> own_cap)
+    bnd_mask: np.ndarray       # (P, maxEb) float32
+    deg: np.ndarray            # (P, own_cap) float32 in-degree, clamped >= 1
+    send_idx: np.ndarray       # (P, P, maxS) local owned ids to send to q
+    send_mask: np.ndarray      # (P, P, maxS)
+    recv_pos: np.ndarray       # (P, P, maxS) local halo slot for recv from q
+    global_ids: np.ndarray     # (P, maxN) global node id (-1 pad)
+    train_mask: np.ndarray     # (P, maxN) bool, owned train nodes
+    val_mask: np.ndarray       # (P, maxN)
+    test_mask: np.ndarray      # (P, maxN)
+
+    @property
+    def trash_row(self) -> int:
+        """The one sacrificial local row (== max_nodes - 1).  Padding in the
+        combined edge arrays and in ``recv_pos`` points here; the forward
+        keeps it all-zero at every layer, and :func:`build_partitioned_graph`
+        asserts no real edge or real recv slot ever references it."""
+        return self.max_nodes - 1
+
+    @property
+    def n_boundary(self) -> np.ndarray:
+        return self.n_own - self.n_int
+
+    @property
+    def halo_bytes_per_layer(self) -> int:
+        d = self.features.shape[-1]
+        return int(self.n_halo.sum()) * d * self.features.dtype.itemsize
+
+    def halo_slot_bytes(self, lo: int, hi: int) -> int:
+        """Real (unpadded) payload of exchanging send slots ``[lo, hi)`` of
+        every partition pair, per layer — the refreshed-row bytes a cached
+        forward puts on the wire.  ``halo_slot_bytes(0, maxS)`` equals
+        :attr:`halo_bytes_per_layer` (every real slot lives in some pair's
+        slot range, and Σ_q n_halo[q] counts each exactly once)."""
+        d = self.features.shape[-1]
+        real = int(self.send_mask[:, :, lo:hi].sum())
+        return real * d * self.features.dtype.itemsize
+
+    @property
+    def padded_wire_bytes_per_exchange(self) -> int:
+        """Bytes the padded static collective actually moves per layer
+        (all pair slots padded to maxS), vs the real payload of
+        :attr:`halo_bytes_per_layer`."""
+        d = self.features.shape[-1]
+        return int(np.prod(self.send_idx.shape)) * d * self.features.dtype.itemsize
+
+    def summary(self) -> str:
+        return (
+            f"P={self.num_parts} own={self.n_own.tolist()} "
+            f"int={self.n_int.tolist()} halo={self.n_halo.tolist()} "
+            f"maxN={self.max_nodes} ownCap={self.own_cap} "
+            f"maxE={self.edge_src.shape[1]} "
+            f"maxEi={self.int_src.shape[1]} maxEb={self.bnd_src.shape[1]} "
+            f"halo_bytes/layer={self.halo_bytes_per_layer}"
+        )
+
+
+def build_partitioned_graph(
+    graph: CSRGraph, parts: np.ndarray, num_parts: int
+) -> PartitionedGraph:
+    parts = np.asarray(parts)
+    n = graph.num_nodes
+    P = num_parts
+    owned0 = [np.flatnonzero(parts == p) for p in range(P)]
+
+    # per-partition edge lists (grouped per owned dst), 1-hop halo, and the
+    # interior/boundary classification: a node is BOUNDARY iff any of its
+    # in-neighbours lives on another partition
+    owned, halos, local_edges, n_int = [], [], [], np.zeros(P, np.int64)
+    for p in range(P):
+        own = owned0[p]
+        src_all, dst_all = [], []
+        for v in own:
+            nbrs = graph.neighbors(v)
+            src_all.append(nbrs)
+            dst_all.append(np.full(len(nbrs), v))
+        src = np.concatenate(src_all) if src_all else np.zeros(0, np.int64)
+        dst = np.concatenate(dst_all) if dst_all else np.zeros(0, np.int64)
+        remote = parts[src] != p
+        halos.append(np.unique(src[remote]))
+        is_bnd = np.zeros(n, dtype=bool)
+        is_bnd[dst[remote]] = True
+        interior = own[~is_bnd[own]]
+        boundary = own[is_bnd[own]]
+        owned.append(np.concatenate([interior, boundary]))
+        n_int[p] = len(interior)
+        local_edges.append((src, dst))
+
+    n_own = np.array([len(o) for o in owned])
+    n_halo = np.array([len(h) for h in halos])
+    max_nodes = int((n_own + n_halo).max()) + 1          # +1 trash row
+    own_cap = int(n_own.max())
+    max_edges = max(1, int(max(len(e[0]) for e in local_edges)))
+
+    d = graph.feature_dim
+    feats = np.zeros((P, max_nodes, d), dtype=np.float32)
+    labels = np.full((P, max_nodes), -1, dtype=np.int64)
+    gids = np.full((P, max_nodes), -1, dtype=np.int64)
+    trash = max_nodes - 1
+    e_src = np.full((P, max_edges), trash, dtype=np.int32)
+    e_dst = np.full((P, max_edges), trash, dtype=np.int32)
+    e_msk = np.zeros((P, max_edges), dtype=np.float32)
+    deg = np.ones((P, own_cap), dtype=np.float32)
+    tr_m = np.zeros((P, max_nodes), dtype=bool)
+    va_m = np.zeros((P, max_nodes), dtype=bool)
+    te_m = np.zeros((P, max_nodes), dtype=bool)
+
+    # global -> (partition, local id); locals follow the [interior | boundary]
+    # owned order so boundary rows are the contiguous range [n_int, n_own)
+    g2l = np.full(n, -1, dtype=np.int64)
+    for p in range(P):
+        g2l[owned[p]] = np.arange(n_own[p])
+
+    halo_l = []            # (P,) global id -> halo slot, as a dense map
+    for p in range(P):
+        hmap = np.full(n, trash, dtype=np.int64)
+        hmap[halos[p]] = n_own[p] + np.arange(n_halo[p])
+        halo_l.append(hmap)
+
+    tr, va, te = set(graph.train_idx), set(graph.val_idx), set(graph.test_idx)
+    split_src, split_dst = [], []   # per-partition local edges, dst-major
+    for p in range(P):
+        own = owned[p]
+        feats[p, : n_own[p]] = graph.features[own]
+        labels[p, : n_own[p]] = graph.labels[own]
+        gids[p, : n_own[p]] = own
+        if len(halos[p]):
+            # halo features start zero; they arrive via exchange
+            gids[p, n_own[p] : n_own[p] + n_halo[p]] = halos[p]
+        for j, v in enumerate(own):
+            tr_m[p, j] = int(v) in tr
+            va_m[p, j] = int(v) in va
+            te_m[p, j] = int(v) in te
+
+        # re-emit edges dst-major in the NEW local order (interior rows
+        # first), keeping each destination's in-neighbour order — that order
+        # is what makes split and combined aggregation bit-identical per row
+        src, dst = local_edges[p]
+        loc_src0 = np.where(parts[src] == p, g2l[src], halo_l[p][src]).astype(np.int64)
+        loc_dst0 = g2l[dst]
+        order = np.argsort(loc_dst0, kind="stable")
+        loc_src = loc_src0[order].astype(np.int32)
+        loc_dst = loc_dst0[order].astype(np.int32)
+        e_src[p, : len(src)] = loc_src
+        e_dst[p, : len(dst)] = loc_dst
+        e_msk[p, : len(src)] = 1.0
+        split_src.append(loc_src)
+        split_dst.append(loc_dst)
+        counts = np.bincount(loc_dst, minlength=own_cap)[:own_cap]
+        deg[p] = np.maximum(counts, 1).astype(np.float32)
+
+    # destination-disjoint CSR shards: dst-major order puts all interior-dst
+    # edges (dst < n_int) ahead of the boundary-dst edges
+    n_int_edges = [int(np.searchsorted(split_dst[p], n_int[p]))
+                   for p in range(P)]
+    max_ei = max(1, max(n_int_edges))
+    max_eb = max(1, max(len(split_dst[p]) - n_int_edges[p] for p in range(P)))
+    # split pads: src -> trash row (guaranteed zero, so no mask multiply is
+    # needed on the hot path), dst -> the sacrificial segment row ``own_cap``
+    i_src = np.full((P, max_ei), trash, dtype=np.int32)
+    i_dst = np.full((P, max_ei), own_cap, dtype=np.int32)
+    i_msk = np.zeros((P, max_ei), dtype=np.float32)
+    b_src = np.full((P, max_eb), trash, dtype=np.int32)
+    b_dst = np.full((P, max_eb), own_cap, dtype=np.int32)
+    b_msk = np.zeros((P, max_eb), dtype=np.float32)
+    for p in range(P):
+        k = n_int_edges[p]
+        i_src[p, :k] = split_src[p][:k]
+        i_dst[p, :k] = split_dst[p][:k]
+        i_msk[p, :k] = 1.0
+        kb = len(split_src[p]) - k
+        b_src[p, :kb] = split_src[p][k:]
+        b_dst[p, :kb] = split_dst[p][k:]
+        b_msk[p, :kb] = 1.0
+
+    # send lists: p sends owned node g to q whenever g is in q's halo
+    send_lists = [[[] for _ in range(P)] for _ in range(P)]
+    recv_lists = [[[] for _ in range(P)] for _ in range(P)]
+    for q in range(P):
+        for g in halos[q]:
+            p = int(parts[g])
+            send_lists[p][q].append(int(g2l[g]))
+            recv_lists[q][p].append(int(halo_l[q][g]))
+    max_s = max(1, max(len(send_lists[p][q]) for p in range(P) for q in range(P)))
+    s_idx = np.zeros((P, P, max_s), dtype=np.int32)
+    s_msk = np.zeros((P, P, max_s), dtype=np.float32)
+    r_pos = np.full((P, P, max_s), trash, dtype=np.int32)  # pad -> trash
+    for p in range(P):
+        for q in range(P):
+            ks = len(send_lists[p][q])
+            if ks:
+                s_idx[p, q, :ks] = send_lists[p][q]
+                s_msk[p, q, :ks] = 1.0
+            kr = len(recv_lists[p][q])  # aligned with send_lists[q][p]
+            if kr:
+                r_pos[p, q, :kr] = recv_lists[p][q]
+
+    # trash-row hygiene (the invariant the fast path relies on): no REAL
+    # edge endpoint and no REAL recv slot may reference the trash row, so it
+    # stays all-zero through every layer
+    assert not (e_src[e_msk > 0] == trash).any(), "real edge src hit trash row"
+    assert not (e_dst[e_msk > 0] == trash).any(), "real edge dst hit trash row"
+    assert not (i_src[i_msk > 0] == trash).any()
+    assert not (b_src[b_msk > 0] == trash).any()
+    # recv_pos[p, q] aligns with send_lists[q][p], i.e. with s_msk[q, p]
+    assert not (r_pos[np.swapaxes(s_msk, 0, 1) > 0] == trash).any(), \
+        "real recv slot hit trash row"
+
+    return PartitionedGraph(
+        num_parts=P, n_own=n_own, n_int=n_int, n_halo=n_halo,
+        max_nodes=max_nodes, own_cap=own_cap,
+        features=feats, labels=labels, edge_src=e_src, edge_dst=e_dst,
+        edge_mask=e_msk, int_src=i_src, int_dst=i_dst, int_mask=i_msk,
+        bnd_src=b_src, bnd_dst=b_dst, bnd_mask=b_msk, deg=deg,
+        send_idx=s_idx, send_mask=s_msk, recv_pos=r_pos,
+        global_ids=gids, train_mask=tr_m, val_mask=va_m, test_mask=te_m,
+    )
+
+
+# ---------------------------------------------------------------------------
+# halo exchange, stacked
+# ---------------------------------------------------------------------------
+
+def _exchange(sent: torch.Tensor) -> torch.Tensor:
+    """``sent[p][q]`` = rows partition p ships to q, ``(P, P, maxS, D)``;
+    returns ``recv`` with ``recv[q][p] = sent[p][q]`` — what the reference's
+    ``all_to_all(split_axis=0, concat_axis=0)`` makes under ``vmap``."""
+    return sent.transpose(0, 1)
+
+
+def _gather_send(h: torch.Tensor, send_idx: torch.Tensor,
+                 send_mask: torch.Tensor) -> torch.Tensor:
+    """Every partition's masked send rows: ``(P, maxN, D)`` ->
+    ``(P, P, maxS, D)``.  Pad slots gather row 0 times a zero mask."""
+    parts = torch.arange(h.shape[0], device=h.device)[:, None, None]
+    return h[parts, send_idx] * send_mask[..., None]
+
+
+def _land(h: torch.Tensor, recv: torch.Tensor,
+          recv_pos: torch.Tensor) -> torch.Tensor:
+    """Scatter ``recv`` ``(P, P, maxS, D)`` into the halo slots of ``h``,
+    IN PLACE.  Pad slots all point at the trash row; on CUDA the order among
+    those duplicates is unspecified, which is harmless because every pad
+    payload is ``h[0] * 0`` (a zero, possibly ``-0.0``)."""
+    P, d = h.shape[0], h.shape[-1]
+    parts = torch.arange(P, device=h.device)[:, None]
+    h[parts, recv_pos.reshape(P, -1)] = recv.reshape(P, -1, d).to(h.dtype)
+    return h
+
+
+def _halo_exchange(h: torch.Tensor, send_idx, send_mask,
+                   recv_pos) -> torch.Tensor:
+    """One exchange round over all partitions (lands in ``h`` in place)."""
+    return _land(h, _exchange(_gather_send(h, send_idx, send_mask)), recv_pos)
+
+
+# ---------------------------------------------------------------------------
+# aggregation backends
+# ---------------------------------------------------------------------------
+
+def make_ref_mean_agg(max_nodes: int):
+    """Plain segment-sum mean aggregation over the stacked local edge
+    lists (``index_add_`` in place of ``jax.ops.segment_sum``)."""
+
+    def mean_agg(h: torch.Tensor, shards: dict) -> torch.Tensor:
+        P, n, d = h.shape
+        parts = torch.arange(P, device=h.device)[:, None]
+        mask = shards["edge_mask"].to(h.dtype)
+        msg = h[parts, shards["edge_src"]] * mask[..., None]
+        flat_dst = (shards["edge_dst"] + parts * n).reshape(-1)
+        s = torch.zeros((P * n, d), dtype=h.dtype, device=h.device)
+        s.index_add_(0, flat_dst, msg.reshape(-1, d))
+        deg = torch.zeros(P * n, dtype=h.dtype, device=h.device)
+        deg.index_add_(0, flat_dst, mask.reshape(-1))
+        return (s / deg.clamp_min(1.0)[:, None]).reshape(P, n, d)
+
+    return mean_agg
+
+
+def make_kernel_mean_agg(max_nodes: int):
+    """Kernel mean aggregation (counterpart of ``make_pallas_mean_agg``):
+    ONE ``segment_mean_op`` launch over the stacked blocked-CSR structure
+    ``shards["blk"]`` (``engine.stacking.build_stacked_vjp_blocks``) covers
+    all partitions."""
+    from ..kernels.segment_agg import segment_mean_op
+
+    def mean_agg(h: torch.Tensor, shards: dict) -> torch.Tensor:
+        return segment_mean_op(h, shards["blk"],
+                               num_rows=max_nodes).to(h.dtype)
+
+    return mean_agg
+
+
+# ---------------------------------------------------------------------------
+# stacked forwards
+# ---------------------------------------------------------------------------
+
+def make_distributed_forward(model, pg_meta: dict, agg=None,
+                             compress: str = "none"):
+    """The n-layer SYNCHRONOUS forward with halo exchange, over all
+    partitions at once: ``fwd(params, shards) -> (P, maxN, C)`` logits,
+    ``shards`` holding the stacked ``(P, ...)`` tensors.
+
+    ``agg(h, shards) -> (P, maxN, D)`` selects the aggregation backend
+    (default: :func:`make_ref_mean_agg`).  Only ``compress="none"`` is
+    ported; the quantized exchange waits for ROADMAP item 10.
+    """
+    if compress != "none":
+        raise NotImplementedError(
+            f"halo compression {compress!r} is not ported yet (ROADMAP "
+            "item 10)")
+    mean_agg = agg if agg is not None else make_ref_mean_agg(
+        pg_meta["max_nodes"])
+
+    def fwd(params, shards: dict) -> torch.Tensor:
+        h = shards["features"].clone()
+        last = len(params.layers) - 1
+        for i, lp in enumerate(params.layers):
+            h = _halo_exchange(h, shards["send_idx"], shards["send_mask"],
+                               shards["recv_pos"])
+            h = model._layer(lp, h, mean_agg(h, shards), i < last)
+        return h
+
+    return fwd
+
+
+def make_export_forward(model, pg_meta: dict, agg=None):
+    """Synchronous forward that ALSO materializes the serving handoff.
+
+    Returns ``fwd(params, shards) -> {"layers", "logits", "cache"}``:
+    ``layers[i]`` is layer i's POST-exchange input embedding ``(P, maxN,
+    D_i)`` (owned rows + freshly landed halo rows), ``logits`` is
+    :func:`make_distributed_forward`'s output (same spelling), and
+    ``cache["h{i}"]`` is the recv-layout halo buffer ``(P, P, maxS, D_i)``.
+    """
+    mean_agg = agg if agg is not None else make_ref_mean_agg(
+        pg_meta["max_nodes"])
+
+    def fwd(params, shards: dict) -> dict:
+        h = shards["features"].clone()
+        last = len(params.layers) - 1
+        layers, cache = [], {}
+        for i, lp in enumerate(params.layers):
+            recv = _exchange(_gather_send(h, shards["send_idx"],
+                                          shards["send_mask"])).contiguous()
+            h = _land(h, recv, shards["recv_pos"])
+            cache[f"h{i}"] = recv
+            layers.append(h)
+            h = model._layer(lp, h, mean_agg(h, shards), i < last)
+        return {"layers": tuple(layers), "logits": h, "cache": cache}
+
+    return fwd
+
+
+class RecomputePlanner:
+    """Dirty-set propagation over the partitioned CSR shards (serving).
+
+    Built once from a :class:`PartitionedGraph`; answers "after these rows'
+    layer-(l-1) embeddings changed, which OWNED rows must recompute layer
+    l?" per partition, including the replica mirroring between layers that
+    keeps halo copies consistent with their owners.
+
+    The rule per layer (DESIGN.md §9): a row recomputes iff its own input
+    changed (self term) or a local in-neighbour's input changed (edges are
+    stored dst-major per partition; the planner holds the src-major CSC
+    mirror of the same local edge lists).  Rows whose IN-EDGES changed are
+    seeded at layer 1 and carried forward by the self term.  Edge removals
+    are only RECORDED at first: stale out-edges can only over-propagate
+    (recompute a clean row to the same value), never under-propagate, so
+    correctness needs no eager CSC deletion.  Once a partition accumulates
+    ``compact_after`` recorded removals the planner compacts — rebuilds
+    that shard's CSC from (static minus removed) plus the dynamically
+    added edges — so long-running serving with heavy churn stops paying
+    for dirty cones through edges that no longer exist.  :meth:`compact`
+    forces the rebuild on demand.
+
+    The replica map comes from the send/recv lists: owner p's local row
+    ``send_idx[p, q, s]`` has a halo copy at q's ``recv_pos[q, p, s]``.
+    Serving-time halo growth registers new replicas / out-edges through
+    :meth:`add_replica` / :meth:`add_out_edge`.
+    """
+
+    def __init__(self, pg: PartitionedGraph, *, compact_after: int = 64):
+        P = pg.num_parts
+        self.num_parts = P
+        self.compact_after = int(compact_after)
+        self.compactions = 0
+        self.n_own = np.asarray(pg.n_own).copy()
+        self._csc = []
+        for p in range(P):
+            real = np.asarray(pg.edge_mask[p]) > 0
+            src = np.asarray(pg.edge_src[p])[real].astype(np.int64)
+            dst = np.asarray(pg.edge_dst[p])[real].astype(np.int64)
+            order = np.argsort(src, kind="stable")
+            n_rows = int(pg.max_nodes)
+            counts = np.bincount(src, minlength=n_rows)
+            ptr = np.zeros(n_rows + 1, np.int64)
+            np.cumsum(counts, out=ptr[1:])
+            self._csc.append((ptr, dst[order]))
+        # dynamically added out-edges (src_local -> [dst_local]) per part
+        self._extra_out: list[dict[int, list[int]]] = [{} for _ in range(P)]
+        # removals recorded against the static CSC, pending compaction
+        self._removed: list[set[tuple[int, int]]] = [set() for _ in range(P)]
+        # replica lists: owner p's local row -> [(peer q, q's halo row)]
+        self._rep: list[dict[int, list[tuple[int, int]]]] = [{} for _ in range(P)]
+        send_idx = np.asarray(pg.send_idx)
+        send_mask = np.asarray(pg.send_mask)
+        recv_pos = np.asarray(pg.recv_pos)
+        for p in range(P):
+            for q in range(P):
+                m = send_mask[p, q] > 0
+                for s_loc, r_loc in zip(send_idx[p, q][m], recv_pos[q, p][m]):
+                    self._rep[p].setdefault(int(s_loc), []).append((q, int(r_loc)))
+
+    # ------------------------------------------------------------- mutation
+    def add_out_edge(self, p: int, src_local: int, dst_local: int) -> None:
+        self._extra_out[p].setdefault(int(src_local), []).append(int(dst_local))
+
+    def add_replica(self, owner: int, row: int, peer: int, peer_row: int) -> None:
+        self._rep[owner].setdefault(int(row), []).append((peer, int(peer_row)))
+
+    def remove_out_edge(self, p: int, src_local: int, dst_local: int) -> None:
+        """Record the removal of local edge src -> dst on partition p.
+
+        A dynamically added edge is deleted in place; a static-CSC edge is
+        only logged (stale until the next compaction, which is safe — it
+        over-propagates).  Hitting ``compact_after`` pending removals
+        triggers an automatic compaction of that partition's shard.
+        """
+        src_local, dst_local = int(src_local), int(dst_local)
+        extra = self._extra_out[p].get(src_local)
+        if extra is not None and dst_local in extra:
+            extra.remove(dst_local)
+            if not extra:
+                del self._extra_out[p][src_local]
+            return
+        self._removed[p].add((src_local, dst_local))
+        if len(self._removed[p]) >= self.compact_after:
+            self._compact(p)
+
+    def compact(self, p: int | None = None) -> None:
+        """Force-rebuild the CSC shard(s) so every recorded removal and
+        dynamic addition is folded into the static adjacency."""
+        for q in ([p] if p is not None else range(self.num_parts)):
+            if self._removed[q] or self._extra_out[q]:
+                self._compact(int(q))
+
+    def _compact(self, p: int) -> None:
+        ptr, dst = self._csc[p]
+        n_static = len(ptr) - 1
+        src = np.repeat(np.arange(n_static, dtype=np.int64), np.diff(ptr))
+        removed = self._removed[p]
+        if removed:
+            keep = np.fromiter(((int(s), int(d)) not in removed
+                                for s, d in zip(src, dst)), bool, src.size)
+            src, dst = src[keep], dst[keep]
+        ex_src: list[int] = []
+        ex_dst: list[int] = []
+        for s, lst in self._extra_out[p].items():
+            ex_src.extend([int(s)] * len(lst))
+            ex_dst.extend(int(d) for d in lst)
+        if ex_src:
+            src = np.concatenate([src, np.asarray(ex_src, np.int64)])
+            dst = np.concatenate([dst, np.asarray(ex_dst, np.int64)])
+        n_rows = max(n_static, int(src.max()) + 1 if src.size else 0)
+        counts = np.bincount(src, minlength=n_rows)
+        new_ptr = np.zeros(n_rows + 1, np.int64)
+        np.cumsum(counts, out=new_ptr[1:])
+        order = np.argsort(src, kind="stable")
+        self._csc[p] = (new_ptr, dst[order])
+        self._extra_out[p] = {}
+        self._removed[p].clear()
+        self.compactions += 1
+
+    # -------------------------------------------------------------- queries
+    def replicas(self, p: int, rows: np.ndarray):
+        """(peer, peer_row, owner_row) triples for every replica of ``rows``."""
+        rep = self._rep[p]
+        for r in np.asarray(rows):
+            for q, qrow in rep.get(int(r), ()):
+                yield q, qrow, int(r)
+
+    def out_rows(self, p: int, rows: np.ndarray) -> np.ndarray:
+        """Local out-neighbours (always owned rows: edges target dst-owned)."""
+        ptr, dst = self._csc[p]
+        extra = self._extra_out[p]
+        segs = []
+        n_static = len(ptr) - 1
+        for r in np.asarray(rows):
+            r = int(r)
+            if r < n_static:
+                segs.append(dst[ptr[r]:ptr[r + 1]])
+            if r in extra:
+                segs.append(np.asarray(extra[r], np.int64))
+        if not segs:
+            return np.empty(0, np.int64)
+        return np.unique(np.concatenate(segs))
+
+    def propagate(self, dirty_h0: dict[int, np.ndarray],
+                  edge_seeds: dict[int, np.ndarray],
+                  num_layers: int) -> list[dict[int, np.ndarray]]:
+        """``plans[l-1][p]`` = sorted owned rows partition p recomputes at
+        layer l (1-based), given local rows (owned or halo) whose input
+        features changed and owned rows whose in-edge lists changed."""
+        P = self.num_parts
+        empty = np.empty(0, np.int64)
+        cur = {p: np.unique(np.asarray(dirty_h0.get(p, empty), np.int64))
+               for p in range(P)}
+        plans: list[dict[int, np.ndarray]] = []
+        for l in range(1, num_layers + 1):
+            rec = {}
+            for p in range(P):
+                parts = [self.out_rows(p, cur[p]),
+                         cur[p][cur[p] < self.n_own[p]]]
+                if l == 1:
+                    parts.append(np.asarray(
+                        sorted(edge_seeds.get(p, ())), np.int64))
+                rec[p] = np.unique(np.concatenate(parts)) if parts else empty
+            plans.append(rec)
+            if l < num_layers:
+                nxt = {p: [rec[p]] for p in range(P)}
+                for p in range(P):
+                    for q, qrow, _ in self.replicas(p, rec[p]):
+                        nxt[q].append(np.asarray([qrow], np.int64))
+                cur = {p: np.unique(np.concatenate(nxt[p])) for p in range(P)}
+        return plans

@@ -1,0 +1,48 @@
+"""Public wrappers around the segment-mean op (counterpart of
+``repro/kernels/ops.py``, forward only).  Flash attention and RMSNorm are
+not ported yet (ROADMAP item 15)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import ref
+from .segment_agg import blocks_to_device, build_vjp_blocks, segment_mean_op
+
+__all__ = ["make_mean_blocks", "make_segment_agg", "segment_mean_op",
+           "build_vjp_blocks"]
+
+
+def make_mean_blocks(indptr: np.ndarray, indices: np.ndarray) -> dict:
+    """Host-side: paired forward/transpose block structure for
+    :func:`segment_mean_op` from a CSR graph (``num_src_rows == num_rows``)."""
+    indptr = np.asarray(indptr)
+    n = len(indptr) - 1
+    dst = np.repeat(np.arange(n), np.diff(indptr))
+    return build_vjp_blocks(np.asarray(indices), dst, num_rows=n,
+                            num_src_rows=n)
+
+
+def make_segment_agg(indptr: np.ndarray, indices: np.ndarray, *,
+                     mean: bool = True, use_kernel: bool = True,
+                     device="cuda"):
+    """Bind the static CSR block structure once per graph on ``device``;
+    returns ``agg(x) -> (N, D)``.  ``use_kernel`` routes through
+    :func:`segment_mean_op` (the CUDA kernel for CUDA tensors), otherwise
+    through the oracle ``ref.segment_agg_ref`` (the reference's
+    ``use_pallas``)."""
+    dev = resolve_device(device)
+    n = len(indptr) - 1
+    if not use_kernel:
+        src = torch.as_tensor(np.asarray(indices, np.int64), device=dev)
+        dst = torch.as_tensor(np.repeat(np.arange(n), np.diff(indptr)),
+                              device=dev)
+        return lambda x: ref.segment_agg_ref(x, src, dst, n, mean=mean)
+
+    blocks = blocks_to_device(make_mean_blocks(indptr, indices), dev)
+
+    def agg(x: torch.Tensor) -> torch.Tensor:
+        return segment_mean_op(x, blocks, num_rows=n, mean=mean)
+
+    return agg

@@ -1,0 +1,66 @@
+"""Tests of the CUDA segment-mean kernel, which run only on a machine with a
+CUDA card and nvcc (marked ``gpu``; they skip elsewhere).  On the card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+The kernel is held against its plain PyTorch version on the same CUDA
+inputs; imports nothing of JAX, so it runs where only the port is
+installed."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import segment_agg as sa
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _edges(n, max_deg, seed):
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, max_deg + 1, n)
+    return rng.integers(0, n, int(deg.sum())), np.repeat(np.arange(n), deg)
+
+
+@pytest.mark.parametrize("n,d,max_deg", [(64, 16, 4), (300, 130, 6), (700, 64, 40)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("mean", [True, False])
+def test_kernel_matches_plain(cuda, n, d, max_deg, dtype, tol, mean):
+    src, dst = _edges(n, max_deg, seed=n)
+    bl = sa.blocks_to_device(sa.build_mean_blocks(src, dst, n), cuda)
+    x = torch.randn(n, d, device=cuda).to(dtype)
+    before = sa.kernel_launch_count()
+    got = sa.segment_mean_op(x, bl, num_rows=n, mean=mean)
+    torch.cuda.synchronize()
+    assert sa.kernel_launch_count() == before + 1
+    want = sa.segment_mean_plain(x, bl, num_rows=n, mean=mean)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("row_base", [0, 37, 200])
+def test_kernel_f64_dyadic_bitwise(cuda, row_base):
+    n = 200
+    src, dst = _edges(n - row_base, 8, seed=row_base)
+    bl = sa.blocks_to_device(sa.build_mean_blocks(src, dst, n - row_base), cuda)
+    x = torch.randint(-8, 9, (n, 16), device=cuda).double()
+    got = sa.segment_mean_op(x, bl, num_rows=n, row_base=row_base)
+    want = sa.segment_mean_plain(x, bl, num_rows=n, row_base=row_base)
+    assert torch.equal(got, want)
+
+
+def test_kernel_refuses_grad_and_bad_blocks(cuda):
+    src, dst = _edges(64, 4, seed=1)
+    bl = sa.blocks_to_device(sa.build_mean_blocks(src, dst, 64), cuda)
+    x = torch.randn(64, 8, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        sa.segment_mean_op(x, bl, num_rows=64)
+    bad = dict(bl, src=bl["src"].int())
+    with pytest.raises(ValueError, match="blocks"):
+        sa.segment_mean_op(x.detach(), bad, num_rows=64)

@@ -1,0 +1,90 @@
+"""The port stands alone: importing every module of ``repro_torch`` (and
+``chip_smoke.py``) pulls in neither ``jax`` nor anything of ``repro``; and
+every entry point defaults to the CUDA card, raising without one unless the
+caller passes ``device="cpu"``."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+HYGIENE_SCRIPT = r"""
+import importlib, pkgutil, sys
+import repro_torch
+mods = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in mods:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print("IMPORTED", len(mods))
+"""
+
+
+def test_import_hygiene():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO_ROOT, "src"), REPO_ROOT]))
+    r = subprocess.run([sys.executable, "-c", HYGIENE_SCRIPT],
+                       capture_output=True, text=True, env=env, cwd=REPO_ROOT,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    n = int(r.stdout.split("IMPORTED")[1])
+    assert n >= 20, r.stdout
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    from repro_torch.core import partition_graph
+    from repro_torch.graph import (BENCHMARKS, GraphSAGE,
+                                   build_partitioned_graph, make_benchmark)
+    g = make_benchmark(BENCHMARKS["tiny"])
+    r = partition_graph(g.indptr, g.indices, g.features, g.labels, 4,
+                        method="ew", seed=0)
+    pg = build_partitioned_graph(g, r.parts, 4)
+    return g, pg, GraphSAGE(g.feature_dim, 8, g.num_classes).init(0)
+
+
+def test_engine_defaults_to_card(no_cuda, tiny):
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    _, pg, m = tiny
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SPMDEngine(m, None, None, pg, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SPMDEngine(m, None, None, pg, None, EngineConfig(use_kernel_agg=False))
+    SPMDEngine(m, None, None, pg, None, EngineConfig(device="cpu"))
+
+
+def test_serving_defaults_to_card(no_cuda, tiny):
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.serve import GNNServingEngine
+    _, pg, m = tiny
+    export = SPMDEngine(m, None, None, pg, None,
+                        EngineConfig(device="cpu")).export_serving_state(m)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GNNServingEngine(m, m, pg, export)
+    GNNServingEngine(m, m, pg, export, device="cpu")
+
+
+def test_ops_and_cli_default_to_card(no_cuda, tiny):
+    from repro_torch.kernels.ops import make_segment_agg
+    from repro_torch.launch.serve import build_parser, gnn_main
+    g, _, _ = tiny
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_segment_agg(g.indptr, g.indices)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gnn_main(build_parser().parse_args(["--gnn", "--ticks", "1"]))
+    agg = make_segment_agg(g.indptr, g.indices, device="cpu")
+    assert agg(torch.ones(g.num_nodes, 2)).shape == (g.num_nodes, 2)
+    assert np.isfinite(agg(torch.ones(g.num_nodes, 2)).numpy()).all()
