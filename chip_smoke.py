@@ -10,15 +10,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
               and power limit as ``nvidia-smi`` reports them
   2. build    compiles every CUDA source of the package (one ``nvcc`` per
               source, all started together) and prints ptxas's report
-  3. kernels  holds the segment-mean kernel against its plain PyTorch
-              version on the card: the cases of ``tests/test_kernels.py``
-              (ragged sweep incl. D=130, isolated nodes, an empty edge set,
-              an all-pad block, the row_base sub-ranges), float64 dyadic
-              inputs (bitwise), a stacked case with per-partition row_base,
-              and the stacked products-s shapes at D=64 and D=128; one line
-              per shape with kernel_ms, plain_ms, library_ms (one
-              ``torch.sparse.mm`` with the CSR mean matrix, a yardstick the
-              port never calls) and bound_us
+  3. kernels  holds both segment-mean kernels against their plain PyTorch
+              versions on the card.  Forward: the cases of
+              ``tests/test_kernels.py`` (ragged sweep incl. D=130, isolated
+              nodes, an empty edge set, an all-pad block, the row_base
+              sub-ranges), float64 dyadic inputs (bitwise), a stacked case
+              with per-partition row_base, and the stacked products-s
+              shapes at D=64 and D=128.  Backward: the cases of
+              ``tests/test_torch_segment_bwd.py`` (ragged sweep, row_base
+              sub-ranges, rows sliced off by num_rows, an all-pad block, an
+              empty edge set, stacked per-partition row_base), float64
+              dyadic cases with deg in {1, 2, 4, 8} (bitwise), and the
+              products-s transpose blocks at D=64 and D=128.  One line per
+              shape with kernel_ms, plain_ms, library_ms (one
+              ``torch.sparse.mm`` with the CSR mean matrix, or its
+              transpose, a yardstick the port never calls), bound_us and,
+              for the backward, the longest transpose row
   4. serve    ``repro_torch.launch.serve.gnn_main`` at products-s, P=4,
               hidden 128, seed 0: export, 20 ticks of 4 feature updates and
               16 queries, then edge additions (one grows a halo row) and a
@@ -28,7 +35,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
               then ten more ticks are broken down: host functions by
               cumulative time (cProfile), the device's busy share and top
               kernels (torch.profiler)
-  5. report   a ``{"kernels": [...]}`` line, then the device line last
+  5. train    ``repro_torch.launch.train`` ``gnn`` at products-s, P=4,
+              hidden 128, seed 0: a sampled run and a ``--full-graph-train``
+              run (both ``--phase0-frac 0.5``, so both phases run) and a
+              short ``--centralized --full-graph-train`` run, after an
+              uncounted two-epoch warm-up run.  Each eval
+              must launch the forward kernel (2 launches, one per layer)
+              and each full-graph step the backward kernel once; losses
+              finite, the full-graph loss falling.  Then one full-graph
+              step's gradients with the kernels against the plain
+              aggregation, the sampled run again with the plain
+              aggregation (same iteration history, micro-F1 within 0.005),
+              and one full-graph step broken down (torch.profiler)
+  6. report   a ``{"kernels": [...]}`` line, then the device line last
 
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -36,6 +55,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,14 +70,29 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # outputs round once from f32 sums in both (mirrors tests/test_kernels.py);
 # f64 on dyadic inputs is exact in any order, so it must be bitwise
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# the backward's f32 tolerance: at products-s a transpose row sums up to
+# 3,119 out-edges (the forward's sums are divided by deg before they are
+# compared, the backward's are not), and the plain version's index_add_
+# adds with atomics in a run-dependent order; |kernel - plain| there has
+# been 9.5e-6 to 1.34e-5
+TOL_BWD = {"float32": 1e-4}
 # served logits (incremental recompute through the kernel) against a
 # from-scratch plain forward: f32 sums of up to thousands of edges in
 # different orders over two layers, and cuBLAS may pick other kernels for a
 # row subset than for the full product
 SERVE_ATOL, SERVE_RTOL = 1e-4, 1e-4
+# one full-graph step's gradients, kernels against the plain aggregation
+# (the float32 sums of both passes run in other orders; the backward's
+# plain index_add_ and the halo gather's backward use atomics)
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
+# micro-F1 of the sampled run with the kernels against the plain
+# aggregation: training never runs the kernel, evaluation picks the best
+# model, so only a flipped validation prediction can move it
+F1_ATOL = 0.005
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
 SEGMENT_AGG_TPU = "src/repro/kernels/segment_agg.py:161"
+SEGMENT_AGG_BWD_TPU = "src/repro/kernels/segment_agg.py:332"
 
 
 def log(msg: str) -> None:
@@ -176,9 +211,11 @@ def time_ms(fn, iters, flush):
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
 
 
-def library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype, device):
+def library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype, device,
+                   transpose=False):
     """The CSR mean matrix of a blocks dict, block-diagonal over partitions:
-    A @ x.reshape(P * n_in, D) is the op's output (yardstick only)."""
+    A @ x.reshape(P * n_in, D) is the op's output, and with ``transpose``
+    A^T @ g.reshape(P * num_rows, D) its backward (yardstick only)."""
     import torch
 
     src = np.asarray(bl_host["src"])
@@ -198,9 +235,13 @@ def library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype, device):
         rows.append(p * num_rows + r[keep])
         cols.append(p * n_in + src[p][b, e][keep])
         vals.append(w[keep])
-    idx = torch.as_tensor(np.stack([np.concatenate(rows), np.concatenate(cols)]))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    shape = (P * num_rows, P * n_in)
+    if transpose:
+        rows, cols, shape = cols, rows, shape[::-1]
+    idx = torch.as_tensor(np.stack([rows, cols]))
     a = torch.sparse_coo_tensor(
-        idx, torch.as_tensor(np.concatenate(vals)), (P * num_rows, P * n_in),
+        idx, torch.as_tensor(np.concatenate(vals)), shape,
         check_invariants=False)
     return a.coalesce().to(dtype=dtype, device=device).to_sparse_csr()
 
@@ -260,6 +301,132 @@ def run_kernel_case(sa, name, x_np, bl_host, num_rows, row_base, mean,
            "dtype": dtype_name, "max_abs_err": err, "kernel_ms": k_ms,
            "plain_ms": p_ms, "library_ms": lib_ms,
            "bound_us": bound_s * 1e6, "bound_by": bound_by}
+    log("shape " + json.dumps(row))
+    record.append(row)
+    return row
+
+
+def stack_vjp_blocks(per_part, sa):
+    """Pad per-partition build_vjp_blocks dicts to common shapes, with the
+    kernels' row_ptr/t_row_ptr rebuilt over the padded arrays."""
+    P = len(per_part)
+    out = {}
+    for k in ("src", "dst", "mask", "deg", "t_src", "t_dst", "t_mask"):
+        shape = np.max([b[k].shape for b in per_part], axis=0)
+        arr = np.full((P, *shape), 1 if k == "deg" else 0, per_part[0][k].dtype)
+        for p, b in enumerate(per_part):
+            arr[(p, *map(slice, b[k].shape))] = b[k]
+        out[k] = arr
+    out["row_ptr"] = sa.block_row_ptr(out["dst"], out["mask"], sa.BN)
+    out["t_row_ptr"] = sa.block_row_ptr(out["t_dst"], out["t_mask"], sa.BN)
+    return out
+
+
+def bwd_kernel_cases(sa):
+    """(name, g numpy, vjp blocks numpy, n_in, row_base, mean, dtype)."""
+    rng = np.random.default_rng(12)
+    cases = []
+
+    def edges(rows, n_in, max_deg, seed):
+        r = np.random.default_rng(seed)
+        deg = r.integers(0, max_deg + 1, rows)
+        return r.integers(0, n_in, int(deg.sum())), np.repeat(np.arange(rows), deg)
+
+    # tests/test_torch_segment_bwd.py's cases: (rows, n_in, deg, num_rows,
+    # row_base, D)
+    for name, rows, n_in, max_deg, num_rows, row_base, d in (
+            ("sweep-64", 64, 64, 4, 64, 0, 24),
+            ("sweep-200", 200, 200, 9, 200, 0, 24),
+            ("sweep-300 d=130", 300, 300, 6, 300, 0, 130),
+            ("row_base mixed", 159, 300, 5, 300, 141, 24),
+            ("rows sliced off by num_rows", 200, 260, 6, 200, 37, 24),
+            ("all-pad block", 0, 300, 5, 300, 300, 24),
+            ("empty edge set", 50, 50, 0, 50, 0, 24)):
+        src, dst = edges(rows, n_in, max_deg, rows + n_in)
+        blk = sa.build_vjp_blocks(src, dst, rows, n_in)
+        g = rng.normal(0, 1, (num_rows, d)).astype(np.float32)
+        for mean in (True, False):
+            cases.append((f"bwd {name} mean={mean}", g, blk, n_in, row_base,
+                          mean, "float32"))
+    # float64 dyadic: deg in {1, 2, 4, 8}, integer cotangents, exact sums
+    n = 200
+    for zero_frac, seed in ((0.25, 0), (0.9, 1)):
+        r = np.random.default_rng(seed)
+        deg = r.choice([1, 2, 4, 8], n)
+        deg[r.random(n) < zero_frac] = 0
+        dst = np.repeat(np.arange(n), deg)
+        src = r.integers(0, n, int(deg.sum()))
+        g = r.integers(-8, 9, (n, 16)).astype(np.float64)
+        for mean in (True, False):
+            cases.append((f"bwd f64 dyadic zero_frac={zero_frac} mean={mean}",
+                          g, sa.build_vjp_blocks(src, dst, n, n), n, 0, mean,
+                          "float64"))
+    # stacked, per-partition row_base (one launch)
+    P, n, d = 3, 260, 20
+    bases = np.array([0, 37, 129])
+    per = []
+    for p in range(P):
+        src, dst = edges(n - bases[p], n, 6, p)
+        per.append(sa.build_vjp_blocks(src, dst, n - bases[p], n))
+    cases.append(("bwd stacked P=3 per-partition row_base",
+                  rng.normal(0, 1, (P, n, d)).astype(np.float32),
+                  stack_vjp_blocks(per, sa), n, bases, True, "float32"))
+    return cases
+
+
+def bwd_bound_of(g, bl_host, n_in, dtype_name):
+    """Least time (s) of the backward and what bounds it: g read once, dx
+    written once, the real transpose slots (t_src int64 + t_mask f32),
+    t_row_ptr and deg; a divide, a multiply and an add per real edge and
+    feature."""
+    real = int((np.asarray(bl_host["t_mask"]) > 0).sum())
+    parts = g.shape[0] if g.dim() == 3 else 1
+    d, item = g.shape[-1], g.element_size()
+    nbytes = (g.numel() * item + parts * n_in * d * item + real * (8 + 4)
+              + np.asarray(bl_host["t_row_ptr"]).size * 4
+              + np.asarray(bl_host["deg"]).size * 4)
+    flops = 3.0 * real * d
+    t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype_name]
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def run_bwd_case(sa, name, g_np, bl_host, n_in, row_base, mean, dtype_name,
+                 flush, iters, record):
+    import torch
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    g = torch.as_tensor(g_np).to(device=dev, dtype=dtype)
+    bl = sa.blocks_to_device(bl_host, dev)
+    rb = (torch.as_tensor(row_base, device=dev)
+          if isinstance(row_base, np.ndarray) else row_base)
+    kw = dict(n_in=n_in, row_base=rb, mean=mean)
+    got = sa.segment_mean_bwd_op(g, bl, **kw)
+    torch.cuda.synchronize()
+    want = sa.segment_mean_bwd_plain(g, bl, **kw)
+    assert got.shape == want.shape and got.dtype == dtype, (name, got.shape)
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    if dtype_name == "float64":
+        assert torch.equal(got, want), f"{name}: f64 dyadic not bitwise ({err})"
+    else:
+        tol = TOL_BWD[dtype_name]
+        assert torch.allclose(got, want, atol=tol, rtol=tol), \
+            f"{name}: max |kernel - plain| = {err} above {tol}"
+    assert torch.isfinite(got).all(), name
+    k_ms = time_ms(lambda: sa.segment_mean_bwd_op(g, bl, **kw), iters, flush)
+    p_ms = time_ms(lambda: sa.segment_mean_bwd_plain(g, bl, **kw), iters, flush)
+    num_rows = g.shape[-2]
+    a_t = library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype, dev,
+                         transpose=True)
+    g2 = g.reshape(-1, g.shape[-1])
+    lib_ms = time_ms(lambda: torch.sparse.mm(a_t, g2), iters, flush)
+    bound_s, bound_by = bwd_bound_of(g, bl_host, n_in, dtype_name)
+    t_rows = np.diff(np.asarray(bl_host["t_row_ptr"]), axis=-1)
+    row = {"shape": name, "g": list(g.shape), "t_blocks": list(bl["t_src"].shape),
+           "dtype": dtype_name, "max_abs_err": err, "kernel_ms": k_ms,
+           "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_us": bound_s * 1e6, "bound_by": bound_by,
+           "longest_t_row": int(t_rows.max()) if t_rows.size else 0}
     log("shape " + json.dumps(row))
     record.append(row)
     return row
@@ -366,6 +533,109 @@ def profile_ticks(torch, srv, g, n_ticks, seed):
             f"us/tick x{e.count / n_ticks:5.1f}  {e.key[:90]}")
 
 
+# --------------------------------------------------------------------------
+# phase 5 helpers
+# --------------------------------------------------------------------------
+
+def train_args(*extra):
+    from repro_torch.launch.train import build_parser
+
+    return build_parser().parse_args(
+        ["gnn", "--dataset", "products-s", "--parts", "4", "--hidden", "128",
+         "--seed", "0", "--device", "cuda", *extra])
+
+
+def train_run(torch, sa, label, *extra):
+    """One ``launch.train gnn`` run with the launch counts set to 0 just
+    before it and read just after; checks that every evaluation launched
+    the forward kernel (2 launches: one per layer) and every full-graph
+    step the backward kernel once (and its forward twice)."""
+    from repro_torch.launch.train import run_gnn
+
+    sa.reset_kernel_launch_count()
+    t0 = time.perf_counter()
+    res = run_gnn(train_args(*extra))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = sa.kernel_launch_count(), sa.bwd_kernel_launch_count()
+    fg_steps = (sum(res.phase0_iter_history) if res.config.full_graph_train
+                else 0)
+    evals = res.epochs_run + 1              # one per epoch, and the test
+    assert fwd == 2 * (evals + fg_steps), (label, fwd, evals, fg_steps)
+    assert bwd == fg_steps, (label, bwd, fg_steps)
+    losses = np.asarray(res.loss_history)
+    assert losses.size == res.epochs_run and np.isfinite(losses).all(), label
+    n0 = len(res.phase0_iter_history)
+    if fg_steps:
+        assert losses[n0 - 1] < losses[0], (label, losses[:n0])
+    s = res.summary()
+    log(f"train {label}: wall {wall:.1f} s, epochs {res.epochs_run} "
+        f"(phase 0: {n0}, iters {res.phase0_iter_history}), epoch "
+        f"{res.epoch_time_s * 1e3:.2f} ms, with eval "
+        f"{res.epoch_time_with_eval_s * 1e3:.2f} ms, train "
+        f"{res.train_time_s:.3f} s, micro-F1 {res.f1.micro:.4f}, macro-F1 "
+        f"{res.f1.macro:.4f}, losses {np.round(losses, 4).tolist()}, "
+        f"launches fwd {fwd} bwd {bwd}, comm_grad_mb {s['comm_grad_mb']}, "
+        f"comm_halo_mb {s['comm_halo_mb']}")
+    return res, fwd, bwd
+
+
+def fullgraph_step_checks(torch, pg, flush):
+    """One full-graph step from seed-0 params: gradients with the kernels
+    against the plain aggregation, both step times, and a torch.profiler
+    breakdown of the kernel step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import GraphSAGE
+
+    def engine(use_kernel):
+        m = GraphSAGE(64, 128, 24)
+        return SPMDEngine(m, None, None, pg, None,
+                          EngineConfig(use_kernel_agg=use_kernel,
+                                       device="cuda"))
+
+    engines = {"kernel": engine(True), "plain": engine(False)}
+    params = GraphSAGE(64, 128, 24).init(0).cuda()
+
+    def step(eng):
+        params.zero_grad(set_to_none=True)
+        batch = {"shard": eng.shards, "labels": eng.labels,
+                 "train_mask": eng.masks["train"]}
+        eng._fg_loss(params, batch).mean().backward()
+        return [p.grad.clone() for p in params.parameters()]
+
+    gk, gp = step(engines["kernel"]), step(engines["plain"])
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) for a, b in zip(gk, gp)]
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    times = {}
+    for label in ("plain", "kernel", "kernel2", "plain2"):
+        times[label] = time_ms(lambda: step(engines[label.rstrip("2")]), 5,
+                               flush)
+    log(f"full-graph step grads kernel vs plain: max |diff| per weight "
+        f"{errs} (atol {GRAD_ATOL}, rtol {GRAD_RTOL}); step ms (CUDA "
+        f"events, L2 flushed) {json.dumps(times)}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(engines["kernel"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3
+    cuda = [e for e in tp.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in cuda) / 3
+    log(f"profile full-graph step: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms = {busy_us / 1e6 / wall:.3f} of wall")
+    for e in sorted(cuda, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"profile fg kernel {e.self_device_time_total / 3:9.1f} us/step "
+            f"x{e.count / 3:5.1f}  {e.key[:90]}")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -397,15 +667,23 @@ def main() -> int:
     build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {list(build.SOURCES)}")
     for name in build.SOURCES:
+        kernel = "?"
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            if "Function properties for" in line:
+                # the mangled name holds the kernel and its element type
+                m = re.search(r"(segment_mean_\w+?_kernel)I(f|d|\d+__nv_bfloat16)",
+                              line)
+                kernel = f"{m.group(1)}<{m.group(2)}>" if m else "?"
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {name} {kernel}: {line.strip()}")
 
-    # ---- 3. kernel vs plain version on the card ----------------------------
+    # ---- 3. kernels vs plain versions on the card --------------------------
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     shapes = []
     for case in kernel_cases(sa):
         run_kernel_case(sa, *case, flush=flush, iters=10, record=shapes)
+    for case in bwd_kernel_cases(sa):
+        run_bwd_case(sa, *case, flush=flush, iters=10, record=shapes)
 
     from repro_torch.core import partition_graph
     from repro_torch.graph import BENCHMARKS, make_benchmark
@@ -422,13 +700,19 @@ def main() -> int:
         f"row {int(row_deg.max())}, rows above 1000 "
         f"{int((row_deg > 1000).sum())}")
     rng = np.random.default_rng(0)
-    main_rows = {}
+    main_rows, bwd_rows = {}, {}
+    t_deg = np.diff(blk["t_row_ptr"], axis=-1)
+    log(f"products-s transpose blocks {blk['t_src'].shape}: most out-edges "
+        f"of one row {int(t_deg.max())}, rows above 1000 "
+        f"{int((t_deg > 1000).sum())}")
     for d in (64, 128):
         x = rng.normal(0, 1, (4, pg.max_nodes, d)).astype(np.float32)
         main_rows[d] = run_kernel_case(
             sa, f"products-s stacked D={d}", x, blk, pg.max_nodes, 0, True,
             "float32", flush=flush, iters=30, record=shapes)
-    del flush
+        bwd_rows[d] = run_bwd_case(
+            sa, f"bwd products-s stacked D={d}", x, blk, pg.max_nodes, 0,
+            True, "float32", flush=flush, iters=30, record=shapes)
 
     # ---- 4. main path: GNN serving at products-s, P=4, hidden 128 ----------
     args = build_parser().parse_args(
@@ -504,18 +788,59 @@ def main() -> int:
     log(f"cuBLAS row-subset bitwise (A {4 * pg.max_nodes}x128 @ 128x128): "
         f"{json.dumps(subset)}")
     profile_ticks(torch, srv, g, 10, seed=1)
+    del srv, eng, eng2, run
 
-    # ---- 5. report ---------------------------------------------------------
-    main_row = main_rows[128]
+    # ---- 5. main path: training at products-s, P=4, hidden 128 ------------
+    # a warm-up run first (CUDA modules, cuBLAS handles, pinned pools), so
+    # the epoch times below are steady-state; its launches are not counted
+    from repro_torch.launch.train import run_gnn
+    run_gnn(train_args("--epochs", "2", "--phase0-frac", "0.5",
+                       "--full-graph-train"))
+    res_s, fwd_s, _ = train_run(torch, sa, "sampled", "--epochs", "6",
+                                "--phase0-frac", "0.5")
+    res_f, fwd_f, bwd_f = train_run(torch, sa, "full-graph", "--epochs", "6",
+                                    "--phase0-frac", "0.5",
+                                    "--full-graph-train")
+    res_c, fwd_c, bwd_c = train_run(torch, sa, "centralized full-graph",
+                                    "--epochs", "3", "--centralized",
+                                    "--full-graph-train")
+    assert res_s.phase1_epochs > 0 and res_f.phase1_epochs > 0
+    train_fwd, train_bwd = fwd_s + fwd_f + fwd_c, bwd_f + bwd_c
+    # not part of the main path: the plain aggregation, for comparison
+    res_p = run_gnn(train_args("--epochs", "6", "--phase0-frac", "0.5",
+                               "--no-kernel-agg"))
+    assert res_p.phase0_iter_history == res_s.phase0_iter_history
+    f1_diff = abs(res_p.f1.micro - res_s.f1.micro)
+    log(f"sampled run, kernel vs plain aggregation: iteration history "
+        f"{res_s.phase0_iter_history} both, micro-F1 {res_s.f1.micro:.4f} vs "
+        f"{res_p.f1.micro:.4f} (|diff| {f1_diff:.4f}, limit {F1_ATOL}), "
+        f"epoch with eval {res_s.epoch_time_with_eval_s * 1e3:.2f} vs "
+        f"{res_p.epoch_time_with_eval_s * 1e3:.2f} ms")
+    assert f1_diff <= F1_ATOL, f1_diff
+    fullgraph_step_checks(torch, pg, flush)
+    del flush
+
+    # ---- 6. report ---------------------------------------------------------
+    main_row, bwd_row = main_rows[128], bwd_rows[128]
+    log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
+        f"bwd {train_bwd}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
-        "replaces": SEGMENT_AGG_TPU, "launches": launches,
+        "replaces": SEGMENT_AGG_TPU, "launches": launches + train_fwd,
         "max_abs_err": max(r["max_abs_err"] for r in main_rows.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_us"] / 1e3,
         "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+        "library_ms": main_row["library_ms"]}, {
+        "name": "segment_mean_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_agg.cu",
+        "replaces": SEGMENT_AGG_BWD_TPU, "launches": train_bwd,
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
+        "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_us"] / 1e3,
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"]}]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-// Blocked CSR segment mean, forward: the GraphSAGE neighbour mean on Hopper.
+// Blocked CSR segment mean, forward and backward: the GraphSAGE neighbour
+// mean on Hopper.  The forward kernel comes first; the backward kernel
+// (`segment_mean_bwd`) and its notes follow it.
 //
 // Replaces the TPU kernel `_segment_agg_kernel` of
 // src/repro/kernels/segment_agg.py (reached through `segment_agg_blocks`,
@@ -150,6 +152,132 @@ cudaError_t launch(const void* x, const void* src, const void* mask,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward: the transpose aggregation.
+//
+// Replaces the backward use of the same TPU kernel: `segment_agg_bwd_blocks`
+// of src/repro/kernels/segment_agg.py (reached through `_segment_mean_bwd`),
+// which un-places the cotangent g from row_base, divides it by the forward's
+// deg in a materialised copy, and runs `_segment_agg_kernel` over the
+// CSC-ordered transpose blocks.  Here, for every partition p and source row
+// u = bt*BN + r of transpose block bt,
+//
+//     dx[p, u] = sum_{slots e of block bt with local_dst == r,
+//                     row_base[p] + t_src[e] < num_rows}
+//                    t_mask[e] * (g[p, row_base[p] + t_src[e]]
+//                                 / deg[p, t_src[e] / BN, t_src[e] % BN])
+//
+// (divided only if mean), written for u < n_in.  t_src[e] is the forward's
+// rebased output row j of the edge, so the un-placement and the 1/deg are
+// folded into the gather: no gsub array exists.  The division is a division,
+// as the reference computes g / deg, not a product with a reciprocal.
+//
+// Design: the forward kernel's row-owner walk over the CSC mirror.  One warp
+// owns one source row u and walks its real slots [t_row_ptr[r],
+// t_row_ptr[r+1]) of its transpose block (built on the host); lanes stride
+// the features, so each gathered cotangent row is read as coalesced lines;
+// slot metadata is loaded 32 at a time and broadcast with __shfl_sync.  The
+// sum stays in registers (f32, f64 for f64) and dx is stored once: no
+// atomics, deterministic, each row summed in slot order.  One launch covers
+// all P partitions.
+//
+// Bound: like the forward, bytes.  It reads g (P x num_rows x D), writes dx
+// (P x n_in x D) and reads t_src (int64) + t_mask (f32) of the real edges,
+// t_row_ptr and deg.  Source rows with many out-edges serialise on one warp,
+// as hub rows do in the forward.
+template <typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+segment_mean_bwd_kernel(const T* __restrict__ g,
+                        const int64_t* __restrict__ t_src,
+                        const float* __restrict__ t_mask,
+                        const int32_t* __restrict__ t_row_ptr,
+                        const float* __restrict__ deg,
+                        const int64_t* __restrict__ row_base_per_part,
+                        int64_t row_base, T* __restrict__ dx, int P, int nb_t,
+                        int be_t, int bn, int nb, int64_t num_rows,
+                        int64_t n_in, int d, int mean) {
+  using A = typename Acc<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp >= static_cast<int64_t>(P) * nb_t * bn) return;  // warp-uniform
+  const int r = static_cast<int>(warp % bn);
+  const int64_t pb = warp / bn;  // p * nb_t + bt
+  const int bt = static_cast<int>(pb % nb_t);
+  const int p = static_cast<int>(pb / nb_t);
+  const int64_t u = static_cast<int64_t>(bt) * bn + r;
+  if (u >= n_in) return;  // warp-uniform
+  const int64_t base = row_base_per_part ? row_base_per_part[p] : row_base;
+
+  const int32_t* rp = t_row_ptr + pb * (bn + 1);
+  const int beg = rp[r];
+  const int end = rp[r + 1];
+  const int64_t slot0 = pb * be_t;
+  const T* gp = g + static_cast<int64_t>(p) * num_rows * d;
+  const float* dgp = deg + static_cast<int64_t>(p) * nb * bn;
+  T* op = dx + (static_cast<int64_t>(p) * n_in + u) * d;
+
+  for (int c0 = 0; c0 < d; c0 += 32 * kColsPerLane) {
+    A acc[kColsPerLane];
+#pragma unroll
+    for (int k = 0; k < kColsPerLane; ++k) acc[k] = A(0);
+    for (int e0 = beg; e0 < end; e0 += 32) {
+      const int e = e0 + lane;
+      long long orow = -1;  // -1: no slot, or an output row sliced off
+      A w = A(0);
+      A dg = A(1);
+      if (e < end) {
+        const long long j = static_cast<long long>(t_src[slot0 + e]);
+        const long long o = base + j;
+        if (o >= 0 && o < num_rows) {
+          orow = o;
+          w = static_cast<A>(t_mask[slot0 + e]);
+          if (mean) dg = static_cast<A>(dgp[j]);  // j = block * bn + row
+        }
+      }
+      const int cnt = min(32, end - e0);
+#pragma unroll 4
+      for (int jj = 0; jj < cnt; ++jj) {
+        const long long oj = __shfl_sync(kFull, orow, jj);
+        const A wj = __shfl_sync(kFull, w, jj);
+        const A dj = __shfl_sync(kFull, dg, jj);
+        if (oj < 0) continue;  // warp-uniform
+        const T* gr = gp + oj * d;
+#pragma unroll
+        for (int k = 0; k < kColsPerLane; ++k) {
+          const int c = c0 + k * 32 + lane;
+          if (c < d) acc[k] += wj * (load_acc(gr + c) / dj);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kColsPerLane; ++k) {
+      const int c = c0 + k * 32 + lane;
+      if (c < d) store(op + c, acc[k]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* g, const void* t_src, const void* t_mask,
+                       const void* t_row_ptr, const void* deg,
+                       const void* row_base_per_part, int64_t row_base,
+                       void* dx, int P, int nb_t, int be_t, int bn, int nb,
+                       int64_t num_rows, int64_t n_in, int d, int mean,
+                       cudaStream_t stream) {
+  const int64_t warps = static_cast<int64_t>(P) * nb_t * bn;
+  if (warps == 0 || d == 0 || n_in == 0) return cudaSuccess;
+  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  segment_mean_bwd_kernel<T><<<static_cast<unsigned>(blocks),
+                               kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const int64_t*>(t_src),
+      static_cast<const float*>(t_mask),
+      static_cast<const int32_t*>(t_row_ptr), static_cast<const float*>(deg),
+      static_cast<const int64_t*>(row_base_per_part), row_base,
+      static_cast<T*>(dx), P, nb_t, be_t, bn, nb, num_rows, n_in, d, mean);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64, 2 = bfloat16.  row_base_per_part is a
@@ -174,6 +302,35 @@ extern "C" int segment_mean_fwd(int dtype, const void* x, const void* src,
       return launch<__nv_bfloat16>(x, src, mask, row_ptr, deg,
                                    row_base_per_part, row_base, out, P, nb, be,
                                    bn, n_in, num_rows, d, mean, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dtype as above.  g is (P, num_rows, D), dx (P, n_in, D); t_src/t_mask are
+// (P, nb_t, be_t), t_row_ptr (P, nb_t, bn + 1), deg the forward's
+// (P, nb, bn).  row_base_per_part as for segment_mean_fwd.
+extern "C" int segment_mean_bwd(int dtype, const void* g, const void* t_src,
+                                const void* t_mask, const void* t_row_ptr,
+                                const void* deg, const void* row_base_per_part,
+                                int64_t row_base, void* dx, int P, int nb_t,
+                                int be_t, int bn, int nb, int64_t num_rows,
+                                int64_t n_in, int d, int mean, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_bwd<float>(g, t_src, t_mask, t_row_ptr, deg,
+                               row_base_per_part, row_base, dx, P, nb_t, be_t,
+                               bn, nb, num_rows, n_in, d, mean, s);
+    case 1:
+      return launch_bwd<double>(g, t_src, t_mask, t_row_ptr, deg,
+                                row_base_per_part, row_base, dx, P, nb_t,
+                                be_t, bn, nb, num_rows, n_in, d, mean, s);
+    case 2:
+      return launch_bwd<__nv_bfloat16>(g, t_src, t_mask, t_row_ptr, deg,
+                                       row_base_per_part, row_base, dx, P,
+                                       nb_t, be_t, bn, nb, num_rows, n_in, d,
+                                       mean, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

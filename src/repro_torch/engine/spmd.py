@@ -2,25 +2,37 @@
 
 On one GPU all P partitions run batched on one device: every shard array
 is stacked into a ``(P, ...)`` tensor and each forward is one program over
-all partitions, the reference's ``mode="stacked"``.  This slice ports the
-engine's construction (shards and blocked-CSR structures) and
-:meth:`SPMDEngine.export_serving_state`, the full-graph forward every
-validation and test evaluation also runs.  The training methods join with
-the training slice (ROADMAP items 5–7); every other ``EngineConfig`` option
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+all partitions, the reference's ``mode="stacked"`` (``mode="auto"``
+resolves to it as the reference's does when there are fewer cards than
+partitions).  Ported: the construction (shards and blocked-CSR
+structures), the epoch methods of the training path — sampled phase 0,
+full-graph phase 0, phase 1 with per-partition budgets — and the plain
+:meth:`SPMDEngine.evaluate`, plus :meth:`SPMDEngine.export_serving_state`
+for serving.  Every other ``EngineConfig`` option raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+
+Epoch methods return a trailing ``device_seconds``: host wall time of the
+TRAIN steps, ended by ``torch.cuda.synchronize()`` on the card.  The
+validation forward is a separate call whose time lands in
+``last_eval_seconds``, so epoch-time comparisons stay about training, as in
+the reference.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..core.gp.trainer import (GPHyperParams, make_fullgraph_loss_fn,
+                               make_generalize_step, make_personalize_step)
 from ..device import resolve_device
 from ..graph.distributed import (PartitionedGraph, make_distributed_forward,
                                  make_export_forward, make_kernel_mean_agg,
                                  make_ref_mean_agg)
 from ..kernels.segment_agg import blocks_to_device
+from ..train.metrics import f1_scores_torch
 from .stacking import build_stacked_vjp_blocks
 
 __all__ = ["EngineConfig", "SPMDEngine"]
@@ -28,13 +40,16 @@ __all__ = ["EngineConfig", "SPMDEngine"]
 
 @dataclass(frozen=True)
 class EngineConfig:
-    mode: str = "stacked"           # stacked (spmd, sequential: not yet)
-    # route the full-graph aggregation through the CUDA segment-mean kernel
+    mode: str = "stacked"           # stacked | auto (spmd, sequential: not yet)
+    # route the full-graph aggregation through the CUDA segment-mean kernels
     # (counterpart of the reference's ``use_pallas_agg``); False uses the
     # plain index_add_ aggregation
     use_kernel_agg: bool = True
     dtype: torch.dtype = torch.float32   # float dtype of graph features
     device: str = "cuda"            # raises without a card unless "cpu"
+    # objective of the FULL-GRAPH phase-0 mode (the sampled path's loss is
+    # the loss_fn the engine is constructed with): "ce" | "focal"
+    fg_loss: str = "ce"
     # options of the reference engine that are not ported yet: a value
     # other than the default raises NotImplementedError
     overlap_halo: bool = False
@@ -49,17 +64,34 @@ class EngineConfig:
 _NOT_PORTED = {"overlap_halo": (False, 8), "halo_cache": (False, 10),
                "halo_compress": ("none", 10), "grad_compress": ("none", 10),
                "feat_store": (False, 11), "feat_groups": (0, 11)}
-_MODE_ITEMS = {"spmd": 14, "auto": 14, "sequential": 5}
+_MODE_ITEMS = {"spmd": 14, "sequential": 5}
+
+
+def _resolve_mode(config: EngineConfig, num_parts: int,
+                  device: torch.device) -> str:
+    """The reference's rule: ``auto`` is the partition mesh when the host
+    has a card for every partition, else stacked.  The mesh is not ported,
+    so ``auto`` raises where the reference would pick it."""
+    mode = config.mode
+    if mode == "auto":
+        if (num_parts <= 1 or device.type != "cuda"
+                or torch.cuda.device_count() < num_parts):
+            return "stacked"
+        raise NotImplementedError(
+            f"mode='auto' picks the partition mesh on this host "
+            f"({torch.cuda.device_count()} cards for {num_parts} partitions), "
+            "which is not ported yet (ROADMAP item 14); use mode='stacked'")
+    if mode != "stacked":
+        item = _MODE_ITEMS.get(mode)
+        if item is None:
+            raise ValueError(f"unknown engine mode {mode!r}")
+        raise NotImplementedError(
+            f"mode={mode!r} is not ported yet (ROADMAP item {item}); "
+            "use mode='stacked'")
+    return mode
 
 
 def _check_config(config: EngineConfig) -> None:
-    if config.mode != "stacked":
-        item = _MODE_ITEMS.get(config.mode)
-        if item is None:
-            raise ValueError(f"unknown engine mode {config.mode!r}")
-        raise NotImplementedError(
-            f"mode={config.mode!r} is not ported yet (ROADMAP item {item}); "
-            "use mode='stacked'")
     for name, (default, item) in _NOT_PORTED.items():
         if getattr(config, name) != default:
             raise NotImplementedError(
@@ -71,20 +103,31 @@ class SPMDEngine:
     """Stacked executor over a :class:`PartitionedGraph`.
 
     The constructor keeps the reference's argument order ``(model, loss_fn,
-    optimizer, pg, hp, config)``; this slice reads only ``model``, ``pg``
-    and ``config`` (serving passes ``None`` for the training arguments).
+    optimizer, pg, hp, config)``; serving passes ``None`` for the training
+    arguments, which only the epoch methods read.  Params are ``GraphSAGE``
+    modules on the engine's device (shared, or per-partition for phase 1);
+    the epoch methods update them in place and return them.
+
+      phase0_epoch(params, opt_state, batches) ->
+          (params, opt_state, losses (I, P), val_micro (P,), seconds)
+      phase0_fullgraph_epoch(params, opt_state, iters) -> the same
+      phase1_epoch(pparams, popt, batches, global_params, budgets) ->
+          (pparams, popt, losses (I, P), val_micro (P,), seconds)
+      evaluate(params, split, per_partition_params) ->
+          (micro (P,), preds (P, maxN))
     """
 
     def __init__(self, model, loss_fn, optimizer, pg: PartitionedGraph,
-                 hp=None, config: EngineConfig = EngineConfig()):
+                 hp: GPHyperParams | None = None,
+                 config: EngineConfig = EngineConfig()):
         _check_config(config)
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self.hp = hp
+        self.hp = hp if hp is not None else GPHyperParams()
         self.config = config
-        self.mode = config.mode
         self.device = resolve_device(config.device)
+        self.mode = _resolve_mode(config, pg.num_parts, self.device)
         # float32 products stay full float32 on the card, as the reference's
         # XLA dots are: no TF32 for matmuls (nor for cuDNN, which this
         # engine does not call)
@@ -118,6 +161,111 @@ class SPMDEngine:
                           if config.use_kernel_agg
                           else make_ref_mean_agg(pg.max_nodes))
         self.fwd = make_distributed_forward(model, meta, agg=self._mean_agg)
+        self.labels = idx(pg.labels)
+        self.masks = {k: torch.as_tensor(getattr(pg, f"{k}_mask"), device=dev)
+                      for k in ("train", "val", "test")}
+        self._fg_loss = make_fullgraph_loss_fn(self.fwd, loss=config.fg_loss)
+        self.last_eval_seconds = 0.0   # time of the latest evaluate() call
+
+    # ------------------------------------------------------------ plumbing
+    def _timed(self, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return out, time.perf_counter() - t0
+
+    def _run_steps(self, step, params, opt_state, batches_per_iter):
+        losses = []
+        for batch in batches_per_iter:
+            params, opt_state, l = step(params, opt_state, batch)
+            losses.append(l)
+        return params, opt_state, torch.stack(losses)
+
+    # ------------------------------------------------------- public surface
+    def phase0_epoch(self, params, opt_state, batches: dict):
+        """One sampled generalization epoch: ``batches`` holds ``(I, P,
+        ...)`` tensors on the engine's device; each iteration descends the
+        mean of the P partitions' losses (the cross-partition gradient
+        mean), then the validation forward runs."""
+        step = make_generalize_step(self.loss_fn, self.optimizer)
+        iters = next(iter(batches.values())).shape[0]
+        per_iter = ({k: v[i] for k, v in batches.items()}
+                    for i in range(iters))
+        (params, opt_state, losses), dt = self._timed(
+            self._run_steps, step, params, opt_state, per_iter)
+        val_micro, _ = self.evaluate(params, "val", per_partition_params=False)
+        return params, opt_state, losses, val_micro, dt
+
+    def phase0_fullgraph_epoch(self, params, opt_state, iters: int = 1):
+        """Full-graph phase-0 epoch: ``iters`` full-batch steps whose
+        gradient runs straight through the distributed forward — per-layer
+        halo exchange, both aggregation kernels (forward, and backward from
+        layer 2 on) and the cross-partition gradient mean.  The centralized
+        (P=1) configuration is the paper's Table IV baseline at full-graph
+        scale."""
+        step = make_generalize_step(self._fg_loss, self.optimizer)
+        batch = {"shard": self.shards, "labels": self.labels,
+                 "train_mask": self.masks["train"]}
+        (params, opt_state, losses), dt = self._timed(
+            self._run_steps, step, params, opt_state, [batch] * iters)
+        val_micro, _ = self.evaluate(params, "val", per_partition_params=False)
+        return params, opt_state, losses, val_micro, dt
+
+    def _as_budgets(self, active_or_budgets, iters: int) -> torch.Tensor:
+        """Phase-1 gating as per-partition iteration BUDGETS; a bool
+        ``active`` vector means full-epoch-or-zero."""
+        b = torch.as_tensor(np.asarray(active_or_budgets), device=self.device)
+        if b.dtype == torch.bool:
+            b = torch.where(b, iters, 0)
+        return b.to(torch.int32)
+
+    def phase1_epoch(self, pparams, popt, batches: dict, global_params,
+                     budgets):
+        """One personalization epoch over per-partition params: partition p
+        trains while the iteration index is below ``budgets[p]`` and rides
+        through bitwise frozen afterwards."""
+        step = make_personalize_step(self.loss_fn, self.optimizer, self.hp)
+        iters = next(iter(batches.values())).shape[0]
+        budgets = self._as_budgets(budgets, iters)
+
+        def run():
+            pp, po, losses = pparams, popt, []
+            for i in range(iters):
+                pp, po, l = step(pp, po, {k: v[i] for k, v in batches.items()},
+                                 global_params, i < budgets)
+                losses.append(l)
+            return pp, po, torch.stack(losses)
+
+        (pparams, popt, losses), dt = self._timed(run)
+        val_micro, _ = self.evaluate(pparams, "val", per_partition_params=True)
+        return pparams, popt, losses, val_micro, dt
+
+    @torch.no_grad()
+    def evaluate(self, params, split: str = "test",
+                 per_partition_params: bool = True):
+        """The full-graph forward over all partitions (halo exchange + the
+        aggregation kernel) and each partition's micro-F1 on ``split``:
+        ``(micro (P,), preds (P, maxN))``.  ``params`` is per-partition
+        (each partition's rows, and the halo rows it sends, computed under
+        its own weights) when ``per_partition_params``, else shared."""
+        if per_partition_params != (params.num_parts is not None):
+            raise ValueError(
+                f"per_partition_params={per_partition_params} but params "
+                f"are in the {'shared' if params.num_parts is None else 'per-partition'} form")
+
+        def run():
+            preds = torch.argmax(self.fwd(params, self.shards), dim=-1)
+            mask = self.masks[split]
+            micro = torch.stack([
+                f1_scores_torch(preds[p],
+                                torch.where(mask[p], self.labels[p], -1),
+                                self.num_classes)[0]
+                for p in range(self.num_parts)])
+            return micro, preds
+
+        out, self.last_eval_seconds = self._timed(run)
+        return out
 
     @torch.no_grad()
     def export_serving_state(self, params) -> dict:

@@ -1,25 +1,32 @@
 """Host-side preprocessing for the stacked engine: every partition's
-blocked-CSR aggregation structure padded into uniform ``(P, ...)`` arrays.
+blocked-CSR aggregation structure, and every epoch's minibatches, stacked
+into uniform ``(P, ...)`` arrays.
 
 Counterpart of ``repro/engine/stacking.py`` (``_local_csr``,
-``_stack_blocks``, ``build_stacked_vjp_blocks``), copied unchanged apart
-from the kernel's ``row_ptr`` that the stacked dict also carries.
-Partitions have ragged edge counts, so each partition's
+``_stack_blocks``, ``build_stacked_vjp_blocks``, ``stack_pytrees``) and of
+``stack_epoch_batches`` from ``repro/engine/spmd.py``, copied unchanged
+apart from the kernels' ``row_ptr``/``t_row_ptr`` that the stacked dict
+also carries.  Partitions have ragged edge counts, so each partition's
 :class:`EdgeBlocks` is padded to the fleet-wide ``(num_blocks,
 edges_per_block)``; padding slots carry ``mask == 0`` and lie outside every
-``row_ptr`` range.  The reference's ``stack_pytrees`` is ``torch.stack``.
+``row_ptr`` range.  Batches stay NumPy on the host (the sampler thread
+builds them); :func:`batches_to_device` moves one epoch in one copy.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import time
+
 import numpy as np
+import torch
 
 from ..graph.distributed import PartitionedGraph
 from ..kernels.segment_agg import (BEC, BN, block_row_ptr, build_edge_blocks,
                                    build_transpose_blocks)
 
-__all__ = ["StackedBlocks", "build_stacked_vjp_blocks"]
+__all__ = ["StackedBlocks", "build_stacked_vjp_blocks", "stack_pytrees",
+           "stack_epoch_batches", "batches_to_device"]
 
 
 @dataclass(frozen=True)
@@ -72,7 +79,8 @@ def _stack_vjp_dict(fwd_list, bwd_list, num_parts: int, bn: int) -> dict:
     b = _stack_blocks(bwd_list, num_parts, bn)
     return {"src": f.src, "dst": f.local_dst, "mask": f.mask, "deg": f.deg,
             "row_ptr": block_row_ptr(f.local_dst, f.mask, bn),
-            "t_src": b.src, "t_dst": b.local_dst, "t_mask": b.mask}
+            "t_src": b.src, "t_dst": b.local_dst, "t_mask": b.mask,
+            "t_row_ptr": block_row_ptr(b.local_dst, b.mask, bn)}
 
 
 def build_stacked_vjp_blocks(pg: PartitionedGraph, bn: int = BN,
@@ -80,8 +88,7 @@ def build_stacked_vjp_blocks(pg: PartitionedGraph, bn: int = BN,
     """Stacked paired forward/transpose block structure for the whole-space
     aggregation (``segment_mean_op`` over all ``max_nodes`` local rows):
     the forward is dst-blocked CSR, the transpose is the CSC-ordered mirror
-    over the same edges (read by the backward kernel of the training
-    slice)."""
+    over the same edges (read by the backward kernel)."""
     fwds, bwds = [], []
     for p in range(pg.num_parts):
         indptr, indices = _local_csr(pg, p)
@@ -91,3 +98,57 @@ def build_stacked_vjp_blocks(pg: PartitionedGraph, bn: int = BN,
             pg.edge_src[p][real], pg.edge_dst[p][real], pg.max_nodes,
             bn=bn, bec=bec))
     return _stack_vjp_dict(fwds, bwds, pg.num_parts, bn)
+
+
+def stack_pytrees(trees: list[dict]) -> dict:
+    """Stack a list of same-keyed dicts of NumPy arrays along a new leading
+    axis (the reference's pytrees here are flat batch dicts)."""
+    return {k: np.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def stack_epoch_batches(samplers, make_batch, num_parts: int):
+    """Draw one epoch of minibatches from every host's sampler and stack them
+    into ``(iters, P, ...)`` NumPy arrays for the epoch step.
+
+    The reference's schedule exactly: ``iters`` is the longest host's batch
+    count and shorter hosts wrap around (``it % len``).  Returns
+    ``(batches, host_seconds, iters)`` where ``host_seconds[p]`` is the
+    host-side sampling/gather time attributed to partition p.
+    """
+    host_batches = [s.batches() for s in samplers]
+    iters = max(len(b) for b in host_batches)
+    t_host = np.zeros(num_parts)
+    rows = []
+    for it in range(iters):
+        per_p = []
+        for p in range(num_parts):
+            hb = host_batches[p]
+            nodes = hb[it % len(hb)]
+            t0 = time.perf_counter()
+            per_p.append(make_batch(nodes))
+            t_host[p] += time.perf_counter() - t0
+        rows.append(stack_pytrees(per_p))          # (P, ...)
+    return stack_pytrees(rows), t_host, iters      # (iters, P, ...)
+
+
+def batches_to_device(batches: dict, device) -> dict:
+    """A dict of host NumPy arrays as tensors on ``device``.  For a CUDA
+    device every array is packed into one pinned host buffer and moved in
+    ONE copy; the tensors are views into the device copy."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batches.items()}
+    spans, off = {}, 0
+    for k, v in batches.items():
+        spans[k] = off
+        off += -(-v.nbytes // 16) * 16          # 16-byte aligned slots
+    host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+    buf = host.numpy()
+    for k, v in batches.items():
+        buf[spans[k]:spans[k] + v.nbytes] = np.ascontiguousarray(v).view(
+            np.uint8).reshape(-1)
+    dev = host.to(device, non_blocking=True)
+    return {k: dev[spans[k]:spans[k] + v.nbytes]
+            .view(torch.from_numpy(v[:0]).dtype).view(v.shape)
+            for k, v in batches.items()}

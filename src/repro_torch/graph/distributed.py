@@ -294,19 +294,23 @@ def _gather_send(h: torch.Tensor, send_idx: torch.Tensor,
 
 def _land(h: torch.Tensor, recv: torch.Tensor,
           recv_pos: torch.Tensor) -> torch.Tensor:
-    """Scatter ``recv`` ``(P, P, maxS, D)`` into the halo slots of ``h``,
-    IN PLACE.  Pad slots all point at the trash row; on CUDA the order among
-    those duplicates is unspecified, which is harmless because every pad
-    payload is ``h[0] * 0`` (a zero, possibly ``-0.0``)."""
+    """``h`` with ``recv`` ``(P, P, maxS, D)`` scattered into its halo
+    slots, as a NEW tensor: ``h`` is often the previous layer's ReLU
+    output, which autograd keeps for its backward, so it is never written
+    in place.  Pad slots all point at the trash row; on CUDA the order
+    among those duplicates is unspecified, which is harmless because every
+    pad payload is ``h[0] * 0`` (a zero, possibly ``-0.0``, whose gradient
+    is zero too)."""
     P, d = h.shape[0], h.shape[-1]
     parts = torch.arange(P, device=h.device)[:, None]
-    h[parts, recv_pos.reshape(P, -1)] = recv.reshape(P, -1, d).to(h.dtype)
-    return h
+    return h.index_put((parts, recv_pos.reshape(P, -1)),
+                       recv.reshape(P, -1, d).to(h.dtype))
 
 
 def _halo_exchange(h: torch.Tensor, send_idx, send_mask,
                    recv_pos) -> torch.Tensor:
-    """One exchange round over all partitions (lands in ``h`` in place)."""
+    """One exchange round over all partitions: ``h`` with its halo rows
+    landed (a new tensor)."""
     return _land(h, _exchange(_gather_send(h, send_idx, send_mask)), recv_pos)
 
 
@@ -355,7 +359,10 @@ def make_distributed_forward(model, pg_meta: dict, agg=None,
                              compress: str = "none"):
     """The n-layer SYNCHRONOUS forward with halo exchange, over all
     partitions at once: ``fwd(params, shards) -> (P, maxN, C)`` logits,
-    ``shards`` holding the stacked ``(P, ...)`` tensors.
+    ``shards`` holding the stacked ``(P, ...)`` tensors.  ``params`` is a
+    ``GraphSAGE`` in the shared or the per-partition form.  The forward is
+    differentiable: the exchange's backward routes each halo row's gradient
+    to the partition that sent it.
 
     ``agg(h, shards) -> (P, maxN, D)`` selects the aggregation backend
     (default: :func:`make_ref_mean_agg`).  Only ``compress="none"`` is
@@ -369,7 +376,7 @@ def make_distributed_forward(model, pg_meta: dict, agg=None,
         pg_meta["max_nodes"])
 
     def fwd(params, shards: dict) -> torch.Tensor:
-        h = shards["features"].clone()
+        h = shards["features"]
         last = len(params.layers) - 1
         for i, lp in enumerate(params.layers):
             h = _halo_exchange(h, shards["send_idx"], shards["send_mask"],
@@ -393,7 +400,7 @@ def make_export_forward(model, pg_meta: dict, agg=None):
         pg_meta["max_nodes"])
 
     def fwd(params, shards: dict) -> dict:
-        h = shards["features"].clone()
+        h = shards["features"]
         last = len(params.layers) - 1
         layers, cache = [], {}
         for i, lp in enumerate(params.layers):

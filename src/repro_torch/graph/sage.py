@@ -12,8 +12,12 @@ and a reference ``SAGEParams`` from one seed are bitwise equal.  The module
 is its own parameter set: every forward in the port reads
 ``params.layers[i].w_self`` etc., which a ``GraphSAGE`` provides.
 
-Only the full-graph forward is here; the sampled training path
-(``apply_sampled``, ``make_loss_fn``) joins with the training slice.
+A module is in one of two forms.  The shared form holds one set of weights
+(the reference's ``SAGEParams``); the per-partition form, made by
+:func:`broadcast_to_partitions`, holds P sets along a leading axis
+(``w_self`` ``(P, d_in, d_out)``, ``b`` ``(P, d_out)``) — the reference's
+stacked phase-1 params.  :meth:`GraphSAGE._layer` applies either to
+``(P, ...)`` inputs: the per-partition weights meet partition p's rows.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["SAGELayer", "GraphSAGE"]
+__all__ = ["SAGELayer", "GraphSAGE", "broadcast_to_partitions",
+           "clone_params"]
 
 
 def _glorot(rng: np.random.Generator, shape: tuple[int, ...]) -> np.ndarray:
@@ -82,28 +87,110 @@ class GraphSAGE(nn.Module):
             lp.b.zero_()
         return self
 
-    @torch.no_grad()
-    def params_from_numpy(self, layers) -> "GraphSAGE":
-        """Load the reference's ``SAGEParams.layers`` (each with ``w_self``,
-        ``w_neigh``, ``b`` as arrays) into this module; returns the module."""
+    @property
+    def num_parts(self) -> int | None:
+        """P for the per-partition form, None for the shared form."""
+        w = self.layers[0].w_self
+        return int(w.shape[0]) if w.dim() == 3 else None
+
+    def tensors_from_numpy(self, layers) -> list[torch.Tensor]:
+        """The reference's ``SAGEParams.layers`` (or any tree of that shape,
+        such as an ``OptState``'s moments) as tensors in
+        ``self.parameters()`` order, on this module's device.  Each array has
+        the shared shape or one leading partition axis more."""
         if len(layers) != self.num_layers:
             raise ValueError(f"{len(layers)} layers given, model has "
                              f"{self.num_layers}")
+        out, lead = [], set()
         for lp, src in zip(self.layers, layers):
             for name in ("w_self", "w_neigh", "b"):
-                dst = getattr(lp, name)
-                val = torch.as_tensor(np.asarray(getattr(src, name)))
-                if tuple(val.shape) != tuple(dst.shape):
-                    raise ValueError(f"{name}: shape {tuple(val.shape)} != "
-                                     f"{tuple(dst.shape)}")
+                shape = tuple(getattr(lp, name).shape[-(2 if name != "b" else 1):])
+                val = torch.as_tensor(np.array(getattr(src, name)),
+                                      device=lp.w_self.device)
+                if tuple(val.shape[-len(shape):]) != shape or val.dim() > len(shape) + 1:
+                    raise ValueError(f"{name}: shape {tuple(val.shape)} is "
+                                     f"neither {shape} nor (P,) + {shape}")
+                lead.add(tuple(val.shape[:-len(shape)]))
+                out.append(val)
+        if len(lead) != 1:
+            raise ValueError(f"mixed shared/per-partition arrays: {lead}")
+        return out
+
+    @torch.no_grad()
+    def params_from_numpy(self, layers) -> "GraphSAGE":
+        """Load the reference's ``SAGEParams.layers`` (each with ``w_self``,
+        ``w_neigh``, ``b`` as arrays) into this module; returns the module.
+        Arrays with a leading partition axis (the reference's stacked
+        phase-1 params) turn the module into the per-partition form."""
+        vals = self.tensors_from_numpy(layers)
+        for (lp, name), val in zip(self._slots(), vals):
+            dst = getattr(lp, name)
+            if tuple(val.shape) == tuple(dst.shape):
                 dst.copy_(val)
+            else:
+                setattr(lp, name, nn.Parameter(val.to(dst.dtype).clone()))
         return self
+
+    def _slots(self):
+        return [(lp, name) for lp in self.layers
+                for name in ("w_self", "w_neigh", "b")]
 
     # ------------------------------------------------------------- helpers
     def _layer(self, lp: SAGELayer, h_self: torch.Tensor,
                h_neigh: torch.Tensor, activate: bool) -> torch.Tensor:
-        out = h_self @ lp.w_self + h_neigh @ lp.w_neigh + lp.b
+        w_self, w_neigh, b = lp.w_self, lp.w_neigh, lp.b
+        if w_self.dim() == 3:
+            # per-partition weights against (P, ..., d_in) inputs: batch the
+            # products over P, broadcast over the middle axes
+            mid = (1,) * (h_self.dim() - 3)
+            w_self = w_self.view(w_self.shape[0], *mid, *w_self.shape[1:])
+            w_neigh = w_neigh.view(w_neigh.shape[0], *mid, *w_neigh.shape[1:])
+            b = b.view(b.shape[0], *mid, 1, b.shape[-1])
+        out = h_self @ w_self + h_neigh @ w_neigh + b
         return torch.relu(out) if activate else out
+
+    # ------------------------------------------------------- sampled apply
+    def apply_sampled(self, params: "GraphSAGE", x_t: torch.Tensor,
+                      x_1: torch.Tensor, x_2: torch.Tensor) -> torch.Tensor:
+        """Two-layer sampled forward -> ``(B, num_classes)`` logits from
+        target features ``x_t (B, D)``, their sampled neighbours
+        ``x_1 (B, F1, D)`` and the second hop ``x_2 (B, F1, F2, D)``; every
+        input may carry a leading partition axis ``(P, ...)`` (with shared or
+        per-partition ``params``).  The neighbour means are dense means over
+        the fanout axis, as in the reference."""
+        if self.num_layers != 2:
+            raise ValueError(
+                "apply_sampled is the paper's fixed two-layer fanout path; "
+                f"got num_layers={self.num_layers}")
+        l1, l2 = params.layers[0], params.layers[-1]
+        h1_t = self._layer(l1, x_t, x_1.mean(dim=-2), activate=True)
+        h1_1 = self._layer(l1, x_1, x_2.mean(dim=-2), activate=True)
+        return self._layer(l2, h1_t, h1_1.mean(dim=-2), activate=False)
+
+    def make_loss_fn(self, loss: str = "ce", focal_gamma: float = 2.0):
+        """``loss_fn(params, batch)`` for the GP trainer; ``batch`` holds
+        ``x_t``, ``x_1``, ``x_2``, ``labels`` and optionally ``mask`` (padded
+        batches).  A batch with a leading partition axis gives the ``(P,)``
+        per-partition losses."""
+        from ..train.losses import cross_entropy_loss, focal_loss
+
+        def one(logits, labels, mask):
+            if loss == "focal":
+                return focal_loss(logits, labels, gamma=focal_gamma, mask=mask)
+            return cross_entropy_loss(logits, labels, mask=mask)
+
+        def loss_fn(params: "GraphSAGE", batch: dict) -> torch.Tensor:
+            logits = self.apply_sampled(params, batch["x_t"], batch["x_1"],
+                                        batch["x_2"])
+            mask = batch.get("mask")
+            if batch["x_t"].dim() == 2:
+                return one(logits, batch["labels"], mask)
+            return torch.stack([
+                one(logits[p], batch["labels"][p],
+                    None if mask is None else mask[p])
+                for p in range(logits.shape[0])])
+
+        return loss_fn
 
     # ---------------------------------------------------------- full apply
     def apply_full(
@@ -150,3 +237,26 @@ def _host(idx) -> np.ndarray:
     if isinstance(idx, torch.Tensor):
         idx = idx.cpu().numpy()
     return np.asarray(idx, np.int64)
+
+
+def clone_params(params: GraphSAGE) -> GraphSAGE:
+    """A detached copy of ``params`` (either form), e.g. a best-model
+    snapshot that later in-place updates leave alone."""
+    out = GraphSAGE(params.feature_dim, params.hidden_dim, params.num_classes,
+                    params.num_layers)
+    with torch.no_grad():
+        for (lp, name), src in zip(out._slots(), params.parameters()):
+            setattr(lp, name, nn.Parameter(src.detach().clone()))
+    return out
+
+
+def broadcast_to_partitions(params: GraphSAGE, num_parts: int) -> GraphSAGE:
+    """W^G -> the per-partition form, every partition starting from the same
+    weights (the phase transition)."""
+    out = clone_params(params)
+    with torch.no_grad():
+        for lp, name in out._slots():
+            w = getattr(lp, name)
+            setattr(lp, name, nn.Parameter(
+                w[None].expand(num_parts, *w.shape).clone()))
+    return out

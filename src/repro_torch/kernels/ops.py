@@ -1,6 +1,6 @@
 """Public wrappers around the segment-mean op (counterpart of
-``repro/kernels/ops.py``, forward only).  Flash attention and RMSNorm are
-not ported yet (ROADMAP item 15)."""
+``repro/kernels/ops.py``).  Flash attention and RMSNorm are not ported yet
+(ROADMAP item 15)."""
 from __future__ import annotations
 
 import numpy as np

@@ -1,19 +1,23 @@
 """Blocked CSR segment mean (the GNN hot-spot): host block builders and the
-forward op, whose CUDA tensors go to the hand-written Hopper kernel in
-``csrc/segment_agg.cu``.
+differentiable op, whose CUDA tensors go to the hand-written Hopper kernels
+in ``csrc/segment_agg.cu`` on both passes.
 
 Counterpart of ``repro/kernels/segment_agg.py``.  The host builders are
 copied from it unchanged (same ``BN``/``BEC`` constants, same padded
-``(num_blocks, BE)`` layout, bitwise the same arrays) with one addition:
+``(num_blocks, BE)`` layout, bitwise the same arrays) with two additions:
 every blocks dict also carries ``row_ptr`` ``(nb, BN + 1)`` int32, each
-destination row's slot range inside its block, built once on the host.
-The JAX kernel reduces a block with a one-hot x messages matmul over all
-``BE`` slots; the CUDA kernel is a row-owner CSR walk that reads only the
-real slots of each row, so it needs those ranges (``block_row_ptr``).
+destination row's slot range inside its block, and a dict with the
+transpose mirror carries ``t_row_ptr`` ``(nb_t, BN + 1)``, each SOURCE
+row's slot range inside its transpose block; both are built once on the
+host.  The JAX kernel reduces a block with a one-hot x messages matmul over
+all ``BE`` slots; the CUDA kernels are row-owner CSR walks that read only
+the real slots of each row, so they need those ranges
+(``block_row_ptr``).
 
-:func:`segment_mean_op` is forward only in this package for now: the
-transpose structures (``t_*`` keys) are built, as the reference builds
-them, for the backward kernel that joins with full-graph training.
+:func:`segment_mean_op` is a ``torch.autograd.Function``: its backward is
+the transpose aggregation over the ``t_*`` structures
+(:func:`segment_mean_bwd_op`), and the backward's own backward is the
+forward op again, so the op is differentiable to any order.
 """
 from __future__ import annotations
 
@@ -31,24 +35,35 @@ __all__ = ["EdgeBlocks", "BN", "BEC", "build_edge_blocks",
            "build_edge_blocks_from_edges", "build_transpose_blocks",
            "build_vjp_blocks", "build_mean_blocks", "block_row_ptr",
            "blocks_to_device", "segment_mean_op", "segment_mean_plain",
-           "kernel_launch_count", "reset_kernel_launch_count"]
+           "segment_mean_bwd_op", "segment_mean_bwd_plain",
+           "kernel_launch_count", "bwd_kernel_launch_count",
+           "reset_kernel_launch_count"]
 
 BN = 128    # destination nodes per block
 BEC = 128   # edge-slot granule: BE is a multiple of it
 
-# Launch counter of the CUDA kernel (counterpart of ``pallas_call_count``):
-# bumped once per kernel launch and nowhere else, so a run can show that its
-# main path went through the kernel rather than the plain version.
+# Launch counters of the CUDA kernels (counterpart of ``pallas_call_count``),
+# one per kernel: bumped once per launch and nowhere else, so a run can show
+# that its main path went through the kernels rather than the plain versions.
 _KERNEL_LAUNCHES = 0
+_BWD_KERNEL_LAUNCHES = 0
 
 
 def kernel_launch_count() -> int:
+    """Launches of the forward kernel ``segment_mean_fwd``."""
     return _KERNEL_LAUNCHES
 
 
+def bwd_kernel_launch_count() -> int:
+    """Launches of the backward kernel ``segment_mean_bwd``."""
+    return _BWD_KERNEL_LAUNCHES
+
+
 def reset_kernel_launch_count() -> None:
-    global _KERNEL_LAUNCHES
+    """Set both kernels' launch counts to 0."""
+    global _KERNEL_LAUNCHES, _BWD_KERNEL_LAUNCHES
     _KERNEL_LAUNCHES = 0
+    _BWD_KERNEL_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +194,8 @@ def build_vjp_blocks(src: np.ndarray, dst: np.ndarray, num_rows: int,
                      bec: int = BEC) -> dict[str, np.ndarray]:
     """Paired forward (dst-blocked CSR) + backward (src-blocked CSC mirror)
     structures for :func:`segment_mean_op`, as a flat dict of arrays: the
-    reference's keys plus the forward's ``row_ptr``.
+    reference's keys plus the forward's ``row_ptr`` and the transpose's
+    ``t_row_ptr``.
 
     ``num_rows`` is the aggregation's output row range (destinations live in
     ``[0, num_rows)``); ``num_src_rows`` is the gathered-from row space the
@@ -188,18 +204,19 @@ def build_vjp_blocks(src: np.ndarray, dst: np.ndarray, num_rows: int,
     out = build_mean_blocks(src, dst, num_rows, bn=bn, bec=bec)
     bwd = _pad_min_one_block(
         build_transpose_blocks(src, dst, num_src_rows, bn=bn, bec=bec), bn)
-    out.update({"t_src": bwd.src, "t_dst": bwd.local_dst, "t_mask": bwd.mask})
+    out.update({"t_src": bwd.src, "t_dst": bwd.local_dst, "t_mask": bwd.mask,
+                "t_row_ptr": block_row_ptr(bwd.local_dst, bwd.mask, bn)})
     return out
 
 
 def blocks_to_device(blocks: dict, device) -> dict[str, torch.Tensor]:
     """Host blocks dict -> tensors on ``device``, converted once here:
     gather indices become int64 (torch's index type, read by the kernel as
-    is), ``row_ptr`` stays int32, masks and degrees float32."""
+    is), ``row_ptr``/``t_row_ptr`` stay int32, masks and degrees float32."""
     out = {}
     for k, v in blocks.items():
         v = np.asarray(v)
-        if k == "row_ptr":
+        if k in ("row_ptr", "t_row_ptr"):
             out[k] = torch.as_tensor(v.astype(np.int32), device=device)
         elif v.dtype.kind in "iu":
             out[k] = torch.as_tensor(v.astype(np.int64), device=device)
@@ -241,18 +258,78 @@ def segment_mean_plain(x: torch.Tensor, blocks: dict, *, num_rows: int,
     return out if stacked else out[0]
 
 
+def segment_mean_bwd_plain(g: torch.Tensor, blocks: dict, *, n_in: int,
+                           row_base=0, mean: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_mean_bwd_op`, as the
+    reference's ``segment_agg_bwd_blocks`` spells it: un-place the forward's
+    rows ``[row_base, row_base + nb·BN)`` of ``g`` (rows the forward sliced
+    off by ``num_rows`` read zero), divide by the forward's ``deg``, and sum
+    over the real slots of the transpose blocks into ``(n_in, D)``."""
+    stacked = g.dim() == 3
+    gs = g if stacked else g[None]
+    bl = blocks if stacked else {k: v[None] for k, v in blocks.items()}
+    acc_dt = torch.float64 if g.dtype == torch.float64 else torch.float32
+    nb, bn = bl["deg"].shape[-2:]
+    num_rows, d = gs.shape[-2:]
+    rows = torch.arange(nb * bn, device=g.device)
+    t_rows = (torch.arange(bl["t_src"].shape[-2], device=g.device)[:, None]
+              * bn)
+    outs = []
+    for p, rb in enumerate(_row_bases(row_base, gs.shape[0])):
+        orow = rows + rb
+        keep = (orow >= 0) & (orow < num_rows)
+        gsub = torch.zeros((nb * bn, d), dtype=acc_dt, device=g.device)
+        gsub[keep] = gs[p][orow[keep]].to(acc_dt)
+        if mean:
+            gsub = gsub / bl["deg"][p].reshape(-1, 1).to(acc_dt)
+        real = bl["t_mask"][p] > 0
+        out = torch.zeros((n_in, d), dtype=acc_dt, device=g.device)
+        out.index_add_(0, (t_rows + bl["t_dst"][p])[real],
+                       gsub[bl["t_src"][p][real]])
+        outs.append(out.to(g.dtype))
+    out = torch.stack(outs)
+    return out if stacked else out[0]
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 @functools.cache
-def _kernel_fn():
+def _kernel_fn(name: str):
     lib = load_library("segment_agg")
-    fn = lib.segment_mean_fwd
+    fn = getattr(lib, name)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, i64, vp,
-                   i32, i32, i32, i32, i64, i64, i32, i32, vp]
+    if name == "segment_mean_fwd":
+        fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, i64, vp,
+                       i32, i32, i32, i32, i64, i64, i32, i32, vp]
+    else:
+        fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, i64, vp,
+                       i32, i32, i32, i32, i32, i64, i64, i32, i32, vp]
     fn.restype = i32
     return fn
+
+
+def _check_blocks(bl: dict, want: dict, device) -> dict:
+    for k, (dt, shape) in want.items():
+        t = bl[k]
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != device:
+            raise ValueError(
+                f"blocks[{k!r}] must be {dt} {shape} on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device} (build blocks "
+                "with build_vjp_blocks or build_mean_blocks and "
+                "blocks_to_device)")
+    return {k: bl[k].contiguous() for k in want}
+
+
+def _row_base_arg(row_base, P: int, device):
+    """``(array, pointer, scalar)``: a ``(P,)`` int64 device array of
+    per-partition bases and its pointer, or ``None, None`` and the one
+    scalar base."""
+    if isinstance(row_base, torch.Tensor):
+        rb = row_base.to(device=device, dtype=torch.int64).reshape(-1)
+        rb = rb.expand(P).contiguous()
+        return rb, rb.data_ptr(), 0
+    return None, None, int(row_base)
 
 
 def _launch_kernel(x: torch.Tensor, blocks: dict, num_rows: int, row_base,
@@ -268,32 +345,18 @@ def _launch_kernel(x: torch.Tensor, blocks: dict, num_rows: int, row_base,
     if xs.dtype not in _DTYPE_CODES:
         raise TypeError(f"segment_mean_op kernel takes float32, float64 or "
                         f"bfloat16, got {xs.dtype}")
-    want = {"src": (torch.int64, (P, nb, be)), "mask": (torch.float32, (P, nb, be)),
-            "row_ptr": (torch.int32, (P, nb, bn + 1)),
-            "deg": (torch.float32, (P, nb, bn))}
-    for k, (dt, shape) in want.items():
-        t = bl[k]
-        if t.dtype != dt or tuple(t.shape) != shape or t.device != xs.device:
-            raise ValueError(
-                f"blocks[{k!r}] must be {dt} {shape} on {xs.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device} (build blocks "
-                "with this package's builders and blocks_to_device)")
+    bl = _check_blocks(bl, {
+        "src": (torch.int64, (P, nb, be)), "mask": (torch.float32, (P, nb, be)),
+        "row_ptr": (torch.int32, (P, nb, bn + 1)),
+        "deg": (torch.float32, (P, nb, bn))}, xs.device)
     xs = xs.contiguous()
-    bl = {k: v.contiguous() for k, v in bl.items()}
-    rb_ptr, rb_scalar = None, 0
-    if isinstance(row_base, torch.Tensor):
-        rb = row_base.to(device=xs.device, dtype=torch.int64).reshape(-1)
-        rb = rb.expand(P).contiguous()
-        rb_ptr = rb.data_ptr()
-        covered = False
-    else:
-        rb_scalar = int(row_base)
-        covered = rb_scalar <= 0 and rb_scalar + nb * bn >= num_rows
+    _rb, rb_ptr, rb_scalar = _row_base_arg(row_base, P, xs.device)
+    covered = rb_ptr is None and rb_scalar <= 0 and rb_scalar + nb * bn >= num_rows
     # the kernel writes every output row its blocks cover; rows outside
     # [row_base, row_base + nb·BN) stay zero only if the buffer starts zero
     alloc = torch.empty if covered else torch.zeros
     out = alloc((P, num_rows, d), dtype=xs.dtype, device=xs.device)
-    fn = _kernel_fn()
+    fn = _kernel_fn("segment_mean_fwd")
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = fn(_DTYPE_CODES[xs.dtype], xs.data_ptr(), bl["src"].data_ptr(),
@@ -307,9 +370,118 @@ def _launch_kernel(x: torch.Tensor, blocks: dict, num_rows: int, row_base,
     return out if stacked else out[0]
 
 
+def _launch_bwd_kernel(g: torch.Tensor, blocks: dict, n_in: int, row_base,
+                       mean: bool) -> torch.Tensor:
+    global _BWD_KERNEL_LAUNCHES
+    stacked = g.dim() == 3
+    gs = g if stacked else g[None]
+    bl = {k: blocks[k] if stacked else blocks[k][None]
+          for k in ("t_src", "t_mask", "t_row_ptr", "deg")}
+    P, num_rows, d = gs.shape
+    _, nb_t, be_t = bl["t_src"].shape
+    nb, bn = bl["deg"].shape[-2:]
+    if gs.dtype not in _DTYPE_CODES:
+        raise TypeError(f"segment_mean_bwd kernel takes float32, float64 or "
+                        f"bfloat16, got {gs.dtype}")
+    bl = _check_blocks(bl, {
+        "t_src": (torch.int64, (P, nb_t, be_t)),
+        "t_mask": (torch.float32, (P, nb_t, be_t)),
+        "t_row_ptr": (torch.int32, (P, nb_t, bn + 1)),
+        "deg": (torch.float32, (P, nb, bn))}, gs.device)
+    gs = gs.contiguous()
+    _rb, rb_ptr, rb_scalar = _row_base_arg(row_base, P, gs.device)
+    # one warp per source row u < n_in; rows past the transpose blocks'
+    # reach (none, for blocks built with num_src_rows == n_in) stay zero
+    alloc = torch.empty if nb_t * bn >= n_in else torch.zeros
+    out = alloc((P, n_in, d), dtype=gs.dtype, device=gs.device)
+    fn = _kernel_fn("segment_mean_bwd")
+    with torch.cuda.device(gs.device):
+        stream = torch.cuda.current_stream(gs.device).cuda_stream
+        err = fn(_DTYPE_CODES[gs.dtype], gs.data_ptr(), bl["t_src"].data_ptr(),
+                 bl["t_mask"].data_ptr(), bl["t_row_ptr"].data_ptr(),
+                 bl["deg"].data_ptr(), rb_ptr, rb_scalar, out.data_ptr(),
+                 P, nb_t, be_t, bn, nb, num_rows, n_in, d, int(bool(mean)),
+                 stream)
+    _BWD_KERNEL_LAUNCHES += 1
+    if err != 0:
+        raise RuntimeError(f"segment_mean_bwd kernel launch failed with CUDA "
+                           f"error {err}")
+    return out if stacked else out[0]
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type != "cpu":
+        raise ValueError(f"segment_mean_op runs on CUDA or CPU tensors, got "
+                         f"{t.device}")
+    return "cpu"
+
+
+def _fwd(x, blocks, num_rows, row_base, mean):
+    if _device_kind(x) == "cuda":
+        return _launch_kernel(x, blocks, num_rows, row_base, mean)
+    return segment_mean_plain(x, blocks, num_rows=num_rows,
+                              row_base=row_base, mean=mean)
+
+
+def _bwd(g, blocks, n_in, row_base, mean):
+    missing = [k for k in ("t_src", "t_dst", "t_mask", "t_row_ptr")
+               if k not in blocks]
+    if missing:
+        raise ValueError(f"the backward of segment_mean_op needs the "
+                         f"transpose blocks, missing {missing} (build the "
+                         "blocks with build_vjp_blocks)")
+    if _device_kind(g) == "cuda":
+        return _launch_bwd_kernel(g, blocks, n_in, row_base, mean)
+    return segment_mean_bwd_plain(g, blocks, n_in=n_in, row_base=row_base,
+                                  mean=mean)
+
+
+class _SegmentMean(torch.autograd.Function):
+    """``x (n_in rows) -> out (num_rows rows)``; its backward is
+    :class:`_SegmentMeanBwd`, the transpose aggregation."""
+
+    @staticmethod
+    def forward(ctx, x, blocks, num_rows, row_base, mean):
+        ctx.blocks, ctx.row_base, ctx.mean = blocks, row_base, mean
+        ctx.num_rows, ctx.n_in = num_rows, x.shape[-2]
+        return _fwd(x, blocks, num_rows, row_base, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        gx = _SegmentMeanBwd.apply(g, ctx.blocks, ctx.n_in, ctx.num_rows,
+                                   ctx.row_base, ctx.mean)
+        return gx, None, None, None, None
+
+
+class _SegmentMeanBwd(torch.autograd.Function):
+    """``g (num_rows rows) -> dx (n_in rows)``, linear in ``g``; its own
+    backward is the forward op, so both are differentiable to any order
+    (the reference gets the same by calling its op with the structures
+    swapped)."""
+
+    @staticmethod
+    def forward(ctx, g, blocks, n_in, num_rows, row_base, mean):
+        ctx.blocks, ctx.row_base, ctx.mean = blocks, row_base, mean
+        ctx.num_rows = num_rows
+        return _bwd(g, blocks, n_in, row_base, mean)
+
+    @staticmethod
+    def backward(ctx, ggx):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        gg = _SegmentMean.apply(ggx, ctx.blocks, ctx.num_rows, ctx.row_base,
+                                ctx.mean)
+        return gg, None, None, None, None, None
+
+
 def segment_mean_op(x: torch.Tensor, blocks: dict, *, num_rows: int,
                     row_base=0, mean: bool = True) -> torch.Tensor:
-    """Blocked segment mean (every forward's Eq. 1 aggregation), forward.
+    """Blocked segment mean (every forward's Eq. 1 aggregation),
+    differentiable.
 
     ``x`` is ``(n_in, D)`` with ``(nb, BE)`` blocks, or stacked
     ``(P, n_in, D)`` with ``(P, nb, BE)`` blocks, in which case ONE kernel
@@ -319,17 +491,26 @@ def segment_mean_op(x: torch.Tensor, blocks: dict, *, num_rows: int,
     ``(num_rows, D)`` (or ``(P, num_rows, D)``) output is zero.  ``row_base``
     is an int, a scalar tensor, or a ``(P,)`` tensor for the stacked form.
 
-    A CUDA ``x`` goes to the hand-written kernel (or raises); a CPU ``x`` to
-    :func:`segment_mean_plain`.  There is no fallback between the two.
+    The gradient with respect to ``x`` is :func:`segment_mean_bwd_op` over
+    the blocks' transpose mirror (``t_*`` keys, from
+    :func:`build_vjp_blocks`); nothing runs for an ``x`` that needs no
+    gradient.  On both passes a CUDA tensor goes to the hand-written kernel
+    (or raises) and a CPU tensor to the plain version; there is no fallback
+    between the two.
     """
-    if x.is_cuda:
-        if x.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "segment_mean_op has no backward kernel yet (ROADMAP item 7); "
-                "call it under torch.no_grad()")
-        return _launch_kernel(x, blocks, int(num_rows), row_base, mean)
-    if x.device.type != "cpu":
-        raise ValueError(f"segment_mean_op runs on CUDA or CPU tensors, got "
-                         f"{x.device}")
-    return segment_mean_plain(x, blocks, num_rows=int(num_rows),
-                              row_base=row_base, mean=mean)
+    _device_kind(x)
+    return _SegmentMean.apply(x, blocks, int(num_rows), row_base, bool(mean))
+
+
+def segment_mean_bwd_op(g: torch.Tensor, blocks: dict, *, n_in: int,
+                        row_base=0, mean: bool = True) -> torch.Tensor:
+    """The transpose of :func:`segment_mean_op` (its backward), itself
+    differentiable: ``dx[u] = Σ_{slots (u, r)} g[row_base + r] / deg[r]``
+    over the real slots whose output row ``row_base + r`` lies below
+    ``num_rows``, the rows of ``g``.  ``g`` is ``(num_rows, D)`` or stacked
+    ``(P, num_rows, D)``; returns ``(n_in, D)`` (or ``(P, n_in, D)``).  A
+    CUDA ``g`` goes to the ``segment_mean_bwd`` kernel, a CPU ``g`` to
+    :func:`segment_mean_bwd_plain`."""
+    _device_kind(g)
+    return _SegmentMeanBwd.apply(g, blocks, int(n_in), g.shape[-2], row_base,
+                                 bool(mean))

@@ -1,0 +1,114 @@
+"""Training entry point (CLI) on the CUDA card (counterpart of
+``repro/launch/train.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train gnn \\
+        --dataset products-s --parts 4 --method ew --epochs 30 [--device cpu]
+
+``gnn`` runs the paper's pipeline (EW partitioning → CBS sampling → GP
+two-phase training) through ``repro_torch.pipeline.run_eat_distgnn`` on the
+stacked engine: every full-graph forward goes through the CUDA
+segment-mean kernel and, with ``--full-graph-train``, every backward
+through its backward kernel.  It takes the reference's flags for the ported
+options, plus ``--device`` (``cuda`` by default; raises without a card
+unless ``cpu``).  The reference's other flags belong to paths that are not
+ported yet.  ``llm`` (the transformer path) waits for ROADMAP item 15.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def config_from_args(args):
+    from repro_torch.pipeline import EATConfig
+
+    return EATConfig(
+        dataset=args.dataset,
+        num_parts=args.parts,
+        partition_method=args.method,
+        use_cbs=not args.no_cbs,
+        use_gp=not args.no_gp,
+        max_epochs=args.epochs,
+        hidden_dim=args.hidden,
+        batch_size=args.batch_size,
+        fanouts=(args.fanout, args.fanout),
+        seed=args.seed,
+        centralized=args.centralized,
+        engine_mode=args.engine,
+        use_kernel_agg=not args.no_kernel_agg,
+        double_buffer=not args.no_double_buffer,
+        phase0_fraction=args.phase0_frac,
+        full_graph_train=args.full_graph_train,
+        full_graph_iters=args.full_graph_iters,
+        device=args.device,
+    )
+
+
+def run_gnn(args):
+    """Run the pipeline, print its summary as JSON and return the
+    ``EATResult``."""
+    from repro_torch.pipeline import run_eat_distgnn
+
+    result = run_eat_distgnn(config_from_args(args), verbose=True)
+    print(json.dumps(result.summary(), indent=2))
+    return result
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    sub = ap.add_subparsers(dest="mode", required=True)
+
+    g = sub.add_parser("gnn")
+    g.add_argument("--dataset", default="products-s")
+    g.add_argument("--parts", type=int, default=4)
+    g.add_argument("--method", default="ew",
+                   choices=("random", "metis", "ew", "ew_balanced"))
+    g.add_argument("--no-cbs", action="store_true")
+    g.add_argument("--no-gp", action="store_true")
+    g.add_argument("--epochs", type=int, default=30)
+    g.add_argument("--hidden", type=int, default=128)
+    g.add_argument("--batch-size", type=int, default=256)
+    g.add_argument("--fanout", type=int, default=10)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--engine", default="auto", choices=("auto", "stacked"),
+                   help="epoch executor: all partitions stacked on one "
+                        "card (auto picks it while there are fewer cards "
+                        "than partitions)")
+    g.add_argument("--no-kernel-agg", action="store_true",
+                   help="aggregate with plain index_add_ instead of the "
+                        "CUDA segment-mean kernels")
+    g.add_argument("--centralized", action="store_true",
+                   help="one host, no partitioning (the Table IV baseline)")
+    g.add_argument("--full-graph-train", action="store_true",
+                   help="phase 0 takes full-batch steps through the "
+                        "distributed forward (halo exchange + both "
+                        "segment-mean kernels) instead of sampled batches")
+    g.add_argument("--full-graph-iters", type=int, default=1,
+                   help="full-batch steps per phase-0 epoch with "
+                        "--full-graph-train")
+    g.add_argument("--no-double-buffer", action="store_true",
+                   help="draw each epoch's batches after the previous "
+                        "epoch's steps instead of during them")
+    g.add_argument("--phase0-frac", type=float, default=None,
+                   help="hard phase split: fraction of --epochs spent "
+                        "generalizing (default: the loss-driven trigger)")
+    g.add_argument("--device", default="cuda",
+                   help="torch device (cuda by default; cpu for tests)")
+
+    sub.add_parser("llm", help="the transformer path (not ported yet)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.mode == "llm":
+        print("train llm: the transformer path is not ported yet "
+              "(ROADMAP item 15)", file=sys.stderr)
+        return 2
+    run_gnn(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,557 @@
+"""EAT-DistGNN pipeline: EW partitioning → CBS sampling → GP training, on
+one CUDA card (counterpart of ``repro/pipeline.py``).
+
+The paper's experimental loop over N logical compute hosts, every epoch run
+by the stacked :class:`repro_torch.engine.SPMDEngine`: the train steps over
+all P partitions at once (the cross-partition gradient mean in phase 0,
+per-partition weights in phase 1), then the full-graph validation forward
+with its per-layer halo exchange and the segment-mean kernel.
+
+Three ported paths, each following the reference:
+
+  · sampled (default): host CBS mini-epochs and fanout sampling,
+    double-buffered (epoch t+1 is drawn in a thread while epoch t trains;
+    the thread keeps NumPy arrays, the main thread moves each epoch to the
+    card in one copy), phase 0 with AdamW (``grad_clip=5.0``), the
+    loss-driven (or ``phase0_fraction``) switch, phase-1 prox
+    personalization with per-partition budgets and early stops;
+  · ``full_graph_train=True``: phase 0 takes full-batch steps through the
+    distributed forward, so the backward runs the segment-mean backward
+    kernel;
+  · ``centralized=True``: one partition (Table IV), with either phase 0.
+
+Timing is the reference's "distributed" accounting: per-epoch time is the
+max over hosts of host sampling time and an equal 1/N share of the train
+steps (the larger of the two with double buffering), validation excluded;
+``epoch_time_with_eval_s`` adds the eval's 1/N share.  Communication is
+reported in bytes.  The reference's other options (async epochs, halo
+cache, compression, feature store, checkpoints and faults, the overlapped
+and ring exchanges, float64) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from .core import (GPController, GPHyperParams, GPScheduleConfig,
+                   broadcast_to_partitions, partition_graph)
+from .core.gp.trainer import grad_sync_wire_bytes
+from .core.sampler import CBSampler, host_draw_count
+from .device import resolve_device
+from .engine import EngineConfig, SPMDEngine
+from .engine.stacking import batches_to_device, stack_epoch_batches
+from .graph import (BENCHMARKS, GraphSAGE, build_partitioned_graph,
+                    make_benchmark)
+from .graph.sage import clone_params
+from .graph.sampling import NeighborSampler
+from .train.metrics import F1Report, f1_scores
+from .train.optim import AdamW
+
+__all__ = ["EATConfig", "EATResult", "run_eat_distgnn"]
+
+
+@dataclass(frozen=True)
+class EATConfig:
+    dataset: str = "products-s"
+    num_parts: int = 4
+    partition_method: str = "ew"          # random | metis | ew | ew_balanced
+    use_cbs: bool = True
+    use_gp: bool = True
+    use_focal: bool = False
+    max_epochs: int = 40
+    hidden_dim: int = 128
+    batch_size: int = 256
+    fanouts: tuple[int, int] = (10, 10)
+    lr: float = 1e-3
+    lambda_prox: float = 0.01
+    subset_fraction: float = 0.25
+    flatten_tol: float = 0.02
+    # hard phase split: fraction of max_epochs spent generalizing; None =
+    # the loss-driven trigger
+    phase0_fraction: float | None = None
+    seed: int = 0
+    centralized: bool = False             # 1 host, no partitioning (Table IV)
+    engine_mode: str = "auto"             # auto | stacked
+    use_kernel_agg: bool = True           # CUDA segment-mean kernels
+    # phase 0 trains FULL-GRAPH: ``full_graph_iters`` full-batch steps per
+    # epoch straight through the distributed forward
+    full_graph_train: bool = False
+    full_graph_iters: int = 1
+    # overlap host sampling of epoch t+1 with the device steps of epoch t
+    double_buffer: bool = True
+    device: str = "cuda"                  # raises without a card unless "cpu"
+    # not ported yet: any value but the default raises NotImplementedError
+    # (the ROADMAP item is in _NOT_PORTED); the fields that only tune one of
+    # these paths are kept for the reference's summary() keys
+    overlap_halo: bool = False
+    ring_chunks: int = 0
+    halo_cache: bool = False
+    halo_refresh_every: int = 4
+    halo_cv: bool = False
+    halo_compress: str = "none"
+    grad_compress: str = "none"
+    async_personalize: bool = False
+    async_generalize: bool = False
+    checkpoint_dir: str | None = None
+    resume: bool = False
+    feat_store: bool = False
+    hot_frac: float = 0.5
+    feat_groups: int = 0
+    dtype: str = "float32"
+
+
+# EATConfig switch -> (default, ROADMAP item that ports its path)
+_NOT_PORTED = {
+    "overlap_halo": (False, 8), "ring_chunks": (0, 8),
+    "async_personalize": (False, 9), "async_generalize": (False, 9),
+    "halo_cache": (False, 10), "halo_compress": ("none", 10),
+    "grad_compress": ("none", 10), "feat_store": (False, 11),
+    "feat_groups": (0, 11), "checkpoint_dir": (None, 12),
+    "resume": (False, 12), "dtype": ("float32", 12),
+}
+
+
+@dataclass
+class EATResult:
+    config: EATConfig
+    f1: F1Report                       # pooled test predictions
+    per_partition_micro: np.ndarray
+    partition_entropies: np.ndarray
+    partition_time_s: float
+    weight_time_s: float
+    train_time_s: float                # simulated distributed wall time
+    epoch_time_s: float                # mean per-epoch (phase-0), eval excluded
+    epochs_run: int
+    personalize_start_epoch: int
+    loss_history: list[float] = field(default_factory=list)
+    val_history: list[float] = field(default_factory=list)
+    comm_grad_bytes: int = 0
+    comm_halo_bytes: int = 0
+    comm_halo_bytes_phase0: int = 0
+    comm_halo_bytes_phase1: int = 0
+    halo_bytes_per_layer: int = 0      # eval-forward exchange payload/layer
+    comm_halo_exchange_bytes: int = 0  # eval-forward exchange volume paid
+    halo_exchange_history: list[int] = field(default_factory=list)
+    engine_mode: str = "stacked"
+    phase1_time_s: float = 0.0         # slowest host's cumulative phase-1 time
+    phase1_epochs: int = 0
+    host_draws_phase1: int = 0         # host NumPy mini-epoch draws
+    host_draws_phase0: int = 0
+    # per-epoch TRAIN iteration counts in phase 0 (the work-based witness
+    # that CBS mini-epochs shorten the epoch)
+    phase0_iter_history: list[int] = field(default_factory=list)
+    host_to_device_bytes_phase0: int = 0   # stacked batch bytes, all epochs
+    host_to_device_bytes_phase1: int = 0   # cold-row staging: 0 here
+    resident_feature_bytes: int = 0    # the engine's stacked feature plane
+    cold_h2d_bytes: int = 0            # 0: the feature store is not ported
+    # mean phase-0 epoch period INCLUDING the validation eval's 1/N share
+    epoch_time_with_eval_s: float = 0.0
+    # the per-partition params the final test eval ran with
+    final_params: Any = None
+    resumed_from_epoch: int = -1       # checkpoints are not ported
+    straggler_delay_s: float = 0.0     # fault plans are not ported
+
+    def summary(self) -> dict:
+        return {
+            "dataset": self.config.dataset,
+            "method": self._label(),
+            "parts": self.config.num_parts,
+            "engine": self.engine_mode,
+            "micro_f1": round(self.f1.micro * 100, 2),
+            "macro_f1": round(self.f1.macro * 100, 2),
+            "weighted_f1": round(self.f1.weighted * 100, 2),
+            "train_time_s": round(self.train_time_s, 2),
+            "epoch_time_s": round(self.epoch_time_s, 3),
+            "epoch_time_with_eval_s": round(self.epoch_time_with_eval_s, 4),
+            "epochs": self.epochs_run,
+            "personalize_start": self.personalize_start_epoch,
+            "avg_entropy": round(float(self.partition_entropies.mean()), 4),
+            "partition_time_s": round(self.partition_time_s, 2),
+            "comm_grad_mb": round(self.comm_grad_bytes / 1e6, 1),
+            "comm_halo_mb": round(self.comm_halo_bytes / 1e6, 1),
+            "comm_halo_phase0_mb": round(self.comm_halo_bytes_phase0 / 1e6, 1),
+            "comm_halo_phase1_mb": round(self.comm_halo_bytes_phase1 / 1e6, 1),
+            "halo_bytes_per_layer": self.halo_bytes_per_layer,
+            "halo_cache": self.config.halo_cache,
+            "halo_refresh_every": self.config.halo_refresh_every,
+            "halo_cv": self.config.halo_cv,
+            "halo_compress": self.config.halo_compress,
+            "grad_compress": self.config.grad_compress,
+            "comm_halo_exchange_mb": round(
+                self.comm_halo_exchange_bytes / 1e6, 3),
+            "phase1_time_s": round(self.phase1_time_s, 3),
+            "phase1_epochs": self.phase1_epochs,
+            "async_personalize": self.config.async_personalize,
+            "async_generalize": self.config.async_generalize,
+            "overlap_halo": self.config.overlap_halo,
+            "full_graph_train": self.config.full_graph_train,
+            "phase0_iters_per_epoch": (
+                round(float(np.mean(self.phase0_iter_history)), 2)
+                if self.phase0_iter_history else 0.0),
+            "host_to_device_mb_phase0": round(
+                self.host_to_device_bytes_phase0 / 1e6, 3),
+            "host_to_device_mb_phase1": round(
+                self.host_to_device_bytes_phase1 / 1e6, 3),
+            "feat_store": self.config.feat_store,
+            "hot_frac": self.config.hot_frac,
+            "resident_feature_mb": round(
+                self.resident_feature_bytes / 1e6, 3),
+            "cold_h2d_mb": round(self.cold_h2d_bytes / 1e6, 3),
+            "resumed_from_epoch": self.resumed_from_epoch,
+            "straggler_delay_s": round(self.straggler_delay_s, 3),
+        }
+
+    def _label(self) -> str:
+        c = self.config
+        if c.centralized:
+            return "Centralized"
+        parts = {"random": "RAND", "metis": "METIS", "ew": "EW",
+                 "ew_balanced": "EW-BAL"}[c.partition_method]
+        mods = [parts]
+        if c.use_gp:
+            mods.append("GP")
+        if c.use_cbs:
+            mods.append("CBS")
+        return "+".join(mods)
+
+
+class _EpochPrefetcher:
+    """Double-buffered host sampling: draw epoch t+1's batches in a
+    background thread while the device executes epoch t's steps.
+
+    One worker thread at a time, so the samplers' NumPy RNG streams advance
+    in exactly the sequential order — results are identical to the
+    unbuffered pipeline, only the wall-clock overlaps.  The worker returns
+    NumPy arrays; nothing in it touches torch.
+    """
+
+    def __init__(self, draw):
+        self._draw = draw
+        self._pending = None
+
+    def _spawn(self) -> None:
+        box = {}
+
+        def work():
+            try:
+                box["out"] = self._draw()
+            except BaseException as e:   # surfaces in next(), not swallowed
+                box["err"] = e
+
+        th = threading.Thread(target=work, daemon=True)
+        th.start()
+        self._pending = (th, box)
+
+    def next(self):
+        """Epoch t's batches (waits if still sampling), then immediately
+        kicks off epoch t+1's draw so it overlaps the caller's device step."""
+        if self._pending is None:
+            self._spawn()
+        th, box = self._pending
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        self._spawn()
+        return box["out"]
+
+    def settle(self) -> None:
+        """Wait for any in-flight draw WITHOUT discarding it, so
+        host_draw_count() reads are race-free."""
+        if self._pending is not None:
+            self._pending[0].join()
+
+    def close(self) -> None:
+        """Join and discard any in-flight draw (phase transition/shutdown)."""
+        if self._pending is not None:
+            self._pending[0].join()
+            self._pending = None
+
+
+def _check_config(cfg: EATConfig, fault_plan) -> None:
+    for name, (default, item) in _NOT_PORTED.items():
+        if getattr(cfg, name) != default:
+            raise NotImplementedError(
+                f"EATConfig.{name}={getattr(cfg, name)!r} is not ported yet "
+                f"(ROADMAP item {item})")
+    if fault_plan is not None:
+        raise NotImplementedError(
+            "fault plans are not ported yet (ROADMAP item 12)")
+
+
+@torch.no_grad()
+def _copy_partitions(dst, src, parts) -> None:
+    """Copy partitions ``parts`` of per-partition ``src`` into ``dst``."""
+    idx = torch.as_tensor(np.asarray(parts), device=next(dst.parameters()).device)
+    for d, s in zip(dst.parameters(), src.parameters()):
+        d[idx] = s[idx]
+
+
+def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
+                    fault_plan=None) -> EATResult:
+    _check_config(cfg, fault_plan)
+    dev = resolve_device(cfg.device)
+    fdt = np.dtype(cfg.dtype)
+    graph = make_benchmark(BENCHMARKS[cfg.dataset])
+    n_parts = 1 if cfg.centralized else cfg.num_parts
+
+    # ---------------- partitioning (host-side preprocessing, timed) -------
+    if cfg.centralized:
+        parts = np.zeros(graph.num_nodes, dtype=np.int64)
+        p_time = w_time = 0.0
+        ents = np.array([0.0])
+    else:
+        pres = partition_graph(graph.indptr, graph.indices, graph.features,
+                               graph.labels, n_parts,
+                               method=cfg.partition_method, seed=cfg.seed,
+                               fanout_k=cfg.fanouts[0])
+        parts = pres.parts
+        p_time, w_time = pres.partition_time_s, pres.weight_time_s
+        ents = pres.stats.entropies
+        if verbose:
+            print(f"partition[{cfg.partition_method}] {pres.stats.row()}")
+
+    # ---------------- stacked shards + engine ------------------------------
+    pg = build_partitioned_graph(graph, parts, n_parts)
+    model = GraphSAGE(feature_dim=graph.feature_dim, hidden_dim=cfg.hidden_dim,
+                      num_classes=graph.num_classes)
+    loss_fn = model.make_loss_fn(loss="focal" if cfg.use_focal else "ce")
+    opt = AdamW(lr=cfg.lr, grad_clip=5.0)
+    engine = SPMDEngine(
+        model, loss_fn, opt, pg, hp=GPHyperParams(lambda_prox=cfg.lambda_prox),
+        config=EngineConfig(mode=cfg.engine_mode,
+                            use_kernel_agg=cfg.use_kernel_agg,
+                            device=cfg.device,
+                            fg_loss="focal" if cfg.use_focal else "ce"))
+    if verbose:
+        print(f"engine[{engine.mode}] {pg.summary()}")
+
+    # ---------------- per-host samplers -----------------------------------
+    neigh = NeighborSampler(graph, fanouts=cfg.fanouts, seed=cfg.seed)
+    host_train = [graph.train_idx[parts[graph.train_idx] == p]
+                  for p in range(n_parts)]
+    samplers = [
+        CBSampler(graph.indptr, graph.indices, graph.labels, host_train[p],
+                  batch_size=cfg.batch_size,
+                  subset_fraction=cfg.subset_fraction if cfg.use_cbs else 1.0,
+                  class_balanced=cfg.use_cbs, seed=cfg.seed + p)
+        for p in range(n_parts)
+    ]
+
+    params = model.init(cfg.seed).to(dev)
+    opt_state = opt.init(params.parameters())
+    n_params = sum(p.numel() for p in params.parameters())
+    grad_bytes_per_sync = grad_sync_wire_bytes(cfg.grad_compress, n_parts,
+                                               n_params, itemsize=4)
+    # cross-partition edges = remote fetch volume per epoch (DistDGL analog)
+    src_all = graph.indices
+    dst_all = np.repeat(np.arange(graph.num_nodes), np.diff(graph.indptr))
+    cut_frac = float((parts[src_all] != parts[dst_all]).mean())
+    # CBS mini-epochs touch subset_fraction of the train nodes, the plain
+    # sampler all of them
+    eff_fraction = cfg.subset_fraction if cfg.use_cbs else 1.0
+    fetch_bytes_per_epoch = int(cut_frac * graph.num_edges * graph.feature_dim
+                                * fdt.itemsize * eff_fraction)
+    # the eval forward's exchange: every layer ships the real halo rows
+    eval_exchange = model.num_layers * pg.halo_bytes_per_layer
+
+    batch_feats = np.asarray(graph.features, fdt)
+
+    def make_batch(nodes: np.ndarray) -> dict:
+        # fixed shapes (pad + mask) so batches stack across hosts
+        k = len(nodes)
+        if k < cfg.batch_size:
+            nodes = np.concatenate(
+                [nodes, np.zeros(cfg.batch_size - k, dtype=nodes.dtype)])
+        mask = np.zeros(cfg.batch_size, fdt)
+        mask[:k] = 1.0
+        blocks = neigh.sample(nodes)
+        x_t, x_1, x_2 = blocks.feature_views(batch_feats)
+        return {"x_t": x_t, "x_1": x_1, "x_2": x_2,
+                "labels": graph.labels[nodes].astype(np.int32), "mask": mask}
+
+    # ---------------- phase 0: generalization -----------------------------
+    p0frac = cfg.phase0_fraction
+    sched = GPScheduleConfig(
+        max_epochs=cfg.max_epochs,
+        flatten_tol=cfg.flatten_tol,
+        phase0_fraction=p0frac,
+        # a hard split must fit the epoch budget (e.g. --epochs 3)
+        min_phase0_epochs=(min(3, max(1, cfg.max_epochs // 3))
+                           if p0frac is not None else 3))
+    ctrl = GPController(num_partitions=n_parts, config=sched)
+    sim_time = 0.0
+    epoch_times: list[float] = []
+    epoch_times_with_eval: list[float] = []
+    comm_grad = comm_halo_p0 = comm_halo_p1 = 0
+    halo_exchange_hist: list[int] = []
+    best_global = clone_params(params)
+    loss_hist: list[float] = []
+    val_hist: list[float] = []
+    prefetch = None
+
+    def next_epoch_batches():
+        """One epoch of stacked batches on the card, host time, iters."""
+        nonlocal prefetch
+        if cfg.double_buffer:
+            if prefetch is None:
+                prefetch = _EpochPrefetcher(
+                    lambda: stack_epoch_batches(samplers, make_batch, n_parts))
+            host, t_host, iters = prefetch.next()
+        else:
+            host, t_host, iters = stack_epoch_batches(samplers, make_batch,
+                                                      n_parts)
+        nbytes = sum(v.nbytes for v in host.values())
+        return batches_to_device(host, dev), t_host, iters, nbytes
+
+    def epoch_host_times(t_host, t_dev):
+        # synchronous epoch: everyone waits for the slowest host; the device
+        # steps are attributed in equal 1/N shares.  Double-buffered, the
+        # next epoch's sampling overlaps this epoch's device steps.
+        if cfg.double_buffer:
+            return np.maximum(t_host, t_dev / n_parts)
+        return t_host + t_dev / n_parts
+
+    # full-graph epochs exchange halos in BOTH directions of each train
+    # step, plus the per-epoch validation forward's exchange, and fetch no
+    # sampled neighbours
+    fg_halo_bytes_per_epoch = (2 * model.num_layers * pg.halo_bytes_per_layer
+                               * cfg.full_graph_iters + eval_exchange)
+
+    host_to_device_p0 = 0
+    p0_iter_hist: list[int] = []
+
+    draws_at_p0_start = host_draw_count()
+    while (not ctrl.done and ctrl.phase == 0
+           and not (not cfg.use_gp and ctrl.phase0_stopper.stopped)):
+        if cfg.full_graph_train:
+            params, opt_state, losses, val_micro, t_dev = (
+                engine.phase0_fullgraph_epoch(params, opt_state,
+                                              iters=cfg.full_graph_iters))
+            iters = losses.shape[0]
+            t_host = np.zeros(n_parts)      # no host sampling on this path
+            comm_halo_p0 += fg_halo_bytes_per_epoch
+            halo_exchange_hist.append(eval_exchange)
+        else:
+            batches, t_host, iters, nbytes = next_epoch_batches()
+            host_to_device_p0 += nbytes
+            params, opt_state, losses, val_micro, t_dev = engine.phase0_epoch(
+                params, opt_state, batches)
+            halo_exchange_hist.append(eval_exchange)
+            comm_halo_p0 += eval_exchange + fetch_bytes_per_epoch
+        comm_grad += grad_bytes_per_sync * iters
+        p0_iter_hist.append(int(iters))
+        host_time = epoch_host_times(t_host, t_dev)
+        sim_time += float(host_time.max())
+        epoch_times.append(float(host_time.max()))
+        epoch_times_with_eval.append(
+            float(host_time.max()) + engine.last_eval_seconds / n_parts)
+
+        mean_loss = float(losses.mean())
+        mean_val = float(val_micro.mean())
+        loss_hist.append(mean_loss)
+        val_hist.append(mean_val)
+        if ctrl.record_phase0(mean_loss, mean_val):
+            best_global = clone_params(params)
+        if verbose:
+            print(f"[phase-0] epoch {ctrl.epoch:3d} loss {mean_loss:.4f} "
+                  f"val-micro {mean_val*100:.2f}")
+        if cfg.use_gp and ctrl.should_personalize():
+            ctrl.start_personalization()
+
+    if prefetch is not None:
+        prefetch.settle()
+    # with the prefetcher the tally includes the speculative next-epoch draw
+    host_draws_p0 = host_draw_count() - draws_at_p0_start
+    personalize_start = ctrl.personalize_start_epoch
+
+    # ---------------- phase 1: personalization ----------------------------
+    phase1_time = 0.0
+    phase1_epochs = 0
+    host_draws_p1 = 0
+    if cfg.use_gp and not cfg.centralized:
+        global_params = best_global
+        pparams = broadcast_to_partitions(global_params, n_parts)
+        popt = opt.init_stacked(pparams.parameters())
+        best_personal = clone_params(pparams)
+        host_elapsed = np.zeros(n_parts)
+        draws_at_p1_start = host_draw_count()
+        while not ctrl.done:
+            active_np = ctrl.active_partitions
+            batches, t_host, iters, _ = next_epoch_batches()
+            budgets = ctrl.phase1_budgets(iters)
+            pparams, popt, losses, val_micro, t_dev = engine.phase1_epoch(
+                pparams, popt, batches, global_params, budgets)
+            host_elapsed += np.where(
+                active_np, epoch_host_times(t_host, t_dev), 0.0)
+            halo_exchange_hist.append(eval_exchange)
+            comm_halo_p1 += eval_exchange + fetch_bytes_per_epoch
+            scores = val_micro.cpu().numpy()
+            is_best = ctrl.record_phase1(scores)
+            phase1_epochs += 1
+            if is_best.any():
+                _copy_partitions(best_personal, pparams, np.flatnonzero(is_best))
+            loss_hist.append(float(losses[-1].mean()))
+            val_hist.append(float(scores.mean()))
+            if verbose:
+                print(f"[phase-1] epoch {ctrl.epoch:3d} "
+                      f"val-micro {scores.mean()*100:.2f} "
+                      f"active {int(active_np.sum())}/{n_parts} "
+                      f"budgets {np.asarray(budgets).tolist()}")
+        if prefetch is not None:
+            prefetch.close()
+        host_draws_p1 = host_draw_count() - draws_at_p1_start
+        # distributed time = slowest host's own cumulative time
+        phase1_time = float(host_elapsed.max())
+        sim_time += phase1_time
+        final_params = best_personal
+    else:
+        final_params = broadcast_to_partitions(best_global, n_parts)
+        if prefetch is not None:
+            prefetch.close()
+
+    # ---------------- final evaluation -------------------------------------
+    _, preds = engine.evaluate(final_params, "test", per_partition_params=True)
+    preds = preds.cpu().numpy()
+    test_mask = np.asarray(pg.test_mask)
+    labels = np.asarray(pg.labels)
+    all_preds, all_labels, per_micro = [], [], np.zeros(n_parts)
+    for p in range(n_parts):
+        m = test_mask[p]
+        pred, lab = preds[p][m], labels[p][m]
+        all_preds.append(pred)
+        all_labels.append(lab)
+        per_micro[p] = f1_scores(pred, lab, graph.num_classes).micro
+    f1 = f1_scores(np.concatenate(all_preds), np.concatenate(all_labels),
+                   graph.num_classes)
+
+    return EATResult(
+        config=cfg, f1=f1, per_partition_micro=per_micro,
+        partition_entropies=ents, partition_time_s=p_time, weight_time_s=w_time,
+        train_time_s=sim_time,
+        epoch_time_s=float(np.mean(epoch_times)) if epoch_times else 0.0,
+        epoch_time_with_eval_s=(float(np.mean(epoch_times_with_eval))
+                                if epoch_times_with_eval else 0.0),
+        epochs_run=ctrl.epoch, personalize_start_epoch=personalize_start,
+        loss_history=loss_hist, val_history=val_hist,
+        comm_grad_bytes=comm_grad,
+        comm_halo_bytes=comm_halo_p0 + comm_halo_p1,
+        comm_halo_bytes_phase0=comm_halo_p0,
+        comm_halo_bytes_phase1=comm_halo_p1,
+        halo_bytes_per_layer=pg.halo_bytes_per_layer,
+        comm_halo_exchange_bytes=sum(halo_exchange_hist),
+        halo_exchange_history=halo_exchange_hist,
+        engine_mode=engine.mode,
+        phase1_time_s=phase1_time, phase1_epochs=phase1_epochs,
+        host_draws_phase1=host_draws_p1,
+        host_draws_phase0=host_draws_p0,
+        phase0_iter_history=p0_iter_hist,
+        host_to_device_bytes_phase0=host_to_device_p0,
+        resident_feature_bytes=(engine.shards["features"].numel()
+                                * engine.shards["features"].element_size()),
+        final_params=final_params,
+    )

@@ -142,11 +142,35 @@ def test_distributed_forward_is_export_logits(setup, use_kernel):
     ("halo_compress", "int8", 10), ("grad_compress", "topk", 10),
     ("feat_store", True, 11), ("feat_groups", 2, 11), ("mode", "spmd", 14),
     ("mode", "auto", 14), ("mode", "sequential", 5)])
-def test_unported_options_raise(setup, option, value, item):
+def test_unported_options_raise(setup, option, value, item, monkeypatch):
     pg, _, _, _, m = setup
+    device = "cpu"
+    if option == "mode" and value == "auto":
+        # auto picks the mesh only on a host with a card per partition
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        device = "cuda"
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         SPMDEngine(m, None, None, pg, None,
-                   EngineConfig(device="cpu", **{option: value}))
+                   EngineConfig(device=device, **{option: value}))
+
+
+def test_auto_mode_resolves_to_stacked(setup, monkeypatch):
+    """The reference's rule: stacked on the CPU, with fewer cards than
+    partitions, or with one partition."""
+    pg, _, _, _, m = setup
+    assert SPMDEngine(m, None, None, pg, None,
+                      EngineConfig(mode="auto", device="cpu")).mode == "stacked"
+    assert SPMDEngine(m, None, None, pg, None,
+                      EngineConfig(device="cpu")).mode == "stacked"
+    from repro_torch.engine.spmd import _resolve_mode
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cfg = EngineConfig(mode="auto")
+    assert _resolve_mode(cfg, 4, torch.device("cuda")) == "stacked"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    assert _resolve_mode(cfg, 1, torch.device("cuda")) == "stacked"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        _resolve_mode(cfg, 4, torch.device("cuda"))
 
 
 def test_unknown_mode_and_compression_raise(setup):

@@ -56,11 +56,48 @@ def test_kernel_f64_dyadic_bitwise(cuda, row_base):
 
 
 def test_kernel_refuses_grad_and_bad_blocks(cuda):
+    """Blocks of the wrong type raise; a gradient needs the transpose
+    blocks (and then launches the backward kernel once)."""
     src, dst = _edges(64, 4, seed=1)
     bl = sa.blocks_to_device(sa.build_mean_blocks(src, dst, 64), cuda)
     x = torch.randn(64, 8, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        sa.segment_mean_op(x, bl, num_rows=64)
+    with pytest.raises(ValueError, match="transpose blocks"):
+        sa.segment_mean_op(x, bl, num_rows=64).sum().backward()
     bad = dict(bl, src=bl["src"].int())
     with pytest.raises(ValueError, match="blocks"):
         sa.segment_mean_op(x.detach(), bad, num_rows=64)
+    vjp = sa.blocks_to_device(sa.build_vjp_blocks(src, dst, 64, 64), cuda)
+    before = sa.bwd_kernel_launch_count()
+    sa.segment_mean_op(x, vjp, num_rows=64).sum().backward()
+    torch.cuda.synchronize()
+    assert sa.bwd_kernel_launch_count() == before + 1
+
+
+@pytest.mark.parametrize("rows,n_in,num_rows,row_base", [
+    (300, 300, 300, 0), (159, 300, 300, 141), (200, 260, 200, 37),
+    (0, 300, 300, 300)])
+@pytest.mark.parametrize("mean", [True, False])
+def test_bwd_kernel_matches_plain(cuda, rows, n_in, num_rows, row_base, mean):
+    rng = np.random.default_rng(rows)
+    deg = rng.integers(0, 7, rows)
+    src, dst = rng.integers(0, n_in, int(deg.sum())), np.repeat(np.arange(rows), deg)
+    bl = sa.blocks_to_device(sa.build_vjp_blocks(src, dst, rows, n_in), cuda)
+    g = torch.randn(num_rows, 72, device=cuda)
+    before = sa.bwd_kernel_launch_count()
+    got = sa.segment_mean_bwd_op(g, bl, n_in=n_in, row_base=row_base, mean=mean)
+    torch.cuda.synchronize()
+    assert sa.bwd_kernel_launch_count() == before + 1
+    want = sa.segment_mean_bwd_plain(g, bl, n_in=n_in, row_base=row_base,
+                                     mean=mean)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_bwd_kernel_f64_dyadic_bitwise(cuda):
+    r = np.random.default_rng(0)
+    n = 200
+    deg = r.choice([1, 2, 4, 8], n)
+    src, dst = r.integers(0, n, int(deg.sum())), np.repeat(np.arange(n), deg)
+    bl = sa.blocks_to_device(sa.build_vjp_blocks(src, dst, n, n), cuda)
+    g = torch.randint(-8, 9, (n, 16), device=cuda).double()
+    assert torch.equal(sa.segment_mean_bwd_op(g, bl, n_in=n),
+                       sa.segment_mean_bwd_plain(g, bl, n_in=n))

@@ -88,3 +88,15 @@ def test_ops_and_cli_default_to_card(no_cuda, tiny):
     agg = make_segment_agg(g.indptr, g.indices, device="cpu")
     assert agg(torch.ones(g.num_nodes, 2)).shape == (g.num_nodes, 2)
     assert np.isfinite(agg(torch.ones(g.num_nodes, 2)).numpy()).all()
+
+
+def test_training_defaults_to_card(no_cuda):
+    from repro_torch.launch.train import main
+    from repro_torch.pipeline import EATConfig, run_eat_distgnn
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_eat_distgnn(EATConfig(dataset="tiny"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["gnn", "--dataset", "tiny", "--epochs", "1"])
+    r = run_eat_distgnn(EATConfig(dataset="tiny", device="cpu", max_epochs=1,
+                                  hidden_dim=8, batch_size=64, fanouts=(3, 3)))
+    assert np.isfinite(r.loss_history).all() and r.epochs_run == 1

@@ -1,0 +1,66 @@
+"""run_eat_distgnn end to end on tiny against the reference pipeline, with
+the phase switch pinned (phase0_fraction): the sampled path, the
+full-graph path and the centralized full-graph path; and the train CLI on
+the CPU."""
+import numpy as np
+import pytest
+
+from repro.pipeline import EATConfig as JEATConfig
+from repro.pipeline import run_eat_distgnn as j_run_eat_distgnn
+from repro_torch.pipeline import EATConfig, run_eat_distgnn
+
+BASE = dict(dataset="tiny", num_parts=4, max_epochs=6, hidden_dim=16,
+            batch_size=64, fanouts=(5, 5), phase0_fraction=0.5, seed=0)
+# losses after up to six epochs of float32 AdamW steps whose gradients sum
+# in another order than XLA's; F1 may flip a few test predictions
+LOSS_RTOL, F1_ATOL = 1e-4, 0.01
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"full_graph_train": True},
+    {"full_graph_train": True, "centralized": True, "max_epochs": 4}],
+    ids=["sampled", "full_graph", "centralized"])
+def test_pipeline_matches_reference(extra):
+    kw = dict(BASE, **extra)
+    got = run_eat_distgnn(EATConfig(device="cpu", **kw))
+    want = j_run_eat_distgnn(JEATConfig(**kw))
+    # the same partition, the same schedule
+    assert np.array_equal(got.partition_entropies, want.partition_entropies)
+    assert got.halo_bytes_per_layer == want.halo_bytes_per_layer
+    assert got.phase0_iter_history == want.phase0_iter_history
+    assert got.epochs_run == want.epochs_run
+    assert got.personalize_start_epoch == want.personalize_start_epoch
+    assert got.phase1_epochs == want.phase1_epochs
+    assert (got.comm_grad_bytes, got.comm_halo_bytes) == (
+        want.comm_grad_bytes, want.comm_halo_bytes)
+    assert got.host_to_device_bytes_phase0 == want.host_to_device_bytes_phase0
+    np.testing.assert_allclose(got.loss_history, want.loss_history,
+                               rtol=LOSS_RTOL)
+    assert abs(got.f1.micro - want.f1.micro) <= F1_ATOL
+    assert got.engine_mode == "stacked"
+    assert set(got.summary()) == set(want.summary())
+    assert np.isfinite(got.loss_history).all()
+
+
+def test_train_cli_on_cpu(capsys):
+    from repro_torch.launch.train import main
+    assert main(["gnn", "--device", "cpu", "--dataset", "tiny", "--epochs",
+                 "3", "--hidden", "8", "--batch-size", "64", "--fanout", "4",
+                 "--full-graph-train", "--phase0-frac", "0.34"]) == 0
+    out = capsys.readouterr().out
+    assert "[phase-0] epoch" in out and "[phase-1] epoch" in out
+    assert '"full_graph_train": true' in out
+    assert main(["llm"]) == 2
+    assert "ROADMAP item 15" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("option,value,item", [
+    ("async_personalize", True, 9), ("async_generalize", True, 9),
+    ("halo_cache", True, 10), ("halo_compress", "int8", 10),
+    ("grad_compress", "topk", 10), ("feat_store", True, 11),
+    ("checkpoint_dir", "ckpt", 12), ("resume", True, 12),
+    ("overlap_halo", True, 8), ("ring_chunks", 2, 8)])
+def test_unported_options_raise(option, value, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        run_eat_distgnn(EATConfig(device="cpu", dataset="tiny",
+                                  **{option: value}))
