@@ -10,8 +10,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
               and power limit as ``nvidia-smi`` reports them
   2. build    compiles every CUDA source of the package (one ``nvcc`` per
               source, all started together) and prints ptxas's report
-  3. kernels  holds both segment-mean kernels against their plain PyTorch
-              versions on the card.  Forward: the cases of
+  3. kernels  holds every kernel against its plain PyTorch version on the
+              card.  Segment-mean forward: the cases of
               ``tests/test_kernels.py`` (ragged sweep incl. D=130, isolated
               nodes, an empty edge set, an all-pad block, the row_base
               sub-ranges), float64 dyadic inputs (bitwise), a stacked case
@@ -25,7 +25,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
               shape with kernel_ms, plain_ms, library_ms (one
               ``torch.sparse.mm`` with the CSR mean matrix, or its
               transpose, a yardstick the port never calls), bound_us and,
-              for the backward, the longest transpose row
+              for the backward, the longest transpose row.  Flash
+              attention: ``tests/test_kernels.py``'s cases, a fully masked
+              row and qwen2-0.5b's prefill (q 4x14x2048x64, k/v
+              4x2x2048x64) and decode (q 4x14x1x64 against a 2,116-slot
+              cache at q_offset 2,048) shapes; RMSNorm: its three shapes and
+              (4, 2048, 896); both in f32 and bf16 (the main path's shapes
+              in bf16 held to one bf16 rounding), with library_ms one
+              ``scaled_dot_product_attention`` or ``rms_norm`` call
   4. serve    ``repro_torch.launch.serve.gnn_main`` at products-s, P=4,
               hidden 128, seed 0: export, 20 ticks of 4 feature updates and
               16 queries, then edge additions (one grows a halo row) and a
@@ -47,7 +54,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
               aggregation, the sampled run again with the plain
               aggregation (same iteration history, micro-F1 within 0.005),
               and one full-graph step broken down (torch.profiler)
-  6. report   a ``{"kernels": [...]}`` line, then the device line last
+  6. llm      ``repro_torch.launch.serve.llm_main`` with qwen2-0.5b at its
+              published widths (24 layers, d_model 896, 14/2 heads, vocab
+              151,936, bf16), batch 4, prompt 2,048, 64 new tokens, seed 0:
+              prefill ms, decode ms per step (p50, p99), tokens/s; every
+              prefill and decode step must launch flash attention 24 times
+              and RMSNorm 49 times.  Then the kernels against their plain
+              versions on the same weights: in bf16 the logits' max |diff|
+              and the share of equal greedy tokens (reported), in the f32
+              variant of the config the prefill logits and 8 teacher-forced
+              decode steps (asserted); and one prefill and 16 decode steps
+              broken down (torch.profiler)
+  7. report   a ``{"kernels": [...]}`` line, then the device line last
 
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -89,10 +107,34 @@ GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 # aggregation: training never runs the kernel, evaluation picks the best
 # model, so only a flipped validation prediction can move it
 F1_ATOL = 0.005
+# flash attention and RMSNorm against their plain versions on the card: the
+# tolerances tests/test_kernels.py holds the Pallas kernels to (f32 sums in
+# another order; bf16 outputs round once from f32 in both)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+RMS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# both kernels in bf16 at the main path's shapes, where flash attention's
+# outputs are of order 0.04 and 3e-2 would hide a dropped tile: the kernel
+# and its plain version both round one f32 result to bf16, so they may be
+# one bf16 ulp apart (at most 2^-7 of the value) plus the f32 sums' own
+# difference (observed <= 3e-6 in f32)
+BF16_MAIN_ATOL, BF16_MAIN_RTOL = 1e-5, 2.0 ** -7
+# qwen2-0.5b at full width in float32, kernels against their plain versions
+# on the same weights: every GEMM is the same cuBLAS call on both sides, so
+# the difference is the attention's and the norms' summation order, carried
+# through 24 residual layers into logits of magnitude ~3.4; it has been
+# 2.8e-6 to 3.9e-6, and a wrong mask or row moves logits by O(0.1)
+LLM_F32_ATOL, LLM_F32_RTOL = 1e-4, 1e-4
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
+# attention's products: f32 on CUDA cores, bf16 on the tensor cores (dense)
+ATTN_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SEGMENT_AGG_TPU = "src/repro/kernels/segment_agg.py:161"
 SEGMENT_AGG_BWD_TPU = "src/repro/kernels/segment_agg.py:332"
+FLASH_TPU = "src/repro/kernels/flash_attention.py:41"
+RMSNORM_TPU = "src/repro/kernels/rmsnorm.py:21"
+# the transformer serving run: qwen2-0.5b at its published widths
+LLM_ARGS = ["--arch", "qwen2-0.5b", "--full", "--batch", "4", "--prompt-len",
+            "2048", "--new-tokens", "64", "--seed", "0", "--device", "cuda"]
 
 
 def log(msg: str) -> None:
@@ -432,6 +474,131 @@ def run_bwd_case(sa, name, g_np, bl_host, n_in, row_base, mean, dtype_name,
     return row
 
 
+# b, hq, hkv, sq, sk, dh, causal, window, q_offset: tests/test_kernels.py's
+# CASES, a fully masked row, then qwen2-0.5b's prefill and decode shapes
+FLASH_CASES = [
+    ("sweep GQA", (2, 4, 2, 128, 128, 64, True, None, 0)),
+    ("sweep MHA ragged", (1, 8, 8, 200, 200, 32, True, None, 0)),
+    ("sweep MQA", (1, 4, 1, 96, 96, 64, True, None, 0)),
+    ("sweep window", (2, 4, 2, 256, 256, 64, True, 64, 0)),
+    ("sweep decode ragged kv", (1, 4, 2, 1, 300, 64, True, None, 300)),
+    ("sweep bidirectional", (1, 2, 2, 64, 64, 128, False, None, 0)),
+    ("fully masked row", (1, 2, 1, 4, 16, 64, True, 8, 40)),
+    ("qwen2-0.5b prefill", (4, 14, 2, 2048, 2048, 64, True, None, 0)),
+    ("qwen2-0.5b decode", (4, 14, 2, 1, 2116, 64, True, None, 2048)),
+]
+RMS_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (4, 2048, 896)]
+
+
+def flash_live_pairs(sq, sk, causal, window, q_offset):
+    """(query, key) pairs the mask keeps: the work this input needs."""
+    q_pos = np.arange(sq)[:, None] + q_offset
+    k_pos = np.arange(sk)[None, :]
+    live = np.ones((sq, sk), bool)
+    if causal:
+        live &= k_pos <= q_pos
+    if window is not None:
+        live &= k_pos > q_pos - window
+    return live
+
+
+def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
+                   main_path=False):
+    """The flash kernel against its plain version on the card, its time,
+    the plain version's, one scaled_dot_product_attention call's
+    (yardstick) and the bound; ``main_path`` shapes are held to
+    ``BF16_MAIN_*`` in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    b, hq, hkv, sq, sk, dh, causal, window, q_off = case
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + dh)
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+               for shape in ((b, hq, sq, dh), (b, hkv, sk, dh),
+                             (b, hkv, sk, dh)))
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert got.shape == want.shape and got.dtype == dtype, (name, got.shape)
+    err = float((got.float() - want.float()).abs().max())
+    atol = rtol = FLASH_TOL[dtype_name]
+    if main_path and dtype_name == "bfloat16":
+        atol, rtol = BF16_MAIN_ATOL, BF16_MAIN_RTOL
+    assert torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol), \
+        (f"flash {name} {dtype_name}: max |kernel - plain| = {err} above "
+         f"atol {atol} rtol {rtol}")
+    live = flash_live_pairs(sq, sk, causal, window, q_off)
+    if not live.any(axis=1).all():
+        dead = torch.as_tensor(~live.any(axis=1), device="cuda")
+        assert not got[:, :, dead].float().abs().any(), "masked row not 0"
+    k_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters, flush)
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters,
+                   flush)
+    if causal and window is None and q_off == 0 and sq == sk:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                     enable_gqa=True)
+    else:
+        mask = torch.as_tensor(live, device="cuda")
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     enable_gqa=True)
+    lib_ms = time_ms(lib, iters, flush)
+    # the K/V rows of keys some query may see: the kernel never loads the
+    # others (decode's dead cache tail)
+    flops = 4.0 * dh * int(live.sum()) * b * hq
+    kv_rows = b * hkv * int(live.any(axis=0).sum())
+    nbytes = (2 * q.numel() + 2 * kv_rows * dh) * q.element_size()
+    t_o, t_b = flops / ATTN_PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_S
+    row = {"kernel": "flash_attention", "shape": name, "q": list(q.shape),
+           "kv": list(k.shape), "causal": causal, "window": window,
+           "q_offset": q_off, "dtype": dtype_name, "max_abs_err": err,
+           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_us": max(t_o, t_b) * 1e6,
+           "bound_by": "operations" if t_o >= t_b else "bytes",
+           "flops": flops, "bytes": nbytes}
+    log("shape " + json.dumps(row))
+    record.append(row)
+    return row
+
+
+def run_rmsnorm_case(rn, shape, dtype_name, flush, iters, record, *,
+                     main_path=False):
+    import torch
+    import torch.nn.functional as F
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(shape[-1])
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(shape[-1], device="cuda", generator=gen)
+    got = rn.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    want = rn.rmsnorm_plain(x, w)
+    assert got.shape == want.shape and got.dtype == dtype, shape
+    err = float((got.float() - want.float()).abs().max())
+    atol = rtol = RMS_TOL[dtype_name]
+    if main_path and dtype_name == "bfloat16":
+        atol, rtol = BF16_MAIN_ATOL, BF16_MAIN_RTOL
+    assert torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol), \
+        (f"rmsnorm {shape} {dtype_name}: max |kernel - plain| = {err} above "
+         f"atol {atol} rtol {rtol}")
+    k_ms = time_ms(lambda: rn.rmsnorm(x, w), iters, flush)
+    p_ms = time_ms(lambda: rn.rmsnorm_plain(x, w), iters, flush)
+    w_lib = w.to(dtype)
+    lib_ms = time_ms(lambda: F.rms_norm(x, (shape[-1],), w_lib, 1e-6), iters,
+                     flush)
+    nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
+    flops = 4.0 * x.numel()
+    t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["float32"]
+    row = {"kernel": "rmsnorm", "shape": list(shape), "dtype": dtype_name,
+           "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "bound_us": max(t_b, t_o) * 1e6,
+           "bound_by": "bytes" if t_b >= t_o else "operations"}
+    log("shape " + json.dumps(row))
+    record.append(row)
+    return row
+
+
 # --------------------------------------------------------------------------
 # phase 4 helpers
 # --------------------------------------------------------------------------
@@ -636,6 +803,128 @@ def fullgraph_step_checks(torch, pg, flush):
     return times
 
 
+# --------------------------------------------------------------------------
+# phase 6 helpers
+# --------------------------------------------------------------------------
+
+def profile_window(torch, label, fn, steps):
+    """Print the device's busy share and top kernels over ``fn()``
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = [e for e in tp.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in cuda)
+    log(f"profile {label}: wall {wall / steps * 1e3:.3f} ms/step, device "
+        f"busy {busy_us / steps / 1e3:.3f} ms/step = "
+        f"{busy_us / 1e6 / wall:.3f} of wall")
+    for e in sorted(cuda, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"profile {label} kernel {e.self_device_time_total / steps:10.1f} "
+            f"us/step x{e.count / steps:6.1f}  {e.key[:90]}")
+
+
+def llm_phase(torch, fa, rn):
+    """qwen2-0.5b at full width through ``llm_main`` with every launch count
+    set to 0 just before and read just after; then the kernels against
+    their plain versions on the same weights (bf16: logits and greedy
+    tokens; f32: prefill and 8 teacher-forced decode steps, asserted), and a
+    profile of one prefill and 16 decode steps."""
+    import dataclasses
+
+    from repro_torch.kernels import reset_kernel_launch_count
+    from repro_torch.launch.serve import build_parser, llm_main
+    from repro_torch.models import Transformer
+    from repro_torch.serve import ServeEngine
+
+    reset_kernel_launch_count()
+    fa.reset_flash_launch_count()
+    rn.reset_rmsnorm_launch_count()
+    t0 = time.perf_counter()
+    run = llm_main(build_parser().parse_args(LLM_ARGS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_flash, n_rms = fa.flash_launch_count(), rn.rmsnorm_launch_count()
+    cfg, model, batch, toks = (run["cfg"], run["model"], run["batch"],
+                               run["tokens"])
+    n_layers = cfg.num_layers
+    per_pass = (n_layers, 2 * n_layers + 1)
+    assert run["launches"]["prefill"] == per_pass, run["launches"]["prefill"]
+    assert len(run["launches"]["decode"]) == toks.shape[1] - 1
+    assert all(n == per_pass for n in run["launches"]["decode"]), \
+        run["launches"]["decode"]
+    assert toks.shape == (4, 64) and ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    stats = {k: run[k] for k in ("prefill_ms", "decode_ms_p50",
+                                 "decode_ms_p99", "tokens_per_s", "wall_s")}
+    log(f"llm serve {cfg.name} full width, {model.param_count()} params: "
+        f"{json.dumps(stats)}; launches per prefill and per decode step "
+        f"(flash, rmsnorm) {per_pass}; this run's totals flash {n_flash} "
+        f"rmsnorm {n_rms}; main path {wall:.1f} s")
+
+    # bf16, same weights: logits and greedy tokens, kernels vs plain
+    width = run["engine"].cache_size
+    lk, _, _ = model.prefill(batch, cache_size=width)
+    model.use_kernels = False
+    lp, _, _ = model.prefill(batch, cache_size=width)
+    plain_toks = ServeEngine(model, cache_size=width).generate(
+        batch, max_new_tokens=toks.shape[1])
+    model.use_kernels = True
+    assert torch.isfinite(lk).all()
+    same = plain_toks == toks
+    first_diff = [int(np.argmin(r)) if not r.all() else len(r) for r in same]
+    log(f"llm bf16 kernels vs plain: prefill logits max |diff| "
+        f"{float((lk - lp).abs().max()):.4e} (max |logit| "
+        f"{float(lp.abs().max()):.3f}); greedy tokens equal "
+        f"{float(same.mean()):.4f} of {same.size}, first difference per row "
+        f"{first_diff}")
+
+    # f32 variant of the full config, same seed: asserted within tolerance
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = Transformer(cfg32, seed=0, device=model.device)
+    forced = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 8))
+    outs = {}
+    for use_kernels in (True, False):
+        m32.use_kernels = use_kernels
+        lg, caches, n = m32.prefill(batch, cache_size=width)
+        seq = [lg]
+        for t in range(forced.shape[1]):
+            lg, caches = m32.decode_step(forced[:, t:t + 1], caches, n + t)
+            seq.append(lg)
+        outs[use_kernels] = seq
+        del caches
+    errs = [float((a - b).abs().max()) for a, b in zip(outs[True], outs[False])]
+    log(f"llm f32 kernels vs plain: max |diff| prefill {errs[0]:.3e}, decode "
+        f"steps {[f'{e:.3e}' for e in errs[1:]]} (atol {LLM_F32_ATOL}, rtol "
+        f"{LLM_F32_RTOL}); max |logit| {float(outs[False][0].abs().max()):.3f}")
+    for a, b in zip(outs[True], outs[False]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=LLM_F32_ATOL, rtol=LLM_F32_RTOL)
+    del m32, outs
+
+    # where the time goes: one prefill, then 16 decode steps
+    state = {}
+
+    def prefill():
+        state["lg"], state["caches"], state["n"] = model.prefill(
+            batch, cache_size=width)
+
+    def decode16():
+        lg, caches, n = state["lg"], state["caches"], state["n"]
+        for t in range(16):
+            lg, caches = model.decode_step(lg.argmax(-1)[:, None], caches,
+                                           n + t)
+
+    profile_window(torch, "llm prefill", prefill, 1)
+    profile_window(torch, "llm decode", decode16, 16)
+    return n_flash, n_rms
+
+
 def main() -> int:
     import torch
 
@@ -648,6 +937,8 @@ def main() -> int:
     from repro_torch.engine.stacking import build_stacked_vjp_blocks
     from repro_torch.graph import build_partitioned_graph
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import segment_agg as sa
     from repro_torch.launch.serve import build_parser, gnn_main
     from repro_torch.serve import apply_updates_to_graph
@@ -671,8 +962,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "Function properties for" in line:
                 # the mangled name holds the kernel and its element type
-                m = re.search(r"(segment_mean_\w+?_kernel)I(f|d|\d+__nv_bfloat16)",
-                              line)
+                m = re.search(r"(\w+?_kernel)I(\w+?)E", line)
                 kernel = f"{m.group(1)}<{m.group(2)}>" if m else "?"
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {kernel}: {line.strip()}")
@@ -713,6 +1003,17 @@ def main() -> int:
         bwd_rows[d] = run_bwd_case(
             sa, f"bwd products-s stacked D={d}", x, blk, pg.max_nodes, 0,
             True, "float32", flush=flush, iters=30, record=shapes)
+    flash_rows, rms_rows = {}, {}
+    for name, case in FLASH_CASES:
+        for dtype_name in ("float32", "bfloat16"):
+            flash_rows[name, dtype_name] = run_flash_case(
+                fa, name, case, dtype_name, flush=flush, iters=10,
+                record=shapes, main_path=name.startswith("qwen2"))
+    for shape in RMS_SHAPES:
+        for dtype_name in ("float32", "bfloat16"):
+            rms_rows[shape, dtype_name] = run_rmsnorm_case(
+                rn, shape, dtype_name, flush=flush, iters=10, record=shapes,
+                main_path=shape == RMS_SHAPES[-1])
 
     # ---- 4. main path: GNN serving at products-s, P=4, hidden 128 ----------
     args = build_parser().parse_args(
@@ -820,10 +1121,14 @@ def main() -> int:
     fullgraph_step_checks(torch, pg, flush)
     del flush
 
-    # ---- 6. report ---------------------------------------------------------
+    # ---- 6. main path: transformer serving, qwen2-0.5b at full width -------
+    llm_flash, llm_rms = llm_phase(torch, fa, rn)
+
+    # ---- 7. report ---------------------------------------------------------
     main_row, bwd_row = main_rows[128], bwd_rows[128]
     log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
-        f"bwd {train_bwd}")
+        f"bwd {train_bwd}; llm serving flash {llm_flash} rmsnorm "
+        f"{llm_rms}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -841,6 +1146,25 @@ def main() -> int:
         "bound_ms": bwd_row["bound_us"] / 1e3,
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"]}]
+    # the main path's shapes in its working type: the prefill for flash
+    # attention (its decode shape is on its own line above), the prefill's
+    # (B·S, d_model) rows for RMSNorm
+    flash_row = flash_rows["qwen2-0.5b prefill", "bfloat16"]
+    rms_row = rms_rows[(4, 2048, 896), "bfloat16"]
+    for name, source, tpu, row, n, errs in (
+            ("flash_attention", "flash_attention.cu", FLASH_TPU, flash_row,
+             llm_flash, [r["max_abs_err"] for (c, _), r in
+                            flash_rows.items() if c.startswith("qwen2")]),
+            ("rmsnorm", "rmsnorm.cu", RMSNORM_TPU, rms_row, llm_rms,
+             [r["max_abs_err"] for (c, _), r in rms_rows.items()
+              if c == (4, 2048, 896)])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}", "replaces": tpu,
+            "launches": n, "max_abs_err": max(errs),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,10 @@
-"""Public wrappers around the segment-mean op (counterpart of
-``repro/kernels/ops.py``).  Flash attention and RMSNorm are not ported yet
-(ROADMAP item 15)."""
+"""Public wrappers around the hand-written kernels (counterpart of
+``repro/kernels/ops.py``): the segment-mean op, flash attention and RMSNorm.
+
+Each wrapper has the signature of its JAX counterpart minus ``interpret``
+and the block sizes, and can be swapped 1:1 with its ``ref.py`` oracle.  A
+CUDA tensor launches the kernel, a CPU tensor runs the plain version.
+"""
 from __future__ import annotations
 
 import numpy as np
@@ -8,10 +12,12 @@ import torch
 
 from ..device import resolve_device
 from . import ref
+from .flash_attention import flash_attention
+from .rmsnorm import rmsnorm
 from .segment_agg import blocks_to_device, build_vjp_blocks, segment_mean_op
 
 __all__ = ["make_mean_blocks", "make_segment_agg", "segment_mean_op",
-           "build_vjp_blocks"]
+           "build_vjp_blocks", "flash_attention", "rmsnorm"]
 
 
 def make_mean_blocks(indptr: np.ndarray, indices: np.ndarray) -> dict:

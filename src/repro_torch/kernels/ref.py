@@ -1,15 +1,18 @@
-"""Plain PyTorch oracles for the segment-mean kernel (the correctness ground
-truth, and the plain version :func:`segment_agg.segment_mean_plain` runs).
+"""Plain PyTorch oracles for every hand-written kernel (the correctness
+ground truth, and the plain versions the wrappers run on CPU tensors).
 
-Counterpart of ``repro/kernels/ref.py``'s ``segment_agg_ref`` and
-``segment_agg_rows_ref``: ``jax.ops.segment_sum`` becomes ``index_add_``,
-which on the CPU adds in edge order.  Indices are int64 tensors.
+Counterpart of ``repro/kernels/ref.py``.  In ``segment_agg_ref`` and
+``segment_agg_rows_ref``, ``jax.ops.segment_sum`` becomes ``index_add_``,
+which on the CPU adds in edge order; indices are int64 tensors.
+``attention_ref`` and ``rmsnorm_ref`` are the plain versions of the flash
+attention and RMSNorm kernels.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["segment_agg_ref", "segment_agg_rows_ref"]
+__all__ = ["segment_agg_ref", "segment_agg_rows_ref", "attention_ref",
+           "rmsnorm_ref"]
 
 
 def segment_agg_ref(
@@ -53,3 +56,42 @@ def segment_agg_rows_ref(
     k = max(0, min(range_rows, num_rows - row_base))
     out[row_base:row_base + k] = sub[:k]
     return out
+
+
+def attention_ref(
+    q: torch.Tensor,          # (B, Hq, Sq, Dh)
+    k: torch.Tensor,          # (B, Hkv, Sk, Dh)
+    v: torch.Tensor,          # (B, Hkv, Sk, Dh)
+    *,
+    causal: bool = True,
+    window: int | None = None,   # sliding window over keys (None = full)
+    q_offset: int = 0,           # absolute position of q[0] (decode: cache len)
+) -> torch.Tensor:
+    """Dense-softmax GQA attention oracle: f32 logits with ``-inf`` masking,
+    fully masked rows set to 0, output in q's dtype."""
+    _, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kx = k.repeat_interleave(group, dim=1).float()
+    vx = v.repeat_interleave(group, dim=1).float()
+    scale = 1.0 / torch.sqrt(torch.tensor(dh, dtype=torch.float32))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    w = torch.nan_to_num(w, nan=0.0)  # fully-masked rows -> 0
+    return torch.einsum("bhqk,bhkd->bhqd", w, vx).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """``x · rsqrt(mean(x²) + eps) · w`` in float32, cast back to x's dtype."""
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale * weight.float()).to(x.dtype)

@@ -1,24 +1,35 @@
-"""Serving driver (CLI) for the partitioned GNN inference service, on the
-CUDA card (counterpart of ``repro/launch/serve.py --gnn``).
+"""Serving entry point (CLI) on the CUDA card: batched generation with a dense
+decoder, or the partitioned GNN inference service (counterpart of
+``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+        --batch 4 --prompt-len 32 --new-tokens 16 [--full] [--device cpu]
 
     PYTHONPATH=src python -m repro_torch.launch.serve --gnn \\
         --dataset products-s --parts 4 --hidden 128 --ticks 20 \\
         --updates-per-tick 4 --queries-per-tick 16 [--device cpu]
 
-Partitions the graph with EW, exports the per-partition layer embeddings
-from a stacked ``SPMDEngine`` (the full-graph forward through the CUDA
-segment-mean kernel), then serves a synthetic stream of feature updates and
-logit queries with incremental recomputation (the kernel again).  Unlike
+The transformer path runs the arch's ``reduced()`` config, as the
+reference does, unless ``--full`` asks for its published widths; weights are
+random from ``--seed``.  It prefills a random prompt and decodes through
+``ServeEngine`` with the flash attention and RMSNorm kernels, and reports
+prefill time, decode time per step and both kernels' launches.
+
+The GNN path partitions the graph with EW, exports the per-partition layer
+embeddings from a stacked ``SPMDEngine`` (the full-graph forward through the
+CUDA segment-mean kernel), then serves a synthetic stream of feature updates
+and logit queries with incremental recomputation (the kernel again).  Unlike
 the reference CLI, which hardcodes the plain aggregation, both engines run
 with the kernel aggregation on.  ``--checkpoint`` and ``--fail-partition``
-wait for ROADMAP item 12 and the transformer path for item 15; each says so
-when asked for.
+wait for ROADMAP item 12 and ``--swa`` (rolling decode) for item 15; each
+says so when asked for.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -106,10 +117,94 @@ def gnn_main(args) -> dict:
             "tick_launches": tick_launches, "stats": dict(s)}
 
 
+def _timed(fn, device, times: list, launches: list):
+    """``fn`` wrapped to record its synchronised host-clock time and the
+    flash attention and RMSNorm launches it made."""
+    from repro_torch.kernels import flash_launch_count, rmsnorm_launch_count
+
+    def call(*a, **kw):
+        _sync(device)
+        f0, r0 = flash_launch_count(), rmsnorm_launch_count()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        launches.append((flash_launch_count() - f0,
+                         rmsnorm_launch_count() - r0))
+        return out
+
+    return call
+
+
+def llm_main(args) -> dict:
+    """Prefill a random ``(batch, prompt_len)`` prompt and greedily (or with
+    ``temperature``) decode ``new_tokens``, after an untimed two-token
+    warm-up generation.  Prints the reference's summary line plus the timing
+    and launch lines, and returns the run: ``cfg``, ``model``, ``engine``,
+    ``batch``, ``tokens``, ``wall_s``, ``tokens_per_s``, ``prefill_ms``,
+    ``decode_ms`` (per step), ``decode_ms_p50``, ``decode_ms_p99`` and
+    ``launches`` (``{"prefill": (flash, rmsnorm), "decode": [(flash,
+    rmsnorm) per step]}``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import Transformer
+    from repro_torch.serve import ServeEngine
+
+    if args.swa:
+        raise NotImplementedError(
+            "--swa (rolling sliding-window decode) is not ported yet "
+            "(ROADMAP item 15)")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    model = Transformer(cfg, seed=args.seed, device=device)
+    rng = np.random.default_rng(args.seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (args.batch, args.prompt_len))}
+    engine = ServeEngine(model, cache_size=args.prompt_len + args.new_tokens
+                         + 4)
+    engine.generate(batch, max_new_tokens=2, temperature=args.temperature,
+                    seed=args.seed)
+    # the timed run drives the same model through timing wrappers of the
+    # two calls the engine makes
+    prefill_s, decode_s, prefill_n, decode_n = [], [], [], []
+    timed = ServeEngine(SimpleNamespace(
+        prefill=_timed(model.prefill, device, prefill_s, prefill_n),
+        decode_step=_timed(model.decode_step, device, decode_s, decode_n)),
+        cache_size=engine.cache_size)
+    t0 = time.perf_counter()
+    out = timed.generate(batch, max_new_tokens=args.new_tokens,
+                         temperature=args.temperature, seed=args.seed)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    dec_ms = [t * 1e3 for t in decode_s]
+    p50, p99 = (np.percentile(dec_ms, [50, 99]).tolist() if dec_ms
+                else (float("nan"), float("nan")))
+    tps = out.size / wall
+    print(f"{cfg.name}: {out.shape[0]} seqs x {out.shape[1]} tokens "
+          f"in {wall:.2f}s ({tps:.1f} tok/s, "
+          f"{'full' if args.full else 'reduced'} config on {device})")
+    print(f"prefill {prefill_s[0] * 1e3:.2f} ms ({args.batch} x "
+          f"{args.prompt_len} tokens), decode p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms per step over {len(dec_ms)} steps")
+    print(f"kernel launches: prefill flash {prefill_n[0][0]} rmsnorm "
+          f"{prefill_n[0][1]}; decode flash "
+          f"{sum(n[0] for n in decode_n)} rmsnorm "
+          f"{sum(n[1] for n in decode_n)} over {len(decode_n)} steps")
+    print(out)
+    return {"cfg": cfg, "model": model, "engine": engine, "batch": batch,
+            "tokens": out, "wall_s": wall, "tokens_per_s": tps,
+            "prefill_ms": prefill_s[0] * 1e3, "decode_ms": dec_ms,
+            "decode_ms_p50": p50, "decode_ms_p99": p99,
+            "launches": {"prefill": prefill_n[0], "decode": decode_n}}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--gnn", action="store_true",
-                    help="serve the partitioned GNN (the only path ported)")
+                    help="serve the partitioned GNN instead of a "
+                         "transformer")
     ap.add_argument("--dataset", default="tiny")
     ap.add_argument("--parts", type=int, default=4)
     ap.add_argument("--hidden", type=int, default=32)
@@ -123,12 +218,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fail-at-tick", type=int, default=5)
     ap.add_argument("--recover-after-ticks", type=int, default=8)
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="transformer path: not ported yet (ROADMAP item 15)")
+                    help="a dense decoder of repro_torch.configs")
+    ap.add_argument("--full", action="store_true",
+                    help="the arch's published widths instead of reduced()")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--swa", action="store_true")
+    ap.add_argument("--swa", action="store_true",
+                    help="not ported yet (ROADMAP item 15)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -137,11 +235,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if not args.gnn:
-        print("the transformer serving path is not ported yet (ROADMAP "
-              "item 15); pass --gnn", file=sys.stderr)
-        return 2
-    gnn_main(args)
+    if args.gnn:
+        gnn_main(args)
+    else:
+        llm_main(args)
     return 0
 
 

@@ -1,3 +1,4 @@
+from .engine import ServeEngine
 from .gnn import GNNServingEngine, apply_updates_to_graph
 
-__all__ = ["GNNServingEngine", "apply_updates_to_graph"]
+__all__ = ["ServeEngine", "GNNServingEngine", "apply_updates_to_graph"]

@@ -1,15 +1,18 @@
-"""Tests of the CUDA segment-mean kernel, which run only on a machine with a
-CUDA card and nvcc (marked ``gpu``; they skip elsewhere).  On the card:
+"""Tests of the CUDA kernels (segment mean, flash attention, RMSNorm), which
+run only on a machine with a CUDA card and nvcc (marked ``gpu``; they skip
+elsewhere).  On the card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-The kernel is held against its plain PyTorch version on the same CUDA
+Each kernel is held against its plain PyTorch version on the same CUDA
 inputs; imports nothing of JAX, so it runs where only the port is
 installed."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import segment_agg as sa
 
 pytestmark = pytest.mark.gpu
@@ -101,3 +104,70 @@ def test_bwd_kernel_f64_dyadic_bitwise(cuda):
     g = torch.randint(-8, 9, (n, 16), device=cuda).double()
     assert torch.equal(sa.segment_mean_bwd_op(g, bl, n_in=n),
                        sa.segment_mean_bwd_plain(g, bl, n_in=n))
+
+
+# tests/test_kernels.py's flash CASES, a fully masked row, and decode
+# against a cache wider than its filled part (b, hq, hkv, sq, sk, dh,
+# causal, window, q_offset)
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, 0),
+    (1, 8, 8, 200, 200, 32, True, None, 0),
+    (1, 4, 1, 96, 96, 64, True, None, 0),
+    (2, 4, 2, 256, 256, 64, True, 64, 0),
+    (1, 4, 2, 1, 300, 64, True, None, 300),
+    (1, 2, 2, 64, 64, 128, False, None, 0),
+    (1, 2, 1, 4, 16, 64, True, 8, 40),
+    (2, 14, 2, 1, 200, 64, True, None, 150),
+    (1, 4, 4, 70, 90, 128, True, 33, 20),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
+    b, hq, hkv, sq, sk, dh, causal, window, q_off = case
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn(b, hq, sq, dh, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(b, hkv, sk, dh, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(b, hkv, sk, dh, device=cuda, generator=gen).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    before = fa.flash_launch_count()
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_launch_count() == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.randn(1, 2, 8, 64, device=cuda)
+    k = torch.randn(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="head sizes"):
+        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           k.transpose(1, 2))
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention(q, k.cpu(), k)
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (3, 7, 512), (2, 5, 33, 256),
+                                   (2, 16, 896), (3, 1500)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, tol):
+    gen = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    w = torch.randn(shape[-1], device=cuda, generator=gen)
+    before = rn.rmsnorm_launch_count()
+    got = rn.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm_launch_count() == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, w).float(),
+                               atol=tol, rtol=tol)

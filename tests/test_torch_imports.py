@@ -100,3 +100,24 @@ def test_training_defaults_to_card(no_cuda):
     r = run_eat_distgnn(EATConfig(dataset="tiny", device="cpu", max_epochs=1,
                                   hidden_dim=8, batch_size=64, fanouts=(3, 3)))
     assert np.isfinite(r.loss_history).all() and r.epochs_run == 1
+
+
+def test_transformer_serving_defaults_to_card(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_parser, llm_main, main
+    from repro_torch.models import Transformer, params_from_jax
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("qwen2-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transformer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llm_main(build_parser().parse_args(["--new-tokens", "2"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "llama3.2-1b"])
+    model = Transformer(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    out = ServeEngine(model, cache_size=8).generate(
+        {"tokens": np.zeros((1, 4), np.int64)}, max_new_tokens=2)
+    assert out.shape == (1, 2)

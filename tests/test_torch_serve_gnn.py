@@ -261,7 +261,7 @@ def test_cli_runs_on_cpu():
 
 
 def test_cli_unported_paths_say_so():
-    r = _cli("--device", "cpu")
+    r = _cli("--device", "cpu", "--swa")
     assert r.returncode != 0 and "ROADMAP item 15" in r.stderr
     r = _cli("--gnn", "--device", "cpu", "--checkpoint", "ckpt.msgpack")
     assert r.returncode != 0 and "ROADMAP item 12" in r.stderr
