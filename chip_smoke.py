@@ -31,8 +31,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
               4x2x2048x64) and decode (q 4x14x1x64 against a 2,116-slot
               cache at q_offset 2,048) shapes; RMSNorm: its three shapes and
               (4, 2048, 896); both in f32 and bf16 (the main path's shapes
-              in bf16 held to one bf16 rounding), with library_ms one
-              ``scaled_dot_product_attention`` or ``rms_norm`` call
+              in bf16 held to one bf16 rounding, and flash attention's
+              launched twice there, bitwise equal), with library_ms one
+              ``scaled_dot_product_attention`` or ``rms_norm`` call.  Each
+              flash line names its design (tensor-core or f32 prefill,
+              split-KV decode) and grids, and the share of the bound it
+              reached (TFLOP/s over the peak, bytes/s over HBM's rate).
+              Times are medians between events around the enqueue of a
+              call (host work counts where the device outruns the host);
+              flash and RMSNorm lines add the device time alone
+              (``*_device_ms``, host hidden behind a sleep kernel) and
+              ``call_us``, the host clock over back-to-back calls
   4. serve    ``repro_torch.launch.serve.gnn_main`` at products-s, P=4,
               hidden 128, seed 0: export, 20 ticks of 4 feature updates and
               16 queries, then edge additions (one grows a halo row) and a
@@ -59,7 +68,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
               151,936, bf16), batch 4, prompt 2,048, 64 new tokens, seed 0:
               prefill ms, decode ms per step (p50, p99), tokens/s; every
               prefill and decode step must launch flash attention 24 times
-              and RMSNorm 49 times.  Then the kernels against their plain
+              and RMSNorm 49 times, and both flash designs must have
+              launched.  Then the kernels against their plain
               versions on the same weights: in bf16 the logits' max |diff|
               and the share of equal greedy tokens (reported), in the f32
               variant of the config the prefill logits and 8 teacher-forced
@@ -124,6 +134,10 @@ BF16_MAIN_ATOL, BF16_MAIN_RTOL = 1e-5, 2.0 ** -7
 # through 24 residual layers into logits of magnitude ~3.4; it has been
 # 2.8e-6 to 3.9e-6, and a wrong mask or row moves logits by O(0.1)
 LLM_F32_ATOL, LLM_F32_RTOL = 1e-4, 1e-4
+# cycles of the sleep kernel that keeps the device ahead of the host while
+# a launch's device time is timed (~2 ms at the H100's clocks, more than any
+# timed function's host work)
+SLEEP_CYCLES = 4_000_000
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
 # attention's products: f32 on CUDA cores, bf16 on the tensor cores (dense)
@@ -235,9 +249,14 @@ def kernel_cases(sa):
     return cases
 
 
-def time_ms(fn, iters, flush):
-    """Median device time of ``fn`` over ``iters`` launches, L2 flushed
-    (a 64 MB write) before each so every launch starts cold."""
+def time_ms(fn, iters, flush, *, hide_host=False):
+    """Median time of ``fn`` over ``iters`` launches, L2 flushed (a 64 MB
+    write) before each so every launch starts cold, between CUDA events
+    recorded just before and just after ``fn`` is enqueued.  Where the
+    host enqueues ``fn`` more slowly than the device runs it, this counts
+    the host's part of the call too.  With ``hide_host`` a sleep kernel
+    queued behind the flush keeps the device busy while the host enqueues
+    ``fn``, so only the device's time is counted."""
     import torch
 
     fn()
@@ -246,11 +265,27 @@ def time_ms(fn, iters, flush):
             torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for s, e in evs:
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(SLEEP_CYCLES)
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
+
+
+def call_us(fn, calls=20):
+    """Host-clock microseconds per call of ``fn`` over back-to-back calls:
+    the call as its caller sees it, host work and device work together."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype, device,
@@ -529,13 +564,27 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
     assert torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol), \
         (f"flash {name} {dtype_name}: max |kernel - plain| = {err} above "
          f"atol {atol} rtol {rtol}")
+    if main_path:
+        again = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), \
+            f"flash {name} {dtype_name}: two launches differ"
     live = flash_live_pairs(sq, sk, causal, window, q_off)
     if not live.any(axis=1).all():
         dead = torch.as_tensor(~live.any(axis=1), device="cuda")
         assert not got[:, :, dead].float().abs().any(), "masked row not 0"
-    k_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters, flush)
-    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters,
-                   flush)
+    p = fa.plan(q.shape, k.shape, causal=causal, window=window,
+                q_offset=q_off,
+                sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    # decode: the split grid, then the merge's (one block per query row)
+    grids = ([[b * hkv, p.n_split], [b * hkv, hq // hkv]]
+             if p.design == "decode" else None)
+    call = lambda: fa.flash_attention(q, k, v, **kw)
+    plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
+    k_ms, p_ms = time_ms(call, iters, flush), time_ms(plain, iters, flush)
+    k_dev, p_dev = (time_ms(call, iters, flush, hide_host=True),
+                    time_ms(plain, iters, flush, hide_host=True))
+    k_call = call_us(call)
     if causal and window is None and q_off == 0 and sq == sk:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                      enable_gqa=True)
@@ -544,19 +593,31 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                      enable_gqa=True)
     lib_ms = time_ms(lib, iters, flush)
+    lib_dev = time_ms(lib, iters, flush, hide_host=True)
     # the K/V rows of keys some query may see: the kernel never loads the
     # others (decode's dead cache tail)
     flops = 4.0 * dh * int(live.sum()) * b * hq
     kv_rows = b * hkv * int(live.any(axis=0).sum())
     nbytes = (2 * q.numel() + 2 * kv_rows * dh) * q.element_size()
     t_o, t_b = flops / ATTN_PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_S
+    # the share of the bound the device reached: TFLOP/s over the type's
+    # peak where operations bound the call, bytes/s over HBM's rate where
+    # bytes do
+    k_s = k_dev * 1e-3
     row = {"kernel": "flash_attention", "shape": name, "q": list(q.shape),
            "kv": list(k.shape), "causal": causal, "window": window,
-           "q_offset": q_off, "dtype": dtype_name, "max_abs_err": err,
+           "q_offset": q_off, "dtype": dtype_name, "design": p.design,
+           "grids": grids, "max_abs_err": err,
            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "kernel_device_ms": k_dev, "plain_device_ms": p_dev,
+           "library_device_ms": lib_dev, "call_us": k_call,
            "bound_us": max(t_o, t_b) * 1e6,
            "bound_by": "operations" if t_o >= t_b else "bytes",
-           "flops": flops, "bytes": nbytes}
+           "flops": flops, "bytes": nbytes,
+           "tflops": flops / k_s / 1e12,
+           "flops_share": flops / k_s / ATTN_PEAK_FLOPS[dtype_name],
+           "tbps": nbytes / k_s / 1e12,
+           "bytes_share": nbytes / k_s / HBM_BYTES_S}
     log("shape " + json.dumps(row))
     record.append(row)
     return row
@@ -582,7 +643,10 @@ def run_rmsnorm_case(rn, shape, dtype_name, flush, iters, record, *,
     assert torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol), \
         (f"rmsnorm {shape} {dtype_name}: max |kernel - plain| = {err} above "
          f"atol {atol} rtol {rtol}")
-    k_ms = time_ms(lambda: rn.rmsnorm(x, w), iters, flush)
+    call = lambda: rn.rmsnorm(x, w)
+    k_ms = time_ms(call, iters, flush)
+    k_dev = time_ms(call, iters, flush, hide_host=True)
+    k_call = call_us(call)
     p_ms = time_ms(lambda: rn.rmsnorm_plain(x, w), iters, flush)
     w_lib = w.to(dtype)
     lib_ms = time_ms(lambda: F.rms_norm(x, (shape[-1],), w_lib, 1e-6), iters,
@@ -591,7 +655,8 @@ def run_rmsnorm_case(rn, shape, dtype_name, flush, iters, record, *,
     flops = 4.0 * x.numel()
     t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["float32"]
     row = {"kernel": "rmsnorm", "shape": list(shape), "dtype": dtype_name,
-           "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+           "max_abs_err": err, "kernel_ms": k_ms, "kernel_device_ms": k_dev,
+           "call_us": k_call, "plain_ms": p_ms,
            "library_ms": lib_ms, "bound_us": max(t_b, t_o) * 1e6,
            "bound_by": "bytes" if t_b >= t_o else "operations"}
     log("shape " + json.dumps(row))
@@ -850,7 +915,9 @@ def llm_phase(torch, fa, rn):
     run = llm_main(build_parser().parse_args(LLM_ARGS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_flash, n_rms = fa.flash_launch_count(), rn.rmsnorm_launch_count()
+    n_flash = {d: fa.flash_launch_count(d) for d in ("prefill", "decode")}
+    n_rms = rn.rmsnorm_launch_count()
+    assert all(n_flash.values()), f"a flash design never launched: {n_flash}"
     cfg, model, batch, toks = (run["cfg"], run["model"], run["batch"],
                                run["tokens"])
     n_layers = cfg.num_layers
@@ -1146,15 +1213,21 @@ def main() -> int:
         "bound_ms": bwd_row["bound_us"] / 1e3,
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"]}]
-    # the main path's shapes in its working type: the prefill for flash
-    # attention (its decode shape is on its own line above), the prefill's
-    # (B·S, d_model) rows for RMSNorm
-    flash_row = flash_rows["qwen2-0.5b prefill", "bfloat16"]
+    # the main path's shapes in its working type: flash attention's prefill
+    # (tensor cores) and decode (split over the KV length) designs, the
+    # prefill's (B·S, d_model) rows for RMSNorm
     rms_row = rms_rows[(4, 2048, 896), "bfloat16"]
     for name, source, tpu, row, n, errs in (
-            ("flash_attention", "flash_attention.cu", FLASH_TPU, flash_row,
-             llm_flash, [r["max_abs_err"] for (c, _), r in
-                            flash_rows.items() if c.startswith("qwen2")]),
+            ("flash_attention", "flash_attention.cu", FLASH_TPU,
+             flash_rows["qwen2-0.5b prefill", "bfloat16"],
+             llm_flash["prefill"],
+             [r["max_abs_err"] for (c, _), r in flash_rows.items()
+              if c == "qwen2-0.5b prefill"]),
+            ("flash_attention_decode", "flash_attention.cu", FLASH_TPU,
+             flash_rows["qwen2-0.5b decode", "bfloat16"],
+             llm_flash["decode"],
+             [r["max_abs_err"] for (c, _), r in flash_rows.items()
+              if c == "qwen2-0.5b decode"]),
             ("rmsnorm", "rmsnorm.cu", RMSNORM_TPU, rms_row, llm_rms,
              [r["max_abs_err"] for (c, _), r in rms_rows.items()
               if c == (4, 2048, 896)])):

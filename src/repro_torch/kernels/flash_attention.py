@@ -1,41 +1,83 @@
 """Flash attention with GQA, causal mask, sliding window and ``q_offset``:
-the wrapper of the hand-written Hopper kernel in
+the wrapper of the hand-written Hopper kernels in
 ``csrc/flash_attention.cu`` (counterpart of
 ``repro/kernels/flash_attention.py``).
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+A CUDA tensor launches a kernel (or raises); a CPU tensor takes the plain
 version ``ref.attention_ref``.  There is no fallback between the two.  The
-layout is the reference's, ``(B, H, S, Dh)``.
+layout is the reference's, ``(B, H, S, Dh)``.  :func:`plan` picks the
+kernel's design on the host: a decode query (``Sq == 1``, at most
+:data:`DECODE_MAX_GROUP` query heads per KV head) is split over the live
+key range, anything else runs the prefill design (tensor cores in bf16,
+CUDA cores in f32).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import ref
 from .build import load_library
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
-           "flash_launch_count", "reset_flash_launch_count"]
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "Plan",
+           "plan", "flash_launch_count", "reset_flash_launch_count"]
 
-HEAD_DIMS = (32, 64, 128)       # head sizes the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)       # head sizes the kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# query heads per KV head a decode block takes (kDMaxRows in the kernel)
+DECODE_MAX_GROUP = 16
+DECODE_MIN_CHUNK = 32   # fewest keys one decode split walks
+DECODE_WAVES = 2        # decode blocks per SM the split count aims at
 
-# launches of the CUDA kernel, bumped once per launch and nowhere else
-_LAUNCHES = 0
+# calls that launched a kernel, by design, bumped once per call and
+# nowhere else
+_LAUNCHES = {"prefill": 0, "decode": 0}
 
 
-def flash_launch_count() -> int:
-    """Launches of the ``flash_attention_fwd`` kernel."""
-    return _LAUNCHES
+def flash_launch_count(design: str | None = None) -> int:
+    """Calls that launched a flash attention kernel: of one design
+    (``"prefill"`` or ``"decode"``), or of both."""
+    return sum(_LAUNCHES.values()) if design is None else _LAUNCHES[design]
 
 
 def reset_flash_launch_count() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    for key in _LAUNCHES:
+        _LAUNCHES[key] = 0
+
+
+class Plan(NamedTuple):
+    """The kernel design of one call; for ``"decode"`` also the live key
+    range ``[k_lo, k_hi)`` and its cut into ``n_split`` chunks of
+    ``chunk`` keys (the last may be shorter, an empty range has one empty
+    split)."""
+    design: str
+    k_lo: int = 0
+    k_hi: int = 0
+    chunk: int = 0
+    n_split: int = 0
+
+
+def plan(q_shape, k_shape, *, causal: bool, window: int | None,
+         q_offset: int, sms: int) -> Plan:
+    """Pick the design for q ``(B, Hq, Sq, Dh)`` against k ``(B, Hkv, Sk,
+    Dh)`` on a card with ``sms`` SMs.  Decode splits the live keys of its
+    single query position so that ``B * Hkv * n_split`` blocks fill about
+    :data:`DECODE_WAVES` waves, each walking at least
+    :data:`DECODE_MIN_CHUNK` keys."""
+    b, hq, sq = q_shape[:3]
+    hkv, sk = k_shape[1], k_shape[2]
+    if sq != 1 or hq // hkv > DECODE_MAX_GROUP:
+        return Plan("prefill")
+    k_hi = min(sk, q_offset + 1) if causal else sk
+    k_lo = 0 if window is None else max(0, q_offset - window + 1)
+    live = max(0, k_hi - k_lo)
+    want = -(-DECODE_WAVES * sms // (b * hkv))
+    chunk = max(DECODE_MIN_CHUNK, -(-live // want))
+    return Plan("decode", k_lo, k_hi, chunk, max(1, -(-live // chunk)))
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0):
@@ -79,34 +121,51 @@ def _check_kernel_inputs(q, k, v) -> None:
 
 
 @functools.cache
-def _kernel_fn():
-    fn = load_library("flash_attention").flash_attention_fwd
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-                   i32, i32, ctypes.c_float, vp]
-    fn.restype = i32
-    return fn
+def _kernel_fns():
+    lib = load_library("flash_attention")
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    prefill, decode = lib.flash_attention_fwd, lib.flash_decode_fwd
+    prefill.argtypes = [i32, vp, vp, vp, vp] + [i32] * 9 + [f32, vp]
+    decode.argtypes = [i32, vp, vp, vp, vp, vp] + [i32] * 9 + [f32, vp]
+    prefill.restype = decode.restype = i32
+    return prefill, decode
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
-    global _LAUNCHES
     _check_kernel_inputs(q, k, v)
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _kernel_fn()
+    p = plan(q.shape, k.shape, causal=causal, window=window,
+             q_offset=q_offset, sms=_sm_count(q.device.index))
+    prefill, decode = _kernel_fns()
+    code, scale = _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk, dh,
-                 int(bool(causal)), -1 if window is None else int(window),
-                 int(q_offset), 1.0 / math.sqrt(dh), stream)
-    _LAUNCHES += 1
+        if p.design == "decode":
+            # per split and row: acc[dh], then (m, l)
+            part = torch.empty(b * hkv * p.n_split * (hq // hkv) * (dh + 2),
+                               dtype=torch.float32, device=q.device)
+            err = decode(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), part.data_ptr(), b, hq, hkv, sk, dh,
+                         p.k_lo, p.k_hi, p.chunk, p.n_split, scale, stream)
+        else:
+            err = prefill(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), b, hq, hkv, sq, sk, dh,
+                          int(bool(causal)),
+                          -1 if window is None else int(window),
+                          int(q_offset), scale, stream)
+    _LAUNCHES[p.design] += 1
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed with "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash attention {p.design} kernel launch failed "
+                           f"with CUDA error {err}")
     return out
 
 

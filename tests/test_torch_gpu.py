@@ -107,8 +107,12 @@ def test_bwd_kernel_f64_dyadic_bitwise(cuda):
 
 
 # tests/test_kernels.py's flash CASES, a fully masked row, and decode
-# against a cache wider than its filled part (b, hq, hkv, sq, sk, dh,
-# causal, window, q_offset)
+# against a cache wider than its filled part; then the designs' edges:
+# Dh 32/64/128 on the tensor-core prefill, Sq and Sk off the tile sizes,
+# windows across tile edges, a prefill chunk continuing at q_offset, decode
+# with GQA groups 1/2/7/8 at q_offset 0 and Sk - 1, decode fully masked,
+# bidirectional decode, and a group above 16 at Sq = 1 (prefill design)
+# (b, hq, hkv, sq, sk, dh, causal, window, q_offset)
 FLASH_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, 0),
     (1, 8, 8, 200, 200, 32, True, None, 0),
@@ -119,18 +123,35 @@ FLASH_CASES = [
     (1, 2, 1, 4, 16, 64, True, 8, 40),
     (2, 14, 2, 1, 200, 64, True, None, 150),
     (1, 4, 4, 70, 90, 128, True, 33, 20),
+    (1, 2, 1, 300, 300, 128, True, None, 0),
+    (2, 3, 3, 130, 130, 32, True, None, 0),
+    (1, 2, 2, 65, 65, 64, True, None, 0),
+    (1, 2, 1, 48, 170, 64, True, None, 122),
+    (1, 4, 2, 300, 300, 64, True, 100, 0),
+    (1, 2, 2, 200, 333, 128, False, None, 0),
+    (2, 2, 2, 1, 500, 64, True, None, 499),
+    (1, 4, 2, 1, 257, 128, True, None, 0),
+    (2, 14, 2, 1, 2116, 64, True, None, 2048),
+    (1, 16, 2, 1, 1000, 32, True, 64, 700),
+    (1, 4, 1, 1, 64, 64, True, 8, 80),
+    (1, 4, 2, 1, 200, 64, False, None, 0),
+    (1, 32, 1, 1, 100, 64, True, None, 99),
 ]
+
+
+def _flash_inputs(case, dtype, device):
+    b, hq, hkv, sq, sk, dh = case[:6]
+    gen = torch.Generator(device=device).manual_seed(sq + sk)
+    return [torch.randn(shape, device=device, generator=gen).to(dtype)
+            for shape in ((b, hq, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh))]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
-    b, hq, hkv, sq, sk, dh, causal, window, q_off = case
-    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
-    q = torch.randn(b, hq, sq, dh, device=cuda, generator=gen).to(dtype)
-    k = torch.randn(b, hkv, sk, dh, device=cuda, generator=gen).to(dtype)
-    v = torch.randn(b, hkv, sk, dh, device=cuda, generator=gen).to(dtype)
+    causal, window, q_off = case[6:]
+    q, k, v = _flash_inputs(case, dtype, cuda)
     kw = dict(causal=causal, window=window, q_offset=q_off)
     before = fa.flash_launch_count()
     got = fa.flash_attention(q, k, v, **kw)
@@ -139,6 +160,65 @@ def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
     assert got.dtype == dtype and got.shape == q.shape
     want = fa.flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    q_pos = torch.arange(q.shape[2], device=cuda) + q_off
+    k_pos = torch.arange(k.shape[2], device=cuda)
+    live = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool, device=cuda)
+    if causal:
+        live &= k_pos[None] <= q_pos[:, None]
+    if window is not None:
+        live &= k_pos[None] > q_pos[:, None] - window
+    dead = ~live.any(1)
+    assert not got[:, :, dead].float().abs().any()   # exactly 0
+
+
+# bf16 cases held to one bf16 rounding of attention_ref (chip_smoke.py's
+# BF16_MAIN_*): the kernel keeps P to ~16 bits (P_hi + P_lo) and sums in
+# f32, so only the final rounding to bf16 may differ; a P rounded to bf16
+# alone would break this.  Dh 32/64/128 on the tensor-core prefill (Dh 128
+# has its own 16-rows-per-warp path), Sq and Sk off the 64-row and 64-key
+# tiles, windows, a chunk at q_offset, and decode
+BF16_ONE_ULP_CASES = [
+    (1, 4, 2, 300, 300, 32, True, None, 0),
+    (2, 14, 2, 512, 512, 64, True, None, 0),
+    (1, 2, 1, 300, 300, 128, True, None, 0),
+    (1, 4, 2, 130, 190, 64, True, 77, 60),
+    (1, 2, 2, 200, 333, 128, False, None, 0),
+    (1, 4, 4, 70, 90, 128, True, 33, 20),
+    (2, 3, 3, 130, 130, 32, True, 40, 0),
+    (4, 14, 2, 1, 2116, 64, True, None, 2048),
+    (1, 16, 2, 1, 1000, 128, True, 64, 700),
+]
+
+
+@pytest.mark.parametrize("case", BF16_ONE_ULP_CASES)
+def test_flash_bf16_within_one_rounding(cuda, case):
+    causal, window, q_off = case[6:]
+    q, k, v = _flash_inputs(case, torch.bfloat16, cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                               rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("case,design", [
+    ((2, 14, 2, 512, 512, 64, True, None, 0), "prefill"),
+    ((2, 4, 2, 300, 300, 64, True, 100, 0), "prefill"),
+    ((4, 14, 2, 1, 2116, 64, True, None, 2048), "decode"),
+    ((1, 16, 2, 1, 1000, 32, True, 64, 700), "decode")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_repeats_bitwise(cuda, case, design, dtype):
+    """Two launches give the same bits (the decode merge runs in a fixed
+    order, no atomics), and each call counts once, under its design."""
+    causal, window, q_off = case[6:]
+    q, k, v = _flash_inputs(case, dtype, cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    before = fa.flash_launch_count(design)
+    first = fa.flash_attention(q, k, v, **kw)
+    second = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_launch_count(design) == before + 2
+    assert torch.equal(first, second)
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
