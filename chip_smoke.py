@@ -15,13 +15,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
               ``tests/test_kernels.py`` (ragged sweep incl. D=130, isolated
               nodes, an empty edge set, an all-pad block, the row_base
               sub-ranges), float64 dyadic inputs (bitwise), a stacked case
-              with per-partition row_base, and the stacked products-s
-              shapes at D=64 and D=128.  Backward: the cases of
+              with per-partition row_base, hub rows split across warps
+              (K, K+1, 3K+5 and 10,000 in-edges at D=128/130, f32, bf16,
+              f64 dyadic, one partition's hub stacked), and the stacked
+              products-s shapes at D=64 and D=128, launched twice (bitwise
+              equal) with the work plan's size printed.  Backward: the
+              cases of
               ``tests/test_torch_segment_bwd.py`` (ragged sweep, row_base
               sub-ranges, rows sliced off by num_rows, an all-pad block, an
               empty edge set, stacked per-partition row_base), float64
-              dyadic cases with deg in {1, 2, 4, 8} (bitwise), and the
-              products-s transpose blocks at D=64 and D=128.  One line per
+              dyadic cases with deg in {1, 2, 4, 8} (bitwise), hub source
+              rows (5,000, 3K+5, K+1, K out-edges; D=128/130, f32, bf16,
+              f64 dyadic, rows cut off, stacked), and the products-s
+              transpose blocks at D=64 and D=128 (twice, bitwise); blocks
+              without the work plan must make both ops raise.  One line per
               shape with kernel_ms, plain_ms, library_ms (one
               ``torch.sparse.mm`` with the CSR mean matrix, or its
               transpose, a yardstick the port never calls), bound_us and,
@@ -39,9 +46,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
               reached (TFLOP/s over the peak, bytes/s over HBM's rate).
               Times are medians between events around the enqueue of a
               call (host work counts where the device outruns the host);
-              flash and RMSNorm lines add the device time alone
-              (``*_device_ms``, host hidden behind a sleep kernel) and
-              ``call_us``, the host clock over back-to-back calls
+              every line adds the device time alone (``*_device_ms``, host
+              hidden behind a sleep kernel) and ``call_us``, the host clock
+              over back-to-back calls
   4. serve    ``repro_torch.launch.serve.gnn_main`` at products-s, P=4,
               hidden 128, seed 0: export, 20 ticks of 4 feature updates and
               16 queries, then edge additions (one grows a halo row) and a
@@ -102,8 +109,8 @@ TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # 3,119 out-edges (the forward's sums are divided by deg before they are
 # compared, the backward's are not), and the plain version's index_add_
 # adds with atomics in a run-dependent order; |kernel - plain| there has
-# been 9.5e-6 to 1.34e-5
-TOL_BWD = {"float32": 1e-4}
+# been 9.5e-6 to 1.34e-5.  bf16 as the forward: both round one f32 sum
+TOL_BWD = {"float32": 1e-4, "bfloat16": TOL["bfloat16"]}
 # served logits (incremental recompute through the kernel) against a
 # from-scratch plain forward: f32 sums of up to thousands of edges in
 # different orders over two layers, and cuBLAS may pick other kernels for a
@@ -186,8 +193,17 @@ def stack_host_blocks(per_part, sa):
         for key in ("src", "dst", "mask"):
             out[key][p, :k, :e] = b[key]
         out["deg"][p, :k] = b["deg"]
-    out["row_ptr"] = sa.block_row_ptr(out["dst"], out["mask"], sa.BN)
+    out.update(sa.block_row_work(
+        sa.block_row_ptr(out["dst"], out["mask"], sa.BN)))
     return out
+
+
+def hub_edges(rows, n_src, hubs, max_deg, seed):
+    """(src, dst): ``rows`` destination rows of 0..max_deg in-edges, then
+    one row per entry of ``hubs`` with that many in-edges."""
+    r = np.random.default_rng(seed)
+    deg = np.r_[r.integers(0, max_deg + 1, rows), hubs].astype(np.int64)
+    return r.integers(0, n_src, int(deg.sum())), np.repeat(np.arange(deg.size), deg)
 
 
 def kernel_cases(sa):
@@ -245,6 +261,37 @@ def kernel_cases(sa):
             rr))
     cases.append(("stacked P=3 per-partition row_base",
                   rng.normal(0, 1, (P, n, d)).astype(np.float32),
+                  stack_host_blocks(per, sa), n, bases, True, "float32"))
+    # hub rows split across warps: rows of K, K+1, 3K+5 and 10,000 in-edges
+    # among ragged ones, at D=128 (16-byte vectors), D=64 (half-width
+    # vectors at f32) and D=130 (one element a lane), f32, bf16 and f64
+    # dyadic (bitwise), and one partition's hub in a stacked launch with
+    # per-partition row_base.  Without the mean, x is scaled by
+    # 1e-3 so the 10,000-edge sums are O(0.1) (the mean makes them O(0.01)):
+    # f32 reordering then moves a sum by ~1e-6, a dropped edge by ~1e-3
+    k, n_in = sa.ROW_WORK_K, 4096
+    hubs = [k, k + 1, 3 * k + 5, 10_000]
+    src, dst = hub_edges(300, n_in, hubs, 6, seed=5)
+    blk = sa.build_mean_blocks(src, dst, 304)
+    for d, dtype, mean in ((128, "float32", True), (128, "float32", False),
+                           (64, "float32", True), (130, "float32", True),
+                           (128, "bfloat16", True), (130, "bfloat16", True)):
+        scale = 1.0 if mean else 1e-3
+        cases.append((f"hub rows {hubs} d={d} {dtype} mean={mean}",
+                      rng.normal(0, scale, (n_in, d)).astype(np.float32),
+                      blk, 304, 0, mean, dtype))
+    for d in (64, 130):
+        cases.append((f"hub rows f64 dyadic d={d}",
+                      rng.integers(-8, 9, (n_in, d)).astype(np.float64), blk,
+                      304, 0, True, "float64"))
+    P, n = 3, 400
+    per = []
+    for p in range(P):
+        src, dst = hub_edges(n - bases[p] - 1, n_in,
+                             [10_000 if p == 1 else 3], 6, seed=20 + p)
+        per.append(sa.build_mean_blocks(src, dst, n - bases[p]))
+    cases.append(("hub stacked P=3 per-partition row_base",
+                  rng.normal(0, 1, (P, n_in, 128)).astype(np.float32),
                   stack_host_blocks(per, sa), n, bases, True, "float32"))
     return cases
 
@@ -323,25 +370,59 @@ def library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype, device,
     return a.coalesce().to(dtype=dtype, device=device).to_sparse_csr()
 
 
+def plan_bytes(bl_host, prefix=""):
+    from repro_torch.kernels.segment_agg import PLAN_KEYS
+
+    return sum(np.asarray(bl_host[prefix + k]).nbytes for k in PLAN_KEYS)
+
+
 def bound_of(x, bl_host, num_rows, dtype_name):
     """Least time (s) and what bounds it: each input read once, the output
-    written once, real edges only (src int64 + mask f32), and 2 flops per
-    real edge and feature."""
+    written once, real edges only (src int64 + mask f32), the work plan and
+    deg, and 2 flops per real edge and feature."""
     mask = np.asarray(bl_host["mask"])
     real = int((mask > 0).sum())
     parts = x.shape[0] if x.dim() == 3 else 1
     d = x.shape[-1]
     item = x.element_size()
     nbytes = (x.numel() * item + parts * num_rows * d * item + real * (8 + 4)
-              + np.asarray(bl_host["row_ptr"]).size * 4
-              + np.asarray(bl_host["deg"]).size * 4)
+              + plan_bytes(bl_host) + np.asarray(bl_host["deg"]).size * 4)
     flops = 2.0 * real * d
     t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype_name]
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def row_edges(sa, bl_host, prefix=""):
+    """Real slots of every block row (in-edges of a destination row, or
+    out-edges of a source row for the transpose, ``prefix="t_"``)."""
+    return np.diff(sa.block_row_ptr(bl_host[prefix + "dst"],
+                                    bl_host[prefix + "mask"], sa.BN), axis=-1)
+
+
+def longest_row(sa, bl_host, prefix):
+    rows = row_edges(sa, bl_host, prefix)
+    return int(rows.max()) if rows.size else 0
+
+
+def plan_stats(sa, bl_host, prefix=""):
+    """The work plan's size: entries, rows split, partial rows, the longest
+    item and the empty-row runs (kernels/segment_agg.py::block_row_work)."""
+    part, work, split = (np.asarray(bl_host[prefix + k])
+                         for k in sa.PLAN_KEYS[:3])
+    items = np.r_[part[:, 2] - part[:, 1], work[:, 2] - work[:, 1]]
+    return {"items": int(part.shape[0] + (work[:, 2] > work[:, 1]).sum()),
+            "rows_split": int(split.shape[0]), "partials": int(part.shape[0]),
+            "zero_runs": int((work[:, 2] == work[:, 1]).sum()),
+            "longest_item": int(items.max()) if items.size else 0,
+            "k": sa.ROW_WORK_K}
+
+
 def run_kernel_case(sa, name, x_np, bl_host, num_rows, row_base, mean,
-                    dtype_name, flush, iters, record):
+                    dtype_name, flush, iters, record, *, repeat=False):
+    """The forward kernel against its plain version on the card, its time
+    (enqueue and device timers, call_us), the plain version's, one
+    torch.sparse.mm's (yardstick) and the bound; with ``repeat`` two
+    launches must give the same bits."""
     import torch
 
     dev = torch.device("cuda")
@@ -365,7 +446,14 @@ def run_kernel_case(sa, name, x_np, bl_host, num_rows, row_base, mean,
     assert torch.isfinite(got.float()).all(), name
     if name == "isolated nodes":
         assert float(got[0].abs().max()) == 0.0, "isolated row not zero"
-    k_ms = time_ms(lambda: sa.segment_mean_op(x, bl, **kw), iters, flush)
+    if repeat:
+        again = sa.segment_mean_op(x, bl, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"{name}: two launches differ"
+    call = lambda: sa.segment_mean_op(x, bl, **kw)
+    k_ms = time_ms(call, iters, flush)
+    k_dev = time_ms(call, iters, flush, hide_host=True)
+    k_call = call_us(call)
     p_ms = time_ms(lambda: sa.segment_mean_plain(x, bl, **kw), iters, flush)
     lib_ms = None
     if dtype_name != "bfloat16":
@@ -376,8 +464,10 @@ def run_kernel_case(sa, name, x_np, bl_host, num_rows, row_base, mean,
     bound_s, bound_by = bound_of(x, bl_host, num_rows, dtype_name)
     row = {"shape": name, "x": list(x.shape), "blocks": list(bl["src"].shape),
            "dtype": dtype_name, "max_abs_err": err, "kernel_ms": k_ms,
+           "kernel_device_ms": k_dev, "call_us": k_call,
            "plain_ms": p_ms, "library_ms": lib_ms,
-           "bound_us": bound_s * 1e6, "bound_by": bound_by}
+           "bound_us": bound_s * 1e6, "bound_by": bound_by,
+           "longest_row": longest_row(sa, bl_host, "")}
     log("shape " + json.dumps(row))
     record.append(row)
     return row
@@ -385,7 +475,7 @@ def run_kernel_case(sa, name, x_np, bl_host, num_rows, row_base, mean,
 
 def stack_vjp_blocks(per_part, sa):
     """Pad per-partition build_vjp_blocks dicts to common shapes, with the
-    kernels' row_ptr/t_row_ptr rebuilt over the padded arrays."""
+    kernels' work plans rebuilt over the padded arrays."""
     P = len(per_part)
     out = {}
     for k in ("src", "dst", "mask", "deg", "t_src", "t_dst", "t_mask"):
@@ -394,8 +484,10 @@ def stack_vjp_blocks(per_part, sa):
         for p, b in enumerate(per_part):
             arr[(p, *map(slice, b[k].shape))] = b[k]
         out[k] = arr
-    out["row_ptr"] = sa.block_row_ptr(out["dst"], out["mask"], sa.BN)
-    out["t_row_ptr"] = sa.block_row_ptr(out["t_dst"], out["t_mask"], sa.BN)
+    for pre in ("", "t_"):
+        out.update(sa.block_row_work(
+            sa.block_row_ptr(out[pre + "dst"], out[pre + "mask"], sa.BN),
+            prefix=pre))
     return out
 
 
@@ -448,27 +540,80 @@ def bwd_kernel_cases(sa):
     cases.append(("bwd stacked P=3 per-partition row_base",
                   rng.normal(0, 1, (P, n, d)).astype(np.float32),
                   stack_vjp_blocks(per, sa), n, bases, True, "float32"))
+    # hub source rows split across warps: one source row of 5,000 out-edges
+    # and rows of K, K+1 and 3K+5, among ragged ones; D=128, D=64 and
+    # D=130, f32, bf16 and f64 dyadic (deg in {1, 2, 4, 8}, bitwise); rows
+    # sliced off by num_rows with a row_base; the hub in one partition of a
+    # stacked launch.
+    # g is scaled by 1/sqrt(5,000) so the hub's sums are O(1): f32
+    # reordering then moves a sum by ~1e-6, a dropped edge by ~1e-2
+    k, g_scale = sa.ROW_WORK_K, 5_000 ** -0.5
+    hubs = {7: 5_000, 11: k, 12: k + 1, 13: 3 * k + 5}
+
+    def hub_src_edges(rows, n_in, seed, degs=(1, 2, 3, 4, 5, 6), hub=hubs):
+        r = np.random.default_rng(seed)
+        n_hub = sum(hub.values())
+        deg = r.choice(degs, rows)
+        deg[: -(-n_hub // 8)] = 8          # room for the hub edges
+        dst = np.repeat(np.arange(rows), deg)
+        src = r.integers(0, n_in, dst.size)
+        src[np.isin(src, list(hub))] = 0
+        pos = r.permutation(dst.size)[:n_hub]
+        src[pos] = np.repeat(list(hub), list(hub.values()))
+        return src, dst
+
+    src, dst = hub_src_edges(2000, 2000, seed=31)
+    blk = sa.build_vjp_blocks(src, dst, 2000, 2000)
+    for d, dtype in ((128, "float32"), (64, "float32"), (130, "float32"),
+                     (128, "bfloat16"), (130, "bfloat16")):
+        for mean in (True, False):
+            cases.append((f"bwd hub out-edges {sorted(hubs.values())} d={d} "
+                          f"{dtype} mean={mean}",
+                          rng.normal(0, g_scale, (2000, d)).astype(np.float32),
+                          blk, 2000, 0, mean, dtype))
+    src, dst = hub_src_edges(1500, 2000, seed=32)
+    cases.append(("bwd hub rows sliced off by num_rows",
+                  rng.normal(0, g_scale, (1500, 128)).astype(np.float32),
+                  sa.build_vjp_blocks(src, dst, 1500, 2000), 2000, 37, True,
+                  "float32"))
+    src, dst = hub_src_edges(2000, 2000, seed=33, degs=(1, 2, 4, 8))
+    for d in (64, 130):
+        cases.append((f"bwd hub f64 dyadic d={d}",
+                      np.random.default_rng(d).integers(-8, 9, (2000, d))
+                      .astype(np.float64),
+                      sa.build_vjp_blocks(src, dst, 2000, 2000), 2000, 0,
+                      True, "float64"))
+    P, n = 3, 1000
+    per = []
+    for p in range(P):
+        src, dst = hub_src_edges(n - bases[p], n, seed=40 + p,
+                                 hub=hubs if p == 2 else {3: 20})
+        per.append(sa.build_vjp_blocks(src, dst, n - bases[p], n))
+    cases.append(("bwd hub stacked P=3 per-partition row_base",
+                  rng.normal(0, g_scale, (P, n, 128)).astype(np.float32),
+                  stack_vjp_blocks(per, sa), n, bases, True, "float32"))
     return cases
 
 
 def bwd_bound_of(g, bl_host, n_in, dtype_name):
     """Least time (s) of the backward and what bounds it: g read once, dx
-    written once, the real transpose slots (t_src int64 + t_mask f32),
-    t_row_ptr and deg; a divide, a multiply and an add per real edge and
-    feature."""
+    written once, the real transpose slots (t_src int64 + t_mask f32), the
+    transpose work plan and deg; a divide per placed forward row and
+    feature, a multiply and an add per real edge and feature."""
     real = int((np.asarray(bl_host["t_mask"]) > 0).sum())
     parts = g.shape[0] if g.dim() == 3 else 1
     d, item = g.shape[-1], g.element_size()
     nbytes = (g.numel() * item + parts * n_in * d * item + real * (8 + 4)
-              + np.asarray(bl_host["t_row_ptr"]).size * 4
-              + np.asarray(bl_host["deg"]).size * 4)
-    flops = 3.0 * real * d
+              + plan_bytes(bl_host, "t_") + np.asarray(bl_host["deg"]).size * 4)
+    flops = 2.0 * real * d + np.asarray(bl_host["deg"]).size * d
     t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype_name]
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
 def run_bwd_case(sa, name, g_np, bl_host, n_in, row_base, mean, dtype_name,
-                 flush, iters, record):
+                 flush, iters, record, *, repeat=False):
+    """The backward kernel as run_kernel_case holds the forward, against
+    torch.sparse.mm with the transposed mean matrix."""
     import torch
 
     dev = torch.device("cuda")
@@ -487,23 +632,32 @@ def run_bwd_case(sa, name, g_np, bl_host, n_in, row_base, mean, dtype_name,
         assert torch.equal(got, want), f"{name}: f64 dyadic not bitwise ({err})"
     else:
         tol = TOL_BWD[dtype_name]
-        assert torch.allclose(got, want, atol=tol, rtol=tol), \
+        assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol), \
             f"{name}: max |kernel - plain| = {err} above {tol}"
-    assert torch.isfinite(got).all(), name
-    k_ms = time_ms(lambda: sa.segment_mean_bwd_op(g, bl, **kw), iters, flush)
+    assert torch.isfinite(got.float()).all(), name
+    if repeat:
+        again = sa.segment_mean_bwd_op(g, bl, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"{name}: two launches differ"
+    call = lambda: sa.segment_mean_bwd_op(g, bl, **kw)
+    k_ms = time_ms(call, iters, flush)
+    k_dev = time_ms(call, iters, flush, hide_host=True)
+    k_call = call_us(call)
     p_ms = time_ms(lambda: sa.segment_mean_bwd_plain(g, bl, **kw), iters, flush)
-    num_rows = g.shape[-2]
-    a_t = library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype, dev,
-                         transpose=True)
-    g2 = g.reshape(-1, g.shape[-1])
-    lib_ms = time_ms(lambda: torch.sparse.mm(a_t, g2), iters, flush)
+    lib_ms = None
+    if dtype_name != "bfloat16":
+        num_rows = g.shape[-2]
+        a_t = library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype,
+                             dev, transpose=True)
+        g2 = g.reshape(-1, g.shape[-1])
+        lib_ms = time_ms(lambda: torch.sparse.mm(a_t, g2), iters, flush)
     bound_s, bound_by = bwd_bound_of(g, bl_host, n_in, dtype_name)
-    t_rows = np.diff(np.asarray(bl_host["t_row_ptr"]), axis=-1)
     row = {"shape": name, "g": list(g.shape), "t_blocks": list(bl["t_src"].shape),
            "dtype": dtype_name, "max_abs_err": err, "kernel_ms": k_ms,
+           "kernel_device_ms": k_dev, "call_us": k_call,
            "plain_ms": p_ms, "library_ms": lib_ms,
            "bound_us": bound_s * 1e6, "bound_by": bound_by,
-           "longest_t_row": int(t_rows.max()) if t_rows.size else 0}
+           "longest_t_row": longest_row(sa, bl_host, "t_")}
     log("shape " + json.dumps(row))
     record.append(row)
     return row
@@ -1029,7 +1183,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "Function properties for" in line:
                 # the mangled name holds the kernel and its element type
-                m = re.search(r"(\w+?_kernel)I(\w+?)E", line)
+                m = re.search(r"(\w+?_kernel)I(\w+?)E+v", line)
                 kernel = f"{m.group(1)}<{m.group(2)}>" if m else "?"
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {kernel}: {line.strip()}")
@@ -1050,26 +1204,55 @@ def main() -> int:
                         method="ew", seed=0)
     pg = build_partitioned_graph(g, r.parts, 4)
     blk = build_stacked_vjp_blocks(pg)
-    row_deg = np.diff(blk["row_ptr"], axis=-1)
+    row_deg = row_edges(sa, blk)
     log(f"products-s host setup {time.perf_counter() - t0:.2f} s: "
         f"{pg.summary()} blocks {blk['src'].shape} "
         f"real edges {int((blk['mask'] > 0).sum())}, most in-edges of one "
         f"row {int(row_deg.max())}, rows above 1000 "
-        f"{int((row_deg > 1000).sum())}")
+        f"{int((row_deg > 1000).sum())}; plan {json.dumps(plan_stats(sa, blk))}")
     rng = np.random.default_rng(0)
     main_rows, bwd_rows = {}, {}
-    t_deg = np.diff(blk["t_row_ptr"], axis=-1)
+    t_deg = row_edges(sa, blk, "t_")
     log(f"products-s transpose blocks {blk['t_src'].shape}: most out-edges "
         f"of one row {int(t_deg.max())}, rows above 1000 "
-        f"{int((t_deg > 1000).sum())}")
+        f"{int((t_deg > 1000).sum())}; plan "
+        f"{json.dumps(plan_stats(sa, blk, 't_'))}")
     for d in (64, 128):
         x = rng.normal(0, 1, (4, pg.max_nodes, d)).astype(np.float32)
         main_rows[d] = run_kernel_case(
             sa, f"products-s stacked D={d}", x, blk, pg.max_nodes, 0, True,
-            "float32", flush=flush, iters=30, record=shapes)
+            "float32", flush=flush, iters=30, record=shapes, repeat=True)
         bwd_rows[d] = run_bwd_case(
             sa, f"bwd products-s stacked D={d}", x, blk, pg.max_nodes, 0,
-            True, "float32", flush=flush, iters=30, record=shapes)
+            True, "float32", flush=flush, iters=30, record=shapes,
+            repeat=True)
+    # blocks without the work plan, or with the plans of partition 0 alone
+    # (kept from before stacking): the CUDA ops raise, naming the builders or
+    # the rebuild, and launch nothing
+    bare = {k: v for k, v in blk.items()
+            if not any(k.endswith(p) for p in sa.PLAN_KEYS)}
+    stale = dict(bare)
+    for pre in ("", "t_"):
+        stale.update(sa.block_row_work(sa.block_row_ptr(
+            blk[pre + "dst"][0], blk[pre + "mask"][0], sa.BN), prefix=pre))
+    x = torch.zeros((4, pg.max_nodes, 8), device="cuda")
+    before = (sa.kernel_launch_count(), sa.bwd_kernel_launch_count())
+    for what, host, msg in (("without the work plan", bare,
+                             "build_mean_blocks"),
+                            ("with a plan of another row space", stale,
+                             "rebuild the plan")):
+        dev = sa.blocks_to_device(host, "cuda")
+        for label, op in (("forward", lambda: sa.segment_mean_op(
+                x, dev, num_rows=pg.max_nodes)), ("backward", lambda:
+                sa.segment_mean_bwd_op(x, dev, n_in=pg.max_nodes))):
+            try:
+                op()
+            except ValueError as e:
+                assert msg in str(e), e
+            else:
+                raise AssertionError(f"{label} op ran {what}")
+        log(f"blocks {what}: forward and backward raise")
+    assert (sa.kernel_launch_count(), sa.bwd_kernel_launch_count()) == before
     flash_rows, rms_rows = {}, {}
     for name, case in FLASH_CASES:
         for dtype_name in ("float32", "bfloat16"):

@@ -1,44 +1,81 @@
 // Blocked CSR segment mean, forward and backward: the GraphSAGE neighbour
-// mean on Hopper.  The forward kernel comes first; the backward kernel
-// (`segment_mean_bwd`) and its notes follow it.
+// mean on Hopper, as split row gathers driven by a host-built work plan.
 //
 // Replaces the TPU kernel `_segment_agg_kernel` of
-// src/repro/kernels/segment_agg.py (reached through `segment_agg_blocks`,
-// `segment_agg_rows` and `_segment_mean_fwd_impl` -> `segment_mean_op`).
-// It computes, for every partition p, node block b and local row r,
+// src/repro/kernels/segment_agg.py, in both of its uses:
+//   * forward (`segment_agg_blocks`, `segment_agg_rows`,
+//     `_segment_mean_fwd_impl` -> `segment_mean_op`): for every partition p,
+//     node block b and local row r,
 //
-//     out[p, row_base[p] + b*BN + r] = sum_{slots e of block b with
-//         local_dst == r} mask[e] * x[p, src[e]]  /  deg[b, r]   (if mean)
+//       out[p, row_base[p] + b*BN + r] = sum_{slots e of block b with
+//           local_dst == r} mask[e] * x[p, src[e]]  /  deg[b, r]   (if mean)
 //
-// for the rows below num_rows; the caller zero-fills the rest.
+//     for the rows below num_rows;
+//   * backward (`segment_agg_bwd_blocks` via `_segment_mean_bwd`): as the
+//     reference spells it, un-place the cotangent g from row_base and divide
+//     it by deg once per row (`gsub`, rows the forward cut off at num_rows
+//     read 0), then run the same aggregation with mean=False over the
+//     CSC-ordered transpose blocks into dx (P, n_in, D).
 //
-// Design (not the TPU kernel carried over block by block).  The TPU version
-// gathers msgs = x[src] for EVERY padded slot in XLA, then reduces each block
-// as a one-hot(BN x BEC) @ msgs matmul on the MXU.  At products-s, P=4,
-// the stacked blocks are (4, 140, 12032): 6.74 M slots for 0.75 M real
-// edges, so that gather alone moves ~3.4 GB per launch at D=128 f32.  Here
-// the kernel is a row-owner CSR SpMM with no atomics:
-//   * one warp owns one destination row; lanes stride the feature columns,
-//     so each neighbour row is read as coalesced 128-byte lines;
-//   * the warp walks that row's real slots in block order
-//     ([row_ptr[r], row_ptr[r+1]) of its block, built on the host) and
-//     gathers x[src] itself, so no msgs array exists and pad slots are never
-//     touched;
-//   * src and mask are loaded 32 slots at a time, one per lane, and
-//     broadcast with __shfl_sync;
-//   * the sum is kept in registers, f32 (f64 for f64 inputs), divided by deg
-//     and stored once.  No two warps write the same row, so the result is
-//     deterministic and a row's sum runs in its edge order.
-//   * one launch covers all P partitions (the grid spans P * nb * BN rows).
+// Design (not the TPU kernel carried over block by block: that one gathers
+// x[src] for every padded slot and reduces a block as a one-hot x messages
+// matmul on the MXU).  Here one gather body serves both directions:
+//   * Work plan.  The host (kernels/segment_agg.py::block_row_work) cuts
+//     every row with edges into items of at most K (128) consecutive real
+//     slots and lists, in launch order, the items of split rows (`row_part`,
+//     one f32/f64 partial row each), then the rows with one item and the
+//     runs of empty rows (`row_work`), then the split rows and their partial
+//     ranges (`row_split`).  One warp takes one entry, so a hub row of
+//     thousands of edges is spread over many warps instead of walked by one,
+//     and no warp is launched per empty row (a run of up to 32 empty rows
+//     is one entry that stores zeros).
+//   * Loads in flight.  A warp loads 32 slots of (src, mask) once, one per
+//     lane, broadcasts them with __shfl_sync (src as 32 bits), and issues
+//     the gathers of 8 edges into registers before the first add.  Lanes
+//     own consecutive features: 16-byte loads where the row allows (float4
+//     at f32, double2 at f64, 8 x bf16), one element a lane otherwise.  A
+//     row of at most half the 16-byte tile (D <= 64 at f32 and f64, D <= 128
+//     at bf16) takes half-width vectors instead (float2, one double2, 4 x
+//     bf16), so every lane of the warp has features and the kernel holds
+//     half the registers.
+//   * Fixed order, no atomics.  An item sums its edges in slot order; a row
+//     of one item divides by deg and stores its result; a split row's
+//     partials are added in item order by a second small grid
+//     (`segment_merge_kernel`), which divides by deg once and stores.  Two
+//     launches give the same bits.
+//   * The backward divides once per placed row and feature (the pre-pass
+//     `segment_unplace_kernel`), not once per edge and feature: the same
+//     IEEE quotient g / deg as before, so f64 dyadic inputs stay bitwise.
 //
-// Bound.  The kernel does 2 flops per real edge and feature, far below the
-// card's rate, so it is bound by bytes.  At products-s, D=128, f32 it must
-// read x (4 x 17904 x 128 x 4 B = 36.7 MB) and write the output (36.7 MB),
-// plus src (int64) and mask (f32) of the 0.75 M real edges (9 MB) and
-// row_ptr/deg (0.6 MB): ~83 MB, ~25 us at 3.35 TB/s.  Hub rows with
-// thousands of in-edges serialise on one warp; that imbalance, not the
-// bytes, is what a later version should attack (split long rows across
-// warps, wgmma-free vectorised loads, persistent blocks).
+// Bound.  2 flops per real edge and feature, far below the card's rate:
+// bytes bound.  At products-s, D=128, f32 the forward must read x (36.7 MB)
+// and write the output (36.7 MB) plus src/mask of the 0.75 M real edges:
+// ~83 MB, ~25 us at 3.35 TB/s.  The gathers themselves move E*D*4 = 384 MB
+// between L2 and the SMs (x fits the 50 MB L2), which is what the split
+// gather is paced by.
+//
+// Where trouble is likely, and what the code does about it:
+//   * 16-byte alignment.  The vector path needs D % V == 0 and 16-byte
+//     aligned bases of x (hence of x + p*n_in*D and every row), out and the
+//     scratch; the launchers check the pointers and D, and take the scalar
+//     path otherwise (D=130, a view at an odd offset).
+//   * Rows the forward cuts off at num_rows.  Every entry computes its output
+//     row from the flat row and row_base and drops rows outside [0,
+//     num_rows); the backward's pre-pass writes 0 for them, as the reference
+//     un-places them.
+//   * A negative or per-partition row_base (`row_base_per_part`, a (P,)
+//     int64 device array, or NULL and the scalar row_base).  The flat row
+//     of an entry is ((p*nb + b)*BN + r); p comes from it, never from the
+//     grid.
+//   * Sizing the partial buffer.  It has one row per `row_part` entry, so
+//     its size is a shape the host knows without reading the device: the
+//     wrapper allocates it (torch.empty) with row_part.shape[0] rows.
+//   * Shared memory.  None is used (static shared memory above 48 KiB does
+//     not build).
+//   * Register budget.  ptxas spills some instantiations when it is told
+//     only the block size; gather_min_blocks() sets it per instantiation.
+//   * The ctypes interface: every pointer and the stream as c_void_p, the
+//     64-bit sizes as c_int64 (kernels/segment_agg.py::_kernel_fn).
 //
 // Interface: plain C, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
@@ -50,287 +87,505 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kColsPerLane = 4;  // a column tile is 32 * 4 = 128 features
+constexpr int kInFlight = 8;  // gathered rows loaded before the first add
+constexpr int kChunk = 32;    // slots whose (src, mask) a warp loads at once
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<double> { using type = double; };
 
-__device__ __forceinline__ float load_acc(const float* p) { return __ldg(p); }
-__device__ __forceinline__ double load_acc(const double* p) { return __ldg(p); }
-__device__ __forceinline__ float load_acc(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(double* p, double v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's cast
+__device__ __forceinline__ void put(float& o, float v) { o = v; }
+__device__ __forceinline__ void put(double& o, double v) { o = v; }
+__device__ __forceinline__ void put(__nv_bfloat16& o, float v) {
+  o = __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-segment_mean_fwd_kernel(const T* __restrict__ x,
-                        const int64_t* __restrict__ src,
-                        const float* __restrict__ mask,
-                        const int32_t* __restrict__ row_ptr,
-                        const float* __restrict__ deg,
-                        const int64_t* __restrict__ row_base_per_part,
-                        int64_t row_base, T* __restrict__ out, int P, int nb,
-                        int be, int bn, int64_t n_in, int64_t num_rows, int d,
-                        int mean) {
+template <int B> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// V consecutive elements at p, converted to the accumulation type; one load
+// of V * sizeof(T) bytes (two where that is above 16).  p is aligned to it.
+template <int V, typename T, typename A>
+__device__ __forceinline__ void load_vec(const T* p, A* out) {
+  constexpr int kBytes = static_cast<int>(sizeof(T)) * V;
+  if constexpr (kBytes > 16) {
+    load_vec<V / 2, T, A>(p, out);
+    load_vec<V / 2, T, A>(p + V / 2, out + V / 2);
+  } else {
+    using R = typename Raw<kBytes>::type;
+    const R r = __ldg(reinterpret_cast<const R*>(p));
+    const T* t = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = to_acc(t[i]);
+  }
+}
+
+template <int V, typename T, typename A>
+__device__ __forceinline__ void store_vec(T* p, const A* v) {
+  constexpr int kBytes = static_cast<int>(sizeof(T)) * V;
+  if constexpr (kBytes > 16) {
+    store_vec<V / 2, T, A>(p, v);
+    store_vec<V / 2, T, A>(p + V / 2, v + V / 2);
+  } else {
+    using R = typename Raw<kBytes>::type;
+    R r;
+    T* t = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int i = 0; i < V; ++i) put(t[i], v[i]);
+    *reinterpret_cast<R*>(p) = r;
+  }
+}
+
+// Output row of flat row ((p*nb + b)*bn + r), and its partition p.
+__device__ __forceinline__ int64_t place(int64_t row, int nb, int bn,
+                                         const int64_t* row_base_per_part,
+                                         int64_t row_base, int* p) {
+  const int64_t pb = row / bn;
+  *p = static_cast<int>(pb / nb);
+  const int64_t base = row_base_per_part ? row_base_per_part[*p] : row_base;
+  return base + (pb % nb) * bn + row % bn;
+}
+
+// Blocks of the gather an SM must hold (launch bounds), i.e. ptxas's
+// register budget.  Given the block size alone (0 here), ptxas trims some
+// instantiations to 48 or 64 registers and spills (32-48-byte stack frames:
+// the f32 half-width and one-element paths, f64 and bf16 half-width); at 1
+// it takes its own count and spills nowhere, but gives the f32 16-byte tile
+// 85 registers, which runs the products-s D=128 gathers ~21% slower than
+// the 64 it gets, without a spill, from the block size alone (at 4, a hard
+// cap of 64, it spills 8 bytes).  So that tile takes 0, every other
+// instantiation 1.
+template <typename T, int V>
+constexpr int gather_min_blocks() {
+  return sizeof(T) == 4 && V == 4 ? 0 : 1;
+}
+
+// One warp per plan entry: entries [0, n_part) of row_part (flat row, beg,
+// end) write partial sums into partials[w]; entries of row_work (flat row,
+// beg, end, rows) write final rows, a run of `rows` empty rows where
+// beg == end.  Lane l owns features c0 + k*32*V + l*V + [0, V), k < NV.
+template <typename T, typename TO, int V, int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32,
+                                  (gather_min_blocks<T, V>()))
+segment_gather_kernel(const T* __restrict__ x,
+                      const int64_t* __restrict__ src,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ deg,
+                      const int32_t* __restrict__ row_part, int n_part,
+                      const int32_t* __restrict__ row_work, int n_work,
+                      const int64_t* __restrict__ row_base_per_part,
+                      int64_t row_base, TO* __restrict__ out,
+                      typename Acc<T>::type* __restrict__ partials, int nb,
+                      int be, int bn, int64_t n_src, int64_t num_rows, int d,
+                      int mean) {
   using A = typename Acc<T>::type;
+  constexpr int kTile = 32 * V * NV;
   const int lane = threadIdx.x & 31;
-  const int64_t warp =
+  const int64_t w =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp >= static_cast<int64_t>(P) * nb * bn) return;  // warp-uniform
-  const int r = static_cast<int>(warp % bn);
-  const int64_t pb = warp / bn;  // p * nb + b
-  const int b = static_cast<int>(pb % nb);
-  const int p = static_cast<int>(pb / nb);
-  const int64_t base = row_base_per_part ? row_base_per_part[p] : row_base;
-  const int64_t orow = base + static_cast<int64_t>(b) * bn + r;
-  if (orow < 0 || orow >= num_rows) return;  // warp-uniform
+  const bool partial = w < n_part;
+  int row, beg, end, nrows = 1;
+  if (partial) {
+    const int32_t* e = row_part + w * 3;
+    row = e[0], beg = e[1], end = e[2];
+  } else if (w < static_cast<int64_t>(n_part) + n_work) {
+    const int32_t* e = row_work + (w - n_part) * 4;
+    row = e[0], beg = e[1], end = e[2], nrows = e[3];
+  } else {
+    return;  // warp-uniform
+  }
 
-  const int32_t* rp = row_ptr + pb * (bn + 1);
-  const int beg = rp[r];
-  const int end = rp[r + 1];
-  const int64_t slot0 = pb * be;
-  const T* xp = x + static_cast<int64_t>(p) * n_in * d;
-  T* op = out + (static_cast<int64_t>(p) * num_rows + orow) * d;
-  const A dg = static_cast<A>(deg[pb * bn + r]);
-
-  for (int c0 = 0; c0 < d; c0 += 32 * kColsPerLane) {
-    A acc[kColsPerLane];
+  if (beg == end) {  // a run of empty rows: they read 0
+    A zero[V];
 #pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) acc[k] = A(0);
-    for (int e0 = beg; e0 < end; e0 += 32) {
+    for (int i = 0; i < V; ++i) zero[i] = A(0);
+    for (int i = 0; i < nrows; ++i) {
+      int p;
+      const int64_t orow =
+          place(row + i, nb, bn, row_base_per_part, row_base, &p);
+      if (orow < 0 || orow >= num_rows) continue;
+      TO* op = out + (static_cast<int64_t>(p) * num_rows + orow) * d;
+      for (int c = lane * V; c < d; c += 32 * V) store_vec<V>(op + c, zero);
+    }
+    return;
+  }
+
+  int p;
+  const int64_t orow = place(row, nb, bn, row_base_per_part, row_base, &p);
+  if (orow < 0 || orow >= num_rows) return;  // cut off: nothing reads it
+  const int64_t slot0 = static_cast<int64_t>(row / bn) * be;
+  const T* xp = x + static_cast<int64_t>(p) * n_src * d;
+
+  for (int c0 = 0; c0 < d; c0 += kTile) {
+    A acc[NV][V];
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[k][i] = A(0);
+    for (int e0 = beg; e0 < end; e0 += kChunk) {
       const int e = e0 + lane;
-      long long s = 0;
-      A w = A(0);
+      int s = 0;
+      A wt = A(0);
       if (e < end) {
-        s = static_cast<long long>(src[slot0 + e]);
-        w = static_cast<A>(mask[slot0 + e]);
+        s = static_cast<int>(src[slot0 + e]);  // < n_src < 2^31 (wrapper)
+        wt = static_cast<A>(mask[slot0 + e]);
       }
-      const int cnt = min(32, end - e0);
-#pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        const long long sj = __shfl_sync(kFull, s, j);
-        const A wj = __shfl_sync(kFull, w, j);
-        const T* xr = xp + sj * d;
+      const int cnt = min(kChunk, end - e0);
+      for (int j = 0; j < cnt; j += kInFlight) {
+        // the gathers of kInFlight edges first, then their adds in order
+        A v[kInFlight][NV][V];
 #pragma unroll
-        for (int k = 0; k < kColsPerLane; ++k) {
-          const int c = c0 + k * 32 + lane;
-          if (c < d) acc[k] += wj * load_acc(xr + c);
+        for (int u = 0; u < kInFlight; ++u) {
+          const int su = __shfl_sync(kFull, s, (j + u) & 31);
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            const int c = c0 + k * 32 * V + lane * V;
+            if (j + u < cnt && c < d) {
+              load_vec<V>(xp + static_cast<int64_t>(su) * d + c, v[u][k]);
+            } else {
+#pragma unroll
+              for (int i = 0; i < V; ++i) v[u][k][i] = A(0);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          const A wu = __shfl_sync(kFull, wt, (j + u) & 31);
+          if (j + u < cnt) {  // warp-uniform
+#pragma unroll
+            for (int k = 0; k < NV; ++k)
+#pragma unroll
+              for (int i = 0; i < V; ++i) acc[k][i] += wu * v[u][k][i];
+          }
         }
       }
     }
+    if (partial) {
+      A* pp = partials + w * d;
 #pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) {
-      const int c = c0 + k * 32 + lane;
-      if (c < d) store(op + c, mean ? acc[k] / dg : acc[k]);
+      for (int k = 0; k < NV; ++k) {
+        const int c = c0 + k * 32 * V + lane * V;
+        if (c < d) store_vec<V>(pp + c, acc[k]);
+      }
+    } else {
+      TO* op = out + (static_cast<int64_t>(p) * num_rows + orow) * d;
+      const A dg = mean ? static_cast<A>(deg[row]) : A(1);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int c = c0 + k * 32 * V + lane * V;
+        if (c >= d) continue;
+        if (mean) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[k][i] = acc[k][i] / dg;
+        }
+        store_vec<V>(op + c, acc[k]);
+      }
     }
   }
 }
 
+// One warp per split row (flat row, first partial, end): adds its partials
+// in item order, divides by deg (if mean) and stores the row.
+template <typename A, typename TO, int V, int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+segment_merge_kernel(const A* __restrict__ partials,
+                     const int32_t* __restrict__ row_split, int n_split,
+                     const float* __restrict__ deg,
+                     const int64_t* __restrict__ row_base_per_part,
+                     int64_t row_base, TO* __restrict__ out, int nb, int bn,
+                     int64_t num_rows, int d, int mean) {
+  constexpr int kTile = 32 * V * NV;
+  const int lane = threadIdx.x & 31;
+  const int64_t w =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_split) return;  // warp-uniform
+  const int32_t* e = row_split + w * 3;
+  const int row = e[0], q0 = e[1], q1 = e[2];
+  int p;
+  const int64_t orow = place(row, nb, bn, row_base_per_part, row_base, &p);
+  if (orow < 0 || orow >= num_rows) return;
+  TO* op = out + (static_cast<int64_t>(p) * num_rows + orow) * d;
+  const A dg = mean ? static_cast<A>(deg[row]) : A(1);
+  for (int c0 = 0; c0 < d; c0 += kTile) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = c0 + k * 32 * V + lane * V;
+      if (c >= d) continue;
+      A acc[V];
+      load_vec<V>(partials + static_cast<int64_t>(q0) * d + c, acc);
+#pragma unroll 4
+      for (int q = q0 + 1; q < q1; ++q) {
+        A v[V];
+        load_vec<V>(partials + static_cast<int64_t>(q) * d + c, v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] += v[i];
+      }
+      if (mean) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = acc[i] / dg;
+      }
+      store_vec<V>(op + c, acc);
+    }
+  }
+}
+
+// The backward's pre-pass: gsub[p, j] = g[p, row_base[p] + j] / deg[p, j]
+// (divided only if mean) for the P*nb*bn forward rows j, 0 where the forward
+// cut the row off.  One thread per V features of a row.
+template <typename T, int V>
+__global__ void segment_unplace_kernel(
+    const T* __restrict__ g, const float* __restrict__ deg,
+    const int64_t* __restrict__ row_base_per_part, int64_t row_base,
+    typename Acc<T>::type* __restrict__ gsub, int nb, int bn,
+    int64_t num_rows, int d, int64_t n_vec, int mean) {
+  using A = typename Acc<T>::type;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_vec) return;
+  const int dv = d / V;
+  const int64_t row = i / dv;  // p * nb * bn + j
+  const int c = static_cast<int>(i % dv) * V;
+  const int64_t rows_pp = static_cast<int64_t>(nb) * bn;
+  const int p = static_cast<int>(row / rows_pp);
+  const int64_t base = row_base_per_part ? row_base_per_part[p] : row_base;
+  const int64_t orow = base + row % rows_pp;
+  A v[V];
+  if (orow >= 0 && orow < num_rows) {
+    load_vec<V>(g + (static_cast<int64_t>(p) * num_rows + orow) * d + c, v);
+    if (mean) {
+      const A dg = static_cast<A>(deg[row]);
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = v[k] / dg;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = A(0);
+  }
+  store_vec<V>(gsub + row * d + c, v);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+unsigned blocks_for(int64_t warps) {
+  return static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+// The lanes' vectors for rows of element type T: the 16-byte tile (kV
+// elements a vector, kNV vectors a lane: 128 features at f32 and f64, 256
+// at bf16), and the half-width vector (kVh, one a lane) that rows of at most
+// half that tile take.
+template <typename T> struct Tile {
+  static constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kNV = sizeof(T) == 8 ? 2 : 1;
+  static constexpr int kVh = sizeof(T) == 8 ? kV : kV / 2;
+};
+
+// 0: one element a lane (D % kV != 0, or a base off 16 bytes); 1: the
+// half-width vector; 2: the 16-byte tile.
 template <typename T>
-cudaError_t launch(const void* x, const void* src, const void* mask,
-                   const void* row_ptr, const void* deg,
-                   const void* row_base_per_part, int64_t row_base, void* out,
-                   int P, int nb, int be, int bn, int64_t n_in,
-                   int64_t num_rows, int d, int mean, cudaStream_t stream) {
-  const int64_t warps = static_cast<int64_t>(P) * nb * bn;
-  if (warps == 0 || d == 0 || num_rows == 0) return cudaSuccess;
-  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  segment_mean_fwd_kernel<T><<<static_cast<unsigned>(blocks),
-                               kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int64_t*>(src),
-      static_cast<const float*>(mask), static_cast<const int32_t*>(row_ptr),
-      static_cast<const float*>(deg),
-      static_cast<const int64_t*>(row_base_per_part), row_base,
-      static_cast<T*>(out), P, nb, be, bn, n_in, num_rows, d, mean);
+int tile_kind(int d, bool aligned) {
+  if (d % Tile<T>::kV != 0 || !aligned) return 0;
+  return d <= 32 * Tile<T>::kVh ? 1 : 2;
+}
+
+// The gather grid over row_part then row_work.
+template <typename T, typename TO>
+cudaError_t gather(const T* x, const int64_t* src, const float* mask,
+                   const float* deg, const int32_t* row_part, int n_part,
+                   const int32_t* row_work, int n_work,
+                   const int64_t* row_base_per_part, int64_t row_base, TO* out,
+                   typename Acc<T>::type* partials, int nb, int be, int bn,
+                   int64_t n_src, int64_t num_rows, int d, int mean,
+                   cudaStream_t s) {
+  using W = Tile<T>;
+  const int64_t warps = static_cast<int64_t>(n_part) + n_work;
+  if (warps == 0) return cudaSuccess;
+  const unsigned grid = blocks_for(warps);
+  const int kind =
+      tile_kind<T>(d, aligned16(x) && aligned16(out) && aligned16(partials));
+  auto k = kind == 2   ? &segment_gather_kernel<T, TO, W::kV, W::kNV>
+           : kind == 1 ? &segment_gather_kernel<T, TO, W::kVh, 1>
+                       : &segment_gather_kernel<T, TO, 1, 4>;
+  k<<<grid, kWarpsPerBlock * 32, 0, s>>>(
+      x, src, mask, deg, row_part, n_part, row_work, n_work, row_base_per_part,
+      row_base, out, partials, nb, be, bn, n_src, num_rows, d, mean);
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Backward: the transpose aggregation.
-//
-// Replaces the backward use of the same TPU kernel: `segment_agg_bwd_blocks`
-// of src/repro/kernels/segment_agg.py (reached through `_segment_mean_bwd`),
-// which un-places the cotangent g from row_base, divides it by the forward's
-// deg in a materialised copy, and runs `_segment_agg_kernel` over the
-// CSC-ordered transpose blocks.  Here, for every partition p and source row
-// u = bt*BN + r of transpose block bt,
-//
-//     dx[p, u] = sum_{slots e of block bt with local_dst == r,
-//                     row_base[p] + t_src[e] < num_rows}
-//                    t_mask[e] * (g[p, row_base[p] + t_src[e]]
-//                                 / deg[p, t_src[e] / BN, t_src[e] % BN])
-//
-// (divided only if mean), written for u < n_in.  t_src[e] is the forward's
-// rebased output row j of the edge, so the un-placement and the 1/deg are
-// folded into the gather: no gsub array exists.  The division is a division,
-// as the reference computes g / deg, not a product with a reciprocal.
-//
-// Design: the forward kernel's row-owner walk over the CSC mirror.  One warp
-// owns one source row u and walks its real slots [t_row_ptr[r],
-// t_row_ptr[r+1]) of its transpose block (built on the host); lanes stride
-// the features, so each gathered cotangent row is read as coalesced lines;
-// slot metadata is loaded 32 at a time and broadcast with __shfl_sync.  The
-// sum stays in registers (f32, f64 for f64) and dx is stored once: no
-// atomics, deterministic, each row summed in slot order.  One launch covers
-// all P partitions.
-//
-// Bound: like the forward, bytes.  It reads g (P x num_rows x D), writes dx
-// (P x n_in x D) and reads t_src (int64) + t_mask (f32) of the real edges,
-// t_row_ptr and deg.  Source rows with many out-edges serialise on one warp,
-// as hub rows do in the forward.
+template <typename A, typename TO>
+cudaError_t merge(const A* partials, const int32_t* row_split, int n_split,
+                  const float* deg, const int64_t* row_base_per_part,
+                  int64_t row_base, TO* out, int nb, int bn, int64_t num_rows,
+                  int d, int mean, cudaStream_t s) {
+  using W = Tile<A>;
+  if (n_split == 0) return cudaSuccess;
+  const int kind = tile_kind<A>(d, aligned16(partials) && aligned16(out));
+  auto k = kind == 2   ? &segment_merge_kernel<A, TO, W::kV, W::kNV>
+           : kind == 1 ? &segment_merge_kernel<A, TO, W::kVh, 1>
+                       : &segment_merge_kernel<A, TO, 1, 4>;
+  k<<<blocks_for(n_split), kWarpsPerBlock * 32, 0, s>>>(
+      partials, row_split, n_split, deg, row_base_per_part, row_base, out, nb,
+      bn, num_rows, d, mean);
+  return cudaGetLastError();
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-segment_mean_bwd_kernel(const T* __restrict__ g,
-                        const int64_t* __restrict__ t_src,
-                        const float* __restrict__ t_mask,
-                        const int32_t* __restrict__ t_row_ptr,
-                        const float* __restrict__ deg,
-                        const int64_t* __restrict__ row_base_per_part,
-                        int64_t row_base, T* __restrict__ dx, int P, int nb_t,
-                        int be_t, int bn, int nb, int64_t num_rows,
-                        int64_t n_in, int d, int mean) {
+cudaError_t launch_fwd(const void* x, const void* src, const void* mask,
+                       const void* deg, const void* row_part, int n_part,
+                       const void* row_work, int n_work, const void* row_split,
+                       int n_split, const void* row_base_per_part,
+                       int64_t row_base, void* out, void* partials, int nb,
+                       int be, int bn, int64_t n_in, int64_t num_rows, int d,
+                       int mean, cudaStream_t s) {
   using A = typename Acc<T>::type;
-  const int lane = threadIdx.x & 31;
-  const int64_t warp =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp >= static_cast<int64_t>(P) * nb_t * bn) return;  // warp-uniform
-  const int r = static_cast<int>(warp % bn);
-  const int64_t pb = warp / bn;  // p * nb_t + bt
-  const int bt = static_cast<int>(pb % nb_t);
-  const int p = static_cast<int>(pb / nb_t);
-  const int64_t u = static_cast<int64_t>(bt) * bn + r;
-  if (u >= n_in) return;  // warp-uniform
-  const int64_t base = row_base_per_part ? row_base_per_part[p] : row_base;
-
-  const int32_t* rp = t_row_ptr + pb * (bn + 1);
-  const int beg = rp[r];
-  const int end = rp[r + 1];
-  const int64_t slot0 = pb * be_t;
-  const T* gp = g + static_cast<int64_t>(p) * num_rows * d;
-  const float* dgp = deg + static_cast<int64_t>(p) * nb * bn;
-  T* op = dx + (static_cast<int64_t>(p) * n_in + u) * d;
-
-  for (int c0 = 0; c0 < d; c0 += 32 * kColsPerLane) {
-    A acc[kColsPerLane];
-#pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) acc[k] = A(0);
-    for (int e0 = beg; e0 < end; e0 += 32) {
-      const int e = e0 + lane;
-      long long orow = -1;  // -1: no slot, or an output row sliced off
-      A w = A(0);
-      A dg = A(1);
-      if (e < end) {
-        const long long j = static_cast<long long>(t_src[slot0 + e]);
-        const long long o = base + j;
-        if (o >= 0 && o < num_rows) {
-          orow = o;
-          w = static_cast<A>(t_mask[slot0 + e]);
-          if (mean) dg = static_cast<A>(dgp[j]);  // j = block * bn + row
-        }
-      }
-      const int cnt = min(32, end - e0);
-#pragma unroll 4
-      for (int jj = 0; jj < cnt; ++jj) {
-        const long long oj = __shfl_sync(kFull, orow, jj);
-        const A wj = __shfl_sync(kFull, w, jj);
-        const A dj = __shfl_sync(kFull, dg, jj);
-        if (oj < 0) continue;  // warp-uniform
-        const T* gr = gp + oj * d;
-#pragma unroll
-        for (int k = 0; k < kColsPerLane; ++k) {
-          const int c = c0 + k * 32 + lane;
-          if (c < d) acc[k] += wj * (load_acc(gr + c) / dj);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) {
-      const int c = c0 + k * 32 + lane;
-      if (c < d) store(op + c, acc[k]);
-    }
-  }
+  if (d == 0 || num_rows == 0) return cudaSuccess;
+  const auto* rbp = static_cast<const int64_t*>(row_base_per_part);
+  cudaError_t err = gather<T, T>(
+      static_cast<const T*>(x), static_cast<const int64_t*>(src),
+      static_cast<const float*>(mask), static_cast<const float*>(deg),
+      static_cast<const int32_t*>(row_part), n_part,
+      static_cast<const int32_t*>(row_work), n_work, rbp, row_base,
+      static_cast<T*>(out), static_cast<A*>(partials), nb, be, bn, n_in,
+      num_rows, d, mean, s);
+  if (err != cudaSuccess) return err;
+  return merge<A, T>(static_cast<const A*>(partials),
+                     static_cast<const int32_t*>(row_split), n_split,
+                     static_cast<const float*>(deg), rbp, row_base,
+                     static_cast<T*>(out), nb, bn, num_rows, d, mean, s);
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* g, const void* t_src, const void* t_mask,
-                       const void* t_row_ptr, const void* deg,
+                       const void* deg, const void* t_row_part, int n_part,
+                       const void* t_row_work, int n_work,
+                       const void* t_row_split, int n_split,
                        const void* row_base_per_part, int64_t row_base,
-                       void* dx, int P, int nb_t, int be_t, int bn, int nb,
-                       int64_t num_rows, int64_t n_in, int d, int mean,
-                       cudaStream_t stream) {
-  const int64_t warps = static_cast<int64_t>(P) * nb_t * bn;
-  if (warps == 0 || d == 0 || n_in == 0) return cudaSuccess;
-  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  segment_mean_bwd_kernel<T><<<static_cast<unsigned>(blocks),
-                               kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const int64_t*>(t_src),
-      static_cast<const float*>(t_mask),
-      static_cast<const int32_t*>(t_row_ptr), static_cast<const float*>(deg),
-      static_cast<const int64_t*>(row_base_per_part), row_base,
-      static_cast<T*>(dx), P, nb_t, be_t, bn, nb, num_rows, n_in, d, mean);
-  return cudaGetLastError();
+                       void* gsub, void* dx, void* partials, int P, int nb,
+                       int nb_t, int be_t, int bn, int64_t num_rows,
+                       int64_t n_in, int d, int mean, cudaStream_t s) {
+  using A = typename Acc<T>::type;
+  if (d == 0 || n_in == 0) return cudaSuccess;
+  const int64_t fwd_rows = static_cast<int64_t>(P) * nb * bn;
+  if (fwd_rows > 0) {
+    constexpr int kV = 16 / static_cast<int>(sizeof(T));
+    const bool vec = d % kV == 0 && aligned16(g) && aligned16(gsub);
+    const int v = vec ? kV : 1;
+    const int64_t n_vec = fwd_rows * (d / v);
+    const unsigned grid = static_cast<unsigned>((n_vec + 255) / 256);
+    const auto* rbp = static_cast<const int64_t*>(row_base_per_part);
+    if (vec) {
+      segment_unplace_kernel<T, kV><<<grid, 256, 0, s>>>(
+          static_cast<const T*>(g), static_cast<const float*>(deg), rbp,
+          row_base, static_cast<A*>(gsub), nb, bn, num_rows, d, n_vec, mean);
+    } else {
+      segment_unplace_kernel<T, 1><<<grid, 256, 0, s>>>(
+          static_cast<const T*>(g), static_cast<const float*>(deg), rbp,
+          row_base, static_cast<A*>(gsub), nb, bn, num_rows, d, n_vec, mean);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  // the transpose aggregation over gsub: output rows u = bt*bn + r < n_in,
+  // no row_base, no division (gsub holds it)
+  cudaError_t err = gather<A, T>(
+      static_cast<const A*>(gsub), static_cast<const int64_t*>(t_src),
+      static_cast<const float*>(t_mask), nullptr,
+      static_cast<const int32_t*>(t_row_part), n_part,
+      static_cast<const int32_t*>(t_row_work), n_work, nullptr, 0,
+      static_cast<T*>(dx), static_cast<A*>(partials), nb_t, be_t, bn,
+      static_cast<int64_t>(nb) * bn, n_in, d, 0, s);
+  if (err != cudaSuccess) return err;
+  return merge<A, T>(static_cast<const A*>(partials),
+                     static_cast<const int32_t*>(t_row_split), n_split, nullptr,
+                     nullptr, 0, static_cast<T*>(dx), nb_t, bn, n_in, d, 0, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64, 2 = bfloat16.  row_base_per_part is a
-// device (P,) int64 array or NULL, in which case row_base applies to all.
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16.  x (P, n_in, D), out
+// (P, num_rows, D); src/mask (P, nb, be), deg (P, nb, bn); the plan's
+// row_part (n_part, 3), row_work (n_work, 4), row_split (n_split, 3) int32;
+// partials (n_part, D) of the accumulation type (f64 for f64, else f32).
+// row_base_per_part is a device (P,) int64 array or NULL, in which case
+// row_base applies to all.  Every output row the blocks cover is written;
+// the caller zero-fills the rest.
 extern "C" int segment_mean_fwd(int dtype, const void* x, const void* src,
-                                const void* mask, const void* row_ptr,
-                                const void* deg, const void* row_base_per_part,
-                                int64_t row_base, void* out, int P, int nb,
-                                int be, int bn, int64_t n_in, int64_t num_rows,
-                                int d, int mean, void* stream) {
+                                const void* mask, const void* deg,
+                                const void* row_part, int n_part,
+                                const void* row_work, int n_work,
+                                const void* row_split, int n_split,
+                                const void* row_base_per_part,
+                                int64_t row_base, void* out, void* partials,
+                                int nb, int be, int bn, int64_t n_in,
+                                int64_t num_rows, int d, int mean,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(x, src, mask, row_ptr, deg, row_base_per_part,
-                           row_base, out, P, nb, be, bn, n_in, num_rows, d,
-                           mean, s);
+      return launch_fwd<float>(x, src, mask, deg, row_part, n_part, row_work,
+                               n_work, row_split, n_split, row_base_per_part,
+                               row_base, out, partials, nb, be, bn, n_in,
+                               num_rows, d, mean, s);
     case 1:
-      return launch<double>(x, src, mask, row_ptr, deg, row_base_per_part,
-                            row_base, out, P, nb, be, bn, n_in, num_rows, d,
-                            mean, s);
+      return launch_fwd<double>(x, src, mask, deg, row_part, n_part, row_work,
+                                n_work, row_split, n_split, row_base_per_part,
+                                row_base, out, partials, nb, be, bn, n_in,
+                                num_rows, d, mean, s);
     case 2:
-      return launch<__nv_bfloat16>(x, src, mask, row_ptr, deg,
-                                   row_base_per_part, row_base, out, P, nb, be,
-                                   bn, n_in, num_rows, d, mean, s);
+      return launch_fwd<__nv_bfloat16>(
+          x, src, mask, deg, row_part, n_part, row_work, n_work, row_split,
+          n_split, row_base_per_part, row_base, out, partials, nb, be, bn,
+          n_in, num_rows, d, mean, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// dtype as above.  g is (P, num_rows, D), dx (P, n_in, D); t_src/t_mask are
-// (P, nb_t, be_t), t_row_ptr (P, nb_t, bn + 1), deg the forward's
-// (P, nb, bn).  row_base_per_part as for segment_mean_fwd.
+// dtype as above.  g (P, num_rows, D), dx (P, n_in, D); deg the forward's
+// (P, nb, bn); t_src/t_mask (P, nb_t, be_t) and the transpose plan
+// (t_row_part, t_row_work, t_row_split); gsub (P, nb*bn, D) and partials
+// (n_part, D) of the accumulation type.  row_base as for segment_mean_fwd.
+// Every dx row the transpose blocks cover is written; the caller zero-fills
+// the rest.
 extern "C" int segment_mean_bwd(int dtype, const void* g, const void* t_src,
-                                const void* t_mask, const void* t_row_ptr,
-                                const void* deg, const void* row_base_per_part,
-                                int64_t row_base, void* dx, int P, int nb_t,
-                                int be_t, int bn, int nb, int64_t num_rows,
+                                const void* t_mask, const void* deg,
+                                const void* t_row_part, int n_part,
+                                const void* t_row_work, int n_work,
+                                const void* t_row_split, int n_split,
+                                const void* row_base_per_part,
+                                int64_t row_base, void* gsub, void* dx,
+                                void* partials, int P, int nb, int nb_t,
+                                int be_t, int bn, int64_t num_rows,
                                 int64_t n_in, int d, int mean, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_bwd<float>(g, t_src, t_mask, t_row_ptr, deg,
-                               row_base_per_part, row_base, dx, P, nb_t, be_t,
-                               bn, nb, num_rows, n_in, d, mean, s);
+      return launch_bwd<float>(g, t_src, t_mask, deg, t_row_part, n_part,
+                               t_row_work, n_work, t_row_split, n_split,
+                               row_base_per_part, row_base, gsub, dx, partials,
+                               P, nb, nb_t, be_t, bn, num_rows, n_in, d, mean,
+                               s);
     case 1:
-      return launch_bwd<double>(g, t_src, t_mask, t_row_ptr, deg,
-                                row_base_per_part, row_base, dx, P, nb_t,
-                                be_t, bn, nb, num_rows, n_in, d, mean, s);
+      return launch_bwd<double>(g, t_src, t_mask, deg, t_row_part, n_part,
+                                t_row_work, n_work, t_row_split, n_split,
+                                row_base_per_part, row_base, gsub, dx,
+                                partials, P, nb, nb_t, be_t, bn, num_rows, n_in,
+                                d, mean, s);
     case 2:
-      return launch_bwd<__nv_bfloat16>(g, t_src, t_mask, t_row_ptr, deg,
-                                       row_base_per_part, row_base, dx, P,
-                                       nb_t, be_t, bn, nb, num_rows, n_in, d,
-                                       mean, s);
+      return launch_bwd<__nv_bfloat16>(
+          g, t_src, t_mask, deg, t_row_part, n_part, t_row_work, n_work,
+          t_row_split, n_split, row_base_per_part, row_base, gsub, dx,
+          partials, P, nb, nb_t, be_t, bn, num_rows, n_in, d, mean, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

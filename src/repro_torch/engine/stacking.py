@@ -5,12 +5,13 @@ into uniform ``(P, ...)`` arrays.
 Counterpart of ``repro/engine/stacking.py`` (``_local_csr``,
 ``_stack_blocks``, ``build_stacked_vjp_blocks``, ``stack_pytrees``) and of
 ``stack_epoch_batches`` from ``repro/engine/spmd.py``, copied unchanged
-apart from the kernels' ``row_ptr``/``t_row_ptr`` that the stacked dict
-also carries.  Partitions have ragged edge counts, so each partition's
+apart from the kernels' work plans (``block_row_work``, one plan over all
+P partitions for each direction) that the stacked dict also carries.
+Partitions have ragged edge counts, so each partition's
 :class:`EdgeBlocks` is padded to the fleet-wide ``(num_blocks,
 edges_per_block)``; padding slots carry ``mask == 0`` and lie outside every
-``row_ptr`` range.  Batches stay NumPy on the host (the sampler thread
-builds them); :func:`batches_to_device` moves one epoch in one copy.
+work item.  Batches stay NumPy on the host (the sampler thread builds
+them); :func:`batches_to_device` moves one epoch in one copy.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import numpy as np
 import torch
 
 from ..graph.distributed import PartitionedGraph
-from ..kernels.segment_agg import (BEC, BN, block_row_ptr, build_edge_blocks,
-                                   build_transpose_blocks)
+from ..kernels.segment_agg import (BEC, BN, block_row_ptr, block_row_work,
+                                   build_edge_blocks, build_transpose_blocks)
 
 __all__ = ["StackedBlocks", "build_stacked_vjp_blocks", "stack_pytrees",
            "stack_epoch_batches", "batches_to_device"]
@@ -78,9 +79,10 @@ def _stack_vjp_dict(fwd_list, bwd_list, num_parts: int, bn: int) -> dict:
     f = _stack_blocks(fwd_list, num_parts, bn)
     b = _stack_blocks(bwd_list, num_parts, bn)
     return {"src": f.src, "dst": f.local_dst, "mask": f.mask, "deg": f.deg,
-            "row_ptr": block_row_ptr(f.local_dst, f.mask, bn),
+            **block_row_work(block_row_ptr(f.local_dst, f.mask, bn)),
             "t_src": b.src, "t_dst": b.local_dst, "t_mask": b.mask,
-            "t_row_ptr": block_row_ptr(b.local_dst, b.mask, bn)}
+            **block_row_work(block_row_ptr(b.local_dst, b.mask, bn),
+                             prefix="t_")}
 
 
 def build_stacked_vjp_blocks(pg: PartitionedGraph, bn: int = BN,

@@ -4,15 +4,15 @@ in ``csrc/segment_agg.cu`` on both passes.
 
 Counterpart of ``repro/kernels/segment_agg.py``.  The host builders are
 copied from it unchanged (same ``BN``/``BEC`` constants, same padded
-``(num_blocks, BE)`` layout, bitwise the same arrays) with two additions:
-every blocks dict also carries ``row_ptr`` ``(nb, BN + 1)`` int32, each
-destination row's slot range inside its block, and a dict with the
-transpose mirror carries ``t_row_ptr`` ``(nb_t, BN + 1)``, each SOURCE
-row's slot range inside its transpose block; both are built once on the
-host.  The JAX kernel reduces a block with a one-hot x messages matmul over
-all ``BE`` slots; the CUDA kernels are row-owner CSR walks that read only
-the real slots of each row, so they need those ranges
-(``block_row_ptr``).
+``(num_blocks, BE)`` layout, bitwise the same arrays) with one addition,
+built once on the host: the kernels' work plan (:func:`block_row_work`
+over the :func:`block_row_ptr` slot ranges, which stay on the host),
+``row_part``, ``row_work``, ``row_split`` and ``row_space`` (``t_row_*``
+for the transpose), which cuts every row into items of at most
+``ROW_WORK_K`` real slots, so one hub row is spread over many warps.
+
+The JAX kernel reduces a block with a one-hot x messages matmul over all
+``BE`` slots; the CUDA kernels gather only the real slots of each item.
 
 :func:`segment_mean_op` is a ``torch.autograd.Function``: its backward is
 the transpose aggregation over the ``t_*`` structures
@@ -34,28 +34,36 @@ from .build import load_library
 __all__ = ["EdgeBlocks", "BN", "BEC", "build_edge_blocks",
            "build_edge_blocks_from_edges", "build_transpose_blocks",
            "build_vjp_blocks", "build_mean_blocks", "block_row_ptr",
-           "blocks_to_device", "segment_mean_op", "segment_mean_plain",
+           "block_row_work", "ROW_WORK_K", "PLAN_KEYS", "blocks_to_device",
+           "segment_mean_op", "segment_mean_plain",
            "segment_mean_bwd_op", "segment_mean_bwd_plain",
            "kernel_launch_count", "bwd_kernel_launch_count",
            "reset_kernel_launch_count"]
 
 BN = 128    # destination nodes per block
 BEC = 128   # edge-slot granule: BE is a multiple of it
+ROW_WORK_K = 128   # most real slots one work item of the kernels sums
+ZERO_RUN = 32      # most empty rows one work entry zero-fills
+# the work plan's keys (``t_`` + each for the transpose mirror)
+PLAN_KEYS = ("row_part", "row_work", "row_split", "row_space")
+_INT32_KEYS = {*PLAN_KEYS, *("t_" + k for k in PLAN_KEYS)}
 
 # Launch counters of the CUDA kernels (counterpart of ``pallas_call_count``),
-# one per kernel: bumped once per launch and nowhere else, so a run can show
-# that its main path went through the kernels rather than the plain versions.
+# one per op: bumped once per CUDA call (whatever number of grids it runs)
+# and nowhere else, so a run can show that its main path went through the
+# kernels rather than the plain versions.
 _KERNEL_LAUNCHES = 0
 _BWD_KERNEL_LAUNCHES = 0
 
 
 def kernel_launch_count() -> int:
-    """Launches of the forward kernel ``segment_mean_fwd``."""
+    """CUDA calls of the forward ``segment_mean_fwd`` (gather and merge)."""
     return _KERNEL_LAUNCHES
 
 
 def bwd_kernel_launch_count() -> int:
-    """Launches of the backward kernel ``segment_mean_bwd``."""
+    """CUDA calls of the backward ``segment_mean_bwd`` (pre-pass, gather
+    and merge)."""
     return _BWD_KERNEL_LAUNCHES
 
 
@@ -152,7 +160,8 @@ def _pad_min_one_block(blocks: EdgeBlocks, bn: int) -> EdgeBlocks:
 
 def block_row_ptr(local_dst: np.ndarray, mask: np.ndarray,
                   bn: int = BN) -> np.ndarray:
-    """Per-block destination-row slot ranges for the CUDA kernel.
+    """Per-block destination-row slot ranges, from which
+    :func:`block_row_work` cuts the kernels' work items.
 
     ``local_dst``/``mask`` are ``(..., nb, BE)`` block arrays as the
     builders emit them: each block's real slots (``mask > 0``) form a prefix
@@ -178,15 +187,83 @@ def block_row_ptr(local_dst: np.ndarray, mask: np.ndarray,
     return ptr.reshape(ldst.shape[:-1] + (bn + 1,))
 
 
+def block_row_work(row_ptr: np.ndarray, k: int = ROW_WORK_K,
+                   prefix: str = "") -> dict[str, np.ndarray]:
+    """The CUDA kernels' work plan over a ``row_ptr`` ``(..., nb, bn + 1)``.
+
+    Rows are numbered flat, ``(p·nb + b)·bn + r`` over all leading axes (so
+    a stacked plan is one plan for all P partitions).  Every row with
+    ``n`` real slots becomes ``ceil(n / k)`` items of at most ``k``
+    consecutive slots, in slot order.  Returns int32 arrays under
+    ``prefix`` + :data:`PLAN_KEYS`:
+
+    * ``row_part`` ``(n_part, 3)`` — (row, beg, end) of each item of a row
+      with several items; item i writes partial row i of the scratch;
+    * ``row_work`` ``(n_work, 4)`` — (row, beg, end, 1) of each row with
+      one item, which writes its result, then (row, 0, 0, m) for each run of
+      m <= 32 empty consecutive rows inside one 32-row window, which read 0;
+    * ``row_split`` ``(n_split, 3)`` — (row, first, end) partial range of
+      each row with several items, added in item order by the merge;
+    * ``row_space`` ``(..., nb, bn, 0)`` — no data: its shape is the row
+      space the plan numbers, which the launch checks against the blocks
+      it is given (a plan built before the blocks were padded or
+      re-stacked raises instead of reading out of bounds).
+
+    NumPy only, no loop over rows: the serving recompute builds it every
+    tick.
+    """
+    ptr = np.asarray(row_ptr)
+    bn = ptr.shape[-1] - 1
+    flat = ptr.reshape(-1, bn + 1)
+    beg, end = flat[:, :-1].ravel(), flat[:, 1:].ravel()
+    if beg.size >= 2**31:
+        raise ValueError(f"{beg.size} block rows: the plan's int32 row "
+                         "numbers take fewer than 2^31")
+    n = end - beg
+    rows = np.flatnonzero(n)
+    split = n[rows] > k
+    if split.any():
+        # items of split rows, each row's items consecutive, in slot order
+        srows = rows[split]
+        sitems = (n[srows] + k - 1) // k
+        first = np.cumsum(sitems) - sitems
+        prow = np.repeat(srows, sitems)
+        pbeg = beg[prow] + (np.arange(prow.size) - np.repeat(first, sitems)) * k
+        part = np.stack([prow, pbeg, np.minimum(pbeg + k, end[prow])], 1)
+        merge = np.stack([srows, first, first + sitems], 1).astype(np.int32)
+        rows = rows[~split]
+    else:
+        part = merge = np.zeros((0, 3), np.int32)
+    # one-item rows, then runs of empty rows, cut where a run crosses a
+    # multiple of ZERO_RUN
+    empty = np.flatnonzero(n == 0)
+    start = np.ones(empty.size + 1, bool)
+    start[1:-1] = (empty[1:] - empty[:-1] != 1) | (empty[1:] % ZERO_RUN == 0)
+    cut = np.flatnonzero(start)         # run starts, then empty.size
+    nf = rows.size
+    work = np.zeros((nf + cut.size - 1, 4), np.int32)
+    work[:nf, 0] = rows
+    work[:nf, 1] = beg[rows]
+    work[:nf, 2] = end[rows]
+    work[:nf, 3] = 1
+    work[nf:, 0] = empty[cut[:-1]]
+    work[nf:, 3] = cut[1:] - cut[:-1]
+    return {prefix + "row_part": part.astype(np.int32),
+            prefix + "row_work": work, prefix + "row_split": merge,
+            prefix + "row_space": np.zeros(ptr.shape[:-1] + (bn, 0),
+                                           np.int32)}
+
+
 def build_mean_blocks(src: np.ndarray, dst: np.ndarray, num_rows: int,
                       bn: int = BN, bec: int = BEC) -> dict[str, np.ndarray]:
     """Forward-only block structure for :func:`segment_mean_op` (no
     transpose mirror): ``src``, ``dst`` (local), ``mask``, ``deg`` and the
-    kernel's ``row_ptr``, at least one block even for an empty edge set."""
+    kernels' work plan, at least one block even for an empty edge set."""
     fwd = _pad_min_one_block(
         build_edge_blocks_from_edges(src, dst, num_rows, bn=bn, bec=bec), bn)
     return {"src": fwd.src, "dst": fwd.local_dst, "mask": fwd.mask,
-            "deg": fwd.deg, "row_ptr": block_row_ptr(fwd.local_dst, fwd.mask, bn)}
+            "deg": fwd.deg,
+            **block_row_work(block_row_ptr(fwd.local_dst, fwd.mask, bn))}
 
 
 def build_vjp_blocks(src: np.ndarray, dst: np.ndarray, num_rows: int,
@@ -194,8 +271,8 @@ def build_vjp_blocks(src: np.ndarray, dst: np.ndarray, num_rows: int,
                      bec: int = BEC) -> dict[str, np.ndarray]:
     """Paired forward (dst-blocked CSR) + backward (src-blocked CSC mirror)
     structures for :func:`segment_mean_op`, as a flat dict of arrays: the
-    reference's keys plus the forward's ``row_ptr`` and the transpose's
-    ``t_row_ptr``.
+    reference's keys plus the forward's work plan and the transpose's
+    ``t_`` work plan.
 
     ``num_rows`` is the aggregation's output row range (destinations live in
     ``[0, num_rows)``); ``num_src_rows`` is the gathered-from row space the
@@ -205,18 +282,19 @@ def build_vjp_blocks(src: np.ndarray, dst: np.ndarray, num_rows: int,
     bwd = _pad_min_one_block(
         build_transpose_blocks(src, dst, num_src_rows, bn=bn, bec=bec), bn)
     out.update({"t_src": bwd.src, "t_dst": bwd.local_dst, "t_mask": bwd.mask,
-                "t_row_ptr": block_row_ptr(bwd.local_dst, bwd.mask, bn)})
+                **block_row_work(block_row_ptr(bwd.local_dst, bwd.mask, bn),
+                                 prefix="t_")})
     return out
 
 
 def blocks_to_device(blocks: dict, device) -> dict[str, torch.Tensor]:
     """Host blocks dict -> tensors on ``device``, converted once here:
     gather indices become int64 (torch's index type, read by the kernel as
-    is), ``row_ptr``/``t_row_ptr`` stay int32, masks and degrees float32."""
+    is), the work plans stay int32, masks and degrees float32."""
     out = {}
     for k, v in blocks.items():
         v = np.asarray(v)
-        if k in ("row_ptr", "t_row_ptr"):
+        if k in _INT32_KEYS:
             out[k] = torch.as_tensor(v.astype(np.int32), device=device)
         elif v.dtype.kind in "iu":
             out[k] = torch.as_tensor(v.astype(np.int64), device=device)
@@ -299,11 +377,12 @@ def _kernel_fn(name: str):
     lib = load_library("segment_agg")
     fn = getattr(lib, name)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    plan = [vp, i32, vp, i32, vp, i32]     # row_part, row_work, row_split
     if name == "segment_mean_fwd":
-        fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, i64, vp,
-                       i32, i32, i32, i32, i64, i64, i32, i32, vp]
+        fn.argtypes = [i32, vp, vp, vp, vp, *plan, vp, i64, vp, vp,
+                       i32, i32, i32, i64, i64, i32, i32, vp]
     else:
-        fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, i64, vp,
+        fn.argtypes = [i32, vp, vp, vp, vp, *plan, vp, i64, vp, vp, vp,
                        i32, i32, i32, i32, i32, i64, i64, i32, i32, vp]
     fn.restype = i32
     return fn
@@ -321,6 +400,42 @@ def _check_blocks(bl: dict, want: dict, device) -> dict:
     return {k: bl[k].contiguous() for k in want}
 
 
+def _plan_args(blocks: dict, prefix: str, device,
+               row_space: tuple) -> tuple[list, int]:
+    """The work plan's ctypes arguments (pointer, entries) x 3, and the
+    number of partial rows the scratch needs; raises if the blocks carry no
+    plan (the kernels never walk rows without one) or one built for another
+    row space than ``row_space`` (the launch's ``(P, nb, bn)``, or
+    ``(nb, bn)`` for unstacked blocks)."""
+    keys = [prefix + k for k in PLAN_KEYS]
+    missing = [k for k in keys if k not in blocks]
+    if missing:
+        raise ValueError(
+            f"the CUDA segment kernels need the host work plan, missing "
+            f"{missing}: build the blocks with build_mean_blocks, "
+            "build_vjp_blocks or engine.stacking.build_stacked_vjp_blocks "
+            "(or add block_row_work over their block_row_ptr) and move them "
+            "with blocks_to_device")
+    space = tuple(blocks[keys[3]].shape)
+    if space != (*row_space, 0):
+        raise ValueError(
+            f"blocks[{keys[3]!r}] says the work plan numbers rows "
+            f"{space[:-1]}, but the blocks launched with it span "
+            f"{row_space}: rebuild the plan (block_row_work) after padding "
+            "or stacking the blocks")
+    args = []
+    for k, cols in zip(keys, (3, 4, 3)):
+        t = blocks[k]
+        if (t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != cols
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(
+                f"blocks[{k!r}] must be a contiguous int32 (n, {cols}) "
+                f"tensor on {device} (block_row_work and blocks_to_device), "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        args += [t.data_ptr(), t.shape[0]]
+    return args, blocks[keys[0]].shape[0]
+
+
 def _row_base_arg(row_base, P: int, device):
     """``(array, pointer, scalar)``: a ``(P,)`` int64 device array of
     per-partition bases and its pointer, or ``None, None`` and the one
@@ -332,37 +447,48 @@ def _row_base_arg(row_base, P: int, device):
     return None, None, int(row_base)
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _launch_kernel(x: torch.Tensor, blocks: dict, num_rows: int, row_base,
                    mean: bool) -> torch.Tensor:
     global _KERNEL_LAUNCHES
     stacked = x.dim() == 3
     xs = x if stacked else x[None]
     bl = {k: blocks[k] if stacked else blocks[k][None]
-          for k in ("src", "mask", "row_ptr", "deg")}
+          for k in ("src", "mask", "deg")}
     P, n_in, d = xs.shape
     _, nb, be = bl["src"].shape
     bn = bl["deg"].shape[-1]
     if xs.dtype not in _DTYPE_CODES:
         raise TypeError(f"segment_mean_op kernel takes float32, float64 or "
                         f"bfloat16, got {xs.dtype}")
+    if n_in >= 2**31:
+        raise ValueError(f"{n_in} input rows: the kernel's gather index is "
+                         "32-bit")
     bl = _check_blocks(bl, {
         "src": (torch.int64, (P, nb, be)), "mask": (torch.float32, (P, nb, be)),
-        "row_ptr": (torch.int32, (P, nb, bn + 1)),
         "deg": (torch.float32, (P, nb, bn))}, xs.device)
+    plan, n_part = _plan_args(blocks, "", xs.device,
+                              (P, nb, bn) if stacked else (nb, bn))
     xs = xs.contiguous()
     _rb, rb_ptr, rb_scalar = _row_base_arg(row_base, P, xs.device)
     covered = rb_ptr is None and rb_scalar <= 0 and rb_scalar + nb * bn >= num_rows
-    # the kernel writes every output row its blocks cover; rows outside
-    # [row_base, row_base + nb·BN) stay zero only if the buffer starts zero
+    # the plan writes every output row its blocks cover (empty rows too);
+    # rows outside [row_base, row_base + nb·BN) stay zero only if the buffer
+    # starts zero
     alloc = torch.empty if covered else torch.zeros
     out = alloc((P, num_rows, d), dtype=xs.dtype, device=xs.device)
+    partials = torch.empty((n_part, d), dtype=_acc_dtype(xs.dtype),
+                           device=xs.device)
     fn = _kernel_fn("segment_mean_fwd")
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
     with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = fn(_DTYPE_CODES[xs.dtype], xs.data_ptr(), bl["src"].data_ptr(),
-                 bl["mask"].data_ptr(), bl["row_ptr"].data_ptr(),
-                 bl["deg"].data_ptr(), rb_ptr, rb_scalar, out.data_ptr(),
-                 P, nb, be, bn, n_in, num_rows, d, int(bool(mean)), stream)
+                 bl["mask"].data_ptr(), bl["deg"].data_ptr(), *plan, rb_ptr,
+                 rb_scalar, out.data_ptr(), partials.data_ptr(), nb, be, bn,
+                 n_in, num_rows, d, int(bool(mean)), stream)
     _KERNEL_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"segment_mean_fwd kernel launch failed with CUDA "
@@ -376,7 +502,7 @@ def _launch_bwd_kernel(g: torch.Tensor, blocks: dict, n_in: int, row_base,
     stacked = g.dim() == 3
     gs = g if stacked else g[None]
     bl = {k: blocks[k] if stacked else blocks[k][None]
-          for k in ("t_src", "t_mask", "t_row_ptr", "deg")}
+          for k in ("t_src", "t_mask", "deg")}
     P, num_rows, d = gs.shape
     _, nb_t, be_t = bl["t_src"].shape
     nb, bn = bl["deg"].shape[-2:]
@@ -386,22 +512,29 @@ def _launch_bwd_kernel(g: torch.Tensor, blocks: dict, n_in: int, row_base,
     bl = _check_blocks(bl, {
         "t_src": (torch.int64, (P, nb_t, be_t)),
         "t_mask": (torch.float32, (P, nb_t, be_t)),
-        "t_row_ptr": (torch.int32, (P, nb_t, bn + 1)),
         "deg": (torch.float32, (P, nb, bn))}, gs.device)
+    plan, n_part = _plan_args(blocks, "t_", gs.device,
+                              (P, nb_t, bn) if stacked else (nb_t, bn))
     gs = gs.contiguous()
     _rb, rb_ptr, rb_scalar = _row_base_arg(row_base, P, gs.device)
-    # one warp per source row u < n_in; rows past the transpose blocks'
-    # reach (none, for blocks built with num_src_rows == n_in) stay zero
+    acc_dt = _acc_dtype(gs.dtype)
+    # gsub: g un-placed from row_base and divided by deg, the forward's
+    # nb·BN rows of each partition (the transpose blocks' gather space)
+    gsub = torch.empty((P, nb * bn, d), dtype=acc_dt, device=gs.device)
+    # the plan writes every source row u < nb_t·BN; rows past the transpose
+    # blocks' reach (none, for blocks built with num_src_rows == n_in) stay
+    # zero
     alloc = torch.empty if nb_t * bn >= n_in else torch.zeros
     out = alloc((P, n_in, d), dtype=gs.dtype, device=gs.device)
+    partials = torch.empty((n_part, d), dtype=acc_dt, device=gs.device)
     fn = _kernel_fn("segment_mean_bwd")
+    stream = torch.cuda.current_stream(gs.device).cuda_stream
     with torch.cuda.device(gs.device):
-        stream = torch.cuda.current_stream(gs.device).cuda_stream
         err = fn(_DTYPE_CODES[gs.dtype], gs.data_ptr(), bl["t_src"].data_ptr(),
-                 bl["t_mask"].data_ptr(), bl["t_row_ptr"].data_ptr(),
-                 bl["deg"].data_ptr(), rb_ptr, rb_scalar, out.data_ptr(),
-                 P, nb_t, be_t, bn, nb, num_rows, n_in, d, int(bool(mean)),
-                 stream)
+                 bl["t_mask"].data_ptr(), bl["deg"].data_ptr(), *plan, rb_ptr,
+                 rb_scalar, gsub.data_ptr(), out.data_ptr(),
+                 partials.data_ptr(), P, nb, nb_t, be_t, bn, num_rows, n_in,
+                 d, int(bool(mean)), stream)
     _BWD_KERNEL_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"segment_mean_bwd kernel launch failed with CUDA "
@@ -426,8 +559,7 @@ def _fwd(x, blocks, num_rows, row_base, mean):
 
 
 def _bwd(g, blocks, n_in, row_base, mean):
-    missing = [k for k in ("t_src", "t_dst", "t_mask", "t_row_ptr")
-               if k not in blocks]
+    missing = [k for k in ("t_src", "t_dst", "t_mask") if k not in blocks]
     if missing:
         raise ValueError(f"the backward of segment_mean_op needs the "
                          f"transpose blocks, missing {missing} (build the "
@@ -484,8 +616,9 @@ def segment_mean_op(x: torch.Tensor, blocks: dict, *, num_rows: int,
     differentiable.
 
     ``x`` is ``(n_in, D)`` with ``(nb, BE)`` blocks, or stacked
-    ``(P, n_in, D)`` with ``(P, nb, BE)`` blocks, in which case ONE kernel
-    launch covers all P partitions.  Output row ``row_base + b·BN + r``
+    ``(P, n_in, D)`` with ``(P, nb, BE)`` blocks, in which case ONE call
+    (one gather grid and, for rows split across warps, one merge grid)
+    covers all P partitions.  Output row ``row_base + b·BN + r``
     (below ``num_rows``) holds ``Σ mask·x[src] / deg[b, r]`` over block b's
     slots with local destination r; every other row of the zero
     ``(num_rows, D)`` (or ``(P, num_rows, D)``) output is zero.  ``row_base``
@@ -494,9 +627,10 @@ def segment_mean_op(x: torch.Tensor, blocks: dict, *, num_rows: int,
     The gradient with respect to ``x`` is :func:`segment_mean_bwd_op` over
     the blocks' transpose mirror (``t_*`` keys, from
     :func:`build_vjp_blocks`); nothing runs for an ``x`` that needs no
-    gradient.  On both passes a CUDA tensor goes to the hand-written kernel
-    (or raises) and a CPU tensor to the plain version; there is no fallback
-    between the two.
+    gradient.  On both passes a CUDA tensor goes to the hand-written
+    kernels (or raises: they need the blocks' work plan, see
+    :func:`block_row_work`) and a CPU tensor to the plain version; there is
+    no fallback between the two.
     """
     _device_kind(x)
     return _SegmentMean.apply(x, blocks, int(num_rows), row_base, bool(mean))

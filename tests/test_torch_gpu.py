@@ -106,6 +106,168 @@ def test_bwd_kernel_f64_dyadic_bitwise(cuda):
                        sa.segment_mean_bwd_plain(g, bl, n_in=n))
 
 
+# the split row gathers: hub rows of K, K+1, 3K+5 and 10,000 in-edges (a
+# split row's partials merged in item order), hub SOURCE rows of up to 5,000
+# out-edges for the backward, D=130 (scalar path) beside D=128 (16-byte
+# path) and D=64 (half-width vectors at f32), bf16, f64 dyadic bitwise, and
+# a hub in one partition of a stacked launch with per-partition row_base
+K = sa.ROW_WORK_K
+
+
+def _hub_edges(rows, n_src, hubs, seed):
+    rng = np.random.default_rng(seed)
+    deg = np.r_[rng.integers(0, 7, rows), hubs].astype(np.int64)
+    return (rng.integers(0, n_src, int(deg.sum())),
+            np.repeat(np.arange(deg.size), deg))
+
+
+def _hub_source_edges(rows, n_src, hubs, seed):
+    """Forward rows of in-degree 1, 2, 4 or 8 whose sources include one row
+    per entry of ``hubs`` with that many out-edges."""
+    rng = np.random.default_rng(seed)
+    deg = rng.choice([1, 2, 4, 8], rows)
+    deg[: -(-sum(hubs) // 8)] = 8
+    dst = np.repeat(np.arange(rows), deg)
+    src = rng.integers(len(hubs), n_src, dst.size)
+    src[rng.permutation(dst.size)[:sum(hubs)]] = np.repeat(
+        np.arange(len(hubs)), hubs)
+    return src, dst
+
+
+def _stack_vjp(per):
+    P, out = len(per), {}
+    for k in ("src", "dst", "mask", "deg", "t_src", "t_dst", "t_mask"):
+        shape = np.max([b[k].shape for b in per], axis=0)
+        arr = np.full((P, *shape), 1 if k == "deg" else 0, per[0][k].dtype)
+        for p, b in enumerate(per):
+            arr[(p, *map(slice, b[k].shape))] = b[k]
+        out[k] = arr
+    for pre in ("", "t_"):
+        out.update(sa.block_row_work(
+            sa.block_row_ptr(out[pre + "dst"], out[pre + "mask"]), prefix=pre))
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 128, 130])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_kernel_hub_rows_match_plain(cuda, d, dtype, tol):
+    src, dst = _hub_edges(300, 4096, [K, K + 1, 3 * K + 5, 10_000], seed=d)
+    bl = sa.blocks_to_device(sa.build_mean_blocks(src, dst, 304), cuda)
+    assert bl["row_split"].shape[0] == 3
+    x = torch.randn(4096, d, device=cuda).to(dtype)
+    before = sa.kernel_launch_count()
+    got = sa.segment_mean_op(x, bl, num_rows=304)
+    again = sa.segment_mean_op(x, bl, num_rows=304)
+    torch.cuda.synchronize()
+    assert sa.kernel_launch_count() == before + 2      # one per op call
+    assert torch.equal(got, again)
+    want = sa.segment_mean_plain(x, bl, num_rows=304)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("d", [64, 130])
+@pytest.mark.parametrize("mean", [True, False])
+def test_kernel_hub_f64_dyadic_bitwise(cuda, d, mean):
+    src, dst = _hub_edges(300, 4096, [K, K + 1, 3 * K + 5, 10_000], seed=1)
+    bl = sa.blocks_to_device(sa.build_vjp_blocks(src, dst, 304, 4096), cuda)
+    x = torch.randint(-8, 9, (4096, d), device=cuda).double()
+    assert torch.equal(sa.segment_mean_op(x, bl, num_rows=304, mean=mean),
+                       sa.segment_mean_plain(x, bl, num_rows=304, mean=mean))
+    g = torch.randint(-8, 9, (304, d), device=cuda).double()
+    assert torch.equal(sa.segment_mean_bwd_op(g, bl, n_in=4096, mean=False),
+                       sa.segment_mean_bwd_plain(g, bl, n_in=4096, mean=False))
+
+
+@pytest.mark.parametrize("d", [64, 128, 130])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2),
+                                       (torch.float64, 0.0)])
+@pytest.mark.parametrize("row_base,num_rows", [(0, 2000), (37, 1500)])
+def test_bwd_kernel_hub_sources_match_plain(cuda, d, dtype, tol, row_base,
+                                            num_rows):
+    """Source rows of 5,000, 3K+5, K+1 and K out-edges; g scaled by
+    1/sqrt(5,000) so the hub's f32 sums are O(1); f64 integer g over
+    dyadic deg is exact, so bitwise; rows cut off at num_rows read 0."""
+    src, dst = _hub_source_edges(2000, 2000, [5_000, 3 * K + 5, K + 1, K],
+                                 seed=d)
+    bl = sa.blocks_to_device(sa.build_vjp_blocks(src, dst, 2000, 2000), cuda)
+    assert bl["t_row_split"].shape[0] == 3
+    if dtype == torch.float64:
+        g = torch.randint(-8, 9, (num_rows, d), device=cuda).double()
+    else:
+        g = (torch.randn(num_rows, d, device=cuda) * 5_000 ** -0.5).to(dtype)
+    kw = dict(n_in=2000, row_base=row_base)
+    before = sa.bwd_kernel_launch_count()
+    got = sa.segment_mean_bwd_op(g, bl, **kw)
+    again = sa.segment_mean_bwd_op(g, bl, **kw)
+    torch.cuda.synchronize()
+    assert sa.bwd_kernel_launch_count() == before + 2
+    assert torch.equal(got, again)
+    want = sa.segment_mean_bwd_plain(g, bl, **kw)
+    if dtype == torch.float64:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_stacked_hub_per_partition_row_base(cuda):
+    bases = np.array([0, 37, 129])
+    per = []
+    for p in range(3):
+        src, dst = _hub_edges(999 - bases[p], 1000,
+                              [10_000 if p == 1 else 3], seed=20 + p)
+        per.append(sa.build_vjp_blocks(src, dst, 1000 - bases[p], 1000))
+    bl = sa.blocks_to_device(_stack_vjp(per), cuda)
+    rb = torch.as_tensor(bases, device=cuda)
+    x = torch.randn(3, 1000, 128, device=cuda)
+    torch.testing.assert_close(
+        sa.segment_mean_op(x, bl, num_rows=1000, row_base=rb),
+        sa.segment_mean_plain(x, bl, num_rows=1000, row_base=rb),
+        atol=1e-5, rtol=1e-5)
+    g = torch.randn(3, 1000, 128, device=cuda) * 0.01
+    torch.testing.assert_close(
+        sa.segment_mean_bwd_op(g, bl, n_in=1000, row_base=rb),
+        sa.segment_mean_bwd_plain(g, bl, n_in=1000, row_base=rb),
+        atol=1e-4, rtol=1e-4)
+
+
+def test_kernels_refuse_blocks_without_the_plan(cuda):
+    """No row walk without the host plan: both CUDA ops raise, naming the
+    builders, and launch nothing."""
+    src, dst = _edges(64, 4, seed=1)
+    blocks = sa.build_vjp_blocks(src, dst, 64, 64)
+    bare = sa.blocks_to_device(
+        {k: v for k, v in blocks.items()
+         if k not in sa.PLAN_KEYS and k[2:] not in sa.PLAN_KEYS}, cuda)
+    x = torch.randn(64, 8, device=cuda)
+    before = (sa.kernel_launch_count(), sa.bwd_kernel_launch_count())
+    with pytest.raises(ValueError, match="work plan.*build_mean_blocks"):
+        sa.segment_mean_op(x, bare, num_rows=64)
+    with pytest.raises(ValueError, match="work plan.*build_mean_blocks"):
+        sa.segment_mean_bwd_op(x, bare, n_in=64)
+    assert (sa.kernel_launch_count(), sa.bwd_kernel_launch_count()) == before
+
+
+def test_kernels_refuse_a_plan_of_another_row_space(cuda):
+    """A plan kept from one partition's blocks, launched with the stacked
+    blocks, numbers other rows: both CUDA ops raise before any launch."""
+    per = [sa.build_vjp_blocks(*_hub_edges(200 + 90 * p, 300, [3], seed=p),
+                               203 + 90 * p, 300) for p in range(3)]
+    stacked = _stack_vjp(per)
+    stale = {**stacked, **{pre + k: per[0][pre + k] for pre in ("", "t_")
+                           for k in sa.PLAN_KEYS}}
+    bl = sa.blocks_to_device(stale, cuda)
+    x = torch.randn(3, 300, 8, device=cuda)
+    before = (sa.kernel_launch_count(), sa.bwd_kernel_launch_count())
+    with pytest.raises(ValueError, match="rebuild the plan"):
+        sa.segment_mean_op(x, bl, num_rows=300)
+    with pytest.raises(ValueError, match="rebuild the plan"):
+        sa.segment_mean_bwd_op(x, bl, n_in=300)
+    assert (sa.kernel_launch_count(), sa.bwd_kernel_launch_count()) == before
+
+
 # tests/test_kernels.py's flash CASES, a fully masked row, and decode
 # against a cache wider than its filled part; then the designs' edges:
 # Dh 32/64/128 on the tensor-core prefill, Sq and Sk off the tile sizes,

@@ -78,9 +78,11 @@ def test_stacked_vjp_blocks_bitwise(both):
 
 
 def _check_row_ptr(blocks):
-    """row_ptr (P?, nb, BN+1): row r's real slots are exactly the slots
+    """row_ptr (P?, nb, BN+1) of the builders' blocks, from which the
+    kernels' work plan is cut: row r's real slots are exactly the slots
     [row_ptr[r], row_ptr[r+1]) of its block, each with local_dst == r."""
-    ptr = blocks["row_ptr"].reshape(-1, blocks["row_ptr"].shape[-1])
+    ptr = block_row_ptr(blocks["dst"], blocks["mask"])
+    ptr = ptr.reshape(-1, ptr.shape[-1])
     dst = blocks["dst"].reshape(-1, blocks["dst"].shape[-1])
     real = blocks["mask"].reshape(dst.shape) > 0
     assert ptr.dtype == np.int32 and (ptr[:, 0] == 0).all()

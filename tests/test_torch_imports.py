@@ -39,6 +39,22 @@ def test_import_hygiene():
     assert n >= 20, r.stdout
 
 
+@pytest.mark.parametrize("script", ["flash_timing.py", "segment_timing.py"])
+def test_timing_scripts_import_hygiene(script):
+    """The chip timing scripts run where only the port is installed."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('s', 'scripts/{script}')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO_ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO_ROOT, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -93,8 +93,6 @@ def test_stacked_per_partition_row_base():
         for p, b in enumerate(per):
             arr[(p, *map(slice, b[k].shape))] = b[k]
         stacked[k] = arr
-    stacked["row_ptr"] = sa.block_row_ptr(stacked["dst"], stacked["mask"])
-    stacked["t_row_ptr"] = sa.block_row_ptr(stacked["t_dst"], stacked["t_mask"])
     bl = sa.blocks_to_device(stacked, "cpu")
     x = rng.normal(0, 1, (P, n, d)).astype(np.float32)
     g = rng.normal(0, 1, (P, n, d)).astype(np.float32)
