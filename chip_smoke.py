@@ -36,11 +36,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
               attention: ``tests/test_kernels.py``'s cases, a fully masked
               row and qwen2-0.5b's prefill (q 4x14x2048x64, k/v
               4x2x2048x64) and decode (q 4x14x1x64 against a 2,116-slot
-              cache at q_offset 2,048) shapes; RMSNorm: its three shapes and
-              (4, 2048, 896); both in f32 and bf16 (the main path's shapes
-              in bf16 held to one bf16 rounding, and flash attention's
-              launched twice there, bitwise equal), with library_ms one
-              ``scaled_dot_product_attention`` or ``rms_norm`` call.  Each
+              cache at q_offset 2,048) shapes; RMSNorm, alone and with the
+              residual add fused in (its sum bitwise torch's ``x + delta``):
+              its three shapes and qwen2-0.5b's prefill (4, 2048, 896) and
+              decode (4, 1, 896) rows; all in f32 and bf16 (the main path's
+              shapes in bf16 held to one bf16 rounding, flash attention's
+              launched twice there and every RMSNorm case, bitwise equal),
+              with library_ms one ``scaled_dot_product_attention`` or
+              ``rms_norm`` call (for the fused norm two: ``x + delta``, then
+              ``rms_norm``), and torch's add alone beside RMSNorm.  Each
               flash line names its design (tensor-core or f32 prefill,
               split-KV decode) and grids, and the share of the bound it
               reached (TFLOP/s over the peak, bytes/s over HBM's rate).
@@ -75,13 +79,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
               151,936, bf16), batch 4, prompt 2,048, 64 new tokens, seed 0:
               prefill ms, decode ms per step (p50, p99), tokens/s; every
               prefill and decode step must launch flash attention 24 times
-              and RMSNorm 49 times, and both flash designs must have
-              launched.  Then the kernels against their plain
+              and RMSNorm 49 times, 48 of them with the residual add fused
+              in, and both flash designs and both RMSNorm entry points must
+              have launched.  Then the kernels against their plain
               versions on the same weights: in bf16 the logits' max |diff|
               and the share of equal greedy tokens (reported), in the f32
               variant of the config the prefill logits and 8 teacher-forced
-              decode steps (asserted); and one prefill and 16 decode steps
-              broken down (torch.profiler)
+              decode steps and their greedy tokens (asserted); and one
+              prefill and 16 decode steps broken down (torch.profiler),
+              with the kernel launches and torch's elementwise adds per step
   7. report   a ``{"kernels": [...]}`` line, then the device line last
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -676,7 +682,10 @@ FLASH_CASES = [
     ("qwen2-0.5b prefill", (4, 14, 2, 2048, 2048, 64, True, None, 0)),
     ("qwen2-0.5b decode", (4, 14, 2, 1, 2116, 64, True, None, 2048)),
 ]
-RMS_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (4, 2048, 896)]
+# the last two are qwen2-0.5b's prefill and decode rows
+RMS_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (4, 2048, 896),
+              (4, 1, 896)]
+RMS_MAIN_SHAPES = RMS_SHAPES[-2:]
 
 
 def flash_live_pairs(sq, sk, causal, window, q_offset):
@@ -778,7 +787,14 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
 
 
 def run_rmsnorm_case(rn, shape, dtype_name, flush, iters, record, *,
-                     main_path=False):
+                     fused=False, main_path=False):
+    """One RMSNorm entry point against its plain version on the card:
+    ``rmsnorm`` or, ``fused``, ``add_rmsnorm`` (its sum s bitwise torch's
+    ``x + delta``); launched twice, bitwise equal; its times, the plain
+    version's, the library's (one ``rms_norm`` call; for the fused one the
+    two calls ``x + delta`` then ``rms_norm``, as no one call computes it)
+    and torch's add alone, and the bound.  ``main_path`` shapes are held to
+    ``BF16_MAIN_*`` in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -786,33 +802,61 @@ def run_rmsnorm_case(rn, shape, dtype_name, flush, iters, record, *,
     gen = torch.Generator(device="cuda").manual_seed(shape[-1])
     x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
     w = torch.randn(shape[-1], device="cuda", generator=gen)
-    got = rn.rmsnorm(x, w)
+    delta = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    name = "add_rmsnorm" if fused else "rmsnorm"
+    if fused:
+        call = lambda: rn.add_rmsnorm(x, delta, w)
+        plain = lambda: rn.add_rmsnorm_plain(x, delta, w)
+    else:
+        call = lambda: rn.rmsnorm(x, w)
+        plain = lambda: rn.rmsnorm_plain(x, w)
+    got, again = call(), call()
     torch.cuda.synchronize()
-    want = rn.rmsnorm_plain(x, w)
+    want = plain()
+    if fused:
+        assert torch.equal(got[0], x + delta), \
+            f"{name} {shape} {dtype_name}: s is not torch's x + delta"
+        assert torch.equal(got[0], again[0]), f"{name}: two launches differ"
+        got, again, want = got[1], again[1], want[1]
+    assert torch.equal(got, again), \
+        f"{name} {shape} {dtype_name}: two launches differ"
     assert got.shape == want.shape and got.dtype == dtype, shape
     err = float((got.float() - want.float()).abs().max())
     atol = rtol = RMS_TOL[dtype_name]
     if main_path and dtype_name == "bfloat16":
         atol, rtol = BF16_MAIN_ATOL, BF16_MAIN_RTOL
     assert torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol), \
-        (f"rmsnorm {shape} {dtype_name}: max |kernel - plain| = {err} above "
+        (f"{name} {shape} {dtype_name}: max |kernel - plain| = {err} above "
          f"atol {atol} rtol {rtol}")
-    call = lambda: rn.rmsnorm(x, w)
     k_ms = time_ms(call, iters, flush)
     k_dev = time_ms(call, iters, flush, hide_host=True)
     k_call = call_us(call)
-    p_ms = time_ms(lambda: rn.rmsnorm_plain(x, w), iters, flush)
+    p_ms = time_ms(plain, iters, flush)
     w_lib = w.to(dtype)
-    lib_ms = time_ms(lambda: F.rms_norm(x, (shape[-1],), w_lib, 1e-6), iters,
-                     flush)
-    nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
-    flops = 4.0 * x.numel()
+    if fused:
+        lib = lambda: F.rms_norm(x + delta, (shape[-1],), w_lib, 1e-6)
+    else:
+        lib = lambda: F.rms_norm(x, (shape[-1],), w_lib, 1e-6)
+    lib_ms = time_ms(lib, iters, flush)
+    lib_dev = time_ms(lib, iters, flush, hide_host=True)
+    add_dev = time_ms(lambda: x + delta, iters, flush, hide_host=True)
+    # each input read once, each output written once: x (and delta) in, y
+    # (and s) out, w; a square, a sum and two products per element (and the
+    # add)
+    arrays = 4 if fused else 2
+    nbytes = arrays * x.numel() * x.element_size() + w.numel() * 4
+    flops = (5.0 if fused else 4.0) * x.numel()
     t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["float32"]
-    row = {"kernel": "rmsnorm", "shape": list(shape), "dtype": dtype_name,
+    bound = max(t_b, t_o)
+    row = {"kernel": name, "shape": list(shape), "dtype": dtype_name,
            "max_abs_err": err, "kernel_ms": k_ms, "kernel_device_ms": k_dev,
            "call_us": k_call, "plain_ms": p_ms,
-           "library_ms": lib_ms, "bound_us": max(t_b, t_o) * 1e6,
-           "bound_by": "bytes" if t_b >= t_o else "operations"}
+           "library": ("x + delta, then F.rms_norm (two calls)" if fused
+                       else "F.rms_norm"),
+           "library_ms": lib_ms, "library_device_ms": lib_dev,
+           "torch_add_device_ms": add_dev, "bound_us": bound * 1e6,
+           "bound_by": "bytes" if t_b >= t_o else "operations",
+           "device_share": bound * 1e3 / k_dev}
     log("shape " + json.dumps(row))
     record.append(row)
     return row
@@ -1047,6 +1091,7 @@ def profile_window(torch, label, fn, steps):
     for e in sorted(cuda, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"profile {label} kernel {e.self_device_time_total / steps:10.1f} "
             f"us/step x{e.count / steps:6.1f}  {e.key[:90]}")
+    return cuda
 
 
 def llm_phase(torch, fa, rn):
@@ -1070,12 +1115,17 @@ def llm_phase(torch, fa, rn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_flash = {d: fa.flash_launch_count(d) for d in ("prefill", "decode")}
-    n_rms = rn.rmsnorm_launch_count()
+    n_fused = rn.add_rmsnorm_launch_count()
+    n_rms = {"rmsnorm": rn.rmsnorm_launch_count() - n_fused,
+             "add_rmsnorm": n_fused}
     assert all(n_flash.values()), f"a flash design never launched: {n_flash}"
+    assert all(n_rms.values()), f"an RMSNorm entry point never ran: {n_rms}"
     cfg, model, batch, toks = (run["cfg"], run["model"], run["batch"],
                                run["tokens"])
     n_layers = cfg.num_layers
-    per_pass = (n_layers, 2 * n_layers + 1)
+    # flash attention, RMSNorm (both entry points), of which the fused add:
+    # every norm but the first layer's takes in the add before it
+    per_pass = (n_layers, 2 * n_layers + 1, 2 * n_layers)
     assert run["launches"]["prefill"] == per_pass, run["launches"]["prefill"]
     assert len(run["launches"]["decode"]) == toks.shape[1] - 1
     assert all(n == per_pass for n in run["launches"]["decode"]), \
@@ -1085,8 +1135,8 @@ def llm_phase(torch, fa, rn):
                                  "decode_ms_p99", "tokens_per_s", "wall_s")}
     log(f"llm serve {cfg.name} full width, {model.param_count()} params: "
         f"{json.dumps(stats)}; launches per prefill and per decode step "
-        f"(flash, rmsnorm) {per_pass}; this run's totals flash {n_flash} "
-        f"rmsnorm {n_rms}; main path {wall:.1f} s")
+        f"(flash, rmsnorm, of which fused add) {per_pass}; this run's totals "
+        f"flash {n_flash} rmsnorm {n_rms}; main path {wall:.1f} s")
 
     # bf16, same weights: logits and greedy tokens, kernels vs plain
     width = run["engine"].cache_size
@@ -1126,6 +1176,13 @@ def llm_phase(torch, fa, rn):
     for a, b in zip(outs[True], outs[False]):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, atol=LLM_F32_ATOL, rtol=LLM_F32_RTOL)
+    # the greedy token of every step: in f32 the kernels' few-ulp sums must
+    # not flip one (in bf16 a one-ulp norm flips near-ties, reported above)
+    greedy = [torch.equal(a.argmax(-1), b.argmax(-1))
+              for a, b in zip(outs[True], outs[False])]
+    log(f"llm f32 greedy tokens of the prefill and 8 decode steps equal: "
+        f"{greedy}")
+    assert all(greedy), greedy
     del m32, outs
 
     # where the time goes: one prefill, then 16 decode steps
@@ -1141,8 +1198,16 @@ def llm_phase(torch, fa, rn):
             lg, caches = model.decode_step(lg.argmax(-1)[:, None], caches,
                                            n + t)
 
-    profile_window(torch, "llm prefill", prefill, 1)
-    profile_window(torch, "llm decode", decode16, 16)
+    for label, fn, steps in (("llm prefill", prefill, 1),
+                             ("llm decode", decode16, 16)):
+        cuda = profile_window(torch, label, fn, steps)
+        # torch's elementwise adds (tensor + tensor): the residual adds are
+        # fused into the norms, what stays is RoPE's and the QKV bias's
+        adds = [e for e in cuda if "CUDAFunctor_add" in e.key]
+        log(f"profile {label}: {sum(e.count for e in cuda) / steps:.1f} "
+            f"kernel launches a step, of which elementwise adds "
+            f"{sum(e.count for e in adds) / steps:.1f} "
+            f"({sum(e.self_device_time_total for e in adds) / steps:.1f} us)")
     return n_flash, n_rms
 
 
@@ -1259,11 +1324,13 @@ def main() -> int:
             flash_rows[name, dtype_name] = run_flash_case(
                 fa, name, case, dtype_name, flush=flush, iters=10,
                 record=shapes, main_path=name.startswith("qwen2"))
-    for shape in RMS_SHAPES:
-        for dtype_name in ("float32", "bfloat16"):
-            rms_rows[shape, dtype_name] = run_rmsnorm_case(
-                rn, shape, dtype_name, flush=flush, iters=10, record=shapes,
-                main_path=shape == RMS_SHAPES[-1])
+    for fused in (False, True):
+        for shape in RMS_SHAPES:
+            for dtype_name in ("float32", "bfloat16"):
+                rms_rows[fused, shape, dtype_name] = run_rmsnorm_case(
+                    rn, shape, dtype_name, flush=flush, iters=10,
+                    record=shapes, fused=fused,
+                    main_path=shape in RMS_MAIN_SHAPES)
 
     # ---- 4. main path: GNN serving at products-s, P=4, hidden 128 ----------
     args = build_parser().parse_args(
@@ -1398,8 +1465,10 @@ def main() -> int:
         "library_ms": bwd_row["library_ms"]}]
     # the main path's shapes in its working type: flash attention's prefill
     # (tensor cores) and decode (split over the KV length) designs, the
-    # prefill's (B·S, d_model) rows for RMSNorm
-    rms_row = rms_rows[(4, 2048, 896), "bfloat16"]
+    # prefill's (B·S, d_model) rows for both RMSNorm entry points (the
+    # decode rows are in the log)
+    rms_errs = {f: [r["max_abs_err"] for (g, c, _), r in rms_rows.items()
+                    if g == f and c in RMS_MAIN_SHAPES] for f in (False, True)}
     for name, source, tpu, row, n, errs in (
             ("flash_attention", "flash_attention.cu", FLASH_TPU,
              flash_rows["qwen2-0.5b prefill", "bfloat16"],
@@ -1411,9 +1480,12 @@ def main() -> int:
              llm_flash["decode"],
              [r["max_abs_err"] for (c, _), r in flash_rows.items()
               if c == "qwen2-0.5b decode"]),
-            ("rmsnorm", "rmsnorm.cu", RMSNORM_TPU, rms_row, llm_rms,
-             [r["max_abs_err"] for (c, _), r in rms_rows.items()
-              if c == (4, 2048, 896)])):
+            ("rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
+             rms_rows[False, (4, 2048, 896), "bfloat16"], llm_rms["rmsnorm"],
+             rms_errs[False]),
+            ("add_rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
+             rms_rows[True, (4, 2048, 896), "bfloat16"],
+             llm_rms["add_rmsnorm"], rms_errs[True])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}", "replaces": tpu,

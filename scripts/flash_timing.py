@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time flash attention at qwen2-0.5b's two main-path shapes, and RMSNorm at
-(4, 2048, 896), in bf16 on one CUDA card, three ways:
+"""Time flash attention at qwen2-0.5b's two main-path shapes in bf16 on one
+CUDA card, three ways:
 
   enqueue_ms  ``chip_smoke.time_ms``: CUDA events around the enqueue of one
               call, L2 flushed before it (host work counts where the
@@ -36,7 +36,6 @@ import chip_smoke as cs  # noqa: E402
 
 SHAPES = {name: case for name, case in cs.FLASH_CASES
           if name.startswith("qwen2-0.5b")}
-RMS_SHAPE = (4, 2048, 896)
 
 
 def measure(fn, flush, iters):
@@ -59,7 +58,6 @@ def main() -> int:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
     print(f"flash_timing {args.label}: {fa.__file__}", file=sys.stderr)
 
     if not torch.cuda.is_available():
@@ -99,16 +97,6 @@ def main() -> int:
             sdpa = lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=live, enable_gqa=True)
         emit(name, "sdpa", measure(sdpa, flush, args.iters))
-
-    gen = torch.Generator(device="cuda").manual_seed(RMS_SHAPE[-1])
-    x = torch.randn(RMS_SHAPE, device="cuda", generator=gen).bfloat16()
-    w = torch.randn(RMS_SHAPE[-1], device="cuda", generator=gen)
-    w_lib = w.bfloat16()
-    emit("rmsnorm (4, 2048, 896)", "kernel",
-         measure(lambda: rn.rmsnorm(x, w), flush, args.iters))
-    emit("rmsnorm (4, 2048, 896)", "rms_norm",
-         measure(lambda: F.rms_norm(x, (RMS_SHAPE[-1],), w_lib, 1e-6), flush,
-                 args.iters))
     return 0
 
 

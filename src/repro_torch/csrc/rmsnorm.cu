@@ -1,22 +1,45 @@
-// Fused RMSNorm on Hopper: y = x * rsqrt(mean(x^2) + eps) * w per row.
+// RMSNorm on Hopper, alone or with the residual add fused in front of it.
+//
+//   rmsnorm_fwd:      y = x * rsqrt(mean(x^2) + eps) * w
+//   add_rmsnorm_fwd:  s = round(x + delta) in x's dtype, then y = rmsnorm(s) * w
 //
 // Replaces the TPU kernel `_rmsnorm_kernel` of src/repro/kernels/rmsnorm.py
-// (reached through `rmsnorm_pallas` and `ops.rmsnorm`).  The math is f32
-// whatever x's type; w is f32; the output is written in x's dtype, with the
-// products taken in the TPU kernel's order, (x * scale) * w.
+// (reached through `rmsnorm_pallas` and `ops.rmsnorm`); the fused entry point
+// also takes in the elementwise add that precedes 48 of a decoder pass's 49
+// norms.  The math is f32 whatever x's type; w is f32; outputs are written in
+// x's dtype with the products in the TPU kernel's order, (x * scale) * w, and
+// the norm of the fused entry point is taken from the ROUNDED sum, exactly
+// what a separate add and norm compute.
 //
-// Design.  The TPU kernel tiles 256 rows with the whole feature dim in
-// VMEM.  Here one warp owns one row (8 rows per 256-thread block): lanes
-// stride the row, so each load is one coalesced line per 32 elements; the
-// warp reduces sum(x^2) with xor-shuffles, so every lane has the scale
-// without shared memory or a second launch.  The first 1,024 elements of
-// the row (all of it for d_model <= 1024; qwen2-0.5b's is 896) are kept in
-// registers between the reduction and the scaled write, so the row is read
-// from device memory once; elements past 1,024 are read again, from cache.
+// Bound: bytes.  A row is read once and written once (x and delta read, s and
+// y written, for the fused one); three to five flops per element are far
+// below the card's rate.  At qwen2-0.5b's prefill, 8,192 rows of 896 bf16,
+// the norm moves 29.4 MB (8.8 us at 3.35 TB/s) and the fused add and norm
+// 58.7 MB (17.5 us), one 14.7 MB pass less than a separate add and norm.
 //
-// Bound.  Bytes: each row is read once and written once, plus w (shared by
-// all rows, cached): at 8,192 rows of 896 in bf16 that is 29 MB, ~9 us at
-// 3.35 TB/s.  Three flops per element are far below the card's rate.
+// Design (what it does about the bytes):
+// - 16-byte vector loads and stores.  A row of d elements is d / kN vectors
+//   (kN = 4 at f32, 8 at bf16); `lanes` lanes of a warp share a row, as many
+//   as divide the vectors evenly (d = 896: 16 lanes x 7 vectors at bf16, two
+//   rows per warp; 32 x 7 at f32), so no lane idles and each lane's columns
+//   are the same for every row.
+// - The row stays in registers between the reduction and the write (up to 32
+//   vectors a lane, so d <= 8,192 at bf16 and 4,096 at f32; fused, with
+//   delta's vectors beside them, 16 and half that d), so x and delta are read
+//   from device memory once.
+// - w is staged once per block in shared memory, not read once per row.
+// - The grid is cut to the warps that stay resident, each walking its rows
+//   and issuing the next row's loads before it stores the current one, so
+//   one row's stores overlap later rows' loads past the first wave.  (A
+//   persistent ring of rows streamed into shared memory by cp.async.bulk
+//   was measured too, and was slower: PERF.md, PR 16.)
+// - Ragged d, a pointer that is not 16-byte aligned, or a row too long for
+//   the registers take a scalar path: one warp a row, 32 elements a load,
+//   the first 2,048 of a row kept in registers and the rest read again.
+// Sums of squares run lane-local, then over a fixed xor-shuffle tree: no
+// atomics, and the order depends only on d, so two launches give bitwise
+// equal outputs and a row's result does not depend on how many rows there
+// are.
 //
 // Interface: plain C, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
@@ -27,41 +50,237 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kCached = 32;  // elements per lane kept in registers
+constexpr int kWarps = 8;                 // warps per block
+constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
+// vectors a lane keeps of a row: alone, and with delta's beside them
+constexpr int kMaxVecs = 32;
+constexpr int kMaxVecsFused = 16;
+constexpr int kScalarCached = 64;         // elements a lane keeps (scalar)
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
+// ---- element types: 16-byte vectors and single elements -------------------
 
 template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ y, int64_t rows, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // warp-uniform
-  const T* xr = x + row * d;
-  T* yr = y + row * d;
+struct Pack;
 
-  float vals[kCached];
+template <>
+struct Pack<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void to_f(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ __forceinline__ static uint4 from_f(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+  __device__ __forceinline__ static float load(const float* p) { return *p; }
+  __device__ __forceinline__ static void store(float* p, float v) { *p = v; }
+  __device__ __forceinline__ static float round(float v) { return v; }
+};
+
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  // bf16 -> f32 is exact: the bf16 bits are the top half of the f32's
+  __device__ __forceinline__ static void to_f(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  // round to nearest even, as torch's cast; element 2i in the low half
+  __device__ __forceinline__ static uint32_t pack2(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static uint4 from_f(const float* f) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                      pack2(f[6], f[7]));
+  }
+  __device__ __forceinline__ static float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16(v);
+  }
+  __device__ __forceinline__ static float round(float v) {
+    return __bfloat162float(__float2bfloat16(v));
+  }
+};
+
+// ---- the vector path --------------------------------------------------------
+
+// One row's vectors for this lane: x (the rounded sum, once added) and delta.
+template <int NV, bool kFused>
+struct RowRegs {
+  uint4 x[NV];
+  uint4 dx[kFused ? NV : 1];
+};
+
+template <typename T, int NV, bool kFused>
+__device__ __forceinline__ void load_row(RowRegs<NV, kFused>& r,
+                                         const T* __restrict__ x,
+                                         const T* __restrict__ delta,
+                                         int64_t row, int64_t rows, int nvec,
+                                         int lanes, int l) {
+  const bool live = row < rows;
+  const uint4* xr = reinterpret_cast<const uint4*>(x) + row * nvec;
+  const uint4* dr = reinterpret_cast<const uint4*>(delta) + row * nvec;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c = v * lanes + l;
+    const bool ok = live && c < nvec;
+    r.x[v] = ok ? __ldg(xr + c) : make_uint4(0, 0, 0, 0);
+    if (kFused) r.dx[v] = ok ? __ldg(dr + c) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+template <typename T, int NV, bool kFused>
+__device__ __forceinline__ void norm_row(RowRegs<NV, kFused>& r,
+                                         const float* __restrict__ ws,
+                                         T* __restrict__ s, T* __restrict__ y,
+                                         int64_t row, int64_t rows, int nvec,
+                                         int lanes, int l, int d, float eps) {
+  using P = Pack<T>;
+  constexpr int kN = P::kN;
   float ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < kCached; ++i) {
+  for (int v = 0; v < NV; ++v) {
+    float f[kN];
+    if (kFused) {
+      float g[kN];
+      P::to_f(r.x[v], f);
+      P::to_f(r.dx[v], g);
+#pragma unroll
+      for (int i = 0; i < kN; ++i) f[i] = f[i] + g[i];
+      r.x[v] = P::from_f(f);  // s, rounded to T: the norm reads it back
+    }
+    P::to_f(r.x[v], f);
+#pragma unroll
+    for (int i = 0; i < kN; ++i) ss = fmaf(f[i], f[i], ss);
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(kFull, ss, off);
+  const float scale = 1.f / sqrtf(ss / static_cast<float>(d) + eps);
+  if (row >= rows) return;
+  uint4* sr = reinterpret_cast<uint4*>(s) + row * nvec;
+  uint4* yr = reinterpret_cast<uint4*>(y) + row * nvec;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c = v * lanes + l;
+    if (c >= nvec) continue;
+    if (kFused) sr[c] = r.x[v];
+    float f[kN];
+    P::to_f(r.x[v], f);
+    const float4* wv = reinterpret_cast<const float4*>(ws) + c * (kN / 4);
+#pragma unroll
+    for (int j = 0; j < kN / 4; ++j) {
+      const float4 w4 = wv[j];
+      f[4 * j] = f[4 * j] * scale * w4.x;
+      f[4 * j + 1] = f[4 * j + 1] * scale * w4.y;
+      f[4 * j + 2] = f[4 * j + 2] * scale * w4.z;
+      f[4 * j + 3] = f[4 * j + 3] * scale * w4.w;
+    }
+    yr[c] = P::from_f(f);
+  }
+}
+
+// ptxas's register budget: told the block size alone (0), it trims the f32
+// two-vector instantiation into a spill; a minimum of one block lets it keep
+// its registers.  The main path's instantiations keep the block size alone.
+template <typename T, int NV>
+constexpr int rows_min_blocks() {
+  return sizeof(T) == 4 && NV == 2 ? 1 : 0;
+}
+
+// Warp w of the grid owns rows (w + k * warps) * rpw + sub, k = 0, 1, ...,
+// with rpw = 32 / lanes rows side by side in the warp (sub = lane / lanes).
+template <typename T, int NV, bool kFused>
+__global__ void __launch_bounds__(kThreads, (rows_min_blocks<T, NV>()))
+rms_rows_kernel(const T* __restrict__ x, const T* __restrict__ delta,
+                const float* __restrict__ w, T* __restrict__ s,
+                T* __restrict__ y, int64_t rows, int d, int lanes_log2,
+                float eps) {
+  // the next row's loads in flight beside the current row: only while both
+  // fit the registers
+  constexpr bool kPrefetch = NV * (kFused ? 3 : 2) <= 24;
+  extern __shared__ float4 w_smem[];
+  const int lane = threadIdx.x & 31;
+  const int lanes = 1 << lanes_log2;
+  const int l = lane & (lanes - 1);
+  const int rpw = 32 >> lanes_log2;
+  const int nvec = d / Pack<T>::kN;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * rpw;
+  int64_t base =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * rpw;
+  const int sub = lane >> lanes_log2;
+
+  RowRegs<NV, kFused> cur;
+  // the first row's loads go out before w is staged
+  load_row<T, NV, kFused>(cur, x, delta, base + sub, rows, nvec, lanes, l);
+  for (int i = threadIdx.x; i < d / 4; i += kThreads)
+    w_smem[i] = __ldg(reinterpret_cast<const float4*>(w) + i);
+  __syncthreads();
+  const float* ws = reinterpret_cast<const float*>(w_smem);
+  while (base < rows) {  // warp-uniform
+    const int64_t next = base + step;
+    RowRegs<NV, kFused> nxt;
+    if (kPrefetch && next < rows)
+      load_row<T, NV, kFused>(nxt, x, delta, next + sub, rows, nvec, lanes,
+                              l);
+    norm_row<T, NV, kFused>(cur, ws, s, y, base + sub, rows, nvec, lanes, l,
+                            d, eps);
+    if (next >= rows) break;
+    if (!kPrefetch)
+      load_row<T, NV, kFused>(nxt, x, delta, next + sub, rows, nvec, lanes,
+                              l);
+    cur = nxt;
+    base = next;
+  }
+}
+
+// ---- the scalar path ---------------------------------------------------------
+
+// One warp per row, lane-strided single elements; the first 32 * NS of a row
+// stay in registers, the rest are read again (and, fused, added again: the
+// same rounding, so the same s).  A minimum of one block: told the block
+// size alone, ptxas spills the fused bf16 instantiation of 8.
+template <typename T, int NS, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+rms_scalar_kernel(const T* __restrict__ x, const T* __restrict__ delta,
+                  const float* __restrict__ w, T* __restrict__ s,
+                  T* __restrict__ y, int64_t rows, int d, float eps) {
+  using P = Pack<T>;
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // warp-uniform
+  const T* xr = x + row * d;
+  const T* dr = delta + row * d;
+  T* sr = s + row * d;
+  T* yr = y + row * d;
+  auto value = [&](int c) {
+    float v = P::load(xr + c);
+    if (kFused) v = P::round(v + P::load(dr + c));
+    return v;
+  };
+
+  float vals[NS];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
     const int c = lane + 32 * i;
-    const float v = c < d ? to_f(xr[c]) : 0.f;
+    const float v = c < d ? value(c) : 0.f;
     vals[i] = v;
     ss = fmaf(v, v, ss);
   }
-  for (int c = lane + 32 * kCached; c < d; c += 32) {
-    const float v = to_f(xr[c]);
+  for (int c = lane + 32 * NS; c < d; c += 32) {
+    const float v = value(c);
     ss = fmaf(v, v, ss);
   }
 #pragma unroll
@@ -69,37 +288,145 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const float scale = 1.f / sqrtf(ss / static_cast<float>(d) + eps);
 
 #pragma unroll
-  for (int i = 0; i < kCached; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int c = lane + 32 * i;
-    if (c < d) store(yr + c, vals[i] * scale * w[c]);
+    if (c >= d) continue;
+    if (kFused) P::store(sr + c, vals[i]);
+    P::store(yr + c, vals[i] * scale * w[c]);
   }
-  for (int c = lane + 32 * kCached; c < d; c += 32)
-    store(yr + c, to_f(xr[c]) * scale * w[c]);
+  for (int c = lane + 32 * NS; c < d; c += 32) {
+    const float v = value(c);
+    if (kFused) P::store(sr + c, v);
+    P::store(yr + c, v * scale * w[c]);
+  }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* y, int64_t rows, int d,
-           float eps, cudaStream_t stream) {
-  const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  rmsnorm_kernel<T><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
-                      stream>>>(static_cast<const T*>(x),
-                                static_cast<const float*>(w),
-                                static_cast<T*>(y), rows, d, eps);
+// ---- host side ---------------------------------------------------------------
+
+template <typename T, int NV, bool kFused>
+int launch_rows(const T* x, const T* delta, const float* w, T* s, T* y,
+                int64_t rows, int d, int lanes_log2, float eps,
+                cudaStream_t stream) {
+  auto kernel = rms_rows_kernel<T, NV, kFused>;
+  const size_t smem = static_cast<size_t>(d) * sizeof(float);
+  // resident blocks, cached per (device, d): the occupancy query is host work
+  // on every decode step otherwise
+  static int cached_dev = -1, cached_d = -1, resident = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != cached_dev || d != cached_d) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  smem);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    cached_dev = dev;
+    cached_d = d;
+  }
+  const int64_t rpb = static_cast<int64_t>(kWarps) * (32 >> lanes_log2);
+  const int64_t needed = (rows + rpb - 1) / rpb;
+  // past one wave, every warp walks the same number of rows
+  const int64_t per = (needed + resident - 1) / resident;
+  const int64_t blocks = (needed + per - 1) / per;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      x, delta, w, s, y, rows, d, lanes_log2, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NS, bool kFused>
+int launch_scalar(const T* x, const T* delta, const float* w, T* s, T* y,
+                  int64_t rows, int d, float eps, cudaStream_t stream) {
+  const int64_t blocks = (rows + kWarps - 1) / kWarps;
+  rms_scalar_kernel<T, NS, kFused>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          x, delta, w, s, y, rows, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <typename T, bool kFused>
+int dispatch(const void* xv, const void* dv, const void* wv, void* sv,
+             void* yv, int64_t rows, int d, float eps, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  const T* delta = static_cast<const T*>(kFused ? dv : xv);
+  const float* w = static_cast<const float*>(wv);
+  T* s = static_cast<T*>(kFused ? sv : yv);
+  T* y = static_cast<T*>(yv);
+  constexpr int kN = Pack<T>::kN;
+  // the vector path: whole 16-byte vectors in every row (d * sizeof(T) is the
+  // row pitch of these contiguous tensors), every pointer 16-byte aligned
+  const int nvec = d / kN;
+  bool vec = d % kN == 0 && aligned16(x) && aligned16(y) && aligned16(w);
+  if (kFused) vec = vec && aligned16(delta) && aligned16(s);
+  if (vec) {
+    // as many lanes per row as divide the row's vectors (at most 32), else
+    // all 32 with the tail masked
+    int lanes_log2 = 5;
+    while (lanes_log2 > 0 && nvec % (1 << lanes_log2) != 0) --lanes_log2;
+    const int max_vecs = kFused ? kMaxVecsFused : kMaxVecs;
+    if (nvec / (1 << lanes_log2) > max_vecs) lanes_log2 = 5;
+    const int nv = (nvec + (1 << lanes_log2) - 1) >> lanes_log2;
+#define RMS_ROWS(NV)                                                          \
+  if (nv <= NV)                                                               \
+    return launch_rows<T, NV, kFused>(x, delta, w, s, y, rows, d, lanes_log2, \
+                                      eps, stream);
+    RMS_ROWS(1)
+    RMS_ROWS(2)
+    RMS_ROWS(4)
+    RMS_ROWS(7)
+    RMS_ROWS(8)
+    RMS_ROWS(16)
+    if constexpr (!kFused) {
+      RMS_ROWS(32)
+    }
+#undef RMS_ROWS
+  }
+  const int per_lane = (d + 31) / 32;
+  if (per_lane <= 2)
+    return launch_scalar<T, 2, kFused>(x, delta, w, s, y, rows, d, eps,
+                                       stream);
+  if (per_lane <= 8)
+    return launch_scalar<T, 8, kFused>(x, delta, w, s, y, rows, d, eps,
+                                       stream);
+  if (per_lane <= 32)
+    return launch_scalar<T, 32, kFused>(x, delta, w, s, y, rows, d, eps,
+                                        stream);
+  return launch_scalar<T, kScalarCached, kFused>(x, delta, w, s, y, rows, d,
+                                                 eps, stream);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (x and y).  x and y are (rows, d)
-// contiguous, w is (d,) float32; rows > 0.
+// dtype: 0 float32, 1 bfloat16 (x, delta, s and y).  x, delta, s and y are
+// (rows, d) contiguous, w is (d,) float32; rows > 0.
 extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* w, void* y,
                            int64_t rows, int d, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(x, w, y, rows, d, eps, s);
+      return dispatch<float, false>(x, nullptr, w, nullptr, y, rows, d, eps,
+                                    st);
     case 1:
-      return launch<__nv_bfloat16>(x, w, y, rows, d, eps, s);
+      return dispatch<__nv_bfloat16, false>(x, nullptr, w, nullptr, y, rows,
+                                            d, eps, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int add_rmsnorm_fwd(int dtype, const void* x, const void* delta,
+                               const void* w, void* s, void* y, int64_t rows,
+                               int d, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dispatch<float, true>(x, delta, w, s, y, rows, d, eps, st);
+    case 1:
+      return dispatch<__nv_bfloat16, true>(x, delta, w, s, y, rows, d, eps,
+                                           st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
 """Public wrappers around the hand-written kernels (counterpart of
-``repro/kernels/ops.py``): the segment-mean op, flash attention and RMSNorm.
+``repro/kernels/ops.py``): the segment-mean op, flash attention, RMSNorm and
+RMSNorm with the residual add fused in front of it.
 
 Each wrapper has the signature of its JAX counterpart minus ``interpret``
 and the block sizes, and can be swapped 1:1 with its ``ref.py`` oracle.  A
@@ -13,11 +14,11 @@ import torch
 from ..device import resolve_device
 from . import ref
 from .flash_attention import flash_attention
-from .rmsnorm import rmsnorm
+from .rmsnorm import add_rmsnorm, rmsnorm
 from .segment_agg import blocks_to_device, build_vjp_blocks, segment_mean_op
 
 __all__ = ["make_mean_blocks", "make_segment_agg", "segment_mean_op",
-           "build_vjp_blocks", "flash_attention", "rmsnorm"]
+           "build_vjp_blocks", "flash_attention", "rmsnorm", "add_rmsnorm"]
 
 
 def make_mean_blocks(indptr: np.ndarray, indices: np.ndarray) -> dict:

@@ -119,18 +119,22 @@ def gnn_main(args) -> dict:
 
 def _timed(fn, device, times: list, launches: list):
     """``fn`` wrapped to record its synchronised host-clock time and the
-    flash attention and RMSNorm launches it made."""
-    from repro_torch.kernels import flash_launch_count, rmsnorm_launch_count
+    flash attention, RMSNorm (both entry points) and fused add + RMSNorm
+    launches it made."""
+    from repro_torch.kernels import (add_rmsnorm_launch_count,
+                                     flash_launch_count, rmsnorm_launch_count)
+
+    counts = (flash_launch_count, rmsnorm_launch_count,
+              add_rmsnorm_launch_count)
 
     def call(*a, **kw):
         _sync(device)
-        f0, r0 = flash_launch_count(), rmsnorm_launch_count()
+        before = [n() for n in counts]
         t0 = time.perf_counter()
         out = fn(*a, **kw)
         _sync(device)
         times.append(time.perf_counter() - t0)
-        launches.append((flash_launch_count() - f0,
-                         rmsnorm_launch_count() - r0))
+        launches.append(tuple(n() - b for n, b in zip(counts, before)))
         return out
 
     return call
@@ -143,8 +147,9 @@ def llm_main(args) -> dict:
     and launch lines, and returns the run: ``cfg``, ``model``, ``engine``,
     ``batch``, ``tokens``, ``wall_s``, ``tokens_per_s``, ``prefill_ms``,
     ``decode_ms`` (per step), ``decode_ms_p50``, ``decode_ms_p99`` and
-    ``launches`` (``{"prefill": (flash, rmsnorm), "decode": [(flash,
-    rmsnorm) per step]}``)."""
+    ``launches`` (``{"prefill": (flash, rmsnorm, fused), "decode": [(flash,
+    rmsnorm, fused) per step]}``; ``rmsnorm`` counts both RMSNorm entry
+    points, ``fused`` those with the residual add)."""
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.models import Transformer
@@ -189,9 +194,10 @@ def llm_main(args) -> dict:
           f"{args.prompt_len} tokens), decode p50 {p50:.3f} ms p99 "
           f"{p99:.3f} ms per step over {len(dec_ms)} steps")
     print(f"kernel launches: prefill flash {prefill_n[0][0]} rmsnorm "
-          f"{prefill_n[0][1]}; decode flash "
+          f"{prefill_n[0][1]} (fused add {prefill_n[0][2]}); decode flash "
           f"{sum(n[0] for n in decode_n)} rmsnorm "
-          f"{sum(n[1] for n in decode_n)} over {len(decode_n)} steps")
+          f"{sum(n[1] for n in decode_n)} (fused add "
+          f"{sum(n[2] for n in decode_n)}) over {len(decode_n)} steps")
     print(out)
     return {"cfg": cfg, "model": model, "engine": engine, "batch": batch,
             "tokens": out, "wall_s": wall, "tokens_per_s": tps,

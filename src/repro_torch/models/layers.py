@@ -5,12 +5,13 @@ Functional, as in the reference: ``*_init(cfg, gen, device) -> params``
 (dicts of tensors) and ``*_apply(params, x, ...) -> y``.  Attention runs
 through :func:`ops.flash_attention` (the hand-written kernel on the card)
 where the reference runs its pure-JAX twin ``chunked_attention``; rmsnorm
-runs through :func:`ops.rmsnorm`.  ``kernels=False`` takes the kernels'
-plain versions on any device, so the kernels can be held against them on
-the card.  Initialisation draws from an explicit ``torch.Generator`` with the
-reference's distributions; it cannot give ``jax.random``'s bits, so parity
-with the reference goes through weights carried across
-(``models/convert.py``).
+runs through :func:`ops.rmsnorm`, or :func:`ops.add_rmsnorm` where the
+residual add in front of it is fused in (:func:`add_norm_apply`).
+``kernels=False`` takes the kernels' plain versions on any device, so the
+kernels can be held against them on the card.  Initialisation draws from an
+explicit ``torch.Generator`` with the reference's distributions; it cannot
+give ``jax.random``'s bits, so parity with the reference goes through
+weights carried across (``models/convert.py``).
 """
 from __future__ import annotations
 
@@ -22,11 +23,11 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.flash_attention import flash_attention_plain
-from ..kernels.rmsnorm import rmsnorm_plain
+from ..kernels.rmsnorm import add_rmsnorm_plain, rmsnorm_plain
 from .config import ModelConfig
 
-__all__ = ["norm_init", "norm_apply", "apply_rope", "sinusoidal_positions",
-           "attention_init", "attention_prefill", "attention_decode",
+__all__ = ["norm_init", "norm_apply", "add_norm_apply", "apply_rope",
+           "sinusoidal_positions", "attention_init", "attention_prefill", "attention_decode",
            "mlp_init", "mlp_apply"]
 
 Params = dict[str, torch.Tensor]
@@ -69,6 +70,24 @@ def norm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if kernels:
         return ops.rmsnorm(x, p["scale"], eps=eps)
     return rmsnorm_plain(x, p["scale"], eps=eps)
+
+
+def add_norm_apply(p: Params, x: torch.Tensor, delta: torch.Tensor | None,
+                   cfg: ModelConfig, eps: float = 1e-6, *,
+                   kernels: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add ``x + delta`` and the norm of the sum: returns
+    ``(x + delta, norm(x + delta))``, the sum in x's dtype and the norm taken
+    from it.  RMSNorm runs both in one :func:`ops.add_rmsnorm` pass;
+    layernorm is a plain add, then :func:`norm_apply`.  ``delta`` None means
+    nothing to add: ``(x, norm(x))``."""
+    if delta is None:
+        return x, norm_apply(p, x, cfg, eps, kernels=kernels)
+    if cfg.norm == "layernorm":
+        x = x + delta
+        return x, norm_apply(p, x, cfg, eps, kernels=kernels)
+    if kernels:
+        return ops.add_rmsnorm(x, delta, p["scale"], eps=eps)
+    return add_rmsnorm_plain(x, delta, p["scale"], eps=eps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

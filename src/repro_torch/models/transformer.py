@@ -56,7 +56,13 @@ def _frozen(params: dict) -> nn.ParameterDict:
 
 class _Layer(nn.Module):
     """One (attention, MLP) sub-layer with its two norms; parameter names
-    are the reference's ``blocks.sub<i>`` keys."""
+    are the reference's ``blocks.sub<i>`` keys.
+
+    The residual add that ends a sub-layer is left to the norm after it,
+    which fuses the add in front of the norm: :meth:`forward` takes the
+    residual stream ``x`` and the previous layer's MLP output ``delta`` not
+    yet added (None before the first layer), and returns the stream and its
+    own MLP output for the next norm to add."""
 
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
@@ -65,9 +71,9 @@ class _Layer(nn.Module):
         self.norm_ffn = _frozen(L.norm_init(cfg, device=device))
         self.mlp = _frozen(L.mlp_init(cfg, gen, device))
 
-    def forward(self, x, cfg, *, kernels, cache=None, cache_len=None,
+    def forward(self, x, delta, cfg, *, kernels, cache=None, cache_len=None,
                 cache_size=None):
-        h = L.norm_apply(self.norm_mix, x, cfg, kernels=kernels)
+        x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
         if cache is None:
             mix, cache = L.attention_prefill(
                 self.attn, h, cfg, window=cfg.sliding_window,
@@ -76,9 +82,8 @@ class _Layer(nn.Module):
             mix, cache = L.attention_decode(
                 self.attn, h, cache, cache_len, cfg,
                 window=cfg.sliding_window, kernels=kernels)
-        x = x + mix
-        h = L.norm_apply(self.norm_ffn, x, cfg, kernels=kernels)
-        return x + L.mlp_apply(self.mlp, h, cfg), cache
+        x, h = L.add_norm_apply(self.norm_ffn, x, mix, cfg, kernels=kernels)
+        return x, L.mlp_apply(self.mlp, h, cfg), cache
 
 
 class Transformer(nn.Module):
@@ -128,10 +133,14 @@ class Transformer(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = L.norm_apply(self.final_norm, x, self.cfg,
-                         kernels=self.use_kernels)
-        return x[:, -1].float() @ self._head().float()
+    def _logits(self, x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+        """Logits of the last position: the last layer's residual add and
+        the final norm on that position alone (both are row-wise, so the
+        values are those of normalising every position)."""
+        _, h = L.add_norm_apply(self.final_norm, x[:, -1:].contiguous(),
+                                delta[:, -1:].contiguous(), self.cfg,
+                                kernels=self.use_kernels)
+        return h[:, 0].float() @ self._head().float()
 
     def _tokens(self, tokens) -> torch.Tensor:
         if not isinstance(tokens, torch.Tensor):
@@ -145,13 +154,13 @@ class Transformer(nn.Module):
         ``(last_logits (B, V) float32, caches, cache_len)`` with caches of
         width ``cache_size`` (default S) and ``cache_len == S``."""
         tokens = self._tokens(batch["tokens"])
-        x = self._embed_tokens(tokens)
+        x, delta = self._embed_tokens(tokens), None
         caches = []
         for layer in self.layers:
-            x, c = layer(x, self.cfg, kernels=self.use_kernels,
-                         cache_size=cache_size)
+            x, delta, c = layer(x, delta, self.cfg, kernels=self.use_kernels,
+                                cache_size=cache_size)
             caches.append(c)
-        return self._logits(x), caches, int(tokens.shape[1])
+        return self._logits(x, delta), caches, int(tokens.shape[1])
 
     # =============================================================== decode
     @torch.no_grad()
@@ -161,10 +170,11 @@ class Transformer(nn.Module):
         cfg = self.cfg
         cache_len = int(cache_len)
         x = self._embed_tokens(self._tokens(token), offset=cache_len)
+        delta = None
         for layer, cache in zip(self.layers, caches):
-            x, _ = layer(x, cfg, kernels=self.use_kernels, cache=cache,
-                         cache_len=cache_len)
-        return self._logits(x), caches
+            x, delta, _ = layer(x, delta, cfg, kernels=self.use_kernels,
+                                cache=cache, cache_len=cache_len)
+        return self._logits(x, delta), caches
 
     # ======================================================== cache structs
     def make_decode_cache(self, batch: int, cache_width: int) -> list:

@@ -1,7 +1,8 @@
-"""The port's flash attention and RMSNorm on CPU tensors (their plain
-versions) against the reference's Pallas kernels in interpret mode, the
-reference's oracles and the model's ``chunked_attention``; and the wrappers'
-dispatch and input rules (no launch and no fallback off CUDA).  Inputs are
+"""The port's flash attention, RMSNorm and fused add + RMSNorm on CPU tensors
+(their plain versions) against the reference's Pallas kernels in interpret
+mode (after the reference's own add, for the fused one), the reference's
+oracles and the model's ``chunked_attention``; and the wrappers' dispatch and
+input rules (no launch and no fallback off CUDA).  Inputs are
 made with numpy from a seed and handed to both packages."""
 import jax.numpy as jnp
 import numpy as np
@@ -106,6 +107,34 @@ def test_rmsnorm_matches_pallas_interpret(shape, dtype):
         atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(4, 128), (3, 7, 512), (2, 5, 33, 256),
+                                   (2, 3, 896)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_rmsnorm_matches_reference(shape, dtype):
+    """s bitwise against jnp's ``x + delta`` (both round the exact f32 sum
+    to nearest even, in f32 and in bf16), y against the Pallas kernel in
+    interpret mode run on that sum, at the tolerance of the plain norm."""
+    rng = np.random.default_rng(shape[-1] + 1)
+    x, delta = (rng.normal(0, 1, shape).astype(np.float32) for _ in range(2))
+    w = rng.normal(0, 1, shape[-1]).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    j_s = jnp.asarray(x, jdt) + jnp.asarray(delta, jdt)
+    j_y = j_ops.rmsnorm(j_s, jnp.asarray(w))
+    before = (rn.rmsnorm_launch_count(), rn.add_rmsnorm_launch_count())
+    s, y = ops.add_rmsnorm(torch.from_numpy(x).to(tdt),
+                           torch.from_numpy(delta).to(tdt),
+                           torch.from_numpy(w))
+    assert (rn.rmsnorm_launch_count(), rn.add_rmsnorm_launch_count()) == before
+    assert s.dtype == y.dtype == tdt and s.shape == y.shape == shape
+    np.testing.assert_array_equal(s.float().numpy(),
+                                  np.asarray(j_s, np.float32))
+    tol = RMS_TOL[dtype]
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(j_y, np.float32),
+                               atol=tol, rtol=tol)
+    # the norm is taken from the rounded sum: exactly rmsnorm of s
+    assert torch.equal(y, ops.rmsnorm(s, torch.from_numpy(w)))
+
+
 def test_flash_input_rules():
     q, k = torch.zeros(1, 4, 8, 64), torch.zeros(1, 2, 8, 64)
     with pytest.raises(TypeError, match="dtype"):
@@ -133,3 +162,21 @@ def test_rmsnorm_input_rules():
         ops.rmsnorm(x, torch.ones(7))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         ops.rmsnorm(x.to("meta"), torch.ones(8, device="meta"))
+
+
+def test_add_rmsnorm_input_rules():
+    x, w = torch.zeros(3, 8), torch.ones(8)
+    with pytest.raises(ValueError, match="shape, dtype and device"):
+        ops.add_rmsnorm(x, torch.zeros(3, 7), w)
+    with pytest.raises(ValueError, match="shape, dtype and device"):
+        ops.add_rmsnorm(x, torch.zeros(3, 8, dtype=torch.bfloat16), w)
+    with pytest.raises(ValueError, match="shape, dtype and device"):
+        ops.add_rmsnorm(x, torch.zeros(3, 8, device="meta"), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.add_rmsnorm(x, torch.zeros(8, 3).T, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.add_rmsnorm(torch.zeros(8, 3).T, x, w)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.add_rmsnorm(x, x, torch.ones(7))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.add_rmsnorm(x.to("meta"), x.to("meta"), w.to("meta"))

@@ -413,3 +413,71 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, tol):
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, w).float(),
                                atol=tol, rtol=tol)
+
+
+def _rms_inputs(shape, dtype, cuda, offset=0):
+    """x, delta (each a view ``offset`` elements into its own buffer, so a
+    nonzero offset gives contiguous tensors whose data is not 16-byte
+    aligned) and an f32 weight, from a seed."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[-1] + offset)
+    n = int(np.prod(shape))
+    x, delta = (torch.randn(n + offset, device=cuda, generator=gen).to(dtype)
+                [offset:].view(shape) for _ in range(2))
+    return x, delta, torch.randn(shape[-1], device=cuda, generator=gen)
+
+
+# d = 128, 256, 512, 896 (16-byte vectors), 264 (33 vectors: 32 lanes, the
+# tail masked), 4,096 and 8,192 (the most vectors a lane keeps, fused and
+# alone; fused, 8,192 takes the scalar path), 1,500 (ragged: the scalar
+# path), 9,000 (past the registers: the scalar path reads the tail twice),
+# and the qwen2-0.5b decode shape
+RMS_ENTRY_SHAPES = [(4, 128), (3, 7, 256), (2, 5, 512), (2, 16, 896),
+                    (3, 264), (2, 4096), (2, 8192), (3, 1500), (2, 9000),
+                    (4, 1, 896)]
+
+
+@pytest.mark.parametrize("shape", RMS_ENTRY_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("fused", [False, True], ids=["rmsnorm", "add_rmsnorm"])
+def test_rmsnorm_entry_points_match_plain(cuda, shape, offset, dtype, tol,
+                                          fused):
+    """Both entry points: s bitwise torch's ``x + delta``, y within the
+    plain version's tolerance, two launches bitwise equal, each launch
+    counted once (the fused ones in both counts); ``offset`` 1 takes the
+    inputs 2 or 4 bytes off a 16-byte boundary."""
+    x, delta, w = _rms_inputs(shape, dtype, cuda, offset)
+    assert (x.data_ptr() % 16 != 0) == bool(offset) and x.is_contiguous()
+    before = (rn.rmsnorm_launch_count(), rn.add_rmsnorm_launch_count())
+    if fused:
+        runs = [rn.add_rmsnorm(x, delta, w) for _ in range(2)]
+        s_want, y_want = rn.add_rmsnorm_plain(x, delta, w)
+        assert torch.equal(s_want, x + delta)
+        for s, _ in runs:
+            assert s.dtype == dtype and torch.equal(s, s_want)
+        ys = [y for _, y in runs]
+    else:
+        ys = [rn.rmsnorm(x, w) for _ in range(2)]
+        y_want = rn.rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    assert (rn.rmsnorm_launch_count(), rn.add_rmsnorm_launch_count()) == (
+        before[0] + 2, before[1] + 2 * fused)
+    assert ys[0].dtype == dtype and ys[0].shape == x.shape
+    torch.testing.assert_close(ys[0].float(), y_want.float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(ys[0], ys[1])
+
+
+def test_add_rmsnorm_kernel_refuses_what_it_cannot_take(cuda):
+    x, delta, w = _rms_inputs((4, 256), torch.float32, cuda)
+    before = rn.rmsnorm_launch_count()
+    with pytest.raises(ValueError, match="shape, dtype and device"):
+        rn.add_rmsnorm(x, delta.bfloat16(), w)
+    with pytest.raises(ValueError, match="shape, dtype and device"):
+        rn.add_rmsnorm(x, delta.cpu(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.add_rmsnorm(x, delta.T.contiguous().T, w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rn.add_rmsnorm(x.half(), delta.half(), w)
+    assert rn.rmsnorm_launch_count() == before

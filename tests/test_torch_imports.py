@@ -39,7 +39,8 @@ def test_import_hygiene():
     assert n >= 20, r.stdout
 
 
-@pytest.mark.parametrize("script", ["flash_timing.py", "segment_timing.py"])
+@pytest.mark.parametrize("script", ["flash_timing.py", "segment_timing.py",
+                                    "rmsnorm_timing.py"])
 def test_timing_scripts_import_hygiene(script):
     """The chip timing scripts run where only the port is installed."""
     code = (

@@ -5,7 +5,8 @@ Reduced ``qwen2-0.5b`` (GQA, QKV bias, tied head), ``llama3.2-1b`` and
 float32, with the reference's ``Transformer.init(seed)`` weights carried
 across by ``params_from_jax``: prefill logits and KV caches, teacher-forced
 decode steps, decode from an empty cache and greedy ``generate`` tokens.
-Also the copied configs, the EOS rules of ``ServeEngine`` (mirrors of
+The layer loop with the residual adds fused into the norms against the
+unfused order, bitwise.  Also the copied configs, the EOS rules of ``ServeEngine`` (mirrors of
 ``tests/test_system.py``'s scripted-model tests), the unsupported families
 and the CLI.  Everything runs on the CPU, where the kernel wrappers take
 their plain versions."""
@@ -24,6 +25,7 @@ from repro.models import Transformer as JTransformer
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import ARCH_IDS, SWA_SERVE_WINDOW, get_config
 from repro_torch.models import Transformer, params_from_jax
+from repro_torch.models import layers as L
 from repro_torch.serve import ServeEngine
 
 # f32 through two layers: the port's dense attention and torch's GEMMs sum
@@ -141,6 +143,81 @@ def test_temperature_sampling_is_seeded(pair):
     assert ((a >= 0) & (a < cfg.vocab_size)).all()
 
 
+def _unfused_pass(model, x, caches=None, cache_len=None, cache_size=None):
+    """The decoder pass in the order before the residual add was fused into
+    the norms: every add a separate op, the final norm over every position,
+    then the last position kept."""
+    cfg = model.cfg
+    out = []
+    for i, layer in enumerate(model.layers):
+        h = L.norm_apply(layer.norm_mix, x, cfg, kernels=model.use_kernels)
+        if caches is None:
+            mix, c = L.attention_prefill(layer.attn, h, cfg,
+                                         window=cfg.sliding_window,
+                                         cache_size=cache_size,
+                                         kernels=model.use_kernels)
+        else:
+            mix, c = L.attention_decode(layer.attn, h, caches[i], cache_len,
+                                        cfg, window=cfg.sliding_window,
+                                        kernels=model.use_kernels)
+        x = x + mix
+        h = L.norm_apply(layer.norm_ffn, x, cfg, kernels=model.use_kernels)
+        x = x + L.mlp_apply(layer.mlp, h, cfg)
+        out.append(c)
+    x = L.norm_apply(model.final_norm, x, cfg, kernels=model.use_kernels)
+    return x[:, -1].float() @ model._head().float(), out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3.2-1b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_layer_loop_matches_unfused_order(arch, dtype):
+    """The layer loop with the adds fused into the norms gives bitwise the
+    logits and caches of the unfused order, at prefill and decode."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    model = Transformer(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 24)))
+    forced = rng.integers(0, cfg.vocab_size, (B, 3))
+    width = 24 + 3
+    logits, caches, n = model.prefill({"tokens": prompt}, cache_size=width)
+    with torch.no_grad():
+        want, want_caches = _unfused_pass(model, model._embed_tokens(prompt),
+                                          cache_size=width)
+    assert torch.equal(logits, want)
+    for c, w in zip(caches, want_caches):
+        assert torch.equal(c["k"], w["k"]) and torch.equal(c["v"], w["v"])
+    for t in range(forced.shape[1]):
+        tok = torch.as_tensor(forced[:, t:t + 1])
+        logits, caches = model.decode_step(tok, caches, n + t)
+        with torch.no_grad():
+            want, want_caches = _unfused_pass(
+                model, model._embed_tokens(tok, offset=n + t), want_caches,
+                n + t)
+        assert torch.equal(logits, want)
+    for c, w in zip(caches, want_caches):
+        assert torch.equal(c["k"], w["k"]) and torch.equal(c["v"], w["v"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_final_norm_on_last_position_is_bitwise(dtype, norm):
+    """Adding and normalising the last position alone gives bitwise the last
+    row of adding and normalising every position."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), norm=norm)
+    rng = np.random.default_rng(9)
+    x, delta = (torch.from_numpy(rng.normal(0, 1, (B, 64, cfg.d_model))
+                                 .astype(np.float32)).to(getattr(torch, dtype))
+                for _ in range(2))
+    p = {k: torch.from_numpy(rng.normal(1, 0.1, cfg.d_model)
+                             .astype(np.float32))
+         for k in L.norm_init(cfg)}
+    s_all, h_all = L.add_norm_apply(p, x, delta, cfg)
+    s_last, h_last = L.add_norm_apply(p, x[:, -1:].contiguous(),
+                                      delta[:, -1:].contiguous(), cfg)
+    assert torch.equal(s_last, s_all[:, -1:])
+    assert torch.equal(h_last, h_all[:, -1:])
+
+
 @pytest.mark.parametrize("arch", J_ARCH_IDS)
 def test_configs_equal_reference(arch):
     assert ARCH_IDS == J_ARCH_IDS
@@ -190,7 +267,7 @@ def test_llm_cli_on_cpu():
         ["--device", "cpu", "--batch", "2", "--prompt-len", "8",
          "--new-tokens", "3"]))
     assert run["tokens"].shape == (2, 3)
-    assert run["launches"] == {"prefill": (0, 0), "decode": [(0, 0)] * 2}
+    assert run["launches"] == {"prefill": (0, 0, 0), "decode": [(0, 0, 0)] * 2}
     assert len(run["decode_ms"]) == 2 and run["prefill_ms"] > 0
     assert main(["--device", "cpu", "--arch", "llama3.2-1b", "--batch", "1",
                  "--prompt-len", "4", "--new-tokens", "2"]) == 0
