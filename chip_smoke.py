@@ -73,7 +73,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
               step's gradients with the kernels against the plain
               aggregation, the sampled run again with the plain
               aggregation (same iteration history, micro-F1 within 0.005),
-              and one full-graph step broken down (torch.profiler)
+              and one full-graph step broken down (torch.profiler).  Then
+              the async run, ``--async-generalize --async-personalize``
+              (both epochs drawn on the card by the device sampler): no
+              host draw in either phase, the device draw counter moved, two
+              forward launches per eval, finite losses, phase 1 ran; beside
+              the sampled run, each phase's epoch call (steps and eval,
+              host clock, synchronised), host→device bytes per epoch and
+              micro-F1 (reported, not asserted: the draws come from other
+              streams); and one async epoch of each phase, and a
+              host-path phase-0 epoch with its batch's copy, broken down
+              in a fresh process (torch.profiler: launches, device busy,
+              top kernels, HtoD copies and their bytes)
   6. llm      ``repro_torch.launch.serve.llm_main`` with qwen2-0.5b at its
               published widths (24 layers, d_model 896, 14/2 heads, vocab
               151,936, bf16), batch 4, prompt 2,048, 64 new tokens, seed 0:
@@ -1010,6 +1021,210 @@ def train_run(torch, sa, label, *extra):
     return res, fwd, bwd
 
 
+class EpochClock:
+    """While active, records each ``SPMDEngine`` epoch call's host-clock
+    time (synchronised before and after, so steps and eval) and, for the
+    host path's calls, the bytes of the batches the call was handed."""
+
+    METHODS = ("phase0_epoch", "phase1_epoch", "phase0_epoch_async",
+               "phase1_epoch_async")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {m: [] for m in self.METHODS}
+        self.batch_bytes = {m: [] for m in self.METHODS[:2]}
+
+    def __enter__(self):
+        from repro_torch.engine import SPMDEngine
+
+        self._orig = {m: getattr(SPMDEngine, m) for m in self.METHODS}
+        for name, fn in self._orig.items():
+            def timed(eng, *args, _fn=fn, _name=name, **kw):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(eng, *args, **kw)
+                self.torch.cuda.synchronize()
+                self.ms[_name].append((time.perf_counter() - t0) * 1e3)
+                if _name in self.batch_bytes:
+                    self.batch_bytes[_name].append(sum(
+                        v.numel() * v.element_size()
+                        for v in args[2].values()))
+                return out
+            setattr(SPMDEngine, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.engine import SPMDEngine
+
+        for name, fn in self._orig.items():
+            setattr(SPMDEngine, name, fn)
+
+    def median(self, name):
+        v = self.ms[name]
+        return round(float(np.median(v)), 3) if v else None
+
+
+def async_vs_host(res_s, clock_s, res_a, clock_a, staged):
+    """The async run beside the host-path sampled run of the same call."""
+    n0a, n1a = len(res_a.phase0_iter_history), res_a.phase1_epochs
+    row = {
+        "phase0_epoch_ms": {"host": clock_s.median("phase0_epoch"),
+                            "async": clock_a.median("phase0_epoch_async")},
+        "phase1_epoch_ms": {"host": clock_s.median("phase1_epoch"),
+                            "async": clock_a.median("phase1_epoch_async")},
+        "phase0_epoch_ms_all": {"host": clock_s.ms["phase0_epoch"],
+                                "async": clock_a.ms["phase0_epoch_async"]},
+        "phase1_epoch_ms_all": {"host": clock_s.ms["phase1_epoch"],
+                                "async": clock_a.ms["phase1_epoch_async"]},
+        "h2d_bytes_per_epoch": {
+            "host_phase0": clock_s.batch_bytes["phase0_epoch"],
+            "host_phase1": clock_s.batch_bytes["phase1_epoch"],
+            "async_phase0": (res_a.host_to_device_bytes_phase0 - staged)
+            / max(1, n0a),
+            "async_phase1": res_a.host_to_device_bytes_phase1 / max(1, n1a),
+            "async_sampler_staging_once": staged},
+        "epoch_time_with_eval_s": {"host": res_s.epoch_time_with_eval_s,
+                                   "async": res_a.epoch_time_with_eval_s},
+        "phase1_time_s": {"host": res_s.phase1_time_s,
+                          "async": res_a.phase1_time_s},
+        "micro_f1": {"host": res_s.f1.micro, "async": res_a.f1.micro},
+        "epochs": {"host": [len(res_s.phase0_iter_history),
+                            res_s.phase1_epochs], "async": [n0a, n1a]},
+    }
+    log(f"async vs host sampling (epoch calls: steps + eval, host clock, "
+        f"synchronised; medians and every epoch): {json.dumps(row)}")
+
+
+def profile_epoch(torch, label, fn):
+    """One call of ``fn`` under torch.profiler: kernel launches, device
+    busy, the top kernels, and the copies: host-to-device copies counted
+    by ``key_averages`` and, from the chrome trace (whose copy events
+    carry their size), every copy or fill by name with its count and
+    bytes."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        tp.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and any(
+        c in str(e.get("cat", "")).lower()
+        for c in ("kernel", "memcpy", "memset"))]
+    kernels = [e for e in dev if "kernel" in str(e["cat"]).lower()]
+    copies = {}
+    for e in dev:
+        if "kernel" in str(e["cat"]).lower():
+            continue
+        n, b = copies.get(e.get("name"), (0, 0))
+        copies[e.get("name")] = (n + 1, b + int(e.get("args", {}).get(
+            "bytes", 0)))
+    h2d = sum(e.count for e in tp.key_averages()
+              if e.key.startswith("Memcpy HtoD"))
+    busy_us = sum(float(e.get("dur", 0)) for e in dev)
+    log(f"profile {label}: wall {wall * 1e3:.3f} ms, kernel launches "
+        f"{len(kernels)}, device busy {busy_us / 1e3:.3f} ms = "
+        f"{busy_us / 1e6 / wall:.3f} of wall, HtoD copies {h2d} "
+        f"(key_averages); copies and fills in the trace (count, bytes) "
+        f"{json.dumps(copies)}")
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (t + float(e.get("dur", 0)), n + 1)
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"profile {label} kernel {t:9.1f} us x{n:4d}  {name[:90]}")
+
+
+def async_epoch_profiles(torch):
+    """One async epoch of each phase at the main path's widths (the
+    pipeline's partition: EW, P=4, seed 0, fanout 10), broken down after a
+    warm-up epoch of each; returns the bytes the device sampler stages."""
+    from repro_torch.core import partition_graph
+    from repro_torch.core.gp.trainer import GPHyperParams
+    from repro_torch.core.sampler import build_device_epoch_sampler
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.engine.stacking import batches_to_device
+    from repro_torch.graph import (BENCHMARKS, GraphSAGE,
+                                   build_partitioned_graph, make_benchmark)
+    from repro_torch.graph.sage import broadcast_to_partitions
+    from repro_torch.train.optim import AdamW
+
+    g = make_benchmark(BENCHMARKS["products-s"])
+    parts = partition_graph(g.indptr, g.indices, g.features, g.labels, 4,
+                            method="ew", seed=0, fanout_k=10).parts
+    pg = build_partitioned_graph(g, parts, 4)
+
+    m = GraphSAGE(g.feature_dim, 128, g.num_classes)
+    opt = AdamW(lr=1e-3, grad_clip=5.0)
+    eng = SPMDEngine(m, m.make_loss_fn(), opt, pg, GPHyperParams(),
+                     EngineConfig(device="cuda"))
+    host_train = [g.train_idx[parts[g.train_idx] == p]
+                  for p in range(pg.num_parts)]
+    ds = build_device_epoch_sampler(g, host_train, pg.num_parts,
+                                    batch_size=256, fanouts=(10, 10),
+                                    device="cuda")
+    eng.set_device_sampler(ds)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = m.init(0).cuda()
+    state = {"p": params, "o": opt.init(params.parameters())}
+    pp = broadcast_to_partitions(params, pg.num_parts)
+    pstate = {"p": pp, "o": opt.init_stacked(pp.parameters())}
+
+    def p0():
+        state["p"], state["o"], *_ = eng.phase0_epoch_async(
+            state["p"], state["o"], gen)
+
+    def p1():
+        pstate["p"], pstate["o"], *_ = eng.phase1_epoch_async(
+            pstate["p"], pstate["o"], gen, ds.natural_iters, params)
+
+    # the host path's phase-0 epoch for comparison: one iteration's batch
+    # of the host path's shapes (drawn here, held in host memory), moved
+    # in its one pinned copy, then the steps and the eval
+    nodes, valid = ds.draw_epoch(gen)
+    host = {k: v.cpu().numpy()[None] for k, v in
+            ds.make_batch(gen, nodes[:, 0], valid[:, 0]).items()}
+
+    def h0():
+        state["p"], state["o"], *_ = eng.phase0_epoch(
+            state["p"], state["o"], batches_to_device(host, "cuda"))
+
+    log(f"async sampler at products-s P={pg.num_parts}: k "
+        f"{ds.k.tolist()}, batches {ds.num_batches}, natural_iters "
+        f"{ds.natural_iters.tolist()}, staged {ds.nbytes} bytes")
+    for label, fn in (("async phase-0 epoch", p0),
+                      ("async phase-1 epoch", p1),
+                      ("host-path phase-0 epoch (copy, steps, eval)", h0)):
+        fn()
+        profile_epoch(torch, label, fn)
+    return ds.nbytes
+
+
+def async_epoch_profiles_fresh():
+    """:func:`async_epoch_profiles` in a fresh process, whose output is
+    printed here; returns the bytes the sampler staged.  In this process,
+    after the phases before it, torch.profiler recorded no host-to-device
+    copy at all, not even a host-path epoch's 29 MB pinned one that a fresh
+    process records."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--profile-async-epochs"], capture_output=True,
+                       text=True, timeout=600)
+    for line in r.stdout.splitlines():
+        log(line)
+    if r.returncode != 0:
+        raise RuntimeError(f"async epoch profiles failed: {r.stderr[-3000:]}")
+    return int(re.search(r"staged (\d+) bytes", r.stdout).group(1))
+
+
 def fullgraph_step_checks(torch, pg, flush):
     """One full-graph step from seed-0 params: gradients with the kernels
     against the plain aggregation, both step times, and a torch.profiler
@@ -1414,8 +1629,9 @@ def main() -> int:
     from repro_torch.launch.train import run_gnn
     run_gnn(train_args("--epochs", "2", "--phase0-frac", "0.5",
                        "--full-graph-train"))
-    res_s, fwd_s, _ = train_run(torch, sa, "sampled", "--epochs", "6",
-                                "--phase0-frac", "0.5")
+    with EpochClock(torch) as clock_s:
+        res_s, fwd_s, _ = train_run(torch, sa, "sampled", "--epochs", "6",
+                                    "--phase0-frac", "0.5")
     res_f, fwd_f, bwd_f = train_run(torch, sa, "full-graph", "--epochs", "6",
                                     "--phase0-frac", "0.5",
                                     "--full-graph-train")
@@ -1423,7 +1639,24 @@ def main() -> int:
                                     "--epochs", "3", "--centralized",
                                     "--full-graph-train")
     assert res_s.phase1_epochs > 0 and res_f.phase1_epochs > 0
-    train_fwd, train_bwd = fwd_s + fwd_f + fwd_c, bwd_f + bwd_c
+    # the async run: every epoch of both phases drawn on the card
+    from repro_torch.core.sampler import (device_draw_count,
+                                          reset_device_draw_count)
+    reset_device_draw_count()
+    with EpochClock(torch) as clock_a:
+        res_a, fwd_a, _ = train_run(torch, sa, "async", "--epochs", "6",
+                                    "--phase0-frac", "0.5",
+                                    "--async-generalize",
+                                    "--async-personalize")
+    draws = device_draw_count()
+    assert res_a.phase1_epochs > 0, "async phase 1 never ran"
+    assert res_a.host_draws_phase0 == res_a.host_draws_phase1 == 0, (
+        res_a.host_draws_phase0, res_a.host_draws_phase1)
+    assert draws == res_a.epochs_run, (draws, res_a.epochs_run)
+    log(f"async run: device draws {draws}, host draws 0 and 0, "
+        f"host-to-device bytes phase 0 {res_a.host_to_device_bytes_phase0} "
+        f"phase 1 {res_a.host_to_device_bytes_phase1}")
+    train_fwd, train_bwd = fwd_s + fwd_f + fwd_c + fwd_a, bwd_f + bwd_c
     # not part of the main path: the plain aggregation, for comparison
     res_p = run_gnn(train_args("--epochs", "6", "--phase0-frac", "0.5",
                                "--no-kernel-agg"))
@@ -1435,6 +1668,8 @@ def main() -> int:
         f"epoch with eval {res_s.epoch_time_with_eval_s * 1e3:.2f} vs "
         f"{res_p.epoch_time_with_eval_s * 1e3:.2f} ms")
     assert f1_diff <= F1_ATOL, f1_diff
+    staged = async_epoch_profiles_fresh()
+    async_vs_host(res_s, clock_s, res_a, clock_a, staged)
     fullgraph_step_checks(torch, pg, flush)
     del flush
 
@@ -1502,4 +1737,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--profile-async-epochs"]:
+        import torch
+        async_epoch_profiles(torch)
+        sys.exit(0)
     sys.exit(main())

@@ -6,16 +6,21 @@ all partitions, the reference's ``mode="stacked"`` (``mode="auto"``
 resolves to it as the reference's does when there are fewer cards than
 partitions).  Ported: the construction (shards and blocked-CSR
 structures), the epoch methods of the training path — sampled phase 0,
-full-graph phase 0, phase 1 with per-partition budgets — and the plain
-:meth:`SPMDEngine.evaluate`, plus :meth:`SPMDEngine.export_serving_state`
-for serving.  Every other ``EngineConfig`` option raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+full-graph phase 0, phase 1 with per-partition budgets, and the async
+epochs of both phases, which draw their batches on the device from an
+attached :class:`~repro_torch.core.sampler.DeviceEpochSampler` — and the
+plain :meth:`SPMDEngine.evaluate`, plus
+:meth:`SPMDEngine.export_serving_state` for serving.  Every other
+``EngineConfig`` option raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 
 Epoch methods return a trailing ``device_seconds``: host wall time of the
 TRAIN steps, ended by ``torch.cuda.synchronize()`` on the card.  The
 validation forward is a separate call whose time lands in
 ``last_eval_seconds``, so epoch-time comparisons stay about training, as in
-the reference.
+the reference; the async phase-0 epoch times its validation forward with
+its steps and sets ``last_eval_seconds`` to 0, as the reference's fused
+epoch does.
 """
 from __future__ import annotations
 
@@ -113,6 +118,9 @@ class SPMDEngine:
       phase0_fullgraph_epoch(params, opt_state, iters) -> the same
       phase1_epoch(pparams, popt, batches, global_params, budgets) ->
           (pparams, popt, losses (I, P), val_micro (P,), seconds)
+      phase0_epoch_async(params, opt_state, gen) -> as phase0_epoch
+      phase1_epoch_async(pparams, popt, gen, budgets, global_params) ->
+          (pparams, popt, losses (i_run, P), val_micro (P,), seconds)
       evaluate(params, split, per_partition_params) ->
           (micro (P,), preds (P, maxN))
     """
@@ -166,6 +174,7 @@ class SPMDEngine:
                       for k in ("train", "val", "test")}
         self._fg_loss = make_fullgraph_loss_fn(self.fwd, loss=config.fg_loss)
         self.last_eval_seconds = 0.0   # time of the latest evaluate() call
+        self._device_sampler = None
 
     # ------------------------------------------------------------ plumbing
     def _timed(self, fn, *args):
@@ -241,7 +250,90 @@ class SPMDEngine:
         val_micro, _ = self.evaluate(pparams, "val", per_partition_params=True)
         return pparams, popt, losses, val_micro, dt
 
+    # ----------------------------------------------- async personalization
+    def set_device_sampler(self, sampler) -> None:
+        """Attach a :class:`~repro_torch.core.sampler.DeviceEpochSampler`;
+        required by :meth:`phase0_epoch_async` and
+        :meth:`phase1_epoch_async`."""
+        self._device_sampler = sampler
+
+    def _sampler(self, method: str):
+        if self._device_sampler is None:
+            raise ValueError(f"{method} needs set_device_sampler()")
+        return self._device_sampler
+
+    def phase0_epoch_async(self, params, opt_state, gen: torch.Generator):
+        """One generalization epoch drawn on the device: the epoch draw
+        (a uniform shuffle of each local train set, or the CBS mini-epoch
+        when the sampler is class-balanced), then per iteration the batch's
+        fanout and feature gather and one step on the mean of the P losses,
+        then the validation forward.  ``gen`` is a ``torch.Generator`` on
+        the engine's device, seeded by the caller for the epoch.  Every
+        partition runs all ``num_batches`` iterations (synchronous
+        data-parallel SGD).  The returned seconds INCLUDE the validation
+        forward, and ``last_eval_seconds`` is 0, as in the reference."""
+        ds = self._sampler("phase0_epoch_async")
+        step = make_generalize_step(self.loss_fn, self.optimizer)
+
+        def run():
+            p, o, losses = params, opt_state, []
+            nodes, valid = ds.draw_epoch(gen)                # (P, I, B)
+            for i in range(ds.num_batches):
+                p, o, l = step(p, o, ds.make_batch(gen, nodes[:, i],
+                                                   valid[:, i]))
+                losses.append(l)
+            micro, _ = self._eval(p, "val")
+            return p, o, torch.stack(losses), micro
+
+        (params, opt_state, losses, val_micro), dt = self._timed(run)
+        self.last_eval_seconds = 0.0
+        return params, opt_state, losses, val_micro, dt
+
+    def phase1_epoch_async(self, pparams, popt, gen: torch.Generator,
+                           budgets, global_params):
+        """One personalization epoch drawn on the device: the mini-epoch
+        draw, then per iteration the batch's fanout and feature gather and
+        one per-partition step, partition p active while the iteration is
+        below ``budgets[p]`` (host ints from
+        ``GPController.phase1_budgets``) and bitwise frozen after.  The
+        loop runs ``i_run`` iterations: max(budgets) rounded up to a power
+        of two, capped at ``num_batches`` (the reference's rule, which fixes
+        the shape of ``losses``, ``(i_run, P)``)."""
+        ds = self._sampler("phase1_epoch_async")
+        cap = ds.num_batches
+        budgets = np.asarray(budgets)
+        need = int(budgets.max())
+        i_run = 1
+        while i_run < min(need, cap):
+            i_run *= 2
+        i_run = min(i_run, cap)
+        budgets = torch.as_tensor(budgets.astype(np.int32), device=self.device)
+        step = make_personalize_step(self.loss_fn, self.optimizer, self.hp)
+
+        def run():
+            pp, po, losses = pparams, popt, []
+            nodes, valid = ds.draw_epoch(gen)
+            for i in range(i_run):
+                pp, po, l = step(pp, po, ds.make_batch(gen, nodes[:, i],
+                                                       valid[:, i]),
+                                 global_params, i < budgets)
+                losses.append(l)
+            return pp, po, torch.stack(losses)
+
+        (pparams, popt, losses), dt = self._timed(run)
+        val_micro, _ = self.evaluate(pparams, "val", per_partition_params=True)
+        return pparams, popt, losses, val_micro, dt
+
     @torch.no_grad()
+    def _eval(self, params, split: str):
+        preds = torch.argmax(self.fwd(params, self.shards), dim=-1)
+        mask = self.masks[split]
+        micro = torch.stack([
+            f1_scores_torch(preds[p], torch.where(mask[p], self.labels[p], -1),
+                            self.num_classes)[0]
+            for p in range(self.num_parts)])
+        return micro, preds
+
     def evaluate(self, params, split: str = "test",
                  per_partition_params: bool = True):
         """The full-graph forward over all partitions (halo exchange + the
@@ -253,18 +345,7 @@ class SPMDEngine:
             raise ValueError(
                 f"per_partition_params={per_partition_params} but params "
                 f"are in the {'shared' if params.num_parts is None else 'per-partition'} form")
-
-        def run():
-            preds = torch.argmax(self.fwd(params, self.shards), dim=-1)
-            mask = self.masks[split]
-            micro = torch.stack([
-                f1_scores_torch(preds[p],
-                                torch.where(mask[p], self.labels[p], -1),
-                                self.num_classes)[0]
-                for p in range(self.num_parts)])
-            return micro, preds
-
-        out, self.last_eval_seconds = self._timed(run)
+        out, self.last_eval_seconds = self._timed(self._eval, params, split)
         return out
 
     @torch.no_grad()

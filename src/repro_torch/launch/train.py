@@ -8,7 +8,8 @@
 two-phase training) through ``repro_torch.pipeline.run_eat_distgnn`` on the
 stacked engine: every full-graph forward goes through the CUDA
 segment-mean kernel and, with ``--full-graph-train``, every backward
-through its backward kernel.  It takes the reference's flags for the ported
+through its backward kernel; ``--async-generalize`` and
+``--async-personalize`` draw the epochs on the card.  It takes the reference's flags for the ported
 options, plus ``--device`` (``cuda`` by default; raises without a card
 unless ``cpu``).  The reference's other flags belong to paths that are not
 ported yet.  ``llm`` (the transformer path) waits for ROADMAP item 15.
@@ -41,6 +42,8 @@ def config_from_args(args):
         phase0_fraction=args.phase0_frac,
         full_graph_train=args.full_graph_train,
         full_graph_iters=args.full_graph_iters,
+        async_personalize=args.async_personalize,
+        async_generalize=args.async_generalize,
         device=args.device,
     )
 
@@ -87,6 +90,16 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--full-graph-iters", type=int, default=1,
                    help="full-batch steps per phase-0 epoch with "
                         "--full-graph-train")
+    g.add_argument("--async-personalize", action="store_true",
+                   help="phase-1 with per-partition iteration budgets and "
+                        "the CBS mini-epoch draw on device (no host NumPy "
+                        "on the mini-epoch path)")
+    g.add_argument("--async-generalize", action="store_true",
+                   help="phase-0 epoch draw on device (uniform shuffle, or "
+                        "the CBS mini-epoch with CBS on) with the train "
+                        "steps and the validation eval on the card, no "
+                        "host batch per epoch — retires the host "
+                        "prefetcher on that path")
     g.add_argument("--no-double-buffer", action="store_true",
                    help="draw each epoch's batches after the previous "
                         "epoch's steps instead of during them")

@@ -7,7 +7,7 @@ all P partitions at once (the cross-partition gradient mean in phase 0,
 per-partition weights in phase 1), then the full-graph validation forward
 with its per-layer halo exchange and the segment-mean kernel.
 
-Three ported paths, each following the reference:
+Four ported paths, each following the reference:
 
   · sampled (default): host CBS mini-epochs and fanout sampling,
     double-buffered (epoch t+1 is drawn in a thread while epoch t trains;
@@ -18,16 +18,22 @@ Three ported paths, each following the reference:
   · ``full_graph_train=True``: phase 0 takes full-batch steps through the
     distributed forward, so the backward runs the segment-mean backward
     kernel;
-  · ``centralized=True``: one partition (Table IV), with either phase 0.
+  · ``centralized=True``: one partition (Table IV), with either phase 0;
+  · ``async_personalize`` / ``async_generalize``: phase 1 (and phase 0)
+    draw every epoch on the card from one shared
+    :class:`~repro_torch.core.sampler.DeviceEpochSampler` (Eq. 3 or uniform
+    subset, shuffle, fanout, feature gather), with per-partition budgets in
+    phase 1; no host sampler runs on these phases and nothing but the
+    phase-1 budgets is copied to the card per epoch.
 
 Timing is the reference's "distributed" accounting: per-epoch time is the
 max over hosts of host sampling time and an equal 1/N share of the train
 steps (the larger of the two with double buffering), validation excluded;
 ``epoch_time_with_eval_s`` adds the eval's 1/N share.  Communication is
-reported in bytes.  The reference's other options (async epochs, halo
-cache, compression, feature store, checkpoints and faults, the overlapped
-and ring exchanges, float64) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+reported in bytes.  The reference's other options (halo cache,
+compression, feature store, checkpoints and faults, the overlapped and ring
+exchanges, float64) raise ``NotImplementedError`` naming the ROADMAP item
+that ports them, with the async paths or without.
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ import torch
 from .core import (GPController, GPHyperParams, GPScheduleConfig,
                    broadcast_to_partitions, partition_graph)
 from .core.gp.trainer import grad_sync_wire_bytes
-from .core.sampler import CBSampler, host_draw_count
+from .core.sampler import (CBSampler, build_device_epoch_sampler,
+                           host_draw_count)
 from .device import resolve_device
 from .engine import EngineConfig, SPMDEngine
 from .engine.stacking import batches_to_device, stack_epoch_batches
@@ -84,6 +91,9 @@ class EATConfig:
     full_graph_iters: int = 1
     # overlap host sampling of epoch t+1 with the device steps of epoch t
     double_buffer: bool = True
+    # draw phase 1's (and phase 0's) epochs on the card: no host sampler
+    async_personalize: bool = False
+    async_generalize: bool = False
     device: str = "cuda"                  # raises without a card unless "cpu"
     # not ported yet: any value but the default raises NotImplementedError
     # (the ROADMAP item is in _NOT_PORTED); the fields that only tune one of
@@ -95,8 +105,6 @@ class EATConfig:
     halo_cv: bool = False
     halo_compress: str = "none"
     grad_compress: str = "none"
-    async_personalize: bool = False
-    async_generalize: bool = False
     checkpoint_dir: str | None = None
     resume: bool = False
     feat_store: bool = False
@@ -108,7 +116,6 @@ class EATConfig:
 # EATConfig switch -> (default, ROADMAP item that ports its path)
 _NOT_PORTED = {
     "overlap_halo": (False, 8), "ring_chunks": (0, 8),
-    "async_personalize": (False, 9), "async_generalize": (False, 9),
     "halo_cache": (False, 10), "halo_compress": ("none", 10),
     "grad_compress": ("none", 10), "feat_store": (False, 11),
     "feat_groups": (0, 11), "checkpoint_dir": (None, 12),
@@ -145,8 +152,11 @@ class EATResult:
     # per-epoch TRAIN iteration counts in phase 0 (the work-based witness
     # that CBS mini-epochs shorten the epoch)
     phase0_iter_history: list[int] = field(default_factory=list)
-    host_to_device_bytes_phase0: int = 0   # stacked batch bytes, all epochs
-    host_to_device_bytes_phase1: int = 0   # cold-row staging: 0 here
+    # bytes copied to the card: the host path's stacked batches; on the
+    # async paths the device sampler's staging (in the phase that stages
+    # it) and phase 1's per-epoch budgets
+    host_to_device_bytes_phase0: int = 0
+    host_to_device_bytes_phase1: int = 0
     resident_feature_bytes: int = 0    # the engine's stacked feature plane
     cold_h2d_bytes: int = 0            # 0: the feature store is not ported
     # mean phase-0 epoch period INCLUDING the validation eval's 1/N share
@@ -283,6 +293,13 @@ def _check_config(cfg: EATConfig, fault_plan) -> None:
             "fault plans are not ported yet (ROADMAP item 12)")
 
 
+def _fold_in(base: int, epoch: int) -> int:
+    """A generator seed for ``epoch`` of the stream ``base`` (the
+    counterpart of ``jax.random.fold_in``), the same on every run."""
+    return int(np.random.SeedSequence([base, epoch]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+
+
 @torch.no_grad()
 def _copy_partitions(dst, src, parts) -> None:
     """Copy partitions ``parts`` of per-partition ``src`` into ``dst``."""
@@ -376,6 +393,8 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
 
     # ---------------- phase 0: generalization -----------------------------
     p0frac = cfg.phase0_fraction
+    if p0frac is None and cfg.async_personalize:
+        p0frac = 0.4
     sched = GPScheduleConfig(
         max_epochs=cfg.max_epochs,
         flatten_tol=cfg.flatten_tol,
@@ -422,7 +441,23 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
     fg_halo_bytes_per_epoch = (2 * model.num_layers * pg.halo_bytes_per_layer
                                * cfg.full_graph_iters + eval_exchange)
 
-    host_to_device_p0 = 0
+    # ONE device sampler serves both async phases, staged by the first phase
+    # that needs it
+    async_phase0 = cfg.async_generalize and not cfg.full_graph_train
+    dev_sampler = None
+    gen = torch.Generator(device=dev)
+
+    def stage_device_sampler():
+        nonlocal dev_sampler
+        dev_sampler = build_device_epoch_sampler(
+            graph, host_train, n_parts, batch_size=cfg.batch_size,
+            subset_fraction=cfg.subset_fraction if cfg.use_cbs else 1.0,
+            class_balanced=cfg.use_cbs, fanouts=cfg.fanouts,
+            dtype=getattr(torch, cfg.dtype), device=dev)
+        engine.set_device_sampler(dev_sampler)
+        return dev_sampler.nbytes
+
+    host_to_device_p0 = stage_device_sampler() if async_phase0 else 0
     p0_iter_hist: list[int] = []
 
     draws_at_p0_start = host_draw_count()
@@ -436,6 +471,16 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             t_host = np.zeros(n_parts)      # no host sampling on this path
             comm_halo_p0 += fg_halo_bytes_per_epoch
             halo_exchange_hist.append(eval_exchange)
+        elif async_phase0:
+            # draw, steps and validation forward on the card; the seed rides
+            # in the launches' arguments, nothing is copied
+            gen.manual_seed(_fold_in(cfg.seed ^ 0x6E02, ctrl.epoch))
+            params, opt_state, losses, val_micro, t_dev = (
+                engine.phase0_epoch_async(params, opt_state, gen))
+            iters = losses.shape[0]
+            t_host = np.zeros(n_parts)      # no host sampling on this path
+            halo_exchange_hist.append(eval_exchange)
+            comm_halo_p0 += eval_exchange + fetch_bytes_per_epoch
         else:
             batches, t_host, iters, nbytes = next_epoch_batches()
             host_to_device_p0 += nbytes
@@ -448,6 +493,8 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         host_time = epoch_host_times(t_host, t_dev)
         sim_time += float(host_time.max())
         epoch_times.append(float(host_time.max()))
+        # the async epoch's t_dev already holds its validation forward
+        # (last_eval_seconds is 0 there)
         epoch_times_with_eval.append(
             float(host_time.max()) + engine.last_eval_seconds / n_parts)
 
@@ -473,21 +520,40 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
     phase1_time = 0.0
     phase1_epochs = 0
     host_draws_p1 = 0
+    host_to_device_p1 = 0
     if cfg.use_gp and not cfg.centralized:
         global_params = best_global
         pparams = broadcast_to_partitions(global_params, n_parts)
         popt = opt.init_stacked(pparams.parameters())
         best_personal = clone_params(pparams)
         host_elapsed = np.zeros(n_parts)
+        if cfg.async_personalize:
+            # from here on every epoch is drawn on the card: discard any
+            # in-flight host draw, and stage the sampler unless phase 0 did
+            if prefetch is not None:
+                prefetch.close()
+            if dev_sampler is None:
+                host_to_device_p1 += stage_device_sampler()
         draws_at_p1_start = host_draw_count()
         while not ctrl.done:
             active_np = ctrl.active_partitions
-            batches, t_host, iters, _ = next_epoch_batches()
-            budgets = ctrl.phase1_budgets(iters)
-            pparams, popt, losses, val_micro, t_dev = engine.phase1_epoch(
-                pparams, popt, batches, global_params, budgets)
-            host_elapsed += np.where(
-                active_np, epoch_host_times(t_host, t_dev), 0.0)
+            if cfg.async_personalize:
+                budgets = ctrl.phase1_budgets(dev_sampler.natural_iters)
+                gen.manual_seed(_fold_in(cfg.seed ^ 0xCB5D, ctrl.epoch))
+                pparams, popt, losses, val_micro, t_dev = (
+                    engine.phase1_epoch_async(pparams, popt, gen, budgets,
+                                              global_params))
+                host_to_device_p1 += budgets.astype(np.int32).nbytes
+                # each host pays for its own budgeted share of the steps;
+                # converged hosts (budget 0) pay nothing
+                host_elapsed += t_dev * budgets / max(1, int(budgets.sum()))
+            else:
+                batches, t_host, iters, _ = next_epoch_batches()
+                budgets = ctrl.phase1_budgets(iters)
+                pparams, popt, losses, val_micro, t_dev = engine.phase1_epoch(
+                    pparams, popt, batches, global_params, budgets)
+                host_elapsed += np.where(
+                    active_np, epoch_host_times(t_host, t_dev), 0.0)
             halo_exchange_hist.append(eval_exchange)
             comm_halo_p1 += eval_exchange + fetch_bytes_per_epoch
             scores = val_micro.cpu().numpy()
@@ -551,6 +617,7 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         host_draws_phase0=host_draws_p0,
         phase0_iter_history=p0_iter_hist,
         host_to_device_bytes_phase0=host_to_device_p0,
+        host_to_device_bytes_phase1=host_to_device_p1,
         resident_feature_bytes=(engine.shards["features"].numel()
                                 * engine.shards["features"].element_size()),
         final_params=final_params,

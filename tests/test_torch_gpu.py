@@ -481,3 +481,86 @@ def test_add_rmsnorm_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         rn.add_rmsnorm(x.half(), delta.half(), w)
     assert rn.rmsnorm_launch_count() == before
+
+
+# --------------------------------------------------------------------------
+# the on-device epoch sampler (no kernel of its own: torch ops on the card,
+# whose random streams differ from the CPU's, so its CPU tests cannot speak
+# for the card's draws)
+# --------------------------------------------------------------------------
+
+def _powerlaw_graph(n=300, seed=0):
+    rng = np.random.default_rng(seed)
+    deg = np.minimum((1.0 / rng.power(2.0, n) - 1).astype(np.int64), 150)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.maximum(deg, 0), out=indptr[1:])
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int64)
+    labels = rng.choice(5, n, p=[0.45, 0.25, 0.15, 0.10, 0.05])
+    train_idx = np.sort(rng.choice(n, int(0.7 * n), replace=False))
+    return indptr, indices, labels, train_idx
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_device_draw_follows_eq3_on_card(cuda, seed):
+    """The first slot of the card's Gumbel top-k ranking is a
+    categorical(Eq. 3) sample: chi-squared over 60k draws (alpha 1e-3, bins
+    merged to an expectation of at least 5), and the card's float64 Eq. 3
+    matches NumPy's to 1e-12."""
+    import scipy.stats
+
+    from repro_torch.core.sampler import (cbs_probabilities,
+                                          cbs_probabilities_device,
+                                          gumbel_subset)
+    indptr, indices, labels, train_idx = _powerlaw_graph(seed=seed)
+    probs = cbs_probabilities(indptr, indices, labels, train_idx)
+    dev64 = cbs_probabilities_device(indptr, indices, labels, train_idx,
+                                     dtype=torch.float64, device=cuda)
+    assert np.abs(dev64.cpu().numpy() - probs).max() < 1e-12
+    with np.errstate(divide="ignore"):
+        logp = torch.as_tensor(np.log(probs), dtype=torch.float32,
+                               device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed * 7919 + 13)
+    first = gumbel_subset(gen, logp.expand(60_000, -1), 1)[:, 0].cpu().numpy()
+    counts = np.bincount(first, minlength=len(probs)).astype(np.float64)
+    assert counts[probs == 0].sum() == 0
+    exp = probs * counts.sum()
+    obs_m, exp_m, acc_o, acc_e = [], [], 0.0, 0.0
+    for i in np.argsort(exp):
+        acc_o, acc_e = acc_o + counts[i], acc_e + exp[i]
+        if acc_e >= 5.0:
+            obs_m.append(acc_o)
+            exp_m.append(acc_e)
+            acc_o = acc_e = 0.0
+    obs_m[-1] += acc_o
+    exp_m[-1] += acc_e
+    assert scipy.stats.chisquare(obs_m, exp_m).pvalue > 1e-3
+
+
+def test_device_epoch_same_seed_bitwise_on_card(cuda):
+    """Two epochs drawn on the card from generators with one seed are
+    bitwise equal (Eq. 3 staged twice, the draw, every batch tensor), and
+    every valid node is a train node of its partition."""
+    from repro_torch.core import partition_graph
+    from repro_torch.core.sampler import build_device_epoch_sampler
+    from repro_torch.graph import BENCHMARKS, make_benchmark
+    g = make_benchmark(BENCHMARKS["tiny"])
+    parts = partition_graph(g.indptr, g.indices, g.features, g.labels, 4,
+                            method="ew", seed=0).parts
+    host_train = [g.train_idx[parts[g.train_idx] == p] for p in range(4)]
+
+    def epoch(seed):
+        ds = build_device_epoch_sampler(g, host_train, 4, batch_size=8,
+                                        fanouts=(5, 5), device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        nodes, valid = ds.draw_epoch(gen)
+        out = [ds.logp, nodes, valid]
+        for i in range(ds.num_batches):
+            out += list(ds.make_batch(gen, nodes[:, i], valid[:, i]).values())
+        return out
+
+    a, b = epoch(3), epoch(3)
+    assert all(x.device.type == "cuda" and torch.equal(x, y)
+               for x, y in zip(a, b))
+    nodes, valid = a[1].cpu(), a[2].cpu()
+    for p in range(4):
+        assert set(nodes[p][valid[p]].tolist()) <= set(host_train[p].tolist())

@@ -20,6 +20,7 @@ mods = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in mods:
     importlib.import_module(name)
 import chip_smoke
+assert "repro_torch.core.sampler.cbs_device" in mods, mods
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -114,9 +115,25 @@ def test_training_defaults_to_card(no_cuda):
         run_eat_distgnn(EATConfig(dataset="tiny"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["gnn", "--dataset", "tiny", "--epochs", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_eat_distgnn(EATConfig(dataset="tiny", async_personalize=True,
+                                  async_generalize=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["gnn", "--dataset", "tiny", "--epochs", "1",
+              "--async-generalize", "--async-personalize"])
     r = run_eat_distgnn(EATConfig(dataset="tiny", device="cpu", max_epochs=1,
                                   hidden_dim=8, batch_size=64, fanouts=(3, 3)))
     assert np.isfinite(r.loss_history).all() and r.epochs_run == 1
+
+
+def test_device_sampler_defaults_to_card(no_cuda, tiny):
+    from repro_torch.core.sampler import build_device_epoch_sampler
+    g, _, _ = tiny
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_device_epoch_sampler(g, [g.train_idx], 1, batch_size=64)
+    ds = build_device_epoch_sampler(g, [g.train_idx], 1, batch_size=64,
+                                    device="cpu")
+    assert ds.logp.device.type == "cpu"
 
 
 def test_transformer_serving_defaults_to_card(no_cuda):
