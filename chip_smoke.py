@@ -19,8 +19,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
               (K, K+1, 3K+5 and 10,000 in-edges at D=128/130, f32, bf16,
               f64 dyadic, one partition's hub stacked), and the stacked
               products-s shapes at D=64 and D=128, launched twice (bitwise
-              equal) with the work plan's size printed.  Backward: the
-              cases of
+              equal) with the work plan's size printed; the overlapped
+              forward's row-range use: the products-s interior and boundary
+              split blocks (``build_stacked_split_vjp_blocks``) at D=64 and
+              D=128 into own_cap rows, the boundary half at every
+              partition's n_int (a (P,) tensor), forward and backward,
+              each launched twice (bitwise equal), the products-s boundary
+              half in f64 dyadic (bitwise; one partition's n_int + nb·BN
+              runs past own_cap, so its last rows are dropped) and a
+              stacked f64 dyadic case whose real rows run past num_rows
+              (both passes bitwise).  Backward: the cases of
               ``tests/test_torch_segment_bwd.py`` (ragged sweep, row_base
               sub-ranges, rows sliced off by num_rows, an all-pad block, an
               empty edge set, stacked per-partition row_base), float64
@@ -74,6 +82,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
               aggregation, the sampled run again with the plain
               aggregation (same iteration history, micro-F1 within 0.005),
               and one full-graph step broken down (torch.profiler).  Then
+              the overlapped split forward: an ``--overlap-halo
+              --full-graph-train`` run and a sampled ``--overlap-halo
+              --ring-chunks 2`` run (the flag is only checked to be
+              accepted: on one card the exchange is the transpose whatever
+              its value; each eval launches the forward kernel
+              4 times, 2 layers x 2 halves, and each full-graph step the
+              backward kernel twice, layer 1's halves: layer 0 reads the
+              features, which need no gradient); overlapped against
+              synchronous on one set of params (owned-row logits within
+              1e-4, owned predictions and micro-F1 reported, one
+              full-graph step's gradients within GRAD_ATOL/GRAD_RTOL), the
+              full-graph step's and the eval forward's times with and
+              without overlap (CUDA events around the enqueue, and with
+              the host hidden), and one overlapped step and both eval
+              forwards broken down (torch.profiler); then ``--engine sequential
+              --full-graph-train`` for 2 epochs, the Python-loop oracle with
+              the plain aggregation, against the stacked engine with its
+              kernels from the same start (losses and params within
+              GRAD_ATOL/GRAD_RTOL; the oracle launches no kernel).  Then
               the async run, ``--async-generalize --async-personalize``
               (both epochs drawn on the card by the device sampler): no
               host draw in either phase, the device draw counter moved, two
@@ -99,7 +126,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
               decode steps and their greedy tokens (asserted); and one
               prefill and 16 decode steps broken down (torch.profiler),
               with the kernel launches and torch's elementwise adds per step
-  7. report   a ``{"kernels": [...]}`` line, then the device line last
+  7. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
+              use and their row-range use, flash attention's two designs,
+              both RMSNorm entry points), then the device line last
 
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -159,8 +188,9 @@ BF16_MAIN_ATOL, BF16_MAIN_RTOL = 1e-5, 2.0 ** -7
 # 2.8e-6 to 3.9e-6, and a wrong mask or row moves logits by O(0.1)
 LLM_F32_ATOL, LLM_F32_RTOL = 1e-4, 1e-4
 # cycles of the sleep kernel that keeps the device ahead of the host while
-# a launch's device time is timed (~2 ms at the H100's clocks, more than any
-# timed function's host work)
+# a launch's device time is timed (~2 ms at the H100's clocks, more than a
+# kernel wrapper's host work); a whole forward or step, whose host work can
+# pass 2 ms, is timed behind 10 times as many
 SLEEP_CYCLES = 4_000_000
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
@@ -168,6 +198,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
 ATTN_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SEGMENT_AGG_TPU = "src/repro/kernels/segment_agg.py:161"
 SEGMENT_AGG_BWD_TPU = "src/repro/kernels/segment_agg.py:332"
+SEGMENT_AGG_ROWS_TPU = "src/repro/kernels/segment_agg.py:239"
 FLASH_TPU = "src/repro/kernels/flash_attention.py:41"
 RMSNORM_TPU = "src/repro/kernels/rmsnorm.py:21"
 # the transformer serving run: qwen2-0.5b at its published widths
@@ -221,6 +252,33 @@ def hub_edges(rows, n_src, hubs, max_deg, seed):
     r = np.random.default_rng(seed)
     deg = np.r_[r.integers(0, max_deg + 1, rows), hubs].astype(np.int64)
     return r.integers(0, n_src, int(deg.sum())), np.repeat(np.arange(deg.size), deg)
+
+
+CLIP_BASES, CLIP_ROWS, CLIP_N_IN, CLIP_NUM_ROWS = (np.array([200, 0, 100]),
+                                                   (150, 300, 200), 320, 300)
+
+
+def clip_case(sa, name, stack, kind):
+    """A stacked f64 dyadic case (in-degrees in {0, 1, 2, 4, 8}, integer
+    inputs: both passes exact) whose first partition's rows run past
+    num_rows; ``kind`` "mean" gives the forward case, "vjp" the
+    backward's."""
+    per = []
+    for p in range(3):
+        r = np.random.default_rng(60 + p)
+        deg = r.choice([0, 1, 2, 4, 8], CLIP_ROWS[p])
+        dst = np.repeat(np.arange(CLIP_ROWS[p]), deg)
+        src = r.integers(0, CLIP_N_IN, dst.size)
+        per.append(sa.build_mean_blocks(src, dst, CLIP_ROWS[p]) if kind == "mean"
+                   else sa.build_vjp_blocks(src, dst, CLIP_ROWS[p], CLIP_N_IN))
+    blk = stack(per, sa)
+    rows = CLIP_N_IN if kind == "mean" else CLIP_NUM_ROWS
+    x = np.random.default_rng(64).integers(-8, 9, (3, rows, 40)).astype(
+        np.float64)
+    extent = CLIP_BASES + blk["src"].shape[1] * sa.BN
+    assert (extent > CLIP_NUM_ROWS).any(), extent
+    return (name, x, blk, CLIP_NUM_ROWS if kind == "mean" else CLIP_N_IN,
+            CLIP_BASES, True, "float64")
 
 
 def kernel_cases(sa):
@@ -279,6 +337,11 @@ def kernel_cases(sa):
     cases.append(("stacked P=3 per-partition row_base",
                   rng.normal(0, 1, (P, n, d)).astype(np.float32),
                   stack_host_blocks(per, sa), n, bases, True, "float32"))
+    # stacked f64 dyadic, rows past num_rows: partition 0's rows start at
+    # 200 and its real rows reach 350 (its padded blocks 584) of a 300-row
+    # output; those rows must be dropped, not land in partition 1's rows
+    cases.append(clip_case(sa, "stacked f64 dyadic rows past num_rows",
+                           stack_host_blocks, "mean"))
     # hub rows split across warps: rows of K, K+1, 3K+5 and 10,000 in-edges
     # among ragged ones, at D=128 (16-byte vectors), D=64 (half-width
     # vectors at f32) and D=130 (one element a lane), f32, bf16 and f64
@@ -313,14 +376,15 @@ def kernel_cases(sa):
     return cases
 
 
-def time_ms(fn, iters, flush, *, hide_host=False):
+def time_ms(fn, iters, flush, *, hide_host=False, sleep_cycles=SLEEP_CYCLES):
     """Median time of ``fn`` over ``iters`` launches, L2 flushed (a 64 MB
     write) before each so every launch starts cold, between CUDA events
     recorded just before and just after ``fn`` is enqueued.  Where the
     host enqueues ``fn`` more slowly than the device runs it, this counts
-    the host's part of the call too.  With ``hide_host`` a sleep kernel
-    queued behind the flush keeps the device busy while the host enqueues
-    ``fn``, so only the device's time is counted."""
+    the host's part of the call too.  With ``hide_host`` a sleep kernel of
+    ``sleep_cycles`` queued behind the flush keeps the device busy while
+    the host enqueues ``fn``, so only the device's time is counted (while
+    the host's part of ``fn`` is shorter than the sleep)."""
     import torch
 
     fn()
@@ -330,7 +394,7 @@ def time_ms(fn, iters, flush, *, hide_host=False):
     for s, e in evs:
         flush.zero_()
         if hide_host:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(sleep_cycles)
         s.record()
         fn()
         e.record()
@@ -557,6 +621,8 @@ def bwd_kernel_cases(sa):
     cases.append(("bwd stacked P=3 per-partition row_base",
                   rng.normal(0, 1, (P, n, d)).astype(np.float32),
                   stack_vjp_blocks(per, sa), n, bases, True, "float32"))
+    cases.append(clip_case(sa, "bwd stacked f64 dyadic rows past num_rows",
+                           stack_vjp_blocks, "vjp"))
     # hub source rows split across warps: one source row of 5,000 out-edges
     # and rows of K, K+1 and 3K+5, among ragged ones; D=128, D=64 and
     # D=130, f32, bf16 and f64 dyadic (deg in {1, 2, 4, 8}, bitwise); rows
@@ -986,11 +1052,13 @@ def train_args(*extra):
          "--seed", "0", "--device", "cuda", *extra])
 
 
-def train_run(torch, sa, label, *extra):
+def train_run(torch, sa, label, *extra, halves=1):
     """One ``launch.train gnn`` run with the launch counts set to 0 just
     before it and read just after; checks that every evaluation launched
-    the forward kernel (2 launches: one per layer) and every full-graph
-    step the backward kernel once (and its forward twice)."""
+    the forward kernel once a layer and half (``halves`` 2 for the
+    overlapped split forward: interior and boundary) and every full-graph
+    step the backward kernel once a half of layer 1 (layer 0 reads the
+    features, which need no gradient) and its forward as an eval does."""
     from repro_torch.launch.train import run_gnn
 
     sa.reset_kernel_launch_count()
@@ -1002,8 +1070,9 @@ def train_run(torch, sa, label, *extra):
     fg_steps = (sum(res.phase0_iter_history) if res.config.full_graph_train
                 else 0)
     evals = res.epochs_run + 1              # one per epoch, and the test
-    assert fwd == 2 * (evals + fg_steps), (label, fwd, evals, fg_steps)
-    assert bwd == fg_steps, (label, bwd, fg_steps)
+    assert fwd == 2 * halves * (evals + fg_steps), (label, fwd, evals,
+                                                    fg_steps)
+    assert bwd == halves * fg_steps, (label, bwd, fg_steps)
     losses = np.asarray(res.loss_history)
     assert losses.size == res.epochs_run and np.isfinite(losses).all(), label
     n0 = len(res.phase0_iter_history)
@@ -1281,6 +1350,111 @@ def fullgraph_step_checks(torch, pg, flush):
     return times
 
 
+def overlap_checks(torch, pg, flush):
+    """The overlapped split forward against the synchronous one on seed-0
+    params at products-s, both with the kernels: owned-row logits (atol =
+    rtol = 1e-4), owned predictions and test micro-F1 (reported); one
+    full-graph step's gradients (GRAD_ATOL/GRAD_RTOL); the step's and the
+    eval forward's device times (CUDA events, L2 flushed; sync, overlap,
+    overlap, sync); one overlapped step under torch.profiler."""
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import GraphSAGE
+
+    m = GraphSAGE(64, 128, 24)
+    engines = {k: SPMDEngine(m, None, None, pg, None, EngineConfig(
+        device="cuda", overlap_halo=k == "overlap")) for k in ("sync",
+                                                              "overlap")}
+    params = GraphSAGE(64, 128, 24).init(0).cuda()
+    own = torch.as_tensor(np.arange(pg.max_nodes)[None]
+                          < pg.n_own[:, None], device="cuda")
+
+    def fwd(eng):
+        with torch.no_grad():
+            return eng.fwd(params, eng.shards)
+
+    def step(eng):
+        params.zero_grad(set_to_none=True)
+        batch = {"shard": eng.shards, "labels": eng.labels,
+                 "train_mask": eng.masks["train"]}
+        eng._fg_loss(params, batch).mean().backward()
+        return [p.grad.clone() for p in params.parameters()]
+
+    lo, ls = fwd(engines["overlap"]), fwd(engines["sync"])
+    torch.cuda.synchronize()
+    logit_err = float((lo[own] - ls[own]).abs().max())
+    torch.testing.assert_close(lo[own], ls[own], atol=1e-4, rtol=1e-4)
+    same = float((lo.argmax(-1)[own] == ls.argmax(-1)[own]).float().mean())
+    f1 = {k: float(e.evaluate(params, "test", per_partition_params=False)[0]
+                   .mean()) for k, e in engines.items()}
+    go, gs = step(engines["overlap"]), step(engines["sync"])
+    grad_errs = [float((a - b).abs().max()) for a, b in zip(go, gs)]
+    for a, b in zip(go, gs):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    # the device timers hide up to ~20 ms of host work behind a sleep
+    # kernel (a profiled step's wall is ~12-14 ms, an overlapped eval
+    # forward's enqueue up to ~3 ms)
+    times = {}
+    for label in ("sync", "overlap", "overlap2", "sync2"):
+        eng = engines[label.rstrip("2")]
+        times[f"step_{label}"] = time_ms(lambda: step(eng), 5, flush)
+        times[f"step_device_{label}"] = time_ms(
+            lambda: step(eng), 5, flush, hide_host=True,
+            sleep_cycles=10 * SLEEP_CYCLES)
+        times[f"eval_fwd_{label}"] = time_ms(lambda: fwd(eng), 10, flush)
+        times[f"eval_fwd_device_{label}"] = time_ms(
+            lambda: fwd(eng), 10, flush, hide_host=True,
+            sleep_cycles=10 * SLEEP_CYCLES)
+    log(f"overlap vs sync at products-s: owned-row logits max |diff| "
+        f"{logit_err:.3e} (atol = rtol = 1e-4), owned predictions equal "
+        f"{same:.6f}, test micro-F1 (mean over partitions) {json.dumps(f1)}; "
+        f"full-graph step grads max |diff| per weight {grad_errs} (atol "
+        f"{GRAD_ATOL}, rtol {GRAD_RTOL}); ms (CUDA events, L2 flushed; "
+        f"*_device_* with the host hidden) {json.dumps(times)}")
+    profile_window(torch, "synchronous eval forward",
+                   lambda: [fwd(engines["sync"]) for _ in range(3)], 3)
+    profile_window(torch, "overlapped full-graph step",
+                   lambda: [step(engines["overlap"]) for _ in range(3)], 3)
+    profile_window(torch, "overlapped eval forward",
+                   lambda: [fwd(engines["overlap"]) for _ in range(3)], 3)
+    return times
+
+
+def sequential_vs_stacked(torch, sa):
+    """``--engine sequential --full-graph-train`` for 2 epochs (both
+    full-graph: ``--phase0-frac 1.0``) against the stacked engine with its
+    kernels from the same start: loss histories and final params within
+    GRAD_ATOL/GRAD_RTOL.  The oracle aggregates with the plain ops, so it
+    launches no kernel."""
+    from repro_torch.launch.train import run_gnn
+
+    args = ("--epochs", "2", "--phase0-frac", "1.0", "--full-graph-train")
+    res_k, fwd_k, bwd_k = train_run(torch, sa, "stacked full-graph 2 epochs",
+                                    *args)
+    sa.reset_kernel_launch_count()
+    t0 = time.perf_counter()
+    res_q = run_gnn(train_args(*args, "--engine", "sequential"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert res_q.engine_mode == "sequential", res_q.engine_mode
+    assert (sa.kernel_launch_count(), sa.bwd_kernel_launch_count()) == (0, 0)
+    lk, lq = np.asarray(res_k.loss_history), np.asarray(res_q.loss_history)
+    assert lk.shape == lq.shape == (2,) and np.isfinite(lq).all()
+    np.testing.assert_allclose(lq, lk, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    errs = []
+    for a, b in zip(res_q.final_params.parameters(),
+                    res_k.final_params.parameters()):
+        errs.append(float((a - b).abs().max()))
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    log(f"sequential oracle (plain aggregation) vs stacked engine (kernels), "
+        f"full-graph 2 epochs: losses {lq.tolist()} vs {lk.tolist()}, "
+        f"params max |diff| per weight {errs} (atol {GRAD_ATOL}, rtol "
+        f"{GRAD_RTOL}), micro-F1 {res_q.f1.micro:.4f} vs {res_k.f1.micro:.4f}, "
+        f"oracle wall {wall:.1f} s, epoch {res_q.epoch_time_s * 1e3:.2f} vs "
+        f"{res_k.epoch_time_s * 1e3:.2f} ms")
+    return fwd_k, bwd_k
+
+
 # --------------------------------------------------------------------------
 # phase 6 helpers
 # --------------------------------------------------------------------------
@@ -1506,6 +1680,40 @@ def main() -> int:
             sa, f"bwd products-s stacked D={d}", x, blk, pg.max_nodes, 0,
             True, "float32", flush=flush, iters=30, record=shapes,
             repeat=True)
+    # the overlapped forward's row-range use: each half of the split blocks
+    # into own_cap rows, the boundary half at every partition's n_int
+    from repro_torch.engine.stacking import build_stacked_split_vjp_blocks
+    bi, bb = build_stacked_split_vjp_blocks(pg)
+    n_int = pg.n_int.astype(np.int64)
+    extent = n_int + bb["src"].shape[1] * sa.BN
+    log(f"products-s split blocks: n_int {pg.n_int.tolist()}, own_cap "
+        f"{pg.own_cap}; interior {bi['src'].shape} real edges "
+        f"{int((bi['mask'] > 0).sum())}, plan "
+        f"{json.dumps(plan_stats(sa, bi))}; boundary {bb['src'].shape} real "
+        f"edges {int((bb['mask'] > 0).sum())}, plan "
+        f"{json.dumps(plan_stats(sa, bb))}, transpose plan "
+        f"{json.dumps(plan_stats(sa, bb, 't_'))}; boundary extent n_int + "
+        f"nb·BN {extent.tolist()} against own_cap {pg.own_cap}")
+    assert (extent > pg.own_cap).any(), "no boundary range runs past own_cap"
+    split_rows, split_bwd_rows = {}, {}
+    for d in (64, 128):
+        x = rng.normal(0, 1, (4, pg.max_nodes, d)).astype(np.float32)
+        gq = rng.normal(0, 1, (4, pg.own_cap, d)).astype(np.float32)
+        for half, bh, rb in (("interior", bi, 0), ("boundary", bb, n_int)):
+            split_rows[half, d] = run_kernel_case(
+                sa, f"products-s split {half} D={d}", x, bh, pg.own_cap, rb,
+                True, "float32", flush=flush, iters=30, record=shapes,
+                repeat=True)
+            split_bwd_rows[half, d] = run_bwd_case(
+                sa, f"bwd products-s split {half} D={d}", gq, bh,
+                pg.max_nodes, rb, True, "float32", flush=flush, iters=30,
+                record=shapes, repeat=True)
+    # f64 dyadic at products-s: the boundary half's last rows of the
+    # partitions whose range runs past own_cap are dropped, bitwise
+    run_kernel_case(sa, "products-s split boundary f64 dyadic D=64",
+                    rng.integers(-8, 9, (4, pg.max_nodes, 64)).astype(
+                        np.float64), bb, pg.own_cap, n_int, True, "float64",
+                    flush=flush, iters=5, record=shapes, repeat=True)
     # blocks without the work plan, or with the plans of partition 0 alone
     # (kept from before stacking): the CUDA ops raise, naming the builders or
     # the rebuild, and launch nothing
@@ -1657,6 +1865,29 @@ def main() -> int:
         f"host-to-device bytes phase 0 {res_a.host_to_device_bytes_phase0} "
         f"phase 1 {res_a.host_to_device_bytes_phase1}")
     train_fwd, train_bwd = fwd_s + fwd_f + fwd_c + fwd_a, bwd_f + bwd_c
+    # the overlapped split forward: two row-range launches a layer
+    res_of, fwd_of, bwd_of = train_run(
+        torch, sa, "overlap full-graph", "--epochs", "6", "--phase0-frac",
+        "0.5", "--full-graph-train", "--overlap-halo", halves=2)
+    res_or, fwd_or, _ = train_run(
+        torch, sa, "overlap sampled", "--epochs", "6",
+        "--phase0-frac", "0.5", "--overlap-halo", "--ring-chunks", "2",
+        halves=2)
+    assert res_of.phase1_epochs > 0 and res_or.phase1_epochs > 0
+    assert res_or.phase0_iter_history == res_s.phase0_iter_history
+    log(f"overlap runs beside the synchronous ones: full-graph losses "
+        f"{np.round(res_of.loss_history, 6).tolist()} vs "
+        f"{np.round(res_f.loss_history, 6).tolist()}, micro-F1 "
+        f"{res_of.f1.micro:.4f} vs {res_f.f1.micro:.4f}, epoch with eval "
+        f"{res_of.epoch_time_with_eval_s * 1e3:.2f} vs "
+        f"{res_f.epoch_time_with_eval_s * 1e3:.2f} ms; sampled "
+        f"micro-F1 {res_or.f1.micro:.4f} vs {res_s.f1.micro:.4f}, epoch "
+        f"with eval {res_or.epoch_time_with_eval_s * 1e3:.2f} vs "
+        f"{res_s.epoch_time_with_eval_s * 1e3:.2f} ms")
+    rows_fwd, rows_bwd = fwd_of + fwd_or, bwd_of
+    overlap_checks(torch, pg, flush)
+    fwd_k, bwd_k = sequential_vs_stacked(torch, sa)
+    train_fwd, train_bwd = train_fwd + fwd_k, train_bwd + bwd_k
     # not part of the main path: the plain aggregation, for comparison
     res_p = run_gnn(train_args("--epochs", "6", "--phase0-frac", "0.5",
                                "--no-kernel-agg"))
@@ -1679,7 +1910,8 @@ def main() -> int:
     # ---- 7. report ---------------------------------------------------------
     main_row, bwd_row = main_rows[128], bwd_rows[128]
     log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
-        f"bwd {train_bwd}; llm serving flash {llm_flash} rmsnorm "
+        f"bwd {train_bwd}; overlapped split forward (row-range use) fwd "
+        f"{rows_fwd} bwd {rows_bwd}; llm serving flash {llm_flash} rmsnorm "
         f"{llm_rms}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
@@ -1698,6 +1930,22 @@ def main() -> int:
         "bound_ms": bwd_row["bound_us"] / 1e3,
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"]}]
+    # the row-range use on the overlapped forward's path: the boundary half
+    # at D=128 (per-partition row_base; the interior half is in the log)
+    for name, tpu, rows, n in (
+            ("segment_mean_fwd_rows", SEGMENT_AGG_ROWS_TPU, split_rows,
+             rows_fwd),
+            ("segment_mean_bwd_rows", SEGMENT_AGG_BWD_TPU, split_bwd_rows,
+             rows_bwd)):
+        row = rows["boundary", 128]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/segment_agg.cu",
+            "replaces": tpu, "launches": n,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     # the main path's shapes in its working type: flash attention's prefill
     # (tensor cores) and decode (split over the KV length) designs, the
     # prefill's (B·S, d_model) rows for both RMSNorm entry points (the

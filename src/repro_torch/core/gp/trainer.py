@@ -16,9 +16,10 @@ partitions whose budget is spent, bit for bit.
 Steps update the params module in place (its tensors get the new values)
 and return it with the new optimizer state; the reference returns new
 pytrees.  A caller that keeps an earlier model takes a copy
-(``graph.sage.clone_params``).  The reference's single-partition step
-(``make_personalize_partition_step``) serves its mesh and sequential
-engines, which are not ported (ROADMAP items 14 and 5).
+(``graph.sage.clone_params``).  The single-partition phase-1 step
+(:func:`make_personalize_partition_step`) serves the sequential oracle
+(``engine.sequential.SequentialReference``), which runs it one partition
+at a time.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from ...train.losses import cross_entropy_loss, focal_loss, prox_penalty
 from ...train.optim import apply_updates
 
 __all__ = ["GPHyperParams", "make_generalize_step", "make_fullgraph_loss_fn",
-           "make_personalize_step", "broadcast_to_partitions",
+           "make_personalize_step", "make_personalize_partition_step",
+           "broadcast_to_partitions",
            "grad_sync_wire_bytes"]
 
 
@@ -116,6 +118,41 @@ def make_personalize_step(loss_fn: Callable, optimizer,
             grads, opt_state, [w.detach() for w in weights], active)
         _assign(pparams, new)
         return pparams, opt_state, losses.detach()
+
+    return step
+
+
+def make_personalize_partition_step(loss_fn: Callable, optimizer,
+                                    hp: GPHyperParams = GPHyperParams()
+                                    ) -> Callable:
+    """SINGLE-partition phase-1 step, no leading partition axis anywhere:
+    ``(params, opt_state, batch, global_params, active) -> (params,
+    opt_state, loss)``.  ``params`` is a shared-form ``GraphSAGE`` (one
+    partition's weights), ``opt_state`` comes from ``AdamW.init``, ``batch``
+    is one partition's batch and ``active`` a bool (or 0-d bool tensor).
+    The loss adds the Eq. 4 prox pull toward ``global_params``, which
+    enters detached.  An inactive partition's params and optimizer state
+    come back bitwise unchanged: the new values are selected with
+    ``torch.where``, never multiplied by a gate (``p + 0.0`` flips the sign
+    of ``-0.0``)."""
+
+    def step(params, opt_state, batch, global_params, active):
+        weights = list(params.parameters())
+        loss = loss_fn(params, batch)
+        if hp.use_prox:
+            gw = [g.detach() for g in global_params.parameters()]
+            loss = loss + hp.lambda_prox * prox_penalty(weights, gw)
+        grads = torch.autograd.grad(loss, weights)
+        old = [w.detach() for w in weights]
+        updates, new_state = optimizer.update(grads, opt_state, old)
+        act = torch.as_tensor(active, dtype=torch.bool, device=old[0].device)
+        sel = lambda new, prev: torch.where(act, new, prev)
+        _assign(params, [sel(w + u, w) for w, u in zip(old, updates)])
+        kept = type(opt_state)(
+            step=sel(new_state.step, opt_state.step),
+            mu=[sel(n, o) for n, o in zip(new_state.mu, opt_state.mu)],
+            nu=[sel(n, o) for n, o in zip(new_state.nu, opt_state.nu)])
+        return params, kept, loss.detach()
 
     return step
 

@@ -1,4 +1,20 @@
+from .sequential import SequentialReference
 from .spmd import EngineConfig, SPMDEngine
-from .stacking import build_stacked_vjp_blocks
+from .stacking import build_stacked_split_vjp_blocks, build_stacked_vjp_blocks
 
-__all__ = ["EngineConfig", "SPMDEngine", "build_stacked_vjp_blocks"]
+__all__ = ["EngineConfig", "SPMDEngine", "SequentialReference",
+           "build_stacked_vjp_blocks", "build_stacked_split_vjp_blocks",
+           "make_engine"]
+
+
+def make_engine(model, loss_fn, optimizer, pg, hp=None, config=None):
+    """Mode-dispatching factory: ``mode="sequential"`` gives the Python-loop
+    oracle :class:`SequentialReference`, anything else the stacked
+    :class:`SPMDEngine` (which resolves ``auto`` itself)."""
+    from ..core.gp.trainer import GPHyperParams
+
+    hp = hp if hp is not None else GPHyperParams()
+    config = config if config is not None else EngineConfig()
+    if config.mode == "sequential":
+        return SequentialReference(model, loss_fn, optimizer, pg, hp, config)
+    return SPMDEngine(model, loss_fn, optimizer, pg, hp, config)

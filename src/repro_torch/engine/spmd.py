@@ -4,8 +4,12 @@ On one GPU all P partitions run batched on one device: every shard array
 is stacked into a ``(P, ...)`` tensor and each forward is one program over
 all partitions, the reference's ``mode="stacked"`` (``mode="auto"``
 resolves to it as the reference's does when there are fewer cards than
-partitions).  Ported: the construction (shards and blocked-CSR
-structures), the epoch methods of the training path — sampled phase 0,
+partitions; ``mode="sequential"`` is the Python-loop oracle
+:class:`~repro_torch.engine.sequential.SequentialReference`, which
+:func:`repro_torch.engine.make_engine` builds).  Ported: the construction
+(shards and blocked-CSR structures), the synchronous and the overlapped
+split forward (``overlap_halo``; ``ring_chunks`` is validated and kept,
+while on one card the exchange is always the transpose), the epoch methods of the training path — sampled phase 0,
 full-graph phase 0, phase 1 with per-partition budgets, and the async
 epochs of both phases, which draw their batches on the device from an
 attached :class:`~repro_torch.core.sampler.DeviceEpochSampler` — and the
@@ -35,29 +39,37 @@ from ..core.gp.trainer import (GPHyperParams, make_fullgraph_loss_fn,
 from ..device import resolve_device
 from ..graph.distributed import (PartitionedGraph, make_distributed_forward,
                                  make_export_forward, make_kernel_mean_agg,
-                                 make_ref_mean_agg)
+                                 make_kernel_split_agg, make_overlap_forward,
+                                 make_ref_mean_agg, make_ref_split_agg)
 from ..kernels.segment_agg import blocks_to_device
 from ..train.metrics import f1_scores_torch
-from .stacking import build_stacked_vjp_blocks
+from .stacking import build_stacked_split_vjp_blocks, build_stacked_vjp_blocks
 
 __all__ = ["EngineConfig", "SPMDEngine"]
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    mode: str = "stacked"           # stacked | auto (spmd, sequential: not yet)
+    # stacked | auto | sequential (make_engine's oracle; spmd: not yet)
+    mode: str = "stacked"
     # route the full-graph aggregation through the CUDA segment-mean kernels
     # (counterpart of the reference's ``use_pallas_agg``); False uses the
     # plain index_add_ aggregation
     use_kernel_agg: bool = True
     dtype: torch.dtype = torch.float32   # float dtype of graph features
     device: str = "cuda"            # raises without a card unless "cpu"
+    # boundary/interior split forward: the interior aggregation and the
+    # self term need no halo row, and dense compute covers owned rows only
+    overlap_halo: bool = False
+    # the reference's ring schedule (chunks per step, 0 = all_to_all); on
+    # one card every exchange is the transpose whatever its value, and the
+    # ring arrives with the NCCL exchange (ROADMAP item 14)
+    ring_chunks: int = 0
     # objective of the FULL-GRAPH phase-0 mode (the sampled path's loss is
     # the loss_fn the engine is constructed with): "ce" | "focal"
     fg_loss: str = "ce"
     # options of the reference engine that are not ported yet: a value
     # other than the default raises NotImplementedError
-    overlap_halo: bool = False
     halo_cache: bool = False
     halo_compress: str = "none"
     grad_compress: str = "none"
@@ -66,17 +78,19 @@ class EngineConfig:
 
 
 # option -> (default, ROADMAP item that ports it)
-_NOT_PORTED = {"overlap_halo": (False, 8), "halo_cache": (False, 10),
-               "halo_compress": ("none", 10), "grad_compress": ("none", 10),
-               "feat_store": (False, 11), "feat_groups": (0, 11)}
-_MODE_ITEMS = {"spmd": 14, "sequential": 5}
+_NOT_PORTED = {"halo_cache": (False, 10), "halo_compress": ("none", 10),
+               "grad_compress": ("none", 10), "feat_store": (False, 11),
+               "feat_groups": (0, 11)}
+_MODE_ITEMS = {"spmd": 14}
 
 
 def _resolve_mode(config: EngineConfig, num_parts: int,
                   device: torch.device) -> str:
     """The reference's rule: ``auto`` is the partition mesh when the host
     has a card for every partition, else stacked.  The mesh is not ported,
-    so ``auto`` raises where the reference would pick it."""
+    so ``auto`` raises where the reference would pick it.  This engine runs
+    ``sequential`` stacked; :func:`repro_torch.engine.make_engine` builds
+    the sequential oracle for that mode."""
     mode = config.mode
     if mode == "auto":
         if (num_parts <= 1 or device.type != "cuda"
@@ -86,6 +100,10 @@ def _resolve_mode(config: EngineConfig, num_parts: int,
             f"mode='auto' picks the partition mesh on this host "
             f"({torch.cuda.device_count()} cards for {num_parts} partitions), "
             "which is not ported yet (ROADMAP item 14); use mode='stacked'")
+    if mode == "sequential":
+        # the oracle is a class of its own (engine.make_engine builds it);
+        # this engine stays stacked under that mode, as the reference's does
+        return "stacked"
     if mode != "stacked":
         item = _MODE_ITEMS.get(mode)
         if item is None:
@@ -97,6 +115,21 @@ def _resolve_mode(config: EngineConfig, num_parts: int,
 
 
 def _check_config(config: EngineConfig) -> None:
+    """Raise for a combination the reference refuses (``ValueError``) or
+    an option that is not ported (``NotImplementedError`` naming its
+    ROADMAP item)."""
+    if config.overlap_halo and config.halo_cache:
+        raise ValueError(
+            "halo_cache and overlap_halo are alternative exchange "
+            "optimisations: the cache removes the very exchange the "
+            "overlap would hide — pick one")
+    if config.overlap_halo and config.halo_compress != "none":
+        raise ValueError(
+            "halo_compress quantizes the gathered send buffer on the "
+            "combined-edge eval forward; the overlap forward has no "
+            "compressed spelling — pick one")
+    if config.ring_chunks < 0:
+        raise ValueError(f"ring_chunks must be >= 0, got {config.ring_chunks}")
     for name, (default, item) in _NOT_PORTED.items():
         if getattr(config, name) != default:
             raise NotImplementedError(
@@ -153,28 +186,53 @@ class SPMDEngine:
             "send_mask": flt(pg.send_mask),
             "recv_pos": idx(pg.recv_pos),
             "features": flt(pg.features),
-            "edge_src": idx(pg.edge_src),
-            "edge_dst": idx(pg.edge_dst),
-            "edge_mask": flt(pg.edge_mask),
         }
-        if config.use_kernel_agg:
-            # the kernel reads float32 masks/degrees whatever the features'
-            # dtype (both hold small integers, exact in every float type)
-            self.shards["blk"] = blocks_to_device(
-                build_stacked_vjp_blocks(pg), dev)
-
+        # the kernels read float32 masks/degrees whatever the features'
+        # dtype (both hold small integers, exact in every float type)
         meta = {"max_nodes": pg.max_nodes, "own_cap": pg.own_cap}
         self._fwd_meta = meta
-        self._mean_agg = (make_kernel_mean_agg(pg.max_nodes)
-                          if config.use_kernel_agg
-                          else make_ref_mean_agg(pg.max_nodes))
-        self.fwd = make_distributed_forward(model, meta, agg=self._mean_agg)
+        if config.overlap_halo:
+            # the split forward's state: the per-partition interior row
+            # count and ONE aggregation backend's structures
+            self.shards["n_int"] = idx(pg.n_int)
+            if config.use_kernel_agg:
+                bi, bb = build_stacked_split_vjp_blocks(pg)
+                self.shards["blk_int"] = blocks_to_device(bi, dev)
+                self.shards["blk_bnd"] = blocks_to_device(bb, dev)
+                aggs = make_kernel_split_agg(pg.own_cap)
+            else:
+                self.shards.update({
+                    "int_src": idx(pg.int_src), "int_dst": idx(pg.int_dst),
+                    "bnd_src": idx(pg.bnd_src), "bnd_dst": idx(pg.bnd_dst),
+                    "deg": flt(pg.deg)})
+                aggs = make_ref_split_agg(pg.own_cap)
+            self._mean_agg = None
+            self.fwd = make_overlap_forward(
+                model, meta, agg_interior=aggs[0], agg_boundary=aggs[1])
+        else:
+            self.shards.update({"edge_src": idx(pg.edge_src),
+                                "edge_dst": idx(pg.edge_dst),
+                                "edge_mask": flt(pg.edge_mask)})
+            if config.use_kernel_agg:
+                self.shards["blk"] = blocks_to_device(
+                    build_stacked_vjp_blocks(pg), dev)
+            self._mean_agg = (make_kernel_mean_agg(pg.max_nodes)
+                              if config.use_kernel_agg
+                              else make_ref_mean_agg(pg.max_nodes))
+            self.fwd = make_distributed_forward(model, meta,
+                                                agg=self._mean_agg)
         self.labels = idx(pg.labels)
         self.masks = {k: torch.as_tensor(getattr(pg, f"{k}_mask"), device=dev)
                       for k in ("train", "val", "test")}
         self._fg_loss = make_fullgraph_loss_fn(self.fwd, loss=config.fg_loss)
         self.last_eval_seconds = 0.0   # time of the latest evaluate() call
         self._device_sampler = None
+
+    @property
+    def resident_feature_bytes(self) -> int:
+        """Bytes of the stacked feature plane held on the device."""
+        f = self.shards["features"]
+        return f.numel() * f.element_size()
 
     # ------------------------------------------------------------ plumbing
     def _timed(self, fn, *args):
@@ -355,7 +413,13 @@ class SPMDEngine:
         "cache": {"h{i}": (P, P, maxS, D_i)}}``.  The reference returns
         host numpy arrays; here they stay tensors on the engine's device,
         where the serving engine keeps its stores.  ``params`` is a
-        ``GraphSAGE`` on that device (global, replicated weights)."""
+        ``GraphSAGE`` on that device (global, replicated weights).  The
+        overlapped forward never materialises the post-exchange layer
+        inputs, so an ``overlap_halo`` engine raises."""
+        if self.config.overlap_halo:
+            raise ValueError(
+                "export_serving_state needs the combined-edge forward; "
+                "build the engine without overlap_halo")
         fwd_e = make_export_forward(self.model, self._fwd_meta,
                                     agg=self._mean_agg)
         return fwd_e(params, self.shards)

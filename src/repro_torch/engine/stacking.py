@@ -3,7 +3,8 @@ blocked-CSR aggregation structure, and every epoch's minibatches, stacked
 into uniform ``(P, ...)`` arrays.
 
 Counterpart of ``repro/engine/stacking.py`` (``_local_csr``,
-``_stack_blocks``, ``build_stacked_vjp_blocks``, ``stack_pytrees``) and of
+``_stack_blocks``, ``_sub_csr``, ``build_stacked_vjp_blocks``,
+``build_stacked_split_vjp_blocks``, ``stack_pytrees``) and of
 ``stack_epoch_batches`` from ``repro/engine/spmd.py``, copied unchanged
 apart from the kernels' work plans (``block_row_work``, one plan over all
 P partitions for each direction) that the stacked dict also carries.
@@ -26,7 +27,8 @@ from ..graph.distributed import PartitionedGraph
 from ..kernels.segment_agg import (BEC, BN, block_row_ptr, block_row_work,
                                    build_edge_blocks, build_transpose_blocks)
 
-__all__ = ["StackedBlocks", "build_stacked_vjp_blocks", "stack_pytrees",
+__all__ = ["StackedBlocks", "build_stacked_vjp_blocks",
+           "build_stacked_split_vjp_blocks", "stack_pytrees",
            "stack_epoch_batches", "batches_to_device"]
 
 
@@ -73,6 +75,19 @@ def _stack_blocks(per_part, num_parts: int, bn: int) -> StackedBlocks:
                          src=src, local_dst=ldst, mask=mask, deg=deg)
 
 
+def _sub_csr(src: np.ndarray, dst: np.ndarray, mask: np.ndarray,
+             num_rows: int, row_base: int = 0):
+    """CSR over a destination sub-range rebased to start at row 0 (edges
+    must already be dst-major ascending, as build_partitioned_graph emits)."""
+    real = mask > 0
+    s = src[real].astype(np.int64)
+    d = dst[real].astype(np.int64) - row_base
+    counts = np.bincount(d, minlength=num_rows) if num_rows else np.zeros(0, np.int64)
+    indptr = np.zeros(num_rows + 1, dtype=np.int64)
+    np.cumsum(counts[:num_rows], out=indptr[1:])
+    return indptr, s
+
+
 def _stack_vjp_dict(fwd_list, bwd_list, num_parts: int, bn: int) -> dict:
     """Pair per-partition forward + transpose EdgeBlocks into the flat
     ``segment_mean_op`` blocks dict, each side padded fleet-wide."""
@@ -100,6 +115,41 @@ def build_stacked_vjp_blocks(pg: PartitionedGraph, bn: int = BN,
             pg.edge_src[p][real], pg.edge_dst[p][real], pg.max_nodes,
             bn=bn, bec=bec))
     return _stack_vjp_dict(fwds, bwds, pg.num_parts, bn)
+
+
+def build_stacked_split_vjp_blocks(pg: PartitionedGraph, bn: int = BN,
+                                   bec: int = BEC) -> tuple[dict, dict]:
+    """The overlapped forward's interior/boundary aggregation split with the
+    transpose mirrors attached: ``(interior, boundary)`` blocks dicts for
+    the two ``segment_mean_op`` row-range calls.  Each half blocks ONLY its
+    own row range — interior rows ``[0, n_int)``, boundary rows rebased to
+    ``[0, n_own - n_int)`` (a zero-range partition contributes all-pad
+    blocks that aggregate to exact zeros) — while its transpose covers the
+    full ``max_nodes`` source space, the gather side indexing the REBASED
+    gradient sub-range the forward produced.  Each half's work plans are
+    built over its own padded, stacked arrays, so their ``row_space`` is
+    the ``(P, nb, BN)`` that half launches with."""
+    ints_f, ints_b, bnds_f, bnds_b = [], [], [], []
+    for p in range(pg.num_parts):
+        n_int = int(pg.n_int[p])
+        ip, isrc = _sub_csr(pg.int_src[p], pg.int_dst[p], pg.int_mask[p],
+                            n_int)
+        ints_f.append(build_edge_blocks(ip, isrc, bn=bn, bec=bec))
+        real_i = pg.int_mask[p] > 0
+        ints_b.append(build_transpose_blocks(
+            pg.int_src[p][real_i], pg.int_dst[p][real_i], pg.max_nodes,
+            bn=bn, bec=bec))
+
+        n_bnd = int(pg.n_own[p] - pg.n_int[p])
+        bp, bsrc = _sub_csr(pg.bnd_src[p], pg.bnd_dst[p], pg.bnd_mask[p],
+                            n_bnd, row_base=n_int)
+        bnds_f.append(build_edge_blocks(bp, bsrc, bn=bn, bec=bec))
+        real_b = pg.bnd_mask[p] > 0
+        bnds_b.append(build_transpose_blocks(
+            pg.bnd_src[p][real_b], pg.bnd_dst[p][real_b] - n_int,
+            pg.max_nodes, bn=bn, bec=bec))
+    return (_stack_vjp_dict(ints_f, ints_b, pg.num_parts, bn),
+            _stack_vjp_dict(bnds_f, bnds_b, pg.num_parts, bn))
 
 
 def stack_pytrees(trees: list[dict]) -> dict:

@@ -17,9 +17,11 @@ contiguous local index space:
 The device half is the reference's ``mode="stacked"`` path, written out:
 all P partitions live in ``(P, ...)`` tensors on one device, and the
 ``vmap``-batched ``all_to_all`` of the reference is the index transpose
-``recv[q][p] = sent[p][q]`` of the ``(P, P, maxS, D)`` send buffer.  The
-compressed, cached and overlapped forwards join with ROADMAP items 8
-and 10.
+``recv[q][p] = sent[p][q]`` of the ``(P, P, maxS, D)`` send buffer.  Beside the synchronous forward there is the
+overlapped split forward (:func:`make_overlap_forward`, over the
+interior/boundary aggregation pairs :func:`make_ref_split_agg` and
+:func:`make_kernel_split_agg`); the compressed and cached forwards join
+with ROADMAP item 10.
 """
 from __future__ import annotations
 
@@ -27,12 +29,15 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .csr import CSRGraph
 
 __all__ = ["PartitionedGraph", "build_partitioned_graph",
            "make_distributed_forward", "make_export_forward",
-           "RecomputePlanner", "make_ref_mean_agg", "make_kernel_mean_agg"]
+           "make_overlap_forward", "RecomputePlanner", "make_ref_mean_agg",
+           "make_kernel_mean_agg", "make_ref_split_agg",
+           "make_kernel_split_agg"]
 
 
 @dataclass
@@ -280,7 +285,11 @@ def build_partitioned_graph(
 def _exchange(sent: torch.Tensor) -> torch.Tensor:
     """``sent[p][q]`` = rows partition p ships to q, ``(P, P, maxS, D)``;
     returns ``recv`` with ``recv[q][p] = sent[p][q]`` — what the reference's
-    ``all_to_all(split_axis=0, concat_axis=0)`` makes under ``vmap``."""
+    ``all_to_all(split_axis=0, concat_axis=0)`` makes under ``vmap``.  On
+    one device this transpose is the whole exchange, whatever
+    ``ring_chunks`` says: the reference's chunked ``ppermute`` ring is a
+    schedule across devices and arrives with the NCCL exchange (ROADMAP
+    item 14)."""
     return sent.transpose(0, 1)
 
 
@@ -318,23 +327,57 @@ def _halo_exchange(h: torch.Tensor, send_idx, send_mask,
 # aggregation backends
 # ---------------------------------------------------------------------------
 
+def _segment_sum(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                 num_rows: int, weight=None) -> torch.Tensor:
+    """``out[p, v] = Σ_{e: dst[p, e] = v} h[p, src[p, e]] (· weight[p, e])``
+    into ``(P, num_rows, D)``, with ``index_add_``."""
+    P, _, d = h.shape
+    parts = torch.arange(P, device=h.device)[:, None]
+    msg = h[parts, src]
+    if weight is not None:
+        msg = msg * weight[..., None]
+    s = torch.zeros((P * num_rows, d), dtype=h.dtype, device=h.device)
+    s.index_add_(0, (dst + parts * num_rows).reshape(-1), msg.reshape(-1, d))
+    return s.reshape(P, num_rows, d)
+
+
 def make_ref_mean_agg(max_nodes: int):
     """Plain segment-sum mean aggregation over the stacked local edge
     lists (``index_add_`` in place of ``jax.ops.segment_sum``)."""
 
     def mean_agg(h: torch.Tensor, shards: dict) -> torch.Tensor:
-        P, n, d = h.shape
-        parts = torch.arange(P, device=h.device)[:, None]
+        P, n, _ = h.shape
         mask = shards["edge_mask"].to(h.dtype)
-        msg = h[parts, shards["edge_src"]] * mask[..., None]
-        flat_dst = (shards["edge_dst"] + parts * n).reshape(-1)
-        s = torch.zeros((P * n, d), dtype=h.dtype, device=h.device)
-        s.index_add_(0, flat_dst, msg.reshape(-1, d))
+        s = _segment_sum(h, shards["edge_src"], shards["edge_dst"], n, mask)
         deg = torch.zeros(P * n, dtype=h.dtype, device=h.device)
-        deg.index_add_(0, flat_dst, mask.reshape(-1))
-        return (s / deg.clamp_min(1.0)[:, None]).reshape(P, n, d)
+        parts = torch.arange(P, device=h.device)[:, None]
+        deg.index_add_(0, (shards["edge_dst"] + parts * n).reshape(-1),
+                       mask.reshape(-1))
+        return s / deg.clamp_min(1.0).reshape(P, n, 1)
 
     return mean_agg
+
+
+def make_ref_split_agg(own_cap: int):
+    """Plain interior/boundary aggregation pair of the overlapped forward
+    (``(agg_interior, agg_boundary)``).  Each maps ``(h, shards) ->
+    (P, own_cap, D)`` and is only meaningful on its own rows: ``[0,
+    n_int)`` for the interior half, ``[n_int, n_own)`` for the boundary
+    half; the caller selects per row.
+
+    No mask multiply and no degree pass: padding edges read the all-zero
+    trash row and land in the sacrificial row ``own_cap``, which is sliced
+    off, and the in-degree is the static ``shards["deg"]``."""
+
+    def half(src_key: str, dst_key: str):
+        def agg(h: torch.Tensor, shards: dict) -> torch.Tensor:
+            s = _segment_sum(h, shards[src_key], shards[dst_key],
+                             own_cap + 1)[:, :own_cap]
+            return s / shards["deg"][..., None].to(h.dtype)
+
+        return agg
+
+    return half("int_src", "int_dst"), half("bnd_src", "bnd_dst")
 
 
 def make_kernel_mean_agg(max_nodes: int):
@@ -349,6 +392,29 @@ def make_kernel_mean_agg(max_nodes: int):
                                num_rows=max_nodes).to(h.dtype)
 
     return mean_agg
+
+
+def make_kernel_split_agg(own_cap: int):
+    """Kernel interior/boundary pair (counterpart of
+    ``make_pallas_split_agg``): each half is ONE ``segment_mean_op`` launch
+    over its own stacked row-range blocks (``shards["blk_int"]`` /
+    ``shards["blk_bnd"]``, from
+    ``engine.stacking.build_stacked_split_vjp_blocks``), placed into the
+    ``(P, own_cap, D)`` output at ``row_base`` 0 (interior) or at each
+    partition's ``n_int`` (boundary, the ``(P,)`` tensor
+    ``shards["n_int"]``).  Both halves are differentiable: the boundary
+    half's backward reaches owned and halo source rows."""
+    from ..kernels.segment_agg import segment_mean_op
+
+    def agg_interior(h: torch.Tensor, shards: dict) -> torch.Tensor:
+        return segment_mean_op(h, shards["blk_int"], num_rows=own_cap,
+                               row_base=0).to(h.dtype)
+
+    def agg_boundary(h: torch.Tensor, shards: dict) -> torch.Tensor:
+        return segment_mean_op(h, shards["blk_bnd"], num_rows=own_cap,
+                               row_base=shards["n_int"]).to(h.dtype)
+
+    return agg_interior, agg_boundary
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +448,63 @@ def make_distributed_forward(model, pg_meta: dict, agg=None,
             h = _halo_exchange(h, shards["send_idx"], shards["send_mask"],
                                shards["recv_pos"])
             h = model._layer(lp, h, mean_agg(h, shards), i < last)
+        return h
+
+    return fwd
+
+
+def _neigh_weights(lp):
+    """``(w_self, w_neigh, b)`` of a layer for ``(P, rows, d)`` inputs: a
+    per-partition bias ``(P, d_out)`` gains the rows axis."""
+    b = lp.b if lp.b.dim() == 1 else lp.b[:, None]
+    return lp.w_self, lp.w_neigh, b
+
+
+def make_overlap_forward(model, pg_meta: dict, agg_interior=None,
+                         agg_boundary=None):
+    """The n-layer OVERLAPPED split forward over all partitions:
+    ``fwd(params, shards) -> (P, maxN, C)``, of which only the owned rows
+    ``[0, n_own)`` are meaningful.  Each layer runs the reference's order:
+
+      1. gather the send rows and exchange them,
+      2. the interior aggregation and the self term ``h[:, :own_cap] @
+         w_self``, neither of which reads a halo row,
+      3. land the received rows (a new tensor),
+      4. the boundary aggregation, then the per-row select
+         ``torch.where(row < n_int, interior, boundary)`` (a select, so
+         neither half's ``-0.0`` or NaN leaks into the other's rows),
+
+    and re-embeds the ``own_cap`` rows into ``(P, maxN, D)`` with zero
+    rows after them (the trash row stays zero; halo rows are refreshed by
+    the next layer's exchange before anything reads them).  Dense products
+    and aggregation outputs cover ``own_cap`` rows instead of ``maxN``.
+    On one device the exchange is an index copy on the same stream, so
+    nothing runs concurrently yet.  ``shards`` holds the stacked tensors
+    plus ``n_int`` ``(P,)`` and the split aggregation's structures.
+    """
+    max_nodes, own_cap = pg_meta["max_nodes"], pg_meta["own_cap"]
+    if agg_interior is None or agg_boundary is None:
+        agg_interior, agg_boundary = make_ref_split_agg(own_cap)
+
+    def split_layer(h, shards, lp, activate: bool):
+        w_self, w_neigh, b = _neigh_weights(lp)
+        recv = _exchange(_gather_send(h, shards["send_idx"],
+                                      shards["send_mask"]))
+        agg_i = agg_interior(h, shards)
+        self_t = h[:, :own_cap] @ w_self
+        h = _land(h, recv, shards["recv_pos"])
+        agg_b = agg_boundary(h, shards)
+        rows = torch.arange(own_cap, device=h.device)[None, :, None]
+        agg = torch.where(rows < shards["n_int"][:, None, None], agg_i, agg_b)
+        out = self_t + agg @ w_neigh + b
+        return torch.relu(out) if activate else out
+
+    def fwd(params, shards: dict) -> torch.Tensor:
+        h = shards["features"]
+        last = len(params.layers) - 1
+        for i, lp in enumerate(params.layers):
+            out = split_layer(h, shards, lp, i < last)
+            h = F.pad(out, (0, 0, 0, max_nodes - own_cap))
         return h
 
     return fwd

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 __all__ = ["SAGELayer", "GraphSAGE", "broadcast_to_partitions",
-           "clone_params"]
+           "clone_params", "take_partition"]
 
 
 def _glorot(rng: np.random.Generator, shape: tuple[int, ...]) -> np.ndarray:
@@ -239,24 +239,31 @@ def _host(idx) -> np.ndarray:
     return np.asarray(idx, np.int64)
 
 
-def clone_params(params: GraphSAGE) -> GraphSAGE:
-    """A detached copy of ``params`` (either form), e.g. a best-model
-    snapshot that later in-place updates leave alone."""
+def _rebuilt(params: GraphSAGE, weight) -> GraphSAGE:
+    """A new ``GraphSAGE`` of ``params``' config whose every weight is
+    ``weight(w)`` of the detached weight ``w``."""
     out = GraphSAGE(params.feature_dim, params.hidden_dim, params.num_classes,
                     params.num_layers)
     with torch.no_grad():
         for (lp, name), src in zip(out._slots(), params.parameters()):
-            setattr(lp, name, nn.Parameter(src.detach().clone()))
+            setattr(lp, name, nn.Parameter(weight(src.detach())))
     return out
+
+
+def clone_params(params: GraphSAGE) -> GraphSAGE:
+    """A detached copy of ``params`` (either form), e.g. a best-model
+    snapshot that later in-place updates leave alone."""
+    return _rebuilt(params, torch.clone)
 
 
 def broadcast_to_partitions(params: GraphSAGE, num_parts: int) -> GraphSAGE:
     """W^G -> the per-partition form, every partition starting from the same
     weights (the phase transition)."""
-    out = clone_params(params)
-    with torch.no_grad():
-        for lp, name in out._slots():
-            w = getattr(lp, name)
-            setattr(lp, name, nn.Parameter(
-                w[None].expand(num_parts, *w.shape).clone()))
-    return out
+    return _rebuilt(params,
+                    lambda w: w[None].expand(num_parts, *w.shape).clone())
+
+
+def take_partition(params: GraphSAGE, p: int) -> GraphSAGE:
+    """Partition ``p``'s weights of per-partition ``params`` as a detached
+    copy in the shared form (the reference's ``tree.map(lambda x: x[p])``)."""
+    return _rebuilt(params, lambda w: w[p].clone())

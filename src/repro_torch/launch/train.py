@@ -9,9 +9,13 @@ two-phase training) through ``repro_torch.pipeline.run_eat_distgnn`` on the
 stacked engine: every full-graph forward goes through the CUDA
 segment-mean kernel and, with ``--full-graph-train``, every backward
 through its backward kernel; ``--async-generalize`` and
-``--async-personalize`` draw the epochs on the card.  It takes the reference's flags for the ported
-options, plus ``--device`` (``cuda`` by default; raises without a card
-unless ``cpu``).  The reference's other flags belong to paths that are not
+``--async-personalize`` draw the epochs on the card; ``--overlap-halo``
+runs the interior/boundary split forward, whose two halves are two
+row-range launches of the kernel (``--ring-chunks`` is accepted, and on
+one card the exchange stays the transpose); ``--engine
+sequential`` runs the Python-loop oracle with the plain aggregation.  It
+takes the reference's flags for the ported options, plus ``--device``
+(``cuda`` by default; raises without a card unless ``cpu``).  The reference's other flags belong to paths that are not
 ported yet.  ``llm`` (the transformer path) waits for ROADMAP item 15.
 """
 from __future__ import annotations
@@ -37,6 +41,8 @@ def config_from_args(args):
         seed=args.seed,
         centralized=args.centralized,
         engine_mode=args.engine,
+        overlap_halo=args.overlap_halo,
+        ring_chunks=args.ring_chunks,
         use_kernel_agg=not args.no_kernel_agg,
         double_buffer=not args.no_double_buffer,
         phase0_fraction=args.phase0_frac,
@@ -74,10 +80,21 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--batch-size", type=int, default=256)
     g.add_argument("--fanout", type=int, default=10)
     g.add_argument("--seed", type=int, default=0)
-    g.add_argument("--engine", default="auto", choices=("auto", "stacked"),
+    g.add_argument("--engine", default="auto",
+                   choices=("auto", "stacked", "sequential"),
                    help="epoch executor: all partitions stacked on one "
                         "card (auto picks it while there are fewer cards "
-                        "than partitions)")
+                        "than partitions), or the sequential Python-loop "
+                        "reference")
+    g.add_argument("--overlap-halo", action="store_true",
+                   help="boundary/interior split forward: overlap each "
+                        "layer's halo exchange with interior aggregation "
+                        "and restrict dense compute to owned rows")
+    g.add_argument("--ring-chunks", type=int, default=0,
+                   help="exchange as a ring with N chunks per step instead "
+                        "of one all_to_all (0 = all_to_all); only "
+                        "meaningful with --overlap-halo, and on one card "
+                        "the exchange is the all_to_all transpose")
     g.add_argument("--no-kernel-agg", action="store_true",
                    help="aggregate with plain index_add_ instead of the "
                         "CUDA segment-mean kernels")

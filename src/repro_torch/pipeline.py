@@ -6,6 +6,9 @@ by the stacked :class:`repro_torch.engine.SPMDEngine`: the train steps over
 all P partitions at once (the cross-partition gradient mean in phase 0,
 per-partition weights in phase 1), then the full-graph validation forward
 with its per-layer halo exchange and the segment-mean kernel.
+``engine_mode="sequential"`` runs the same loop on the Python-loop oracle
+(:class:`repro_torch.engine.SequentialReference`, plain aggregation), and
+``overlap_halo`` swaps in the split forward.
 
 Four ported paths, each following the reference:
 
@@ -31,9 +34,9 @@ max over hosts of host sampling time and an equal 1/N share of the train
 steps (the larger of the two with double buffering), validation excluded;
 ``epoch_time_with_eval_s`` adds the eval's 1/N share.  Communication is
 reported in bytes.  The reference's other options (halo cache,
-compression, feature store, checkpoints and faults, the overlapped and ring
-exchanges, float64) raise ``NotImplementedError`` naming the ROADMAP item
-that ports them, with the async paths or without.
+compression, feature store, checkpoints and faults, float64) raise
+``NotImplementedError`` naming the ROADMAP item that ports them, with the
+async paths or without.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from .core.gp.trainer import grad_sync_wire_bytes
 from .core.sampler import (CBSampler, build_device_epoch_sampler,
                            host_draw_count)
 from .device import resolve_device
-from .engine import EngineConfig, SPMDEngine
+from .engine import EngineConfig, make_engine
 from .engine.stacking import batches_to_device, stack_epoch_batches
 from .graph import (BENCHMARKS, GraphSAGE, build_partitioned_graph,
                     make_benchmark)
@@ -83,7 +86,7 @@ class EATConfig:
     phase0_fraction: float | None = None
     seed: int = 0
     centralized: bool = False             # 1 host, no partitioning (Table IV)
-    engine_mode: str = "auto"             # auto | stacked
+    engine_mode: str = "auto"             # auto | stacked | sequential
     use_kernel_agg: bool = True           # CUDA segment-mean kernels
     # phase 0 trains FULL-GRAPH: ``full_graph_iters`` full-batch steps per
     # epoch straight through the distributed forward
@@ -95,11 +98,13 @@ class EATConfig:
     async_personalize: bool = False
     async_generalize: bool = False
     device: str = "cuda"                  # raises without a card unless "cpu"
+    # boundary/interior split forward: overlap each layer's halo exchange
+    # with the interior aggregation and restrict dense compute to owned rows
+    overlap_halo: bool = False
+    ring_chunks: int = 0                  # ring chunks (on one card: transpose)
     # not ported yet: any value but the default raises NotImplementedError
     # (the ROADMAP item is in _NOT_PORTED); the fields that only tune one of
     # these paths are kept for the reference's summary() keys
-    overlap_halo: bool = False
-    ring_chunks: int = 0
     halo_cache: bool = False
     halo_refresh_every: int = 4
     halo_cv: bool = False
@@ -115,7 +120,6 @@ class EATConfig:
 
 # EATConfig switch -> (default, ROADMAP item that ports its path)
 _NOT_PORTED = {
-    "overlap_halo": (False, 8), "ring_chunks": (0, 8),
     "halo_cache": (False, 10), "halo_compress": ("none", 10),
     "grad_compress": ("none", 10), "feat_store": (False, 11),
     "feat_groups": (0, 11), "checkpoint_dir": (None, 12),
@@ -338,11 +342,13 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                       num_classes=graph.num_classes)
     loss_fn = model.make_loss_fn(loss="focal" if cfg.use_focal else "ce")
     opt = AdamW(lr=cfg.lr, grad_clip=5.0)
-    engine = SPMDEngine(
+    engine = make_engine(
         model, loss_fn, opt, pg, hp=GPHyperParams(lambda_prox=cfg.lambda_prox),
         config=EngineConfig(mode=cfg.engine_mode,
                             use_kernel_agg=cfg.use_kernel_agg,
                             device=cfg.device,
+                            overlap_halo=cfg.overlap_halo,
+                            ring_chunks=cfg.ring_chunks,
                             fg_loss="focal" if cfg.use_focal else "ce"))
     if verbose:
         print(f"engine[{engine.mode}] {pg.summary()}")
@@ -618,7 +624,6 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         phase0_iter_history=p0_iter_hist,
         host_to_device_bytes_phase0=host_to_device_p0,
         host_to_device_bytes_phase1=host_to_device_p1,
-        resident_feature_bytes=(engine.shards["features"].numel()
-                                * engine.shards["features"].element_size()),
+        resident_feature_bytes=engine.resident_feature_bytes,
         final_params=final_params,
     )

@@ -138,10 +138,10 @@ def test_distributed_forward_is_export_logits(setup, use_kernel):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("overlap_halo", True, 8), ("halo_cache", True, 10),
+    ("halo_cache", True, 10),
     ("halo_compress", "int8", 10), ("grad_compress", "topk", 10),
     ("feat_store", True, 11), ("feat_groups", 2, 11), ("mode", "spmd", 14),
-    ("mode", "auto", 14), ("mode", "sequential", 5)])
+    ("mode", "auto", 14)])
 def test_unported_options_raise(setup, option, value, item, monkeypatch):
     pg, _, _, _, m = setup
     device = "cpu"
@@ -153,6 +153,37 @@ def test_unported_options_raise(setup, option, value, item, monkeypatch):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         SPMDEngine(m, None, None, pg, None,
                    EngineConfig(device=device, **{option: value}))
+
+
+@pytest.mark.parametrize("option,value", [("overlap_halo", True),
+                                          ("mode", "sequential")])
+def test_overlap_and_sequential_options_run(setup, option, value):
+    """The two options that used to raise now build and evaluate: the
+    overlapped engine's owned-row logits are the synchronous ones, and
+    under mode="sequential" this engine stays stacked while make_engine
+    builds the Python-loop oracle, which predicts as the engine does."""
+    from repro_torch.engine import SequentialReference, make_engine
+    pg, _, _, _, m = setup
+    base = SPMDEngine(m, None, None, pg, None, EngineConfig(device="cpu"))
+    eng = SPMDEngine(m, None, None, pg, None,
+                     EngineConfig(device="cpu", **{option: value}))
+    assert eng.mode == "stacked"
+    own = torch.as_tensor(np.arange(pg.max_nodes)[None]
+                          < np.asarray(pg.n_own)[:, None])
+    with torch.no_grad():
+        np.testing.assert_allclose(eng.fwd(m, eng.shards)[own].numpy(),
+                                   base.fwd(m, base.shards)[own].numpy(),
+                                   atol=ATOL, rtol=RTOL)
+    micro, preds = eng.evaluate(m, "test", per_partition_params=False)
+    if option == "mode":
+        seq = make_engine(m, None, None, pg,
+                          config=EngineConfig(device="cpu", mode=value))
+        assert isinstance(seq, SequentialReference)
+        micro, preds = seq.evaluate(m, "test", per_partition_params=False)
+    want_micro, want_preds = base.evaluate(m, "test",
+                                           per_partition_params=False)
+    np.testing.assert_allclose(micro.numpy(), want_micro.numpy(), atol=1e-6)
+    assert (preds[own] == want_preds[own]).float().mean() > 0.99
 
 
 def test_auto_mode_resolves_to_stacked(setup, monkeypatch):

@@ -564,3 +564,113 @@ def test_device_epoch_same_seed_bitwise_on_card(cuda):
     nodes, valid = a[1].cpu(), a[2].cpu()
     for p in range(4):
         assert set(nodes[p][valid[p]].tolist()) <= set(host_train[p].tolist())
+
+
+# the overlapped forward's row-range use of the segment kernels: each half
+# of the split blocks at its own row_base (0, or every partition's n_int as a
+# (P,) tensor) into own_cap rows, forward and backward; rows that run past
+# num_rows are dropped; the split forward on the card with its launch counts
+
+@pytest.fixture(scope="module")
+def split_tiny():
+    from repro_torch.core import partition_graph
+    from repro_torch.engine import build_stacked_split_vjp_blocks
+    from repro_torch.graph import (BENCHMARKS, build_partitioned_graph,
+                                   make_benchmark)
+    g = make_benchmark(BENCHMARKS["tiny"])
+    parts = partition_graph(g.indptr, g.indices, g.features, g.labels, 4,
+                            method="ew", seed=0).parts
+    pg = build_partitioned_graph(g, parts, 4)
+    return g, pg, build_stacked_split_vjp_blocks(pg)
+
+
+@pytest.mark.parametrize("half", ["interior", "boundary"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_split_halves_match_plain(cuda, split_tiny, half, dtype):
+    _, pg, (bi, bb) = split_tiny
+    bl = sa.blocks_to_device(bi if half == "interior" else bb, cuda)
+    rb = (0 if half == "interior"
+          else torch.as_tensor(pg.n_int.astype(np.int64), device=cuda))
+    x = torch.randint(-8, 9, (4, pg.max_nodes, 24), device=cuda).to(dtype)
+    kw = dict(num_rows=pg.own_cap, row_base=rb)
+    before = sa.kernel_launch_count()
+    got = sa.segment_mean_op(x, bl, **kw)
+    again = sa.segment_mean_op(x, bl, **kw)
+    assert sa.kernel_launch_count() == before + 2
+    assert torch.equal(got, again)
+    want = sa.segment_mean_plain(x, bl, **kw)
+    if dtype == torch.float64:       # integer sums, one division: exact
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    g = torch.randn(4, pg.own_cap, 24, device=cuda, dtype=dtype)
+    kb = dict(n_in=pg.max_nodes, row_base=rb)
+    before = sa.bwd_kernel_launch_count()
+    gx = sa.segment_mean_bwd_op(g, bl, **kb)
+    assert torch.equal(gx, sa.segment_mean_bwd_op(g, bl, **kb))
+    assert sa.bwd_kernel_launch_count() == before + 2
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(gx, sa.segment_mean_bwd_plain(g, bl, **kb),
+                               atol=tol, rtol=tol)
+
+
+def test_rows_past_num_rows_are_dropped_bitwise(cuda):
+    """Partition 0's rows start at 200 and its blocks (padded to the fleet's
+    3 blocks) reach row 584 of a 300-row output, its real rows to 350: the
+    rows past 300 must be dropped, not written into partition 1's rows.
+    f64 dyadic, so both passes are bitwise the plain version."""
+    bases, rows, n_in = np.array([200, 0, 100]), [150, 300, 200], 320
+    per = []
+    for p in range(3):
+        r = np.random.default_rng(60 + p)
+        deg = r.choice([0, 1, 2, 4, 8], rows[p])
+        dst = np.repeat(np.arange(rows[p]), deg)
+        per.append(sa.build_vjp_blocks(r.integers(0, n_in, dst.size), dst,
+                                       rows[p], n_in))
+    bl = sa.blocks_to_device(_stack_vjp(per), cuda)
+    rb = torch.as_tensor(bases, device=cuda)
+    x = torch.randint(-8, 9, (3, n_in, 40), device=cuda).double()
+    got = sa.segment_mean_op(x, bl, num_rows=300, row_base=rb)
+    assert torch.equal(got, sa.segment_mean_plain(x, bl, num_rows=300,
+                                                  row_base=rb))
+    assert (got[1] != 0).any(dim=1).sum() > 200     # partition 1 intact
+    g = torch.randint(-8, 9, (3, 300, 40), device=cuda).double()
+    assert torch.equal(
+        sa.segment_mean_bwd_op(g, bl, n_in=n_in, row_base=rb),
+        sa.segment_mean_bwd_plain(g, bl, n_in=n_in, row_base=rb))
+
+
+def test_overlap_forward_on_card(cuda, split_tiny):
+    """The split forward with the kernels against the plain split forward
+    and the synchronous one on owned rows; an eval launches the forward
+    kernel 4 times (2 layers x 2 halves) and a full-graph step the backward
+    kernel twice (layer 1's halves; layer 0 reads features)."""
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import GraphSAGE
+    g, pg, _ = split_tiny
+    params = GraphSAGE(g.feature_dim, 32, g.num_classes).init(0).to(cuda)
+    engines = {k: SPMDEngine(params, None, None, pg, None, EngineConfig(
+        device="cuda", use_kernel_agg=k != "plain", overlap_halo=k != "sync"))
+        for k in ("kernel", "plain", "sync")}
+    own = torch.as_tensor(np.arange(pg.max_nodes)[None]
+                          < pg.n_own[:, None], device=cuda)
+    sa.reset_kernel_launch_count()
+    with torch.no_grad():
+        got = engines["kernel"].fwd(params, engines["kernel"].shards)
+    assert sa.kernel_launch_count() == 4
+    for k in ("plain", "sync"):
+        with torch.no_grad():
+            want = engines[k].fwd(params, engines[k].shards)
+        torch.testing.assert_close(got[own], want[own], atol=1e-5, rtol=1e-5)
+    grads = {}
+    for k in ("kernel", "plain"):
+        eng = engines[k]
+        params.zero_grad(set_to_none=True)
+        sa.reset_kernel_launch_count()
+        eng._fg_loss(params, {"shard": eng.shards, "labels": eng.labels,
+                              "train_mask": eng.masks["train"]}).mean().backward()
+        grads[k] = [p.grad.clone() for p in params.parameters()]
+        launches = (sa.kernel_launch_count(), sa.bwd_kernel_launch_count())
+        assert launches == ((4, 2) if k == "kernel" else (0, 0)), launches
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)

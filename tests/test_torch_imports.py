@@ -21,6 +21,7 @@ for name in mods:
     importlib.import_module(name)
 import chip_smoke
 assert "repro_torch.core.sampler.cbs_device" in mods, mods
+assert "repro_torch.engine.sequential" in mods, mods
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -82,6 +83,20 @@ def test_engine_defaults_to_card(no_cuda, tiny):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SPMDEngine(m, None, None, pg, None, EngineConfig(use_kernel_agg=False))
     SPMDEngine(m, None, None, pg, None, EngineConfig(device="cpu"))
+
+
+def test_sequential_oracle_defaults_to_card(no_cuda, tiny):
+    from repro_torch.engine import EngineConfig, SequentialReference
+    from repro_torch.launch.train import main
+    _, pg, m = tiny
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SequentialReference(m, None, None, pg, None,
+                            EngineConfig(mode="sequential"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["gnn", "--dataset", "tiny", "--epochs", "1", "--engine",
+              "sequential", "--overlap-halo"])
+    SequentialReference(m, None, None, pg, None,
+                        EngineConfig(mode="sequential", device="cpu"))
 
 
 def test_serving_defaults_to_card(no_cuda, tiny):

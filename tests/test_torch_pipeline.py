@@ -1,7 +1,8 @@
 """run_eat_distgnn end to end on tiny against the reference pipeline, with
 the phase switch pinned (phase0_fraction): the sampled path, the
-full-graph path and the centralized full-graph path; and the train CLI on
-the CPU."""
+full-graph path, the centralized full-graph path, the overlapped split
+forward (full-graph, and sampled with the reference's ring exchange) and the
+sequential oracle's full-graph path; and the train CLI on the CPU."""
 import numpy as np
 import pytest
 
@@ -18,8 +19,12 @@ LOSS_RTOL, F1_ATOL = 1e-4, 0.01
 
 @pytest.mark.parametrize("extra", [
     {}, {"full_graph_train": True},
-    {"full_graph_train": True, "centralized": True, "max_epochs": 4}],
-    ids=["sampled", "full_graph", "centralized"])
+    {"full_graph_train": True, "centralized": True, "max_epochs": 4},
+    {"overlap_halo": True, "full_graph_train": True},
+    {"overlap_halo": True, "ring_chunks": 2},
+    {"engine_mode": "sequential", "full_graph_train": True}],
+    ids=["sampled", "full_graph", "centralized", "overlap_full_graph",
+         "overlap_ring", "sequential_full_graph"])
 def test_pipeline_matches_reference(extra):
     kw = dict(BASE, **extra)
     got = run_eat_distgnn(EATConfig(device="cpu", **kw))
@@ -37,7 +42,8 @@ def test_pipeline_matches_reference(extra):
     np.testing.assert_allclose(got.loss_history, want.loss_history,
                                rtol=LOSS_RTOL)
     assert abs(got.f1.micro - want.f1.micro) <= F1_ATOL
-    assert got.engine_mode == "stacked"
+    assert got.engine_mode == want.engine_mode == (
+        "sequential" if kw.get("engine_mode") == "sequential" else "stacked")
     assert set(got.summary()) == set(want.summary())
     assert np.isfinite(got.loss_history).all()
 
@@ -59,8 +65,7 @@ def test_train_cli_on_cpu(capsys):
     ("async_generalize,halo_cache", True, 10),
     ("halo_cache", True, 10), ("halo_compress", "int8", 10),
     ("grad_compress", "topk", 10), ("feat_store", True, 11),
-    ("checkpoint_dir", "ckpt", 12), ("resume", True, 12),
-    ("overlap_halo", True, 8), ("ring_chunks", 2, 8)])
+    ("checkpoint_dir", "ckpt", 12), ("resume", True, 12)])
 def test_unported_options_raise(option, value, item):
     """Each unported option raises naming its item, alone or beside the
     async flags (``option`` may name several, comma-separated)."""
