@@ -101,6 +101,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
               the plain aggregation, against the stacked engine with its
               kernels from the same start (losses and params within
               GRAD_ATOL/GRAD_RTOL; the oracle launches no kernel).  Then
+              ``comm_checks``, the halo cache and compressed communication:
+              the cached forward at full refresh bitwise the synchronous
+              one; a sampled ``--halo-cache --halo-refresh-every 4
+              --halo-cv`` run whose per-epoch exchange bytes equal
+              ``halo_refresh_plan``'s closed form (micro-F1 beside the
+              uncached run's, its launches); fp16 and int8 evals (the
+              codec on the card bitwise the CPU's, the residual zero on
+              pad slots, landed trash rows zero, the wire bytes 1/2 and
+              (D+4)/(4D) of the uncompressed, micro-F1 beside it); async
+              phase-0 epochs through the bucketed and top-k reducers
+              against none's; the eval forward's and the epoch call's
+              times and the state's bytes on the device.  Then
               the async run, ``--async-generalize --async-personalize``
               (both epochs drawn on the card by the device sampler): no
               host draw in either phase, the device draw counter moved, two
@@ -1455,6 +1467,250 @@ def sequential_vs_stacked(torch, sa):
     return fwd_k, bwd_k
 
 
+def busy_ms(torch, fn, reps):
+    """Device busy ms per call of ``fn`` over ``reps`` calls
+    (torch.profiler: the sum of the device's kernel, copy and fill
+    times), beside the host clock's ms per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    busy = sum(e.self_device_time_total for e in tp.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / reps / 1e3, wall * 1e3
+
+
+def comm_checks(torch, sa, pg, flush, card, res_s):
+    """ROADMAP item 10 at products-s, P=4, EW, hidden 128, seed 0, with the
+    kernels; returns the segment forward's launches of its runs (each
+    counted from 0 just before and read just after).
+
+    1. The cached forward at full refresh bitwise the synchronous forward.
+    2. A sampled run with ``--halo-cache --halo-refresh-every 4 --halo-cv``:
+       each epoch's exchange bytes equal ``halo_refresh_plan``'s closed
+       form over the pipeline's partition; micro-F1 beside the uncached
+       run's; its launches.
+    3. Evals with ``fp16`` and ``int8`` on the uncached run's final
+       per-partition params: the codec on the card bitwise the codec on the
+       CPU for the gathered send rows of both layers; the residual zero on
+       pad slots and every landed trash row zero; the wire bytes a layer
+       1/2 (fp16) and (D+4)/(4D) (int8) of the uncompressed; micro-F1
+       beside the uncompressed eval's.
+    4. Three async phase-0 epochs (the device sampler, one seed) with grad
+       none, bucketed and topk (frac 0.01): bucketed's losses against
+       none's within GRAD_ATOL/GRAD_RTOL, top-k's first epoch (before any
+       top-k update) too, its residual finite.
+    5. Times beside the card: the eval forward for none / fp16 / int8 /
+       cached (0, 0) / cached cv chunk (CUDA events around the enqueue,
+       and the device's with the host hidden); the epoch call for each
+       grad mode (CUDA events around the call, which synchronises, and the
+       device's busy time under torch.profiler); the cache and residual
+       bytes on the device."""
+    from repro_torch.core import partition_graph
+    from repro_torch.core.sampler import build_device_epoch_sampler
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import (BENCHMARKS, GraphSAGE,
+                                   build_partitioned_graph, make_benchmark)
+    from repro_torch.graph.distributed import (_gather_send,
+                                               dequantize_rows,
+                                               halo_refresh_plan,
+                                               make_distributed_forward,
+                                               make_kernel_mean_agg,
+                                               quantize_rows)
+    from repro_torch.train.optim import AdamW
+
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    launches = 0
+    m = GraphSAGE(64, 128, 24)
+    params = GraphSAGE(64, 128, 24).init(0).cuda()
+    engines = {k: SPMDEngine(m, None, None, pg, None, EngineConfig(
+        device="cuda", **kw)) for k, kw in (
+            ("none", {}), ("fp16", {"halo_compress": "fp16"}),
+            ("int8", {"halo_compress": "int8"}),
+            ("cache", {"halo_cache": True, "halo_refresh_every": 4,
+                       "halo_cv": True}))}
+    max_s = pg.send_idx.shape[-1]
+
+    # 1. the full refresh is the synchronous forward
+    ec = engines["cache"]
+    with torch.no_grad():
+        sync = ec.fwd(params, ec.shards)
+        full, cache = ec._cached_fwd(0, max_s)(params, ec.shards,
+                                               ec._halo_state)
+    torch.cuda.synchronize()
+    assert torch.equal(full, sync), "full-refresh cached forward not bitwise"
+    ec._halo_state = cache
+    log(f"comm {card}: cached forward at full refresh bitwise the "
+        f"synchronous forward (logits {tuple(full.shape)}, cache "
+        f"{nbytes(cache.values())} B)")
+
+    # 2. the sampled run with the cache, cv, K=4
+    res_c, fwd_c, _ = train_run(torch, sa, "sampled halo cache K=4 cv",
+                                "--epochs", "6", "--phase0-frac", "0.5",
+                                "--halo-cache", "--halo-refresh-every", "4",
+                                "--halo-cv")
+    launches += fwd_c
+    g = make_benchmark(BENCHMARKS["products-s"])
+    parts = partition_graph(g.indptr, g.indices, g.features, g.labels, 4,
+                            method="ew", seed=0, fanout_k=10).parts
+    pgp = build_partitioned_graph(g, parts, 4)
+    want = [2 * pgp.halo_slot_bytes(*halo_refresh_plan(
+        e, 4, True, pgp.send_idx.shape[-1])) for e in range(res_c.epochs_run)]
+    assert res_c.halo_exchange_history == want, (
+        res_c.halo_exchange_history, want)
+    log(f"comm {card}: sampled run with the cache (K=4, cv): per-epoch "
+        f"exchange bytes {res_c.halo_exchange_history} = the closed form "
+        f"(full {2 * pgp.halo_bytes_per_layer}); micro-F1 "
+        f"{res_c.f1.micro:.4f} vs uncached {res_s.f1.micro:.4f}; segment "
+        f"forward launches {fwd_c}")
+
+    # 3. compressed evals on the uncached run's final params
+    pp = res_s.final_params
+    e_none = engines["none"]
+    with torch.no_grad():
+        layers = e_none.export_serving_state(params)["layers"]
+    trash = pg.trash_row
+    pad = torch.as_tensor(pg.send_mask == 0, device="cuda")
+    micro = {"none": float(e_none.evaluate(pp, "test")[0].mean())}
+    for mode in ("fp16", "int8"):
+        eng = engines[mode]
+        codec = []
+        for h in layers:
+            x = _gather_send(h, eng.shards["send_idx"], eng.shards["send_mask"])
+            pc, sc = quantize_rows(x.cpu(), mode)
+            pd, sd = quantize_rows(x, mode)
+            same = torch.equal(pd.cpu(), pc) and (
+                sc is None or torch.equal(sd.cpu(), sc))
+            same = same and torch.equal(
+                dequantize_rows(pd, sd, mode, x.dtype).cpu(),
+                dequantize_rows(pc, sc, mode, x.dtype))
+            assert same, f"{mode} codec on the card differs from the CPU's"
+            codec.append(tuple(x.shape))
+        sa.reset_kernel_launch_count()
+        for _ in range(3):
+            mic = eng.evaluate(pp, "test")[0]
+        n = sa.kernel_launch_count()
+        assert n == 6, (mode, n)
+        launches += n
+        micro[mode] = float(mic.mean())
+        for r in eng._halo_residual.values():
+            assert float(r[pad].abs().max()) == 0.0, "residual pad slot set"
+        trash_max = []
+        agg = make_kernel_mean_agg(pg.max_nodes)
+
+        def watched(h, shards):
+            trash_max.append(float(h[:, trash].abs().max()))
+            return agg(h, shards)
+
+        with torch.no_grad():
+            make_distributed_forward(m, eng._fwd_meta, agg=watched,
+                                     compress=mode)(
+                params, eng.shards, eng._halo_residual)
+        assert trash_max == [0.0, 0.0], trash_max
+        ratio = eng.halo_wire_bytes_per_layer / e_none.halo_wire_bytes_per_layer
+        want_ratio = 0.5 if mode == "fp16" else (64 + 4) / (4 * 64)
+        assert ratio == want_ratio, (mode, ratio)
+        log(f"comm {card}: {mode} eval: codec bitwise CUDA vs CPU on the "
+            f"send rows {codec}; residual zero on pad slots; landed trash "
+            f"rows {trash_max}; wire bytes a layer "
+            f"{eng.halo_wire_bytes_per_layer} = {ratio} of "
+            f"{e_none.halo_wire_bytes_per_layer}; 3 evals launched the "
+            f"segment forward {n} times")
+    log(f"comm {card}: test micro-F1 (mean over partitions) of the final "
+        f"per-partition params, compressed vs uncompressed eval: "
+        f"{json.dumps(micro)}")
+
+    # 4. phase-0 epochs through the reducers, drawn on the card
+    host_train = [g.train_idx[parts[g.train_idx] == p] for p in range(4)]
+    ds = build_device_epoch_sampler(g, host_train, 4, batch_size=256,
+                                    fanouts=(10, 10), device="cuda")
+    grad_engines, grad_state, losses = {}, {}, {}
+    for mode in ("none", "bucketed", "topk"):
+        mm = GraphSAGE(64, 128, 24)
+        opt = AdamW(lr=1e-3, grad_clip=5.0)
+        eng = SPMDEngine(mm, mm.make_loss_fn(), opt, pgp, None, EngineConfig(
+            device="cuda", grad_compress=mode))
+        eng.set_device_sampler(ds)
+        prm = mm.init(0).cuda()
+        st = opt.init(prm.parameters())
+        gen = torch.Generator(device="cuda")
+        sa.reset_kernel_launch_count()
+        out = []
+        for e in range(3):
+            gen.manual_seed(e)
+            prm, st, ls, _, _ = eng.phase0_epoch_async(prm, st, gen)
+            out.append(ls)
+        launches += sa.kernel_launch_count()
+        losses[mode] = torch.cat(out)
+        grad_engines[mode] = eng
+        grad_state[mode] = {"p": prm, "o": st, "gen": gen}
+    for a, b in zip(losses["bucketed"], losses["none"]):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    first = losses["none"].shape[0] // 3
+    torch.testing.assert_close(losses["topk"][:first],
+                               losses["none"][:first], atol=GRAD_ATOL,
+                               rtol=GRAD_RTOL)
+    g_res = grad_engines["topk"].comm_residual_state()[1]
+    assert torch.isfinite(g_res).all() and bool((g_res != 0).any())
+    log(f"comm {card}: async phase-0 epochs (mean loss over partitions per "
+        f"iteration): " + json.dumps({k: [round(float(x), 6)
+                                        for x in v.mean(dim=1)]
+                                       for k, v in losses.items()})
+        + f"; top-k residual finite, {int((g_res != 0).sum())} of "
+        f"{g_res.numel()} non-zero")
+
+    # 5. times
+    cache = ec._halo_state
+    plan_cv = halo_refresh_plan(1, 4, True, max_s)
+    fwds = {
+        "none": lambda: e_none.fwd(params, e_none.shards),
+        "fp16": lambda: engines["fp16"]._fwd_comp(
+            params, engines["fp16"].shards, engines["fp16"]._halo_residual),
+        "int8": lambda: engines["int8"]._fwd_comp(
+            params, engines["int8"].shards, engines["int8"]._halo_residual),
+        "cached_0_0": lambda: ec._cached_fwd(0, 0)(params, ec.shards, cache),
+        f"cached_cv_{plan_cv[0]}_{plan_cv[1]}": lambda: ec._cached_fwd(
+            *plan_cv)(params, ec.shards, cache)}
+    # in turns, each twice (a, b, ..., b, a); the second reading is "_2"
+    turns = lambda keys: [(k, k) for k in keys] + [
+        (k, f"{k}_2") for k in reversed(keys)]
+    times = {}
+    with torch.no_grad():
+        for key, label in turns(list(fwds)):
+            times[f"eval_fwd_{label}"] = time_ms(fwds[key], 10, flush)
+            times[f"eval_fwd_device_{label}"] = time_ms(
+                fwds[key], 10, flush, hide_host=True,
+                sleep_cycles=10 * SLEEP_CYCLES)
+    for mode, label in turns(["none", "bucketed", "topk"]):
+        eng, s = grad_engines[mode], grad_state[mode]
+
+        def epoch():
+            s["p"], s["o"], *_ = eng.phase0_epoch_async(s["p"], s["o"],
+                                                        s["gen"])
+
+        times[f"epoch_{label}"] = time_ms(epoch, 5, flush)
+        times[f"epoch_device_busy_{label}"], _ = busy_ms(torch, epoch, 3)
+    state_bytes = {
+        "halo_cache": nbytes(cache.values()),
+        "halo_residual_int8": nbytes(
+            engines["int8"]._halo_residual.values()),
+        "grad_residual_topk": nbytes([g_res]),
+        "features": e_none.resident_feature_bytes}
+    log(f"comm {card}: ms (eval forwards: CUDA events around the enqueue, "
+        f"L2 flushed; *_device_* with the host hidden; epoch calls: CUDA "
+        f"events around the synchronising call, device busy from "
+        f"torch.profiler) {json.dumps(times)}; bytes on the device "
+        f"{json.dumps(state_bytes)}")
+    return launches
+
+
 # --------------------------------------------------------------------------
 # phase 6 helpers
 # --------------------------------------------------------------------------
@@ -1888,6 +2144,8 @@ def main() -> int:
     overlap_checks(torch, pg, flush)
     fwd_k, bwd_k = sequential_vs_stacked(torch, sa)
     train_fwd, train_bwd = train_fwd + fwd_k, train_bwd + bwd_k
+    # the halo cache and compressed communication (ROADMAP item 10)
+    train_fwd += comm_checks(torch, sa, pg, flush, card, res_s)
     # not part of the main path: the plain aggregation, for comparison
     res_p = run_gnn(train_args("--epochs", "6", "--phase0-frac", "0.5",
                                "--no-kernel-agg"))

@@ -13,6 +13,12 @@ traffic; each partition descends its own loss plus the Eq. 4 proximal pull
 toward the frozen W^G, and a per-partition ``active`` flag freezes
 partitions whose budget is spent, bit for bit.
 
+Compressed phase-0 gradient syncs (``grad_compress``): the reducers take
+the P per-partition gradients stacked ``(P, ...)`` — the bucketed mean,
+elementwise the plain ``sum / P``, and the top-k sparsified mean with
+error feedback — and :func:`make_reduce_generalize_step` feeds them from
+one backward through per-partition copies of the shared weights.
+
 Steps update the params module in place (its tensors get the new values)
 and return it with the new optimizer state; the reference returns new
 pytrees.  A caller that keeps an earlier model takes a copy
@@ -26,16 +32,19 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ...graph.sage import broadcast_to_partitions
 from ...train.losses import cross_entropy_loss, focal_loss, prox_penalty
 from ...train.optim import apply_updates
 
-__all__ = ["GPHyperParams", "make_generalize_step", "make_fullgraph_loss_fn",
+__all__ = ["GPHyperParams", "GRAD_COMPRESS_MODES", "make_generalize_step",
+           "make_reduce_generalize_step", "make_fullgraph_loss_fn",
            "make_personalize_step", "make_personalize_partition_step",
-           "broadcast_to_partitions",
-           "grad_sync_wire_bytes"]
+           "broadcast_to_partitions", "grad_topk_size",
+           "grad_sync_wire_bytes", "make_bucketed_reduce_stacked",
+           "make_topk_reduce_stacked", "make_grad_reduce_stacked"]
 
 
 @dataclass(frozen=True)
@@ -157,17 +166,169 @@ def make_personalize_partition_step(loss_fn: Callable, optimizer,
     return step
 
 
+# ---------------------------------------------------------------------------
+# compressed phase-0 gradient reduction
+#
+# The stacked forms of the reference's reducers: each takes the (P, ...)
+# per-partition gradients in ``parameters()`` order and returns the mean
+# gradient in one partition's shapes.  On one card there is no collective,
+# so the reference's shard forms (bucketed psum, top-k all_gather) wait for
+# the mesh mode.
+# ---------------------------------------------------------------------------
+
+GRAD_COMPRESS_MODES = ("none", "bucketed", "topk")
+
+
+def grad_topk_size(param_count: int, frac: float) -> int:
+    """Entries each partition ships per top-k sync (>= 1, <= param_count)."""
+    return max(1, min(int(param_count), int(param_count * frac)))
+
+
 def grad_sync_wire_bytes(mode: str, num_parts: int, param_count: int,
-                         itemsize: int = 4) -> int:
-    """Bytes one phase-0 gradient synchronisation puts on the wire, summed
-    over every partition: the all_gather spelling ships each partition's
-    full gradient to every peer, ``P * (P-1) * param_count * itemsize``.
-    Only ``mode="none"`` is ported (compressed syncs: ROADMAP item 10)."""
-    if mode != "none":
-        raise NotImplementedError(
-            f"gradient compression {mode!r} is not ported yet (ROADMAP "
-            "item 10)")
+                         itemsize: int = 4, topk_frac: float = 0.01) -> int:
+    """Bytes ONE phase-0 gradient synchronisation puts on the wire, summed
+    over every partition (the per-step cost the pipeline accounts):
+
+      none      the all_gather spelling ships each partition's full gradient
+                to every peer: ``P * (P-1) * B``.
+      bucketed  ring all-reduce (reduce-scatter + all-gather over static
+                buckets): each rank moves ``2 * (P-1)/P * B``, fleet total
+                ``2 * (P-1) * B`` — ``2/P`` of the all_gather spelling.
+      topk      each partition all_gathers only its k largest entries as
+                (value, int32 index) pairs: ``P * (P-1) * k * (itemsize+4)``.
+
+    ``B = param_count * itemsize`` derives from the PAYLOAD dtype's itemsize
+    (no hardcoded fp32 assumption).
+    """
     P = int(num_parts)
     if P <= 1:
         return 0
-    return P * (P - 1) * int(param_count) * int(itemsize)
+    B = int(param_count) * int(itemsize)
+    if mode == "none":
+        return P * (P - 1) * B
+    if mode == "bucketed":
+        return 2 * (P - 1) * B
+    if mode == "topk":
+        k = grad_topk_size(param_count, topk_frac)
+        return P * (P - 1) * k * (int(itemsize) + 4)
+    raise ValueError(f"unknown grad compression mode {mode!r} "
+                     f"(expected one of {GRAD_COMPRESS_MODES})")
+
+
+def _flat_stacked(grads_stacked):
+    """``(P, ...)`` gradients in ``parameters()`` order -> ``((P, N) flat
+    matrix, unravel)``, ``unravel`` mapping an ``(N,)`` vector back to one
+    partition's shapes.  A ``GraphSAGE``'s parameters run layer by layer,
+    ``w_self``, ``w_neigh``, ``b``, each row-major: ``ravel_pytree``'s leaf
+    order over the reference's ``SAGEParams``, which fixes the residual's
+    layout and top-k's tie order."""
+    P = grads_stacked[0].shape[0]
+    shapes = [tuple(g.shape[1:]) for g in grads_stacked]
+    sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+    flat = torch.cat([g.reshape(P, -1) for g in grads_stacked], dim=1)
+
+    def unravel(v: torch.Tensor) -> list[torch.Tensor]:
+        return [c.reshape(s) for c, s in zip(torch.split(v, sizes), shapes)]
+
+    return flat, unravel
+
+
+def _bucket_slices(n: int, bucket_bytes: int, itemsize: int):
+    be = max(1, int(bucket_bytes) // max(1, int(itemsize)))
+    return [(lo, min(lo + be, n)) for lo in range(0, n, be)]
+
+
+def make_bucketed_reduce_stacked(num_parts: int, bucket_bytes: int):
+    """Bucketed mean over stacked ``(P, ...)`` gradients.  Elementwise this
+    IS the plain ``sum(axis=0) / P`` (bucketing a per-element reduction
+    changes nothing), so the stacked bucketed mode stays bitwise with mode
+    none's stack-and-sum."""
+
+    def reduce(grads_stacked):
+        flat, unravel = _flat_stacked(grads_stacked)
+        chunks = [flat[:, lo:hi].sum(dim=0)
+                  for lo, hi in _bucket_slices(flat.shape[1], bucket_bytes,
+                                               flat.element_size())]
+        total = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        return unravel(total / num_parts)
+
+    return reduce
+
+
+def _topk_sent(g_ef: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep each row's k largest-|.| entries, zero elsewhere.  Ties go to
+    the lower index, as ``lax.top_k`` breaks them: a stable descending
+    sort keeps equal magnitudes in index order (``torch.topk`` leaves the
+    order of ties unspecified)."""
+    idx = torch.sort(g_ef.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return torch.zeros_like(g_ef).scatter(-1, idx, g_ef.gather(-1, idx))
+
+
+def make_topk_reduce_stacked(num_parts: int, topk_frac: float):
+    """Top-k sparsified mean with error feedback over stacked ``(P, ...)``
+    gradients: ``reduce(grads_stacked, residual) -> (mean grads, new
+    residual)``, ``residual`` the carried ``(P, N)`` per-partition error.
+    k comes from the flat length, and the selection is deterministic, so
+    the compressed step is bit-reproducible."""
+
+    def reduce(grads_stacked, residual):
+        flat, unravel = _flat_stacked(grads_stacked)
+        k = grad_topk_size(flat.shape[1], topk_frac)
+        g_ef = flat + residual.to(flat.dtype)
+        sent = _topk_sent(g_ef, k)
+        new_res = (g_ef - sent).to(residual.dtype)
+        return unravel(sent.sum(dim=0) / num_parts), new_res
+
+    return reduce
+
+
+def make_grad_reduce_stacked(mode: str, num_parts: int,
+                             topk_frac: float = 0.01,
+                             bucket_kb: int = 512):
+    """The stacked reducer of ``mode``: the plain mean (``sum / P``), the
+    bucketed mean over ``bucket_kb`` KiB slices, or the top-k reducer
+    (which also takes and returns the residual)."""
+    if mode == "bucketed":
+        return make_bucketed_reduce_stacked(num_parts, bucket_kb * 1024)
+    if mode == "topk":
+        return make_topk_reduce_stacked(num_parts, topk_frac)
+    if mode == "none":
+        return lambda grads: [g.sum(dim=0) / num_parts for g in grads]
+    raise ValueError(f"unknown grad_compress {mode!r} "
+                     f"(expected one of {GRAD_COMPRESS_MODES})")
+
+
+def make_reduce_generalize_step(loss_fn: Callable, optimizer, num_parts: int,
+                                reduce: Callable, topk: bool) -> Callable:
+    """Phase-0 step through a reducer of the P per-partition gradients:
+    ``(params, opt_state, batch[, residual]) -> (params, opt_state,
+    losses[, residual])`` (the residual with ``topk``).
+
+    One forward and one backward over per-partition copies of the shared
+    weights (``broadcast_to_partitions``) give the ``(P, ...)`` gradients
+    ``reduce`` turns into the mean gradient the optimizer applies.  On a
+    sampled batch row p is ``d loss_p / d W``, the reference's per-shard
+    ``value_and_grad``.  On a full-graph batch a halo row carries its
+    sender's weights, so row q is the gradient reaching copy q (its own
+    loss's and its peers' through the rows it sent); the rows still sum to
+    ``d (sum_p loss_p) / d W``, which is all the bucketed mean reads (the
+    reference refuses top-k there)."""
+
+    def step(params, opt_state, batch, residual=None):
+        weights = [w.detach() for w in params.parameters()]
+        per_part = broadcast_to_partitions(params, num_parts)
+        losses = loss_fn(per_part, batch)
+        grads = torch.autograd.grad(losses.sum(), list(per_part.parameters()))
+        if topk:
+            grads, residual = reduce(grads, residual)
+        else:
+            grads = reduce(grads)
+        updates, opt_state = optimizer.update(grads, opt_state, weights)
+        _assign(params, apply_updates(weights, updates))
+        if topk:
+            return params, opt_state, losses.detach(), residual
+        return params, opt_state, losses.detach()
+
+    return step
+

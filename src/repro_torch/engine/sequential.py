@@ -20,9 +20,14 @@ sums run in other shapes.  Given one ``torch.Generator`` state the async
 epochs draw exactly the batches the stacked engine draws: one
 ``draw_epoch`` and, per iteration, one ``make_batch`` over all P
 partitions, in the engine's order; only the steps run one partition at a
-time.  Options the oracle does not have raise ``NotImplementedError``
-naming the ROADMAP item that ports them; the reference's checkpoint
-surface belongs to item 12.
+time.  The communication options follow the reference's oracle: the
+halo cache as per-partition recv buffers landed and refreshed partition
+by partition, the quantized exchange with a per-sender residual (the
+sender dequantizes before the transpose, which models the wire exactly:
+dequantization is elementwise), and the bucketed and top-k reducers over
+the stacked per-partition gradients.  Options the oracle does not have
+raise ``NotImplementedError`` naming the ROADMAP item that ports them; the
+reference's checkpoint files belong to item 12.
 """
 from __future__ import annotations
 
@@ -32,10 +37,13 @@ import numpy as np
 import torch
 
 from ..core.gp.trainer import (GPHyperParams, _assign,
+                               make_grad_reduce_stacked,
                                make_personalize_partition_step)
 from ..device import resolve_device
-from ..graph.distributed import (PartitionedGraph, make_ref_mean_agg,
-                                 make_ref_split_agg)
+from ..graph.distributed import (PartitionedGraph, dequantize_rows,
+                                 halo_refresh_plan, make_ref_mean_agg,
+                                 make_ref_split_agg, quantize_rows,
+                                 wire_row_bytes)
 from ..graph.sage import take_partition
 from ..train.losses import cross_entropy_loss, focal_loss
 from ..train.metrics import f1_scores_torch
@@ -130,6 +138,37 @@ class SequentialReference:
         self._device_sampler = None
         self.last_eval_seconds = 0.0   # time of the latest _eval
 
+        # compressed communication and the historical halo cache, mirrored
+        # from the engine: per-partition (P, maxS, d) buffers, one list per
+        # layer — the legible rendering of the engine's stacked state
+        self.halo_compress = config.halo_compress
+        self.grad_compress = config.grad_compress
+        self._reduce = make_grad_reduce_stacked(
+            config.grad_compress, P, config.grad_topk_frac,
+            config.grad_bucket_kb)
+        self._grad_res = None   # lazy (P, N) top-k error-feedback state
+        self._halo_rows_total = int(pg.n_halo.sum())
+        self._halo_row_width = pg.features.shape[-1]
+        self._halo_itemsize = pg.features.dtype.itemsize
+        self.max_send = pg.send_idx.shape[-1]
+        zeros = lambda prefix: {
+            f"{prefix}{i}": [torch.zeros((P, self.max_send, d), dtype=f,
+                                         device=dev) for _ in range(P)]
+            for i, d in enumerate(model.layer_input_dims)}
+        if self.halo_compress != "none":
+            self._halo_residual = zeros("r")
+        self.halo_cache = bool(config.halo_cache)
+        self.last_halo_exchange_bytes = 0
+        if self.halo_cache:
+            self.halo_refresh_every = int(config.halo_refresh_every)
+            self.halo_cv = bool(config.halo_cv)
+            self._halo_slot_counts = np.asarray(pg.send_mask).sum(axis=(0, 1))
+            self._halo_byte_per_slot = wire_row_bytes(
+                pg.features.shape[-1], self.halo_compress,
+                pg.features.dtype.itemsize)
+            self._halo_state = zeros("h")
+            self._halo_age = 0
+
     @property
     def resident_feature_bytes(self) -> int:
         """Bytes of the feature plane held on the device."""
@@ -156,20 +195,88 @@ class SequentialReference:
                                        recv.reshape(-1, d).to(hs[q].dtype)))
         return out
 
-    def _full_forward(self, params_list: list) -> list:
-        """Layer-synchronous n-layer GraphSAGE over all partitions (or the
-        split forward under ``overlap_halo``); one logits tensor
-        ``(maxN, C)`` per partition."""
-        if self.overlap:
-            return self._full_forward_overlap(params_list)
-        return self._full_forward_plain(params_list)
+    def _exchange_comp(self, hs: list, rkey: str) -> list:
+        """Error-compensated quantized rendering of :meth:`_exchange`: per
+        sender, fold last round's residual into the gathered send buffer,
+        quantize, update ``self._halo_residual[rkey]``, then transpose and
+        scatter the DEQUANTIZED rows (the sender's dequantization is
+        bitwise the receiver's)."""
+        P = self.num_parts
+        mode = self.halo_compress
+        res = self._halo_residual[rkey]
+        deqs = []
+        for p in range(P):
+            m3 = self.send_mask[p][..., None]
+            sent = hs[p][self.send_idx[p]] * m3
+            sent_ef = (sent + res[p].to(sent.dtype)) * m3
+            payload, scale = quantize_rows(sent_ef, mode)
+            deq = dequantize_rows(payload, scale, mode, sent.dtype)
+            res[p] = ((sent_ef - deq) * m3).to(res[p].dtype)
+            deqs.append(deq)
+        out = []
+        for q in range(P):
+            recv = torch.stack([deqs[p][q] for p in range(P)])
+            d = hs[q].shape[-1]
+            out.append(hs[q].index_put((self.recv_pos[q].reshape(-1),),
+                                       recv.reshape(-1, d).to(hs[q].dtype)))
+        return out
 
-    def _full_forward_plain(self, params_list: list) -> list:
+    def _exchange_cached(self, hs: list, key: str, lo: int, hi: int) -> list:
+        """Historical-cache variant of :meth:`_exchange`: land each
+        partition's CACHED recv buffers into the halo slots, then exchange
+        only send slots ``[lo, hi)`` live and overwrite both the halo rows
+        and the cache with the refreshed values.  The full refresh skips
+        the cache landing, so its ops are :meth:`_exchange`'s.  Mutates
+        ``self._halo_state[key]`` (and, compressed, the residual)."""
+        P = self.num_parts
+        full = lo == 0 and hi == self.max_send
+        cache = self._halo_state[key]
+        if hi > lo:
+            # gather BEFORE any cache landing, as the engine does
+            sent = [hs[p][self.send_idx[p][:, lo:hi]]
+                    * self.send_mask[p][:, lo:hi][..., None]
+                    for p in range(P)]
+            if self.halo_compress != "none":
+                # quantize the refresh payload with error feedback on the
+                # matching residual slot slice; the cache stores the
+                # dequantized rows
+                mode = self.halo_compress
+                res = self._halo_residual["r" + key[1:]]
+                for p in range(P):
+                    m3 = self.send_mask[p][:, lo:hi][..., None]
+                    sent_ef = (sent[p] + res[p][:, lo:hi].to(sent[p].dtype)
+                               ) * m3
+                    payload, scale = quantize_rows(sent_ef, mode)
+                    deq = dequantize_rows(payload, scale, mode,
+                                          sent[p].dtype)
+                    res[p] = res[p].clone()
+                    res[p][:, lo:hi] = ((sent_ef - deq) * m3).to(res[p].dtype)
+                    sent[p] = deq
+        out = []
+        for q in range(P):
+            h = hs[q]
+            d = h.shape[-1]
+            if not full:
+                h = h.index_put((self.recv_pos[q].reshape(-1),),
+                                cache[q].reshape(-1, d).to(h.dtype))
+            if hi > lo:
+                recv = torch.stack([sent[p][q] for p in range(P)])
+                h = h.index_put((self.recv_pos[q][:, lo:hi].reshape(-1),),
+                                recv.reshape(-1, d).to(h.dtype))
+                cache[q] = cache[q].clone()
+                cache[q][:, lo:hi] = recv.to(cache[q].dtype)
+            out.append(h)
+        return out
+
+    def _layers(self, params_list: list, exchange) -> list:
+        """The layer-synchronous n-layer GraphSAGE over all partitions with
+        ``exchange(hs, i)`` landing layer i's halo rows; one logits tensor
+        ``(maxN, C)`` per partition."""
         P = self.num_parts
         hs = [self.features[p] for p in range(P)]
         num_layers = len(params_list[0].layers)
         for i in range(num_layers):
-            hs = self._exchange(hs)
+            hs = exchange(hs, i)
             nxt = []
             for p in range(P):
                 lp = params_list[p].layers[i]
@@ -178,6 +285,45 @@ class SequentialReference:
                 nxt.append(torch.relu(out) if i < num_layers - 1 else out)
             hs = nxt
         return hs
+
+    def _full_forward_cached(self, params_list: list) -> list:
+        """The cached eval forward: the plain layer schedule, halo rows
+        served from the historical cache with the refresh slot range
+        :func:`halo_refresh_plan` picks.  Ages the cache once per call and
+        records the refreshed payload in ``last_halo_exchange_bytes``."""
+        lo, hi = halo_refresh_plan(self._halo_age, self.halo_refresh_every,
+                                   self.halo_cv, self.max_send)
+        hs = self._layers(params_list, lambda hs, i: self._exchange_cached(
+            hs, f"h{i}", lo, hi))
+        real = int(self._halo_slot_counts[lo:hi].sum())
+        self.last_halo_exchange_bytes = (len(params_list[0].layers) * real
+                                         * self._halo_byte_per_slot)
+        self._halo_age += 1
+        return hs
+
+    def _full_forward_comp(self, params_list: list) -> list:
+        """The quantized-exchange eval forward; records the compressed wire
+        payload in ``last_halo_exchange_bytes``."""
+        hs = self._layers(params_list,
+                          lambda hs, i: self._exchange_comp(hs, f"r{i}"))
+        self.last_halo_exchange_bytes = (len(params_list[0].layers)
+                                         * self.halo_wire_bytes_per_layer)
+        return hs
+
+    def _full_forward(self, params_list: list) -> list:
+        """The eval forward of this configuration: the split forward under
+        ``overlap_halo``, else the cached, the quantized or the plain
+        layer-synchronous one."""
+        if self.overlap:
+            return self._full_forward_overlap(params_list)
+        if self.halo_cache:
+            return self._full_forward_cached(params_list)
+        if self.halo_compress != "none":
+            return self._full_forward_comp(params_list)
+        return self._full_forward_plain(params_list)
+
+    def _full_forward_plain(self, params_list: list) -> list:
+        return self._layers(params_list, lambda hs, i: self._exchange(hs))
 
     def _split_layer(self, hs: list, layers: list, activate: bool) -> list:
         """One interior/boundary split layer, unrolled: the interior
@@ -237,11 +383,23 @@ class SequentialReference:
             loss = self.loss_fn(params, b)
             grads.append(torch.autograd.grad(loss, weights))
             losses.append(loss.detach())
-        avg = [torch.stack(gs).sum(0) / self.num_parts for gs in zip(*grads)]
-        old = [w.detach() for w in weights]
+        opt_state = self._apply(params, opt_state, grads)
+        return opt_state, torch.stack(losses)
+
+    def _apply(self, params, opt_state, grads: list):
+        """The all-reduce of the P partitions' gradients as the configured
+        reducer over their stack (``none``: the stack's sum divided by P;
+        top-k carries ``self._grad_res``), then one optimizer update."""
+        stacked = [torch.stack(gs) for gs in zip(*grads)]
+        if self.grad_compress == "topk":
+            avg, self._grad_res = self._reduce(stacked,
+                                               self._grad_residual(params))
+        else:
+            avg = self._reduce(stacked)
+        old = [w.detach() for w in params.parameters()]
         updates, opt_state = self.optimizer.update(avg, opt_state, old)
         _assign(params, apply_updates(old, updates))
-        return opt_state, torch.stack(losses)
+        return opt_state
 
     def _partition_batches(self, batch: dict) -> list:
         return [{k: v[p] for k, v in batch.items()}
@@ -270,8 +428,22 @@ class SequentialReference:
         gradient is taken through the whole forward (halo exchange
         included); the P gradients are averaged as in :meth:`phase0_epoch`.
         The forward runs once a step and each partition's loss is
-        differentiated from it."""
+        differentiated from it.  Training runs the live uncompressed
+        exchange whatever ``halo_compress`` says (only eval forwards
+        quantize); the halo cache and top-k are refused, as the reference's
+        oracle refuses them."""
+        if self.halo_cache:
+            raise ValueError(
+                "halo_cache is an eval-forward optimisation; full-graph "
+                "training differentiates through the live halo exchange "
+                "and cannot train against stale cached embeddings")
+        if self.grad_compress == "topk":
+            raise ValueError(
+                "top-k gradient sparsification is a sampled phase-0 feature; "
+                "full-graph training keeps the exact (or bucketed) all-reduce")
         P = self.num_parts
+        fg_fwd = (self._full_forward_overlap if self.overlap
+                  else self._full_forward_plain)
         base = ((lambda lg, lab, m: focal_loss(lg, lab, gamma=2.0, mask=m))
                 if self._fg_loss_kind == "focal" else
                 (lambda lg, lab, m: cross_entropy_loss(lg, lab, mask=m)))
@@ -279,17 +451,14 @@ class SequentialReference:
         all_losses = []
         for _ in range(iters):
             weights = list(params.parameters())
-            logits = self._full_forward([params] * P)
+            logits = fg_fwd([params] * P)
             losses, grads = [], []
             for p in range(P):
                 loss = base(logits[p], self.labels[p], self.masks["train"][p])
                 grads.append(torch.autograd.grad(loss, weights,
                                                  retain_graph=p < P - 1))
                 losses.append(loss.detach())
-            avg = [torch.stack(gs).sum(0) / P for gs in zip(*grads)]
-            old = [w.detach() for w in weights]
-            updates, opt_state = self.optimizer.update(avg, opt_state, old)
-            _assign(params, apply_updates(old, updates))
+            opt_state = self._apply(params, opt_state, grads)
             all_losses.append(torch.stack(losses))
         self._sync()
         dt = time.perf_counter() - t0
@@ -406,3 +575,56 @@ class SequentialReference:
         else:
             plist = [params] * self.num_parts
         return self._eval(plist, split)
+
+    # ---- checkpoint surface (mirrors SPMDEngine; files: ROADMAP item 12) --
+    def halo_cache_state(self):
+        """(cache dict of per-partition lists, age) for checkpointing; None
+        without the cache."""
+        if not self.halo_cache:
+            return None
+        return self._halo_state, self._halo_age
+
+    def restore_halo_cache_state(self, state: dict, age: int) -> None:
+        if not self.halo_cache:
+            raise ValueError("engine built without halo_cache")
+        self._halo_state = self._as_lists(state)
+        self._halo_age = int(age)
+
+    def _as_lists(self, state: dict) -> dict:
+        return {k: [torch.as_tensor(b).to(self.device, self.config.dtype)
+                    for b in bufs] for k, bufs in state.items()}
+
+    # -------------------------------------- compressed communication state
+    @property
+    def halo_wire_bytes_per_layer(self) -> int:
+        """Real payload bytes ONE layer's halo exchange puts on the wire
+        under the configured compression (mirrors SPMDEngine)."""
+        return self._halo_rows_total * wire_row_bytes(
+            self._halo_row_width, self.halo_compress, self._halo_itemsize)
+
+    def _grad_residual(self, params) -> torch.Tensor:
+        """The lazily built ``(P, N)`` top-k error-feedback state, zero
+        before the first compressed sync (mirrors SPMDEngine)."""
+        if self._grad_res is None:
+            n = sum(w.numel() for w in params.parameters())
+            w0 = next(params.parameters())
+            self._grad_res = torch.zeros((self.num_parts, n), dtype=w0.dtype,
+                                         device=w0.device)
+        return self._grad_res
+
+    def comm_residual_state(self):
+        """``(halo_residual, grad_residual)`` for checkpointing; each entry
+        None when the matching compression is off (or, for top-k, before
+        the first phase-0 step).  None when neither exists."""
+        h = self._halo_residual if self.halo_compress != "none" else None
+        g = self._grad_res if self.grad_compress == "topk" else None
+        if h is None and g is None:
+            return None
+        return h, g
+
+    def restore_comm_residual_state(self, state) -> None:
+        h, g = state
+        if h is not None:
+            self._halo_residual = self._as_lists(h)
+        if g is not None:
+            self._grad_res = torch.as_tensor(g).to(self.device)

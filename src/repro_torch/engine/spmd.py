@@ -9,14 +9,18 @@ partitions; ``mode="sequential"`` is the Python-loop oracle
 :func:`repro_torch.engine.make_engine` builds).  Ported: the construction
 (shards and blocked-CSR structures), the synchronous and the overlapped
 split forward (``overlap_halo``; ``ring_chunks`` is validated and kept,
-while on one card the exchange is always the transpose), the epoch methods of the training path — sampled phase 0,
-full-graph phase 0, phase 1 with per-partition budgets, and the async
-epochs of both phases, which draw their batches on the device from an
-attached :class:`~repro_torch.core.sampler.DeviceEpochSampler` — and the
-plain :meth:`SPMDEngine.evaluate`, plus
-:meth:`SPMDEngine.export_serving_state` for serving.  Every other
-``EngineConfig`` option raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+while on one card the exchange is always the transpose), the epoch
+methods of the training path — sampled phase 0, full-graph phase 0, phase
+1 with per-partition budgets, and the async epochs of both phases, which
+draw their batches on the device from an attached
+:class:`~repro_torch.core.sampler.DeviceEpochSampler` — and
+:meth:`SPMDEngine.evaluate`, plus :meth:`SPMDEngine.export_serving_state`
+for serving.  The communication options are ported too: the historical
+halo cache (``halo_cache``, ``halo_refresh_every``, ``halo_cv``) and the
+quantized halo exchange (``halo_compress``) on every eval forward, and
+the bucketed and top-k phase-0 gradient reducers (``grad_compress``).
+Every other ``EngineConfig`` option raises ``NotImplementedError`` naming
+the ROADMAP item that ports it.
 
 Epoch methods return a trailing ``device_seconds``: host wall time of the
 TRAIN steps, ended by ``torch.cuda.synchronize()`` on the card.  The
@@ -34,16 +38,24 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.gp.trainer import (GPHyperParams, make_fullgraph_loss_fn,
-                               make_generalize_step, make_personalize_step)
+from ..core.gp.trainer import (GPHyperParams, GRAD_COMPRESS_MODES,
+                               make_fullgraph_loss_fn, make_generalize_step,
+                               make_grad_reduce_stacked,
+                               make_personalize_step,
+                               make_reduce_generalize_step)
 from ..device import resolve_device
-from ..graph.distributed import (PartitionedGraph, make_distributed_forward,
+from ..graph.distributed import (HALO_COMPRESS_MODES, PartitionedGraph,
+                                 halo_refresh_plan, make_cached_forward,
+                                 make_distributed_forward,
                                  make_export_forward, make_kernel_mean_agg,
                                  make_kernel_split_agg, make_overlap_forward,
-                                 make_ref_mean_agg, make_ref_split_agg)
+                                 make_ref_mean_agg, make_ref_split_agg,
+                                 wire_row_bytes)
 from ..kernels.segment_agg import blocks_to_device
 from ..train.metrics import f1_scores_torch
-from .stacking import build_stacked_split_vjp_blocks, build_stacked_vjp_blocks
+from .stacking import (build_stacked_halo_cache, build_stacked_halo_residual,
+                       build_stacked_split_vjp_blocks,
+                       build_stacked_vjp_blocks)
 
 __all__ = ["EngineConfig", "SPMDEngine"]
 
@@ -68,19 +80,30 @@ class EngineConfig:
     # objective of the FULL-GRAPH phase-0 mode (the sampled path's loss is
     # the loss_fn the engine is constructed with): "ce" | "focal"
     fg_loss: str = "ce"
-    # options of the reference engine that are not ported yet: a value
-    # other than the default raises NotImplementedError
+    # historical-embedding halo cache: eval forwards aggregate against the
+    # last-received boundary embeddings and only pay the exchange on the
+    # halo_refresh_every cadence; halo_cv refreshes a rotating slot chunk
+    # on cached epochs (the VR-GCN control-variate delta) instead of going
+    # fully stale between refreshes
     halo_cache: bool = False
+    halo_refresh_every: int = 1
+    halo_cv: bool = False
+    # compressed communication: quantized halo exchange on the eval
+    # forwards ("none" | "fp16" | "int8", error-compensated via a carried
+    # send-side residual) and the phase-0 gradient reduction ("none" |
+    # "bucketed" | "topk")
     halo_compress: str = "none"
     grad_compress: str = "none"
+    grad_topk_frac: float = 0.01    # fraction of entries top-k ships
+    grad_bucket_kb: int = 512       # bucketed reduction's slice size
+    # options of the reference engine that are not ported yet: a value
+    # other than the default raises NotImplementedError
     feat_store: bool = False
     feat_groups: int = 0
 
 
 # option -> (default, ROADMAP item that ports it)
-_NOT_PORTED = {"halo_cache": (False, 10), "halo_compress": ("none", 10),
-               "grad_compress": ("none", 10), "feat_store": (False, 11),
-               "feat_groups": (0, 11)}
+_NOT_PORTED = {"feat_store": (False, 11), "feat_groups": (0, 11)}
 _MODE_ITEMS = {"spmd": 14}
 
 
@@ -115,19 +138,25 @@ def _resolve_mode(config: EngineConfig, num_parts: int,
 
 
 def _check_config(config: EngineConfig) -> None:
-    """Raise for a combination the reference refuses (``ValueError``) or
-    an option that is not ported (``NotImplementedError`` naming its
-    ROADMAP item)."""
-    if config.overlap_halo and config.halo_cache:
-        raise ValueError(
-            "halo_cache and overlap_halo are alternative exchange "
-            "optimisations: the cache removes the very exchange the "
-            "overlap would hide — pick one")
+    """Raise for a value or combination the reference refuses
+    (``ValueError``, in the reference's order) or an option that is not
+    ported (``NotImplementedError`` naming its ROADMAP item)."""
+    if config.halo_compress not in HALO_COMPRESS_MODES:
+        raise ValueError(f"unknown halo_compress {config.halo_compress!r} "
+                         f"(expected one of {HALO_COMPRESS_MODES})")
+    if config.grad_compress not in GRAD_COMPRESS_MODES:
+        raise ValueError(f"unknown grad_compress {config.grad_compress!r} "
+                         f"(expected one of {GRAD_COMPRESS_MODES})")
     if config.overlap_halo and config.halo_compress != "none":
         raise ValueError(
             "halo_compress quantizes the gathered send buffer on the "
             "combined-edge eval forward; the overlap forward has no "
             "compressed spelling — pick one")
+    if config.overlap_halo and config.halo_cache:
+        raise ValueError(
+            "halo_cache and overlap_halo are alternative exchange "
+            "optimisations: the cache removes the very exchange the "
+            "overlap would hide — pick one")
     if config.ring_chunks < 0:
         raise ValueError(f"ring_chunks must be >= 0, got {config.ring_chunks}")
     for name, (default, item) in _NOT_PORTED.items():
@@ -221,12 +250,53 @@ class SPMDEngine:
                               else make_ref_mean_agg(pg.max_nodes))
             self.fwd = make_distributed_forward(model, meta,
                                                 agg=self._mean_agg)
+            if config.halo_compress != "none":
+                # the compressed eval forward; self.fwd stays uncompressed
+                # (full-graph training differentiates through the live
+                # exchange, and the serving export needs exact embeddings)
+                self._fwd_comp = make_distributed_forward(
+                    model, meta, agg=self._mean_agg,
+                    compress=config.halo_compress)
         self.labels = idx(pg.labels)
         self.masks = {k: torch.as_tensor(getattr(pg, f"{k}_mask"), device=dev)
                       for k in ("train", "val", "test")}
         self._fg_loss = make_fullgraph_loss_fn(self.fwd, loss=config.fg_loss)
         self.last_eval_seconds = 0.0   # time of the latest evaluate() call
         self._device_sampler = None
+
+        # compressed communication: the wire accounting's basis (real halo
+        # rows per layer and the payload dtype's itemsize), the halo
+        # exchange's error-feedback residual, and the top-k gradient
+        # residual (built at the first top-k step)
+        self.halo_compress = config.halo_compress
+        self.grad_compress = config.grad_compress
+        self._halo_rows_total = int(pg.n_halo.sum())
+        self._halo_row_width = pg.features.shape[-1]
+        self._halo_itemsize = pg.features.dtype.itemsize
+        if self.halo_compress != "none":
+            self._halo_residual = self._as_state(build_stacked_halo_residual(
+                pg, model.layer_input_dims))
+        self._grad_res = None
+        # the historical halo cache: its age counts eval forwards, and the
+        # refresh plan is a host-side function of the age
+        self.halo_cache = bool(config.halo_cache)
+        self.last_halo_exchange_bytes = 0
+        if self.halo_cache:
+            self.max_send = pg.send_idx.shape[-1]
+            # real (unpadded) rows per send-slot index, for the refreshed-
+            # payload accounting; their sum is the graph's halo rows
+            self._halo_slot_counts = np.asarray(pg.send_mask).sum(axis=(0, 1))
+            self._halo_byte_per_slot = wire_row_bytes(
+                pg.features.shape[-1], config.halo_compress,
+                pg.features.dtype.itemsize)
+            self._halo_state = self._as_state(build_stacked_halo_cache(
+                pg, model.layer_input_dims))
+            self._halo_age = 0
+            self._cached_fwds: dict = {}
+        # fault injection: when armed, the next eval forward's refresh
+        # payload is "lost in transit" — the stale cache is kept and ages on
+        self._drop_next_refresh = False
+        self.halo_refresh_drops = 0
 
     @property
     def resident_feature_bytes(self) -> int:
@@ -245,9 +315,124 @@ class SPMDEngine:
     def _run_steps(self, step, params, opt_state, batches_per_iter):
         losses = []
         for batch in batches_per_iter:
-            params, opt_state, l = step(params, opt_state, batch)
+            if self.grad_compress == "topk":
+                params, opt_state, l, self._grad_res = step(
+                    params, opt_state, batch, self._grad_residual(params))
+            else:
+                params, opt_state, l = step(params, opt_state, batch)
             losses.append(l)
         return params, opt_state, torch.stack(losses)
+
+    def _generalize_step(self, loss_fn):
+        """The phase-0 step of ``grad_compress``: the gradient of the mean
+        of the P losses (``none``), or the bucketed or top-k reducer over
+        the P per-partition gradients (the top-k step also carries the
+        residual)."""
+        if self.grad_compress == "none":
+            return make_generalize_step(loss_fn, self.optimizer)
+        reduce = make_grad_reduce_stacked(
+            self.grad_compress, self.num_parts, self.config.grad_topk_frac,
+            self.config.grad_bucket_kb)
+        return make_reduce_generalize_step(loss_fn, self.optimizer,
+                                           self.num_parts, reduce,
+                                           topk=self.grad_compress == "topk")
+
+    # ------------------------------------------ historical halo cache state
+    # The cache ages once per eval forward (standalone evaluate, or the
+    # async phase-0 epoch's validation forward); the refresh slot range is
+    # a host-side constant from halo_refresh_plan, and each range gets its
+    # own forward, the empty one exchanging nothing.
+
+    def _halo_plan(self) -> tuple[int, int]:
+        if self._drop_next_refresh:
+            self._drop_next_refresh = False
+            self.halo_refresh_drops += 1
+            return (0, 0)
+        return halo_refresh_plan(self._halo_age, self.config.halo_refresh_every,
+                                 self.config.halo_cv, self.max_send)
+
+    def _halo_slot_bytes(self, lo: int, hi: int) -> int:
+        return (int(self._halo_slot_counts[lo:hi].sum())
+                * self._halo_byte_per_slot)
+
+    def _halo_tick(self, plan: tuple[int, int], new_state: dict) -> None:
+        self._halo_state = new_state
+        # one exchange per SAGE layer, each shipping only the refreshed slots
+        self.last_halo_exchange_bytes = (self.model.num_layers
+                                         * self._halo_slot_bytes(*plan))
+        self._halo_age += 1
+
+    def drop_next_halo_refresh(self) -> None:
+        """Arm the dropped-payload fault: the next eval forward runs the
+        pure-cached plan (0, 0) — it aggregates fully against the stale
+        cache and ships no refresh bytes, exactly as if the scheduled
+        payload was lost in transit — while the cache still ages."""
+        self._drop_next_refresh = True
+
+    def _cached_fwd(self, lo: int, hi: int):
+        key = (lo, hi)
+        if key not in self._cached_fwds:
+            self._cached_fwds[key] = make_cached_forward(
+                self.model, self._fwd_meta, agg=self._mean_agg,
+                refresh_lo=lo, refresh_hi=hi, compress=self.halo_compress)
+        return self._cached_fwds[key]
+
+    # ---- checkpoint surface (the files themselves: ROADMAP item 12) ------
+    def halo_cache_state(self):
+        """(cache dict, age) for checkpointing; None without the cache."""
+        if not self.halo_cache:
+            return None
+        return self._halo_state, self._halo_age
+
+    def restore_halo_cache_state(self, state: dict, age: int) -> None:
+        if not self.halo_cache:
+            raise ValueError("engine built without halo_cache")
+        self._halo_state = self._as_state(state)
+        self._halo_age = int(age)
+
+    def _as_state(self, arrays: dict) -> dict:
+        """Arrays (NumPy or tensors) as state tensors of the engine's
+        dtype on its device."""
+        return {k: torch.as_tensor(v).to(self.device, self.config.dtype)
+                for k, v in arrays.items()}
+
+    # -------------------------------------- compressed communication state
+    @property
+    def halo_wire_bytes_per_layer(self) -> int:
+        """Real payload bytes ONE layer's halo exchange puts on the wire
+        under the configured compression.  Equals
+        ``pg.halo_bytes_per_layer`` when ``halo_compress == "none"``."""
+        return self._halo_rows_total * wire_row_bytes(
+            self._halo_row_width, self.halo_compress, self._halo_itemsize)
+
+    def _grad_residual(self, params) -> torch.Tensor:
+        """The ``(P, N)`` top-k error-feedback state over the flat
+        per-partition gradient (``parameters()`` order), zero before the
+        first compressed sync."""
+        if self._grad_res is None:
+            n = sum(w.numel() for w in params.parameters())
+            w0 = next(params.parameters())
+            self._grad_res = torch.zeros((self.num_parts, n), dtype=w0.dtype,
+                                         device=w0.device)
+        return self._grad_res
+
+    def comm_residual_state(self):
+        """Error-feedback residuals for checkpointing: ``(halo_residual,
+        grad_residual)``; each entry is None when the matching compression
+        is off (or, for top-k, before the first phase-0 step).  None when
+        neither exists."""
+        h = self._halo_residual if self.halo_compress != "none" else None
+        g = self._grad_res if self.grad_compress == "topk" else None
+        if h is None and g is None:
+            return None
+        return h, g
+
+    def restore_comm_residual_state(self, state) -> None:
+        h, g = state
+        if h is not None:
+            self._halo_residual = self._as_state(h)
+        if g is not None:
+            self._grad_res = torch.as_tensor(g).to(self.device)
 
     # ------------------------------------------------------- public surface
     def phase0_epoch(self, params, opt_state, batches: dict):
@@ -255,7 +440,7 @@ class SPMDEngine:
         ...)`` tensors on the engine's device; each iteration descends the
         mean of the P partitions' losses (the cross-partition gradient
         mean), then the validation forward runs."""
-        step = make_generalize_step(self.loss_fn, self.optimizer)
+        step = self._generalize_step(self.loss_fn)
         iters = next(iter(batches.values())).shape[0]
         per_iter = ({k: v[i] for k, v in batches.items()}
                     for i in range(iters))
@@ -270,8 +455,19 @@ class SPMDEngine:
         halo exchange, both aggregation kernels (forward, and backward from
         layer 2 on) and the cross-partition gradient mean.  The centralized
         (P=1) configuration is the paper's Table IV baseline at full-graph
-        scale."""
-        step = make_generalize_step(self._fg_loss, self.optimizer)
+        scale.  ``grad_compress="bucketed"`` reduces through the bucketed
+        mean; the historical halo cache and top-k are refused, as the
+        reference refuses them."""
+        if self.halo_cache:
+            raise ValueError(
+                "halo_cache is an eval-forward optimisation; full-graph "
+                "training differentiates through the live halo exchange "
+                "and cannot train against stale cached embeddings")
+        if self.grad_compress == "topk":
+            raise ValueError(
+                "top-k gradient sparsification is a sampled phase-0 feature; "
+                "full-graph training keeps the exact (or bucketed) all-reduce")
+        step = self._generalize_step(self._fg_loss)
         batch = {"shard": self.shards, "labels": self.labels,
                  "train_mask": self.masks["train"]}
         (params, opt_state, losses), dt = self._timed(
@@ -329,19 +525,20 @@ class SPMDEngine:
         the engine's device, seeded by the caller for the epoch.  Every
         partition runs all ``num_batches`` iterations (synchronous
         data-parallel SGD).  The returned seconds INCLUDE the validation
-        forward, and ``last_eval_seconds`` is 0, as in the reference."""
+        forward, and ``last_eval_seconds`` is 0, as in the reference.  The
+        carried state advances in the reference's order: the top-k residual
+        through the steps, then the halo cache and the halo residual
+        through the validation forward."""
         ds = self._sampler("phase0_epoch_async")
-        step = make_generalize_step(self.loss_fn, self.optimizer)
+        step = self._generalize_step(self.loss_fn)
 
         def run():
-            p, o, losses = params, opt_state, []
             nodes, valid = ds.draw_epoch(gen)                # (P, I, B)
-            for i in range(ds.num_batches):
-                p, o, l = step(p, o, ds.make_batch(gen, nodes[:, i],
-                                                   valid[:, i]))
-                losses.append(l)
+            batches = (ds.make_batch(gen, nodes[:, i], valid[:, i])
+                       for i in range(ds.num_batches))
+            p, o, losses = self._run_steps(step, params, opt_state, batches)
             micro, _ = self._eval(p, "val")
-            return p, o, torch.stack(losses), micro
+            return p, o, losses, micro
 
         (params, opt_state, losses, val_micro), dt = self._timed(run)
         self.last_eval_seconds = 0.0
@@ -382,9 +579,34 @@ class SPMDEngine:
         val_micro, _ = self.evaluate(pparams, "val", per_partition_params=True)
         return pparams, popt, losses, val_micro, dt
 
+    def _eval_forward(self, params) -> torch.Tensor:
+        """The eval forward of this configuration: against the halo cache
+        (which ages, and under ``halo_compress`` carries the residual too),
+        the quantized exchange, or the plain synchronous (or overlapped)
+        one."""
+        comp = self.halo_compress != "none"
+        if self.halo_cache:
+            plan = self._halo_plan()
+            fwd = self._cached_fwd(*plan)
+            if comp:
+                logits, new_state, self._halo_residual = fwd(
+                    params, self.shards, self._halo_state,
+                    self._halo_residual)
+            else:
+                logits, new_state = fwd(params, self.shards, self._halo_state)
+            self._halo_tick(plan, new_state)
+            return logits
+        if comp:
+            logits, self._halo_residual = self._fwd_comp(
+                params, self.shards, self._halo_residual)
+            self.last_halo_exchange_bytes = (self.model.num_layers
+                                             * self.halo_wire_bytes_per_layer)
+            return logits
+        return self.fwd(params, self.shards)
+
     @torch.no_grad()
     def _eval(self, params, split: str):
-        preds = torch.argmax(self.fwd(params, self.shards), dim=-1)
+        preds = torch.argmax(self._eval_forward(params), dim=-1)
         mask = self.masks[split]
         micro = torch.stack([
             f1_scores_torch(preds[p], torch.where(mask[p], self.labels[p], -1),
@@ -398,7 +620,10 @@ class SPMDEngine:
         aggregation kernel) and each partition's micro-F1 on ``split``:
         ``(micro (P,), preds (P, maxN))``.  ``params`` is per-partition
         (each partition's rows, and the halo rows it sends, computed under
-        its own weights) when ``per_partition_params``, else shared."""
+        its own weights) when ``per_partition_params``, else shared.  Under
+        ``halo_cache`` every call ages the cache and refreshes the slots
+        :func:`halo_refresh_plan` picks; under ``halo_compress`` the
+        exchange is quantized with the carried residual."""
         if per_partition_params != (params.num_parts is not None):
             raise ValueError(
                 f"per_partition_params={per_partition_params} but params "
@@ -413,13 +638,20 @@ class SPMDEngine:
         "cache": {"h{i}": (P, P, maxS, D_i)}}``.  The reference returns
         host numpy arrays; here they stay tensors on the engine's device,
         where the serving engine keeps its stores.  ``params`` is a
-        ``GraphSAGE`` on that device (global, replicated weights).  The
-        overlapped forward never materialises the post-exchange layer
-        inputs, so an ``overlap_halo`` engine raises."""
+        ``GraphSAGE`` on that device (global, replicated weights).  Under
+        ``halo_cache`` the snapshot also becomes the cache (a full
+        refresh).  The overlapped forward never materialises the
+        post-exchange layer inputs, so an ``overlap_halo`` engine
+        raises."""
         if self.config.overlap_halo:
             raise ValueError(
                 "export_serving_state needs the combined-edge forward; "
                 "build the engine without overlap_halo")
         fwd_e = make_export_forward(self.model, self._fwd_meta,
                                     agg=self._mean_agg)
-        return fwd_e(params, self.shards)
+        out = fwd_e(params, self.shards)
+        if self.halo_cache:
+            # the snapshot is exactly a full refresh: hand it to the cache
+            self._halo_state = {k: v.to(self.config.dtype).clone()
+                                for k, v in out["cache"].items()}
+        return out

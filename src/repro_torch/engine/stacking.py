@@ -4,7 +4,8 @@ into uniform ``(P, ...)`` arrays.
 
 Counterpart of ``repro/engine/stacking.py`` (``_local_csr``,
 ``_stack_blocks``, ``_sub_csr``, ``build_stacked_vjp_blocks``,
-``build_stacked_split_vjp_blocks``, ``stack_pytrees``) and of
+``build_stacked_split_vjp_blocks``, ``build_stacked_halo_cache``,
+``build_stacked_halo_residual``, ``stack_pytrees``) and of
 ``stack_epoch_batches`` from ``repro/engine/spmd.py``, copied unchanged
 apart from the kernels' work plans (``block_row_work``, one plan over all
 P partitions for each direction) that the stacked dict also carries.
@@ -28,8 +29,46 @@ from ..kernels.segment_agg import (BEC, BN, block_row_ptr, block_row_work,
                                    build_edge_blocks, build_transpose_blocks)
 
 __all__ = ["StackedBlocks", "build_stacked_vjp_blocks",
-           "build_stacked_split_vjp_blocks", "stack_pytrees",
+           "build_stacked_split_vjp_blocks", "build_stacked_halo_cache",
+           "build_stacked_halo_residual", "stack_pytrees",
            "stack_epoch_batches", "batches_to_device"]
+
+
+def build_stacked_halo_cache(pg: PartitionedGraph,
+                             layer_dims: tuple[int, ...]) -> dict:
+    """Zero-initialised historical-embedding halo cache, stacked ``(P, ...)``
+    and carried through the cached eval forward as state.
+
+    Per partition the cache keeps each layer's last-received exchange
+    buffers in recv layout ``(P, maxS, D_layer)``; ``layer_dims`` is the
+    width each layer's exchange ships (``model.layer_input_dims``: raw
+    features first, then hidden embeddings).  All-zero is the correct empty
+    state: pad slots must stay zero forever (trash-row hygiene), and
+    ``halo_refresh_plan`` always schedules a FULL refresh at age 0, so no
+    real cached row is ever read before it has been received once.
+    """
+    P = pg.num_parts
+    max_s = pg.send_idx.shape[-1]
+    return {f"h{i}": np.zeros((P, P, max_s, d), dtype=np.float32)
+            for i, d in enumerate(layer_dims)}
+
+
+def build_stacked_halo_residual(pg: PartitionedGraph,
+                                layer_dims: tuple[int, ...]) -> dict:
+    """Zero-initialised error-feedback residual for the quantized halo
+    exchange, stacked ``(P, ...)`` like the halo cache.
+
+    Per partition, ``r{i}`` holds layer i's SEND-side quantization error in
+    send-list layout ``(P, maxS, D_layer)`` — ``r{i}[q, s]`` is the error
+    left behind the last time send slot s's row was quantized for peer q.
+    Zero is the exact empty state: before the first exchange nothing has
+    been rounded away, and pad slots (``send_mask == 0``) are kept zero by
+    the masked residual update so they never leak into the trash row.
+    """
+    P = pg.num_parts
+    max_s = pg.send_idx.shape[-1]
+    return {f"r{i}": np.zeros((P, P, max_s, d), dtype=np.float32)
+            for i, d in enumerate(layer_dims)}
 
 
 @dataclass(frozen=True)

@@ -17,11 +17,14 @@ contiguous local index space:
 The device half is the reference's ``mode="stacked"`` path, written out:
 all P partitions live in ``(P, ...)`` tensors on one device, and the
 ``vmap``-batched ``all_to_all`` of the reference is the index transpose
-``recv[q][p] = sent[p][q]`` of the ``(P, P, maxS, D)`` send buffer.  Beside the synchronous forward there is the
-overlapped split forward (:func:`make_overlap_forward`, over the
+``recv[q][p] = sent[p][q]`` of the ``(P, P, maxS, D)`` send buffer.
+Beside the synchronous forward there are the overlapped split forward (:func:`make_overlap_forward`, over the
 interior/boundary aggregation pairs :func:`make_ref_split_agg` and
-:func:`make_kernel_split_agg`); the compressed and cached forwards join
-with ROADMAP item 10.
+:func:`make_kernel_split_agg`), the error-compensated quantized forward
+(``make_distributed_forward(compress="fp16" | "int8")``, over the wire
+codec :func:`quantize_rows` / :func:`dequantize_rows`) and the forward
+against a historical halo cache (:func:`make_cached_forward`, whose
+refresh slot range :func:`halo_refresh_plan` picks).
 """
 from __future__ import annotations
 
@@ -35,7 +38,10 @@ from .csr import CSRGraph
 
 __all__ = ["PartitionedGraph", "build_partitioned_graph",
            "make_distributed_forward", "make_export_forward",
-           "make_overlap_forward", "RecomputePlanner", "make_ref_mean_agg",
+           "make_overlap_forward", "make_cached_forward",
+           "halo_refresh_plan", "RecomputePlanner",
+           "HALO_COMPRESS_MODES", "quantize_rows", "dequantize_rows",
+           "wire_row_bytes", "make_ref_mean_agg",
            "make_kernel_mean_agg", "make_ref_split_agg",
            "make_kernel_split_agg"]
 
@@ -324,6 +330,118 @@ def _halo_exchange(h: torch.Tensor, send_idx, send_mask,
 
 
 # ---------------------------------------------------------------------------
+# wire codecs (compressed communication)
+# ---------------------------------------------------------------------------
+
+HALO_COMPRESS_MODES = ("none", "fp16", "int8")
+
+
+def quantize_rows(x: torch.Tensor, mode: str):
+    """Quantize ``x`` (..., D) row-wise -> ``(payload, scale)``.
+
+    ``fp16``  plain downcast, no side channel (scale is None).
+    ``int8``  symmetric per-row scale ``max(|row|) / 127``: payload is int8
+              in [-127, 127] (``torch.round`` rounds half to even, as
+              ``jnp.round`` does), scale travels as one float32 per row.
+              An all-zero row quantizes to (0, scale 0) and dequantizes to
+              exact zeros, which keeps pad slots (and through them the
+              trash row) clean across a compressed exchange.
+
+    All arithmetic runs in ``x``'s dtype (a bf16 row's ``amax / 127`` and
+    ``x / safe`` stay bf16), so the f64 oracle models the engine's
+    quantization exactly.  The divisor 127 is a tensor filled on ``x``'s
+    device: CUDA divides by a Python scalar as a product with its
+    reciprocal, which is not bitwise the quotient, and a tensor made from
+    a host value would be a copy that synchronises the stream."""
+    if mode == "fp16":
+        return x.to(torch.float16), None
+    if mode == "int8":
+        amax = x.abs().amax(dim=-1, keepdim=True)
+        scale = amax / torch.full_like(amax, 127.0)
+        safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+        q = torch.round(x / safe).clamp(-127, 127).to(torch.int8)
+        return q, scale.to(torch.float32)
+    raise ValueError(f"unknown halo compression mode {mode!r} "
+                     f"(expected one of {HALO_COMPRESS_MODES[1:]})")
+
+
+def dequantize_rows(payload: torch.Tensor, scale, mode: str, dtype):
+    """Inverse of :func:`quantize_rows` into ``dtype``.  Elementwise and
+    deterministic, so the sender's dequantization (error feedback) and the
+    receiver's of the same payload are bitwise equal."""
+    if mode == "fp16":
+        return payload.to(dtype)
+    if mode == "int8":
+        return payload.to(dtype) * scale.to(dtype)
+    raise ValueError(f"unknown halo compression mode {mode!r}")
+
+
+def wire_row_bytes(d: int, mode: str, itemsize: int = 4) -> int:
+    """Bytes ONE exchanged embedding row of width ``d`` occupies on the
+    wire: the uncompressed row is ``d * itemsize``, fp16 halves it, int8
+    ships one byte per element plus the row's float32 scale."""
+    if mode == "none":
+        return d * itemsize
+    if mode == "fp16":
+        return d * 2
+    if mode == "int8":
+        return d + 4
+    raise ValueError(f"unknown halo compression mode {mode!r}")
+
+
+def _ef_quantized_exchange(sent: torch.Tensor, mask3: torch.Tensor,
+                           residual: torch.Tensor, mode: str, out_dtype):
+    """Error-compensated quantized exchange of the gathered send buffer
+    ``sent`` ``(P, P, S, D)`` (``sent[p][q]``: p's rows for q).  Returns
+    ``(recv, new_residual)``:
+
+      sent_ef = (sent + residual) * mask        # carry last round's error
+      payload = quantize(sent_ef)               # what goes on the wire
+      new_residual = (sent_ef - dequant(payload)) * mask
+      recv = dequant(exchange(payload))         # landed at the receiver
+
+    The int8 per-row scales travel by the same transpose as the payload."""
+    sent_ef = (sent + residual.to(sent.dtype)) * mask3
+    payload, scale = quantize_rows(sent_ef, mode)
+    deq = dequantize_rows(payload, scale, mode, sent.dtype)
+    new_residual = ((sent_ef - deq) * mask3).to(residual.dtype)
+    recv_s = None if scale is None else _exchange(scale)
+    return (dequantize_rows(_exchange(payload), recv_s, mode, out_dtype),
+            new_residual)
+
+
+def halo_refresh_plan(age: int, refresh_every: int, cv: bool,
+                      max_send: int) -> tuple[int, int]:
+    """Static send-slot range ``[lo, hi)`` the next cached forward refreshes.
+
+    ``age`` counts distributed eval forwards since the cache was created
+    (host-side, so the choice is a Python constant baked into the trace —
+    the cached-epoch executable contains NO collective at all).
+
+      age % K == 0        full refresh: (0, max_send) — bit-for-bit the
+                          synchronous exchange, which is what makes the
+                          staleness-0 (K == 1) path bitwise-identical to
+                          :func:`make_distributed_forward`.
+      otherwise, cv off   (0, 0): aggregate purely against the cache.
+      otherwise, cv on    the VR-GCN-style partial refresh: the slot space
+                          is cut into K-1 contiguous chunks and cached
+                          epoch c refreshes chunk c, so every halo row is
+                          re-exchanged within K epochs (staleness bound)
+                          and each cached epoch pays ~1/(K-1) of the full
+                          payload — the "cached h plus the delta of the
+                          refreshed rows" estimator.
+    """
+    K = max(1, int(refresh_every))
+    if K == 1 or age % K == 0:
+        return 0, max_send
+    if not cv:
+        return 0, 0
+    c = (age % K) - 1
+    nc = K - 1
+    return (c * max_send) // nc, ((c + 1) * max_send) // nc
+
+
+# ---------------------------------------------------------------------------
 # aggregation backends
 # ---------------------------------------------------------------------------
 
@@ -431,26 +549,127 @@ def make_distributed_forward(model, pg_meta: dict, agg=None,
     to the partition that sent it.
 
     ``agg(h, shards) -> (P, maxN, D)`` selects the aggregation backend
-    (default: :func:`make_ref_mean_agg`).  Only ``compress="none"`` is
-    ported; the quantized exchange waits for ROADMAP item 10.
+    (default: :func:`make_ref_mean_agg`).
+
+    ``compress="none"`` returns exactly the forward above.  ``"fp16"`` /
+    ``"int8"`` return the error-compensated quantized forward
+    ``fwd(params, shards, residual) -> (logits, new_residual)``, where
+    ``residual["r{i}"]`` ``(P, P, maxS, D_i)`` is layer i's carried
+    send-side quantization error in send-list layout.
     """
-    if compress != "none":
-        raise NotImplementedError(
-            f"halo compression {compress!r} is not ported yet (ROADMAP "
-            "item 10)")
     mean_agg = agg if agg is not None else make_ref_mean_agg(
         pg_meta["max_nodes"])
 
-    def fwd(params, shards: dict) -> torch.Tensor:
+    if compress == "none":
+        def fwd(params, shards: dict) -> torch.Tensor:
+            h = shards["features"]
+            last = len(params.layers) - 1
+            for i, lp in enumerate(params.layers):
+                h = _halo_exchange(h, shards["send_idx"], shards["send_mask"],
+                                   shards["recv_pos"])
+                h = model._layer(lp, h, mean_agg(h, shards), i < last)
+            return h
+
+        return fwd
+
+    def fwd_c(params, shards: dict, residual: dict):
+        h = shards["features"]
+        mask3 = shards["send_mask"][..., None]
+        last = len(params.layers) - 1
+        new_res = {}
+        for i, lp in enumerate(params.layers):
+            sent = _gather_send(h, shards["send_idx"], shards["send_mask"])
+            recv, new_res[f"r{i}"] = _ef_quantized_exchange(
+                sent, mask3, residual[f"r{i}"], compress, h.dtype)
+            h = _land(h, recv, shards["recv_pos"])
+            h = model._layer(lp, h, mean_agg(h, shards), i < last)
+        return h, new_res
+
+    return fwd_c
+
+
+def make_cached_forward(model, pg_meta: dict, agg=None, refresh_lo: int = 0,
+                        refresh_hi: int | None = None,
+                        compress: str = "none"):
+    """The n-layer forward against a HISTORICAL halo cache, over all
+    partitions: ``fwd(params, shards, cache) -> (logits, new_cache)``, where
+    ``cache["h{i}"]`` ``(P, P, maxS, D_i)`` holds layer i's last-received
+    exchange buffers in recv layout (``cache["h{i}"][q][p]`` = the rows p
+    last sent to q).
+
+    ``[refresh_lo, refresh_hi)`` is the static send-slot range this call
+    re-exchanges (from :func:`halo_refresh_plan`); everything outside it
+    aggregates against the cached rows:
+
+      full range    no cache landing: gather, exchange and landing are
+                    exactly :func:`make_distributed_forward`'s, so the
+                    forward is bitwise the synchronous one, and it also
+                    snapshots the recv buffers into the cache.
+      empty range   land the cached rows only; no exchange.
+      partial       land the cache, then exchange just the slot slice and
+                    overwrite those rows fresh (the control-variate delta).
+
+    Cached rows enter the aggregation detached (no gradient through past
+    epochs).  Pad slots of the cache stay zero: the refresh writes the
+    sender-masked pad rows into them, so landing the cache never puts a
+    non-zero into the trash row.
+
+    ``compress != "none"`` quantizes the refreshed slice with error
+    feedback on the matching residual slice, and the cache stores the
+    dequantized rows: ``fwd(params, shards, cache, residual) -> (logits,
+    new_cache, new_residual)``.
+    """
+    mean_agg = agg if agg is not None else make_ref_mean_agg(
+        pg_meta["max_nodes"])
+    lo = int(refresh_lo)
+
+    def land_and_refresh(h, shards, cached, res=None):
+        max_s = shards["send_idx"].shape[-1]
+        hi = max_s if refresh_hi is None else int(refresh_hi)
+        full = lo == 0 and hi == max_s
+        if hi > lo:
+            # gather (and, compressed, quantize) BEFORE any cache landing:
+            # send_idx only points at owned rows, and this order keeps the
+            # full refresh's ops those of the synchronous forward
+            mask = shards["send_mask"][:, :, lo:hi]
+            sent = _gather_send(h, shards["send_idx"][:, :, lo:hi], mask)
+        if not full:
+            h = _land(h, cached.detach(), shards["recv_pos"])
+        if hi > lo:
+            if res is None:
+                recv = _exchange(sent)
+            else:
+                recv, new_r = _ef_quantized_exchange(
+                    sent, mask[..., None], res[:, :, lo:hi], compress,
+                    h.dtype)
+                res = res.clone()
+                res[:, :, lo:hi] = new_r
+            h = _land(h, recv, shards["recv_pos"][:, :, lo:hi])
+            cached = cached.detach().clone()
+            cached[:, :, lo:hi] = recv.to(cached.dtype)
+        return h, cached, res
+
+    def fwd(params, shards: dict, cache: dict):
         h = shards["features"]
         last = len(params.layers) - 1
+        new_cache = {}
         for i, lp in enumerate(params.layers):
-            h = _halo_exchange(h, shards["send_idx"], shards["send_mask"],
-                               shards["recv_pos"])
+            h, new_cache[f"h{i}"], _ = land_and_refresh(h, shards,
+                                                        cache[f"h{i}"])
             h = model._layer(lp, h, mean_agg(h, shards), i < last)
-        return h
+        return h, new_cache
 
-    return fwd
+    def fwd_c(params, shards: dict, cache: dict, residual: dict):
+        h = shards["features"]
+        last = len(params.layers) - 1
+        new_cache, new_res = {}, {}
+        for i, lp in enumerate(params.layers):
+            h, new_cache[f"h{i}"], new_res[f"r{i}"] = land_and_refresh(
+                h, shards, cache[f"h{i}"], residual[f"r{i}"])
+            h = model._layer(lp, h, mean_agg(h, shards), i < last)
+        return h, new_cache, new_res
+
+    return fwd if compress == "none" else fwd_c
 
 
 def _neigh_weights(lp):

@@ -13,10 +13,14 @@ through its backward kernel; ``--async-generalize`` and
 runs the interior/boundary split forward, whose two halves are two
 row-range launches of the kernel (``--ring-chunks`` is accepted, and on
 one card the exchange stays the transpose); ``--engine
-sequential`` runs the Python-loop oracle with the plain aggregation.  It
-takes the reference's flags for the ported options, plus ``--device``
-(``cuda`` by default; raises without a card unless ``cpu``).  The reference's other flags belong to paths that are not
-ported yet.  ``llm`` (the transformer path) waits for ROADMAP item 15.
+sequential`` runs the Python-loop oracle with the plain aggregation;
+``--halo-cache`` (with ``--halo-refresh-every`` and ``--halo-cv``) and
+``--halo-compress`` change the eval forwards' exchange, ``--grad-compress``
+(with ``--grad-topk-frac`` and ``--grad-bucket-kb``) phase 0's gradient
+reduction.  It takes the reference's flags for the ported options, plus
+``--device`` (``cuda`` by default; raises without a card unless ``cpu``).
+The reference's other flags belong to paths that are not ported yet.
+``llm`` (the transformer path) waits for ROADMAP item 15.
 """
 from __future__ import annotations
 
@@ -43,6 +47,13 @@ def config_from_args(args):
         engine_mode=args.engine,
         overlap_halo=args.overlap_halo,
         ring_chunks=args.ring_chunks,
+        halo_cache=args.halo_cache,
+        halo_refresh_every=args.halo_refresh_every,
+        halo_cv=args.halo_cv,
+        halo_compress=args.halo_compress,
+        grad_compress=args.grad_compress,
+        grad_topk_frac=args.grad_topk_frac,
+        grad_bucket_kb=args.grad_bucket_kb,
         use_kernel_agg=not args.no_kernel_agg,
         double_buffer=not args.no_double_buffer,
         phase0_fraction=args.phase0_frac,
@@ -95,6 +106,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "of one all_to_all (0 = all_to_all); only "
                         "meaningful with --overlap-halo, and on one card "
                         "the exchange is the all_to_all transpose")
+    g.add_argument("--halo-cache", action="store_true",
+                   help="historical-embedding halo cache: eval forwards "
+                        "aggregate against the last-received boundary "
+                        "embeddings and only pay the exchange on the "
+                        "--halo-refresh-every cadence")
+    g.add_argument("--halo-refresh-every", type=int, default=4,
+                   help="full halo refresh cadence K with --halo-cache: "
+                        "every K-th eval forward pays the full exchange "
+                        "(1 = refresh always, i.e. no staleness)")
+    g.add_argument("--halo-cv", action="store_true",
+                   help="VR-GCN control-variate mode: cached forwards "
+                        "refresh a rotating 1/(K-1) chunk of the send "
+                        "slots instead of going fully stale between "
+                        "full refreshes")
+    g.add_argument("--halo-compress", default="none",
+                   choices=("none", "fp16", "int8"),
+                   help="quantize the eval forwards' halo exchange payload "
+                        "(error-compensated per-row codec; composes with "
+                        "--halo-cache)")
+    g.add_argument("--grad-compress", default="none",
+                   choices=("none", "bucketed", "topk"),
+                   help="phase-0 gradient reduction: the bucketed mean, or "
+                        "top-k sparsification with error feedback")
+    g.add_argument("--grad-topk-frac", type=float, default=0.01,
+                   help="fraction of gradient entries --grad-compress=topk "
+                        "ships per sync")
+    g.add_argument("--grad-bucket-kb", type=int, default=512,
+                   help="slice size of the bucketed gradient reduction")
     g.add_argument("--no-kernel-agg", action="store_true",
                    help="aggregate with plain index_add_ instead of the "
                         "CUDA segment-mean kernels")

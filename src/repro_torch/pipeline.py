@@ -8,7 +8,13 @@ per-partition weights in phase 1), then the full-graph validation forward
 with its per-layer halo exchange and the segment-mean kernel.
 ``engine_mode="sequential"`` runs the same loop on the Python-loop oracle
 (:class:`repro_torch.engine.SequentialReference`, plain aggregation), and
-``overlap_halo`` swaps in the split forward.
+``overlap_halo`` swaps in the split forward.  ``halo_cache`` serves the
+eval forwards' halo rows from a historical cache refreshed every
+``halo_refresh_every``-th eval (``halo_cv``: a rotating slot chunk in
+between), ``halo_compress`` quantizes their exchange with error feedback,
+and ``grad_compress`` reduces phase 0's per-partition gradients through
+the bucketed or top-k reducer; the byte counters follow the reference's
+closed forms.
 
 Four ported paths, each following the reference:
 
@@ -33,10 +39,9 @@ Timing is the reference's "distributed" accounting: per-epoch time is the
 max over hosts of host sampling time and an equal 1/N share of the train
 steps (the larger of the two with double buffering), validation excluded;
 ``epoch_time_with_eval_s`` adds the eval's 1/N share.  Communication is
-reported in bytes.  The reference's other options (halo cache,
-compression, feature store, checkpoints and faults, float64) raise
-``NotImplementedError`` naming the ROADMAP item that ports them, with the
-async paths or without.
+reported in bytes.  The reference's other options (feature store,
+checkpoints and faults, float64) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them, with the async paths or without.
 """
 from __future__ import annotations
 
@@ -102,14 +107,23 @@ class EATConfig:
     # with the interior aggregation and restrict dense compute to owned rows
     overlap_halo: bool = False
     ring_chunks: int = 0                  # ring chunks (on one card: transpose)
-    # not ported yet: any value but the default raises NotImplementedError
-    # (the ROADMAP item is in _NOT_PORTED); the fields that only tune one of
-    # these paths are kept for the reference's summary() keys
+    # historical-embedding halo cache: eval forwards aggregate against the
+    # last-received boundary embeddings; only every halo_refresh_every-th
+    # forward pays the full exchange, and halo_cv refreshes a rotating slot
+    # chunk in between (VR-GCN control variate)
     halo_cache: bool = False
     halo_refresh_every: int = 4
     halo_cv: bool = False
-    halo_compress: str = "none"
-    grad_compress: str = "none"
+    # compressed communication: quantized halo exchange on the eval
+    # forwards (error-compensated; composes with the halo cache) and the
+    # phase-0 gradient reduction
+    halo_compress: str = "none"           # none | fp16 | int8
+    grad_compress: str = "none"           # none | bucketed | topk
+    grad_topk_frac: float = 0.01          # fraction of entries top-k ships
+    grad_bucket_kb: int = 512             # bucketed reduction's slice size
+    # not ported yet: any value but the default raises NotImplementedError
+    # (the ROADMAP item is in _NOT_PORTED); the field that only tunes one of
+    # these paths is kept for the reference's summary() keys
     checkpoint_dir: str | None = None
     resume: bool = False
     feat_store: bool = False
@@ -120,10 +134,9 @@ class EATConfig:
 
 # EATConfig switch -> (default, ROADMAP item that ports its path)
 _NOT_PORTED = {
-    "halo_cache": (False, 10), "halo_compress": ("none", 10),
-    "grad_compress": ("none", 10), "feat_store": (False, 11),
-    "feat_groups": (0, 11), "checkpoint_dir": (None, 12),
-    "resume": (False, 12), "dtype": ("float32", 12),
+    "feat_store": (False, 11), "feat_groups": (0, 11),
+    "checkpoint_dir": (None, 12), "resume": (False, 12),
+    "dtype": ("float32", 12),
 }
 
 
@@ -287,6 +300,11 @@ class _EpochPrefetcher:
 
 
 def _check_config(cfg: EATConfig, fault_plan) -> None:
+    if cfg.halo_cache and cfg.full_graph_train:
+        raise ValueError(
+            "halo_cache is an eval-forward optimisation; full_graph_train "
+            "differentiates through the live halo exchange and cannot train "
+            "against stale cached embeddings")
     for name, (default, item) in _NOT_PORTED.items():
         if getattr(cfg, name) != default:
             raise NotImplementedError(
@@ -349,7 +367,14 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                             device=cfg.device,
                             overlap_halo=cfg.overlap_halo,
                             ring_chunks=cfg.ring_chunks,
-                            fg_loss="focal" if cfg.use_focal else "ce"))
+                            fg_loss="focal" if cfg.use_focal else "ce",
+                            halo_cache=cfg.halo_cache,
+                            halo_refresh_every=cfg.halo_refresh_every,
+                            halo_cv=cfg.halo_cv,
+                            halo_compress=cfg.halo_compress,
+                            grad_compress=cfg.grad_compress,
+                            grad_topk_frac=cfg.grad_topk_frac,
+                            grad_bucket_kb=cfg.grad_bucket_kb))
     if verbose:
         print(f"engine[{engine.mode}] {pg.summary()}")
 
@@ -367,9 +392,13 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
 
     params = model.init(cfg.seed).to(dev)
     opt_state = opt.init(params.parameters())
-    n_params = sum(p.numel() for p in params.parameters())
-    grad_bytes_per_sync = grad_sync_wire_bytes(cfg.grad_compress, n_parts,
-                                               n_params, itemsize=4)
+    # per-sync gradient wire volume, truthful to the sync spelling: the
+    # all_gather ships P*(P-1) full copies, the bucketed ring 2*(P-1),
+    # top-k only the (value, index) pairs each partition keeps
+    weights = list(params.parameters())
+    grad_bytes_per_sync = grad_sync_wire_bytes(
+        cfg.grad_compress, n_parts, sum(w.numel() for w in weights),
+        itemsize=weights[0].element_size(), topk_frac=cfg.grad_topk_frac)
     # cross-partition edges = remote fetch volume per epoch (DistDGL analog)
     src_all = graph.indices
     dst_all = np.repeat(np.arange(graph.num_nodes), np.diff(graph.indptr))
@@ -379,8 +408,15 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
     eff_fraction = cfg.subset_fraction if cfg.use_cbs else 1.0
     fetch_bytes_per_epoch = int(cut_frac * graph.num_edges * graph.feature_dim
                                 * fdt.itemsize * eff_fraction)
-    # the eval forward's exchange: every layer ships the real halo rows
-    eval_exchange = model.num_layers * pg.halo_bytes_per_layer
+
+    def eval_exchange_bytes() -> int:
+        # the exchange volume THIS epoch's eval forward paid: only the
+        # refreshed-row payload under the halo cache (the engine reports it
+        # after each cached forward), the full per-layer wire payload
+        # (compression-truthful) otherwise
+        if cfg.halo_cache:
+            return int(engine.last_halo_exchange_bytes)
+        return model.num_layers * engine.halo_wire_bytes_per_layer
 
     batch_feats = np.asarray(graph.features, fdt)
 
@@ -443,9 +479,12 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
 
     # full-graph epochs exchange halos in BOTH directions of each train
     # step, plus the per-epoch validation forward's exchange, and fetch no
-    # sampled neighbours
+    # sampled neighbours; training exchanges stay uncompressed, only the
+    # eval forward's term uses the wire rate
     fg_halo_bytes_per_epoch = (2 * model.num_layers * pg.halo_bytes_per_layer
-                               * cfg.full_graph_iters + eval_exchange)
+                               * cfg.full_graph_iters
+                               + model.num_layers
+                               * engine.halo_wire_bytes_per_layer)
 
     # ONE device sampler serves both async phases, staged by the first phase
     # that needs it
@@ -476,7 +515,7 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             iters = losses.shape[0]
             t_host = np.zeros(n_parts)      # no host sampling on this path
             comm_halo_p0 += fg_halo_bytes_per_epoch
-            halo_exchange_hist.append(eval_exchange)
+            halo_exchange_hist.append(eval_exchange_bytes())
         elif async_phase0:
             # draw, steps and validation forward on the card; the seed rides
             # in the launches' arguments, nothing is copied
@@ -485,15 +524,17 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                 engine.phase0_epoch_async(params, opt_state, gen))
             iters = losses.shape[0]
             t_host = np.zeros(n_parts)      # no host sampling on this path
-            halo_exchange_hist.append(eval_exchange)
-            comm_halo_p0 += eval_exchange + fetch_bytes_per_epoch
+            ex = eval_exchange_bytes()
+            halo_exchange_hist.append(ex)
+            comm_halo_p0 += ex + fetch_bytes_per_epoch
         else:
             batches, t_host, iters, nbytes = next_epoch_batches()
             host_to_device_p0 += nbytes
             params, opt_state, losses, val_micro, t_dev = engine.phase0_epoch(
                 params, opt_state, batches)
-            halo_exchange_hist.append(eval_exchange)
-            comm_halo_p0 += eval_exchange + fetch_bytes_per_epoch
+            ex = eval_exchange_bytes()
+            halo_exchange_hist.append(ex)
+            comm_halo_p0 += ex + fetch_bytes_per_epoch
         comm_grad += grad_bytes_per_sync * iters
         p0_iter_hist.append(int(iters))
         host_time = epoch_host_times(t_host, t_dev)
@@ -560,8 +601,9 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                     pparams, popt, batches, global_params, budgets)
                 host_elapsed += np.where(
                     active_np, epoch_host_times(t_host, t_dev), 0.0)
-            halo_exchange_hist.append(eval_exchange)
-            comm_halo_p1 += eval_exchange + fetch_bytes_per_epoch
+            ex = eval_exchange_bytes()
+            halo_exchange_hist.append(ex)
+            comm_halo_p1 += ex + fetch_bytes_per_epoch
             scores = val_micro.cpu().numpy()
             is_best = ctrl.record_phase1(scores)
             phase1_epochs += 1

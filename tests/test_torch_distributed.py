@@ -138,8 +138,6 @@ def test_distributed_forward_is_export_logits(setup, use_kernel):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("halo_cache", True, 10),
-    ("halo_compress", "int8", 10), ("grad_compress", "topk", 10),
     ("feat_store", True, 11), ("feat_groups", 2, 11), ("mode", "spmd", 14),
     ("mode", "auto", 14)])
 def test_unported_options_raise(setup, option, value, item, monkeypatch):
@@ -153,6 +151,26 @@ def test_unported_options_raise(setup, option, value, item, monkeypatch):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         SPMDEngine(m, None, None, pg, None,
                    EngineConfig(device=device, **{option: value}))
+
+
+@pytest.mark.parametrize("option,value", [
+    ("halo_cache", True), ("halo_compress", "int8"),
+    ("grad_compress", "topk")])
+def test_communication_options_run(setup, option, value):
+    """The options ROADMAP item 10 ports build and evaluate: the cache ages
+    and reports its refresh bytes, the compressed eval its wire bytes."""
+    pg, _, _, _, m = setup
+    eng = SPMDEngine(m, None, None, pg, None,
+                     EngineConfig(device="cpu", **{option: value}))
+    micro, preds = eng.evaluate(m, "val", per_partition_params=False)
+    assert micro.shape == (4,) and preds.shape == (4, pg.max_nodes)
+    if option == "halo_cache":
+        assert eng.halo_cache_state()[1] == 1
+        assert eng.last_halo_exchange_bytes == 2 * pg.halo_bytes_per_layer
+    elif option == "halo_compress":
+        assert eng.last_halo_exchange_bytes == 2 * eng.halo_wire_bytes_per_layer
+    else:
+        assert eng.comm_residual_state() is None     # no top-k step yet
 
 
 @pytest.mark.parametrize("option,value", [("overlap_halo", True),
@@ -209,9 +227,20 @@ def test_unknown_mode_and_compression_raise(setup):
     with pytest.raises(ValueError, match="unknown engine mode"):
         SPMDEngine(m, None, None, pg, None,
                    EngineConfig(mode="bogus", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    # the quantized forward runs; an unknown codec raises the reference's
+    # ValueError when the forward quantizes
+    eng = SPMDEngine(m, None, None, pg, None, EngineConfig(device="cpu"))
+    res = {f"r{i}": torch.zeros((4, 4, pg.send_idx.shape[-1], d))
+           for i, d in enumerate(m.layer_input_dims)}
+    with torch.no_grad():
+        logits, new_res = make_distributed_forward(
+            m, {"max_nodes": pg.max_nodes}, compress="fp16")(
+                m, eng.shards, res)
+    assert logits.shape == (4, pg.max_nodes, m.num_classes)
+    assert set(new_res) == set(res)
+    with pytest.raises(ValueError, match="unknown halo compression mode"):
         make_distributed_forward(m, {"max_nodes": pg.max_nodes},
-                                 compress="fp16")
+                                 compress="int4")(m, eng.shards, res)
 
 
 def test_engine_disables_tf32(setup):

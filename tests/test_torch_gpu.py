@@ -674,3 +674,94 @@ def test_overlap_forward_on_card(cuda, split_tiny):
         assert launches == ((4, 2) if k == "kernel" else (0, 0)), launches
     for a, b in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the halo cache and compressed communication on the card: the full-range
+# cached forward with the kernel bitwise the synchronous one, the wire codec
+# bitwise its CPU run, and a top-k epoch reproducible bitwise
+
+def test_full_range_cached_forward_is_synchronous_on_card(cuda, split_tiny):
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import GraphSAGE
+    g, pg, _ = split_tiny
+    params = GraphSAGE(g.feature_dim, 32, g.num_classes).init(0).to(cuda)
+    eng = SPMDEngine(params, None, None, pg, None, EngineConfig(
+        device="cuda", halo_cache=True, halo_refresh_every=2))
+    fwd = eng._cached_fwd(0, eng.max_send)
+    sa.reset_kernel_launch_count()
+    with torch.no_grad():
+        got, cache = fwd(params, eng.shards, eng.halo_cache_state()[0])
+        want = eng.fwd(params, eng.shards)
+        export = eng.export_serving_state(params)
+    assert sa.kernel_launch_count() == 6          # 2 layers x 3 forwards
+    assert torch.equal(got, want)
+    for k in cache:
+        assert torch.equal(cache[k], export["cache"][k])
+    # the refresh plan then serves layer rows from the cache: no exchange,
+    # the segment kernel still launched once a layer
+    sa.reset_kernel_launch_count()
+    for _ in range(2):
+        eng.evaluate(params, "val", per_partition_params=False)
+    assert sa.kernel_launch_count() == 4
+    assert eng.last_halo_exchange_bytes == 0
+
+
+@pytest.mark.parametrize("mode", ["fp16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_codec_on_card_is_bitwise_the_cpu_codec(cuda, mode, dtype):
+    from repro_torch.graph.distributed import dequantize_rows, quantize_rows
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (257, 130)) * 10.0 ** rng.integers(-6, 6, (257, 1))
+    x[3] = 0.0
+    x[5, :] = [127.0, 0.5, 1.5, 2.5, -0.5] * 26   # exact .5 ties
+    xc = torch.tensor(x).to(dtype)
+    pc, sc = quantize_rows(xc, mode)
+    pg_, sg = quantize_rows(xc.to(cuda), mode)
+    assert torch.equal(pg_.cpu(), pc)
+    if mode == "int8":
+        assert torch.equal(sg.cpu(), sc)
+    for out in (torch.float32, dtype):
+        dc = dequantize_rows(pc, sc, mode, out)
+        dg = dequantize_rows(pg_, sg, mode, out)
+        assert torch.equal(dg.cpu().view(torch.uint8),
+                           dc.view(torch.uint8))
+
+
+def test_topk_epoch_on_card_repeats_bitwise(cuda, split_tiny):
+    """Two runs of a top-k phase-0 epoch from the same start on the card:
+    params, losses and the residual bitwise equal (the stable sort picks
+    ties by index, and nothing on the path adds with atomics)."""
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import GraphSAGE
+    from repro_torch.train.optim import AdamW
+    g, pg, _ = split_tiny
+    rng = np.random.default_rng(1)
+    B, f = 32, 4
+    batches = {
+        "x_t": torch.tensor(rng.normal(0, 1, (3, 4, B, g.feature_dim)),
+                            dtype=torch.float32, device=cuda),
+        "x_1": torch.tensor(rng.normal(0, 1, (3, 4, B, f, g.feature_dim)),
+                            dtype=torch.float32, device=cuda),
+        "x_2": torch.tensor(rng.normal(0, 1, (3, 4, B, f, f,
+                                              g.feature_dim)),
+                            dtype=torch.float32, device=cuda),
+        "labels": torch.tensor(rng.integers(0, g.num_classes, (3, 4, B)),
+                               device=cuda),
+        "mask": torch.ones((3, 4, B), device=cuda)}
+    runs = []
+    for _ in range(2):
+        m = GraphSAGE(g.feature_dim, 32, g.num_classes)
+        opt = AdamW(lr=1e-2, grad_clip=5.0)
+        eng = SPMDEngine(m, m.make_loss_fn(), opt, pg, None, EngineConfig(
+            device="cuda", grad_compress="topk", grad_topk_frac=0.05))
+        params = GraphSAGE(g.feature_dim, 32, g.num_classes).init(0).to(cuda)
+        params, _, losses, _, _ = eng.phase0_epoch(
+            params, opt.init(params.parameters()), batches)
+        runs.append(([w.detach().clone() for w in params.parameters()],
+                     losses, eng.comm_residual_state()[1].clone()))
+    (pa, la, ra), (pb, lb, rb) = runs
+    assert torch.isfinite(ra).all() and (ra != 0).any()
+    assert torch.equal(la, lb) and torch.equal(ra, rb)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` (and
-``chip_smoke.py``) pulls in neither ``jax`` nor anything of ``repro``; and
+``chip_smoke.py``), the halo cache, the wire codec and the gradient
+reducers included, pulls in neither ``jax`` nor anything of ``repro``; and
 every entry point defaults to the CUDA card, raising without one unless the
 caller passes ``device="cpu"``."""
 import os
@@ -20,6 +21,13 @@ mods = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in mods:
     importlib.import_module(name)
 import chip_smoke
+# the communication path (ROADMAP item 10) stands alone too
+from repro_torch.core.gp.trainer import (make_bucketed_reduce_stacked,
+                                         make_topk_reduce_stacked)
+from repro_torch.engine.stacking import (build_stacked_halo_cache,
+                                         build_stacked_halo_residual)
+from repro_torch.graph.distributed import (halo_refresh_plan,
+                                           make_cached_forward, quantize_rows)
 assert "repro_torch.core.sampler.cbs_device" in mods, mods
 assert "repro_torch.engine.sequential" in mods, mods
 bad = sorted(m for m in sys.modules

@@ -294,10 +294,26 @@ def test_cli_flags_reach_engine_config(monkeypatch, capsys):
         assert f'"overlap_halo": {str(want[1]).lower()}' in out
 
 
+@pytest.mark.parametrize("extra", [
+    {"engine_mode": "sequential", "halo_cache": True},
+    {"engine_mode": "sequential", "grad_compress": "topk"},
+    {"overlap_halo": True, "halo_compress": "int8"}])
+def test_communication_combinations_run_or_pick_one(extra):
+    """The oracle runs the options ROADMAP item 10 ports; the overlapped
+    forward with compression is the reference's "pick one" refusal."""
+    cfg = EATConfig(device="cpu", dataset="tiny", max_epochs=2,
+                    hidden_dim=8, batch_size=64, fanouts=(3, 3),
+                    phase0_fraction=0.5, **extra)
+    if extra.get("overlap_halo"):
+        with pytest.raises(ValueError, match="pick one"):
+            run_eat_distgnn(cfg)
+        return
+    r = run_eat_distgnn(cfg)
+    assert r.engine_mode == "sequential" and r.epochs_run == 2
+    assert np.isfinite(r.loss_history).all()
+
+
 @pytest.mark.parametrize("extra,item", [
-    ({"engine_mode": "sequential", "halo_cache": True}, 10),
-    ({"engine_mode": "sequential", "grad_compress": "topk"}, 10),
-    ({"overlap_halo": True, "halo_compress": "int8"}, 10),
     ({"engine_mode": "sequential", "feat_store": True}, 11),
     ({"overlap_halo": True, "checkpoint_dir": "ckpt"}, 12),
     ({"engine_mode": "sequential", "resume": True}, 12)])

@@ -60,11 +60,23 @@ def test_train_cli_on_cpu(capsys):
     assert "ROADMAP item 15" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("option,value", [
+    ("async_generalize,halo_cache", True), ("halo_cache", True),
+    ("halo_compress", "int8"), ("grad_compress", "topk")])
+def test_communication_options_run(option, value):
+    """The options ROADMAP item 10 ports run, alone or beside the async
+    flags (``option`` may name several, comma-separated)."""
+    r = run_eat_distgnn(EATConfig(
+        device="cpu", dataset="tiny", max_epochs=2, hidden_dim=8,
+        batch_size=64, fanouts=(3, 3), phase0_fraction=0.5,
+        **{o: value for o in option.split(",")}))
+    assert np.isfinite(r.loss_history).all() and r.epochs_run == 2
+    assert len(r.halo_exchange_history) == 2
+    assert r.comm_halo_exchange_bytes == sum(r.halo_exchange_history) > 0
+
+
 @pytest.mark.parametrize("option,value,item", [
-    ("async_personalize,feat_store", True, 11),
-    ("async_generalize,halo_cache", True, 10),
-    ("halo_cache", True, 10), ("halo_compress", "int8", 10),
-    ("grad_compress", "topk", 10), ("feat_store", True, 11),
+    ("async_personalize,feat_store", True, 11), ("feat_store", True, 11),
     ("checkpoint_dir", "ckpt", 12), ("resume", True, 12)])
 def test_unported_options_raise(option, value, item):
     """Each unported option raises naming its item, alone or beside the

@@ -401,10 +401,23 @@ def test_make_engine_dispatches_on_mode(graphs):
         seq.evaluate(m.init(0), "test", per_partition_params=True)
 
 
+@pytest.mark.parametrize("option,value", [
+    ("halo_cache", True), ("halo_compress", "int8"),
+    ("grad_compress", "topk")])
+def test_oracle_communication_options_run(graphs, option, value):
+    """The oracle has the options ROADMAP item 10 ports."""
+    g, pg, *_ = graphs
+    m = GraphSAGE(g.feature_dim, HIDDEN, g.num_classes)
+    seq = SequentialReference(m, m.make_loss_fn(), AdamW(), pg, None,
+                              EngineConfig(mode="sequential", device="cpu",
+                                           **{option: value}))
+    micro, _ = seq.evaluate(m.init(0), "val", per_partition_params=False)
+    assert micro.shape == (P,)
+    assert (seq.last_halo_exchange_bytes > 0) == option.startswith("halo")
+
+
 @pytest.mark.parametrize("option,value,item", [
-    ("halo_cache", True, 10), ("halo_compress", "int8", 10),
-    ("grad_compress", "topk", 10), ("feat_store", True, 11),
-    ("feat_groups", 2, 11)])
+    ("feat_store", True, 11), ("feat_groups", 2, 11)])
 def test_oracle_unported_options_raise(graphs, option, value, item):
     g, pg, *_ = graphs
     m = GraphSAGE(g.feature_dim, HIDDEN, g.num_classes)
