@@ -19,7 +19,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
               (K, K+1, 3K+5 and 10,000 in-edges at D=128/130, f32, bf16,
               f64 dyadic, one partition's hub stacked), and the stacked
               products-s shapes at D=64 and D=128, launched twice (bitwise
-              equal) with the work plan's size printed; the overlapped
+              equal) with the work plan's size printed; the streamed eval's
+              single-partition use: each products-s partition's blocks
+              unstacked with a plan of their own
+              (``engine.stacking.partition_blocks``), every partition's
+              launch bitwise its rows of the stacked launch, the partition
+              with the most edges timed at D=64 and D=128 (launched twice,
+              bitwise equal); the overlapped
               forward's row-range use: the products-s interior and boundary
               split blocks (``build_stacked_split_vjp_blocks``) at D=64 and
               D=128 into own_cap rows, the boundary half at every
@@ -113,6 +119,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
               phase-0 epochs through the bucketed and top-k reducers
               against none's; the eval forward's and the epoch call's
               times and the state's bytes on the device.  Then
+              ``featstore_checks``, the two-tier feature store and the
+              streamed eval over the pipeline's partition: evals at
+              hot_frac 0 / 0.25 / 0.5 / 1 and both policies bitwise the
+              all-resident eval (logits, micro, preds; 2 launches an eval),
+              the store with the halo cache and with int8 bitwise those
+              compositions without it, async epochs of both phases with a
+              feature-store sampler bitwise the resident sampler's, the
+              streamed eval at G = 1, 2, 4 within SERVE_ATOL of the stacked
+              eval (2·P single-partition launches), ``cold_h2d_bytes``
+              equal to the closed forms, ``launch.train gnn`` runs with
+              ``--feat-store`` (sampled and async equal to the resident
+              runs; ``--feat-groups 2``), featstore-xl refused all-resident
+              under 0.7 x its peak and trained streamed, and the times of
+              the eval forward, the stage copy (pinned and pageable), the
+              streamed evals and the async epoch, with and without the
+              store.  Then
               the async run, ``--async-generalize --async-personalize``
               (both epochs drawn on the card by the device sampler): no
               host draw in either phase, the device draw counter moved, two
@@ -139,8 +161,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
               prefill and 16 decode steps broken down (torch.profiler),
               with the kernel launches and torch's elementwise adds per step
   7. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
-              use and their row-range use, flash attention's two designs,
-              both RMSNorm entry points), then the device line last
+              use and their row-range use, the forward's single-partition
+              use, flash attention's two designs, both RMSNorm entry
+              points), then the device line last
 
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -1064,11 +1087,12 @@ def train_args(*extra):
          "--seed", "0", "--device", "cuda", *extra])
 
 
-def train_run(torch, sa, label, *extra, halves=1):
+def train_run(torch, sa, label, *extra, halves=1, per_eval=None):
     """One ``launch.train gnn`` run with the launch counts set to 0 just
     before it and read just after; checks that every evaluation launched
     the forward kernel once a layer and half (``halves`` 2 for the
-    overlapped split forward: interior and boundary) and every full-graph
+    overlapped split forward: interior and boundary), or ``per_eval`` times
+    (the streamed eval: once a layer and partition), and every full-graph
     step the backward kernel once a half of layer 1 (layer 0 reads the
     features, which need no gradient) and its forward as an eval does."""
     from repro_torch.launch.train import run_gnn
@@ -1082,8 +1106,9 @@ def train_run(torch, sa, label, *extra, halves=1):
     fg_steps = (sum(res.phase0_iter_history) if res.config.full_graph_train
                 else 0)
     evals = res.epochs_run + 1              # one per epoch, and the test
-    assert fwd == 2 * halves * (evals + fg_steps), (label, fwd, evals,
-                                                    fg_steps)
+    per_eval = 2 * halves if per_eval is None else per_eval
+    assert fwd == per_eval * evals + 2 * halves * fg_steps, (
+        label, fwd, evals, fg_steps)
     assert bwd == halves * fg_steps, (label, bwd, fg_steps)
     losses = np.asarray(res.loss_history)
     assert losses.size == res.epochs_run and np.isfinite(losses).all(), label
@@ -1711,6 +1736,375 @@ def comm_checks(torch, sa, pg, flush, card, res_s):
     return launches
 
 
+def featstore_checks(torch, sa, flush, card, res_s, res_a):
+    """ROADMAP item 11 at products-s, P=4, EW, hidden 128, seed 0, with the
+    kernels, over the pipeline's own partition (``fanout_k`` 10); returns
+    the segment forward's launches of its runs (each counted from 0 just
+    before and read just after): ``(stacked, per_partition)``, the second
+    the streamed evals' single-partition launches.
+
+    1. Feature-store evals at ``hot_frac`` 0.0 / 0.25 / 0.5 / 1.0 (degree)
+       and 0.5 (freq): logits, micro and preds bitwise the all-resident
+       engine's, on the seed-0 params and on the sampled run's trained
+       per-partition params; the cold tier pinned; 2 forward launches an
+       eval.  The store with the halo cache (refresh every 2) and with
+       int8, 3 evals each, bitwise the same composition without the store
+       (micro, preds, and the cache or the residual).
+    2. One async phase-0 and one async phase-1 epoch with a feature-store
+       sampler against the resident sampler from equal generator states:
+       losses, val micro and params bitwise.
+    3. The streamed eval at G = 1, 2, 4 against the stacked all-resident
+       eval: logits within SERVE_ATOL/SERVE_RTOL, differing predictions
+       reported, 2·P single-partition launches an eval.
+    4. ``cold_h2d_bytes`` against the closed forms: P·C·D·B an eval,
+       twice that streamed, Nc·D·B + P·C·D·B an async phase-0 epoch (and a
+       phase-1 epoch with its eval), 0 at hot_frac 1.0; printed:
+       ``resident_feature_bytes`` against P·H·D·B (+ Nh·D·B) and the rise
+       of ``torch.cuda.max_memory_allocated`` over one eval beside
+       ``feat_peak_bytes``'s transient term.
+    5. ``launch.train gnn`` runs: sampled ``--feat-store --hot-frac 0.5``
+       (losses and micro-F1 equal to the all-resident sampled run's, its
+       cold bytes the closed form), ``--feat-store --async-generalize
+       --async-personalize`` against the resident async run, and
+       ``--feat-store --feat-groups 2``.
+    6. featstore-xl under a budget of 0.7 x the all-resident peak of the
+       pipeline's partition: the plain run raises FeatureBudgetError,
+       ``--feat-store --hot-frac 0.25 --feat-groups 1`` trains 3 epochs;
+       the device's measured peak beside the budget.
+    7. Times beside the card: the eval forward with and without the store
+       and the stage copy alone, pinned and pageable (CUDA events around
+       the enqueue, and the device's with the host hidden); the streamed
+       evals (host clock, synchronised); the async phase-0 epoch call with
+       and without the store (CUDA events around the synchronising call,
+       device busy from torch.profiler)."""
+    from repro_torch.core import partition_graph
+    from repro_torch.core.sampler import build_device_epoch_sampler
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import (BENCHMARKS, GraphSAGE,
+                                   build_partitioned_graph, make_benchmark)
+    from repro_torch.graph.featstore import FeatureBudgetError, feat_peak_bytes
+    from repro_torch.graph.sage import broadcast_to_partitions
+    from repro_torch.launch.train import build_parser, run_gnn
+    from repro_torch.train.optim import AdamW
+
+    t_fs = time.perf_counter()
+    P, B = 4, 4
+    fwd_stacked = fwd_part = 0
+    g = make_benchmark(BENCHMARKS["products-s"])
+    D = g.feature_dim
+    parts = partition_graph(g.indptr, g.indices, g.features, g.labels, P,
+                            method="ew", seed=0, fanout_k=10).parts
+    pg = build_partitioned_graph(g, parts, P)
+    own_cap, max_n = pg.own_cap, pg.max_nodes
+    cold_rows = lambda frac: own_cap - int(round(frac * own_cap))
+    eval_bytes = lambda frac: P * cold_rows(frac) * D * B
+    model = lambda: GraphSAGE(D, 128, g.num_classes)
+    m = model()
+    p0 = model().init(0).cuda()
+    trained = res_s.final_params
+    engine = lambda **kw: SPMDEngine(m, None, None, pg, None, EngineConfig(
+        device="cuda", **kw))
+
+    def counted(fn):
+        """``fn()`` and the forward launches it made."""
+        k0 = sa.kernel_launch_count()
+        out = fn()
+        return out, sa.kernel_launch_count() - k0
+
+    base = engine()
+    cases = (("seed0", p0, False), ("trained", trained, True))
+    want = {}
+    with torch.no_grad():
+        for name, prm, per in cases:
+            want[name] = (base.fwd(prm, base.shards),
+                          *base.evaluate(prm, "test", per))
+    log(f"featstore {card}: pipeline partition own_cap {own_cap} max_nodes "
+        f"{max_n}; all-resident plane {base.resident_feature_bytes} B")
+
+    # 1. the store's evals, bitwise
+    stores = {}
+    for frac, pol in ((0.0, "degree"), (0.25, "degree"), (0.5, "degree"),
+                      (1.0, "degree"), (0.5, "freq")):
+        e = engine(feat_store=True, hot_frac=frac, hot_policy=pol)
+        assert e._fs.cold.shape[1] == cold_rows(frac)
+        assert e._cold_host.is_pinned() or e._cold_host.numel() == 0
+        for name, prm, per in cases:
+            b0 = e.cold_h2d_bytes
+            (micro, preds), n = counted(lambda: e.evaluate(prm, "test", per))
+            assert n == 2, (frac, pol, n)
+            assert e.cold_h2d_bytes - b0 == eval_bytes(frac), (
+                frac, e.cold_h2d_bytes - b0, eval_bytes(frac))
+            with torch.no_grad():
+                logits, n2 = counted(lambda: e._eval_forward(
+                    prm, e._featurized()))
+            fwd_stacked += n + n2
+            assert torch.equal(logits, want[name][0]), (frac, pol, name)
+            assert torch.equal(micro, want[name][1]), (frac, pol, name)
+            assert torch.equal(preds, want[name][2]), (frac, pol, name)
+        H = e._fs.hot.shape[1]
+        assert e.resident_feature_bytes == P * H * D * B
+        stores[frac, pol] = e
+        log(f"featstore {card}: hot_frac {frac} {pol}: H {H} C "
+            f"{cold_rows(frac)}; logits, micro and preds bitwise the "
+            f"resident engine's (seed-0 and trained params); 2 launches an "
+            f"eval; cold bytes an eval {eval_bytes(frac)} = P·C·D·B; resident "
+            f"{e.resident_feature_bytes} B = P·H·D·B")
+    assert eval_bytes(1.0) == 0
+    for kw, state in (({"halo_cache": True, "halo_refresh_every": 2},
+                       "_halo_state"), ({"halo_compress": "int8"},
+                                        "_halo_residual")):
+        a, b = engine(**kw), engine(feat_store=True, hot_frac=0.5, **kw)
+        for i in range(3):
+            (ma, pa), na = counted(lambda: a.evaluate(trained, "test", True))
+            (mb, pb), nb = counted(lambda: b.evaluate(trained, "test", True))
+            assert na == nb == 2, (kw, na, nb)
+            fwd_stacked += na + nb
+            assert torch.equal(ma, mb) and torch.equal(pa, pb), (kw, i)
+            sa_, sb_ = getattr(a, state), getattr(b, state)
+            assert all(torch.equal(sa_[k], sb_[k]) for k in sa_), (kw, i)
+        assert b.cold_h2d_bytes == 3 * eval_bytes(0.5)
+        log(f"featstore {card}: store x {json.dumps(kw)}: 3 evals bitwise "
+            f"the composition without the store (micro, preds, {state})")
+
+    # 2. async epochs, feature-store sampler against the resident one
+    host_train = [g.train_idx[parts[g.train_idx] == p] for p in range(P)]
+    ds_kw = dict(batch_size=256, fanouts=(10, 10), device="cuda")
+    samplers = {"resident": build_device_epoch_sampler(g, host_train, P,
+                                                        **ds_kw),
+                "store": build_device_epoch_sampler(
+                    g, host_train, P, feat_store=True, hot_frac=0.5,
+                    **ds_kw)}
+    ds_f = samplers["store"]
+    assert ds_f.cold_host.is_pinned()
+    nc, nh = ds_f.cold_host.shape[0], ds_f.hot_feats.shape[0]
+    sampler_cold = nc * D * B
+    runs = {}
+    for label, ds in samplers.items():
+        mm = model()
+        opt = AdamW(lr=1e-3, grad_clip=5.0)
+        kw = {"feat_store": True, "hot_frac": 0.5} if label == "store" else {}
+        eng = SPMDEngine(mm, mm.make_loss_fn(), opt, pg, None,
+                         EngineConfig(device="cuda", **kw))
+        eng.set_device_sampler(ds)
+        prm = mm.init(0).cuda()
+        st = opt.init(prm.parameters())
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        (prm, st, l0, v0, _), n0 = counted(
+            lambda: eng.phase0_epoch_async(prm, st, gen))
+        d0 = eng.cold_h2d_bytes
+        pp = broadcast_to_partitions(prm, P)
+        po = opt.init_stacked(pp.parameters())
+        gen.manual_seed(12)
+        (pp, po, l1, v1, _), n1 = counted(lambda: eng.phase1_epoch_async(
+            pp, po, gen, ds.natural_iters, prm))
+        assert n0 == n1 == 2, (label, n0, n1)
+        fwd_stacked += n0 + n1
+        runs[label] = dict(eng=eng, prm=prm, st=st, gen=gen, out=(
+            l0, v0, l1, v1, *prm.parameters(), *pp.parameters()),
+            d0=d0, d1=eng.cold_h2d_bytes - d0)
+    r, s = runs["resident"], runs["store"]
+    assert all(torch.equal(x, y) for x, y in zip(r["out"], s["out"]))
+    assert (r["d0"], r["d1"]) == (0, 0)
+    both = sampler_cold + eval_bytes(0.5)
+    assert s["d0"] == s["d1"] == both, (s["d0"], s["d1"], both)
+    res_bytes = s["eng"].resident_feature_bytes
+    log(f"featstore {card}: async phase-0 and phase-1 epochs with the "
+        f"store's sampler (Nh {nh}, Nc {nc}) bitwise the resident sampler's "
+        f"(losses {[round(float(x), 6) for x in s['out'][0].mean(dim=1)]}, "
+        f"{float(s['out'][2].mean()):.6f}; val micro; params); cold bytes "
+        f"an epoch {s['d0']} / {s['d1']} = Nc·D·B {sampler_cold} + P·C·D·B "
+        f"{eval_bytes(0.5)}; resident {res_bytes} B against P·H·D·B + Nh·D·B "
+        f"{P * (own_cap - cold_rows(0.5)) * D * B + nh * D * B} (resident "
+        f"engine and sampler: {r['eng'].resident_feature_bytes} B)")
+
+    # 3. the streamed eval against the stacked all-resident eval
+    times = {}
+    e05 = stores[0.5, "degree"]
+    for G in (1, 2, 4):
+        e = engine(feat_store=True, hot_frac=0.5, feat_groups=G)
+        b0 = e.cold_h2d_bytes
+        with torch.no_grad():
+            hs, n = counted(lambda: e._streamer.forward(trained, True))
+        assert n == 2 * P, (G, n)
+        assert e.cold_h2d_bytes - b0 == 2 * eval_bytes(0.5)
+        logits = torch.stack(hs)
+        err = float((logits - want["trained"][0]).abs().max())
+        diff = int((logits.argmax(-1) != want["trained"][0].argmax(-1)).sum())
+        (micro, preds), n2 = counted(lambda: e.evaluate(trained, "test",
+                                                        True))
+        assert n2 == 2 * P, (G, n2)
+        fwd_part += n + n2
+        torch.testing.assert_close(logits, want["trained"][0],
+                                   atol=SERVE_ATOL, rtol=SERVE_RTOL)
+        k0 = sa.kernel_launch_count()
+        times[f"streamed_eval_G{G}_ms"] = call_us(
+            lambda: e.evaluate(trained, "test", True), calls=5) / 1e3
+        fwd_part += sa.kernel_launch_count() - k0
+        log(f"featstore {card}: streamed eval G={G}: logits max |diff| "
+            f"{err:.3e} against the stacked all-resident eval (atol "
+            f"{SERVE_ATOL}, rtol {SERVE_RTOL}), {diff} of {logits.shape[0] * logits.shape[1]} "
+            f"rows' predictions differ, micro {float(micro.mean()):.6f} vs "
+            f"{float(want['trained'][1].mean()):.6f}; {n} single-partition "
+            f"launches an eval; cold bytes an eval {2 * eval_bytes(0.5)} = "
+            f"2·P·C·D·B")
+        # 4. the device memory's rise over one eval, beside the closed form
+        rise = {}
+        for label, eng in ([("resident", base), ("store", e05)] if G == 1
+                           else []) + [(f"streamed G={G}", e)]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            (_, _), k = counted(lambda: eng.evaluate(trained, "test", True))
+            torch.cuda.synchronize()
+            if label.startswith("streamed"):
+                fwd_part += k
+            else:
+                fwd_stacked += k
+            rise[label] = torch.cuda.max_memory_allocated() - m0
+        transient = {
+            "store": P * (cold_rows(0.5) + max_n) * D * B,
+            f"streamed G={G}": G * (cold_rows(0.5) + max_n) * D * B}
+        log(f"featstore {card}: max_memory_allocated rise over one eval "
+            f"{json.dumps(rise)} B; feat_peak_bytes' transient term "
+            f"{json.dumps({k: v for k, v in transient.items() if k in rise})}"
+            f" B (the rise adds the hidden planes and logits)")
+
+    # 5. pipeline runs through launch.train gnn
+    args = ("--epochs", "6", "--phase0-frac", "0.5")
+    res_f, n, _ = train_run(torch, sa, "sampled feat-store 0.5", *args,
+                            "--feat-store", "--hot-frac", "0.5")
+    fwd_stacked += n
+    assert res_f.loss_history == res_s.loss_history, (res_f.loss_history,
+                                                      res_s.loss_history)
+    assert res_f.f1.micro == res_s.f1.micro, (res_f.f1.micro, res_s.f1.micro)
+    n0 = len(res_f.phase0_iter_history)
+    assert res_f.cold_h2d_bytes == (res_f.epochs_run + 1) * eval_bytes(0.5)
+    assert (res_f.host_to_device_bytes_phase0
+            - res_s.host_to_device_bytes_phase0) == n0 * eval_bytes(0.5)
+    assert (res_f.host_to_device_bytes_phase1
+            - res_s.host_to_device_bytes_phase1) == (
+                res_f.phase1_epochs + 1) * eval_bytes(0.5)
+    log(f"featstore {card}: sampled --feat-store --hot-frac 0.5: losses and "
+        f"micro-F1 {res_f.f1.micro:.4f} equal to the resident run's; cold "
+        f"bytes {res_f.cold_h2d_bytes} = {res_f.epochs_run + 1} evals x "
+        f"{eval_bytes(0.5)}, per phase by the deltas; resident "
+        f"{res_f.resident_feature_bytes} B vs {res_s.resident_feature_bytes}")
+    res_fa, n, _ = train_run(torch, sa, "async feat-store 0.5", *args,
+                             "--async-generalize", "--async-personalize",
+                             "--feat-store", "--hot-frac", "0.5")
+    fwd_stacked += n
+    assert res_fa.loss_history == res_a.loss_history, (res_fa.loss_history,
+                                                       res_a.loss_history)
+    assert res_fa.f1.micro == res_a.f1.micro, (res_fa.f1.micro,
+                                               res_a.f1.micro)
+    assert res_fa.cold_h2d_bytes == res_fa.epochs_run * both + eval_bytes(0.5)
+    log(f"featstore {card}: async --feat-store: losses and micro-F1 "
+        f"{res_fa.f1.micro:.4f} equal to the resident async run's; cold "
+        f"bytes {res_fa.cold_h2d_bytes} = {res_fa.epochs_run} epochs x "
+        f"{both} + the test eval's {eval_bytes(0.5)}; host-to-device bytes "
+        f"phase 0 {res_fa.host_to_device_bytes_phase0} phase 1 "
+        f"{res_fa.host_to_device_bytes_phase1} (resident run "
+        f"{res_a.host_to_device_bytes_phase0}, "
+        f"{res_a.host_to_device_bytes_phase1}); resident "
+        f"{res_fa.resident_feature_bytes} B vs {res_a.resident_feature_bytes}")
+    res_g, n, _ = train_run(torch, sa, "sampled feat-store feat-groups 2",
+                            *args, "--feat-store", "--feat-groups", "2",
+                            per_eval=2 * P)
+    fwd_part += n
+    assert res_g.cold_h2d_bytes == (res_g.epochs_run + 1) * 2 * eval_bytes(0.5)
+    log(f"featstore {card}: --feat-store --feat-groups 2: losses "
+        f"{np.round(res_g.loss_history, 6).tolist()} vs "
+        f"{np.round(res_s.loss_history, 6).tolist()}, micro-F1 "
+        f"{res_g.f1.micro:.4f} vs {res_s.f1.micro:.4f}, epoch with eval "
+        f"{res_g.epoch_time_with_eval_s * 1e3:.2f} vs "
+        f"{res_s.epoch_time_with_eval_s * 1e3:.2f} ms, cold bytes "
+        f"{res_g.cold_h2d_bytes}")
+
+    # 6. the bigger-than-device witness on featstore-xl
+    gx = make_benchmark(BENCHMARKS["featstore-xl"])
+    px = partition_graph(gx.indptr, gx.indices, gx.features, gx.labels, P,
+                         method="ew", seed=0, fanout_k=10).parts
+    pgx = build_partitioned_graph(gx, px, P)
+    peak_x = feat_peak_bytes(P, pgx.max_nodes, gx.feature_dim, B)
+    budget = peak_x * 0.7 / 1e6
+    xl = lambda *extra: build_parser().parse_args(
+        ["gnn", "--dataset", "featstore-xl", "--parts", "4", "--hidden",
+         "128", "--seed", "0", "--device", "cuda", "--epochs", "3",
+         "--feat-budget-mb", repr(budget), *extra])
+    try:
+        run_gnn(xl())
+    except FeatureBudgetError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("featstore-xl all-resident ran over its budget")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    sa.reset_kernel_launch_count()
+    res_x = run_gnn(xl("--feat-store", "--hot-frac", "0.25",
+                       "--feat-groups", "1"))
+    torch.cuda.synchronize()
+    n = sa.kernel_launch_count()
+    assert n == 2 * P * (res_x.epochs_run + 1), n
+    fwd_part += n
+    dev_peak = torch.cuda.max_memory_allocated() - m0
+    assert res_x.epochs_run >= 3 and np.isfinite(res_x.loss_history).all()
+    hx = int(round(0.25 * pgx.own_cap))
+    store_peak = feat_peak_bytes(P, pgx.max_nodes, gx.feature_dim, B,
+                                 hot_rows=hx, cold_rows=pgx.own_cap - hx,
+                                 groups=1)
+    log(f"featstore {card}: featstore-xl (max_nodes {pgx.max_nodes}, own_cap "
+        f"{pgx.own_cap}, D {gx.feature_dim}): budget {budget:.6f} MB = 0.7 x "
+        f"the all-resident peak {peak_x} B; all-resident refused "
+        f"({refused[:90]}...); --feat-store --hot-frac 0.25 --feat-groups 1 "
+        f"trained {res_x.epochs_run} epochs, losses "
+        f"{np.round(res_x.loss_history, 4).tolist()}, micro-F1 "
+        f"{res_x.f1.micro:.4f}, feature peak (closed form) {store_peak} B, "
+        f"device peak over the run (max_memory_allocated, everything) "
+        f"{dev_peak} B, resident features {res_x.resident_feature_bytes} B, "
+        f"cold bytes {res_x.cold_h2d_bytes}; {n} single-partition launches")
+
+    # 7. times
+    pageable = torch.from_numpy(e05._fs.cold)
+    pinned = e05._cold_host
+    assert pinned.is_pinned() and not pageable.is_pinned()
+    fns = {
+        "eval_fwd_resident": lambda: base.fwd(p0, base.shards),
+        "eval_fwd_store": lambda: e05._eval_forward(p0, e05._featurized()),
+        "stage_pinned": lambda: pinned.to("cuda", non_blocking=True),
+        "stage_pageable": lambda: pageable.to("cuda", non_blocking=True)}
+    turns = lambda keys: [(k, k) for k in keys] + [
+        (k, f"{k}_2") for k in reversed(keys)]
+    with torch.no_grad():
+        k0 = sa.kernel_launch_count()
+        for key, label in turns(list(fns)):
+            times[f"{label}_ms"] = time_ms(fns[key], 10, flush)
+            times[f"{label}_device_ms"] = time_ms(
+                fns[key], 10, flush, hide_host=True,
+                sleep_cycles=10 * SLEEP_CYCLES)
+        fwd_stacked += sa.kernel_launch_count() - k0
+    k0 = sa.kernel_launch_count()
+    for key, label in turns(["resident", "store"]):
+        run = runs[key]
+
+        def epoch():
+            run["prm"], run["st"], *_ = run["eng"].phase0_epoch_async(
+                run["prm"], run["st"], run["gen"])
+
+        times[f"async_epoch_{label}_ms"] = time_ms(epoch, 5, flush)
+        times[f"async_epoch_{label}_device_busy_ms"], _ = busy_ms(
+            torch, epoch, 3)
+    fwd_stacked += sa.kernel_launch_count() - k0
+    log(f"featstore {card}: ms (eval forwards and stage copies: CUDA events "
+        f"around the enqueue, L2 flushed; *_device_ms with the host hidden; "
+        f"streamed evals: host clock, synchronised; async epoch calls: CUDA "
+        f"events around the synchronising call, device busy from "
+        f"torch.profiler) {json.dumps(times)}")
+    log(f"featstore {card}: checks took {time.perf_counter() - t_fs:.1f} s")
+    return fwd_stacked, fwd_part
+
+
 # --------------------------------------------------------------------------
 # phase 6 helpers
 # --------------------------------------------------------------------------
@@ -1936,6 +2330,34 @@ def main() -> int:
             sa, f"bwd products-s stacked D={d}", x, blk, pg.max_nodes, 0,
             True, "float32", flush=flush, iters=30, record=shapes,
             repeat=True)
+    # the streamed eval's single-partition use: each partition's blocks
+    # unstacked with a work plan of its own, every partition's launch
+    # bitwise its rows of the stacked launch; the partition with the most
+    # edges timed (two launches bitwise equal)
+    from repro_torch.engine.stacking import partition_blocks
+    part_blk = [partition_blocks(blk, p) for p in range(4)]
+    p_big = int(np.argmax([(b["mask"] > 0).sum() for b in part_blk]))
+    blk_dev = sa.blocks_to_device(blk, "cuda")
+    part_rows = {}
+    for d in (64, 128):
+        x = rng.normal(0, 1, (4, pg.max_nodes, d)).astype(np.float32)
+        xs = torch.as_tensor(x, device="cuda")
+        whole = sa.segment_mean_op(xs, blk_dev, num_rows=pg.max_nodes)
+        for p in range(4):
+            one = sa.segment_mean_op(xs[p], sa.blocks_to_device(
+                part_blk[p], "cuda"), num_rows=pg.max_nodes)
+            assert torch.equal(one, whole[p]), (
+                f"partition {p}'s launch differs from its rows of the "
+                f"stacked launch at D={d}")
+        log(f"products-s D={d}: each partition's single-partition launch "
+            f"bitwise its rows of the stacked launch; partition {p_big} "
+            f"blocks {part_blk[p_big]['src'].shape}, plan "
+            f"{json.dumps(plan_stats(sa, part_blk[p_big]))}")
+        part_rows[d] = run_kernel_case(
+            sa, f"products-s partition {p_big} D={d}", x[p_big],
+            part_blk[p_big], pg.max_nodes, 0, True, "float32", flush=flush,
+            iters=30, record=shapes, repeat=True)
+    del blk_dev, xs, whole
     # the overlapped forward's row-range use: each half of the split blocks
     # into own_cap rows, the boundary half at every partition's n_int
     from repro_torch.engine.stacking import build_stacked_split_vjp_blocks
@@ -2146,6 +2568,9 @@ def main() -> int:
     train_fwd, train_bwd = train_fwd + fwd_k, train_bwd + bwd_k
     # the halo cache and compressed communication (ROADMAP item 10)
     train_fwd += comm_checks(torch, sa, pg, flush, card, res_s)
+    # the two-tier feature store and the streamed eval (ROADMAP item 11)
+    fs_fwd, part_fwd = featstore_checks(torch, sa, flush, card, res_s, res_a)
+    train_fwd += fs_fwd
     # not part of the main path: the plain aggregation, for comparison
     res_p = run_gnn(train_args("--epochs", "6", "--phase0-frac", "0.5",
                                "--no-kernel-agg"))
@@ -2169,8 +2594,8 @@ def main() -> int:
     main_row, bwd_row = main_rows[128], bwd_rows[128]
     log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
         f"bwd {train_bwd}; overlapped split forward (row-range use) fwd "
-        f"{rows_fwd} bwd {rows_bwd}; llm serving flash {llm_flash} rmsnorm "
-        f"{llm_rms}")
+        f"{rows_fwd} bwd {rows_bwd}; streamed eval (single-partition use) "
+        f"fwd {part_fwd}; llm serving flash {llm_flash} rmsnorm {llm_rms}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -2189,13 +2614,16 @@ def main() -> int:
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"]}]
     # the row-range use on the overlapped forward's path: the boundary half
-    # at D=128 (per-partition row_base; the interior half is in the log)
-    for name, tpu, rows, n in (
+    # at D=128 (per-partition row_base; the interior half is in the log);
+    # the streamed eval's single-partition use at D=128 (D=64 in the log)
+    for name, tpu, rows, key, n in (
             ("segment_mean_fwd_rows", SEGMENT_AGG_ROWS_TPU, split_rows,
-             rows_fwd),
+             ("boundary", 128), rows_fwd),
             ("segment_mean_bwd_rows", SEGMENT_AGG_BWD_TPU, split_bwd_rows,
-             rows_bwd)):
-        row = rows["boundary", 128]
+             ("boundary", 128), rows_bwd),
+            ("segment_mean_fwd_partition", SEGMENT_AGG_TPU, part_rows, 128,
+             part_fwd)):
+        row = rows[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/segment_agg.cu",

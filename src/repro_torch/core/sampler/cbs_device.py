@@ -26,7 +26,9 @@ Pieces:
     self-loop (the host ``NeighborSampler``'s contract).
   · :class:`DeviceEpochSampler`: the stacked per-partition state (padded
     train sets, log Eq. 3 rows, mini-epoch sizes) and the global CSR,
-    features and labels, with :meth:`~DeviceEpochSampler.draw_epoch` and
+    features (or, under the two-tier feature store, the hot rows, the
+    ``remap`` into ``[hot | cold]`` and the host cold rows) and labels, with
+    :meth:`~DeviceEpochSampler.draw_epoch` and
     :meth:`~DeviceEpochSampler.make_batch` over all P partitions at once.
 
 The reference's PRNG streams (jax keys) cannot be reproduced in torch, so
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...graph.featstore import build_global_feat_store, host_staging
 
 __all__ = [
     "cbs_probabilities_device",
@@ -163,11 +166,17 @@ class DeviceEpochSampler:
     it).  One instance drives phase 1's async mini-epochs and phase 0's
     async epochs; every epoch draws afresh from the generator it is given,
     and within one epoch each valid train index is visited at most once.
+
+    Under the two-tier feature store ``features`` is None: ``hot_feats``
+    holds the hot rows on the device, ``cold_host`` the cold rows on the host
+    (pinned on a CUDA build; the caller stages them once per epoch call),
+    and batches gather through ``remap`` into ``[hot | cold]``, bitwise the
+    resident gather (the table is a permutation of the feature rows).
     """
 
     indptr: torch.Tensor     # (N+1,) int64
     indices: torch.Tensor    # (E,)  int64
-    features: torch.Tensor   # (N, D)
+    features: torch.Tensor | None   # (N, D); None under the feature store
     labels: torch.Tensor     # (N,)  int32
     train_idx: torch.Tensor  # (P, T) int64 global ids, 0-padded
     logp: torch.Tensor       # (P, T) float32 log Eq. 3, -inf on padding
@@ -177,13 +186,32 @@ class DeviceEpochSampler:
     num_batches: int         # I = ceil(K / B)
     fanouts: tuple
     natural_iters: np.ndarray = None   # host (P,): ceil(k_p / B), budgets
+    hot_feats: torch.Tensor | None = None   # (Nh, D) resident hot rows
+    remap: torch.Tensor | None = None       # (N,) int64 id -> [hot | cold]
+    cold_host: torch.Tensor | None = None   # (Nc, D) host cold rows
 
     @property
     def nbytes(self) -> int:
-        """Bytes staged on the device (what building the sampler ships)."""
+        """Bytes staged on the device (what building the sampler ships):
+        the features, or under the store the hot rows and ``remap``."""
+        feats = ((self.features,) if self.features is not None
+                 else (self.hot_feats, self.remap))
         return sum(t.numel() * t.element_size() for t in (
-            self.indptr, self.indices, self.features, self.labels,
+            self.indptr, self.indices, *feats, self.labels,
             self.train_idx, self.logp, self.k))
+
+    def feature_table(self, cold: torch.Tensor | None = None) -> torch.Tensor:
+        """The table batches gather from: ``features``, or under the store
+        ``[hot | cold]`` with ``cold`` the staged cold rows (cast to the hot
+        dtype).  ``cold`` must be given exactly when the sampler was built
+        with the store."""
+        if (cold is None) != (self.cold_host is None):
+            raise ValueError(
+                "feat-store mismatch: pass cold= exactly when the sampler "
+                "was built with feat_store=True")
+        if cold is None:
+            return self.features
+        return torch.cat([self.hot_feats, cold.to(self.hot_feats.dtype)])
 
     def draw_epoch(self, gen: torch.Generator, logp=None, train_idx=None,
                    k=None):
@@ -217,19 +245,27 @@ class DeviceEpochSampler:
         return nodes.view(rows, I, B), valid.view(rows, I, B)
 
     def make_batch(self, gen: torch.Generator, nodes: torch.Tensor,
-                   valid: torch.Tensor) -> dict:
+                   valid: torch.Tensor, cold: torch.Tensor | None = None, *,
+                   table: torch.Tensor | None = None) -> dict:
         """One training batch from ``nodes``/``valid`` (``(..., B)``, e.g.
         ``(P, B)``): the two-hop fanout and the feature gather, as the
         pipeline's host ``make_batch`` builds it: ``x_t (..., B, D)``,
         ``x_1 (..., B, f1, D)``, ``x_2 (..., B, f1, f2, D)``, ``labels``
-        (int32, -1 where the slot is not valid) and a float ``mask``."""
+        (int32, -1 where the slot is not valid) and a float ``mask``.
+
+        The gather reads ``table`` when given (a :meth:`feature_table`
+        built once per epoch call), else :meth:`feature_table` of ``cold``
+        (the staged cold rows, exactly when the sampler was built with the
+        store); under the store it goes through ``remap``."""
+        feats = table if table is not None else self.feature_table(cold)
+        gather = ((lambda ix: feats[ix]) if self.remap is None
+                  else (lambda ix: feats[self.remap[ix]]))
         f1, f2 = self.fanouts
         nbrs1 = device_fanout(gen, nodes, self.indptr, self.indices, f1)
         nbrs2 = device_fanout(gen, nbrs1.flatten(-2), self.indptr,
                               self.indices, f2)
-        feats = self.features
-        return {"x_t": feats[nodes], "x_1": feats[nbrs1],
-                "x_2": feats[nbrs2].view(*nbrs1.shape, f2, feats.shape[-1]),
+        return {"x_t": gather(nodes), "x_1": gather(nbrs1),
+                "x_2": gather(nbrs2).view(*nbrs1.shape, f2, feats.shape[-1]),
                 "labels": torch.where(valid, self.labels[nodes], -1),
                 "mask": valid.to(feats.dtype)}
 
@@ -240,6 +276,8 @@ def build_device_epoch_sampler(graph, host_train, num_parts: int, *,
                                fanouts: tuple = (10, 10),
                                dtype=torch.float32,
                                feat_store: bool = False,
+                               hot_frac: float = 0.5,
+                               hot_policy: str = "degree",
                                device="cuda") -> DeviceEpochSampler:
     """Stage a :class:`DeviceEpochSampler` from a CSR graph (``indptr``,
     ``indices``, ``features``, ``labels``) and the per-partition train
@@ -247,11 +285,12 @@ def build_device_epoch_sampler(graph, host_train, num_parts: int, *,
     budgets (``natural_iters``) match the host sampler's batch counts; with
     ``class_balanced=False`` every partition's epoch is its whole local
     train set drawn as a uniform permutation (the phase-0 plain epoch).
-    ``feat_store=True`` (the two-tier feature store) is not ported."""
-    if feat_store:
-        raise NotImplementedError(
-            "the device sampler over the feature store is not ported yet "
-            "(ROADMAP item 11)")
+
+    With ``feat_store=True`` the (N, D) features are NOT staged: the top
+    ``hot_frac`` of the rows by ``hot_policy`` score go to the device
+    (``hot_feats``) and the rest stay on the host (``cold_host``, pinned on
+    a CUDA device) for the engine to stage once per epoch call; batches
+    gather through ``remap`` into ``[hot | cold]``."""
     dev = resolve_device(device)
     t_max = max(1, max(len(t) for t in host_train))
     train_pad = np.zeros((num_parts, t_max), np.int64)
@@ -284,11 +323,18 @@ def build_device_epoch_sampler(graph, host_train, num_parts: int, *,
     num_batches = max(1, -(-subset_size // batch_size))
     natural = np.maximum(1, -(-ks // batch_size)).astype(np.int32)
     natural[ks == 0] = 0
+    if feat_store:
+        gfs = build_global_feat_store(graph, hot_frac, hot_policy, dtype)
+        feat_kw = dict(features=None,
+                       hot_feats=torch.as_tensor(gfs.hot, device=dev),
+                       remap=_as_index(gfs.remap, dev),
+                       cold_host=host_staging(gfs.cold, dev))
+    else:
+        feat_kw = dict(features=torch.as_tensor(np.asarray(graph.features),
+                                                dtype=dtype, device=dev))
     return DeviceEpochSampler(
         indptr=_as_index(graph.indptr, dev),
         indices=_as_index(graph.indices, dev),
-        features=torch.as_tensor(np.asarray(graph.features), dtype=dtype,
-                                 device=dev),
         labels=torch.as_tensor(np.asarray(graph.labels, np.int32),
                                device=dev),
         train_idx=torch.as_tensor(train_pad, device=dev),
@@ -299,4 +345,5 @@ def build_device_epoch_sampler(graph, host_train, num_parts: int, *,
         num_batches=num_batches,
         fanouts=tuple(fanouts),
         natural_iters=natural,
+        **feat_kw,
     )

@@ -1,10 +1,14 @@
 from .sequential import SequentialReference
 from .spmd import EngineConfig, SPMDEngine
-from .stacking import build_stacked_split_vjp_blocks, build_stacked_vjp_blocks
+from .stacking import (build_stacked_feat_store,
+                       build_stacked_split_vjp_blocks,
+                       build_stacked_vjp_blocks, partition_blocks)
+from .streaming import StreamedEvaluator
 
 __all__ = ["EngineConfig", "SPMDEngine", "SequentialReference",
-           "build_stacked_vjp_blocks", "build_stacked_split_vjp_blocks",
-           "make_engine"]
+           "StreamedEvaluator", "build_stacked_vjp_blocks",
+           "build_stacked_split_vjp_blocks", "build_stacked_feat_store",
+           "partition_blocks", "make_engine"]
 
 
 def make_engine(model, loss_fn, optimizer, pg, hp=None, config=None):

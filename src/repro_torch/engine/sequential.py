@@ -25,9 +25,12 @@ halo cache as per-partition recv buffers landed and refreshed partition
 by partition, the quantized exchange with a per-sender residual (the
 sender dequantizes before the transpose, which models the wire exactly:
 dequantization is elementwise), and the bucketed and top-k reducers over
-the stacked per-partition gradients.  Options the oracle does not have
-raise ``NotImplementedError`` naming the ROADMAP item that ports them; the
-reference's checkpoint files belong to item 12.
+the stacked per-partition gradients.  Like the reference's oracle it is
+the all-resident oracle the feature-store engine is held against, so it
+refuses ``feat_store`` (``feat_groups`` without the store is ignored, as
+there); its async epochs accept a feature-store sampler, whose cold tier
+they copy to the device once per epoch call.  The reference's checkpoint
+files belong to ROADMAP item 12.
 """
 from __future__ import annotations
 
@@ -86,9 +89,14 @@ class SequentialReference:
                  hp: GPHyperParams | None = None, config=None):
         config = config if config is not None else EngineConfig(
             mode="sequential")
-        # the stacked engine's option rules: the same refusals, and the
-        # options not ported yet raise naming their ROADMAP item
+        # the stacked engine's option rules, then the reference oracle's own
         _check_config(config)
+        if config.feat_store:
+            raise ValueError(
+                "SequentialReference IS the all-resident oracle the "
+                "feat-store engine is locked against; build it without "
+                "feat_store (a feat-store DeviceEpochSampler is still "
+                "accepted — its gather is bitwise the resident one)")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -137,6 +145,8 @@ class SequentialReference:
                                                        self.hp)
         self._device_sampler = None
         self.last_eval_seconds = 0.0   # time of the latest _eval
+        # all-resident: no eval of the oracle stages cold rows
+        self.cold_h2d_bytes = 0
 
         # compressed communication and the historical halo cache, mirrored
         # from the engine: per-partition (P, maxS, d) buffers, one list per
@@ -519,6 +529,16 @@ class SequentialReference:
             raise ValueError(f"{method} needs set_device_sampler()")
         return self._device_sampler
 
+    def _batcher(self, ds, gen: torch.Generator):
+        """``(nodes, valid) -> batch`` for one epoch call, as the engine
+        draws them; a feature-store sampler gathers from ``[hot | cold]``
+        with its cold tier copied to the device once per call."""
+        if getattr(ds, "cold_host", None) is None:
+            return lambda n, v: ds.make_batch(gen, n, v)
+        table = ds.feature_table(ds.cold_host.to(self.device,
+                                                 non_blocking=True))
+        return lambda n, v: ds.make_batch(gen, n, v, table=table)
+
     def phase0_epoch_async(self, params, opt_state, gen: torch.Generator):
         """The device-drawn generalization epoch, legibly: the engine's one
         epoch draw and one batch draw per iteration over all P partitions,
@@ -526,10 +546,11 @@ class SequentialReference:
         validation forward and ``last_eval_seconds`` is 0, as the engine's."""
         ds = self._sampler("phase0_epoch_async")
         t0 = time.perf_counter()
+        make = self._batcher(ds, gen)
         nodes, valid = ds.draw_epoch(gen)                # (P, I, B)
         all_losses = []
         for i in range(ds.num_batches):
-            batch = ds.make_batch(gen, nodes[:, i], valid[:, i])
+            batch = make(nodes[:, i], valid[:, i])
             opt_state, losses = self._generalize_step(
                 params, opt_state, self._partition_batches(batch))
             all_losses.append(losses)
@@ -553,10 +574,11 @@ class SequentialReference:
             i_run *= 2
         i_run = min(i_run, cap)
         t0 = time.perf_counter()
+        make = self._batcher(ds, gen)
         nodes, valid = ds.draw_epoch(gen)
         pparams, popt, losses, pp = self._personalize(
             pparams, popt, global_params, i_run, budgets,
-            lambda i: ds.make_batch(gen, nodes[:, i], valid[:, i]))
+            lambda i: make(nodes[:, i], valid[:, i]))
         self._sync()
         dt = time.perf_counter() - t0
         val_micro, _ = self._eval(pp, "val")

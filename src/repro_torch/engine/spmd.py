@@ -19,8 +19,15 @@ for serving.  The communication options are ported too: the historical
 halo cache (``halo_cache``, ``halo_refresh_every``, ``halo_cv``) and the
 quantized halo exchange (``halo_compress``) on every eval forward, and
 the bucketed and top-k phase-0 gradient reducers (``grad_compress``).
-Every other ``EngineConfig`` option raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.
+So is the two-tier feature store (``feat_store``, ``hot_frac``,
+``hot_policy``, ``feat_budget_mb``): the hot rows stay on the device, the
+cold rows live in pinned host memory and are staged with one non-blocking
+copy per eval or epoch call (``cold_h2d_bytes`` counts them), and every
+forward reads the plane reassembled from both, bitwise the resident one;
+``feat_groups`` streams the eval over partition groups
+(:class:`~repro_torch.engine.streaming.StreamedEvaluator`).  The partition
+mesh (``mode="spmd"``) raises ``NotImplementedError`` naming ROADMAP item
+14.
 
 Epoch methods return a trailing ``device_seconds``: host wall time of the
 TRAIN steps, ended by ``torch.cuda.synchronize()`` on the card.  The
@@ -51,9 +58,13 @@ from ..graph.distributed import (HALO_COMPRESS_MODES, PartitionedGraph,
                                  make_kernel_split_agg, make_overlap_forward,
                                  make_ref_mean_agg, make_ref_split_agg,
                                  wire_row_bytes)
+from ..graph.featstore import (assemble_features, check_feat_budget,
+                               feat_peak_bytes, host_staging, numpy_dtype,
+                               reconstruct_features)
 from ..kernels.segment_agg import blocks_to_device
 from ..train.metrics import f1_scores_torch
-from .stacking import (build_stacked_halo_cache, build_stacked_halo_residual,
+from .stacking import (build_stacked_feat_store, build_stacked_halo_cache,
+                       build_stacked_halo_residual,
                        build_stacked_split_vjp_blocks,
                        build_stacked_vjp_blocks)
 
@@ -96,25 +107,38 @@ class EngineConfig:
     grad_compress: str = "none"
     grad_topk_frac: float = 0.01    # fraction of entries top-k ships
     grad_bucket_kb: int = 512       # bucketed reduction's slice size
-    # options of the reference engine that are not ported yet: a value
-    # other than the default raises NotImplementedError
+    # two-tier feature store: keep the hot_frac highest-scoring owned
+    # feature rows of each partition on the device; the cold rows stay in
+    # pinned host memory and are staged per eval or epoch call, and every
+    # forward reassembles the full plane bitwise before it runs
     feat_store: bool = False
+    hot_frac: float = 0.5
+    hot_policy: str = "degree"      # degree | freq (see graph/featstore.py)
+    # partition-group streaming (0 = off): evaluate in groups of G <= P
+    # partitions, so no (P, maxN, D) feature stack is assembled; needs
+    # feat_store, stacked mode
     feat_groups: int = 0
+    # feature-memory budget in MB (0 = unchecked): the engine refuses to
+    # build a configuration whose closed-form peak device feature bytes
+    # exceed it (FeatureBudgetError)
+    feat_budget_mb: float = 0.0
 
 
-# option -> (default, ROADMAP item that ports it)
-_NOT_PORTED = {"feat_store": (False, 11), "feat_groups": (0, 11)}
 _MODE_ITEMS = {"spmd": 14}
 
 
 def _resolve_mode(config: EngineConfig, num_parts: int,
                   device: torch.device) -> str:
     """The reference's rule: ``auto`` is the partition mesh when the host
-    has a card for every partition, else stacked.  The mesh is not ported,
-    so ``auto`` raises where the reference would pick it.  This engine runs
-    ``sequential`` stacked; :func:`repro_torch.engine.make_engine` builds
-    the sequential oracle for that mode."""
+    has a card for every partition, else stacked, and always stacked with
+    ``feat_groups`` (the streamed eval is stacked-only).  The mesh is not
+    ported, so ``auto`` raises where the reference would pick it.  This
+    engine runs ``sequential`` stacked;
+    :func:`repro_torch.engine.make_engine` builds the sequential oracle for
+    that mode."""
     mode = config.mode
+    if mode == "auto" and config.feat_groups:
+        return "stacked"
     if mode == "auto":
         if (num_parts <= 1 or device.type != "cuda"
                 or torch.cuda.device_count() < num_parts):
@@ -137,10 +161,35 @@ def _resolve_mode(config: EngineConfig, num_parts: int,
     return mode
 
 
+def _check_feat_groups(config: EngineConfig, num_parts: int) -> None:
+    """The stacked engine's ``feat_groups`` refusals, the reference's, in
+    its order (before any other check, the mode's included)."""
+    if not config.feat_groups:
+        return
+    if not config.feat_store:
+        raise ValueError(
+            "feat_groups streams the feat-store cold tier over "
+            "partition groups; enable feat_store to use it")
+    if not 1 <= config.feat_groups <= num_parts:
+        raise ValueError(
+            f"feat_groups must be in [1, num_parts], got "
+            f"{config.feat_groups}")
+    if config.mode == "spmd":
+        raise ValueError(
+            "feat_groups is a host-orchestrated streaming eval over "
+            "partition groups; the one-partition-per-device mesh "
+            "needs all planes at once — use stacked mode")
+    if (config.halo_cache or config.overlap_halo
+            or config.halo_compress != "none"):
+        raise ValueError(
+            "feat_groups streams the eval through the plain "
+            "sequential exchange; it has no cached/compressed/"
+            "overlapped spelling — pick one")
+
+
 def _check_config(config: EngineConfig) -> None:
-    """Raise for a value or combination the reference refuses
-    (``ValueError``, in the reference's order) or an option that is not
-    ported (``NotImplementedError`` naming its ROADMAP item)."""
+    """Raise ``ValueError`` for a value or combination the reference
+    refuses, in the reference's order."""
     if config.halo_compress not in HALO_COMPRESS_MODES:
         raise ValueError(f"unknown halo_compress {config.halo_compress!r} "
                          f"(expected one of {HALO_COMPRESS_MODES})")
@@ -159,11 +208,6 @@ def _check_config(config: EngineConfig) -> None:
             "overlap would hide — pick one")
     if config.ring_chunks < 0:
         raise ValueError(f"ring_chunks must be >= 0, got {config.ring_chunks}")
-    for name, (default, item) in _NOT_PORTED.items():
-        if getattr(config, name) != default:
-            raise NotImplementedError(
-                f"EngineConfig.{name}={getattr(config, name)!r} is not ported "
-                f"yet (ROADMAP item {item})")
 
 
 class SPMDEngine:
@@ -185,11 +229,19 @@ class SPMDEngine:
           (pparams, popt, losses (i_run, P), val_micro (P,), seconds)
       evaluate(params, split, per_partition_params) ->
           (micro (P,), preds (P, maxN))
+
+    Under ``feat_store`` the shards hold the hot tier (``fs_hot``) and its
+    scatter maps instead of ``features``; the cold tier is a host tensor,
+    pinned on a CUDA engine and never written after the build.  Each eval
+    (and each async epoch, for the sampler's cold tier) stages it once
+    with a non-blocking copy on the current stream, counted in
+    ``cold_h2d_bytes`` as it is issued.
     """
 
     def __init__(self, model, loss_fn, optimizer, pg: PartitionedGraph,
                  hp: GPHyperParams | None = None,
                  config: EngineConfig = EngineConfig()):
+        _check_feat_groups(config, pg.num_parts)
         _check_config(config)
         self.model = model
         self.loss_fn = loss_fn
@@ -214,8 +266,23 @@ class SPMDEngine:
             "send_idx": idx(pg.send_idx),
             "send_mask": flt(pg.send_mask),
             "recv_pos": idx(pg.recv_pos),
-            "features": flt(pg.features),
         }
+        # the two-tier feature store: host->device bytes spent staging cold
+        # rows (0 all-resident and at hot_frac=1.0); the budget is checked
+        # before the resident plane is allocated
+        self.feat_store = bool(config.feat_store)
+        self.cold_h2d_bytes = 0
+        self._fs = self._cold_host = self._streamer = None
+        if self.feat_store:
+            entries, self._fs = build_stacked_feat_store(
+                pg, config.hot_frac, config.hot_policy, f, dev)
+        check_feat_budget(config.feat_budget_mb, self._feat_peak_bytes(pg),
+                          context=f"mode={self.mode}")
+        if self.feat_store:
+            self.shards.update(entries)
+            self._cold_host = host_staging(self._fs.cold, dev)
+        else:
+            self.shards["features"] = flt(pg.features)
         # the kernels read float32 masks/degrees whatever the features'
         # dtype (both hold small integers, exact in every float type)
         meta = {"max_nodes": pg.max_nodes, "own_cap": pg.own_cap}
@@ -243,8 +310,8 @@ class SPMDEngine:
                                 "edge_dst": idx(pg.edge_dst),
                                 "edge_mask": flt(pg.edge_mask)})
             if config.use_kernel_agg:
-                self.shards["blk"] = blocks_to_device(
-                    build_stacked_vjp_blocks(pg), dev)
+                blk = build_stacked_vjp_blocks(pg)
+                self.shards["blk"] = blocks_to_device(blk, dev)
             self._mean_agg = (make_kernel_mean_agg(pg.max_nodes)
                               if config.use_kernel_agg
                               else make_ref_mean_agg(pg.max_nodes))
@@ -297,12 +364,64 @@ class SPMDEngine:
         # payload is "lost in transit" — the stale cache is kept and ages on
         self._drop_next_refresh = False
         self.halo_refresh_drops = 0
+        if config.feat_groups:
+            from .streaming import StreamedEvaluator
+            self._streamer = StreamedEvaluator(
+                self, blk if config.use_kernel_agg else None)
+
+    # ------------------------------------------- two-tier feature store
+    def _feat_peak_bytes(self, pg: PartitionedGraph) -> int:
+        d = pg.features.shape[-1]
+        b = numpy_dtype(self.config.dtype).itemsize
+        if not self.feat_store:
+            return feat_peak_bytes(self.num_parts, pg.max_nodes, d, b)
+        return feat_peak_bytes(
+            self.num_parts, pg.max_nodes, d, b,
+            hot_rows=self._fs.hot.shape[1], cold_rows=self._fs.cold.shape[1],
+            groups=self.config.feat_groups)
+
+    def _stage(self, host: torch.Tensor) -> torch.Tensor:
+        """``host`` (a cold tier, pinned on a CUDA engine) copied to the
+        device with a non-blocking copy on the current stream, its bytes
+        counted in ``cold_h2d_bytes`` as the copy is issued."""
+        self.cold_h2d_bytes += host.numel() * host.element_size()
+        return host.to(self.device, non_blocking=True)
+
+    def _featurized(self) -> dict:
+        """The shards a forward reads: ``self.shards`` all-resident; under
+        the store, the same tensors with the ``features`` plane assembled
+        from the hot tier and the cold tier staged now (bitwise the resident
+        plane, graph/featstore.py's invariant)."""
+        if not self.feat_store:
+            return self.shards
+        s = {k: v for k, v in self.shards.items() if not k.startswith("fs_")}
+        s["features"] = assemble_features(
+            self.shards["fs_hot"], self.shards["fs_rows_hot"],
+            self._stage(self._cold_host), self.shards["fs_rows_cold"],
+            self.max_nodes)
+        return s
+
+    def _batcher(self, ds, gen: torch.Generator):
+        """``(nodes, valid) -> batch`` for one epoch call of the device
+        sampler ``ds``; under the store its gather table ``[hot | cold]`` is
+        built here, once per call, from its cold tier staged now."""
+        if not self.feat_store:
+            return lambda n, v: ds.make_batch(gen, n, v)
+        table = ds.feature_table(self._stage(ds.cold_host))
+        return lambda n, v: ds.make_batch(gen, n, v, table=table)
 
     @property
     def resident_feature_bytes(self) -> int:
-        """Bytes of the stacked feature plane held on the device."""
-        f = self.shards["features"]
-        return f.numel() * f.element_size()
+        """Device-resident feature bytes: the stacked plane (or the hot
+        tier) plus the attached device sampler's gather table (or its hot
+        tier), the footprint the feature store shrinks."""
+        f = self.shards["fs_hot" if self.feat_store else "features"]
+        total = f.numel() * f.element_size()
+        ds = self._device_sampler
+        if ds is not None:
+            t = ds.features if ds.features is not None else ds.hot_feats
+            total += t.numel() * t.element_size()
+        return total
 
     # ------------------------------------------------------------ plumbing
     def _timed(self, fn, *args):
@@ -456,8 +575,14 @@ class SPMDEngine:
         layer 2 on) and the cross-partition gradient mean.  The centralized
         (P=1) configuration is the paper's Table IV baseline at full-graph
         scale.  ``grad_compress="bucketed"`` reduces through the bucketed
-        mean; the historical halo cache and top-k are refused, as the
-        reference refuses them."""
+        mean; the feature store, the historical halo cache and top-k are
+        refused, as the reference refuses them."""
+        if self.feat_store:
+            raise ValueError(
+                "full-graph training differentiates through the resident "
+                "feature stack on every iteration; the feature store "
+                "serves features per compiled call — run full_graph_train "
+                "all-resident")
         if self.halo_cache:
             raise ValueError(
                 "halo_cache is an eval-forward optimisation; full-graph "
@@ -508,7 +633,14 @@ class SPMDEngine:
     def set_device_sampler(self, sampler) -> None:
         """Attach a :class:`~repro_torch.core.sampler.DeviceEpochSampler`;
         required by :meth:`phase0_epoch_async` and
-        :meth:`phase1_epoch_async`."""
+        :meth:`phase1_epoch_async`.  The sampler must be built with the
+        feature store exactly when the engine is."""
+        if self.feat_store != (getattr(sampler, "cold_host", None)
+                               is not None):
+            raise ValueError(
+                "feat-store mismatch: the engine and its device sampler "
+                "must agree — build the sampler with feat_store matching "
+                "EngineConfig.feat_store")
         self._device_sampler = sampler
 
     def _sampler(self, method: str):
@@ -528,13 +660,21 @@ class SPMDEngine:
         forward, and ``last_eval_seconds`` is 0, as in the reference.  The
         carried state advances in the reference's order: the top-k residual
         through the steps, then the halo cache and the halo residual
-        through the validation forward."""
+        through the validation forward.  Under the feature store the call
+        stages the sampler's cold tier once (the batch gathers) and the
+        engine's once (the validation forward)."""
         ds = self._sampler("phase0_epoch_async")
+        if self.config.feat_groups:
+            raise ValueError(
+                "feat_groups streams the eval forward on the host; the "
+                "fused async epoch is one device program — run the host-"
+                "batch phase-0 path (async_generalize=False) when streaming")
         step = self._generalize_step(self.loss_fn)
 
         def run():
+            batch = self._batcher(ds, gen)
             nodes, valid = ds.draw_epoch(gen)                # (P, I, B)
-            batches = (ds.make_batch(gen, nodes[:, i], valid[:, i])
+            batches = (batch(nodes[:, i], valid[:, i])
                        for i in range(ds.num_batches))
             p, o, losses = self._run_steps(step, params, opt_state, batches)
             micro, _ = self._eval(p, "val")
@@ -553,7 +693,9 @@ class SPMDEngine:
         ``GPController.phase1_budgets``) and bitwise frozen after.  The
         loop runs ``i_run`` iterations: max(budgets) rounded up to a power
         of two, capped at ``num_batches`` (the reference's rule, which fixes
-        the shape of ``losses``, ``(i_run, P)``)."""
+        the shape of ``losses``, ``(i_run, P)``).  Under the feature store
+        the call stages the sampler's cold tier once; the validation
+        ``evaluate`` stages the engine's."""
         ds = self._sampler("phase1_epoch_async")
         cap = ds.num_batches
         budgets = np.asarray(budgets)
@@ -567,10 +709,10 @@ class SPMDEngine:
 
         def run():
             pp, po, losses = pparams, popt, []
+            batch = self._batcher(ds, gen)
             nodes, valid = ds.draw_epoch(gen)
             for i in range(i_run):
-                pp, po, l = step(pp, po, ds.make_batch(gen, nodes[:, i],
-                                                       valid[:, i]),
+                pp, po, l = step(pp, po, batch(nodes[:, i], valid[:, i]),
                                  global_params, i < budgets)
                 losses.append(l)
             return pp, po, torch.stack(losses)
@@ -579,40 +721,44 @@ class SPMDEngine:
         val_micro, _ = self.evaluate(pparams, "val", per_partition_params=True)
         return pparams, popt, losses, val_micro, dt
 
-    def _eval_forward(self, params) -> torch.Tensor:
-        """The eval forward of this configuration: against the halo cache
-        (which ages, and under ``halo_compress`` carries the residual too),
-        the quantized exchange, or the plain synchronous (or overlapped)
-        one."""
+    def _eval_forward(self, params, shards: dict) -> torch.Tensor:
+        """The eval forward of this configuration over ``shards`` (with the
+        feature plane): against the halo cache (which ages, and under
+        ``halo_compress`` carries the residual too), the quantized
+        exchange, or the plain synchronous (or overlapped) one."""
         comp = self.halo_compress != "none"
         if self.halo_cache:
             plan = self._halo_plan()
             fwd = self._cached_fwd(*plan)
             if comp:
                 logits, new_state, self._halo_residual = fwd(
-                    params, self.shards, self._halo_state,
+                    params, shards, self._halo_state,
                     self._halo_residual)
             else:
-                logits, new_state = fwd(params, self.shards, self._halo_state)
+                logits, new_state = fwd(params, shards, self._halo_state)
             self._halo_tick(plan, new_state)
             return logits
         if comp:
             logits, self._halo_residual = self._fwd_comp(
-                params, self.shards, self._halo_residual)
+                params, shards, self._halo_residual)
             self.last_halo_exchange_bytes = (self.model.num_layers
                                              * self.halo_wire_bytes_per_layer)
             return logits
-        return self.fwd(params, self.shards)
+        return self.fwd(params, shards)
 
-    @torch.no_grad()
-    def _eval(self, params, split: str):
-        preds = torch.argmax(self._eval_forward(params), dim=-1)
+    def _micro(self, preds: torch.Tensor, split: str) -> torch.Tensor:
+        """Each partition's micro-F1 of ``preds`` (P, maxN) on ``split``."""
         mask = self.masks[split]
-        micro = torch.stack([
+        return torch.stack([
             f1_scores_torch(preds[p], torch.where(mask[p], self.labels[p], -1),
                             self.num_classes)[0]
             for p in range(self.num_parts)])
-        return micro, preds
+
+    @torch.no_grad()
+    def _eval(self, params, split: str):
+        logits = self._eval_forward(params, self._featurized())
+        preds = torch.argmax(logits, dim=-1)
+        return self._micro(preds, split), preds
 
     def evaluate(self, params, split: str = "test",
                  per_partition_params: bool = True):
@@ -623,12 +769,20 @@ class SPMDEngine:
         its own weights) when ``per_partition_params``, else shared.  Under
         ``halo_cache`` every call ages the cache and refreshes the slots
         :func:`halo_refresh_plan` picks; under ``halo_compress`` the
-        exchange is quantized with the carried residual."""
+        exchange is quantized with the carried residual.  Under the feature
+        store the call stages the cold tier once (P·C·D·B bytes), or, with
+        ``feat_groups``, runs the streamed eval, which stages each
+        partition's cold rows twice."""
         if per_partition_params != (params.num_parts is not None):
             raise ValueError(
                 f"per_partition_params={per_partition_params} but params "
                 f"are in the {'shared' if params.num_parts is None else 'per-partition'} form")
-        out, self.last_eval_seconds = self._timed(self._eval, params, split)
+        if self._streamer is not None:
+            out, self.last_eval_seconds = self._timed(
+                self._streamer.evaluate, params, split, per_partition_params)
+        else:
+            out, self.last_eval_seconds = self._timed(self._eval, params,
+                                                      split)
         return out
 
     @torch.no_grad()
@@ -642,14 +796,22 @@ class SPMDEngine:
         ``halo_cache`` the snapshot also becomes the cache (a full
         refresh).  The overlapped forward never materialises the
         post-exchange layer inputs, so an ``overlap_halo`` engine
-        raises."""
+        raises.  Under the feature store the export forward reads the plane
+        reconstructed on the host from both tiers, copied once (a handoff,
+        not counted in ``cold_h2d_bytes``)."""
         if self.config.overlap_halo:
             raise ValueError(
                 "export_serving_state needs the combined-edge forward; "
                 "build the engine without overlap_halo")
+        shards = self.shards
+        if self.feat_store:
+            shards = {k: v for k, v in self.shards.items()
+                      if not k.startswith("fs_")}
+            shards["features"] = torch.as_tensor(reconstruct_features(
+                self._fs, self.max_nodes)).to(self.device)
         fwd_e = make_export_forward(self.model, self._fwd_meta,
                                     agg=self._mean_agg)
-        out = fwd_e(params, self.shards)
+        out = fwd_e(params, shards)
         if self.halo_cache:
             # the snapshot is exactly a full refresh: hand it to the cache
             self._halo_state = {k: v.to(self.config.dtype).clone()

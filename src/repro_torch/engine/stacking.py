@@ -4,8 +4,9 @@ into uniform ``(P, ...)`` arrays.
 
 Counterpart of ``repro/engine/stacking.py`` (``_local_csr``,
 ``_stack_blocks``, ``_sub_csr``, ``build_stacked_vjp_blocks``,
-``build_stacked_split_vjp_blocks``, ``build_stacked_halo_cache``,
-``build_stacked_halo_residual``, ``stack_pytrees``) and of
+``build_stacked_split_vjp_blocks``, ``build_stacked_feat_store``,
+``build_stacked_halo_cache``, ``build_stacked_halo_residual``,
+``stack_pytrees``) and of
 ``stack_epoch_batches`` from ``repro/engine/spmd.py``, copied unchanged
 apart from the kernels' work plans (``block_row_work``, one plan over all
 P partitions for each direction) that the stacked dict also carries.
@@ -25,13 +26,36 @@ import numpy as np
 import torch
 
 from ..graph.distributed import PartitionedGraph
+from ..graph.featstore import PartitionFeatStore, build_partition_feat_store
 from ..kernels.segment_agg import (BEC, BN, block_row_ptr, block_row_work,
                                    build_edge_blocks, build_transpose_blocks)
 
 __all__ = ["StackedBlocks", "build_stacked_vjp_blocks",
-           "build_stacked_split_vjp_blocks", "build_stacked_halo_cache",
+           "build_stacked_split_vjp_blocks", "build_stacked_feat_store",
+           "partition_blocks", "build_stacked_halo_cache",
            "build_stacked_halo_residual", "stack_pytrees",
            "stack_epoch_batches", "batches_to_device"]
+
+
+def build_stacked_feat_store(pg: PartitionedGraph, hot_frac: float,
+                             policy: str, dtype, device
+                             ) -> tuple[dict, PartitionFeatStore]:
+    """Stacked device/host split of the feature plane.
+
+    Returns ``(device_entries, fs)``: ``device_entries`` holds the shard
+    additions on ``device`` that replace ``features``: ``fs_hot`` (P, H, D)
+    resident hot rows (``dtype``, a ``torch.dtype`` or a NumPy dtype) and the
+    ``fs_rows_hot`` / ``fs_rows_cold`` (P, H) / (P, C) int64 scatter maps;
+    ``fs`` is the :class:`PartitionFeatStore`, whose ``cold`` (P, C, D) NumPy
+    array is the host staging source (it stays OFF the device: staging it
+    per call is the point of the store).
+    """
+    fs = build_partition_feat_store(pg, hot_frac, policy, dtype)
+    idx = lambda a: torch.as_tensor(a.astype(np.int64), device=device)
+    entries = {"fs_hot": torch.as_tensor(fs.hot, device=device),
+               "fs_rows_hot": idx(fs.rows_hot),
+               "fs_rows_cold": idx(fs.rows_cold)}
+    return entries, fs
 
 
 def build_stacked_halo_cache(pg: PartitionedGraph,
@@ -154,6 +178,17 @@ def build_stacked_vjp_blocks(pg: PartitionedGraph, bn: int = BN,
             pg.edge_src[p][real], pg.edge_dst[p][real], pg.max_nodes,
             bn=bn, bec=bec))
     return _stack_vjp_dict(fwds, bwds, pg.num_parts, bn)
+
+
+def partition_blocks(blocks: dict, p: int, bn: int = BN) -> dict:
+    """Partition ``p``'s forward blocks of a stacked blocks dict, unstacked
+    (``(nb, BE)`` arrays) with a work plan of their own over ``(nb, bn)``:
+    the stacked plan numbers rows over all P partitions, so a slice of it is
+    not a plan.  The slots and their order are the stacked dict's, so one
+    launch over them gives partition p's rows of the stacked launch."""
+    out = {k: np.asarray(blocks[k])[p] for k in ("src", "dst", "mask", "deg")}
+    out.update(block_row_work(block_row_ptr(out["dst"], out["mask"], bn)))
+    return out
 
 
 def build_stacked_split_vjp_blocks(pg: PartitionedGraph, bn: int = BN,

@@ -17,7 +17,10 @@ sequential`` runs the Python-loop oracle with the plain aggregation;
 ``--halo-cache`` (with ``--halo-refresh-every`` and ``--halo-cv``) and
 ``--halo-compress`` change the eval forwards' exchange, ``--grad-compress``
 (with ``--grad-topk-frac`` and ``--grad-bucket-kb``) phase 0's gradient
-reduction.  It takes the reference's flags for the ported options, plus
+reduction; ``--feat-store`` (with ``--hot-frac``, ``--hot-policy``,
+``--feat-groups`` and ``--feat-budget-mb``) keeps only the hot feature
+rows on the card and stages the cold rows from pinned host memory.  It
+takes the reference's flags for the ported options, plus
 ``--device`` (``cuda`` by default; raises without a card unless ``cpu``).
 The reference's other flags belong to paths that are not ported yet.
 ``llm`` (the transformer path) waits for ROADMAP item 15.
@@ -54,6 +57,11 @@ def config_from_args(args):
         grad_compress=args.grad_compress,
         grad_topk_frac=args.grad_topk_frac,
         grad_bucket_kb=args.grad_bucket_kb,
+        feat_store=args.feat_store,
+        hot_frac=args.hot_frac,
+        hot_policy=args.hot_policy,
+        feat_groups=args.feat_groups,
+        feat_budget_mb=args.feat_budget_mb,
         use_kernel_agg=not args.no_kernel_agg,
         double_buffer=not args.no_double_buffer,
         phase0_fraction=args.phase0_frac,
@@ -162,6 +170,28 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--phase0-frac", type=float, default=None,
                    help="hard phase split: fraction of --epochs spent "
                         "generalizing (default: the loss-driven trigger)")
+    g.add_argument("--feat-store", action="store_true",
+                   help="two-tier feature store: keep the top --hot-frac "
+                        "of each partition's feature rows resident on "
+                        "the card and stage the cold remainder from pinned "
+                        "host memory per eval or epoch call")
+    g.add_argument("--hot-frac", type=float, default=0.5,
+                   help="fraction of feature rows kept device-resident "
+                        "with --feat-store (0.0..1.0; 1.0 = all resident, "
+                        "zero cold traffic)")
+    g.add_argument("--hot-policy", default="degree",
+                   choices=("degree", "freq"),
+                   help="hot-set ranking: clamped in-degree, or degree "
+                        "with a dominating boost for training-set rows")
+    g.add_argument("--feat-groups", type=int, default=0,
+                   help="stream the eval forward over groups of G <= parts "
+                        "partitions (stacked mode, needs --feat-store): "
+                        "only G assembled feature planes exist at once, so "
+                        "graphs bigger than the stacked plane still run")
+    g.add_argument("--feat-budget-mb", type=float, default=0.0,
+                   help="refuse to build when peak device feature bytes "
+                        "exceed this budget (0 disables): the "
+                        "bigger-than-device gate")
     g.add_argument("--device", default="cuda",
                    help="torch device (cuda by default; cpu for tests)")
 

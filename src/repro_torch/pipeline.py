@@ -14,7 +14,13 @@ eval forwards' halo rows from a historical cache refreshed every
 between), ``halo_compress`` quantizes their exchange with error feedback,
 and ``grad_compress`` reduces phase 0's per-partition gradients through
 the bucketed or top-k reducer; the byte counters follow the reference's
-closed forms.
+closed forms.  ``feat_store`` keeps the top ``hot_frac`` of the feature
+rows (by ``hot_policy``) on the card, in the engine and in the device
+sampler, and stages the cold rows from pinned host memory per eval or
+epoch call (``cold_h2d_bytes``, attributed per phase as the reference
+does); ``feat_groups`` streams the evals over partition groups, and
+``feat_budget_mb`` refuses a configuration whose peak device feature bytes
+exceed it.
 
 Four ported paths, each following the reference:
 
@@ -39,9 +45,9 @@ Timing is the reference's "distributed" accounting: per-epoch time is the
 max over hosts of host sampling time and an equal 1/N share of the train
 steps (the larger of the two with double buffering), validation excluded;
 ``epoch_time_with_eval_s`` adds the eval's 1/N share.  Communication is
-reported in bytes.  The reference's other options (feature store,
-checkpoints and faults, float64) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them, with the async paths or without.
+reported in bytes.  The reference's other options (checkpoints and
+faults, float64) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them, with the async paths or without.
 """
 from __future__ import annotations
 
@@ -121,20 +127,27 @@ class EATConfig:
     grad_compress: str = "none"           # none | bucketed | topk
     grad_topk_frac: float = 0.01          # fraction of entries top-k ships
     grad_bucket_kb: int = 512             # bucketed reduction's slice size
-    # not ported yet: any value but the default raises NotImplementedError
-    # (the ROADMAP item is in _NOT_PORTED); the field that only tunes one of
-    # these paths is kept for the reference's summary() keys
-    checkpoint_dir: str | None = None
-    resume: bool = False
+    # two-tier feature store: keep the top hot_frac of each partition's
+    # feature rows (by hot_policy score) on the card and stage the cold
+    # rest from pinned host memory per eval or epoch call; the device
+    # sampler's gather table splits the same way.  feat_groups > 0 streams
+    # the eval over G-partition groups (stacked mode); feat_budget_mb makes
+    # the engine refuse to build when peak device feature bytes exceed the
+    # budget (<= 0 disables)
     feat_store: bool = False
     hot_frac: float = 0.5
+    hot_policy: str = "degree"            # degree | freq
     feat_groups: int = 0
+    feat_budget_mb: float = 0.0
+    # not ported yet: any value but the default raises NotImplementedError
+    # (the ROADMAP item is in _NOT_PORTED)
+    checkpoint_dir: str | None = None
+    resume: bool = False
     dtype: str = "float32"
 
 
 # EATConfig switch -> (default, ROADMAP item that ports its path)
 _NOT_PORTED = {
-    "feat_store": (False, 11), "feat_groups": (0, 11),
     "checkpoint_dir": (None, 12), "resume": (False, 12),
     "dtype": ("float32", 12),
 }
@@ -172,10 +185,15 @@ class EATResult:
     # bytes copied to the card: the host path's stacked batches; on the
     # async paths the device sampler's staging (in the phase that stages
     # it) and phase 1's per-epoch budgets
+    # bytes copied to the card (continued): under the feature store each
+    # phase also counts the cold rows staged for its calls (the train
+    # gathers of the async epochs, the evals; phase 1 the test eval too)
     host_to_device_bytes_phase0: int = 0
     host_to_device_bytes_phase1: int = 0
-    resident_feature_bytes: int = 0    # the engine's stacked feature plane
-    cold_h2d_bytes: int = 0            # 0: the feature store is not ported
+    # device-resident feature bytes: the engine's plane (or hot tier) plus
+    # the attached device sampler's table (or hot tier)
+    resident_feature_bytes: int = 0
+    cold_h2d_bytes: int = 0            # cold-row staging, both phases
     # mean phase-0 epoch period INCLUDING the validation eval's 1/N share
     epoch_time_with_eval_s: float = 0.0
     # the per-partition params the final test eval ran with
@@ -305,6 +323,16 @@ def _check_config(cfg: EATConfig, fault_plan) -> None:
             "halo_cache is an eval-forward optimisation; full_graph_train "
             "differentiates through the live halo exchange and cannot train "
             "against stale cached embeddings")
+    if cfg.feat_store and cfg.full_graph_train:
+        raise ValueError(
+            "full_graph_train differentiates through the resident feature "
+            "stack; the feature store's staged cold tier has no training "
+            "spelling — run full-graph training all-resident")
+    if cfg.feat_groups and cfg.async_generalize:
+        raise ValueError(
+            "feat_groups streams the eval host-side, which cannot live "
+            "inside the fused async phase-0 program — run the host-batch "
+            "phase-0 path (async_generalize=False) when streaming")
     for name, (default, item) in _NOT_PORTED.items():
         if getattr(cfg, name) != default:
             raise NotImplementedError(
@@ -374,7 +402,12 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                             halo_compress=cfg.halo_compress,
                             grad_compress=cfg.grad_compress,
                             grad_topk_frac=cfg.grad_topk_frac,
-                            grad_bucket_kb=cfg.grad_bucket_kb))
+                            grad_bucket_kb=cfg.grad_bucket_kb,
+                            feat_store=cfg.feat_store,
+                            hot_frac=cfg.hot_frac,
+                            hot_policy=cfg.hot_policy,
+                            feat_groups=cfg.feat_groups,
+                            feat_budget_mb=cfg.feat_budget_mb))
     if verbose:
         print(f"engine[{engine.mode}] {pg.summary()}")
 
@@ -498,12 +531,22 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             graph, host_train, n_parts, batch_size=cfg.batch_size,
             subset_fraction=cfg.subset_fraction if cfg.use_cbs else 1.0,
             class_balanced=cfg.use_cbs, fanouts=cfg.fanouts,
-            dtype=getattr(torch, cfg.dtype), device=dev)
+            dtype=getattr(torch, cfg.dtype), feat_store=cfg.feat_store,
+            hot_frac=cfg.hot_frac, hot_policy=cfg.hot_policy, device=dev)
         engine.set_device_sampler(dev_sampler)
         return dev_sampler.nbytes
 
     host_to_device_p0 = stage_device_sampler() if async_phase0 else 0
     p0_iter_hist: list[int] = []
+
+    # cold-row staging is counted inside the engine as each copy is issued;
+    # the pipeline reads per-epoch deltas to attribute it to its phase
+    cold_mark = engine.cold_h2d_bytes
+
+    def cold_delta() -> int:
+        nonlocal cold_mark
+        d, cold_mark = engine.cold_h2d_bytes - cold_mark, engine.cold_h2d_bytes
+        return d
 
     draws_at_p0_start = host_draw_count()
     while (not ctrl.done and ctrl.phase == 0
@@ -535,6 +578,7 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             ex = eval_exchange_bytes()
             halo_exchange_hist.append(ex)
             comm_halo_p0 += ex + fetch_bytes_per_epoch
+        host_to_device_p0 += cold_delta()
         comm_grad += grad_bytes_per_sync * iters
         p0_iter_hist.append(int(iters))
         host_time = epoch_host_times(t_host, t_dev)
@@ -604,6 +648,7 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             ex = eval_exchange_bytes()
             halo_exchange_hist.append(ex)
             comm_halo_p1 += ex + fetch_bytes_per_epoch
+            host_to_device_p1 += cold_delta()
             scores = val_micro.cpu().numpy()
             is_best = ctrl.record_phase1(scores)
             phase1_epochs += 1
@@ -630,6 +675,7 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
 
     # ---------------- final evaluation -------------------------------------
     _, preds = engine.evaluate(final_params, "test", per_partition_params=True)
+    host_to_device_p1 += cold_delta()    # the test eval's cold staging
     preds = preds.cpu().numpy()
     test_mask = np.asarray(pg.test_mask)
     labels = np.asarray(pg.labels)
@@ -667,5 +713,6 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         host_to_device_bytes_phase0=host_to_device_p0,
         host_to_device_bytes_phase1=host_to_device_p1,
         resident_feature_bytes=engine.resident_feature_bytes,
+        cold_h2d_bytes=engine.cold_h2d_bytes,
         final_params=final_params,
     )

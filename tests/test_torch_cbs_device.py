@@ -363,10 +363,31 @@ def test_build_matches_reference(tiny_train, class_balanced):
 
 
 def test_build_feat_store_raises(tiny_train):
+    """The feature-store sampler (ROADMAP item 11, ported) stages what the
+    reference's does: its hot rows, ``remap`` and host cold rows are the
+    reference's, ``nbytes`` counts the hot rows and ``remap`` instead of
+    the table, and its batches are bitwise the resident sampler's; a
+    ``make_batch`` without the cold rows is the reference's refusal."""
     g, host_train = tiny_train
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        build_device_epoch_sampler(g, host_train, 4, batch_size=16,
-                                   feat_store=True, device="cpu")
+    kw = dict(batch_size=16, fanouts=(5, 5), hot_frac=0.25, hot_policy="freq")
+    got = build_device_epoch_sampler(g, host_train, 4, feat_store=True,
+                                     device="cpu", **kw)
+    want = j_build_sampler(g, host_train, 4, feat_store=True, **kw)
+    assert got.features is None and want.features is None
+    np.testing.assert_array_equal(got.hot_feats.numpy(),
+                                  np.asarray(want.hot_feats))
+    np.testing.assert_array_equal(got.remap.numpy(), np.asarray(want.remap))
+    np.testing.assert_array_equal(got.cold_host.numpy(), want.cold_host)
+    assert got.nbytes == sum(t.numel() * t.element_size() for t in (
+        got.indptr, got.indices, got.hot_feats, got.remap, got.labels,
+        got.train_idx, got.logp, got.k))
+    res = build_device_epoch_sampler(g, host_train, 4, device="cpu", **kw)
+    nodes, valid = res.draw_epoch(_gen(3))
+    a = res.make_batch(_gen(4), nodes[:, 0], valid[:, 0])
+    b = got.make_batch(_gen(4), nodes[:, 0], valid[:, 0], got.cold_host)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    with pytest.raises(ValueError, match="feat-store mismatch"):
+        got.make_batch(_gen(4), nodes[:, 0], valid[:, 0])
 
 
 def test_same_seed_draws_bitwise(tiny_train):

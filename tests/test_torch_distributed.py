@@ -141,7 +141,25 @@ def test_distributed_forward_is_export_logits(setup, use_kernel):
     ("feat_store", True, 11), ("feat_groups", 2, 11), ("mode", "spmd", 14),
     ("mode", "auto", 14)])
 def test_unported_options_raise(setup, option, value, item, monkeypatch):
+    """The partition mesh (item 14) raises naming its item.  Item 11's
+    options are ported and behave as the reference's: the store builds and
+    evaluates bitwise the resident engine, and ``feat_groups`` without the
+    store is the reference's ValueError."""
     pg, _, _, _, m = setup
+    if item == 11:
+        if option == "feat_groups":
+            with pytest.raises(ValueError, match="enable feat_store"):
+                SPMDEngine(m, None, None, pg, None,
+                           EngineConfig(device="cpu", feat_groups=value))
+            return
+        eng = SPMDEngine(m, None, None, pg, None,
+                         EngineConfig(device="cpu", feat_store=value))
+        base = SPMDEngine(m, None, None, pg, None, EngineConfig(device="cpu"))
+        got = eng.evaluate(m, "val", per_partition_params=False)
+        want = base.evaluate(m, "val", per_partition_params=False)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert eng.cold_h2d_bytes == eng._fs.cold.nbytes > 0
+        return
     device = "cpu"
     if option == "mode" and value == "auto":
         # auto picks the mesh only on a host with a card per partition

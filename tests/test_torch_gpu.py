@@ -765,3 +765,40 @@ def test_topk_epoch_on_card_repeats_bitwise(cuda, split_tiny):
     assert torch.isfinite(ra).all() and (ra != 0).any()
     assert torch.equal(la, lb) and torch.equal(ra, rb)
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+# the two-tier feature store (ROADMAP item 11): the store's eval on the card
+# bitwise the resident eval, its cold tier pinned; the streamed eval's
+# single-partition launches, each bitwise its partition's rows of the
+# stacked launch
+
+def test_feat_store_eval_on_card_bitwise(cuda, split_tiny):
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import GraphSAGE
+    g, pg, _ = split_tiny
+    params = GraphSAGE(g.feature_dim, 32, g.num_classes).init(0).to(cuda)
+    base = SPMDEngine(params, None, None, pg, None,
+                      EngineConfig(device="cuda"))
+    store = SPMDEngine(params, None, None, pg, None, EngineConfig(
+        device="cuda", feat_store=True, hot_frac=0.5))
+    assert store._cold_host.is_pinned()
+    sa.reset_kernel_launch_count()
+    got = store.evaluate(params, "test", per_partition_params=False)
+    assert sa.kernel_launch_count() == 2
+    want = base.evaluate(params, "test", per_partition_params=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert store.cold_h2d_bytes == store._fs.cold.nbytes
+
+
+def test_partition_launch_is_its_rows_of_the_stacked_launch(cuda, split_tiny):
+    from repro_torch.engine import build_stacked_vjp_blocks, partition_blocks
+    _, pg, _ = split_tiny
+    blk = build_stacked_vjp_blocks(pg)
+    x = torch.randn(4, pg.max_nodes, 64, device=cuda)
+    whole = sa.segment_mean_op(x, sa.blocks_to_device(blk, cuda),
+                               num_rows=pg.max_nodes)
+    for p in range(4):
+        bl = sa.blocks_to_device(partition_blocks(blk, p), cuda)
+        one = sa.segment_mean_op(x[p], bl, num_rows=pg.max_nodes)
+        again = sa.segment_mean_op(x[p], bl, num_rows=pg.max_nodes)
+        assert torch.equal(one, whole[p]) and torch.equal(one, again)

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` (and
-``chip_smoke.py``), the halo cache, the wire codec and the gradient
-reducers included, pulls in neither ``jax`` nor anything of ``repro``; and
-every entry point defaults to the CUDA card, raising without one unless the
-caller passes ``device="cpu"``."""
+``chip_smoke.py``), the halo cache, the wire codec, the gradient reducers,
+the feature store and the streamed eval included, pulls in neither
+``jax`` nor anything of ``repro``; and every entry point defaults to the
+CUDA card, raising without one unless the caller passes
+``device="cpu"``."""
 import os
 import subprocess
 import sys
@@ -30,6 +31,11 @@ from repro_torch.graph.distributed import (halo_refresh_plan,
                                            make_cached_forward, quantize_rows)
 assert "repro_torch.core.sampler.cbs_device" in mods, mods
 assert "repro_torch.engine.sequential" in mods, mods
+# the feature store and the streamed eval (ROADMAP item 11) stand alone too
+assert "repro_torch.graph.featstore" in mods, mods
+assert "repro_torch.engine.streaming" in mods, mods
+from repro_torch.engine.streaming import StreamedEvaluator
+from repro_torch.graph.featstore import assemble_features, host_staging
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))

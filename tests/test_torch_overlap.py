@@ -318,5 +318,12 @@ def test_communication_combinations_run_or_pick_one(extra):
     ({"overlap_halo": True, "checkpoint_dir": "ckpt"}, 12),
     ({"engine_mode": "sequential", "resume": True}, 12)])
 def test_refused_combinations_name_their_item(extra, item):
+    """Item 12's options raise naming the item.  The feature store with the
+    oracle (item 11, ported) is the reference's refusal: the oracle is the
+    all-resident oracle."""
+    if item == 11:
+        with pytest.raises(ValueError, match="all-resident oracle"):
+            run_eat_distgnn(EATConfig(device="cpu", dataset="tiny", **extra))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         run_eat_distgnn(EATConfig(device="cpu", dataset="tiny", **extra))

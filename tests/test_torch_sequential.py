@@ -419,9 +419,16 @@ def test_oracle_communication_options_run(graphs, option, value):
 @pytest.mark.parametrize("option,value,item", [
     ("feat_store", True, 11), ("feat_groups", 2, 11)])
 def test_oracle_unported_options_raise(graphs, option, value, item):
+    """Item 11's options on the oracle, as the reference's oracle takes
+    them: it IS the all-resident oracle, so it refuses ``feat_store`` with
+    the reference's ValueError, and it ignores ``feat_groups``."""
     g, pg, *_ = graphs
     m = GraphSAGE(g.feature_dim, HIDDEN, g.num_classes)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        SequentialReference(m, m.make_loss_fn(), AdamW(), pg, None,
-                            EngineConfig(mode="sequential", device="cpu",
-                                         **{option: value}))
+    cfg = EngineConfig(mode="sequential", device="cpu", **{option: value})
+    if option == "feat_store":
+        with pytest.raises(ValueError, match="all-resident oracle"):
+            SequentialReference(m, m.make_loss_fn(), AdamW(), pg, None, cfg)
+        return
+    seq = SequentialReference(m, m.make_loss_fn(), AdamW(), pg, None, cfg)
+    micro, _ = seq.evaluate(m.init(0), "val", per_partition_params=False)
+    assert micro.shape == (P,) and seq.cold_h2d_bytes == 0
