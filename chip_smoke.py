@@ -2105,6 +2105,305 @@ def featstore_checks(torch, sa, flush, card, res_s, res_a):
     return fwd_stacked, fwd_part
 
 
+class CkptClock:
+    """While active, records every ``RunCheckpointer.save`` (host clock:
+    the device-to-host copies, the npz and its sidecar each written to a
+    tmp file, fsync'd and renamed, the manifest) with its archive's bytes,
+    and every ``load_latest`` (host clock, synchronised: CRCs, the arrays
+    back on the card)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.save_ms, self.load_ms = [], []
+        self.bytes = {}                     # (directory, step) -> npz bytes
+
+    def __enter__(self):
+        from repro_torch.robustness import RunCheckpointer
+
+        self._orig = (RunCheckpointer.save, RunCheckpointer.load_latest)
+        save, load_latest = self._orig
+
+        def timed_save(ck, step, arrays, host):
+            t0 = time.perf_counter()
+            path = save(ck, step, arrays, host)
+            self.save_ms.append((time.perf_counter() - t0) * 1e3)
+            self.bytes[ck.dir, int(step)] = os.path.getsize(path)
+            return path
+
+        def timed_load(ck, make_like):
+            t0 = time.perf_counter()
+            out = load_latest(ck, make_like)
+            self.torch.cuda.synchronize()
+            self.load_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        RunCheckpointer.save, RunCheckpointer.load_latest = (timed_save,
+                                                             timed_load)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.robustness import RunCheckpointer
+
+        RunCheckpointer.save, RunCheckpointer.load_latest = self._orig
+
+
+def robustness_checks(torch, sa, card):
+    """ROADMAP item 12 at products-s, P=4, EW, hidden 128, fanouts (10, 10),
+    seed 0, 6 epochs with ``phase0_fraction`` 0.5 (boundary 1 in phase 0,
+    boundary 4 in phase 1), through ``run_eat_distgnn`` with the kernels;
+    returns the segment kernels' launches of its runs ``(fwd, bwd)``, each
+    run counted from 0 just before it and read just after.
+
+    1. Five paths: sampled (double-buffered), full-graph, async (both
+       phases), halo cache (refresh every 2) + int8 + top-k, feature store
+       at hot_frac 0.5.  For each, one uninterrupted run, then for E in
+       {1, 4} a run with ``checkpoint_dir`` that an injected crash after
+       boundary E ends, then a ``resume=True`` run: resumed from E, every
+       tensor of ``final_params`` equal, the histories, micro-F1, exchange
+       bytes and host-to-device bytes equal, and the resumed run launching
+       the forward kernel twice an eval (and a full-graph step) and the
+       backward kernel once a full-graph step.  A mismatch reruns the
+       uninterrupted run to tell a resume fault from run-to-run
+       nondeterminism, then fails.
+    2. On the sampled path: the newest archive bit-flipped by
+       ``FaultPlan.corrupt``; the resume falls back one step and finishes
+       bitwise.  In float64: a crash-at-4 resume, bitwise.
+    3. The cache path with ``FaultPlan(straggler={1: {2: 0.75}},
+       drop_refresh_epochs={2})``: 0.75 straggler seconds, epoch 2's
+       exchange bytes 0 where the uninterrupted run's are > 0; whether the
+       final params are equal is reported.
+    4. Serving: the sampled run's phase-0 best model, read from its
+       boundary-3 archive and written with ``save_pytree``;
+       ``launch.serve --gnn --checkpoint`` on it (no updates) serves
+       logits bitwise ``from_engine``'s with the same params; a
+       ``--fail-partition 1 --fail-at-tick 5 --recover-after-ticks 8`` run
+       over 20 ticks fails and recovers at ticks 5 and 13, reports its
+       degraded queries, and its logits match a from-scratch plain forward
+       over the updated graph within SERVE_ATOL/SERVE_RTOL.
+    Printed beside the card: save ms per boundary, load ms, archive bytes
+    at a phase-0 and a phase-1 step, the checks' wall time."""
+    import shutil
+    import tempfile
+
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import GraphSAGE, build_partitioned_graph
+    from repro_torch.launch.serve import build_parser, gnn_main
+    from repro_torch.pipeline import EATConfig, run_eat_distgnn
+    from repro_torch.robustness import FaultPlan, InjectedCrash
+    from repro_torch.serve import GNNServingEngine, apply_updates_to_graph
+    from repro_torch.train.checkpoint import load_pytree, save_pytree
+    from repro_torch.train.optim import AdamW
+
+    t_rb = time.perf_counter()
+    base = dict(dataset="products-s", num_parts=4, partition_method="ew",
+                hidden_dim=128, fanouts=(10, 10), seed=0, max_epochs=6,
+                phase0_fraction=0.5, device="cuda")
+    paths = {
+        "sampled": {},
+        "full-graph": {"full_graph_train": True},
+        "async": {"async_generalize": True, "async_personalize": True},
+        "cache+int8+topk": {"halo_cache": True, "halo_refresh_every": 2,
+                            "halo_compress": "int8", "grad_compress": "topk"},
+        "feat-store": {"feat_store": True, "hot_frac": 0.5},
+    }
+    launches = [0, 0]
+
+    def run(kw, **extra):
+        """One counted run; an injected crash returns the exception."""
+        sa.reset_kernel_launch_count()
+        try:
+            res = run_eat_distgnn(EATConfig(**kw), **extra)
+        except InjectedCrash as e:
+            res = e
+        torch.cuda.synchronize()
+        fwd, bwd = sa.kernel_launch_count(), sa.bwd_kernel_launch_count()
+        launches[0] += fwd
+        launches[1] += bwd
+        return res, fwd, bwd
+
+    def diffs(res, want):
+        out = {}
+        for i, (a, b) in enumerate(zip(res.final_params.parameters(),
+                                       want.final_params.parameters())):
+            if not torch.equal(a, b):
+                out[f"param{i}"] = float((a.double() - b.double()).abs().max())
+        for k in ("loss_history", "val_history", "halo_exchange_history",
+                  "phase0_iter_history", "comm_grad_bytes", "comm_halo_bytes",
+                  "comm_halo_exchange_bytes", "host_to_device_bytes_phase0",
+                  "host_to_device_bytes_phase1", "epochs_run"):
+            if getattr(res, k) != getattr(want, k):
+                out[k] = (getattr(res, k), getattr(want, k))
+        if res.f1.micro != want.f1.micro:
+            out["f1.micro"] = (res.f1.micro, want.f1.micro)
+        return out
+
+    def check_resume(label, kw, want, res, fwd, bwd, expect_from):
+        assert not isinstance(res, Exception), (label, res)
+        assert res.resumed_from_epoch == expect_from, (
+            label, res.resumed_from_epoch)
+        d = diffs(res, want)
+        if d:
+            again, _, _ = run(kw)
+            log(f"robustness {label}: resumed run differs {d}; a second "
+                f"uninterrupted run differs from the first by "
+                f"{diffs(again, want) or 'nothing'}")
+            raise AssertionError(f"{label}: resumed run not bitwise: {d}")
+        evals = res.epochs_run - expect_from + 1
+        fg = (sum(res.phase0_iter_history[expect_from:])
+              if kw.get("full_graph_train") else 0)
+        assert (fwd, bwd) == (2 * evals + 2 * fg, fg), (label, fwd, bwd,
+                                                        evals, fg)
+
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp, CkptClock(torch) as clock:
+        wants = {}
+        for name, extra in paths.items():
+            kw = dict(base, **extra)
+            t0 = time.perf_counter()
+            wants[name], fwd0, bwd0 = run(kw)
+            t_run = time.perf_counter() - t0
+            for crash in (1, 4):
+                ck = os.path.join(tmp, f"{name}-{crash}")
+                err, _, _ = run(dict(kw, checkpoint_dir=ck),
+                                fault_plan=FaultPlan(
+                                    crash_epochs=frozenset({crash})))
+                assert isinstance(err, InjectedCrash) and err.epoch == crash, (
+                    name, crash, err)
+                if (name, crash) == ("sampled", 4):
+                    # the crashed run's steps 2-4, kept for the corrupted
+                    # archive's fallback and the served model
+                    shutil.copytree(ck, os.path.join(tmp, "crashed"))
+                res, fwd, bwd = run(dict(kw, checkpoint_dir=ck, resume=True))
+                check_resume(f"{name} crash {crash}", kw, wants[name], res,
+                             fwd, bwd, crash)
+            summary[name] = {"run_s": round(t_run, 3), "launches": (fwd0, bwd0),
+                             "micro_f1": wants[name].f1.micro}
+            log(f"robustness {card}: {name}: resumes after boundaries 1 and "
+                f"4 bitwise the uninterrupted run (params, losses, val, "
+                f"micro-F1 {wants[name].f1.micro:.4f}, exchange and "
+                f"host-to-device bytes); uninterrupted run {t_run:.2f} s, "
+                f"launches fwd {fwd0} bwd {bwd0}")
+
+        # the newest archive corrupted: the resume falls back one step
+        kw = dict(base, **paths["sampled"])
+        ck = os.path.join(tmp, "crashed")
+        ck3 = os.path.join(tmp, "best-of-phase-0.npz")
+        shutil.copy(os.path.join(ck, "ckpt_000003.npz"), ck3)
+        shutil.copy(os.path.join(ck, "ckpt_000003.npz.meta.json"),
+                    ck3 + ".meta.json")
+        info = FaultPlan(seed=3).corrupt(os.path.join(ck, "ckpt_000004.npz"))
+        res, fwd, bwd = run(dict(kw, checkpoint_dir=ck, resume=True))
+        check_resume("sampled, corrupt step 4", kw, wants["sampled"], res,
+                     fwd, bwd, 3)
+        log(f"robustness {card}: step 4's archive corrupted {info}; the "
+            f"resume fell back to step 3 and finished bitwise")
+
+        # float64: one crash-at-4 resume
+        kw64 = dict(kw, dtype="float64")
+        want64, _, _ = run(kw64)
+        ck = os.path.join(tmp, "f64")
+        err, _, _ = run(dict(kw64, checkpoint_dir=ck),
+                        fault_plan=FaultPlan(crash_epochs=frozenset({4})))
+        assert isinstance(err, InjectedCrash), err
+        res, fwd, bwd = run(dict(kw64, checkpoint_dir=ck, resume=True))
+        check_resume("sampled float64 crash 4", kw64, want64, res, fwd, bwd,
+                     4)
+        assert all(w.dtype == torch.float64
+                   for w in res.final_params.parameters())
+        log(f"robustness {card}: float64 sampled run resumed after boundary "
+            f"4 bitwise (micro-F1 {want64.f1.micro:.4f} against float32 "
+            f"{wants['sampled'].f1.micro:.4f})")
+
+        # stragglers and a dropped halo refresh on the cache path
+        kwc = dict(base, **paths["cache+int8+topk"])
+        res, _, _ = run(kwc, fault_plan=FaultPlan(
+            straggler={1: {2: 0.75}}, drop_refresh_epochs=frozenset({2})))
+        want = wants["cache+int8+topk"]
+        assert res.straggler_delay_s == 0.75, res.straggler_delay_s
+        assert want.halo_exchange_history[2] > 0, want.halo_exchange_history
+        assert res.halo_exchange_history[2] == 0, res.halo_exchange_history
+        same = not any(k.startswith("param") for k in diffs(res, want))
+        log(f"robustness {card}: straggler + dropped refresh: straggler "
+            f"{res.straggler_delay_s} s, exchange bytes "
+            f"{res.halo_exchange_history} against "
+            f"{want.halo_exchange_history}; final params equal to the "
+            f"uninterrupted run's: {same} (micro-F1 {res.f1.micro:.4f} "
+            f"against {want.f1.micro:.4f})")
+
+        # serving the sampled run's phase-0 best model (boundary 3 is phase
+        # 0's last: its archive holds no phase-1 state)
+        fp = wants["sampled"].final_params
+        m = GraphSAGE(fp.feature_dim, fp.hidden_dim,
+                      fp.num_classes).init(0).to("cuda")
+        best = load_pytree(ck3, {"params": m, "best_global": m,
+                                 "opt": AdamW().init(m.parameters())})
+        model_path = os.path.join(tmp, "best.npz")
+        save_pytree(model_path, best["best_global"])
+        serve = ["--gnn", "--dataset", "products-s", "--parts", "4",
+                 "--hidden", "128", "--seed", "0", "--device", "cuda",
+                 "--checkpoint", model_path]
+        srun = gnn_main(build_parser().parse_args(
+            serve + ["--ticks", "3", "--updates-per-tick", "0"]))
+        launches[0] += srun["export_launches"] + srun["tick_launches"]
+        for a, b in zip(srun["params"].parameters(),
+                        best["best_global"].parameters()):
+            assert torch.equal(a, b)
+        want_srv = GNNServingEngine.from_engine(
+            srun["spmd"], srun["pg"], best["best_global"],
+            use_kernel_agg=True)
+        assert np.array_equal(srun["engine"].export_logits(),
+                              want_srv.export_logits())
+        log(f"robustness {card}: launch.serve --checkpoint serves the "
+            f"sampled run's phase-0 best model: logits bitwise from_engine's")
+        frun = gnn_main(build_parser().parse_args(
+            serve + ["--ticks", "20", "--fail-partition", "1",
+                     "--fail-at-tick", "5", "--recover-after-ticks", "8"]))
+        launches[0] += frun["export_launches"] + frun["tick_launches"]
+        failed = [t + 1 for t, h in enumerate(frun["health"])
+                  if h[1] == "failed"]
+        assert failed == list(range(5, 13)), failed
+        st = frun["stats"]
+        assert st["failovers"] == st["recoveries"] == 1, st
+        served = frun["engine"].export_logits()
+        g2 = apply_updates_to_graph(frun["graph"], frun["feature_updates"])
+        pg2 = build_partitioned_graph(g2, frun["parts"], 4)
+        ex2 = SPMDEngine(frun["model"], None, None, pg2, None, EngineConfig(
+            use_kernel_agg=False, device="cuda")).export_serving_state(
+                frun["params"])
+        logits2 = ex2["logits"].cpu().numpy()
+        want_l = np.zeros_like(served)
+        for p in range(4):
+            n = int(pg2.n_own[p])
+            want_l[pg2.global_ids[p][:n]] = logits2[p][:n]
+        own1 = np.flatnonzero(frun["engine"].owner_part == 1)
+        err1 = float(np.abs(served[own1] - want_l[own1]).max())
+        np.testing.assert_allclose(served[own1], want_l[own1],
+                                   atol=SERVE_ATOL, rtol=SERVE_RTOL)
+        np.testing.assert_allclose(served, want_l, atol=SERVE_ATOL,
+                                   rtol=SERVE_RTOL)
+        log(f"robustness {card}: --fail-partition 1 over 20 ticks: failed "
+            f"at tick 5, healthy again at tick 13, degraded queries "
+            f"{st['degraded_queries']} ({frun['stale_answers']} stale "
+            f"answers), updates queued {st['updates_queued']}, replayed "
+            f"{st['replayed']}; partition 1's logits against a from-scratch "
+            f"plain forward max |diff| {err1:.3e} (atol {SERVE_ATOL})")
+
+        p0 = clock.bytes[os.path.join(tmp, "sampled-4"), 1]
+        p1 = clock.bytes[os.path.join(tmp, "sampled-4"), 4]
+        log(f"robustness {card}: save ms per boundary (host clock, fsync "
+            f"inside; {len(clock.save_ms)} saves) median "
+            f"{np.median(clock.save_ms):.3f} min {min(clock.save_ms):.3f} "
+            f"max {max(clock.save_ms):.3f}; load ms (load_latest, "
+            f"synchronised; {len(clock.load_ms)} loads) median "
+            f"{np.median(clock.load_ms):.3f} min {min(clock.load_ms):.3f} "
+            f"max {max(clock.load_ms):.3f}; sampled archive bytes at step 1 "
+            f"(phase 0) {p0}, at step 4 (phase 1) {p1}; per path "
+            f"{json.dumps(summary)}")
+    log(f"robustness {card}: checks took {time.perf_counter() - t_rb:.1f} s, "
+        f"launches fwd {launches[0]} bwd {launches[1]}")
+    return tuple(launches)
+
+
 # --------------------------------------------------------------------------
 # phase 6 helpers
 # --------------------------------------------------------------------------
@@ -2571,6 +2870,9 @@ def main() -> int:
     # the two-tier feature store and the streamed eval (ROADMAP item 11)
     fs_fwd, part_fwd = featstore_checks(torch, sa, flush, card, res_s, res_a)
     train_fwd += fs_fwd
+    # checkpoint/resume, fault injection and float64 runs (ROADMAP item 12)
+    rb_fwd, rb_bwd = robustness_checks(torch, sa, card)
+    train_fwd, train_bwd = train_fwd + rb_fwd, train_bwd + rb_bwd
     # not part of the main path: the plain aggregation, for comparison
     res_p = run_gnn(train_args("--epochs", "6", "--phase0-frac", "0.5",
                                "--no-kernel-agg"))

@@ -7,7 +7,9 @@ decoder, or the partitioned GNN inference service (counterpart of
 
     PYTHONPATH=src python -m repro_torch.launch.serve --gnn \\
         --dataset products-s --parts 4 --hidden 128 --ticks 20 \\
-        --updates-per-tick 4 --queries-per-tick 16 [--device cpu]
+        --updates-per-tick 4 --queries-per-tick 16 [--device cpu] \\
+        [--checkpoint best.npz] [--fail-partition 1 --fail-at-tick 5 \\
+        --recover-after-ticks 8]
 
 The transformer path runs the arch's ``reduced()`` config, as the
 reference does, unless ``--full`` asks for its published widths; weights are
@@ -20,9 +22,12 @@ embeddings from a stacked ``SPMDEngine`` (the full-graph forward through the
 CUDA segment-mean kernel), then serves a synthetic stream of feature updates
 and logit queries with incremental recomputation (the kernel again).  Unlike
 the reference CLI, which hardcodes the plain aggregation, both engines run
-with the kernel aggregation on.  ``--checkpoint`` and ``--fail-partition``
-wait for ROADMAP item 12 and ``--swa`` (rolling decode) for item 15; each
-says so when asked for.
+with the kernel aggregation on.  ``--checkpoint`` serves the params of an
+npz written by ``train.checkpoint.save_pytree`` (either package's) instead
+of random ones; ``--fail-partition`` fails that partition at
+``--fail-at-tick`` and recovers it ``--recover-after-ticks`` later through
+a ``FaultPlan``, and the run reports its degraded queries.  ``--swa``
+(rolling decode) waits for ROADMAP item 15 and says so when asked for.
 """
 from __future__ import annotations
 
@@ -43,10 +48,13 @@ def _sync(device: torch.device) -> None:
 def gnn_main(args) -> dict:
     """Build, export and serve ``args.ticks`` ticks; prints the reference's
     summary lines plus the kernel's launches and returns the run:
-    ``graph``, ``parts``, ``pg``, ``model``, ``spmd`` (the exporting
-    engine), ``engine`` (the serving engine), ``feature_updates`` (gid ->
-    last vector written), ``lat_s``, ``p50_ms``, ``p99_ms``, ``qps``,
-    ``export_launches``, ``tick_launches`` and ``stats``."""
+    ``graph``, ``parts``, ``pg``, ``model``, ``params`` (the served
+    weights: the checkpoint's, or ``model`` itself), ``spmd`` (the
+    exporting engine), ``engine`` (the serving engine),
+    ``feature_updates`` (gid -> last vector written), ``lat_s``,
+    ``p50_ms``, ``p99_ms``, ``qps``, ``export_launches``,
+    ``tick_launches``, ``stats``, ``health`` (every partition's health
+    after each tick) and ``stale_answers``."""
     from repro_torch.core import partition_graph
     from repro_torch.device import resolve_device
     from repro_torch.engine import EngineConfig, SPMDEngine
@@ -55,14 +63,6 @@ def gnn_main(args) -> dict:
     from repro_torch.kernels import kernel_launch_count
     from repro_torch.serve import GNNServingEngine
 
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint (msgpack checkpoints) is not ported yet "
-            "(ROADMAP item 12)")
-    if args.fail_partition >= 0:
-        raise NotImplementedError(
-            "--fail-partition (seeded fault plans) is not ported yet "
-            "(ROADMAP item 12)")
     device = resolve_device(args.device)
     g = make_benchmark(BENCHMARKS[args.dataset])
     r = partition_graph(g.indptr, g.indices, g.features, g.labels,
@@ -74,16 +74,32 @@ def gnn_main(args) -> dict:
                      EngineConfig(mode="stacked", use_kernel_agg=True,
                                   device=str(device)))
     k0 = kernel_launch_count()
-    srv = GNNServingEngine.from_engine(eng, pg, model, use_kernel_agg=True)
+    if args.checkpoint:
+        srv = GNNServingEngine.from_checkpoint(args.checkpoint, eng, pg,
+                                               use_kernel_agg=True)
+    else:
+        srv = GNNServingEngine.from_engine(eng, pg, model,
+                                           use_kernel_agg=True)
     _sync(device)
     export_launches = kernel_launch_count() - k0
     print(f"{g.name}: {g.num_nodes} nodes, P={args.parts}, "
           f"{model.num_layers}-layer SAGE, store ready on {device} "
           f"(halo rows live in recv-slot geometry)")
+    if args.fail_partition >= 0:
+        from repro_torch.robustness import FaultPlan
+
+        fail_tick = max(1, args.fail_at_tick)
+        srv.set_fault_plan(FaultPlan(
+            serve_fail={fail_tick: (args.fail_partition,)},
+            serve_recover={fail_tick + args.recover_after_ticks:
+                           (args.fail_partition,)}))
+        print(f"fault plan: partition {args.fail_partition} fails at tick "
+              f"{fail_tick}, recovers after {args.recover_after_ticks} ticks")
 
     rng = np.random.default_rng(args.seed)
     fupd: dict[int, np.ndarray] = {}
-    lat = []
+    lat, health = [], []
+    stale_answers = 0
     k1 = kernel_launch_count()
     t_start = time.time()
     for _ in range(args.ticks):
@@ -95,9 +111,11 @@ def gnn_main(args) -> dict:
         srv.submit(rng.choice(g.num_nodes, args.queries_per_tick,
                               replace=False))
         t0 = time.perf_counter()
-        srv.tick()
+        _, tick_stats = srv.tick()
         _sync(device)
         lat.append(time.perf_counter() - t0)
+        health.append(tick_stats["health"])
+        stale_answers += len(tick_stats["staleness"])
     wall = time.time() - t_start
     tick_launches = kernel_launch_count() - k1
     qps = args.ticks * args.queries_per_tick / wall
@@ -108,13 +126,22 @@ def gnn_main(args) -> dict:
           f"p99 {p99 * 1e3:.1f} ms, {qps:.0f} queries/s")
     print(f"rows recomputed {s['rows_recomputed']}, gather calls "
           f"{s['gather_calls']}, halo rows grown {s['halo_rows_grown']}")
+    if s["failovers"] or s["updates_queued"]:
+        print(f"degraded mode: {s['failovers']} failover(s), "
+              f"{s['degraded_queries']} degraded queries "
+              f"({stale_answers} stale answers), {s['updates_queued']} "
+              f"updates queued, {s['replay_attempts']} replay attempts, "
+              f"{s['replayed']} replayed after {s['recoveries']} "
+              f"recovery(ies); final health {srv.health}")
     print(f"segment-mean kernel launches: export {export_launches}, "
           f"ticks {tick_launches}")
     return {"graph": g, "parts": r.parts, "pg": pg, "model": model,
-            "spmd": eng, "engine": srv, "feature_updates": fupd, "lat_s": lat,
+            "params": srv.params, "spmd": eng, "engine": srv,
+            "feature_updates": fupd, "lat_s": lat,
             "p50_ms": float(p50 * 1e3), "p99_ms": float(p99 * 1e3),
             "qps": float(qps), "export_launches": export_launches,
-            "tick_launches": tick_launches, "stats": dict(s)}
+            "tick_launches": tick_launches, "stats": dict(s),
+            "health": health, "stale_answers": stale_answers}
 
 
 def _timed(fn, device, times: list, launches: list):
@@ -218,9 +245,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--updates-per-tick", type=int, default=4)
     ap.add_argument("--queries-per-tick", type=int, default=16)
     ap.add_argument("--checkpoint", default="",
-                    help="not ported yet (ROADMAP item 12)")
+                    help="GNN params to serve: an npz written by "
+                         "save_pytree (default: random from --seed)")
     ap.add_argument("--fail-partition", type=int, default=-1,
-                    help="not ported yet (ROADMAP item 12)")
+                    help="fault injection: fail this partition at "
+                         "--fail-at-tick (GNN serving)")
     ap.add_argument("--fail-at-tick", type=int, default=5)
     ap.add_argument("--recover-after-ticks", type=int, default=8)
     ap.add_argument("--arch", default="qwen2-0.5b",

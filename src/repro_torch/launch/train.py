@@ -19,11 +19,16 @@ sequential`` runs the Python-loop oracle with the plain aggregation;
 (with ``--grad-topk-frac`` and ``--grad-bucket-kb``) phase 0's gradient
 reduction; ``--feat-store`` (with ``--hot-frac``, ``--hot-policy``,
 ``--feat-groups`` and ``--feat-budget-mb``) keeps only the hot feature
-rows on the card and stages the cold rows from pinned host memory.  It
-takes the reference's flags for the ported options, plus
-``--device`` (``cuda`` by default; raises without a card unless ``cpu``).
-The reference's other flags belong to paths that are not ported yet.
-``llm`` (the transformer path) waits for ROADMAP item 15.
+rows on the card and stages the cold rows from pinned host memory;
+``--checkpoint-dir`` (with ``--checkpoint-every`` and
+``--keep-checkpoints``) saves the run at epoch boundaries and ``--resume``
+continues from the newest intact step; ``--crash-at-epoch`` and
+``--drop-refresh-at`` inject the reference's faults (an injected crash
+ends the CLI with exit code 1).  It takes the reference's flags for the
+ported options, plus ``--device`` (``cuda`` by default; raises without a
+card unless ``cpu``).  The reference's other flags belong to paths that
+are not ported yet.  ``llm`` (the transformer path) waits
+for ROADMAP item 15.
 """
 from __future__ import annotations
 
@@ -62,6 +67,10 @@ def config_from_args(args):
         hot_policy=args.hot_policy,
         feat_groups=args.feat_groups,
         feat_budget_mb=args.feat_budget_mb,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        keep_checkpoints=args.keep_checkpoints,
+        resume=args.resume,
         use_kernel_agg=not args.no_kernel_agg,
         double_buffer=not args.no_double_buffer,
         phase0_fraction=args.phase0_frac,
@@ -73,12 +82,25 @@ def config_from_args(args):
     )
 
 
+def fault_plan_from_args(args):
+    """The ``FaultPlan`` of ``--crash-at-epoch`` and ``--drop-refresh-at``,
+    or None when neither is given."""
+    if not (args.crash_at_epoch or args.drop_refresh_at):
+        return None
+    from repro_torch.robustness import FaultPlan
+
+    return FaultPlan(
+        crash_epochs=frozenset(args.crash_at_epoch or ()),
+        drop_refresh_epochs=frozenset(args.drop_refresh_at or ()))
+
+
 def run_gnn(args):
     """Run the pipeline, print its summary as JSON and return the
     ``EATResult``."""
     from repro_torch.pipeline import run_eat_distgnn
 
-    result = run_eat_distgnn(config_from_args(args), verbose=True)
+    result = run_eat_distgnn(config_from_args(args), verbose=True,
+                             fault_plan=fault_plan_from_args(args))
     print(json.dumps(result.summary(), indent=2))
     return result
 
@@ -192,6 +214,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="refuse to build when peak device feature bytes "
                         "exceed this budget (0 disables): the "
                         "bigger-than-device gate")
+    g.add_argument("--checkpoint-dir", default=None,
+                   help="save an epoch-granular full-pipeline checkpoint "
+                        "here (atomic, checksummed, last "
+                        "--keep-checkpoints retained)")
+    g.add_argument("--checkpoint-every", type=int, default=1,
+                   help="checkpoint every k-th epoch boundary")
+    g.add_argument("--keep-checkpoints", type=int, default=3)
+    g.add_argument("--resume", action="store_true",
+                   help="resume from the newest intact checkpoint in "
+                        "--checkpoint-dir; the finished run is bit-for-bit "
+                        "the uninterrupted one")
+    g.add_argument("--crash-at-epoch", type=int, nargs="*", default=None,
+                   metavar="E",
+                   help="fault injection: raise InjectedCrash after the "
+                        "epoch-E boundary checkpoint")
+    g.add_argument("--drop-refresh-at", type=int, nargs="*", default=None,
+                   metavar="E",
+                   help="fault injection: drop epoch E's halo-cache "
+                        "refresh payload (eval serves the stale cache)")
     g.add_argument("--device", default="cuda",
                    help="torch device (cuda by default; cpu for tests)")
 
@@ -205,7 +246,13 @@ def main(argv=None) -> int:
         print("train llm: the transformer path is not ported yet "
               "(ROADMAP item 15)", file=sys.stderr)
         return 2
-    run_gnn(args)
+    from repro_torch.robustness import InjectedCrash
+
+    try:
+        run_gnn(args)
+    except InjectedCrash as e:
+        print(f"train gnn: {e}", file=sys.stderr)
+        return 1
     return 0
 
 

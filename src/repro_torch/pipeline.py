@@ -20,7 +20,14 @@ sampler, and stages the cold rows from pinned host memory per eval or
 epoch call (``cold_h2d_bytes``, attributed per phase as the reference
 does); ``feat_groups`` streams the evals over partition groups, and
 ``feat_budget_mb`` refuses a configuration whose peak device feature bytes
-exceed it.
+exceed it.  ``checkpoint_dir`` saves the whole run at every
+``checkpoint_every``-th epoch boundary through
+:class:`~repro_torch.robustness.RunCheckpointer` (the reference's archive
+keys and host blob, so either package resumes the other's files);
+``resume=True`` continues from the newest intact step, bitwise the
+uninterrupted run; ``fault_plan`` injects the reference's crashes,
+stragglers and dropped halo refreshes; ``dtype="float64"`` runs the
+features, the batches and the parameters in float64.
 
 Four ported paths, each following the reference:
 
@@ -45,9 +52,7 @@ Timing is the reference's "distributed" accounting: per-epoch time is the
 max over hosts of host sampling time and an equal 1/N share of the train
 steps (the larger of the two with double buffering), validation excluded;
 ``epoch_time_with_eval_s`` adds the eval's 1/N share.  Communication is
-reported in bytes.  The reference's other options (checkpoints and
-faults, float64) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them, with the async paths or without.
+reported in bytes.
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ from .graph import (BENCHMARKS, GraphSAGE, build_partitioned_graph,
                     make_benchmark)
 from .graph.sage import clone_params
 from .graph.sampling import NeighborSampler
+from .robustness import FaultPlan, InjectedCrash, RunCheckpointer
 from .train.metrics import F1Report, f1_scores
 from .train.optim import AdamW
 
@@ -139,18 +145,18 @@ class EATConfig:
     hot_policy: str = "degree"            # degree | freq
     feat_groups: int = 0
     feat_budget_mb: float = 0.0
-    # not ported yet: any value but the default raises NotImplementedError
-    # (the ROADMAP item is in _NOT_PORTED)
+    # fault tolerance: checkpoint_dir arms epoch-granular checkpointing
+    # through RunCheckpointer (atomic archives + checksummed manifest, the
+    # last keep_checkpoints retained); resume=True restores the newest valid
+    # checkpoint and continues such that final params and val micro-F1 are
+    # bit-for-bit the uninterrupted run's
     checkpoint_dir: str | None = None
+    checkpoint_every: int = 1
+    keep_checkpoints: int = 3
     resume: bool = False
+    # float dtype of the features, the batches and the parameters
+    # ("float32" | "float64"); float64 is what the oracle comparisons run
     dtype: str = "float32"
-
-
-# EATConfig switch -> (default, ROADMAP item that ports its path)
-_NOT_PORTED = {
-    "checkpoint_dir": (None, 12), "resume": (False, 12),
-    "dtype": ("float32", 12),
-}
 
 
 @dataclass
@@ -196,10 +202,12 @@ class EATResult:
     cold_h2d_bytes: int = 0            # cold-row staging, both phases
     # mean phase-0 epoch period INCLUDING the validation eval's 1/N share
     epoch_time_with_eval_s: float = 0.0
-    # the per-partition params the final test eval ran with
+    # the per-partition params the final test eval ran with — the
+    # bit-for-bit witness the kill-and-resume checks compare
     final_params: Any = None
-    resumed_from_epoch: int = -1       # checkpoints are not ported
-    straggler_delay_s: float = 0.0     # fault plans are not ported
+    resumed_from_epoch: int = -1       # epoch resumed from (-1: fresh start)
+    # total injected straggler delay (max over hosts per epoch, summed)
+    straggler_delay_s: float = 0.0
 
     def summary(self) -> dict:
         return {
@@ -273,13 +281,24 @@ class _EpochPrefetcher:
     in exactly the sequential order — results are identical to the
     unbuffered pipeline, only the wall-clock overlaps.  The worker returns
     NumPy arrays; nothing in it touches torch.
+
+    ``snapshot`` (optional) is called on the MAIN thread immediately before
+    each speculative draw starts, so ``last_snapshot`` always holds a
+    race-free capture of the sampler RNG states with every draw through the
+    last handed-out epoch consumed — the stream position an epoch-boundary
+    checkpoint must store for a resumed run to re-draw the next epoch
+    identically.
     """
 
-    def __init__(self, draw):
+    def __init__(self, draw, snapshot=None):
         self._draw = draw
+        self._snapshot = snapshot
         self._pending = None
+        self.last_snapshot = None
 
     def _spawn(self) -> None:
+        if self._snapshot is not None:
+            self.last_snapshot = self._snapshot()
         box = {}
 
         def work():
@@ -317,7 +336,7 @@ class _EpochPrefetcher:
             self._pending = None
 
 
-def _check_config(cfg: EATConfig, fault_plan) -> None:
+def _check_config(cfg: EATConfig) -> None:
     if cfg.halo_cache and cfg.full_graph_train:
         raise ValueError(
             "halo_cache is an eval-forward optimisation; full_graph_train "
@@ -333,14 +352,9 @@ def _check_config(cfg: EATConfig, fault_plan) -> None:
             "feat_groups streams the eval host-side, which cannot live "
             "inside the fused async phase-0 program — run the host-batch "
             "phase-0 path (async_generalize=False) when streaming")
-    for name, (default, item) in _NOT_PORTED.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"EATConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                f"(ROADMAP item {item})")
-    if fault_plan is not None:
-        raise NotImplementedError(
-            "fault plans are not ported yet (ROADMAP item 12)")
+    if cfg.dtype not in ("float32", "float64"):
+        raise ValueError(f"dtype must be float32 or float64, got "
+                         f"{cfg.dtype!r}")
 
 
 def _fold_in(base: int, epoch: int) -> int:
@@ -359,10 +373,11 @@ def _copy_partitions(dst, src, parts) -> None:
 
 
 def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
-                    fault_plan=None) -> EATResult:
-    _check_config(cfg, fault_plan)
+                    fault_plan: FaultPlan | None = None) -> EATResult:
+    _check_config(cfg)
     dev = resolve_device(cfg.device)
     fdt = np.dtype(cfg.dtype)
+    tdt = getattr(torch, cfg.dtype)
     graph = make_benchmark(BENCHMARKS[cfg.dataset])
     n_parts = 1 if cfg.centralized else cfg.num_parts
 
@@ -392,6 +407,7 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         model, loss_fn, opt, pg, hp=GPHyperParams(lambda_prox=cfg.lambda_prox),
         config=EngineConfig(mode=cfg.engine_mode,
                             use_kernel_agg=cfg.use_kernel_agg,
+                            dtype=tdt,
                             device=cfg.device,
                             overlap_halo=cfg.overlap_halo,
                             ring_chunks=cfg.ring_chunks,
@@ -423,7 +439,9 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         for p in range(n_parts)
     ]
 
-    params = model.init(cfg.seed).to(dev)
+    # the parameters take the run's dtype: torch's products do not promote
+    # f32 weights against f64 features as the reference's do
+    params = model.init(cfg.seed).to(dev, tdt)
     opt_state = opt.init(params.parameters())
     # per-sync gradient wire volume, truthful to the sync spelling: the
     # all_gather ships P*(P-1) full copies, the bucketed ring 2*(P-1),
@@ -486,19 +504,38 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
     best_global = clone_params(params)
     loss_hist: list[float] = []
     val_hist: list[float] = []
+
+    # host sampler RNG discipline for checkpointing: `rng_snapshot` always
+    # holds the generator states with every draw through the last
+    # handed-out epoch consumed — captured on the main thread BEFORE any
+    # speculative prefetch draw, so the double-buffered path checkpoints
+    # the same stream position the unbuffered path would
+    def capture_rng() -> dict:
+        return {"cbs": [s._rng.bit_generator.state for s in samplers],
+                "neigh": neigh._rng.bit_generator.state}
+
+    def restore_rng(snap: dict) -> None:
+        for s, st in zip(samplers, snap["cbs"]):
+            s._rng.bit_generator.state = st
+        neigh._rng.bit_generator.state = snap["neigh"]
+
+    rng_snapshot = capture_rng()
     prefetch = None
 
     def next_epoch_batches():
         """One epoch of stacked batches on the card, host time, iters."""
-        nonlocal prefetch
+        nonlocal prefetch, rng_snapshot
         if cfg.double_buffer:
             if prefetch is None:
                 prefetch = _EpochPrefetcher(
-                    lambda: stack_epoch_batches(samplers, make_batch, n_parts))
+                    lambda: stack_epoch_batches(samplers, make_batch, n_parts),
+                    snapshot=capture_rng)
             host, t_host, iters = prefetch.next()
+            rng_snapshot = prefetch.last_snapshot
         else:
             host, t_host, iters = stack_epoch_batches(samplers, make_batch,
                                                       n_parts)
+            rng_snapshot = capture_rng()
         nbytes = sum(v.nbytes for v in host.values())
         return batches_to_device(host, dev), t_host, iters, nbytes
 
@@ -536,8 +573,12 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         engine.set_device_sampler(dev_sampler)
         return dev_sampler.nbytes
 
+    # on a resume the restore below overwrites this count with the
+    # archived one, which already holds the staging
     host_to_device_p0 = stage_device_sampler() if async_phase0 else 0
+    host_to_device_p1 = 0
     p0_iter_hist: list[int] = []
+    straggler_total = 0.0
 
     # cold-row staging is counted inside the engine as each copy is issued;
     # the pipeline reads per-epoch deltas to attribute it to its phase
@@ -548,9 +589,152 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         d, cold_mark = engine.cold_h2d_bytes - cold_mark, engine.cold_h2d_bytes
         return d
 
+    # ---------------- checkpoint/resume -------------------------------------
+    ckpt = (RunCheckpointer(cfg.checkpoint_dir,
+                            keep_last=cfg.keep_checkpoints)
+            if cfg.checkpoint_dir else None)
+    fingerprint = {"dataset": cfg.dataset, "num_parts": n_parts,
+                   "method": cfg.partition_method, "seed": cfg.seed,
+                   "dtype": cfg.dtype, "engine": engine.mode,
+                   "halo_cache": cfg.halo_cache,
+                   "halo_compress": cfg.halo_compress,
+                   "grad_compress": cfg.grad_compress,
+                   "feat_store": cfg.feat_store,
+                   "hot_frac": cfg.hot_frac if cfg.feat_store else 0.0,
+                   "hot_policy": cfg.hot_policy if cfg.feat_store else ""}
+
+    def make_like(host: dict) -> dict:
+        # reject a foreign checkpoint BEFORE any array I/O: a different
+        # seed/partitioning would otherwise surface as a shape mismatch
+        fp = host.get("fingerprint", {})
+        if fp != fingerprint:
+            raise ValueError(
+                f"checkpoint fingerprint {fp} does not match this run "
+                f"{fingerprint} — refusing to resume")
+        # the arrays template is phase-dependent: personal params exist
+        # only once the phase-1 loop has run at least one epoch
+        like = {"params": params, "opt": opt_state, "best_global": params}
+        if host.get("has_phase1"):
+            pp = broadcast_to_partitions(params, n_parts)
+            like.update(global_params=params, pparams=pp,
+                        popt=opt.init_stacked(pp.parameters()),
+                        best_personal=pp)
+        st = engine.halo_cache_state()
+        if st is not None:
+            like["halo"] = st[0]
+        if host.get("has_halo_res"):
+            like["halo_res"] = engine._halo_residual
+        if host.get("has_grad_res"):
+            like["grad_res"] = engine._grad_residual(params)
+        return like
+
+    restore_phase1 = None
+    resumed_from = -1
+    if ckpt is not None and cfg.resume:
+        loaded = ckpt.load_latest(make_like)
+        if loaded is not None:
+            arrays, host, resumed_from = loaded
+            params, opt_state = arrays["params"], arrays["opt"]
+            best_global = arrays["best_global"]
+            ctrl.load_state_dict(host["controller"])
+            rng_snapshot = host["rng"]
+            restore_rng(rng_snapshot)
+            loss_hist = [float(x) for x in host["loss_hist"]]
+            val_hist = [float(x) for x in host["val_hist"]]
+            sim_time = float(host["sim_time"])
+            epoch_times = [float(x) for x in host["epoch_times"]]
+            epoch_times_with_eval = [float(x)
+                                     for x in host["epoch_times_with_eval"]]
+            comm_grad, comm_halo_p0, comm_halo_p1 = (
+                int(x) for x in host["comm"])
+            halo_exchange_hist = [int(x) for x in host["halo_exchange_hist"]]
+            p0_iter_hist = [int(x) for x in host["p0_iter_hist"]]
+            host_to_device_p0 = int(host["host_to_device_p0"])
+            host_to_device_p1 = int(host.get("host_to_device_p1", 0))
+            straggler_total = float(host.get("straggler_s", 0.0))
+            if "halo" in arrays:
+                engine.restore_halo_cache_state(arrays["halo"],
+                                                host["halo_age"])
+            if "halo_res" in arrays or "grad_res" in arrays:
+                engine.restore_comm_residual_state(
+                    (arrays.get("halo_res"), arrays.get("grad_res")))
+            if host.get("has_phase1"):
+                restore_phase1 = (arrays, host)
+            if verbose:
+                print(f"[resume] epoch {resumed_from} phase {ctrl.phase} "
+                      f"from {cfg.checkpoint_dir}")
+
+    phase1_state: dict = {}   # live phase-1 state, for checkpoint capture
+
+    def save_checkpoint() -> None:
+        arrays = {"params": params, "opt": opt_state,
+                  "best_global": best_global}
+        host = {
+            "has_phase1": bool(phase1_state),
+            "controller": ctrl.state_dict(),
+            "rng": rng_snapshot,
+            "loss_hist": loss_hist, "val_hist": val_hist,
+            "sim_time": sim_time,
+            "epoch_times": epoch_times,
+            "epoch_times_with_eval": epoch_times_with_eval,
+            "comm": [int(comm_grad), int(comm_halo_p0), int(comm_halo_p1)],
+            "halo_exchange_hist": [int(x) for x in halo_exchange_hist],
+            "p0_iter_hist": [int(x) for x in p0_iter_hist],
+            "host_to_device_p0": int(host_to_device_p0),
+            "host_to_device_p1": int(host_to_device_p1),
+            "straggler_s": straggler_total,
+            "fingerprint": fingerprint,
+        }
+        st = engine.halo_cache_state()
+        if st is not None:
+            arrays["halo"] = st[0]
+            host["halo_age"] = int(st[1])
+        cs = engine.comm_residual_state()
+        if cs is not None:
+            h_res, g_res = cs
+            if h_res is not None:
+                arrays["halo_res"] = h_res
+            if g_res is not None:
+                arrays["grad_res"] = g_res
+            host["has_halo_res"] = h_res is not None
+            host["has_grad_res"] = g_res is not None
+        if phase1_state:
+            arrays.update(
+                global_params=phase1_state["global_params"],
+                pparams=phase1_state["pparams"],
+                popt=phase1_state["popt"],
+                best_personal=phase1_state["best_personal"])
+            host["host_elapsed"] = [float(x)
+                                    for x in phase1_state["host_elapsed"]]
+            host["phase1_epochs"] = int(phase1_state["phase1_epochs"])
+        ckpt.save(ctrl.epoch, arrays, host)
+
+    def epoch_boundary() -> None:
+        """End of one epoch (ctrl already advanced): persist the boundary,
+        then let any injected crash fire AFTER the state is durable — the
+        only crash point an epoch-granular checkpointer can replay."""
+        if ckpt is not None and ctrl.epoch % max(1, cfg.checkpoint_every) == 0:
+            save_checkpoint()
+        if fault_plan is not None and fault_plan.crash_at(ctrl.epoch):
+            raise InjectedCrash(ctrl.epoch)
+
+    def epoch_faults() -> np.ndarray | None:
+        """Start of one epoch (index ctrl.epoch): arm the dropped-refresh
+        fault, return this epoch's straggler delays (None = none)."""
+        if fault_plan is None:
+            return None
+        if (cfg.halo_cache and fault_plan.drop_halo_refresh(ctrl.epoch)
+                and hasattr(engine, "drop_next_halo_refresh")):
+            engine.drop_next_halo_refresh()
+        d = fault_plan.straggler_delay(ctrl.epoch, n_parts)
+        return d if d.any() else None
+
     draws_at_p0_start = host_draw_count()
+    # the no-GP early stop lives in the loop CONDITION (not a body break) so
+    # a run resumed from its stopping boundary also exits before training
     while (not ctrl.done and ctrl.phase == 0
            and not (not cfg.use_gp and ctrl.phase0_stopper.stopped)):
+        delay = epoch_faults()
         if cfg.full_graph_train:
             params, opt_state, losses, val_micro, t_dev = (
                 engine.phase0_fullgraph_epoch(params, opt_state,
@@ -582,6 +766,10 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         comm_grad += grad_bytes_per_sync * iters
         p0_iter_hist.append(int(iters))
         host_time = epoch_host_times(t_host, t_dev)
+        if delay is not None:
+            # injected straggler: the synchronous epoch waits for it
+            host_time = host_time + delay
+            straggler_total += float(delay.max())
         sim_time += float(host_time.max())
         epoch_times.append(float(host_time.max()))
         # the async epoch's t_dev already holds its validation forward
@@ -600,6 +788,7 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                   f"val-micro {mean_val*100:.2f}")
         if cfg.use_gp and ctrl.should_personalize():
             ctrl.start_personalization()
+        epoch_boundary()
 
     if prefetch is not None:
         prefetch.settle()
@@ -611,23 +800,39 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
     phase1_time = 0.0
     phase1_epochs = 0
     host_draws_p1 = 0
-    host_to_device_p1 = 0
     if cfg.use_gp and not cfg.centralized:
-        global_params = best_global
-        pparams = broadcast_to_partitions(global_params, n_parts)
-        popt = opt.init_stacked(pparams.parameters())
-        best_personal = clone_params(pparams)
-        host_elapsed = np.zeros(n_parts)
+        if restore_phase1 is not None:
+            # resumed mid-personalization: restore the phase-1 state the
+            # checkpoint carried instead of re-deriving it from best_global
+            arrays, rhost = restore_phase1
+            global_params = arrays["global_params"]
+            pparams, popt = arrays["pparams"], arrays["popt"]
+            best_personal = arrays["best_personal"]
+            host_elapsed = np.asarray(rhost["host_elapsed"], float)
+            phase1_epochs = int(rhost["phase1_epochs"])
+        else:
+            global_params = best_global
+            pparams = broadcast_to_partitions(global_params, n_parts)
+            popt = opt.init_stacked(pparams.parameters())
+            best_personal = clone_params(pparams)
+            host_elapsed = np.zeros(n_parts)
         if cfg.async_personalize:
             # from here on every epoch is drawn on the card: discard any
             # in-flight host draw, and stage the sampler unless phase 0 did
+            # (a run resumed in phase 1 restored the count that holds it)
             if prefetch is not None:
                 prefetch.close()
             if dev_sampler is None:
-                host_to_device_p1 += stage_device_sampler()
+                staged = stage_device_sampler()
+                if restore_phase1 is None:
+                    host_to_device_p1 += staged
         draws_at_p1_start = host_draw_count()
         while not ctrl.done:
             active_np = ctrl.active_partitions
+            delay = epoch_faults()
+            if delay is not None:
+                host_elapsed += np.where(active_np, delay, 0.0)
+                straggler_total += float(delay.max())
             if cfg.async_personalize:
                 budgets = ctrl.phase1_budgets(dev_sampler.natural_iters)
                 gen.manual_seed(_fold_in(cfg.seed ^ 0xCB5D, ctrl.epoch))
@@ -661,6 +866,11 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                       f"val-micro {scores.mean()*100:.2f} "
                       f"active {int(active_np.sum())}/{n_parts} "
                       f"budgets {np.asarray(budgets).tolist()}")
+            phase1_state.update(
+                global_params=global_params, pparams=pparams, popt=popt,
+                best_personal=best_personal, host_elapsed=host_elapsed,
+                phase1_epochs=phase1_epochs)
+            epoch_boundary()
         if prefetch is not None:
             prefetch.close()
         host_draws_p1 = host_draw_count() - draws_at_p1_start
@@ -715,4 +925,6 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         resident_feature_bytes=engine.resident_feature_bytes,
         cold_h2d_bytes=engine.cold_h2d_bytes,
         final_params=final_params,
+        resumed_from_epoch=resumed_from,
+        straggler_delay_s=straggler_total,
     )

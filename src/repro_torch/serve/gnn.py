@@ -46,6 +46,7 @@ import torch
 from ..device import resolve_device
 from ..graph.csr import CSRGraph
 from ..graph.distributed import PartitionedGraph, RecomputePlanner
+from ..graph.sage import GraphSAGE
 
 __all__ = ["GNNServingEngine", "apply_updates_to_graph"]
 
@@ -388,10 +389,9 @@ class GNNServingEngine:
         return any(h != "healthy" for h in self.health)
 
     def set_fault_plan(self, plan) -> None:
-        """Attach a fault plan: any object whose ``serve_events(tick)``
-        yields ``("fail" | "recover", partition)`` pairs, applied at the
-        start of each :meth:`tick`.  (The reference's seeded ``FaultPlan``
-        is ported with ROADMAP item 12.)"""
+        """Attach a fault plan: a ``robustness.FaultPlan``, or any object
+        whose ``serve_events(tick)`` yields ``("fail" | "recover",
+        partition)`` pairs, applied at the start of each :meth:`tick`."""
         self.fault_plan = plan
 
     def fail_partition(self, p: int) -> None:
@@ -592,6 +592,19 @@ class GNNServingEngine:
         kw.setdefault("device", engine.device)
         return cls(engine.model, params, pg,
                    engine.export_serving_state(params), **kw)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, engine, pg: PartitionedGraph, **kw):
+        """Serve a checkpoint saved with ``train.checkpoint.save_pytree``
+        (by either package): its params restore on the engine's device in
+        the engine's dtype."""
+        from ..train.checkpoint import load_pytree
+
+        m = engine.model
+        like = GraphSAGE(m.feature_dim, m.hidden_dim, m.num_classes,
+                         m.num_layers).init(0).to(engine.device,
+                                                   engine.config.dtype)
+        return cls.from_engine(engine, pg, load_pytree(path, like), **kw)
 
 
 def apply_updates_to_graph(graph: CSRGraph, feature_updates: dict | None = None,

@@ -802,3 +802,30 @@ def test_partition_launch_is_its_rows_of_the_stacked_launch(cuda, split_tiny):
         one = sa.segment_mean_op(x[p], bl, num_rows=pg.max_nodes)
         again = sa.segment_mean_op(x[p], bl, num_rows=pg.max_nodes)
         assert torch.equal(one, whole[p]) and torch.equal(one, again)
+
+
+# checkpoint/resume (ROADMAP item 12): the sampled path killed after epoch
+# 1 and resumed on the card is bitwise the uninterrupted run, with the
+# segment forward kernel in every eval of both
+
+def test_sampled_resume_bitwise_on_card(cuda, tmp_path):
+    from repro_torch.pipeline import EATConfig, run_eat_distgnn
+    from repro_torch.robustness import FaultPlan, InjectedCrash
+    kw = dict(dataset="tiny", num_parts=4, batch_size=32, hidden_dim=16,
+              fanouts=(3, 3), max_epochs=6, phase0_fraction=0.5, seed=7,
+              device="cuda")
+    base = run_eat_distgnn(EATConfig(**kw))
+    ck = str(tmp_path / "ck")
+    with pytest.raises(InjectedCrash):
+        run_eat_distgnn(EATConfig(**kw, checkpoint_dir=ck),
+                        fault_plan=FaultPlan(crash_epochs=frozenset({1})))
+    sa.reset_kernel_launch_count()
+    res = run_eat_distgnn(EATConfig(**kw, checkpoint_dir=ck, resume=True))
+    # epochs 2..6 evaluate once each, then the test eval: 2 layers each
+    assert sa.kernel_launch_count() == 2 * (res.epochs_run - 1 + 1)
+    assert res.resumed_from_epoch == 1
+    for a, b in zip(res.final_params.parameters(),
+                    base.final_params.parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert (res.loss_history, res.val_history, res.f1.micro) == (
+        base.loss_history, base.val_history, base.f1.micro)

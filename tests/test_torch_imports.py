@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` (and
 ``chip_smoke.py``), the halo cache, the wire codec, the gradient reducers,
-the feature store and the streamed eval included, pulls in neither
+the feature store, the streamed eval, the checkpoint files and the fault
+plan included, pulls in neither
 ``jax`` nor anything of ``repro``; and every entry point defaults to the
 CUDA card, raising without one unless the caller passes
 ``device="cpu"``."""
@@ -36,6 +37,14 @@ assert "repro_torch.graph.featstore" in mods, mods
 assert "repro_torch.engine.streaming" in mods, mods
 from repro_torch.engine.streaming import StreamedEvaluator
 from repro_torch.graph.featstore import assemble_features, host_staging
+# checkpoint/resume and fault injection (ROADMAP item 12) stand alone too
+for name in ("repro_torch.robustness", "repro_torch.robustness.faults",
+             "repro_torch.robustness.checkpoint",
+             "repro_torch.train.checkpoint"):
+    assert name in mods, (name, mods)
+from repro_torch.robustness import FaultPlan, InjectedCrash, RunCheckpointer
+from repro_torch.train.checkpoint import (CheckpointManager, load_pytree,
+                                          save_pytree)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))

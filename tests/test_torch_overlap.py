@@ -317,13 +317,31 @@ def test_communication_combinations_run_or_pick_one(extra):
     ({"engine_mode": "sequential", "feat_store": True}, 11),
     ({"overlap_halo": True, "checkpoint_dir": "ckpt"}, 12),
     ({"engine_mode": "sequential", "resume": True}, 12)])
-def test_refused_combinations_name_their_item(extra, item):
-    """Item 12's options raise naming the item.  The feature store with the
-    oracle (item 11, ported) is the reference's refusal: the oracle is the
-    all-resident oracle."""
+def test_refused_combinations_name_their_item(extra, item, tmp_path):
+    """The feature store with the oracle (item 11) is the reference's
+    refusal: the oracle is the all-resident oracle.  Item 12 is ported:
+    an overlapped run, or a sequential run, killed after epoch 1 and
+    resumed is bitwise the uninterrupted one."""
+    from repro_torch.robustness import FaultPlan, InjectedCrash
     if item == 11:
         with pytest.raises(ValueError, match="all-resident oracle"):
             run_eat_distgnn(EATConfig(device="cpu", dataset="tiny", **extra))
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        run_eat_distgnn(EATConfig(device="cpu", dataset="tiny", **extra))
+    kw = dict(device="cpu", dataset="tiny", max_epochs=4, hidden_dim=8,
+              batch_size=64, fanouts=(3, 3), phase0_fraction=0.5,
+              **{k: v for k, v in extra.items()
+                 if k not in ("checkpoint_dir", "resume")})
+    ck = str(tmp_path / "ckpt")
+    base = run_eat_distgnn(EATConfig(**kw))
+    with pytest.raises(InjectedCrash):
+        run_eat_distgnn(EATConfig(**kw, checkpoint_dir=ck),
+                        fault_plan=FaultPlan(crash_epochs=frozenset({1})))
+    r = run_eat_distgnn(EATConfig(**kw, checkpoint_dir=ck, resume=True))
+    assert r.resumed_from_epoch == 1
+    assert r.engine_mode == base.engine_mode == (
+        "sequential" if "engine_mode" in extra else "stacked")
+    assert (r.loss_history, r.val_history) == (base.loss_history,
+                                               base.val_history)
+    for a, b in zip(r.final_params.parameters(),
+                    base.final_params.parameters()):
+        assert torch.equal(a, b)

@@ -5,6 +5,7 @@ forward (full-graph, and sampled with the reference's ring exchange) and the
 sequential oracle's full-graph path; and the train CLI on the CPU."""
 import numpy as np
 import pytest
+import torch
 
 from repro.pipeline import EATConfig as JEATConfig
 from repro.pipeline import run_eat_distgnn as j_run_eat_distgnn
@@ -78,18 +79,36 @@ def test_communication_options_run(option, value):
 @pytest.mark.parametrize("option,value,item", [
     ("async_personalize,feat_store", True, 11), ("feat_store", True, 11),
     ("checkpoint_dir", "ckpt", 12), ("resume", True, 12)])
-def test_unported_options_raise(option, value, item):
-    """Each unported option raises naming its item, alone or beside the
-    async flags (``option`` may name several, comma-separated).  Item 11's
-    feature store is ported: with it the run goes through, alone or beside
-    the async flag, and stages cold rows."""
-    opts = {o: value for o in option.split(",")}
+def test_unported_options_raise(option, value, item, tmp_path):
+    """Every option of items 11 and 12 is ported and runs, alone or beside
+    the async flags (``option`` may name several, comma-separated): the
+    feature store stages cold rows; ``checkpoint_dir`` writes the retained
+    steps and a crashed run leaves its boundary on disk; ``resume``
+    continues it bitwise the uninterrupted run."""
+    from repro_torch.robustness import (FaultPlan, InjectedCrash,
+                                        RunCheckpointer)
+    small = dict(device="cpu", dataset="tiny", max_epochs=2, hidden_dim=8,
+                 batch_size=64, fanouts=(3, 3), phase0_fraction=0.5)
     if item == 11:
         r = run_eat_distgnn(EATConfig(
-            device="cpu", dataset="tiny", max_epochs=2, hidden_dim=8,
-            batch_size=64, fanouts=(3, 3), phase0_fraction=0.5, **opts))
+            **small, **{o: value for o in option.split(",")}))
         assert np.isfinite(r.loss_history).all() and r.epochs_run == 2
         assert r.cold_h2d_bytes > 0 and r.summary()["feat_store"]
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        run_eat_distgnn(EATConfig(device="cpu", dataset="tiny", **opts))
+    ck = str(tmp_path / "ckpt")
+    if option == "checkpoint_dir":
+        r = run_eat_distgnn(EATConfig(**small, checkpoint_dir=ck))
+        assert np.isfinite(r.loss_history).all() and r.epochs_run == 2
+        assert RunCheckpointer(ck).steps() == [1, 2]
+        assert r.resumed_from_epoch == -1
+        return
+    base = run_eat_distgnn(EATConfig(**small))
+    with pytest.raises(InjectedCrash):
+        run_eat_distgnn(EATConfig(**small, checkpoint_dir=ck),
+                        fault_plan=FaultPlan(crash_epochs=frozenset({1})))
+    r = run_eat_distgnn(EATConfig(**small, checkpoint_dir=ck, resume=value))
+    assert r.resumed_from_epoch == 1
+    assert r.loss_history == base.loss_history
+    for a, b in zip(r.final_params.parameters(),
+                    base.final_params.parameters()):
+        assert torch.equal(a, b)

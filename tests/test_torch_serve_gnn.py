@@ -260,10 +260,53 @@ def test_cli_runs_on_cpu():
     assert "3 ticks x" in r.stdout and "kernel launches" in r.stdout
 
 
-def test_cli_unported_paths_say_so():
+def test_cli_unported_paths_say_so(tmp_path):
+    """``--swa`` waits for item 15 and says so; item 12's ``--checkpoint``
+    (an npz the reference's ``save_pytree`` wrote) and
+    ``--fail-partition`` run."""
+    from repro.train.checkpoint import save_pytree as j_save
     r = _cli("--device", "cpu", "--swa")
     assert r.returncode != 0 and "ROADMAP item 15" in r.stderr
-    r = _cli("--gnn", "--device", "cpu", "--checkpoint", "ckpt.msgpack")
-    assert r.returncode != 0 and "ROADMAP item 12" in r.stderr
-    r = _cli("--gnn", "--device", "cpu", "--fail-partition", "1")
-    assert r.returncode != 0 and "ROADMAP item 12" in r.stderr
+    g = j_make_benchmark(J_BENCHMARKS["tiny"])
+    path = str(tmp_path / "ckpt.npz")
+    j_save(path, JGraphSAGE(feature_dim=g.feature_dim, hidden_dim=32,
+                            num_classes=g.num_classes).init(5))
+    r = _cli("--gnn", "--device", "cpu", "--checkpoint", path, "--ticks", "3")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "3 ticks x" in r.stdout
+    r = _cli("--gnn", "--device", "cpu", "--fail-partition", "1",
+             "--fail-at-tick", "2", "--recover-after-ticks", "3",
+             "--ticks", "8")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "fault plan: partition 1 fails at tick 2" in r.stdout
+    assert "degraded mode: 1 failover(s)" in r.stdout
+    assert "final health ['healthy', 'healthy', 'healthy', 'healthy']" \
+        in r.stdout
+
+
+def test_from_checkpoint_serves_the_saved_params(world, tmp_path):
+    """``from_checkpoint`` on a file of either package's ``save_pytree``
+    serves the saved params: bitwise ``from_engine`` with them, and
+    within ATOL of the reference's ``from_checkpoint`` on the same file."""
+    from repro.train.checkpoint import save_pytree as j_save
+    from repro_torch.train.checkpoint import save_pytree
+    w = world
+    eng = SPMDEngine(w["m"], None, None, w["pg"], None,
+                     EngineConfig(device="cpu"))
+    params = GraphSAGE(w["g"].feature_dim, 16, w["g"].num_classes).init(4)
+    want = GNNServingEngine.from_engine(eng, w["pg"], params, device="cpu")
+    for save, name in ((save_pytree, "port.npz"), (j_save, "ref.npz")):
+        path = str(tmp_path / name)
+        save(path, params if save is save_pytree else w["jm"].init(4))
+        got = GNNServingEngine.from_checkpoint(path, eng, w["pg"])
+        for a, b in zip(got.params.parameters(), params.parameters()):
+            assert torch.equal(a, b)
+        np.testing.assert_array_equal(got.export_logits(),
+                                      want.export_logits())
+    jeng = JSPMDEngine(w["jm"], w["jm"].make_loss_fn(), AdamW(lr=1e-3),
+                       w["pgj"], GPHyperParams(),
+                       JEngineConfig(mode="stacked", use_pallas_agg=False))
+    jsrv = JGNNServingEngine.from_checkpoint(str(tmp_path / "port.npz"),
+                                             jeng, w["pgj"])
+    np.testing.assert_allclose(want.export_logits(), jsrv.export_logits(),
+                               atol=ATOL, rtol=RTOL)
