@@ -19,12 +19,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
               (K, K+1, 3K+5 and 10,000 in-edges at D=128/130, f32, bf16,
               f64 dyadic, one partition's hub stacked), and the stacked
               products-s shapes at D=64 and D=128, launched twice (bitwise
-              equal) with the work plan's size printed; the streamed eval's
-              single-partition use: each products-s partition's blocks
-              unstacked with a plan of their own
-              (``engine.stacking.partition_blocks``), every partition's
-              launch bitwise its rows of the stacked launch, the partition
-              with the most edges timed at D=64 and D=128 (launched twice,
+              equal) with the work plan's size printed; the
+              single-partition use (the streamed eval, the partition
+              mesh): each products-s partition's blocks and transpose
+              blocks unstacked with plans of their own
+              (``engine.stacking.partition_vjp_blocks``), every
+              partition's launch of either kernel bitwise its rows of the
+              stacked launch, the partition with the most edges timed at
+              D=64 and D=128, forward and backward (launched twice,
               bitwise equal); the overlapped
               forward's row-range use: the products-s interior and boundary
               split blocks (``build_stacked_split_vjp_blocks``) at D=64 and
@@ -135,6 +137,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
               the eval forward, the stage copy (pinned and pageable), the
               streamed evals and the async epoch, with and without the
               store.  Then
+              ``mesh_checks``, the partition mesh (``mode="spmd"``): an
+              NCCL world of 1 at P = 1 and a gloo world of 4 ranks sharing
+              the card (an NCCL world of 4 where there are 4 cards), each
+              rank running the pipeline sampled, full-graph and phase 0
+              alone, held against the stacked runs (the world of 1
+              bitwise; the world of 4 within the reference's spmd
+              tolerances, its export logits and ``ring_chunks=2``
+              bitwise), every rank's result equal, a phase-0 epoch's and
+              one exchange's times beside the card (4 processes sharing
+              one card, not a multi-card time).  Then
               the async run, ``--async-generalize --async-personalize``
               (both epochs drawn on the card by the device sampler): no
               host draw in either phase, the device draw counter moved, two
@@ -161,9 +173,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
               prefill and 16 decode steps broken down (torch.profiler),
               with the kernel launches and torch's elementwise adds per step
   7. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
-              use and their row-range use, the forward's single-partition
-              use, flash attention's two designs, both RMSNorm entry
-              points), then the device line last
+              use, their row-range use and their single-partition use,
+              whose launches include the mesh ranks', flash attention's
+              two designs, both RMSNorm entry points), then the device
+              line last
+
 
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -1080,11 +1094,15 @@ def profile_ticks(torch, srv, g, n_ticks, seed):
 # --------------------------------------------------------------------------
 
 def train_args(*extra):
+    """``launch.train gnn`` at the main path's widths in this process: the
+    stacked engine unless ``extra`` names one (``auto`` would spawn the
+    partition mesh on a host with a card per partition)."""
     from repro_torch.launch.train import build_parser
 
+    engine = [] if "--engine" in extra else ["--engine", "stacked"]
     return build_parser().parse_args(
         ["gnn", "--dataset", "products-s", "--parts", "4", "--hidden", "128",
-         "--seed", "0", "--device", "cuda", *extra])
+         "--seed", "0", "--device", "cuda", *engine, *extra])
 
 
 def train_run(torch, sa, label, *extra, halves=1, per_eval=None):
@@ -2405,6 +2423,294 @@ def robustness_checks(torch, sa, card):
 
 
 # --------------------------------------------------------------------------
+# the partition mesh (ROADMAP item 14, part 1)
+# --------------------------------------------------------------------------
+
+# the reference's spmd-against-stacked tolerances (max |diff|,
+# tests/test_engine_parity.py::test_spmd_shard_map_matches_stacked)
+MESH_P0_TOL, MESH_P1_TOL = 1e-6, 1e-5
+MESH_F1_TOL, MESH_PRED_MISMATCH = 5e-3, 3
+# one full-graph step's pmean'd gradients against the stacked mean's: the
+# P partitions' gradients are summed in another order (relative to each
+# weight's largest entry)
+MESH_GRAD_RTOL = 1e-6
+
+
+# the mesh's pipeline runs: sampled and full-graph, 4 epochs with
+# phase0_fraction 0.5 (two phase-0 epochs, two of phase 1), and a sampled
+# run of 2 phase-0 epochs alone (its final params are phase 0's best)
+MESH_RUNS = {"sampled": {}, "full-graph": {"full_graph_train": True},
+             "phase-0": {"max_epochs": 2, "phase0_fraction": 1.0}}
+
+
+def mesh_config(P, mode, **kw):
+    """The pipeline at the default widths (products-s, hidden 128, fanouts
+    (10, 10), batch 256, seed 0), 4 epochs with ``phase0_fraction`` 0.5
+    unless ``kw`` says otherwise (P = 1: centralized, phase 0 only)."""
+    from repro_torch.pipeline import EATConfig
+
+    base = dict(dataset="products-s", num_parts=P, hidden_dim=128,
+                max_epochs=4, phase0_fraction=0.5, engine_mode=mode,
+                device="cuda", seed=0, centralized=P == 1)
+    return EATConfig(**{**base, **kw})
+
+
+def mesh_graph(P):
+    """products-s and the pipeline's partition of it (P = 1: one part)."""
+    from repro_torch.core import partition_graph
+    from repro_torch.graph import (BENCHMARKS, build_partitioned_graph,
+                                   make_benchmark)
+
+    g = make_benchmark(BENCHMARKS["products-s"])
+    parts = (np.zeros(g.num_nodes, np.int64) if P == 1 else partition_graph(
+        g.indptr, g.indices, g.features, g.labels, P, method="ew", seed=0,
+        fanout_k=10).parts)
+    return g, build_partitioned_graph(g, parts, P)
+
+
+def mesh_digest(res, eng):
+    """The deterministic part of an ``EATResult`` (timings left out) and
+    its final params' test predictions through ``eng``."""
+    return {"loss": np.asarray(res.loss_history),
+            "test_preds": eng.evaluate(res.final_params, "test")[1].cpu(),
+            "engine": res.engine_mode, "epoch_s": res.epoch_time_s,
+            "val": np.asarray(res.val_history),
+            "params": [w.detach().cpu() for w in res.final_params.parameters()],
+            "micro": res.f1.micro, "iters": list(res.phase0_iter_history),
+            "bytes": (res.comm_grad_bytes, res.comm_halo_bytes,
+                      res.comm_halo_exchange_bytes,
+                      res.host_to_device_bytes_phase0,
+                      res.resident_feature_bytes)}
+
+
+def mesh_step_checks(torch, eng, opt, P, epoch=True):
+    """On one engine (a mesh rank's, or the stacked one in this process),
+    from seed-1 params: the export's logits, one full-graph step's gradient
+    of the mean loss (pmean'd on the mesh) and, with ``epoch``, a sampled
+    phase-0 epoch of 3 iterations on random batches at the main path's
+    widths from seed 5 (params, losses and the epoch's seconds, 3 times;
+    random features and labels make gradients that nearly cancel across
+    partitions, which AdamW's first steps amplify, so its params are
+    reported and its losses held)."""
+    from repro_torch.engine.compat import pmean
+    from repro_torch.engine.stacking import batches_to_device
+    from repro_torch.graph import GraphSAGE
+
+    params = GraphSAGE(64, 128, 24).init(1).cuda()
+    out = {"logits": eng.export_serving_state(params)["logits"].cpu()}
+    batch = {"shard": eng.shards, "labels": eng.labels,
+             "train_mask": eng.masks["train"]}
+    w = list(params.parameters())
+    loss = eng._fg_loss(params, batch)
+    grads = (torch.autograd.grad(loss.mean(), w) if eng.mesh is None
+             else pmean(torch.autograd.grad(loss, w), eng.mesh))
+    out["grads"] = [x.cpu() for x in grads]
+    if not epoch:
+        return out
+    rng = np.random.default_rng(5)
+    x = lambda *s: rng.normal(0, 1, (3, P, *s, 64)).astype(np.float32)
+    host = {"x_t": x(256), "x_1": x(256, 10), "x_2": x(256, 10, 10),
+            "labels": rng.integers(0, 24, (3, P, 256)).astype(np.int64),
+            "mask": np.ones((3, P, 256), np.float32)}
+    if eng.mesh is not None:
+        host = eng.rank_batches(host)
+    b = batches_to_device(host, "cuda")
+    secs = []
+    for _ in range(3):
+        p = GraphSAGE(64, 128, 24).init(1).cuda()
+        p, _, losses, _, dt = eng.phase0_epoch(p, opt.init(p.parameters()), b)
+        secs.append(dt)
+    out["phase0"] = ([v.detach().cpu() for v in p.parameters()],
+                     losses.cpu())
+    out["phase0_s"] = secs
+    return out
+
+
+def mesh_engine(pg, mode, **kw):
+    from repro_torch.engine import EngineConfig, SPMDEngine
+    from repro_torch.graph import GraphSAGE
+    from repro_torch.train.optim import AdamW
+
+    m = GraphSAGE(64, 128, 24)
+    opt = AdamW(lr=1e-3, grad_clip=5.0)
+    return SPMDEngine(m, m.make_loss_fn(), opt, pg, None,
+                      EngineConfig(mode=mode, device="cuda", **kw)), opt
+
+
+def mesh_rank(rank, P):
+    """One rank of the mesh: the pipeline runs of ``MESH_RUNS`` (the main
+    path, their segment launches counted from 0 just before them and read
+    just after), their final params' test predictions, the step checks on
+    an engine of its own, the ``ring_chunks=2`` engine's logits and
+    gradients, and one exchange's time per layer width (host clock,
+    synchronised, 20 calls)."""
+    import torch
+
+    from repro_torch.graph.distributed import mesh_exchange
+    from repro_torch.kernels import segment_agg as sa
+    from repro_torch.pipeline import run_eat_distgnn
+
+    sa.reset_kernel_launch_count()
+    t0 = time.perf_counter()
+    results = {k: run_eat_distgnn(mesh_config(P, "spmd", **kw))
+               for k, kw in MESH_RUNS.items()}
+    torch.cuda.synchronize()
+    out = {"wall": time.perf_counter() - t0,
+           "launches": (sa.kernel_launch_count(),
+                        sa.bwd_kernel_launch_count())}
+    _, pg = mesh_graph(P)
+    eng, opt = mesh_engine(pg, "spmd")
+    out["pipelines"] = {k: mesh_digest(r, eng) for k, r in results.items()}
+    out.update(mesh_step_checks(torch, eng, opt, P))
+    out["ring2"] = mesh_step_checks(
+        torch, *mesh_engine(pg, "spmd", ring_chunks=2), P, epoch=False)
+    out["exchange_ms"] = {}
+    for d in (64, 128):
+        sent = torch.randn(P, pg.send_idx.shape[-1], d, device="cuda")
+        mesh_exchange(sent, eng.mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            mesh_exchange(sent, eng.mesh)
+        torch.cuda.synchronize()
+        out["exchange_ms"][d] = (time.perf_counter() - t0) / 20 * 1e3
+    return out
+
+
+def mesh_stacked(torch, P):
+    """The stacked engine's side of the comparison, in this process."""
+    from repro_torch.pipeline import run_eat_distgnn
+
+    results = {k: run_eat_distgnn(mesh_config(P, "stacked", **kw))
+               for k, kw in MESH_RUNS.items()}
+    _, pg = mesh_graph(P)
+    eng, opt = mesh_engine(pg, "stacked")
+    out = {"pipelines": {k: mesh_digest(r, eng) for k, r in results.items()}}
+    out.update(mesh_step_checks(torch, eng, opt, P))
+    return out
+
+
+def mesh_compare(torch, got, want, label, bitwise):
+    """The mesh run ``got`` (rank 0's) against the stacked ``want``:
+    bitwise, or within the reference's spmd tolerances (phase-0 losses and
+    the phase-0 run's params 1e-6, phase-1 losses and params 1e-5, val
+    micro-F1 5e-3, at most 3 test predictions apart, a full-graph step's
+    gradients rel 1e-6); the export's logits bitwise in both cases, and
+    ``ring_chunks=2`` bitwise 0's."""
+    found = {}
+    for k, gp in got["pipelines"].items():
+        wp = want["pipelines"][k]
+        assert gp["engine"] == "spmd" and wp["engine"] == "stacked"
+        assert gp["iters"] == wp["iters"] and gp["bytes"] == wp["bytes"], k
+        n0 = len(gp["iters"])
+        dl = np.abs(gp["loss"] - wp["loss"])
+        found[k] = {
+            "loss0": float(dl[:n0].max()),
+            "loss1": float(dl[n0:].max()) if dl[n0:].size else 0.0,
+            "params": max(float((a - b).abs().max()) for a, b in
+                          zip(gp["params"], wp["params"], strict=True)),
+            "val": float(np.abs(gp["val"] - wp["val"]).max()),
+            "preds_apart": int((gp["test_preds"] != wp["test_preds"]).sum()),
+            "micro": (gp["micro"], wp["micro"])}
+    (p0g, l0g), (p0w, l0w) = got["phase0"], want["phase0"]
+    dp0 = max(float((a - b).abs().max()) for a, b in zip(p0g, p0w))
+    dl0 = float((l0g - l0w).abs().max())
+    grel = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got["grads"], want["grads"]))
+    logits_eq = torch.equal(got["logits"], want["logits"])
+    ring_eq = (torch.equal(got["ring2"]["logits"], got["logits"])
+               and all(torch.equal(a, b) for a, b in
+                       zip(got["ring2"]["grads"], got["grads"])))
+    log(f"mesh {label} vs stacked: pipelines {json.dumps(found)}; random-"
+        f"batch phase-0 epoch params max |diff| {dp0:.3e} losses {dl0:.3e}; "
+        f"full-graph step gradients rel {grel:.3e}; export logits bitwise "
+        f"{logits_eq}; ring_chunks=2 bitwise 0 {ring_eq}")
+    assert logits_eq, f"{label}: the export's logits are not bitwise"
+    assert ring_eq, f"{label}: ring_chunks=2 differs from 0"
+    for k, f in found.items():
+        if bitwise:
+            assert (f["loss0"] == f["loss1"] == f["params"] == f["val"]
+                    == f["preds_apart"] == 0), (label, k, f)
+            assert f["micro"][0] == f["micro"][1], (label, k, f)
+            continue
+        assert f["loss0"] <= MESH_P0_TOL and f["loss1"] <= MESH_P1_TOL, (
+            label, k, f)
+        assert f["params"] <= (MESH_P0_TOL if k == "phase-0"
+                               else MESH_P1_TOL), (label, k, f)
+        assert f["val"] <= MESH_F1_TOL, (label, k, f)
+        assert f["preds_apart"] <= MESH_PRED_MISMATCH, (label, k, f)
+    if bitwise:
+        assert dp0 == 0 and dl0 == 0 and grel == 0, label
+        return
+    assert dl0 <= MESH_P0_TOL, label
+    assert grel <= MESH_GRAD_RTOL, label
+
+
+def mesh_checks(torch, card):
+    """ROADMAP item 14 part 1 at products-s, hidden 128, float32, with the
+    kernels: an NCCL world of 1 at P = 1 bitwise the stacked P = 1 run, a
+    gloo world of 4 ranks sharing this card within the reference's spmd
+    tolerances of the stacked run (the export's logits bitwise, a
+    full-graph step's gradients within rel 1e-6, ``ring_chunks=2``
+    bitwise 0), the same on an NCCL world of 4 where there are 4 cards;
+    every rank's result equal to rank 0's.  Returns the segment kernels'
+    launches the ranks' pipeline runs reported ``(fwd, bwd)``."""
+    from repro_torch.launch.mesh import spawn_partition_world
+
+    t_mesh = time.perf_counter()
+    launches = [0, 0]
+
+    def world(P, backend):
+        t0 = time.perf_counter()
+        outs = spawn_partition_world(mesh_rank, P, (P,), backend=backend,
+                                     device="cuda", join_timeout_s=600)
+        for r, o in enumerate(outs):
+            for k, d in o["pipelines"].items():
+                d0 = outs[0]["pipelines"][k]
+                assert all(torch.equal(a, b) for a, b in
+                           zip(d["params"], d0["params"])), (r, k)
+                assert np.array_equal(d["loss"], d0["loss"]), (r, k)
+                assert torch.equal(d["test_preds"], d0["test_preds"]), (r, k)
+            assert torch.equal(o["logits"], outs[0]["logits"]), r
+            launches[0] += o["launches"][0]
+            launches[1] += o["launches"][1]
+        log(f"mesh {backend} world {P}: {time.perf_counter() - t0:.1f} s "
+            f"(spawn, build, checks); pipeline wall per rank "
+            f"{[round(o['wall'], 2) for o in outs]} s, launches per rank "
+            f"(fwd, bwd) {[o['launches'] for o in outs]}")
+        return outs
+
+    w1 = world(1, "nccl")
+    mesh_compare(torch, w1[0], mesh_stacked(torch, 1), "nccl world 1",
+                 bitwise=True)
+    w4 = world(4, "gloo")
+    s4 = mesh_stacked(torch, 4)
+    mesh_compare(torch, w4[0], s4, "gloo world 4 on one card", bitwise=False)
+    if torch.cuda.device_count() >= 4:
+        n4 = world(4, "nccl")
+        mesh_compare(torch, n4[0], s4, "nccl world 4", bitwise=False)
+    else:
+        log(f"mesh nccl world 4: not run, {torch.cuda.device_count()} card")
+    log(f"{card}: 4 processes sharing one card through gloo (not a "
+        f"multi-card time): a sampled phase-0 epoch (3 iterations of 256, "
+        f"host clock, synchronised, slowest rank) "
+        f"{[round(x * 1e3, 2) for x in w4[0]['phase0_s']]} ms against "
+        f"stacked {[round(x * 1e3, 2) for x in s4['phase0_s']]} ms; the "
+        f"sampled pipeline's phase-0 epoch "
+        f"{w4[0]['pipelines']['sampled']['epoch_s'] * 1e3:.2f} vs "
+        f"{s4['pipelines']['sampled']['epoch_s'] * 1e3:.2f} ms, the "
+        f"full-graph one's "
+        f"{w4[0]['pipelines']['full-graph']['epoch_s'] * 1e3:.2f} vs "
+        f"{s4['pipelines']['full-graph']['epoch_s'] * 1e3:.2f} ms; one "
+        f"exchange (ms, per rank) at "
+        f"D=64 {[round(o['exchange_ms'][64], 3) for o in w4]}, D=128 "
+        f"{[round(o['exchange_ms'][128], 3) for o in w4]}; NCCL world of 1 "
+        f"phase-0 epoch {[round(x * 1e3, 2) for x in w1[0]['phase0_s']]} ms")
+    log(f"mesh checks: {time.perf_counter() - t_mesh:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 6 helpers
 # --------------------------------------------------------------------------
 
@@ -2629,34 +2935,46 @@ def main() -> int:
             sa, f"bwd products-s stacked D={d}", x, blk, pg.max_nodes, 0,
             True, "float32", flush=flush, iters=30, record=shapes,
             repeat=True)
-    # the streamed eval's single-partition use: each partition's blocks
-    # unstacked with a work plan of its own, every partition's launch
-    # bitwise its rows of the stacked launch; the partition with the most
-    # edges timed (two launches bitwise equal)
-    from repro_torch.engine.stacking import partition_blocks
-    part_blk = [partition_blocks(blk, p) for p in range(4)]
+    # the single-partition use (the streamed eval's forward; the partition
+    # mesh's forward and backward): each partition's blocks and transpose
+    # blocks unstacked with work plans of their own, every partition's
+    # launch of either kernel bitwise its rows of the stacked launch; the
+    # partition with the most edges timed (two launches bitwise equal)
+    from repro_torch.engine.stacking import partition_vjp_blocks
+    part_blk = [partition_vjp_blocks(blk, p) for p in range(4)]
     p_big = int(np.argmax([(b["mask"] > 0).sum() for b in part_blk]))
     blk_dev = sa.blocks_to_device(blk, "cuda")
-    part_rows = {}
+    part_rows, part_bwd_rows = {}, {}
     for d in (64, 128):
         x = rng.normal(0, 1, (4, pg.max_nodes, d)).astype(np.float32)
         xs = torch.as_tensor(x, device="cuda")
         whole = sa.segment_mean_op(xs, blk_dev, num_rows=pg.max_nodes)
+        whole_t = sa.segment_mean_bwd_op(xs, blk_dev, n_in=pg.max_nodes)
         for p in range(4):
-            one = sa.segment_mean_op(xs[p], sa.blocks_to_device(
-                part_blk[p], "cuda"), num_rows=pg.max_nodes)
+            one_blk = sa.blocks_to_device(part_blk[p], "cuda")
+            one = sa.segment_mean_op(xs[p], one_blk, num_rows=pg.max_nodes)
+            one_t = sa.segment_mean_bwd_op(xs[p], one_blk, n_in=pg.max_nodes)
             assert torch.equal(one, whole[p]), (
                 f"partition {p}'s launch differs from its rows of the "
                 f"stacked launch at D={d}")
-        log(f"products-s D={d}: each partition's single-partition launch "
-            f"bitwise its rows of the stacked launch; partition {p_big} "
-            f"blocks {part_blk[p_big]['src'].shape}, plan "
-            f"{json.dumps(plan_stats(sa, part_blk[p_big]))}")
+            assert torch.equal(one_t, whole_t[p]), (
+                f"partition {p}'s backward launch differs from its rows of "
+                f"the stacked launch at D={d}")
+        log(f"products-s D={d}: each partition's single-partition launch, "
+            f"forward and backward, bitwise its rows of the stacked launch; "
+            f"partition {p_big} blocks {part_blk[p_big]['src'].shape}, plan "
+            f"{json.dumps(plan_stats(sa, part_blk[p_big]))}, transpose "
+            f"blocks {part_blk[p_big]['t_src'].shape}, plan "
+            f"{json.dumps(plan_stats(sa, part_blk[p_big], 't_'))}")
         part_rows[d] = run_kernel_case(
             sa, f"products-s partition {p_big} D={d}", x[p_big],
             part_blk[p_big], pg.max_nodes, 0, True, "float32", flush=flush,
             iters=30, record=shapes, repeat=True)
-    del blk_dev, xs, whole
+        part_bwd_rows[d] = run_bwd_case(
+            sa, f"bwd products-s partition {p_big} D={d}", x[p_big],
+            part_blk[p_big], pg.max_nodes, 0, True, "float32", flush=flush,
+            iters=30, record=shapes, repeat=True)
+    del blk_dev, xs, whole, whole_t
     # the overlapped forward's row-range use: each half of the split blocks
     # into own_cap rows, the boundary half at every partition's n_int
     from repro_torch.engine.stacking import build_stacked_split_vjp_blocks
@@ -2873,6 +3191,9 @@ def main() -> int:
     # checkpoint/resume, fault injection and float64 runs (ROADMAP item 12)
     rb_fwd, rb_bwd = robustness_checks(torch, sa, card)
     train_fwd, train_bwd = train_fwd + rb_fwd, train_bwd + rb_bwd
+    # the partition mesh (ROADMAP item 14, part 1): the ranks' pipelines
+    # launch the single-partition use of both kernels
+    mesh_fwd, mesh_bwd = mesh_checks(torch, card)
     # not part of the main path: the plain aggregation, for comparison
     res_p = run_gnn(train_args("--epochs", "6", "--phase0-frac", "0.5",
                                "--no-kernel-agg"))
@@ -2896,8 +3217,9 @@ def main() -> int:
     main_row, bwd_row = main_rows[128], bwd_rows[128]
     log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
         f"bwd {train_bwd}; overlapped split forward (row-range use) fwd "
-        f"{rows_fwd} bwd {rows_bwd}; streamed eval (single-partition use) "
-        f"fwd {part_fwd}; llm serving flash {llm_flash} rmsnorm {llm_rms}")
+        f"{rows_fwd} bwd {rows_bwd}; single-partition use: streamed eval "
+        f"fwd {part_fwd}, partition mesh ranks fwd {mesh_fwd} bwd "
+        f"{mesh_bwd}; llm serving flash {llm_flash} rmsnorm {llm_rms}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -2924,7 +3246,9 @@ def main() -> int:
             ("segment_mean_bwd_rows", SEGMENT_AGG_BWD_TPU, split_bwd_rows,
              ("boundary", 128), rows_bwd),
             ("segment_mean_fwd_partition", SEGMENT_AGG_TPU, part_rows, 128,
-             part_fwd)):
+             part_fwd + mesh_fwd),
+            ("segment_mean_bwd_partition", SEGMENT_AGG_BWD_TPU, part_bwd_rows,
+             128, mesh_bwd)):
         row = rows[key]
         kernels.append({
             "name": name, "route": "cuda",

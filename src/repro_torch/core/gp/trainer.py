@@ -25,7 +25,9 @@ pytrees.  A caller that keeps an earlier model takes a copy
 (``graph.sage.clone_params``).  The single-partition phase-1 step
 (:func:`make_personalize_partition_step`) serves the sequential oracle
 (``engine.sequential.SequentialReference``), which runs it one partition
-at a time.
+at a time.  On the partition mesh (one partition per rank) phase 0 runs
+:func:`make_mesh_generalize_step`, whose gradient mean is a real
+collective, and phase 1 the single-partition step on each rank.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from ...train.losses import cross_entropy_loss, focal_loss, prox_penalty
 from ...train.optim import apply_updates
 
 __all__ = ["GPHyperParams", "GRAD_COMPRESS_MODES", "make_generalize_step",
+           "make_mesh_generalize_step",
            "make_reduce_generalize_step", "make_fullgraph_loss_fn",
            "make_personalize_step", "make_personalize_partition_step",
            "broadcast_to_partitions", "grad_topk_size",
@@ -76,6 +79,29 @@ def make_generalize_step(loss_fn: Callable, optimizer) -> Callable:
     return step
 
 
+def make_mesh_generalize_step(loss_fn: Callable, optimizer, mesh) -> Callable:
+    """Phase-0 step on the partition mesh, the reference's ``shard_map``
+    step: ``(params, opt_state, batch) -> (params, opt_state, loss)`` with
+    ``batch`` this rank's partition and ``loss`` its scalar loss.  Each
+    rank differentiates its own loss (on the full graph the backward
+    crosses the exchange, so every rank's gradient also holds its peers'
+    losses through the rows it sent), then ``pmean``s the gradients
+    (``engine.compat.pmean``: one all_reduce) before AdamW, whose
+    ``grad_clip`` sees the mean, as in the reference.  Replicated params
+    stay replicated: every rank applies the same update."""
+    from ...engine.compat import pmean
+
+    def step(params, opt_state, batch):
+        weights = list(params.parameters())
+        loss = loss_fn(params, batch)
+        grads = pmean(torch.autograd.grad(loss, weights), mesh)
+        updates, opt_state = optimizer.update(grads, opt_state, weights)
+        _assign(params, apply_updates([w.detach() for w in weights], updates))
+        return params, opt_state, loss.detach()
+
+    return step
+
+
 def make_fullgraph_loss_fn(fwd: Callable, loss: str = "ce",
                            focal_gamma: float = 2.0) -> Callable:
     """Phase-0 loss over the FULL graph instead of a sampled minibatch.
@@ -87,19 +113,22 @@ def make_fullgraph_loss_fn(fwd: Callable, loss: str = "ce",
     :func:`make_generalize_step` drives it as it drives the sampled loss;
     gradients flow through the halo exchange into the partitions that sent
     the rows, and through the aggregation op's backward kernel into local
-    ones."""
+    ones.  With ``fwd`` one partition's forward (the partition mesh's
+    :func:`~repro_torch.graph.distributed.make_shard_forward`), the batch
+    holds that partition's arrays and the loss is its scalar loss."""
+
+    def one(logits, lab, m):
+        if loss == "focal":
+            return focal_loss(logits, lab, gamma=focal_gamma, mask=m)
+        return cross_entropy_loss(logits, lab, mask=m)
 
     def loss_fn(params, batch) -> torch.Tensor:
         logits = fwd(params, batch["shard"])
-        out = []
-        for p in range(logits.shape[0]):
-            lab, m = batch["labels"][p], batch["train_mask"][p]
-            if loss == "focal":
-                out.append(focal_loss(logits[p], lab, gamma=focal_gamma,
-                                      mask=m))
-            else:
-                out.append(cross_entropy_loss(logits[p], lab, mask=m))
-        return torch.stack(out)
+        if logits.dim() == 2:             # one partition (the mesh)
+            return one(logits, batch["labels"], batch["train_mask"])
+        return torch.stack([
+            one(logits[p], batch["labels"][p], batch["train_mask"][p])
+            for p in range(logits.shape[0])])
 
     return loss_fn
 

@@ -1,0 +1,143 @@
+"""The partition mesh's collectives (counterpart of
+``repro/engine/compat.py``, which keeps the reference's ``shard_map`` shim).
+
+Plain functions over a :class:`~repro_torch.launch.mesh.PartitionMesh`,
+each the counterpart of one ``lax`` collective the reference's engine
+calls inside ``shard_map``:
+
+  :func:`pmean`       ``lax.pmean``: one ``all_reduce`` (SUM) over the
+                      tensors packed into one buffer, then ``/ P``
+  :func:`psum`        ``lax.psum``
+  :func:`all_gather`  ``lax.all_gather``: each tensor as a ``(P, ...)``
+                      stack, all of them packed into one byte buffer, so a
+                      call is one collective whatever the dtypes
+  :func:`all_to_all`  ``lax.all_to_all(split_axis=0, concat_axis=0)`` on a
+                      ``(P, maxS, D)`` send block, through
+                      ``all_to_all_single`` on its contiguous
+                      ``(P * maxS, D)`` view
+  :func:`ring_exchange`  the reference's chunked ``ppermute`` ring: P - 1
+                      steps of ``batch_isend_irecv``
+
+Under gloo on a CUDA device (``mesh.staged``) every collective stages its
+operands through pinned host buffers: the choice follows the backend's
+name and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["pmean", "psum", "all_gather", "all_to_all", "ring_exchange",
+           "exchange"]
+
+
+def _to_wire(t: torch.Tensor, mesh) -> torch.Tensor:
+    t = t.contiguous()
+    if not mesh.staged:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _from_wire(t: torch.Tensor, mesh) -> torch.Tensor:
+    return t.to(mesh.device, non_blocking=True) if mesh.staged else t
+
+
+def _empty_wire(shape, dtype, mesh) -> torch.Tensor:
+    if mesh.staged:
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    return torch.empty(shape, dtype=dtype, device=mesh.device)
+
+
+def psum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise sum of ``t`` over the ranks (a new tensor)."""
+    w = _to_wire(t, mesh)
+    if w is t:
+        w = t.clone()
+    dist.all_reduce(w, op=dist.ReduceOp.SUM, group=mesh.group)
+    return _from_wire(w, mesh)
+
+
+def pmean(tensors, mesh) -> list[torch.Tensor]:
+    """Each tensor's mean over the ranks: ONE ``all_reduce`` over the
+    tensors flattened into one buffer (they share a dtype), then ``/ P``.
+    Elementwise this is the ``sum / P`` of the reference's ``pmean``; the
+    order of the sum over ranks is the collective's."""
+    tensors = list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    total = psum(flat, mesh) / mesh.world
+    out, off = [], 0
+    for t in tensors:
+        out.append(total[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return out
+
+
+def all_gather(tensors, mesh) -> list[torch.Tensor]:
+    """Every rank's copy of each tensor, stacked ``(P, *shape)``, in rank
+    order.  The tensors travel as the bytes of one packed buffer, so a
+    call is one collective for any mix of dtypes and the result is
+    bitwise what each rank held."""
+    tensors = [t.detach().contiguous() for t in tensors]
+    raw = [t.reshape(-1).view(torch.uint8) for t in tensors]
+    packed = _to_wire(torch.cat(raw) if raw else torch.empty(0), mesh)
+    parts = [_empty_wire(packed.shape, torch.uint8, mesh)
+             for _ in range(mesh.world)]
+    dist.all_gather(parts, packed, group=mesh.group)
+    rows = _from_wire(torch.stack(parts), mesh)       # (P, bytes)
+    out, off = [], 0
+    for t, r in zip(tensors, raw):
+        # a dense copy of its own, so the view is aligned for any dtype
+        chunk = rows.new_empty((mesh.world, r.numel()))
+        chunk.copy_(rows[:, off:off + r.numel()])
+        out.append(chunk.view(t.dtype).view(mesh.world, *t.shape))
+        off += r.numel()
+    return out
+
+
+def all_to_all(sent: torch.Tensor, mesh) -> torch.Tensor:
+    """``sent[q]`` (this rank's rows for rank q, ``(P, ...)``) to rank q:
+    returns ``recv`` with ``recv[q]`` = the rows rank q sent here."""
+    w = _to_wire(sent, mesh)
+    recv = _empty_wire(w.shape, w.dtype, mesh)
+    p = w.shape[0]
+    dist.all_to_all_single(recv.view(p, -1), w.view(p, -1),
+                           group=mesh.group)
+    return _from_wire(recv, mesh)
+
+
+def ring_exchange(sent: torch.Tensor, mesh, chunks: int) -> torch.Tensor:
+    """:func:`all_to_all` as the reference's ring (its ``_exchange`` with
+    ``ring_chunks >= 1``): the self block is copied in place, then in step
+    k = 1 .. P-1 rank p sends its block for (p + k) mod P to that rank and
+    receives (p - k) mod P's block for it, the payload split along the slot
+    axis into ``min(chunks, maxS)`` pieces, each its own send.  Pure data
+    movement, so ``recv`` is bitwise :func:`all_to_all`'s."""
+    w = _to_wire(sent, mesh)
+    P, S = w.shape[0], w.shape[1]
+    p = mesh.rank
+    nc = max(1, min(int(chunks), S))
+    bounds = [round(c * S / nc) for c in range(nc + 1)]
+    recv = _empty_wire(w.shape, w.dtype, mesh)
+    recv[p].copy_(w[p])
+    for k in range(1, P):
+        dst, src = (p + k) % P, (p - k) % P
+        ops = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            ops.append(dist.P2POp(dist.isend, w[dst, lo:hi], dst,
+                                  group=mesh.group))
+            ops.append(dist.P2POp(dist.irecv, recv[src, lo:hi], src,
+                                  group=mesh.group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return _from_wire(recv, mesh)
+
+
+def exchange(sent: torch.Tensor, mesh, ring_chunks: int = 0) -> torch.Tensor:
+    """The halo exchange's schedule: one all_to_all (``ring_chunks`` 0) or
+    the ring of ``ring_chunks`` chunks a step; either delivers the same
+    bytes."""
+    if ring_chunks <= 0:
+        return all_to_all(sent, mesh)
+    return ring_exchange(sent, mesh, ring_chunks)

@@ -1,15 +1,16 @@
-"""Stacked execution engine (counterpart of ``repro/engine/spmd.py``).
+"""Stacked and partition-mesh execution engine (counterpart of
+``repro/engine/spmd.py``).
 
 On one GPU all P partitions run batched on one device: every shard array
 is stacked into a ``(P, ...)`` tensor and each forward is one program over
 all partitions, the reference's ``mode="stacked"`` (``mode="auto"``
-resolves to it as the reference's does when there are fewer cards than
-partitions; ``mode="sequential"`` is the Python-loop oracle
+resolves to it outside a ``torch.distributed`` world of P ranks;
+``mode="sequential"`` is the Python-loop oracle
 :class:`~repro_torch.engine.sequential.SequentialReference`, which
 :func:`repro_torch.engine.make_engine` builds).  Ported: the construction
 (shards and blocked-CSR structures), the synchronous and the overlapped
-split forward (``overlap_halo``; ``ring_chunks`` is validated and kept,
-while on one card the exchange is always the transpose), the epoch
+split forward (``overlap_halo``; stacked, the exchange is the transpose
+whatever ``ring_chunks`` says), the epoch
 methods of the training path — sampled phase 0, full-graph phase 0, phase
 1 with per-partition budgets, and the async epochs of both phases, which
 draw their batches on the device from an attached
@@ -25,9 +26,20 @@ cold rows live in pinned host memory and are staged with one non-blocking
 copy per eval or epoch call (``cold_h2d_bytes`` counts them), and every
 forward reads the plane reassembled from both, bitwise the resident one;
 ``feat_groups`` streams the eval over partition groups
-(:class:`~repro_torch.engine.streaming.StreamedEvaluator`).  The partition
-mesh (``mode="spmd"``) raises ``NotImplementedError`` naming ROADMAP item
-14.
+(:class:`~repro_torch.engine.streaming.StreamedEvaluator`).
+
+``mode="spmd"`` is the partition mesh, the reference's ``shard_map`` mode:
+inside a ``torch.distributed`` world of P ranks (``launch/mesh.py``) every
+rank holds only its own partition's shard on its own device, runs its
+partition's forward with the halo exchange a real collective (an
+all_to_all, or the ``ring_chunks`` ring), ``pmean``s the phase-0
+gradients, and trains its own phase-1 weights.  Each call gathers at its
+end what the stacked call returns (losses, micro-F1, predictions, the
+phase-1 params, the export), so the public surface returns the same on
+every rank; the epoch's seconds are the slowest rank's.  Part 1 of ROADMAP
+item 14: the async phases, the halo cache, both compressions, the feature
+store and the overlapped forward raise ``NotImplementedError`` naming item
+14 under that mode.
 
 Epoch methods return a trailing ``device_seconds``: host wall time of the
 TRAIN steps, ended by ``torch.cuda.synchronize()`` on the card.  The
@@ -39,6 +51,7 @@ epoch does.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass
 
@@ -48,6 +61,7 @@ import torch
 from ..core.gp.trainer import (GPHyperParams, GRAD_COMPRESS_MODES,
                                make_fullgraph_loss_fn, make_generalize_step,
                                make_grad_reduce_stacked,
+                               make_mesh_generalize_step,
                                make_personalize_step,
                                make_reduce_generalize_step)
 from ..device import resolve_device
@@ -56,24 +70,32 @@ from ..graph.distributed import (HALO_COMPRESS_MODES, PartitionedGraph,
                                  make_distributed_forward,
                                  make_export_forward, make_kernel_mean_agg,
                                  make_kernel_split_agg, make_overlap_forward,
-                                 make_ref_mean_agg, make_ref_split_agg,
+                                 make_ref_mean_agg, make_ref_shard_mean_agg,
+                                 make_ref_split_agg, make_shard_forward,
                                  wire_row_bytes)
 from ..graph.featstore import (assemble_features, check_feat_budget,
                                feat_peak_bytes, host_staging, numpy_dtype,
                                reconstruct_features)
+from ..graph.sage import partition_slice
 from ..kernels.segment_agg import blocks_to_device
+from ..launch.mesh import make_partition_mesh, partition_world_size
 from ..train.metrics import f1_scores_torch
+from ..train.optim import OptState
+from .compat import all_gather
 from .stacking import (build_stacked_feat_store, build_stacked_halo_cache,
                        build_stacked_halo_residual,
                        build_stacked_split_vjp_blocks,
-                       build_stacked_vjp_blocks)
+                       build_stacked_vjp_blocks, partition_arrays,
+                       partition_vjp_blocks)
 
 __all__ = ["EngineConfig", "SPMDEngine"]
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    # stacked | auto | sequential (make_engine's oracle; spmd: not yet)
+    # stacked | spmd (the partition mesh, one torch.distributed rank per
+    # partition) | auto (spmd inside a world of P ranks, else stacked) |
+    # sequential (make_engine's oracle)
     mode: str = "stacked"
     # route the full-graph aggregation through the CUDA segment-mean kernels
     # (counterpart of the reference's ``use_pallas_agg``); False uses the
@@ -84,9 +106,9 @@ class EngineConfig:
     # boundary/interior split forward: the interior aggregation and the
     # self term need no halo row, and dense compute covers owned rows only
     overlap_halo: bool = False
-    # the reference's ring schedule (chunks per step, 0 = all_to_all); on
-    # one card every exchange is the transpose whatever its value, and the
-    # ring arrives with the NCCL exchange (ROADMAP item 14)
+    # the reference's ring schedule (chunks per step, 0 = all_to_all): the
+    # partition mesh's exchange runs it; stacked on one device every
+    # exchange is the transpose whatever its value
     ring_chunks: int = 0
     # objective of the FULL-GRAPH phase-0 mode (the sampled path's loss is
     # the loss_fn the engine is constructed with): "ce" | "focal"
@@ -124,40 +146,46 @@ class EngineConfig:
     feat_budget_mb: float = 0.0
 
 
-_MODE_ITEMS = {"spmd": 14}
+# the options whose mesh spelling is part 2 of ROADMAP item 14
+def _mesh_part2_options(config: EngineConfig) -> list[str]:
+    return [name for name, on in (
+        ("overlap_halo", config.overlap_halo),
+        ("halo_cache", config.halo_cache),
+        ("halo_compress", config.halo_compress != "none"),
+        ("grad_compress", config.grad_compress != "none"),
+        ("feat_store", config.feat_store)) if on]
+
+
+def mesh_not_ported(what: str) -> NotImplementedError:
+    """The refusal of an option the partition mesh does not run yet."""
+    return NotImplementedError(
+        f"{what} on the partition mesh (mode='spmd') is not ported yet "
+        "(ROADMAP item 14); use mode='stacked'")
 
 
 def _resolve_mode(config: EngineConfig, num_parts: int,
                   device: torch.device) -> str:
-    """The reference's rule: ``auto`` is the partition mesh when the host
-    has a card for every partition, else stacked, and always stacked with
-    ``feat_groups`` (the streamed eval is stacked-only).  The mesh is not
-    ported, so ``auto`` raises where the reference would pick it.  This
-    engine runs ``sequential`` stacked;
-    :func:`repro_torch.engine.make_engine` builds the sequential oracle for
-    that mode."""
+    """``auto`` is the partition mesh inside an initialized
+    ``torch.distributed`` world of ``num_parts`` ranks (P > 1), and stacked
+    outside one or with ``feat_groups`` (the streamed eval is
+    stacked-only).  The reference picks its mesh when the host has P
+    devices; one process here has no mesh to pick, so the world decides (a
+    deliberate difference, ROADMAP §3).  This engine runs ``sequential``
+    stacked; :func:`repro_torch.engine.make_engine` builds the sequential
+    oracle for that mode.  ``spmd`` resolves as asked; the engine checks
+    the world when it builds the mesh."""
     mode = config.mode
-    if mode == "auto" and config.feat_groups:
-        return "stacked"
     if mode == "auto":
-        if (num_parts <= 1 or device.type != "cuda"
-                or torch.cuda.device_count() < num_parts):
+        if (config.feat_groups or num_parts <= 1
+                or partition_world_size() != num_parts):
             return "stacked"
-        raise NotImplementedError(
-            f"mode='auto' picks the partition mesh on this host "
-            f"({torch.cuda.device_count()} cards for {num_parts} partitions), "
-            "which is not ported yet (ROADMAP item 14); use mode='stacked'")
+        return "spmd"
     if mode == "sequential":
         # the oracle is a class of its own (engine.make_engine builds it);
         # this engine stays stacked under that mode, as the reference's does
         return "stacked"
-    if mode != "stacked":
-        item = _MODE_ITEMS.get(mode)
-        if item is None:
-            raise ValueError(f"unknown engine mode {mode!r}")
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet (ROADMAP item {item}); "
-            "use mode='stacked'")
+    if mode not in ("stacked", "spmd"):
+        raise ValueError(f"unknown engine mode {mode!r}")
     return mode
 
 
@@ -211,7 +239,8 @@ def _check_config(config: EngineConfig) -> None:
 
 
 class SPMDEngine:
-    """Stacked executor over a :class:`PartitionedGraph`.
+    """Stacked (or, with ``mode="spmd"``, partition-mesh) executor over a
+    :class:`PartitionedGraph`.
 
     The constructor keeps the reference's argument order ``(model, loss_fn,
     optimizer, pg, hp, config)``; serving passes ``None`` for the training
@@ -229,6 +258,11 @@ class SPMDEngine:
           (pparams, popt, losses (i_run, P), val_micro (P,), seconds)
       evaluate(params, split, per_partition_params) ->
           (micro (P,), preds (P, maxN))
+
+    On the mesh the same calls return the same shapes on every rank:
+    ``self.shards``, ``self.labels`` and ``self.masks`` hold only the
+    rank's partition (no partition axis), and each call gathers its results
+    at its end.
 
     Under ``feat_store`` the shards hold the hot tier (``fs_hot``) and its
     scatter maps instead of ``features``; the cold tier is a host tensor,
@@ -258,6 +292,35 @@ class SPMDEngine:
         self.num_parts = pg.num_parts
         self.num_classes = model.num_classes
         self.max_nodes = pg.max_nodes
+        # the kernels read float32 masks/degrees whatever the features'
+        # dtype (both hold small integers, exact in every float type)
+        self._fwd_meta = {"max_nodes": pg.max_nodes, "own_cap": pg.own_cap}
+        # the two-tier feature store: host->device bytes spent staging cold
+        # rows (0 all-resident and at hot_frac=1.0)
+        self.feat_store = bool(config.feat_store)
+        self.cold_h2d_bytes = 0
+        self._fs = self._cold_host = self._streamer = None
+        self.last_eval_seconds = 0.0   # time of the latest evaluate() call
+        self._device_sampler = None
+        # compressed communication: the wire accounting's basis (real halo
+        # rows per layer and the payload dtype's itemsize); the top-k
+        # gradient residual is built at the first top-k step
+        self.halo_compress = config.halo_compress
+        self.grad_compress = config.grad_compress
+        self._halo_rows_total = int(pg.n_halo.sum())
+        self._halo_row_width = pg.features.shape[-1]
+        self._halo_itemsize = pg.features.dtype.itemsize
+        self._grad_res = None
+        self.halo_cache = bool(config.halo_cache)
+        self.last_halo_exchange_bytes = 0
+        # fault injection: when armed, the next eval forward's refresh
+        # payload is "lost in transit" — the stale cache is kept and ages on
+        self._drop_next_refresh = False
+        self.halo_refresh_drops = 0
+        self.mesh = None
+        if self.mode == "spmd":
+            self._build_mesh(pg)
+            return
 
         f, dev = config.dtype, self.device
         idx = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
@@ -267,12 +330,8 @@ class SPMDEngine:
             "send_mask": flt(pg.send_mask),
             "recv_pos": idx(pg.recv_pos),
         }
-        # the two-tier feature store: host->device bytes spent staging cold
-        # rows (0 all-resident and at hot_frac=1.0); the budget is checked
-        # before the resident plane is allocated
-        self.feat_store = bool(config.feat_store)
-        self.cold_h2d_bytes = 0
-        self._fs = self._cold_host = self._streamer = None
+        # the feature budget is checked before the resident plane is
+        # allocated
         if self.feat_store:
             entries, self._fs = build_stacked_feat_store(
                 pg, config.hot_frac, config.hot_policy, f, dev)
@@ -283,10 +342,7 @@ class SPMDEngine:
             self._cold_host = host_staging(self._fs.cold, dev)
         else:
             self.shards["features"] = flt(pg.features)
-        # the kernels read float32 masks/degrees whatever the features'
-        # dtype (both hold small integers, exact in every float type)
-        meta = {"max_nodes": pg.max_nodes, "own_cap": pg.own_cap}
-        self._fwd_meta = meta
+        meta = self._fwd_meta
         if config.overlap_halo:
             # the split forward's state: the per-partition interior row
             # count and ONE aggregation backend's structures
@@ -328,26 +384,12 @@ class SPMDEngine:
         self.masks = {k: torch.as_tensor(getattr(pg, f"{k}_mask"), device=dev)
                       for k in ("train", "val", "test")}
         self._fg_loss = make_fullgraph_loss_fn(self.fwd, loss=config.fg_loss)
-        self.last_eval_seconds = 0.0   # time of the latest evaluate() call
-        self._device_sampler = None
-
-        # compressed communication: the wire accounting's basis (real halo
-        # rows per layer and the payload dtype's itemsize), the halo
-        # exchange's error-feedback residual, and the top-k gradient
-        # residual (built at the first top-k step)
-        self.halo_compress = config.halo_compress
-        self.grad_compress = config.grad_compress
-        self._halo_rows_total = int(pg.n_halo.sum())
-        self._halo_row_width = pg.features.shape[-1]
-        self._halo_itemsize = pg.features.dtype.itemsize
+        # the halo exchange's error-feedback residual
         if self.halo_compress != "none":
             self._halo_residual = self._as_state(build_stacked_halo_residual(
                 pg, model.layer_input_dims))
-        self._grad_res = None
         # the historical halo cache: its age counts eval forwards, and the
         # refresh plan is a host-side function of the age
-        self.halo_cache = bool(config.halo_cache)
-        self.last_halo_exchange_bytes = 0
         if self.halo_cache:
             self.max_send = pg.send_idx.shape[-1]
             # real (unpadded) rows per send-slot index, for the refreshed-
@@ -360,14 +402,163 @@ class SPMDEngine:
                 pg, model.layer_input_dims))
             self._halo_age = 0
             self._cached_fwds: dict = {}
-        # fault injection: when armed, the next eval forward's refresh
-        # payload is "lost in transit" — the stale cache is kept and ages on
-        self._drop_next_refresh = False
-        self.halo_refresh_drops = 0
         if config.feat_groups:
             from .streaming import StreamedEvaluator
             self._streamer = StreamedEvaluator(
                 self, blk if config.use_kernel_agg else None)
+
+    # ------------------------------------------------- the partition mesh
+    def _build_mesh(self, pg: PartitionedGraph) -> None:
+        """This rank's engine on the partition mesh: the part-2 options
+        refused, the mesh of the initialized world (``ValueError`` outside
+        one of P ranks), the partition checked against every rank's, and
+        only partition ``rank``'s arrays on the rank's device, with its own
+        forward and transpose blocks for the segment kernels."""
+        config = self.config
+        part2 = _mesh_part2_options(config)
+        if part2:
+            raise mesh_not_ported(f"{part2[0]}={getattr(config, part2[0])!r}")
+        self.mesh = make_partition_mesh(self.num_parts, device=self.device)
+        self.device = dev = self.mesh.device
+        self.rank = r = self.mesh.rank
+        self._check_partition_fingerprint(pg)
+        check_feat_budget(config.feat_budget_mb, self._feat_peak_bytes(pg),
+                          context=f"mode={self.mode}")
+        a = partition_arrays(pg, r)
+        f = config.dtype
+        idx = lambda k: torch.as_tensor(a[k].astype(np.int64), device=dev)
+        flt = lambda k: torch.as_tensor(a[k], dtype=f, device=dev)
+        self.shards = {"features": flt("features"), "send_idx": idx("send_idx"),
+                       "send_mask": flt("send_mask"), "recv_pos": idx("recv_pos"),
+                       "edge_src": idx("edge_src"), "edge_dst": idx("edge_dst"),
+                       "edge_mask": flt("edge_mask")}
+        if config.use_kernel_agg:
+            # the partition's slots of the stacked structure, with plans of
+            # their own (each launch bitwise its rows of the stacked one)
+            self.shards["blk"] = blocks_to_device(
+                partition_vjp_blocks(build_stacked_vjp_blocks(pg), r), dev)
+            self._mean_agg = make_kernel_mean_agg(pg.max_nodes)
+        else:
+            self._mean_agg = make_ref_shard_mean_agg(pg.max_nodes)
+        self.fwd = make_shard_forward(self.model, self._fwd_meta, self.mesh,
+                                      agg=self._mean_agg,
+                                      ring_chunks=config.ring_chunks)
+        self.labels = idx("labels")
+        self.masks = {k: torch.as_tensor(a[f"{k}_mask"], device=dev)
+                      for k in ("train", "val", "test")}
+        self._fg_loss = make_fullgraph_loss_fn(self.fwd, loss=config.fg_loss)
+
+    def _check_partition_fingerprint(self, pg: PartitionedGraph) -> None:
+        """Every rank must hold the same partition and send lists, or the
+        exchanges would pair mismatched blocks (or wait forever): a hash of
+        them is gathered, and every rank raises on a mismatch."""
+        h = hashlib.sha256(repr((pg.num_parts, pg.max_nodes, pg.own_cap,
+                                 pg.features.shape)).encode())
+        for k in ("n_own", "n_halo", "send_idx", "send_mask", "recv_pos",
+                  "edge_src", "edge_dst", "edge_mask", "global_ids"):
+            h.update(np.ascontiguousarray(getattr(pg, k)).tobytes())
+        mine = torch.tensor(np.frombuffer(h.digest()[:8], np.int64).copy(),
+                            device=self.device)
+        every = all_gather([mine], self.mesh)[0].reshape(-1)
+        if not bool((every == every[0]).all()):
+            raise ValueError(
+                f"the partition differs across the mesh's ranks (rank "
+                f"fingerprints {every.tolist()}): every rank must build the "
+                "same graph and partition")
+
+    def _rank_rows(self, batches: dict) -> dict:
+        """This rank's ``(I, ...)`` rows of epoch batches given as the
+        whole ``(I, P, ...)`` stack or as the rank's own ``(I, 1, ...)``
+        rows."""
+        out = {}
+        for k, v in batches.items():
+            if v.shape[1] not in (1, self.num_parts):
+                raise ValueError(f"batches[{k!r}] has {v.shape[1]} "
+                                 f"partitions, expected {self.num_parts} "
+                                 "or this rank's 1")
+            out[k] = v[:, self.rank if v.shape[1] > 1 else 0]
+        return out
+
+    def rank_batches(self, host: dict) -> dict:
+        """The host batches this engine moves to its device: on the mesh
+        the rank's ``(I, 1, ...)`` rows of the ``(I, P, ...)`` stack, and
+        the whole stack otherwise."""
+        if self.mesh is None:
+            return host
+        return {k: v[:, self.rank:self.rank + 1] for k, v in host.items()}
+
+    def _per_partition(self, losses: torch.Tensor) -> torch.Tensor:
+        """An epoch's losses as ``(I, P)``: on the mesh the ranks' ``(I,)``
+        gathered (one collective at the call's end)."""
+        if self.mesh is None:
+            return losses
+        return all_gather([losses], self.mesh)[0].T
+
+    def _phase1_mesh(self, pparams, popt, batches: dict, global_params,
+                     budgets):
+        """Phase 1 on the mesh: the rank trains its own row of ``pparams``
+        (no cross-rank traffic) with the stacked phase-1 step over a
+        partition axis of 1, while the iteration is below its budget; then
+        ONE all_gather brings every rank's params, optimizer state and
+        losses back into the per-partition form, written into ``pparams``
+        in place."""
+        r = self.rank
+        rows = {k: v[:, None] for k, v in self._rank_rows(batches).items()}
+        iters = next(iter(rows.values())).shape[0]
+        bud = self._as_budgets(budgets, iters)[r:r + 1]
+        step = make_personalize_step(self.loss_fn, self.optimizer, self.hp)
+
+        def run():
+            p = partition_slice(pparams, r)
+            o = OptState(step=popt.step[r:r + 1],
+                         mu=[m[r:r + 1] for m in popt.mu],
+                         nu=[v[r:r + 1] for v in popt.nu])
+            losses = []
+            for i in range(iters):
+                p, o, l = step(p, o, {k: v[i] for k, v in rows.items()},
+                               global_params, i < bud)
+                losses.append(l)
+            return p, o, torch.stack(losses)
+
+        (p, o, losses), dt = self._timed(run)
+        n = len(o.mu)
+        every = [t[:, 0] for t in all_gather(
+            [*p.parameters(), o.step, *o.mu, *o.nu, losses.T], self.mesh)]
+        with torch.no_grad():
+            for w, g in zip(pparams.parameters(), every):
+                w.copy_(g)
+        k = len(list(pparams.parameters()))
+        popt = OptState(step=every[k], mu=every[k + 1:k + 1 + n],
+                        nu=every[k + 1 + n:k + 1 + 2 * n])
+        return pparams, popt, every[-1].T, dt
+
+    @torch.no_grad()
+    def _eval_mesh(self, params, split: str):
+        """This rank's eval forward (its row of per-partition params, or the
+        shared ones) and micro-F1, then ONE all_gather of ``(micro,
+        preds)``: ``((P,), (P, maxN))`` on every rank."""
+        if params.num_parts is not None:
+            params = partition_slice(params, self.rank)
+        preds = torch.argmax(self.fwd(params, self.shards), dim=-1)
+        lab = torch.where(self.masks[split], self.labels, -1)
+        micro = f1_scores_torch(preds, lab, self.num_classes)[0]
+        micro, preds = all_gather([micro, preds], self.mesh)
+        return micro, preds
+
+    def _export_mesh(self, params) -> dict:
+        """The export forward of this rank's partition, then ONE all_gather
+        into the stacked handoff's ``(P, ...)`` layout."""
+        fwd_e = make_shard_forward(self.model, self._fwd_meta, self.mesh,
+                                   agg=self._mean_agg,
+                                   ring_chunks=self.config.ring_chunks,
+                                   export=True)
+        out = fwd_e(params, self.shards)
+        L = len(out["layers"])
+        every = all_gather([*out["layers"], out["logits"],
+                            *(out["cache"][f"h{i}"] for i in range(L))],
+                           self.mesh)
+        return {"layers": tuple(every[:L]), "logits": every[L],
+                "cache": {f"h{i}": every[L + 1 + i] for i in range(L)}}
 
     # ------------------------------------------- two-tier feature store
     def _feat_peak_bytes(self, pg: PartitionedGraph) -> int:
@@ -414,9 +605,12 @@ class SPMDEngine:
     def resident_feature_bytes(self) -> int:
         """Device-resident feature bytes: the stacked plane (or the hot
         tier) plus the attached device sampler's gather table (or its hot
-        tier), the footprint the feature store shrinks."""
+        tier), the footprint the feature store shrinks.  On the mesh, the
+        fleet's: every rank holds one partition's plane."""
         f = self.shards["fs_hot" if self.feat_store else "features"]
         total = f.numel() * f.element_size()
+        if self.mesh is not None:
+            total *= self.num_parts
         ds = self._device_sampler
         if ds is not None:
             t = ds.features if ds.features is not None else ds.hot_feats
@@ -429,7 +623,12 @@ class SPMDEngine:
         out = fn(*args)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return out, time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        if self.mesh is not None:
+            # a collective step goes at its slowest rank's pace
+            t = torch.tensor(dt, dtype=torch.float64, device=self.device)
+            dt = float(all_gather([t], self.mesh)[0].max())
+        return out, dt
 
     def _run_steps(self, step, params, opt_state, batches_per_iter):
         losses = []
@@ -446,7 +645,11 @@ class SPMDEngine:
         """The phase-0 step of ``grad_compress``: the gradient of the mean
         of the P losses (``none``), or the bucketed or top-k reducer over
         the P per-partition gradients (the top-k step also carries the
-        residual)."""
+        residual); on the mesh, the rank's loss and the gradients'
+        ``pmean``."""
+        if self.mesh is not None:
+            return make_mesh_generalize_step(loss_fn, self.optimizer,
+                                             self.mesh)
         if self.grad_compress == "none":
             return make_generalize_step(loss_fn, self.optimizer)
         reduce = make_grad_reduce_stacked(
@@ -560,11 +763,14 @@ class SPMDEngine:
         mean of the P partitions' losses (the cross-partition gradient
         mean), then the validation forward runs."""
         step = self._generalize_step(self.loss_fn)
+        if self.mesh is not None:
+            batches = self._rank_rows(batches)
         iters = next(iter(batches.values())).shape[0]
         per_iter = ({k: v[i] for k, v in batches.items()}
                     for i in range(iters))
         (params, opt_state, losses), dt = self._timed(
             self._run_steps, step, params, opt_state, per_iter)
+        losses = self._per_partition(losses)
         val_micro, _ = self.evaluate(params, "val", per_partition_params=False)
         return params, opt_state, losses, val_micro, dt
 
@@ -597,6 +803,7 @@ class SPMDEngine:
                  "train_mask": self.masks["train"]}
         (params, opt_state, losses), dt = self._timed(
             self._run_steps, step, params, opt_state, [batch] * iters)
+        losses = self._per_partition(losses)
         val_micro, _ = self.evaluate(params, "val", per_partition_params=False)
         return params, opt_state, losses, val_micro, dt
 
@@ -612,7 +819,14 @@ class SPMDEngine:
                      budgets):
         """One personalization epoch over per-partition params: partition p
         trains while the iteration index is below ``budgets[p]`` and rides
-        through bitwise frozen afterwards."""
+        through bitwise frozen afterwards.  On the mesh each rank trains
+        its own partition (``_phase1_mesh``)."""
+        if self.mesh is not None:
+            pparams, popt, losses, dt = self._phase1_mesh(
+                pparams, popt, batches, global_params, budgets)
+            val_micro, _ = self.evaluate(pparams, "val",
+                                         per_partition_params=True)
+            return pparams, popt, losses, val_micro, dt
         step = make_personalize_step(self.loss_fn, self.optimizer, self.hp)
         iters = next(iter(batches.values())).shape[0]
         budgets = self._as_budgets(budgets, iters)
@@ -634,7 +848,10 @@ class SPMDEngine:
         """Attach a :class:`~repro_torch.core.sampler.DeviceEpochSampler`;
         required by :meth:`phase0_epoch_async` and
         :meth:`phase1_epoch_async`.  The sampler must be built with the
-        feature store exactly when the engine is."""
+        feature store exactly when the engine is.  The mesh has no async
+        epochs yet (ROADMAP item 14)."""
+        if self.mesh is not None:
+            raise mesh_not_ported("the device sampler (async epochs)")
         if self.feat_store != (getattr(sampler, "cold_host", None)
                                is not None):
             raise ValueError(
@@ -644,6 +861,8 @@ class SPMDEngine:
         self._device_sampler = sampler
 
     def _sampler(self, method: str):
+        if self.mesh is not None:
+            raise mesh_not_ported(method)
         if self._device_sampler is None:
             raise ValueError(f"{method} needs set_device_sampler()")
         return self._device_sampler
@@ -756,6 +975,8 @@ class SPMDEngine:
 
     @torch.no_grad()
     def _eval(self, params, split: str):
+        if self.mesh is not None:
+            return self._eval_mesh(params, split)
         logits = self._eval_forward(params, self._featurized())
         preds = torch.argmax(logits, dim=-1)
         return self._micro(preds, split), preds
@@ -803,6 +1024,8 @@ class SPMDEngine:
             raise ValueError(
                 "export_serving_state needs the combined-edge forward; "
                 "build the engine without overlap_halo")
+        if self.mesh is not None:
+            return self._export_mesh(params)
         shards = self.shards
         if self.feat_store:
             shards = {k: v for k, v in self.shards.items()

@@ -32,7 +32,8 @@ from ..kernels.segment_agg import (BEC, BN, block_row_ptr, block_row_work,
 
 __all__ = ["StackedBlocks", "build_stacked_vjp_blocks",
            "build_stacked_split_vjp_blocks", "build_stacked_feat_store",
-           "partition_blocks", "build_stacked_halo_cache",
+           "partition_blocks", "partition_vjp_blocks", "partition_arrays",
+           "SHARD_KEYS", "build_stacked_halo_cache",
            "build_stacked_halo_residual", "stack_pytrees",
            "stack_epoch_batches", "batches_to_device"]
 
@@ -189,6 +190,32 @@ def partition_blocks(blocks: dict, p: int, bn: int = BN) -> dict:
     out = {k: np.asarray(blocks[k])[p] for k in ("src", "dst", "mask", "deg")}
     out.update(block_row_work(block_row_ptr(out["dst"], out["mask"], bn)))
     return out
+
+
+def partition_vjp_blocks(blocks: dict, p: int, bn: int = BN) -> dict:
+    """:func:`partition_blocks` with the transpose mirror the backward
+    kernel reads: partition ``p``'s ``t_src`` / ``t_dst`` / ``t_mask``
+    slots, in the stacked dict's order, with a transpose plan of their
+    own, so the partition mesh runs both segment kernels in their
+    single-partition use."""
+    out = partition_blocks(blocks, p, bn)
+    for k in ("t_src", "t_dst", "t_mask"):
+        out[k] = np.asarray(blocks[k])[p]
+    out.update(block_row_work(block_row_ptr(out["t_dst"], out["t_mask"], bn),
+                              prefix="t_"))
+    return out
+
+
+# the per-partition arrays of a PartitionedGraph one rank of the mesh keeps
+SHARD_KEYS = ("features", "send_idx", "send_mask", "recv_pos", "edge_src",
+              "edge_dst", "edge_mask", "labels", "train_mask", "val_mask",
+              "test_mask")
+
+
+def partition_arrays(pg: PartitionedGraph, p: int) -> dict:
+    """Partition ``p``'s rows of the stacked arrays the mesh engine reads
+    (:data:`SHARD_KEYS`), NumPy, without the partition axis."""
+    return {k: np.asarray(getattr(pg, k))[p] for k in SHARD_KEYS}
 
 
 def build_stacked_split_vjp_blocks(pg: PartitionedGraph, bn: int = BN,

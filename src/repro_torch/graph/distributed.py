@@ -24,7 +24,10 @@ interior/boundary aggregation pairs :func:`make_ref_split_agg` and
 (``make_distributed_forward(compress="fp16" | "int8")``, over the wire
 codec :func:`quantize_rows` / :func:`dequantize_rows`) and the forward
 against a historical halo cache (:func:`make_cached_forward`, whose
-refresh slot range :func:`halo_refresh_plan` picks).
+refresh slot range :func:`halo_refresh_plan` picks).  The partition mesh
+(``EngineConfig(mode="spmd")``, one partition per ``torch.distributed``
+rank) runs one partition's forward per rank (:func:`make_shard_forward`)
+with the exchange a real collective (:func:`mesh_exchange`).
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ __all__ = ["PartitionedGraph", "build_partitioned_graph",
            "HALO_COMPRESS_MODES", "quantize_rows", "dequantize_rows",
            "wire_row_bytes", "make_ref_mean_agg",
            "make_kernel_mean_agg", "make_ref_split_agg",
-           "make_kernel_split_agg"]
+           "make_kernel_split_agg", "make_ref_shard_mean_agg",
+           "make_shard_forward", "mesh_exchange"]
 
 
 @dataclass
@@ -291,11 +295,10 @@ def build_partitioned_graph(
 def _exchange(sent: torch.Tensor) -> torch.Tensor:
     """``sent[p][q]`` = rows partition p ships to q, ``(P, P, maxS, D)``;
     returns ``recv`` with ``recv[q][p] = sent[p][q]`` — what the reference's
-    ``all_to_all(split_axis=0, concat_axis=0)`` makes under ``vmap``.  On
-    one device this transpose is the whole exchange, whatever
-    ``ring_chunks`` says: the reference's chunked ``ppermute`` ring is a
-    schedule across devices and arrives with the NCCL exchange (ROADMAP
-    item 14)."""
+    ``all_to_all(split_axis=0, concat_axis=0)`` makes under ``vmap``.  With
+    all partitions stacked on one device this transpose is the whole
+    exchange, whatever ``ring_chunks`` says; the partition mesh runs the
+    collective and the ring (:class:`_MeshExchange`)."""
     return sent.transpose(0, 1)
 
 
@@ -327,6 +330,54 @@ def _halo_exchange(h: torch.Tensor, send_idx, send_mask,
     """One exchange round over all partitions: ``h`` with its halo rows
     landed (a new tensor)."""
     return _land(h, _exchange(_gather_send(h, send_idx, send_mask)), recv_pos)
+
+
+# ---------------------------------------------------------------------------
+# halo exchange on the partition mesh (one partition per rank)
+# ---------------------------------------------------------------------------
+
+def _gather_send_shard(h: torch.Tensor, send_idx: torch.Tensor,
+                       send_mask: torch.Tensor) -> torch.Tensor:
+    """One partition's masked send rows: ``(maxN, D)`` -> ``(P, maxS, D)``,
+    row p of :func:`_gather_send`."""
+    return h[send_idx] * send_mask[..., None]
+
+
+def _land_shard(h: torch.Tensor, recv: torch.Tensor,
+                recv_pos: torch.Tensor) -> torch.Tensor:
+    """One partition's :func:`_land`: ``recv`` ``(P, maxS, D)`` scattered
+    into the halo slots of ``h`` ``(maxN, D)`` as a new tensor, the pad
+    slots into the trash row."""
+    return h.index_put((recv_pos.reshape(-1),),
+                       recv.reshape(-1, h.shape[-1]).to(h.dtype))
+
+
+class _MeshExchange(torch.autograd.Function):
+    """The halo exchange across ranks: ``sent[q]`` goes to rank q, and
+    ``recv[q]`` comes from it (``engine.compat.exchange``: one all_to_all
+    or the chunked ring).  The map ``recv_p[q] = sent_q[p]`` is its own
+    transpose, so the backward is the same exchange of the incoming
+    gradient, as under the reference's VJP of ``all_to_all``: every rank
+    must run it, in the same order, which the identical autograd graphs of
+    the ranks give."""
+
+    @staticmethod
+    def forward(ctx, sent, mesh, ring_chunks):
+        from ..engine.compat import exchange
+        ctx.mesh, ctx.ring_chunks = mesh, ring_chunks
+        return exchange(sent, mesh, ring_chunks)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..engine.compat import exchange
+        return exchange(g, ctx.mesh, ctx.ring_chunks), None, None
+
+
+def mesh_exchange(sent: torch.Tensor, mesh,
+                  ring_chunks: int = 0) -> torch.Tensor:
+    """Differentiable halo exchange of one partition's send block
+    ``(P, maxS, D)`` over ``mesh`` (see :class:`_MeshExchange`)."""
+    return _MeshExchange.apply(sent, mesh, int(ring_chunks))
 
 
 # ---------------------------------------------------------------------------
@@ -508,6 +559,19 @@ def make_kernel_mean_agg(max_nodes: int):
     def mean_agg(h: torch.Tensor, shards: dict) -> torch.Tensor:
         return segment_mean_op(h, shards["blk"],
                                num_rows=max_nodes).to(h.dtype)
+
+    return mean_agg
+
+
+def make_ref_shard_mean_agg(max_nodes: int):
+    """One partition's :func:`make_ref_mean_agg`: ``(h (maxN, D), shard)``
+    with the partition's ``(maxE,)`` edge arrays, through the stacked
+    function on a partition axis of 1 (the same ops, so the same rows)."""
+    stacked = make_ref_mean_agg(max_nodes)
+    keys = ("edge_src", "edge_dst", "edge_mask")
+
+    def mean_agg(h: torch.Tensor, shard: dict) -> torch.Tensor:
+        return stacked(h[None], {k: shard[k][None] for k in keys})[0]
 
     return mean_agg
 
@@ -753,6 +817,59 @@ def make_export_forward(model, pg_meta: dict, agg=None):
             layers.append(h)
             h = model._layer(lp, h, mean_agg(h, shards), i < last)
         return {"layers": tuple(layers), "logits": h, "cache": cache}
+
+    return fwd
+
+
+# ---------------------------------------------------------------------------
+# per-shard forwards (the partition mesh)
+# ---------------------------------------------------------------------------
+
+def make_shard_forward(model, pg_meta: dict, mesh, agg=None,
+                       ring_chunks: int = 0, export: bool = False):
+    """ONE partition's n-layer synchronous forward on the partition mesh,
+    what the reference's :func:`make_distributed_forward` is under
+    ``shard_map``: ``fwd(params, shard) -> (maxN, C)`` logits, ``shard``
+    holding the rank's own arrays (no partition axis) and ``params`` a
+    shared-form ``GraphSAGE``, or one partition's row of per-partition
+    params with its partition axis of 1 (``graph.sage.partition_slice``),
+    whose products run batched as the stacked forward's do.
+    Each layer gathers the send block, exchanges it across the ranks
+    (:func:`mesh_exchange`, ``ring_chunks`` picking the schedule) and lands
+    it; differentiable through the exchange, so every rank must run the
+    backward together.  ``agg(h, shard) -> (maxN, D)`` defaults to
+    :func:`make_ref_shard_mean_agg`; the engine passes
+    :func:`make_kernel_mean_agg` over the partition's own blocks.
+
+    ``export=True`` returns the serving handoff of
+    :func:`make_export_forward` for this partition instead: ``{"layers":
+    (maxN, D_i) per layer, "logits", "cache": {"h{i}": (P, maxS, D_i)}}``.
+    """
+    mean_agg = agg if agg is not None else make_ref_shard_mean_agg(
+        pg_meta["max_nodes"])
+
+    def layer(lp, h, a, activate):
+        if lp.w_self.dim() == 3:
+            # one partition's row of per-partition params (a partition axis
+            # of 1): the stacked forward's batched products, on its rows
+            return model._layer(lp, h[None], a[None], activate)[0]
+        return model._layer(lp, h, a, activate)
+
+    def fwd(params, shard: dict):
+        h = shard["features"]
+        last = len(params.layers) - 1
+        layers, cache = [], {}
+        for i, lp in enumerate(params.layers):
+            recv = mesh_exchange(_gather_send_shard(
+                h, shard["send_idx"], shard["send_mask"]), mesh, ring_chunks)
+            h = _land_shard(h, recv, shard["recv_pos"])
+            if export:
+                cache[f"h{i}"] = recv
+                layers.append(h)
+            h = layer(lp, h, mean_agg(h, shard), i < last)
+        if export:
+            return {"layers": tuple(layers), "logits": h, "cache": cache}
+        return h
 
     return fwd
 

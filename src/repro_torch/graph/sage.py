@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 __all__ = ["SAGELayer", "GraphSAGE", "broadcast_to_partitions",
-           "clone_params", "take_partition"]
+           "clone_params", "take_partition", "partition_slice"]
 
 
 def _glorot(rng: np.random.Generator, shape: tuple[int, ...]) -> np.ndarray:
@@ -267,3 +267,10 @@ def take_partition(params: GraphSAGE, p: int) -> GraphSAGE:
     """Partition ``p``'s weights of per-partition ``params`` as a detached
     copy in the shared form (the reference's ``tree.map(lambda x: x[p])``)."""
     return _rebuilt(params, lambda w: w[p].clone())
+
+
+def partition_slice(params: GraphSAGE, p: int) -> GraphSAGE:
+    """Partition ``p``'s weights of per-partition ``params`` as a detached
+    copy that keeps the partition axis (length 1): the per-partition form
+    of one partition, which the stacked phase-1 step takes as it is."""
+    return _rebuilt(params, lambda w: w[p:p + 1].clone())

@@ -1,0 +1,172 @@
+"""The partition mesh: one ``torch.distributed`` rank per partition
+(counterpart of ``repro/launch/mesh.py``'s ``make_partition_mesh``).
+
+The reference builds a 1-D ``jax`` mesh over ``num_parts`` devices and
+runs ``shard_map`` over it; here every partition is a process.  Ranks join
+a process group, :func:`make_partition_mesh` describes the calling rank's
+place in it, and the engine's collectives (``engine/compat.py``) run over
+it.  :func:`spawn_partition_world` starts such a world from one process,
+the counterpart of the reference's forced XLA device count; under
+``torchrun`` the ranks exist already and call ``init_process_group``
+themselves (``launch/train.py`` does).
+
+Backends: ``nccl`` puts rank r on card r; ``gloo`` runs on the CPU, or,
+asked for on CUDA, puts every rank on one card (the card tensors cross
+the group through pinned host buffers, ``engine/compat.py``), which is how
+a world of P ranks runs on a host with one card.  NCCL refuses two ranks
+on one card.
+
+The reference's 2-D and 3-D LLM meshes (``make_mesh_compat``,
+``make_production_mesh``, ``data_axes_of``, ``model_axis_of``) serve the
+transformer training path and wait for ROADMAP item 15.7.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import tempfile
+import time
+from dataclasses import dataclass
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["PartitionMesh", "make_partition_mesh", "partition_world_size",
+           "spawn_partition_world", "default_backend"]
+
+# seconds a collective may wait for its peers before the group fails it
+GROUP_TIMEOUT_S = 120.0
+
+
+@dataclass(frozen=True)
+class PartitionMesh:
+    """The calling rank's place in a 1-D partition mesh: ``rank`` owns
+    partition ``rank`` of ``world``; its tensors live on ``device``."""
+
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+    group: object = None            # None: the default group
+    axis_name: str = "parts"
+
+    @property
+    def staged(self) -> bool:
+        """True where card tensors cross the group through host buffers:
+        gloo on a CUDA device (by the backend's name, never on failure)."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+
+def default_backend(device) -> str:
+    """``nccl`` for a CUDA device, ``gloo`` for the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def partition_world_size() -> int | None:
+    """The size of the initialized default process group, or None outside
+    one (``mode="auto"`` reads it)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return None
+
+
+def make_partition_mesh(num_parts: int, axis_name: str = "parts",
+                        device=None) -> PartitionMesh:
+    """The calling rank's :class:`PartitionMesh` over the initialized
+    default group.  Raises ``ValueError`` outside a group or when its size
+    is not ``num_parts`` (the reference raises when it has fewer devices
+    than partitions).  ``device`` defaults to the current card under
+    ``nccl`` and to the CPU under ``gloo``."""
+    world = partition_world_size()
+    if world is None:
+        raise ValueError(
+            f"the partition mesh runs one torch.distributed rank per "
+            f"partition, and no process group is initialized: start "
+            f"{num_parts} ranks with repro_torch.launch.mesh."
+            "spawn_partition_world (or torchrun)")
+    if world != num_parts:
+        raise ValueError(f"need a world of {num_parts} ranks for the "
+                         f"partition mesh, have {world}")
+    backend = str(dist.get_backend())
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if backend == "nccl" else torch.device("cpu"))
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("the nccl backend moves card tensors only; use "
+                         "gloo for a CPU mesh")
+    return PartitionMesh(rank=dist.get_rank(), world=world, device=device,
+                         backend=backend, axis_name=axis_name)
+
+
+def _rank_main(rank, fn, args, world, backend, device, store_path,
+               out_dir, timeout_s):
+    """One spawned rank: join the group, run ``fn(rank, *args)``, save its
+    result for the parent, leave the group."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # nccl: a card per rank; gloo: every rank on the named card
+        torch.cuda.set_device(rank if backend == "nccl" else (dev.index or 0))
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=timeout_s))
+    try:
+        out = fn(rank, *args)
+        dist.barrier()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_partition_world(fn, world: int, args: tuple = (), *,
+                          backend: str | None = None, device="cuda",
+                          workdir: str | None = None,
+                          timeout_s: float = GROUP_TIMEOUT_S,
+                          join_timeout_s: float = 900.0) -> list:
+    """Run ``fn(rank, *args)`` on ``world`` ranks and return their results
+    in rank order.
+
+    The ranks start with the ``spawn`` method (never ``fork``: the caller
+    may hold CUDA state and threads), join a group initialized from a
+    ``FileStore`` in ``workdir`` (a fresh temporary directory by default)
+    with the group ``timeout_s``, and hand their results back through files
+    there (``fn`` must be importable, its result loadable by
+    ``torch.load`` onto the CPU).  If one rank raises, the others are
+    killed and the call raises; if the world has not finished after
+    ``join_timeout_s`` seconds, every rank is killed and the call raises
+    ``TimeoutError``."""
+    import torch.multiprocessing as mp
+
+    backend = backend or default_backend(device)
+    own_dir = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="partition_world_")
+    store_path = os.path.join(workdir, "store")
+    if os.path.exists(store_path):
+        os.remove(store_path)
+    try:
+        ctx = mp.start_processes(
+            _rank_main, args=(fn, args, world, backend, str(device),
+                              store_path, workdir, timeout_s),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + join_timeout_s
+        try:
+            while not ctx.join(timeout=0.5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"the world of {world} ranks did not finish within "
+                        f"{join_timeout_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+        return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                           map_location="cpu", weights_only=False)
+                for r in range(world)]
+    finally:
+        if own_dir:
+            shutil.rmtree(workdir, ignore_errors=True)

@@ -24,7 +24,13 @@ rows on the card and stages the cold rows from pinned host memory;
 ``--keep-checkpoints``) saves the run at epoch boundaries and ``--resume``
 continues from the newest intact step; ``--crash-at-epoch`` and
 ``--drop-refresh-at`` inject the reference's faults (an injected crash
-ends the CLI with exit code 1).  It takes the reference's flags for the
+ends the CLI with exit code 1).  ``--engine spmd`` runs the partition
+mesh: P ranks, one partition each, spawned through
+``repro_torch.launch.mesh`` (the counterpart of the reference's forced XLA
+device count), or joined from the environment when ``torchrun`` set
+``RANK`` and ``WORLD_SIZE``; ``--backend`` picks ``nccl`` (a card per
+rank, the default on CUDA) or ``gloo`` (the CPU, or every rank on one
+card); ``--engine auto`` spawns the mesh only with a card per partition.  It takes the reference's flags for the
 ported options, plus ``--device`` (``cuda`` by default; raises without a
 card unless ``cpu``).  The reference's other flags belong to paths that
 are not ported yet.  ``llm`` (the transformer path) waits
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -94,15 +101,78 @@ def fault_plan_from_args(args):
         drop_refresh_epochs=frozenset(args.drop_refresh_at or ()))
 
 
-def run_gnn(args):
-    """Run the pipeline, print its summary as JSON and return the
-    ``EATResult``."""
+def _run(args):
     from repro_torch.pipeline import run_eat_distgnn
 
-    result = run_eat_distgnn(config_from_args(args), verbose=True,
-                             fault_plan=fault_plan_from_args(args))
-    print(json.dumps(result.summary(), indent=2))
+    return run_eat_distgnn(config_from_args(args), verbose=True,
+                           fault_plan=fault_plan_from_args(args))
+
+
+def _mesh_launch(args) -> str | None:
+    """How this run joins a partition mesh: ``"torchrun"`` (the environment
+    defines the world), ``"spawn"`` (start P ranks here) or None (one
+    process).  ``auto`` spawns only with a card per partition."""
+    if args.engine not in ("spmd", "auto"):
+        return None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return "torchrun"
+    if args.engine == "spmd":
+        return "spawn"
+    import torch
+
+    parts = 1 if args.centralized else args.parts
+    if (parts > 1 and torch.device(args.device).type == "cuda"
+            and torch.cuda.device_count() >= parts):
+        return "spawn"
+    return None
+
+
+def _mesh_rank(rank: int, args):
+    """One spawned rank of ``launch.train gnn``: the pipeline on its
+    partition (only rank 0 prints), its result returned to the parent."""
+    return _run(args)
+
+
+def run_gnn(args):
+    """Run the pipeline (on the partition mesh when ``--engine`` asks for
+    it), print its summary as JSON and return the ``EATResult`` (rank 0's
+    on the mesh; every rank returns the same)."""
+    launch = _mesh_launch(args)
+    if launch == "spawn":
+        from repro_torch.launch.mesh import spawn_partition_world
+
+        parts = 1 if args.centralized else args.parts
+        result = spawn_partition_world(_mesh_rank, parts, (args,),
+                                       backend=args.backend,
+                                       device=args.device)[0]
+    elif launch == "torchrun":
+        result = _run_torchrun(args)
+    else:
+        result = _run(args)
+    if result is not None:
+        print(json.dumps(result.summary(), indent=2))
     return result
+
+
+def _run_torchrun(args):
+    """This process as one rank of the world ``torchrun`` describes: join
+    its group (``env://``), run the pipeline, leave; the summary is
+    rank 0's to print (None elsewhere)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import default_backend
+
+    backend = args.backend or default_backend(args.device)
+    if torch.device(args.device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        torch.cuda.set_device(local if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method="env://")
+    try:
+        result = _run(args)
+        return result if dist.get_rank() == 0 else None
+    finally:
+        dist.destroy_process_group()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,20 +192,25 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--fanout", type=int, default=10)
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--engine", default="auto",
-                   choices=("auto", "stacked", "sequential"),
+                   choices=("auto", "stacked", "spmd", "sequential"),
                    help="epoch executor: all partitions stacked on one "
-                        "card (auto picks it while there are fewer cards "
-                        "than partitions), or the sequential Python-loop "
-                        "reference")
+                        "device, the partition mesh (spmd: one process per "
+                        "partition, real collectives; auto picks it with a "
+                        "card per partition or inside a torchrun world), "
+                        "or the sequential Python-loop reference")
+    g.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                   help="torch.distributed backend of the partition mesh "
+                        "(default: nccl on CUDA, gloo on the CPU; gloo on "
+                        "CUDA puts every rank on one card)")
     g.add_argument("--overlap-halo", action="store_true",
                    help="boundary/interior split forward: overlap each "
                         "layer's halo exchange with interior aggregation "
                         "and restrict dense compute to owned rows")
     g.add_argument("--ring-chunks", type=int, default=0,
                    help="exchange as a ring with N chunks per step instead "
-                        "of one all_to_all (0 = all_to_all); only "
-                        "meaningful with --overlap-halo, and on one card "
-                        "the exchange is the all_to_all transpose")
+                        "of one all_to_all (0 = all_to_all) on the "
+                        "partition mesh; stacked on one device the "
+                        "exchange is the all_to_all transpose")
     g.add_argument("--halo-cache", action="store_true",
                    help="historical-embedding halo cache: eval forwards "
                         "aggregate against the last-received boundary "

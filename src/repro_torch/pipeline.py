@@ -8,7 +8,10 @@ per-partition weights in phase 1), then the full-graph validation forward
 with its per-layer halo exchange and the segment-mean kernel.
 ``engine_mode="sequential"`` runs the same loop on the Python-loop oracle
 (:class:`repro_torch.engine.SequentialReference`, plain aggregation), and
-``overlap_halo`` swaps in the split forward.  ``halo_cache`` serves the
+``overlap_halo`` swaps in the split forward.  ``engine_mode="spmd"`` runs
+it on the partition mesh: every rank of a world of P
+(``launch/mesh.py``) calls this function, holds one partition, and
+exchanges halos and gradients through real collectives.  ``halo_cache`` serves the
 eval forwards' halo rows from a historical cache refreshed every
 ``halo_refresh_every``-th eval (``halo_cv``: a rotating slot chunk in
 between), ``halo_compress`` quantizes their exchange with error feedback,
@@ -62,6 +65,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .core import (GPController, GPHyperParams, GPScheduleConfig,
                    broadcast_to_partitions, partition_graph)
@@ -70,6 +74,7 @@ from .core.sampler import (CBSampler, build_device_epoch_sampler,
                            host_draw_count)
 from .device import resolve_device
 from .engine import EngineConfig, make_engine
+from .engine.spmd import mesh_not_ported
 from .engine.stacking import batches_to_device, stack_epoch_batches
 from .graph import (BENCHMARKS, GraphSAGE, build_partitioned_graph,
                     make_benchmark)
@@ -103,7 +108,9 @@ class EATConfig:
     phase0_fraction: float | None = None
     seed: int = 0
     centralized: bool = False             # 1 host, no partitioning (Table IV)
-    engine_mode: str = "auto"             # auto | stacked | sequential
+    # auto | stacked | spmd (one torch.distributed rank per partition;
+    # every rank runs this function) | sequential
+    engine_mode: str = "auto"
     use_kernel_agg: bool = True           # CUDA segment-mean kernels
     # phase 0 trains FULL-GRAPH: ``full_graph_iters`` full-batch steps per
     # epoch straight through the distributed forward
@@ -118,7 +125,7 @@ class EATConfig:
     # boundary/interior split forward: overlap each layer's halo exchange
     # with the interior aggregation and restrict dense compute to owned rows
     overlap_halo: bool = False
-    ring_chunks: int = 0                  # ring chunks (on one card: transpose)
+    ring_chunks: int = 0                  # ring chunks (the mesh's exchange)
     # historical-embedding halo cache: eval forwards aggregate against the
     # last-received boundary embeddings; only every halo_refresh_every-th
     # forward pays the full exchange, and halo_cv refreshes a rotating slot
@@ -372,9 +379,26 @@ def _copy_partitions(dst, src, parts) -> None:
         d[idx] = s[idx]
 
 
+def _check_mesh_config(cfg: EATConfig) -> None:
+    """The pipeline options the partition mesh does not run yet."""
+    for name, on in (("async_generalize", cfg.async_generalize),
+                     ("async_personalize", cfg.async_personalize),
+                     ("checkpoint_dir", cfg.checkpoint_dir is not None),
+                     ("resume", cfg.resume)):
+        if on:
+            raise mesh_not_ported(f"{name}={getattr(cfg, name)!r}")
+
+
 def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                     fault_plan: FaultPlan | None = None) -> EATResult:
+    """The paper's pipeline.  Inside a ``torch.distributed`` world (the
+    partition mesh, ``engine_mode="spmd"`` or ``"auto"``) every rank calls
+    it with the same config, builds the same graph and partition, and
+    returns the same result (its timings are its own host's); only rank 0
+    prints."""
     _check_config(cfg)
+    verbose = verbose and (dist.get_rank() == 0 if dist.is_available()
+                           and dist.is_initialized() else True)
     dev = resolve_device(cfg.device)
     fdt = np.dtype(cfg.dtype)
     tdt = getattr(torch, cfg.dtype)
@@ -424,6 +448,8 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                             hot_policy=cfg.hot_policy,
                             feat_groups=cfg.feat_groups,
                             feat_budget_mb=cfg.feat_budget_mb))
+    if engine.mode == "spmd":
+        _check_mesh_config(cfg)
     if verbose:
         print(f"engine[{engine.mode}] {pg.summary()}")
 
@@ -536,7 +562,12 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             host, t_host, iters = stack_epoch_batches(samplers, make_batch,
                                                       n_parts)
             rng_snapshot = capture_rng()
+        # the fleet's bytes: on the mesh each rank copies its own rows of the
+        # stack every rank draws (one shared NeighborSampler advances over
+        # all partitions, so only the whole draw reproduces its stream)
         nbytes = sum(v.nbytes for v in host.values())
+        if engine.mode == "spmd":
+            host = engine.rank_batches(host)
         return batches_to_device(host, dev), t_host, iters, nbytes
 
     def epoch_host_times(t_host, t_dev):

@@ -141,10 +141,14 @@ def test_distributed_forward_is_export_logits(setup, use_kernel):
     ("feat_store", True, 11), ("feat_groups", 2, 11), ("mode", "spmd", 14),
     ("mode", "auto", 14)])
 def test_unported_options_raise(setup, option, value, item, monkeypatch):
-    """The partition mesh (item 14) raises naming its item.  Item 11's
-    options are ported and behave as the reference's: the store builds and
-    evaluates bitwise the resident engine, and ``feat_groups`` without the
-    store is the reference's ValueError."""
+    """The partition mesh (item 14): ``spmd`` outside a world of P ranks is
+    the reference's ``ValueError`` of too few devices, naming
+    ``launch.mesh``; under ``spmd`` (asked for, or picked by ``auto``
+    inside a world of P) every option of the mesh's part 2 raises naming
+    item 14 before any collective runs.  Item 11's options are ported and
+    behave as the reference's: the store builds and evaluates bitwise the
+    resident engine, and ``feat_groups`` without the store is the
+    reference's ValueError."""
     pg, _, _, _, m = setup
     if item == 11:
         if option == "feat_groups":
@@ -160,15 +164,21 @@ def test_unported_options_raise(setup, option, value, item, monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert eng.cold_h2d_bytes == eng._fs.cold.nbytes > 0
         return
-    device = "cpu"
-    if option == "mode" and value == "auto":
-        # auto picks the mesh only on a host with a card per partition
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-        device = "cuda"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        SPMDEngine(m, None, None, pg, None,
-                   EngineConfig(device=device, **{option: value}))
+    if value == "auto":
+        # auto picks the mesh inside a world of P ranks
+        import repro_torch.engine.spmd as spmd_mod
+        monkeypatch.setattr(spmd_mod, "partition_world_size", lambda: 4)
+    else:
+        with pytest.raises(ValueError, match="launch.mesh"):
+            SPMDEngine(m, None, None, pg, None,
+                       EngineConfig(device="cpu", mode=value))
+    for part2 in ({"overlap_halo": True}, {"halo_cache": True},
+                  {"halo_compress": "int8"}, {"grad_compress": "bucketed"},
+                  {"feat_store": True}):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP item {item}"):
+            SPMDEngine(m, None, None, pg, None,
+                       EngineConfig(device="cpu", mode=value, **part2))
 
 
 @pytest.mark.parametrize("option,value", [
@@ -223,21 +233,30 @@ def test_overlap_and_sequential_options_run(setup, option, value):
 
 
 def test_auto_mode_resolves_to_stacked(setup, monkeypatch):
-    """The reference's rule: stacked on the CPU, with fewer cards than
-    partitions, or with one partition."""
+    """``auto`` is the mesh only inside a ``torch.distributed`` world of P
+    ranks (P > 1): stacked in one process whatever the card count (the
+    reference counts devices; one process here has no mesh to pick), in a
+    world of another size, with one partition, and with ``feat_groups``."""
     pg, _, _, _, m = setup
     assert SPMDEngine(m, None, None, pg, None,
                       EngineConfig(mode="auto", device="cpu")).mode == "stacked"
     assert SPMDEngine(m, None, None, pg, None,
                       EngineConfig(device="cpu")).mode == "stacked"
+    import repro_torch.engine.spmd as spmd_mod
     from repro_torch.engine.spmd import _resolve_mode
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
     cfg = EngineConfig(mode="auto")
     assert _resolve_mode(cfg, 4, torch.device("cuda")) == "stacked"
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    assert _resolve_mode(cfg, 1, torch.device("cuda")) == "stacked"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        _resolve_mode(cfg, 4, torch.device("cuda"))
+    for world, parts, want in ((4, 4, "spmd"), (2, 4, "stacked"),
+                               (1, 1, "stacked"), (None, 4, "stacked")):
+        monkeypatch.setattr(spmd_mod, "partition_world_size", lambda: world)
+        assert _resolve_mode(cfg, parts, torch.device("cpu")) == want
+    monkeypatch.setattr(spmd_mod, "partition_world_size", lambda: 4)
+    assert _resolve_mode(EngineConfig(mode="auto", feat_store=True,
+                                      feat_groups=2), 4,
+                         torch.device("cpu")) == "stacked"
+    assert _resolve_mode(EngineConfig(mode="spmd"), 4,
+                         torch.device("cpu")) == "spmd"
 
 
 def test_unknown_mode_and_compression_raise(setup):

@@ -829,3 +829,47 @@ def test_sampled_resume_bitwise_on_card(cuda, tmp_path):
         assert a.device.type == "cuda" and torch.equal(a, b)
     assert (res.loss_history, res.val_history, res.f1.micro) == (
         base.loss_history, base.val_history, base.f1.micro)
+
+
+# --------------------------------------------------------------------------
+# the partition mesh on the card (ROADMAP item 14, part 1)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,P", [("nccl", 1), ("gloo", 2)])
+def test_mesh_world_on_card_matches_stacked(cuda, tmp_path, backend, P):
+    """An NCCL world of 1 (P = 1) is bitwise the stacked engine on the
+    card; a gloo world of 2 ranks sharing the card has the stacked
+    engine's evals and export bitwise from the same params and its epochs
+    within the reference's spmd tolerances.  The ranks launch both segment
+    kernels."""
+    import _torch_mesh_ranks as mr
+    from repro_torch.launch.mesh import spawn_partition_world
+
+    outs = spawn_partition_world(mr.card_checks, P, (P,), backend=backend,
+                                 device="cuda", workdir=str(tmp_path),
+                                 timeout_s=120, join_timeout_s=600)
+    g, pg = mr.tiny_case(P)
+    eng, _ = mr.engine(pg, g, "stacked", torch.float32, "cuda")
+    want = mr.eval_and_export(eng, g, P, device="cuda")
+    for r, out in enumerate(outs):
+        fwd, bwd = out["launches"]
+        assert fwd > 0 and bwd > 0, (r, out["launches"])
+        got = out["eval"]
+        for split in ("val", "test"):
+            for a, b in zip(got[split], want[split]):
+                assert torch.equal(a, b.cpu()), (r, split)
+        for a, b in zip(got["export"][0] + [got["export"][1]],
+                        want["export"][0] + [want["export"][1]]):
+            assert torch.equal(a, b.cpu()), r
+    for what in mr.EPOCHS:
+        eng, opt = mr.engine(pg, g, "stacked", torch.float32, "cuda")
+        w = mr.run_epoch(eng, opt, g, P, what, torch.float32, "cuda")
+        got = outs[0][what]
+        pairs = list(zip(got["params"], w["params"])) + [
+            (got["losses"], w["losses"])]
+        if P == 1:
+            assert all(torch.equal(a, b.cpu()) for a, b in pairs), what
+            continue
+        tol = 1e-5 if what == "phase1" else 1e-6
+        for a, b in pairs:
+            assert float((a - b.cpu()).abs().max()) <= tol, what

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` (and
 ``chip_smoke.py``), the halo cache, the wire codec, the gradient reducers,
-the feature store, the streamed eval, the checkpoint files and the fault
-plan included, pulls in neither
+the feature store, the streamed eval, the checkpoint files, the fault
+plan and the partition mesh's collectives included, pulls in neither
 ``jax`` nor anything of ``repro``; and every entry point defaults to the
 CUDA card, raising without one unless the caller passes
 ``device="cpu"``."""
@@ -45,6 +45,12 @@ for name in ("repro_torch.robustness", "repro_torch.robustness.faults",
 from repro_torch.robustness import FaultPlan, InjectedCrash, RunCheckpointer
 from repro_torch.train.checkpoint import (CheckpointManager, load_pytree,
                                           save_pytree)
+# the partition mesh (ROADMAP item 14, part 1) stands alone too
+for name in ("repro_torch.engine.compat", "repro_torch.launch.mesh"):
+    assert name in mods, (name, mods)
+from repro_torch.engine.compat import all_gather, all_to_all, pmean
+from repro_torch.graph.distributed import make_shard_forward, mesh_exchange
+from repro_torch.launch.mesh import make_partition_mesh, spawn_partition_world
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
