@@ -146,7 +146,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
               tolerances, its export logits and ``ring_chunks=2``
               bitwise), every rank's result equal, a phase-0 epoch's and
               one exchange's times beside the card (4 processes sharing
-              one card, not a multi-card time).  Then
+              one card, not a multi-card time); and item 14's part 2 on
+              the same worlds: the pipeline with both async flags against
+              the stacked run, ``--feat-store --hot-frac 0.5`` sampled and
+              async runs bitwise the world's resident runs with
+              ``cold_h2d_bytes`` the closed forms, sampled and async runs
+              killed after boundary 1 and a store run after boundary 4,
+              each resumed bitwise the uninterrupted run, each async
+              epoch call's time beside the stacked one, rank 0's save
+              and load ms.  Then
               the async run, ``--async-generalize --async-personalize``
               (both epochs drawn on the card by the device sampler): no
               host draw in either phase, the device draw counter moved, two
@@ -2436,11 +2444,33 @@ MESH_F1_TOL, MESH_PRED_MISMATCH = 5e-3, 3
 MESH_GRAD_RTOL = 1e-6
 
 
-# the mesh's pipeline runs: sampled and full-graph, 4 epochs with
-# phase0_fraction 0.5 (two phase-0 epochs, two of phase 1), and a sampled
-# run of 2 phase-0 epochs alone (its final params are phase 0's best)
+# the mesh's pipeline runs held against the stacked ones: sampled and
+# full-graph, 4 epochs with phase0_fraction 0.5 (two phase-0 epochs, two
+# of phase 1), a sampled run of 2 phase-0 epochs alone (its final params
+# are phase 0's best), and (item 14 part 2) the async run, one partition
+# at P = 1 but not centralized, so that its phase 1 runs
+MESH_ASYNC = {"async_generalize": True, "async_personalize": True}
+MESH_STORE = {"feat_store": True, "hot_frac": 0.5}
 MESH_RUNS = {"sampled": {}, "full-graph": {"full_graph_train": True},
-             "phase-0": {"max_epochs": 2, "phase0_fraction": 1.0}}
+             "phase-0": {"max_epochs": 2, "phase0_fraction": 1.0},
+             "async": {**MESH_ASYNC, "centralized": False}}
+# the store's runs, each (config, the resident run of MESH_RUNS it must
+# equal bitwise); store-5's 5 epochs put boundary 4 in phase 1
+MESH_STORE_RUNS = {
+    "sampled-store": (MESH_STORE, "sampled"),
+    "async-store": ({**MESH_RUNS["async"], **MESH_STORE}, "async"),
+    "store-5": ({**MESH_STORE, "max_epochs": 5, "centralized": False},
+                None)}
+# the runs killed after a boundary and resumed: run -> boundary
+MESH_RESUMES = {"sampled": 1, "async": 1, "store-5": 4}
+
+
+def mesh_run_config(P, mode, name, **kw):
+    """The config of the mesh run ``name`` (of MESH_RUNS or
+    MESH_STORE_RUNS)."""
+    run = (MESH_RUNS[name] if name in MESH_RUNS
+           else MESH_STORE_RUNS[name][0])
+    return mesh_config(P, mode, **{**run, **kw})
 
 
 def mesh_config(P, mode, **kw):
@@ -2456,7 +2486,8 @@ def mesh_config(P, mode, **kw):
 
 
 def mesh_graph(P):
-    """products-s and the pipeline's partition of it (P = 1: one part)."""
+    """products-s, the pipeline's partition of it (P = 1: one part) and
+    the partition's assignment of nodes."""
     from repro_torch.core import partition_graph
     from repro_torch.graph import (BENCHMARKS, build_partitioned_graph,
                                    make_benchmark)
@@ -2465,7 +2496,7 @@ def mesh_graph(P):
     parts = (np.zeros(g.num_nodes, np.int64) if P == 1 else partition_graph(
         g.indptr, g.indices, g.features, g.labels, P, method="ew", seed=0,
         fanout_k=10).parts)
-    return g, build_partitioned_graph(g, parts, P)
+    return g, build_partitioned_graph(g, parts, P), parts
 
 
 def mesh_digest(res, eng):
@@ -2480,7 +2511,10 @@ def mesh_digest(res, eng):
             "bytes": (res.comm_grad_bytes, res.comm_halo_bytes,
                       res.comm_halo_exchange_bytes,
                       res.host_to_device_bytes_phase0,
-                      res.resident_feature_bytes)}
+                      res.host_to_device_bytes_phase1,
+                      res.resident_feature_bytes),
+            "cold": res.cold_h2d_bytes, "epochs": res.epochs_run,
+            "resumed_from": res.resumed_from_epoch}
 
 
 def mesh_step_checks(torch, eng, opt, P, epoch=True):
@@ -2537,13 +2571,79 @@ def mesh_engine(pg, mode, **kw):
                       EngineConfig(mode=mode, device="cuda", **kw)), opt
 
 
-def mesh_rank(rank, P):
-    """One rank of the mesh: the pipeline runs of ``MESH_RUNS`` (the main
-    path, their segment launches counted from 0 just before them and read
-    just after), their final params' test predictions, the step checks on
-    an engine of its own, the ``ring_chunks=2`` engine's logits and
-    gradients, and one exchange's time per layer width (host clock,
-    synchronised, 20 calls)."""
+def mesh_store_and_resumes(torch, P, ckdir):
+    """The mesh runs of item 14's part 2 besides the async run: the store
+    runs of ``MESH_STORE_RUNS``, then each run of ``MESH_RESUMES`` killed
+    by an injected crash after its boundary (checkpoints in ``ckdir``,
+    the same directory on every rank: rank 0 writes it) and resumed, with
+    rank 0's save and every rank's load timed (``CkptClock``).  Returns
+    ``(store results, resumed results, (save ms, load ms))``."""
+    from repro_torch.pipeline import run_eat_distgnn
+    from repro_torch.robustness import FaultPlan, InjectedCrash
+
+    store = {k: run_eat_distgnn(mesh_run_config(P, "spmd", k))
+             for k in MESH_STORE_RUNS}
+    resumed = {}
+    with CkptClock(torch) as clock:
+        for name, crash in MESH_RESUMES.items():
+            ck = os.path.join(ckdir, name)
+            try:
+                run_eat_distgnn(mesh_run_config(P, "spmd", name,
+                                                checkpoint_dir=ck),
+                                fault_plan=FaultPlan(
+                                    crash_epochs=frozenset({crash})))
+                raise AssertionError(f"mesh {name}: no crash at {crash}")
+            except InjectedCrash as e:
+                assert e.epoch == crash, (name, e.epoch)
+            resumed[name] = run_eat_distgnn(mesh_run_config(
+                P, "spmd", name, checkpoint_dir=ck, resume=True))
+    return store, resumed, (clock.save_ms, clock.load_ms)
+
+
+def mesh_async_epoch_s(torch, P, mode, calls=3):
+    """Each async epoch call's seconds as the engine reports them (host
+    clock, synchronised; on the mesh the slowest rank's), on an engine of
+    its own with the pipeline's device sampler at the main path's widths
+    (batch 256, fanouts (10, 10), the CBS mini-epoch), after one warm-up
+    call of each phase."""
+    from repro_torch.core.sampler import build_device_epoch_sampler
+    from repro_torch.graph import GraphSAGE
+    from repro_torch.graph.sage import broadcast_to_partitions
+
+    g, pg, parts = mesh_graph(P)
+    eng, opt = mesh_engine(pg, mode)
+    host_train = [g.train_idx[parts[g.train_idx] == p] for p in range(P)]
+    ds = build_device_epoch_sampler(g, host_train, P, batch_size=256,
+                                    subset_fraction=0.25, fanouts=(10, 10),
+                                    device=eng.device)
+    eng.set_device_sampler(ds)
+    gen = torch.Generator(device=eng.device)
+    params = GraphSAGE(g.feature_dim, 128, g.num_classes).init(1).to(
+        eng.device)
+    st = opt.init(params.parameters())
+    out = {"phase0": [], "phase1": []}
+    for i in range(calls + 1):
+        gen.manual_seed(100 + i)
+        params, st, _, _, dt = eng.phase0_epoch_async(params, st, gen)
+        out["phase0"].append(dt)
+    pp = broadcast_to_partitions(params, P)
+    po = opt.init_stacked(pp.parameters())
+    for i in range(calls + 1):
+        gen.manual_seed(200 + i)
+        pp, po, _, _, dt = eng.phase1_epoch_async(pp, po, gen,
+                                                  ds.natural_iters, params)
+        out["phase1"].append(dt)
+    return {k: v[1:] for k, v in out.items()}
+
+
+def mesh_rank(rank, P, ckdir):
+    """One rank of the mesh: the pipeline runs of ``MESH_RUNS``, the store
+    runs and the killed-and-resumed runs (the main path, their segment
+    launches counted from 0 just before them and read just after), their
+    final params' test predictions, the step checks on an engine of its
+    own, the ``ring_chunks=2`` engine's logits and gradients, one
+    exchange's time per layer width (host clock, synchronised, 20 calls)
+    and the async epoch calls' times."""
     import torch
 
     from repro_torch.graph.distributed import mesh_exchange
@@ -2552,21 +2652,26 @@ def mesh_rank(rank, P):
 
     sa.reset_kernel_launch_count()
     t0 = time.perf_counter()
-    results = {k: run_eat_distgnn(mesh_config(P, "spmd", **kw))
-               for k, kw in MESH_RUNS.items()}
+    results = {k: run_eat_distgnn(mesh_run_config(P, "spmd", k))
+               for k in MESH_RUNS}
+    store, resumed, ckpt_ms = mesh_store_and_resumes(torch, P, ckdir)
     torch.cuda.synchronize()
     out = {"wall": time.perf_counter() - t0,
            "launches": (sa.kernel_launch_count(),
-                        sa.bwd_kernel_launch_count())}
-    _, pg = mesh_graph(P)
+                        sa.bwd_kernel_launch_count()),
+           "ckpt_ms": ckpt_ms}
+    _, pg, _ = mesh_graph(P)
     eng, opt = mesh_engine(pg, "spmd")
     out["pipelines"] = {k: mesh_digest(r, eng) for k, r in results.items()}
+    out["store"] = {k: mesh_digest(r, eng) for k, r in store.items()}
+    out["resumed"] = {k: mesh_digest(r, eng) for k, r in resumed.items()}
+    out["async_s"] = mesh_async_epoch_s(torch, P, "spmd")
     out.update(mesh_step_checks(torch, eng, opt, P))
     out["ring2"] = mesh_step_checks(
         torch, *mesh_engine(pg, "spmd", ring_chunks=2), P, epoch=False)
     out["exchange_ms"] = {}
     for d in (64, 128):
-        sent = torch.randn(P, pg.send_idx.shape[-1], d, device="cuda")
+        sent = torch.randn(P, pg.send_idx.shape[-1], d, device=eng.device)
         mesh_exchange(sent, eng.mesh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2581,13 +2686,57 @@ def mesh_stacked(torch, P):
     """The stacked engine's side of the comparison, in this process."""
     from repro_torch.pipeline import run_eat_distgnn
 
-    results = {k: run_eat_distgnn(mesh_config(P, "stacked", **kw))
-               for k, kw in MESH_RUNS.items()}
-    _, pg = mesh_graph(P)
+    results = {k: run_eat_distgnn(mesh_run_config(P, "stacked", k))
+               for k in MESH_RUNS}
+    _, pg, _ = mesh_graph(P)
     eng, opt = mesh_engine(pg, "stacked")
     out = {"pipelines": {k: mesh_digest(r, eng) for k, r in results.items()}}
     out.update(mesh_step_checks(torch, eng, opt, P))
+    out["async_s"] = mesh_async_epoch_s(torch, P, "stacked")
     return out
+
+
+def mesh_part2_checks(torch, P, got, label):
+    """Item 14's part 2 within one world (rank 0's ``got``): the store runs
+    bitwise the world's resident runs (losses, val, params, test
+    predictions, micro-F1) with ``cold_h2d_bytes`` the closed forms —
+    P·C·D·B an eval (C the partition's cold rows), Nc·D·B more an async
+    epoch (the sampler's cold rows) — and each resumed run bitwise its
+    uninterrupted run (the same and every byte counter but the cold bytes,
+    which hold only the resumed part)."""
+    g, pg, _ = mesh_graph(P)
+    D, B = g.feature_dim, 4
+    eval_bytes = P * (pg.own_cap - int(round(0.5 * pg.own_cap))) * D * B
+    sampler_cold = (g.num_nodes - int(round(0.5 * g.num_nodes))) * D * B
+    same = ("loss", "val", "params", "test_preds", "micro", "iters")
+
+    def equal(a, b, keys):
+        return all(
+            all(torch.equal(x, y) for x, y in zip(a[k], b[k], strict=True))
+            if k == "params" else
+            torch.equal(a[k], b[k]) if k == "test_preds" else
+            np.array_equal(a[k], b[k]) for k in keys)
+
+    for name, (_, resident) in MESH_STORE_RUNS.items():
+        d = got["store"][name]
+        epochs = d["epochs"]
+        want = ((epochs + 1) * eval_bytes if "async" not in name else
+                epochs * (sampler_cold + eval_bytes) + eval_bytes)
+        assert d["cold"] == want, (label, name, d["cold"], want)
+        if resident is not None:
+            assert equal(d, got["pipelines"][resident], same), (label, name)
+    for name, crash in MESH_RESUMES.items():
+        d = got["resumed"][name]
+        base = (got["pipelines"] if name in MESH_RUNS else got["store"])[name]
+        assert d["resumed_from"] == crash, (label, name, d["resumed_from"])
+        assert equal(d, base, (*same, "bytes", "epochs")), (label, name)
+    log(f"mesh {label}: --feat-store --hot-frac 0.5 sampled and async runs "
+        f"bitwise the resident runs, cold bytes "
+        f"{[got['store'][k]['cold'] for k in MESH_STORE_RUNS]} = the closed "
+        f"forms ({eval_bytes} B an eval, {sampler_cold} B more an async "
+        f"epoch); resumes after boundaries {MESH_RESUMES} bitwise the "
+        f"uninterrupted runs (params, losses, val, test predictions, "
+        f"micro-F1, byte counters)")
 
 
 def mesh_compare(torch, got, want, label, bitwise):
@@ -2647,14 +2796,19 @@ def mesh_compare(torch, got, want, label, bitwise):
 
 
 def mesh_checks(torch, card):
-    """ROADMAP item 14 part 1 at products-s, hidden 128, float32, with the
-    kernels: an NCCL world of 1 at P = 1 bitwise the stacked P = 1 run, a
-    gloo world of 4 ranks sharing this card within the reference's spmd
-    tolerances of the stacked run (the export's logits bitwise, a
-    full-graph step's gradients within rel 1e-6, ``ring_chunks=2``
-    bitwise 0), the same on an NCCL world of 4 where there are 4 cards;
-    every rank's result equal to rank 0's.  Returns the segment kernels'
-    launches the ranks' pipeline runs reported ``(fwd, bwd)``."""
+    """ROADMAP item 14 parts 1 and 2 at products-s, hidden 128, float32,
+    with the kernels: an NCCL world of 1 at P = 1 bitwise the stacked P = 1
+    runs (the async one too), a gloo world of 4 ranks sharing this card
+    within the reference's spmd tolerances of the stacked runs (the
+    export's logits bitwise, a full-graph step's gradients within rel
+    1e-6, ``ring_chunks=2`` bitwise 0), the same on an NCCL world of 4
+    where there are 4 cards; in each world the store runs and the resumes
+    (``mesh_part2_checks``); every rank's result equal to rank 0's.
+    Returns the segment kernels' launches the ranks' runs reported ``(fwd,
+    bwd)``."""
+    import shutil
+    import tempfile
+
     from repro_torch.launch.mesh import spawn_partition_world
 
     t_mesh = time.perf_counter()
@@ -2662,33 +2816,64 @@ def mesh_checks(torch, card):
 
     def world(P, backend):
         t0 = time.perf_counter()
-        outs = spawn_partition_world(mesh_rank, P, (P,), backend=backend,
-                                     device="cuda", join_timeout_s=600)
+        ckdir = tempfile.mkdtemp(prefix="mesh_ckpt_")
+        try:
+            outs = spawn_partition_world(mesh_rank, P, (P, ckdir),
+                                         backend=backend, device="cuda",
+                                         join_timeout_s=600)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
         for r, o in enumerate(outs):
-            for k, d in o["pipelines"].items():
-                d0 = outs[0]["pipelines"][k]
-                assert all(torch.equal(a, b) for a, b in
-                           zip(d["params"], d0["params"])), (r, k)
-                assert np.array_equal(d["loss"], d0["loss"]), (r, k)
-                assert torch.equal(d["test_preds"], d0["test_preds"]), (r, k)
+            for group in ("pipelines", "store", "resumed"):
+                for k, d in o[group].items():
+                    d0 = outs[0][group][k]
+                    assert all(torch.equal(a, b) for a, b in
+                               zip(d["params"], d0["params"])), (r, k)
+                    assert np.array_equal(d["loss"], d0["loss"]), (r, k)
+                    assert torch.equal(d["test_preds"],
+                                       d0["test_preds"]), (r, k)
+                    assert (d["bytes"], d["cold"], d["resumed_from"]) == (
+                        d0["bytes"], d0["cold"], d0["resumed_from"]), (r, k)
             assert torch.equal(o["logits"], outs[0]["logits"]), r
             launches[0] += o["launches"][0]
             launches[1] += o["launches"][1]
         log(f"mesh {backend} world {P}: {time.perf_counter() - t0:.1f} s "
             f"(spawn, build, checks); pipeline wall per rank "
             f"{[round(o['wall'], 2) for o in outs]} s, launches per rank "
-            f"(fwd, bwd) {[o['launches'] for o in outs]}")
+            f"(fwd, bwd) {[o['launches'] for o in outs]}; single-partition "
+            f"segment forward launches per rank "
+            f"{[o['launches'][0] for o in outs]}")
         return outs
 
+    def part2_times(label, got, want):
+        save, load = got["ckpt_ms"]
+        log(f"{card}: mesh {label}: async epoch calls (host clock, "
+            f"synchronised, slowest rank) phase 0 "
+            f"{[round(x * 1e3, 2) for x in got['async_s']['phase0']]} ms, "
+            f"phase 1 {[round(x * 1e3, 2) for x in got['async_s']['phase1']]}"
+            f" ms against stacked "
+            f"{[round(x * 1e3, 2) for x in want['async_s']['phase0']]} / "
+            f"{[round(x * 1e3, 2) for x in want['async_s']['phase1']]} ms; "
+            f"rank 0's checkpoint save ms median "
+            f"{float(np.median(save)):.2f} of {len(save)}, load ms median "
+            f"{float(np.median(load)):.2f} of {len(load)}")
+
     w1 = world(1, "nccl")
-    mesh_compare(torch, w1[0], mesh_stacked(torch, 1), "nccl world 1",
-                 bitwise=True)
+    s1 = mesh_stacked(torch, 1)
+    mesh_compare(torch, w1[0], s1, "nccl world 1", bitwise=True)
+    mesh_part2_checks(torch, 1, w1[0], "nccl world 1")
+    part2_times("nccl world 1", w1[0], s1)
     w4 = world(4, "gloo")
     s4 = mesh_stacked(torch, 4)
     mesh_compare(torch, w4[0], s4, "gloo world 4 on one card", bitwise=False)
+    mesh_part2_checks(torch, 4, w4[0], "gloo world 4 on one card")
+    part2_times("gloo world 4, 4 processes sharing one card (not a "
+                "multi-card time)", w4[0], s4)
     if torch.cuda.device_count() >= 4:
         n4 = world(4, "nccl")
         mesh_compare(torch, n4[0], s4, "nccl world 4", bitwise=False)
+        mesh_part2_checks(torch, 4, n4[0], "nccl world 4")
+        part2_times("nccl world 4", n4[0], s4)
     else:
         log(f"mesh nccl world 4: not run, {torch.cuda.device_count()} card")
     log(f"{card}: 4 processes sharing one card through gloo (not a "

@@ -79,22 +79,39 @@ def make_generalize_step(loss_fn: Callable, optimizer) -> Callable:
     return step
 
 
-def make_mesh_generalize_step(loss_fn: Callable, optimizer, mesh) -> Callable:
+def make_mesh_generalize_step(loss_fn: Callable, optimizer, mesh,
+                              gather_sum: bool = False) -> Callable:
     """Phase-0 step on the partition mesh, the reference's ``shard_map``
     step: ``(params, opt_state, batch) -> (params, opt_state, loss)`` with
     ``batch`` this rank's partition and ``loss`` its scalar loss.  Each
     rank differentiates its own loss (on the full graph the backward
     crosses the exchange, so every rank's gradient also holds its peers'
-    losses through the rows it sent), then ``pmean``s the gradients
-    (``engine.compat.pmean``: one all_reduce) before AdamW, whose
-    ``grad_clip`` sees the mean, as in the reference.  Replicated params
-    stay replicated: every rank applies the same update."""
-    from ...engine.compat import pmean
+    losses through the rows it sent), then averages the gradients over
+    the ranks before AdamW, whose ``grad_clip`` sees the mean, as in the
+    reference.  The mean is a ``pmean`` (``engine.compat.pmean``: one
+    all_reduce, summed in the collective's order), or with ``gather_sum``
+    the reference's async spelling (``repro/engine/spmd.py``'s fused
+    phase-0 program): ONE ``all_gather`` of every rank's gradients, then a
+    sum in partition order, ``/ P`` — data movement and one deterministic
+    reduction, the same on every rank.  Replicated params stay
+    replicated: every rank applies the same update."""
+    from ...engine.compat import all_gather, pmean
+
+    def mean(grads):
+        if not gather_sum:
+            return pmean(grads, mesh)
+        out = []
+        for g in all_gather(grads, mesh):          # (P, ...) each
+            total = g[0]
+            for q in range(1, mesh.world):
+                total = total + g[q]
+            out.append(total / mesh.world)
+        return out
 
     def step(params, opt_state, batch):
         weights = list(params.parameters())
         loss = loss_fn(params, batch)
-        grads = pmean(torch.autograd.grad(loss, weights), mesh)
+        grads = mean(torch.autograd.grad(loss, weights))
         updates, opt_state = optimizer.update(grads, opt_state, weights)
         _assign(params, apply_updates([w.detach() for w in weights], updates))
         return params, opt_state, loss.detach()

@@ -29,7 +29,8 @@ Pieces:
     features (or, under the two-tier feature store, the hot rows, the
     ``remap`` into ``[hot | cold]`` and the host cold rows) and labels, with
     :meth:`~DeviceEpochSampler.draw_epoch` and
-    :meth:`~DeviceEpochSampler.make_batch` over all P partitions at once.
+    :meth:`~DeviceEpochSampler.make_batch` over all P partitions at once
+    (``rows=`` cuts a batch to one partition's row after the fanouts).
 
 The reference's PRNG streams (jax keys) cannot be reproduced in torch, so
 the draws agree with it in distribution, not bitwise: the tests hold them
@@ -246,7 +247,7 @@ class DeviceEpochSampler:
 
     def make_batch(self, gen: torch.Generator, nodes: torch.Tensor,
                    valid: torch.Tensor, cold: torch.Tensor | None = None, *,
-                   table: torch.Tensor | None = None) -> dict:
+                   table: torch.Tensor | None = None, rows=None) -> dict:
         """One training batch from ``nodes``/``valid`` (``(..., B)``, e.g.
         ``(P, B)``): the two-hop fanout and the feature gather, as the
         pipeline's host ``make_batch`` builds it: ``x_t (..., B, D)``,
@@ -256,7 +257,13 @@ class DeviceEpochSampler:
         The gather reads ``table`` when given (a :meth:`feature_table`
         built once per epoch call), else :meth:`feature_table` of ``cold``
         (the staged cold rows, exactly when the sampler was built with the
-        store); under the store it goes through ``remap``."""
+        store); under the store it goes through ``remap``.
+
+        ``rows`` (an index or slice of the leading axis) cuts the batch to
+        those rows AFTER both fanouts ran over all of them, so the
+        generator advances as it does for the whole batch and the rows are
+        bitwise the whole batch's: a rank of the partition mesh builds its
+        partition's row of the stacked batch this way."""
         feats = table if table is not None else self.feature_table(cold)
         gather = ((lambda ix: feats[ix]) if self.remap is None
                   else (lambda ix: feats[self.remap[ix]]))
@@ -264,6 +271,9 @@ class DeviceEpochSampler:
         nbrs1 = device_fanout(gen, nodes, self.indptr, self.indices, f1)
         nbrs2 = device_fanout(gen, nbrs1.flatten(-2), self.indptr,
                               self.indices, f2)
+        if rows is not None:
+            nodes, valid = nodes[rows], valid[rows]
+            nbrs1, nbrs2 = nbrs1[rows], nbrs2[rows]
         return {"x_t": gather(nodes), "x_1": gather(nbrs1),
                 "x_2": gather(nbrs2).view(*nbrs1.shape, f2, feats.shape[-1]),
                 "labels": torch.where(valid, self.labels[nodes], -1),

@@ -17,6 +17,9 @@ calls inside ``shard_map``:
                       ``(P * maxS, D)`` view
   :func:`ring_exchange`  the reference's chunked ``ppermute`` ring: P - 1
                       steps of ``batch_isend_irecv``
+  :func:`barrier`     no ``lax`` counterpart (one program has no ranks to
+                      wait for): every rank waits until all have arrived,
+                      which the pipeline's checkpoints need
 
 Under gloo on a CUDA device (``mesh.staged``) every collective stages its
 operands through pinned host buffers: the choice follows the backend's
@@ -28,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["pmean", "psum", "all_gather", "all_to_all", "ring_exchange",
-           "exchange"]
+           "exchange", "barrier"]
 
 
 def _to_wire(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -141,3 +144,11 @@ def exchange(sent: torch.Tensor, mesh, ring_chunks: int = 0) -> torch.Tensor:
     if ring_chunks <= 0:
         return all_to_all(sent, mesh)
     return ring_exchange(sent, mesh, ring_chunks)
+
+
+def barrier(mesh) -> None:
+    """Return once every rank of the mesh has called it."""
+    if mesh.backend == "nccl":
+        dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
+    else:
+        dist.barrier(group=mesh.group)

@@ -36,10 +36,18 @@ all_to_all, or the ``ring_chunks`` ring), ``pmean``s the phase-0
 gradients, and trains its own phase-1 weights.  Each call gathers at its
 end what the stacked call returns (losses, micro-F1, predictions, the
 phase-1 params, the export), so the public surface returns the same on
-every rank; the epoch's seconds are the slowest rank's.  Part 1 of ROADMAP
-item 14: the async phases, the halo cache, both compressions, the feature
-store and the overlapped forward raise ``NotImplementedError`` naming item
-14 under that mode.
+every rank; the epoch's seconds are the slowest rank's.  The async epochs
+run there too: every rank draws the whole ``(P, I, B)`` epoch and both
+fanouts from the same generator, and gathers only its own row's features,
+so its batches are bitwise its row of the stacked engine's; phase 0 means
+the gradients as the reference's fused program does (``all_gather``, then
+a partition-order sum), and phase 1 trains each rank's row with no
+collective until the epoch's end.  Under the feature store a rank holds
+its partition's hot tier and stages its own cold rows; the byte counters
+report the fleet's (the stacked engine's) values.  ROADMAP item 14's part
+3 is still to come: ``overlap_halo``, ``halo_cache``, ``halo_compress``
+and ``grad_compress`` raise ``NotImplementedError`` naming item 14 under
+that mode.
 
 Epoch methods return a trailing ``device_seconds``: host wall time of the
 TRAIN steps, ended by ``torch.cuda.synchronize()`` on the card.  The
@@ -146,14 +154,13 @@ class EngineConfig:
     feat_budget_mb: float = 0.0
 
 
-# the options whose mesh spelling is part 2 of ROADMAP item 14
-def _mesh_part2_options(config: EngineConfig) -> list[str]:
+# the options whose mesh spelling is part 3 of ROADMAP item 14
+def _mesh_unported_options(config: EngineConfig) -> list[str]:
     return [name for name, on in (
         ("overlap_halo", config.overlap_halo),
         ("halo_cache", config.halo_cache),
         ("halo_compress", config.halo_compress != "none"),
-        ("grad_compress", config.grad_compress != "none"),
-        ("feat_store", config.feat_store)) if on]
+        ("grad_compress", config.grad_compress != "none")) if on]
 
 
 def mesh_not_ported(what: str) -> NotImplementedError:
@@ -409,29 +416,42 @@ class SPMDEngine:
 
     # ------------------------------------------------- the partition mesh
     def _build_mesh(self, pg: PartitionedGraph) -> None:
-        """This rank's engine on the partition mesh: the part-2 options
-        refused, the mesh of the initialized world (``ValueError`` outside
-        one of P ranks), the partition checked against every rank's, and
-        only partition ``rank``'s arrays on the rank's device, with its own
-        forward and transpose blocks for the segment kernels."""
+        """This rank's engine on the partition mesh: the options still to
+        port refused, the mesh of the initialized world (``ValueError``
+        outside one of P ranks), the partition checked against every
+        rank's, and only partition ``rank``'s arrays on the rank's device,
+        with its own forward and transpose blocks for the segment kernels.
+        Under the feature store the rank holds its row of the stacked
+        store: the hot tier and scatter maps on the device, its ``(C, D)``
+        cold tier on the host (pinned on a CUDA engine)."""
         config = self.config
-        part2 = _mesh_part2_options(config)
-        if part2:
-            raise mesh_not_ported(f"{part2[0]}={getattr(config, part2[0])!r}")
+        refused = _mesh_unported_options(config)
+        if refused:
+            raise mesh_not_ported(
+                f"{refused[0]}={getattr(config, refused[0])!r}")
         self.mesh = make_partition_mesh(self.num_parts, device=self.device)
         self.device = dev = self.mesh.device
         self.rank = r = self.mesh.rank
         self._check_partition_fingerprint(pg)
+        f = config.dtype
+        if self.feat_store:
+            entries, self._fs = build_stacked_feat_store(
+                pg, config.hot_frac, config.hot_policy, f, dev, part=r)
+        # the fleet's closed form, as the stacked engine checks it
         check_feat_budget(config.feat_budget_mb, self._feat_peak_bytes(pg),
                           context=f"mode={self.mode}")
         a = partition_arrays(pg, r)
-        f = config.dtype
         idx = lambda k: torch.as_tensor(a[k].astype(np.int64), device=dev)
         flt = lambda k: torch.as_tensor(a[k], dtype=f, device=dev)
-        self.shards = {"features": flt("features"), "send_idx": idx("send_idx"),
+        self.shards = {"send_idx": idx("send_idx"),
                        "send_mask": flt("send_mask"), "recv_pos": idx("recv_pos"),
                        "edge_src": idx("edge_src"), "edge_dst": idx("edge_dst"),
                        "edge_mask": flt("edge_mask")}
+        if self.feat_store:
+            self.shards.update(entries)
+            self._cold_host = host_staging(self._fs.cold, dev)
+        else:
+            self.shards["features"] = flt("features")
         if config.use_kernel_agg:
             # the partition's slots of the stacked structure, with plans of
             # their own (each launch bitwise its rows of the stacked one)
@@ -494,17 +514,16 @@ class SPMDEngine:
             return losses
         return all_gather([losses], self.mesh)[0].T
 
-    def _phase1_mesh(self, pparams, popt, batches: dict, global_params,
-                     budgets):
+    def _phase1_mesh(self, pparams, popt, global_params, budgets,
+                     iters: int, rank_batches):
         """Phase 1 on the mesh: the rank trains its own row of ``pparams``
         (no cross-rank traffic) with the stacked phase-1 step over a
-        partition axis of 1, while the iteration is below its budget; then
-        ONE all_gather brings every rank's params, optimizer state and
-        losses back into the per-partition form, written into ``pparams``
-        in place."""
+        partition axis of 1 on the ``iters`` batches ``rank_batches()``
+        yields (its ``(1, ...)`` rows, made inside the timed run), while
+        the iteration is below its budget; then ONE all_gather brings every
+        rank's params, optimizer state and losses back into the
+        per-partition form, written into ``pparams`` in place."""
         r = self.rank
-        rows = {k: v[:, None] for k, v in self._rank_rows(batches).items()}
-        iters = next(iter(rows.values())).shape[0]
         bud = self._as_budgets(budgets, iters)[r:r + 1]
         step = make_personalize_step(self.loss_fn, self.optimizer, self.hp)
 
@@ -514,9 +533,8 @@ class SPMDEngine:
                          mu=[m[r:r + 1] for m in popt.mu],
                          nu=[v[r:r + 1] for v in popt.nu])
             losses = []
-            for i in range(iters):
-                p, o, l = step(p, o, {k: v[i] for k, v in rows.items()},
-                               global_params, i < bud)
+            for i, batch in enumerate(rank_batches()):
+                p, o, l = step(p, o, batch, global_params, i < bud)
                 losses.append(l)
             return p, o, torch.stack(losses)
 
@@ -539,7 +557,7 @@ class SPMDEngine:
         preds)``: ``((P,), (P, maxN))`` on every rank."""
         if params.num_parts is not None:
             params = partition_slice(params, self.rank)
-        preds = torch.argmax(self.fwd(params, self.shards), dim=-1)
+        preds = torch.argmax(self.fwd(params, self._featurized()), dim=-1)
         lab = torch.where(self.masks[split], self.labels, -1)
         micro = f1_scores_torch(preds, lab, self.num_classes)[0]
         micro, preds = all_gather([micro, preds], self.mesh)
@@ -547,12 +565,14 @@ class SPMDEngine:
 
     def _export_mesh(self, params) -> dict:
         """The export forward of this rank's partition, then ONE all_gather
-        into the stacked handoff's ``(P, ...)`` layout."""
+        into the stacked handoff's ``(P, ...)`` layout.  Under the feature
+        store the plane is assembled from both tiers, the cold one copied
+        as a handoff, not counted in ``cold_h2d_bytes``."""
         fwd_e = make_shard_forward(self.model, self._fwd_meta, self.mesh,
                                    agg=self._mean_agg,
                                    ring_chunks=self.config.ring_chunks,
                                    export=True)
-        out = fwd_e(params, self.shards)
+        out = fwd_e(params, self._featurized(counted=False))
         L = len(out["layers"])
         every = all_gather([*out["layers"], out["logits"],
                             *(out["cache"][f"h{i}"] for i in range(L))],
@@ -566,40 +586,52 @@ class SPMDEngine:
         b = numpy_dtype(self.config.dtype).itemsize
         if not self.feat_store:
             return feat_peak_bytes(self.num_parts, pg.max_nodes, d, b)
+        # the store's tiers are (P, H, D) stacked, (H, D) on a mesh rank
         return feat_peak_bytes(
             self.num_parts, pg.max_nodes, d, b,
-            hot_rows=self._fs.hot.shape[1], cold_rows=self._fs.cold.shape[1],
+            hot_rows=self._fs.hot.shape[-2], cold_rows=self._fs.cold.shape[-2],
             groups=self.config.feat_groups)
 
-    def _stage(self, host: torch.Tensor) -> torch.Tensor:
+    def _stage(self, host: torch.Tensor, fleet: bool = False) -> torch.Tensor:
         """``host`` (a cold tier, pinned on a CUDA engine) copied to the
         device with a non-blocking copy on the current stream, its bytes
-        counted in ``cold_h2d_bytes`` as the copy is issued."""
-        self.cold_h2d_bytes += host.numel() * host.element_size()
+        counted in ``cold_h2d_bytes`` as the copy is issued.  ``fleet``
+        marks a per-partition tier: on the mesh every rank stages its own,
+        so the count is the fleet's, P times the rank's bytes (every
+        partition's tier has the same shape)."""
+        n = host.numel() * host.element_size()
+        if fleet and self.mesh is not None:
+            n *= self.num_parts
+        self.cold_h2d_bytes += n
         return host.to(self.device, non_blocking=True)
 
-    def _featurized(self) -> dict:
+    def _featurized(self, counted: bool = True) -> dict:
         """The shards a forward reads: ``self.shards`` all-resident; under
         the store, the same tensors with the ``features`` plane assembled
         from the hot tier and the cold tier staged now (bitwise the resident
-        plane, graph/featstore.py's invariant)."""
+        plane, graph/featstore.py's invariant), counted in
+        ``cold_h2d_bytes`` unless ``counted`` is False."""
         if not self.feat_store:
             return self.shards
+        cold = (self._stage(self._cold_host, fleet=True) if counted
+                else self._cold_host.to(self.device))
         s = {k: v for k, v in self.shards.items() if not k.startswith("fs_")}
         s["features"] = assemble_features(
-            self.shards["fs_hot"], self.shards["fs_rows_hot"],
-            self._stage(self._cold_host), self.shards["fs_rows_cold"],
-            self.max_nodes)
+            self.shards["fs_hot"], self.shards["fs_rows_hot"], cold,
+            self.shards["fs_rows_cold"], self.max_nodes)
         return s
 
-    def _batcher(self, ds, gen: torch.Generator):
+    def _batcher(self, ds, gen: torch.Generator, rows=None):
         """``(nodes, valid) -> batch`` for one epoch call of the device
         sampler ``ds``; under the store its gather table ``[hot | cold]`` is
-        built here, once per call, from its cold tier staged now."""
-        if not self.feat_store:
-            return lambda n, v: ds.make_batch(gen, n, v)
-        table = ds.feature_table(self._stage(ds.cold_host))
-        return lambda n, v: ds.make_batch(gen, n, v, table=table)
+        built here, once per call, from its cold tier staged now (one table
+        for every partition, so counted once, on the mesh too).  ``rows``
+        cuts each batch to a mesh rank's row after the fanouts
+        (:meth:`DeviceEpochSampler.make_batch`)."""
+        kw = {} if rows is None else {"rows": rows}
+        if self.feat_store:
+            kw["table"] = ds.feature_table(self._stage(ds.cold_host))
+        return lambda n, v: ds.make_batch(gen, n, v, **kw)
 
     @property
     def resident_feature_bytes(self) -> int:
@@ -641,15 +673,16 @@ class SPMDEngine:
             losses.append(l)
         return params, opt_state, torch.stack(losses)
 
-    def _generalize_step(self, loss_fn):
+    def _generalize_step(self, loss_fn, gather_sum: bool = False):
         """The phase-0 step of ``grad_compress``: the gradient of the mean
         of the P losses (``none``), or the bucketed or top-k reducer over
         the P per-partition gradients (the top-k step also carries the
         residual); on the mesh, the rank's loss and the gradients'
-        ``pmean``."""
+        ``pmean``, or with ``gather_sum`` (the async epoch) their
+        ``all_gather`` summed in partition order."""
         if self.mesh is not None:
             return make_mesh_generalize_step(loss_fn, self.optimizer,
-                                             self.mesh)
+                                             self.mesh, gather_sum=gather_sum)
         if self.grad_compress == "none":
             return make_generalize_step(loss_fn, self.optimizer)
         reduce = make_grad_reduce_stacked(
@@ -822,8 +855,12 @@ class SPMDEngine:
         through bitwise frozen afterwards.  On the mesh each rank trains
         its own partition (``_phase1_mesh``)."""
         if self.mesh is not None:
+            rows = {k: v[:, None] for k, v in self._rank_rows(batches).items()}
+            iters = next(iter(rows.values())).shape[0]
             pparams, popt, losses, dt = self._phase1_mesh(
-                pparams, popt, batches, global_params, budgets)
+                pparams, popt, global_params, budgets, iters,
+                lambda: ({k: v[i] for k, v in rows.items()}
+                         for i in range(iters)))
             val_micro, _ = self.evaluate(pparams, "val",
                                          per_partition_params=True)
             return pparams, popt, losses, val_micro, dt
@@ -848,10 +885,8 @@ class SPMDEngine:
         """Attach a :class:`~repro_torch.core.sampler.DeviceEpochSampler`;
         required by :meth:`phase0_epoch_async` and
         :meth:`phase1_epoch_async`.  The sampler must be built with the
-        feature store exactly when the engine is.  The mesh has no async
-        epochs yet (ROADMAP item 14)."""
-        if self.mesh is not None:
-            raise mesh_not_ported("the device sampler (async epochs)")
+        feature store exactly when the engine is.  On the mesh every rank
+        attaches the same sampler (all P partitions' state)."""
         if self.feat_store != (getattr(sampler, "cold_host", None)
                                is not None):
             raise ValueError(
@@ -861,8 +896,6 @@ class SPMDEngine:
         self._device_sampler = sampler
 
     def _sampler(self, method: str):
-        if self.mesh is not None:
-            raise mesh_not_ported(method)
         if self._device_sampler is None:
             raise ValueError(f"{method} needs set_device_sampler()")
         return self._device_sampler
@@ -881,17 +914,24 @@ class SPMDEngine:
         through the steps, then the halo cache and the halo residual
         through the validation forward.  Under the feature store the call
         stages the sampler's cold tier once (the batch gathers) and the
-        engine's once (the validation forward)."""
+        engine's once (the validation forward).
+
+        On the mesh the rank draws the whole epoch and both fanouts of
+        every batch, gathers its own row (``rows=rank``), means the
+        gradients as the reference's fused program does (``all_gather``,
+        then a partition-order sum, ``/ P``) and runs the validation
+        forward on its partition; the losses come back ``(I, P)``."""
         ds = self._sampler("phase0_epoch_async")
         if self.config.feat_groups:
             raise ValueError(
                 "feat_groups streams the eval forward on the host; the "
                 "fused async epoch is one device program — run the host-"
                 "batch phase-0 path (async_generalize=False) when streaming")
-        step = self._generalize_step(self.loss_fn)
+        step = self._generalize_step(self.loss_fn, gather_sum=True)
+        rows = None if self.mesh is None else self.rank
 
         def run():
-            batch = self._batcher(ds, gen)
+            batch = self._batcher(ds, gen, rows)
             nodes, valid = ds.draw_epoch(gen)                # (P, I, B)
             batches = (batch(nodes[:, i], valid[:, i])
                        for i in range(ds.num_batches))
@@ -901,7 +941,7 @@ class SPMDEngine:
 
         (params, opt_state, losses, val_micro), dt = self._timed(run)
         self.last_eval_seconds = 0.0
-        return params, opt_state, losses, val_micro, dt
+        return params, opt_state, self._per_partition(losses), val_micro, dt
 
     def phase1_epoch_async(self, pparams, popt, gen: torch.Generator,
                            budgets, global_params):
@@ -914,7 +954,10 @@ class SPMDEngine:
         of two, capped at ``num_batches`` (the reference's rule, which fixes
         the shape of ``losses``, ``(i_run, P)``).  Under the feature store
         the call stages the sampler's cold tier once; the validation
-        ``evaluate`` stages the engine's."""
+        ``evaluate`` stages the engine's.  On the mesh every rank draws the
+        whole epoch and trains its own row over ``i_run`` iterations with
+        its own budget (``_phase1_mesh``: no collective until the epoch's
+        end)."""
         ds = self._sampler("phase1_epoch_async")
         cap = ds.num_batches
         budgets = np.asarray(budgets)
@@ -923,6 +966,20 @@ class SPMDEngine:
         while i_run < min(need, cap):
             i_run *= 2
         i_run = min(i_run, cap)
+        if self.mesh is not None:
+            r = self.rank
+
+            def rank_batches():
+                batch = self._batcher(ds, gen, slice(r, r + 1))
+                nodes, valid = ds.draw_epoch(gen)
+                return (batch(nodes[:, i], valid[:, i]) for i in range(i_run))
+
+            pparams, popt, losses, dt = self._phase1_mesh(
+                pparams, popt, global_params, budgets.astype(np.int32),
+                i_run, rank_batches)
+            val_micro, _ = self.evaluate(pparams, "val",
+                                         per_partition_params=True)
+            return pparams, popt, losses, val_micro, dt
         budgets = torch.as_tensor(budgets.astype(np.int32), device=self.device)
         step = make_personalize_step(self.loss_fn, self.optimizer, self.hp)
 

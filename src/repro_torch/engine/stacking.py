@@ -39,7 +39,7 @@ __all__ = ["StackedBlocks", "build_stacked_vjp_blocks",
 
 
 def build_stacked_feat_store(pg: PartitionedGraph, hot_frac: float,
-                             policy: str, dtype, device
+                             policy: str, dtype, device, part: int | None = None
                              ) -> tuple[dict, PartitionFeatStore]:
     """Stacked device/host split of the feature plane.
 
@@ -49,9 +49,15 @@ def build_stacked_feat_store(pg: PartitionedGraph, hot_frac: float,
     ``fs_rows_hot`` / ``fs_rows_cold`` (P, H) / (P, C) int64 scatter maps;
     ``fs`` is the :class:`PartitionFeatStore`, whose ``cold`` (P, C, D) NumPy
     array is the host staging source (it stays OFF the device: staging it
-    per call is the point of the store).
+    per call is the point of the store).  With ``part``, partition
+    ``part``'s row of both, without the partition axis (what one rank of
+    the partition mesh holds).
     """
     fs = build_partition_feat_store(pg, hot_frac, policy, dtype)
+    if part is not None:
+        fs = PartitionFeatStore(hot=fs.hot[part], rows_hot=fs.rows_hot[part],
+                                cold=fs.cold[part],
+                                rows_cold=fs.rows_cold[part])
     idx = lambda a: torch.as_tensor(a.astype(np.int64), device=device)
     entries = {"fs_hot": torch.as_tensor(fs.hot, device=device),
                "fs_rows_hot": idx(fs.rows_hot),

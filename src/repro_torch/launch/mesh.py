@@ -103,9 +103,10 @@ def make_partition_mesh(num_parts: int, axis_name: str = "parts",
 
 
 def _rank_main(rank, fn, args, world, backend, device, store_path,
-               out_dir, timeout_s):
+               out_dir, timeout_s, reraise=()):
     """One spawned rank: join the group, run ``fn(rank, *args)``, save its
-    result for the parent, leave the group."""
+    result (or its exception of a ``reraise`` type) for the parent, leave
+    the group."""
     dev = torch.device(device)
     if dev.type == "cuda":
         # nccl: a card per rank; gloo: every rank on the named card
@@ -115,7 +116,10 @@ def _rank_main(rank, fn, args, world, backend, device, store_path,
                             world_size=world,
                             timeout=timedelta(seconds=timeout_s))
     try:
-        out = fn(rank, *args)
+        try:
+            out = fn(rank, *args)
+        except reraise as e:
+            out = e                 # handed to the parent as the result
         dist.barrier()
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -126,7 +130,8 @@ def spawn_partition_world(fn, world: int, args: tuple = (), *,
                           backend: str | None = None, device="cuda",
                           workdir: str | None = None,
                           timeout_s: float = GROUP_TIMEOUT_S,
-                          join_timeout_s: float = 900.0) -> list:
+                          join_timeout_s: float = 900.0,
+                          reraise: tuple = ()) -> list:
     """Run ``fn(rank, *args)`` on ``world`` ranks and return their results
     in rank order.
 
@@ -138,19 +143,26 @@ def spawn_partition_world(fn, world: int, args: tuple = (), *,
     ``torch.load`` onto the CPU).  If one rank raises, the others are
     killed and the call raises; if the world has not finished after
     ``join_timeout_s`` seconds, every rank is killed and the call raises
-    ``TimeoutError``."""
+    ``TimeoutError``.  An exception of a ``reraise`` type (e.g. the
+    pipeline's ``InjectedCrash``, which every rank raises at the same
+    epoch boundary) ends its rank cleanly; when every rank ended in one,
+    the call re-raises rank 0's, and when only some did, it raises
+    ``RuntimeError``."""
     import torch.multiprocessing as mp
 
     backend = backend or default_backend(device)
+    reraise = tuple(reraise)
     own_dir = workdir is None
     workdir = workdir or tempfile.mkdtemp(prefix="partition_world_")
+    # the FileStore waits for a directory that does not exist
+    os.makedirs(workdir, exist_ok=True)
     store_path = os.path.join(workdir, "store")
     if os.path.exists(store_path):
         os.remove(store_path)
     try:
         ctx = mp.start_processes(
             _rank_main, args=(fn, args, world, backend, str(device),
-                              store_path, workdir, timeout_s),
+                              store_path, workdir, timeout_s, reraise),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + join_timeout_s
         try:
@@ -164,9 +176,16 @@ def spawn_partition_world(fn, world: int, args: tuple = (), *,
                 if p.is_alive():
                     p.kill()
                     p.join(5)
-        return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+        outs = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                            map_location="cpu", weights_only=False)
                 for r in range(world)]
+        raised = [r for r, o in enumerate(outs) if isinstance(o, reraise)]
+        if len(raised) == world:
+            raise outs[0]
+        if raised:
+            raise RuntimeError(f"ranks {raised} of {world} raised "
+                               f"{outs[raised[0]]!r}; the others returned")
+        return outs
     finally:
         if own_dir:
             shutil.rmtree(workdir, ignore_errors=True)

@@ -30,7 +30,10 @@ mesh: P ranks, one partition each, spawned through
 device count), or joined from the environment when ``torchrun`` set
 ``RANK`` and ``WORLD_SIZE``; ``--backend`` picks ``nccl`` (a card per
 rank, the default on CUDA) or ``gloo`` (the CPU, or every rank on one
-card); ``--engine auto`` spawns the mesh only with a card per partition.  It takes the reference's flags for the
+card); ``--engine auto`` spawns the mesh only with a card per partition; the
+async phases, the feature store and checkpoint/resume run on it as
+stacked (an injected crash in the world ends the CLI as it does stacked).
+It takes the reference's flags for the
 ported options, plus ``--device`` (``cuda`` by default; raises without a
 card unless ``cpu``).  The reference's other flags belong to paths that
 are not ported yet.  ``llm`` (the transformer path) waits
@@ -140,11 +143,15 @@ def run_gnn(args):
     launch = _mesh_launch(args)
     if launch == "spawn":
         from repro_torch.launch.mesh import spawn_partition_world
+        from repro_torch.robustness import InjectedCrash
 
         parts = 1 if args.centralized else args.parts
+        # an injected crash fires on every rank at one boundary: the world
+        # ends in it as one process would
         result = spawn_partition_world(_mesh_rank, parts, (args,),
                                        backend=args.backend,
-                                       device=args.device)[0]
+                                       device=args.device,
+                                       reraise=(InjectedCrash,))[0]
     elif launch == "torchrun":
         result = _run_torchrun(args)
     else:

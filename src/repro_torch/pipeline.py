@@ -11,7 +11,9 @@ with its per-layer halo exchange and the segment-mean kernel.
 ``overlap_halo`` swaps in the split forward.  ``engine_mode="spmd"`` runs
 it on the partition mesh: every rank of a world of P
 (``launch/mesh.py``) calls this function, holds one partition, and
-exchanges halos and gradients through real collectives.  ``halo_cache`` serves the
+exchanges halos and gradients through real collectives; the async
+phases, the feature store and checkpoint/resume run there too (rank 0
+writes the archives, every rank reads them).  ``halo_cache`` serves the
 eval forwards' halo rows from a historical cache refreshed every
 ``halo_refresh_every``-th eval (``halo_cv``: a rotating slot chunk in
 between), ``halo_compress`` quantizes their exchange with error feedback,
@@ -74,7 +76,7 @@ from .core.sampler import (CBSampler, build_device_epoch_sampler,
                            host_draw_count)
 from .device import resolve_device
 from .engine import EngineConfig, make_engine
-from .engine.spmd import mesh_not_ported
+from .engine.compat import barrier
 from .engine.stacking import batches_to_device, stack_epoch_batches
 from .graph import (BENCHMARKS, GraphSAGE, build_partitioned_graph,
                     make_benchmark)
@@ -379,16 +381,6 @@ def _copy_partitions(dst, src, parts) -> None:
         d[idx] = s[idx]
 
 
-def _check_mesh_config(cfg: EATConfig) -> None:
-    """The pipeline options the partition mesh does not run yet."""
-    for name, on in (("async_generalize", cfg.async_generalize),
-                     ("async_personalize", cfg.async_personalize),
-                     ("checkpoint_dir", cfg.checkpoint_dir is not None),
-                     ("resume", cfg.resume)):
-        if on:
-            raise mesh_not_ported(f"{name}={getattr(cfg, name)!r}")
-
-
 def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                     fault_plan: FaultPlan | None = None) -> EATResult:
     """The paper's pipeline.  Inside a ``torch.distributed`` world (the
@@ -448,8 +440,10 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                             hot_policy=cfg.hot_policy,
                             feat_groups=cfg.feat_groups,
                             feat_budget_mb=cfg.feat_budget_mb))
-    if engine.mode == "spmd":
-        _check_mesh_config(cfg)
+    # the partition mesh of this rank (None outside one, and for the
+    # sequential oracle): every rank runs this function; rank 0 alone
+    # writes the checkpoints
+    mesh = getattr(engine, "mesh", None)
     if verbose:
         print(f"engine[{engine.mode}] {pg.summary()}")
 
@@ -588,7 +582,8 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
                                * engine.halo_wire_bytes_per_layer)
 
     # ONE device sampler serves both async phases, staged by the first phase
-    # that needs it
+    # that needs it (on the mesh every rank stages the same sampler, and the
+    # count is the stacked one: the fleet's table counted once)
     async_phase0 = cfg.async_generalize and not cfg.full_graph_train
     dev_sampler = None
     gen = torch.Generator(device=dev)
@@ -621,6 +616,9 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
         return d
 
     # ---------------- checkpoint/resume -------------------------------------
+    # on the mesh every rank reads the directory and rank 0 writes it: the
+    # archive (replicated and gathered arrays, the host blob) is the
+    # stacked run's, its fingerprint's engine "spmd"
     ckpt = (RunCheckpointer(cfg.checkpoint_dir,
                             keep_last=cfg.keep_checkpoints)
             if cfg.checkpoint_dir else None)
@@ -694,6 +692,10 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             if verbose:
                 print(f"[resume] epoch {resumed_from} phase {ctrl.phase} "
                       f"from {cfg.checkpoint_dir}")
+        if mesh is not None:
+            # every rank has read the same newest archive before rank 0
+            # can write (and prune) the next one
+            barrier(mesh)
 
     phase1_state: dict = {}   # live phase-1 state, for checkpoint capture
 
@@ -738,14 +740,19 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             host["host_elapsed"] = [float(x)
                                     for x in phase1_state["host_elapsed"]]
             host["phase1_epochs"] = int(phase1_state["phase1_epochs"])
-        ckpt.save(ctrl.epoch, arrays, host)
+        if mesh is None or mesh.rank == 0:
+            ckpt.save(ctrl.epoch, arrays, host)
 
     def epoch_boundary() -> None:
         """End of one epoch (ctrl already advanced): persist the boundary,
         then let any injected crash fire AFTER the state is durable — the
-        only crash point an epoch-granular checkpointer can replay."""
+        only crash point an epoch-granular checkpointer can replay.  On the
+        mesh every rank waits after rank 0's save, so no rank crashes
+        ahead of a durable archive."""
         if ckpt is not None and ctrl.epoch % max(1, cfg.checkpoint_every) == 0:
             save_checkpoint()
+            if mesh is not None:
+                barrier(mesh)
         if fault_plan is not None and fault_plan.crash_at(ctrl.epoch):
             raise InjectedCrash(ctrl.epoch)
 

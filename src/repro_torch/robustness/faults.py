@@ -41,6 +41,10 @@ class InjectedCrash(RuntimeError):
         super().__init__(f"injected crash after epoch {epoch}")
         self.epoch = epoch
 
+    def __reduce__(self):
+        # pickled by its epoch (a spawned mesh rank hands it to its parent)
+        return type(self), (self.epoch,)
+
 
 def truncate_file(path: str, keep_fraction: float = 0.5) -> int:
     """Cut ``path`` to the leading fraction of its bytes; returns new size."""

@@ -25,15 +25,18 @@ RINGS = (0, 1, 3)
 EPOCHS = ("phase0", "fullgraph", "phase1")
 
 
+def tiny_parts(g, P: int) -> np.ndarray:
+    """The tiny graph's EW partition (P = 1: one partition)."""
+    if P == 1:
+        return np.zeros(g.num_nodes, np.int64)
+    return partition_graph(g.indptr, g.indices, g.features, g.labels, P,
+                           method="ew", seed=0).parts
+
+
 def tiny_case(P: int):
     """The tiny graph and its EW partition (P = 1: one partition)."""
     g = make_benchmark(BENCHMARKS["tiny"])
-    if P == 1:
-        parts = np.zeros(g.num_nodes, np.int64)
-    else:
-        parts = partition_graph(g.indptr, g.indices, g.features, g.labels, P,
-                                method="ew", seed=0).parts
-    return g, build_partitioned_graph(g, parts, P)
+    return g, build_partitioned_graph(g, tiny_parts(g, P), P)
 
 
 def batches(g, P: int, dtype, iters: int = 3, B: int = 24, f=(4, 3),
@@ -162,24 +165,26 @@ def pipeline_digest(res) -> dict:
             "engine": res.engine_mode, "epochs": res.epochs_run}
 
 
+# the engine options the mesh still refuses (ROADMAP item 14, part 3)
+REFUSED = {"overlap_halo": {"overlap_halo": True},
+           "halo_cache": {"halo_cache": True},
+           "halo_compress": {"halo_compress": "int8"},
+           "grad_compress": {"grad_compress": "bucketed"}}
+
+
 def _refusals(g, pg) -> dict:
-    """The messages of what part 1 of the mesh refuses."""
+    """The messages of what the mesh refuses: the options of item 14's
+    part 3, and ``feat_groups`` (the reference's refusal)."""
     out = {}
-    eng, opt = engine(pg, g, "spmd", torch.float32)
-    for name, fn in (("set_device_sampler", lambda: eng.set_device_sampler(
-            None)), ("phase0_epoch_async", lambda: eng.phase0_epoch_async(
-            None, None, None))):
+    for name, kw in REFUSED.items():
         try:
-            fn()
+            engine(pg, g, "spmd", torch.float32, **kw)
         except NotImplementedError as e:
             out[name] = str(e)
-    for kw in ({"async_generalize": True}, {"async_personalize": True},
-               {"checkpoint_dir": "unused"}, {"resume": True}):
-        name = next(iter(kw))
-        try:
-            run_eat_distgnn(pipeline_config(pg.num_parts, "spmd", **kw))
-        except NotImplementedError as e:
-            out[name] = str(e)
+    try:
+        engine(pg, g, "spmd", torch.float32, feat_store=True, feat_groups=2)
+    except ValueError as e:
+        out["feat_groups"] = str(e)
     return out
 
 

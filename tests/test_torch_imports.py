@@ -45,10 +45,10 @@ for name in ("repro_torch.robustness", "repro_torch.robustness.faults",
 from repro_torch.robustness import FaultPlan, InjectedCrash, RunCheckpointer
 from repro_torch.train.checkpoint import (CheckpointManager, load_pytree,
                                           save_pytree)
-# the partition mesh (ROADMAP item 14, part 1) stands alone too
+# the partition mesh (ROADMAP item 14, parts 1 and 2) stands alone too
 for name in ("repro_torch.engine.compat", "repro_torch.launch.mesh"):
     assert name in mods, (name, mods)
-from repro_torch.engine.compat import all_gather, all_to_all, pmean
+from repro_torch.engine.compat import all_gather, all_to_all, barrier, pmean
 from repro_torch.graph.distributed import make_shard_forward, mesh_exchange
 from repro_torch.launch.mesh import make_partition_mesh, spawn_partition_world
 bad = sorted(m for m in sys.modules
