@@ -27,7 +27,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
               partition's launch of either kernel bitwise its rows of the
               stacked launch, the partition with the most edges timed at
               D=64 and D=128, forward and backward (launched twice,
-              bitwise equal); the overlapped
+              bitwise equal); its row-range use (a mesh rank's overlapped
+              forward): each partition's rows of both split halves with
+              plans of their own, the boundary half at the partition's
+              n_int as a Python int, every launch of either kernel bitwise
+              its rows of the stacked launch, the boundary half of the
+              partition with the most edges timed; the overlapped
               forward's row-range use: the products-s interior and boundary
               split blocks (``build_stacked_split_vjp_blocks``) at D=64 and
               D=128 into own_cap rows, the boundary half at every
@@ -154,7 +159,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
               killed after boundary 1 and a store run after boundary 4,
               each resumed bitwise the uninterrupted run, each async
               epoch call's time beside the stacked one, rank 0's save
-              and load ms.  Then
+              and load ms; and item 14's part 3 on the same worlds
+              (``mesh_part3_checks``): seven cached, compressed and
+              overlapped eval cases bitwise the stacked engine on every
+              rank (logits, the cache and residual by digest, bytes), no
+              collective under a (0, 0) plan (a wrapper counts the
+              ``torch.distributed`` calls), the overlapped full-graph
+              gradients and each reducer's first reduced gradient within
+              rel 1e-6, nine option pipelines against the stacked runs
+              with every byte counter equal (the world of 1 bitwise), the
+              async cache + int8 + top-k run killed after boundary 1 and
+              resumed bitwise, and the options' eval-forward, exchange and
+              reducer-epoch times.  Then
               the async run, ``--async-generalize --async-personalize``
               (both epochs drawn on the card by the device sampler): no
               host draw in either phase, the device draw counter moved, two
@@ -181,10 +197,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
               prefill and 16 decode steps broken down (torch.profiler),
               with the kernel launches and torch's elementwise adds per step
   7. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
-              use, their row-range use and their single-partition use,
-              whose launches include the mesh ranks', flash attention's
-              two designs, both RMSNorm entry points), then the device
-              line last
+              use, their row-range use, their single-partition use, whose
+              launches include the mesh ranks', and their row-range
+              single-partition use, the mesh ranks' overlapped forward;
+              flash attention's two designs, both RMSNorm entry points),
+              then the device line last
 
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -609,6 +626,64 @@ def run_kernel_case(sa, name, x_np, bl_host, num_rows, row_base, mean,
     log("shape " + json.dumps(row))
     record.append(row)
     return row
+
+
+def part_split_cases(torch, sa, pg, bi, bb, rng, flush, record):
+    """The row-range single-partition use of both segment kernels at
+    products-s (see phase 3): returns the boundary half's forward and
+    backward rows at D=64 and D=128."""
+    from repro_torch.engine.stacking import partition_vjp_blocks
+
+    n_int = pg.n_int.astype(np.int64)
+    halves = {"interior": (bi, 0), "boundary": (bb, n_int)}
+    part = {h: [partition_vjp_blocks(b, p) for p in range(4)]
+            for h, (b, _) in halves.items()}
+    p_big = int(np.argmax([(b["mask"] > 0).sum() for b in part["boundary"]]))
+    fwd_rows, bwd_rows = {}, {}
+    for d in (64, 128):
+        x = rng.normal(0, 1, (4, pg.max_nodes, d)).astype(np.float32)
+        gq = rng.normal(0, 1, (4, pg.own_cap, d)).astype(np.float32)
+        xs = torch.as_tensor(x, device="cuda")
+        gs = torch.as_tensor(gq, device="cuda")
+        for half, (bh, rb) in halves.items():
+            bh_dev = sa.blocks_to_device(bh, "cuda")
+            rb_t = (torch.as_tensor(rb, device="cuda")
+                    if isinstance(rb, np.ndarray) else rb)
+            whole = sa.segment_mean_op(xs, bh_dev, num_rows=pg.own_cap,
+                                       row_base=rb_t)
+            whole_t = sa.segment_mean_bwd_op(gs, bh_dev, n_in=pg.max_nodes,
+                                             row_base=rb_t)
+            for p in range(4):
+                one_blk = sa.blocks_to_device(part[half][p], "cuda")
+                rbp = int(rb[p]) if isinstance(rb, np.ndarray) else rb
+                one = sa.segment_mean_op(xs[p], one_blk, num_rows=pg.own_cap,
+                                         row_base=rbp)
+                one_t = sa.segment_mean_bwd_op(gs[p], one_blk,
+                                               n_in=pg.max_nodes,
+                                               row_base=rbp)
+                assert torch.equal(one, whole[p]), (
+                    f"partition {p}'s {half} launch differs from its rows "
+                    f"of the stacked launch at D={d}")
+                assert torch.equal(one_t, whole_t[p]), (
+                    f"partition {p}'s {half} backward launch differs from "
+                    f"its rows of the stacked launch at D={d}")
+        log(f"products-s D={d}: each partition's row-range single-partition "
+            f"launch of both halves, forward and backward, bitwise its rows "
+            f"of the stacked launch; partition {p_big}'s boundary half "
+            f"{part['boundary'][p_big]['src'].shape} at row_base "
+            f"{int(n_int[p_big])}, plan "
+            f"{json.dumps(plan_stats(sa, part['boundary'][p_big]))}")
+        fwd_rows[d] = run_kernel_case(
+            sa, f"products-s partition {p_big} split boundary D={d}",
+            x[p_big], part["boundary"][p_big], pg.own_cap, int(n_int[p_big]),
+            True, "float32", flush=flush, iters=30, record=record,
+            repeat=True)
+        bwd_rows[d] = run_bwd_case(
+            sa, f"bwd products-s partition {p_big} split boundary D={d}",
+            gq[p_big], part["boundary"][p_big], pg.max_nodes,
+            int(n_int[p_big]), True, "float32", flush=flush, iters=30,
+            record=record, repeat=True)
+    return fwd_rows, bwd_rows
 
 
 def stack_vjp_blocks(per_part, sa):
@@ -2445,10 +2520,12 @@ MESH_GRAD_RTOL = 1e-6
 
 
 # the mesh's pipeline runs held against the stacked ones: sampled and
-# full-graph, 4 epochs with phase0_fraction 0.5 (two phase-0 epochs, two
-# of phase 1), a sampled run of 2 phase-0 epochs alone (its final params
-# are phase 0's best), and (item 14 part 2) the async run, one partition
-# at P = 1 but not centralized, so that its phase 1 runs
+# full-graph, 2 epochs with phase0_fraction 0.5 (one phase-0 epoch, one of
+# phase 1: the reference's own schedule for its tolerances; 4 until item
+# 14's part 3 needed the time), a sampled run of 2 phase-0 epochs alone
+# (its final params are phase 0's best), and (item 14 part 2) the async
+# run, one partition at P = 1 but not centralized, so that its phase 1
+# runs
 MESH_ASYNC = {"async_generalize": True, "async_personalize": True}
 MESH_STORE = {"feat_store": True, "hot_frac": 0.5}
 MESH_RUNS = {"sampled": {}, "full-graph": {"full_graph_train": True},
@@ -2463,6 +2540,56 @@ MESH_STORE_RUNS = {
                 None)}
 # the runs killed after a boundary and resumed: run -> boundary
 MESH_RESUMES = {"sampled": 1, "async": 1, "store-5": 4}
+# the mesh checks' model: products-s's 64 features and 24 classes, hidden 128
+MESH_DIMS = (64, 128, 24)
+# item 14 part 3: the communication options' pipeline runs, 4 epochs
+# unless they say otherwise (the overlapped one's launches are the
+# row-range single-partition use), and the one killed after boundary 1 and
+# resumed
+MESH_PART3_RUNS = {
+    "cache-cv": {"halo_cache": True, "halo_refresh_every": 4,
+                 "halo_cv": True},
+    "int8-topk": {"halo_compress": "int8", "grad_compress": "topk"},
+    "fp16-bucketed": {"halo_compress": "fp16", "grad_compress": "bucketed"},
+    "async-cache-int8-topk": {**MESH_ASYNC, "centralized": False,
+                              "halo_cache": True, "halo_refresh_every": 2,
+                              "halo_compress": "int8",
+                              "grad_compress": "topk"},
+    "fullgraph-overlap-bucketed": {"full_graph_train": True,
+                                   "overlap_halo": True,
+                                   "grad_compress": "bucketed"}}
+# phase 0 alone through each reducer (2 epochs, final params phase 0's
+# best), and the codec + reducer runs on the reference's own schedule for
+# its tolerances, one phase-0 and one phase-1 epoch
+# (tests/test_engine_parity.py::run_pair): their params are held to the
+# phase-0 and phase-1 tolerances.  The 4-epoch runs' params are reported:
+# phase 1 restarts AdamW where the prox term's gradient is 0, and a weight
+# whose data gradient is 0 too gets rounding noise normalised to an
+# lr-sized step, so the P gradients' summation order shows in the params
+# (PERF.md §6, PR 24)
+MESH_PART3_RUNS.update({
+    f"phase-0-{r}": {"max_epochs": 2, "phase0_fraction": 1.0,
+                     "grad_compress": r} for r in ("bucketed", "topk")})
+MESH_PART3_RUNS.update({
+    f"{k}-1+1": {**MESH_PART3_RUNS[k], "max_epochs": 2, "centralized": False}
+    for k in ("int8-topk", "fp16-bucketed")})
+MESH_PART3_OVERLAP_RUN = "fullgraph-overlap-bucketed"
+MESH_PART3_RESUME = ("async-cache-int8-topk", 1)
+# the eval checks: engine options, each engine running three eval
+# forwards from the same params (K = 2: plans full, (0, 0), full; K = 3
+# with the cv chunks: full, chunk 0, chunk 1)
+MESH_PART3_EVALS = {
+    "cache-k2-int8": {"halo_cache": True, "halo_refresh_every": 2,
+                      "halo_compress": "int8"},
+    "cache-cv": {"halo_cache": True, "halo_refresh_every": 3,
+                 "halo_cv": True},
+    "cache-cv-fp16-ring2": {"halo_cache": True, "halo_refresh_every": 3,
+                            "halo_cv": True, "halo_compress": "fp16",
+                            "ring_chunks": 2},
+    "int8": {"halo_compress": "int8"},
+    "fp16-ring2": {"halo_compress": "fp16", "ring_chunks": 2},
+    "overlap": {"overlap_halo": True},
+    "overlap-ring2": {"overlap_halo": True, "ring_chunks": 2}}
 
 
 def mesh_run_config(P, mode, name, **kw):
@@ -2475,12 +2602,12 @@ def mesh_run_config(P, mode, name, **kw):
 
 def mesh_config(P, mode, **kw):
     """The pipeline at the default widths (products-s, hidden 128, fanouts
-    (10, 10), batch 256, seed 0), 4 epochs with ``phase0_fraction`` 0.5
+    (10, 10), batch 256, seed 0), 2 epochs with ``phase0_fraction`` 0.5
     unless ``kw`` says otherwise (P = 1: centralized, phase 0 only)."""
     from repro_torch.pipeline import EATConfig
 
     base = dict(dataset="products-s", num_parts=P, hidden_dim=128,
-                max_epochs=4, phase0_fraction=0.5, engine_mode=mode,
+                max_epochs=2, phase0_fraction=0.5, engine_mode=mode,
                 device="cuda", seed=0, centralized=P == 1)
     return EATConfig(**{**base, **kw})
 
@@ -2527,10 +2654,9 @@ def mesh_step_checks(torch, eng, opt, P, epoch=True):
     partitions, which AdamW's first steps amplify, so its params are
     reported and its losses held)."""
     from repro_torch.engine.compat import pmean
-    from repro_torch.engine.stacking import batches_to_device
     from repro_torch.graph import GraphSAGE
 
-    params = GraphSAGE(64, 128, 24).init(1).cuda()
+    params = GraphSAGE(*MESH_DIMS).init(1).cuda()
     out = {"logits": eng.export_serving_state(params)["logits"].cpu()}
     batch = {"shard": eng.shards, "labels": eng.labels,
              "train_mask": eng.masks["train"]}
@@ -2541,23 +2667,34 @@ def mesh_step_checks(torch, eng, opt, P, epoch=True):
     out["grads"] = [x.cpu() for x in grads]
     if not epoch:
         return out
+    p, losses, out["phase0_s"] = random_phase0_epochs(torch, eng, opt, P)
+    out["phase0"] = ([v.detach().cpu() for v in p.parameters()],
+                     losses.cpu())
+    return out
+
+
+def random_phase0_epochs(torch, eng, opt, P, calls=3):
+    """``calls`` sampled phase-0 epochs of 3 iterations on random batches
+    at the main path's widths from seed 5, each from seed-1 params: the
+    last epoch's params and losses, and every epoch's seconds."""
+    from repro_torch.engine.stacking import batches_to_device
+    from repro_torch.graph import GraphSAGE
+
     rng = np.random.default_rng(5)
-    x = lambda *s: rng.normal(0, 1, (3, P, *s, 64)).astype(np.float32)
+    d, _, c = MESH_DIMS
+    x = lambda *s: rng.normal(0, 1, (3, P, *s, d)).astype(np.float32)
     host = {"x_t": x(256), "x_1": x(256, 10), "x_2": x(256, 10, 10),
-            "labels": rng.integers(0, 24, (3, P, 256)).astype(np.int64),
+            "labels": rng.integers(0, c, (3, P, 256)).astype(np.int64),
             "mask": np.ones((3, P, 256), np.float32)}
     if eng.mesh is not None:
         host = eng.rank_batches(host)
     b = batches_to_device(host, "cuda")
     secs = []
-    for _ in range(3):
-        p = GraphSAGE(64, 128, 24).init(1).cuda()
+    for _ in range(calls):
+        p = GraphSAGE(*MESH_DIMS).init(1).cuda()
         p, _, losses, _, dt = eng.phase0_epoch(p, opt.init(p.parameters()), b)
         secs.append(dt)
-    out["phase0"] = ([v.detach().cpu() for v in p.parameters()],
-                     losses.cpu())
-    out["phase0_s"] = secs
-    return out
+    return p, losses, secs
 
 
 def mesh_engine(pg, mode, **kw):
@@ -2565,7 +2702,7 @@ def mesh_engine(pg, mode, **kw):
     from repro_torch.graph import GraphSAGE
     from repro_torch.train.optim import AdamW
 
-    m = GraphSAGE(64, 128, 24)
+    m = GraphSAGE(*MESH_DIMS)
     opt = AdamW(lr=1e-3, grad_clip=5.0)
     return SPMDEngine(m, m.make_loss_fn(), opt, pg, None,
                       EngineConfig(mode=mode, device="cuda", **kw)), opt
@@ -2679,6 +2816,7 @@ def mesh_rank(rank, P, ckdir):
             mesh_exchange(sent, eng.mesh)
         torch.cuda.synchronize()
         out["exchange_ms"][d] = (time.perf_counter() - t0) / 20 * 1e3
+    out["part3"] = mesh_part3_rank(torch, sa, P, ckdir)
     return out
 
 
@@ -2693,6 +2831,7 @@ def mesh_stacked(torch, P):
     out = {"pipelines": {k: mesh_digest(r, eng) for k, r in results.items()}}
     out.update(mesh_step_checks(torch, eng, opt, P))
     out["async_s"] = mesh_async_epoch_s(torch, P, "stacked")
+    out["part3"] = mesh_part3_stacked(torch, P)
     return out
 
 
@@ -2795,24 +2934,386 @@ def mesh_compare(torch, got, want, label, bitwise):
     assert grel <= MESH_GRAD_RTOL, label
 
 
+class CollectiveCount:
+    """Counts the ``torch.distributed`` calls the mesh's collectives
+    (``engine/compat.py``) make while it is entered: it wraps them."""
+
+    NAMES = ("all_to_all_single", "batch_isend_irecv", "all_gather",
+             "all_reduce", "barrier")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.n = 0
+        self._saved = {k: getattr(dist, k) for k in self.NAMES}
+        for k, fn in self._saved.items():
+            def counted(*a, _fn=fn, **kw):
+                self.n += 1
+                return _fn(*a, **kw)
+            setattr(dist, k, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for k, fn in self._saved.items():
+            setattr(dist, k, fn)
+
+
+def digest_tensor(t):
+    """Shape, dtype and SHA-256 of a tensor's bytes: equal digests are
+    equal bits (for state too large to send back whole)."""
+    import hashlib
+
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return tuple(t.shape), str(t.dtype), hashlib.sha256(raw).hexdigest()
+
+
+def digest_state(state):
+    """``digest_tensor`` over a nested state (dicts, tuples, None)."""
+    import torch
+
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: digest_state(v) for k, v in sorted(state.items())}
+    if isinstance(state, (tuple, list)):
+        return [digest_state(v) for v in state]
+    if isinstance(state, torch.Tensor):
+        return digest_tensor(state)
+    return state
+
+
+def mesh_part3_evals(torch, pg, mode):
+    """For each of ``MESH_PART3_EVALS``: three eval forwards from the same
+    seed-1 params, each one's logits (the rank's rows on the mesh), the
+    digests of the cache and residual after it (the stacked layout), its
+    exchange bytes and, on the mesh, the collectives it issued."""
+    from repro_torch.graph import GraphSAGE
+
+    params = GraphSAGE(*MESH_DIMS).init(1).cuda()
+    out = {}
+    for name, kw in MESH_PART3_EVALS.items():
+        eng, _ = mesh_engine(pg, mode, **kw)
+        steps = []
+        for _ in range(3):
+            with torch.no_grad(), CollectiveCount() as cc:
+                logits = eng._eval_forward(params, eng._featurized())
+                torch.cuda.synchronize()
+            cache = eng.halo_cache_state()
+            steps.append({
+                "logits": logits.cpu(), "collectives": cc.n,
+                "cache": digest_state(None if cache is None else cache[0]),
+                "res": digest_state(eng.comm_residual_state()),
+                "bytes": eng.last_halo_exchange_bytes})
+        out[name] = steps
+    return out
+
+
+def mesh_overlap_grads(torch, pg, mode):
+    """One full-graph step's mean gradient through the overlapped forward
+    from seed-1 params (``pmean``'d on the mesh)."""
+    from repro_torch.engine.compat import pmean
+    from repro_torch.graph import GraphSAGE
+
+    eng, _ = mesh_engine(pg, mode, overlap_halo=True)
+    params = GraphSAGE(*MESH_DIMS).init(1).cuda()
+    w = list(params.parameters())
+    loss = eng._fg_loss(params, {"shard": eng.shards, "labels": eng.labels,
+                                 "train_mask": eng.masks["train"]})
+    grads = (torch.autograd.grad(loss.mean(), w) if eng.mesh is None
+             else pmean(torch.autograd.grad(loss, w), eng.mesh))
+    return [g.cpu() for g in grads]
+
+
+def mesh_reducer_grads(torch, pg, P, mode):
+    """For each gradient reducer, the reduced gradient AdamW receives in
+    the first step of a sampled phase-0 epoch on random batches (seed 5)
+    from seed-1 params (the optimizer's ``update`` wrapped to keep it)."""
+    out = {}
+    for reducer in ("none", "bucketed", "topk"):
+        eng, opt = mesh_engine(pg, mode, grad_compress=reducer)
+        seen, update = [], opt.update
+
+        def kept(grads, state, params, _update=update, _seen=seen):
+            _seen.append([g.detach().cpu() for g in grads])
+            return _update(grads, state, params)
+
+        object.__setattr__(opt, "update", kept)
+        random_phase0_epochs(torch, eng, opt, P, calls=1)
+        out[reducer] = seen[0]
+    return out
+
+
+def mesh_part3_times(torch, pg, P, calls=10):
+    """A rank's times (host clock, synchronised, ms a call after one
+    warm-up): the eval forward of each option beside the synchronous one
+    (the cache's full, (0, 0) and cv-chunk plans run directly, without
+    ageing it); one started-and-waited exchange at D=64 and D=128 beside
+    the overlapped forward's interior half on the device (CUDA events);
+    and 3 sampled phase-0 epochs of random batches (the engine's seconds,
+    the slowest rank's) with each gradient reducer."""
+    from repro_torch.engine.compat import exchange_start
+    from repro_torch.graph import GraphSAGE
+    from repro_torch.graph.distributed import make_kernel_split_agg
+
+    params = GraphSAGE(*MESH_DIMS).init(1).cuda()
+
+    def host_ms(fn):
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    out = {"eval_ms": {}}
+    eng, _ = mesh_engine(pg, "spmd")
+    out["eval_ms"]["sync"] = host_ms(lambda: eng.fwd(params, eng.shards))
+    eng, _ = mesh_engine(pg, "spmd", halo_cache=True, halo_refresh_every=4,
+                         halo_cv=True)
+    S = eng.max_send
+    for label, plan in (("cache full", (0, S)), ("cache (0, 0)", (0, 0)),
+                        ("cache cv chunk", (0, S // 3))):
+        fwd = eng._cached_fwd(*plan)
+        out["eval_ms"][label] = host_ms(
+            lambda: fwd(params, eng.shards, eng._halo_state))
+    for codec in ("int8", "fp16"):
+        eng, _ = mesh_engine(pg, "spmd", halo_compress=codec)
+        out["eval_ms"][codec] = host_ms(lambda: eng._fwd_comp(
+            params, eng.shards, eng._halo_residual))
+    eng, _ = mesh_engine(pg, "spmd", overlap_halo=True)
+    out["eval_ms"]["overlap"] = host_ms(lambda: eng.fwd(params, eng.shards))
+    agg_i = make_kernel_split_agg(pg.own_cap)[0]
+    out["exchange_ms"], out["interior_device_ms"] = {}, {}
+    for d in (64, 128):
+        sent = torch.randn(P, pg.send_idx.shape[-1], d, device=eng.device)
+        out["exchange_ms"][d] = host_ms(
+            lambda: exchange_start(sent, eng.mesh).wait())
+        h = torch.randn(pg.max_nodes, d, device=eng.device)
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+        agg_i(h, eng.shards)
+        for a, b in evs:
+            a.record()
+            agg_i(h, eng.shards)
+            b.record()
+        torch.cuda.synchronize()
+        out["interior_device_ms"][d] = float(np.median(
+            [a.elapsed_time(b) for a, b in evs]))
+    out["phase0_s"] = {}
+    for mode in ("none", "bucketed", "topk"):
+        e, opt = mesh_engine(pg, "spmd", grad_compress=mode)
+        out["phase0_s"][mode] = random_phase0_epochs(torch, e, opt, P)[2]
+    return out
+
+
+def mesh_part3_rank(torch, sa, P, ckdir):
+    """Item 14's part 3 on one rank: the pipeline runs of
+    ``MESH_PART3_RUNS`` (the main path: the segment launches counted from
+    0 just before them and read just after, the overlapped run's apart),
+    the resumed run, the eval checks, the overlapped full-graph gradients
+    and the times."""
+    from repro_torch.pipeline import run_eat_distgnn
+    from repro_torch.robustness import FaultPlan, InjectedCrash
+
+    _, pg, _ = mesh_graph(P)
+    eng, _ = mesh_engine(pg, "spmd")
+    out = {"pipelines": {}}
+    t0 = time.perf_counter()
+    counts = {}
+    for name in MESH_PART3_RUNS:
+        sa.reset_kernel_launch_count()
+        res = run_eat_distgnn(mesh_part3_config(P, "spmd", name))
+        torch.cuda.synchronize()
+        counts[name] = (sa.kernel_launch_count(),
+                        sa.bwd_kernel_launch_count())
+        out["pipelines"][name] = mesh_digest(res, eng)
+    name, crash = MESH_PART3_RESUME
+    ck = os.path.join(ckdir, "part3")
+    try:
+        run_eat_distgnn(mesh_part3_config(P, "spmd", name,
+                                          checkpoint_dir=ck),
+                        fault_plan=FaultPlan(crash_epochs=frozenset({crash})))
+        raise AssertionError(f"mesh {name}: no crash at {crash}")
+    except InjectedCrash as e:
+        assert e.epoch == crash, (name, e.epoch)
+    out["resumed"] = mesh_digest(run_eat_distgnn(mesh_part3_config(
+        P, "spmd", name, checkpoint_dir=ck, resume=True)), eng)
+    out["wall"] = time.perf_counter() - t0
+    ov = counts.pop(MESH_PART3_OVERLAP_RUN)
+    out["launches"] = tuple(sum(c[i] for c in counts.values())
+                            for i in (0, 1))
+    out["rows_launches"] = ov
+    out["evals"] = mesh_part3_evals(torch, pg, "spmd")
+    out["fg_grads"] = mesh_overlap_grads(torch, pg, "spmd")
+    out["reducer_grads"] = mesh_reducer_grads(torch, pg, P, "spmd")
+    out["times"] = mesh_part3_times(torch, pg, P)
+    return out
+
+
+def mesh_part3_config(P, mode, name, **kw):
+    """The part-3 run ``name``: 4 epochs unless its entry says otherwise."""
+    return mesh_config(P, mode,
+                       **{"max_epochs": 4, **MESH_PART3_RUNS[name], **kw})
+
+
+def mesh_part3_stacked(torch, P):
+    """The stacked engine's side of item 14's part 3, in this process."""
+    from repro_torch.pipeline import run_eat_distgnn
+
+    _, pg, _ = mesh_graph(P)
+    eng, _ = mesh_engine(pg, "stacked")
+    out = {"pipelines": {k: mesh_digest(run_eat_distgnn(
+        mesh_part3_config(P, "stacked", k)), eng) for k in MESH_PART3_RUNS}}
+    out["evals"] = mesh_part3_evals(torch, pg, "stacked")
+    out["fg_grads"] = mesh_overlap_grads(torch, pg, "stacked")
+    out["reducer_grads"] = mesh_reducer_grads(torch, pg, P, "stacked")
+    return out
+
+
+def mesh_part3_checks(torch, P, outs, want, label, bitwise, card):
+    """Item 14's part 3 within one world (the ranks' ``outs``, the stacked
+    ``want``): every eval bitwise the stacked engine's (each rank's logits
+    its rows of the stacked logits, the cache and residual digests, the
+    exchange bytes) with no collective under a (0, 0) plan; the overlapped
+    full-graph gradients and each reducer's first reduced gradient within
+    rel 1e-6; the pipelines within the spmd tolerances (losses, val
+    micro-F1, test predictions and micro-F1; params where the tolerances
+    are defined, ``MESH_PART3_RUNS``), bitwise in the world of 1, every
+    byte counter equal to the stacked run's; the resumed run bitwise its
+    uninterrupted run; every rank's pipelines equal.  Logs what it found,
+    and the part's times, before it asserts."""
+    got = [o["part3"] for o in outs]
+    evals_bad = []
+    for name, wsteps in want["evals"].items():
+        for r, g in enumerate(got):
+            for i, (gs, ws) in enumerate(zip(g["evals"][name], wsteps,
+                                             strict=True)):
+                empty = name == "cache-k2-int8" and i == 1
+                ok = (torch.equal(gs["logits"], ws["logits"][r])
+                      and gs["cache"] == ws["cache"]
+                      and gs["res"] == ws["res"]
+                      and gs["bytes"] == ws["bytes"]
+                      and (gs["collectives"] == 0 if empty
+                           else P == 1 or gs["collectives"] > 0))
+                if not ok:
+                    evals_bad.append((name, r, i, float(
+                        (gs["logits"] - ws["logits"][r]).abs().max())))
+    rel = lambda a, b: max(float((x - y).abs().max() / y.abs().max())
+                           for x, y in zip(a, b, strict=True))
+    # which runs' params are held, and to what
+    held = {k: MESH_P0_TOL if k.startswith("phase-0") else MESH_P1_TOL
+            for k in want["pipelines"]
+            if k.startswith("phase-0") or k.endswith("-1+1")}
+    grel = rel(got[0]["fg_grads"], want["fg_grads"])
+    rgrel = {k: rel(got[0]["reducer_grads"][k], want["reducer_grads"][k])
+             for k in want["reducer_grads"]}
+    found, ranks_bad = {}, []
+    for k, wp in want["pipelines"].items():
+        gp = got[0]["pipelines"][k]
+        for r, g in enumerate(got):
+            d = g["pipelines"][k]
+            if not (all(torch.equal(a, b) for a, b in
+                        zip(d["params"], gp["params"]))
+                    and d["bytes"] == gp["bytes"]):
+                ranks_bad.append((r, k))
+        n0 = len(gp["iters"])
+        dl = np.abs(gp["loss"] - wp["loss"])
+        pd = [float((a - b).abs().max()) for a, b in
+              zip(gp["params"], wp["params"], strict=True)]
+        worst = int(np.argmax(pd))
+        found[k] = {
+            "iters": gp["iters"] == wp["iters"],
+            "bytes": gp["bytes"] == wp["bytes"],
+            "loss0": float(dl[:n0].max()),
+            "loss1": float(dl[n0:].max()) if dl[n0:].size else 0.0,
+            "params": pd[worst], "params_held": held.get(k),
+            # the tensor with the largest |diff|, and its largest |w|
+            "params_at": (worst, float(wp["params"][worst].abs().max())),
+            "val": float(np.abs(gp["val"] - wp["val"]).max()),
+            "preds_apart": int((gp["test_preds"] != wp["test_preds"]).sum()),
+            "micro": (gp["micro"], wp["micro"])}
+    name, crash = MESH_PART3_RESUME
+    d, base = got[0]["resumed"], got[0]["pipelines"][name]
+    resumed_ok = (d["resumed_from"] == crash
+                  and all(np.array_equal(d[k], base[k]) for k in
+                          ("loss", "val", "micro", "iters", "bytes", "epochs"))
+                  and all(torch.equal(a, b) for a, b in
+                          zip(d["params"], base["params"]))
+                  and torch.equal(d["test_preds"], base["test_preds"]))
+    log(f"mesh {label} part 3: {len(want['evals'])} eval cases x 3 against "
+        f"the stacked engine (logits, cache, residual, bytes; no collective "
+        f"under the (0, 0) plan), mismatches {evals_bad}; overlapped "
+        f"full-graph gradients rel {grel:.3e}; the first reduced gradient "
+        f"of a random-batch phase-0 epoch rel {json.dumps(rgrel)}; "
+        f"pipelines vs stacked {json.dumps(found)}, byte counters "
+        f"{ {k: v['bytes'] for k, v in want['pipelines'].items()} }; ranks "
+        f"apart {ranks_bad}; {name} killed after boundary {crash} and "
+        f"resumed bitwise {resumed_ok}; launches per rank (fwd, bwd): "
+        f"whole-space {[g['launches'] for g in got]}, row-range "
+        f"{[g['rows_launches'] for g in got]}; pipeline wall per rank "
+        f"{[round(g['wall'], 2) for g in got]} s")
+    times = [g["times"] for g in got]
+    slow = lambda key: {k: round(max(t[key][k] for t in times), 3)
+                        for k in times[0][key]}
+    log(f"{card}: mesh {label} part 3 (host clock, synchronised, slowest "
+        f"rank): eval forward ms {json.dumps(slow('eval_ms'))}; one "
+        f"started-and-waited exchange ms {json.dumps(slow('exchange_ms'))} "
+        f"beside the interior half's device ms "
+        f"{json.dumps(slow('interior_device_ms'))}; a 3-iteration phase-0 "
+        f"epoch by reducer ms "
+        f"{ {k: [round(x * 1e3, 2) for x in v] for k, v in times[0]['phase0_s'].items()} }")
+    assert not evals_bad, (label, evals_bad)
+    assert not ranks_bad, (label, ranks_bad)
+    assert resumed_ok, (label, name)
+    limit = 0 if bitwise else MESH_GRAD_RTOL
+    assert grel <= limit, (label, grel)
+    assert all(v <= limit for v in rgrel.values()), (label, rgrel)
+    for k, f in found.items():
+        assert f["iters"] and f["bytes"], (label, k, f)
+        if bitwise:
+            assert (f["loss0"] == f["loss1"] == f["params"] == f["val"]
+                    == f["preds_apart"] == 0), (label, k, f)
+            continue
+        assert f["loss0"] <= MESH_P0_TOL and f["loss1"] <= MESH_P1_TOL, (
+            label, k, f)
+        if k in held:
+            assert f["params"] <= held[k], (label, k, f)
+        assert f["val"] <= MESH_F1_TOL, (label, k, f)
+        assert f["preds_apart"] <= MESH_PRED_MISMATCH, (label, k, f)
+    return (sum(g["launches"][0] for g in got),
+            sum(g["launches"][1] for g in got),
+            sum(g["rows_launches"][0] for g in got),
+            sum(g["rows_launches"][1] for g in got))
+
+
 def mesh_checks(torch, card):
-    """ROADMAP item 14 parts 1 and 2 at products-s, hidden 128, float32,
-    with the kernels: an NCCL world of 1 at P = 1 bitwise the stacked P = 1
-    runs (the async one too), a gloo world of 4 ranks sharing this card
-    within the reference's spmd tolerances of the stacked runs (the
-    export's logits bitwise, a full-graph step's gradients within rel
-    1e-6, ``ring_chunks=2`` bitwise 0), the same on an NCCL world of 4
-    where there are 4 cards; in each world the store runs and the resumes
-    (``mesh_part2_checks``); every rank's result equal to rank 0's.
-    Returns the segment kernels' launches the ranks' runs reported ``(fwd,
-    bwd)``."""
+    """ROADMAP item 14 at products-s, hidden 128, float32, with the
+    kernels: an NCCL world of 1 at P = 1 bitwise the stacked P = 1 runs
+    (the async one too), a gloo world of 4 ranks sharing this card within
+    the reference's spmd tolerances of the stacked runs (the export's
+    logits bitwise, a full-graph step's gradients within rel 1e-6,
+    ``ring_chunks=2`` bitwise 0), the same on an NCCL world of 4 where
+    there are 4 cards; in each world the store runs and the resumes
+    (``mesh_part2_checks``) and the communication options
+    (``mesh_part3_checks``); every rank's result equal to rank 0's.
+    Returns the segment kernels' single-partition launches the ranks' runs
+    reported: ``(fwd, bwd)`` of the whole-space use, then of the
+    row-range use."""
     import shutil
     import tempfile
 
     from repro_torch.launch.mesh import spawn_partition_world
 
     t_mesh = time.perf_counter()
-    launches = [0, 0]
+    # (whole-space fwd, bwd, row-range fwd, bwd) single-partition launches
+    launches = [0, 0, 0, 0]
 
     def world(P, backend):
         t0 = time.perf_counter()
@@ -2858,22 +3359,32 @@ def mesh_checks(torch, card):
             f"{float(np.median(save)):.2f} of {len(save)}, load ms median "
             f"{float(np.median(load)):.2f} of {len(load)}")
 
+    def part3(P, outs, want, label, bitwise):
+        counts = mesh_part3_checks(torch, P, outs, want["part3"], label,
+                                   bitwise, card)
+        for i, n in enumerate(counts):
+            launches[i] += n
+
     w1 = world(1, "nccl")
     s1 = mesh_stacked(torch, 1)
     mesh_compare(torch, w1[0], s1, "nccl world 1", bitwise=True)
     mesh_part2_checks(torch, 1, w1[0], "nccl world 1")
     part2_times("nccl world 1", w1[0], s1)
+    part3(1, w1, s1, "nccl world 1", bitwise=True)
     w4 = world(4, "gloo")
     s4 = mesh_stacked(torch, 4)
     mesh_compare(torch, w4[0], s4, "gloo world 4 on one card", bitwise=False)
     mesh_part2_checks(torch, 4, w4[0], "gloo world 4 on one card")
     part2_times("gloo world 4, 4 processes sharing one card (not a "
                 "multi-card time)", w4[0], s4)
+    part3(4, w4, s4, "gloo world 4, 4 processes sharing one card (not a "
+          "multi-card time)", bitwise=False)
     if torch.cuda.device_count() >= 4:
         n4 = world(4, "nccl")
         mesh_compare(torch, n4[0], s4, "nccl world 4", bitwise=False)
         mesh_part2_checks(torch, 4, n4[0], "nccl world 4")
         part2_times("nccl world 4", n4[0], s4)
+        part3(4, n4, s4, "nccl world 4 (multi-card)", bitwise=False)
     else:
         log(f"mesh nccl world 4: not run, {torch.cuda.device_count()} card")
     log(f"{card}: 4 processes sharing one card through gloo (not a "
@@ -3194,6 +3705,14 @@ def main() -> int:
                     rng.integers(-8, 9, (4, pg.max_nodes, 64)).astype(
                         np.float64), bb, pg.own_cap, n_int, True, "float64",
                     flush=flush, iters=5, record=shapes, repeat=True)
+    # the partition mesh's row-range use (a rank's overlapped forward): each
+    # partition's rows of either half (partition_vjp_blocks: plans of their
+    # own), the boundary half at the partition's n_int as a Python int;
+    # every partition's launch of either kernel bitwise its rows of the
+    # stacked launch, the boundary half of the partition with the most
+    # edges timed against its plain version
+    part_split_rows, part_split_bwd_rows = part_split_cases(
+        torch, sa, pg, bi, bb, rng, flush, shapes)
     # blocks without the work plan, or with the plans of partition 0 alone
     # (kept from before stacking): the CUDA ops raise, naming the builders or
     # the rebuild, and launch nothing
@@ -3376,9 +3895,11 @@ def main() -> int:
     # checkpoint/resume, fault injection and float64 runs (ROADMAP item 12)
     rb_fwd, rb_bwd = robustness_checks(torch, sa, card)
     train_fwd, train_bwd = train_fwd + rb_fwd, train_bwd + rb_bwd
-    # the partition mesh (ROADMAP item 14, part 1): the ranks' pipelines
-    # launch the single-partition use of both kernels
-    mesh_fwd, mesh_bwd = mesh_checks(torch, card)
+    # the partition mesh (ROADMAP item 14): the ranks' pipelines launch the
+    # single-partition use of both kernels, and the overlapped one (part
+    # 3) their row-range single-partition use
+    mesh_fwd, mesh_bwd, mesh_rows_fwd, mesh_rows_bwd = mesh_checks(torch,
+                                                                   card)
     # not part of the main path: the plain aggregation, for comparison
     res_p = run_gnn(train_args("--epochs", "6", "--phase0-frac", "0.5",
                                "--no-kernel-agg"))
@@ -3404,7 +3925,9 @@ def main() -> int:
         f"bwd {train_bwd}; overlapped split forward (row-range use) fwd "
         f"{rows_fwd} bwd {rows_bwd}; single-partition use: streamed eval "
         f"fwd {part_fwd}, partition mesh ranks fwd {mesh_fwd} bwd "
-        f"{mesh_bwd}; llm serving flash {llm_flash} rmsnorm {llm_rms}")
+        f"{mesh_bwd}; row-range single-partition use (the mesh ranks' "
+        f"overlapped forward) fwd {mesh_rows_fwd} bwd {mesh_rows_bwd}; llm "
+        f"serving flash {llm_flash} rmsnorm {llm_rms}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -3424,7 +3947,9 @@ def main() -> int:
         "library_ms": bwd_row["library_ms"]}]
     # the row-range use on the overlapped forward's path: the boundary half
     # at D=128 (per-partition row_base; the interior half is in the log);
-    # the streamed eval's single-partition use at D=128 (D=64 in the log)
+    # the streamed eval's single-partition use at D=128 (D=64 in the log);
+    # the mesh's row-range single-partition use: the boundary half of one
+    # partition at its n_int, D=128
     for name, tpu, rows, key, n in (
             ("segment_mean_fwd_rows", SEGMENT_AGG_ROWS_TPU, split_rows,
              ("boundary", 128), rows_fwd),
@@ -3433,7 +3958,11 @@ def main() -> int:
             ("segment_mean_fwd_partition", SEGMENT_AGG_TPU, part_rows, 128,
              part_fwd + mesh_fwd),
             ("segment_mean_bwd_partition", SEGMENT_AGG_BWD_TPU, part_bwd_rows,
-             128, mesh_bwd)):
+             128, mesh_bwd),
+            ("segment_mean_fwd_rows_partition", SEGMENT_AGG_ROWS_TPU,
+             part_split_rows, 128, mesh_rows_fwd),
+            ("segment_mean_bwd_rows_partition", SEGMENT_AGG_BWD_TPU,
+             part_split_bwd_rows, 128, mesh_rows_bwd)):
         row = rows[key]
         kernels.append({
             "name": name, "route": "cuda",

@@ -27,7 +27,8 @@ pytrees.  A caller that keeps an earlier model takes a copy
 (``engine.sequential.SequentialReference``), which runs it one partition
 at a time.  On the partition mesh (one partition per rank) phase 0 runs
 :func:`make_mesh_generalize_step`, whose gradient mean is a real
-collective, and phase 1 the single-partition step on each rank.
+collective (or one of the per-shard reducers), and phase 1 the
+single-partition step on each rank.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ __all__ = ["GPHyperParams", "GRAD_COMPRESS_MODES", "make_generalize_step",
            "make_personalize_step", "make_personalize_partition_step",
            "broadcast_to_partitions", "grad_topk_size",
            "grad_sync_wire_bytes", "make_bucketed_reduce_stacked",
-           "make_topk_reduce_stacked", "make_grad_reduce_stacked"]
+           "make_topk_reduce_stacked", "make_grad_reduce_stacked",
+           "make_bucketed_reduce_shard", "make_topk_reduce_shard"]
 
 
 @dataclass(frozen=True)
@@ -80,10 +82,12 @@ def make_generalize_step(loss_fn: Callable, optimizer) -> Callable:
 
 
 def make_mesh_generalize_step(loss_fn: Callable, optimizer, mesh,
-                              gather_sum: bool = False) -> Callable:
+                              gather_sum: bool = False, reduce=None,
+                              topk: bool = False, lift=None) -> Callable:
     """Phase-0 step on the partition mesh, the reference's ``shard_map``
-    step: ``(params, opt_state, batch) -> (params, opt_state, loss)`` with
-    ``batch`` this rank's partition and ``loss`` its scalar loss.  Each
+    step: ``(params, opt_state, batch[, residual]) -> (params, opt_state,
+    loss[, residual])`` with ``batch`` this rank's partition and ``loss``
+    its scalar loss.  Each
     rank differentiates its own loss (on the full graph the backward
     crosses the exchange, so every rank's gradient also holds its peers'
     losses through the rows it sent), then averages the gradients over
@@ -93,8 +97,16 @@ def make_mesh_generalize_step(loss_fn: Callable, optimizer, mesh,
     the reference's async spelling (``repro/engine/spmd.py``'s fused
     phase-0 program): ONE ``all_gather`` of every rank's gradients, then a
     sum in partition order, ``/ P`` — data movement and one deterministic
-    reduction, the same on every rank.  Replicated params stay
-    replicated: every rank applies the same update."""
+    reduction, the same on every rank.  ``reduce`` replaces the mean with
+    a per-shard reducer of ``grad_compress``
+    (:func:`make_bucketed_reduce_shard`, or with ``topk``
+    :func:`make_topk_reduce_shard`, whose step also carries the rank's
+    ``(N,)`` residual).  A reducer's step differentiates as the stacked
+    reducer step does, on a partition axis of 1: the loss of a
+    per-partition copy of the weights on ``lift(batch)`` (the rank's batch
+    in the per-partition form), so a world of 1 is bitwise the stacked
+    engine.  Replicated params stay replicated: every rank applies the
+    same update."""
     from ...engine.compat import all_gather, pmean
 
     def mean(grads):
@@ -108,12 +120,25 @@ def make_mesh_generalize_step(loss_fn: Callable, optimizer, mesh,
             out.append(total / mesh.world)
         return out
 
-    def step(params, opt_state, batch):
+    def step(params, opt_state, batch, residual=None):
         weights = list(params.parameters())
-        loss = loss_fn(params, batch)
-        grads = mean(torch.autograd.grad(loss, weights))
+        if reduce is None:
+            loss = loss_fn(params, batch)
+            grads = mean(torch.autograd.grad(loss, weights))
+        else:
+            per_part = broadcast_to_partitions(params, 1)
+            losses = loss_fn(per_part, lift(batch))
+            grads = [g[0] for g in torch.autograd.grad(
+                losses.sum(), list(per_part.parameters()))]
+            loss = losses.reshape(())
+            if topk:
+                grads, residual = reduce(grads, residual)
+            else:
+                grads = reduce(grads)
         updates, opt_state = optimizer.update(grads, opt_state, weights)
         _assign(params, apply_updates([w.detach() for w in weights], updates))
+        if topk:
+            return params, opt_state, loss.detach(), residual
         return params, opt_state, loss.detach()
 
     return step
@@ -215,11 +240,11 @@ def make_personalize_partition_step(loss_fn: Callable, optimizer,
 # ---------------------------------------------------------------------------
 # compressed phase-0 gradient reduction
 #
-# The stacked forms of the reference's reducers: each takes the (P, ...)
-# per-partition gradients in ``parameters()`` order and returns the mean
-# gradient in one partition's shapes.  On one card there is no collective,
-# so the reference's shard forms (bucketed psum, top-k all_gather) wait for
-# the mesh mode.
+# The stacked forms of the reference's reducers take the (P, ...)
+# per-partition gradients in ``parameters()`` order and return the mean
+# gradient in one partition's shapes; the shard forms (the partition mesh:
+# a bucketed psum, a top-k all_gather) take one rank's gradients and run
+# the collectives.
 # ---------------------------------------------------------------------------
 
 GRAD_COMPRESS_MODES = ("none", "bucketed", "topk")
@@ -297,6 +322,55 @@ def make_bucketed_reduce_stacked(num_parts: int, bucket_bytes: int):
                                                flat.element_size())]
         total = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
         return unravel(total / num_parts)
+
+    return reduce
+
+
+def _flat(grads):
+    """One partition's gradients in ``parameters()`` order -> ``((N,) flat
+    vector, unravel)``, ``ravel_pytree``'s layout (:func:`_flat_stacked`
+    without the partition axis)."""
+    flat, unravel = _flat_stacked([g[None] for g in grads])
+    return flat[0], unravel
+
+
+def make_bucketed_reduce_shard(num_parts: int, mesh, bucket_bytes: int):
+    """Per-shard bucketed all-reduce on the partition mesh: the rank's
+    gradients flattened once, ONE ``psum`` per :func:`_bucket_slices`
+    slice (the buckets a ring all-reduce can schedule one by one), then
+    ``/ P``.  Elementwise the stacked bucketed mean, summed in the
+    collective's order."""
+    from ...engine.compat import psum
+
+    def reduce(grads):
+        flat, unravel = _flat(grads)
+        chunks = [psum(flat[lo:hi], mesh)
+                  for lo, hi in _bucket_slices(flat.shape[0], bucket_bytes,
+                                               flat.element_size())]
+        total = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        return unravel(total / num_parts)
+
+    return reduce
+
+
+def make_topk_reduce_shard(num_parts: int, mesh, topk_frac: float):
+    """Per-shard top-k reducer with error feedback on the partition mesh:
+    ``reduce(grads, residual) -> (mean grads, new residual)``, ``residual``
+    the rank's ``(N,)`` error.  The rank keeps its k largest
+    error-compensated entries (:func:`_topk_sent`), ONE ``all_gather``
+    brings every rank's ``(N,)`` vector, and the ``(P, N)`` stack is summed
+    in partition order, ``/ P``: the stacked reducer's sum over the same
+    rows."""
+    from ...engine.compat import all_gather
+
+    def reduce(grads, residual):
+        flat, unravel = _flat(grads)
+        k = grad_topk_size(flat.shape[0], topk_frac)
+        g_ef = flat + residual.to(flat.dtype)
+        sent = _topk_sent(g_ef, k)
+        new_res = (g_ef - sent).to(residual.dtype)
+        every = all_gather([sent], mesh)[0]                # (P, N)
+        return unravel(every.sum(dim=0) / num_parts), new_res
 
     return reduce
 

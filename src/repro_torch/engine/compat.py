@@ -17,6 +17,10 @@ calls inside ``shard_map``:
                       ``(P * maxS, D)`` view
   :func:`ring_exchange`  the reference's chunked ``ppermute`` ring: P - 1
                       steps of ``batch_isend_irecv``
+  :func:`exchange_start`  either schedule started and returned unwaited,
+                      as a :class:`PendingExchange` (the overlapped
+                      forward's exchange, which XLA's async collectives
+                      start early in the reference)
   :func:`barrier`     no ``lax`` counterpart (one program has no ranks to
                       wait for): every rank waits until all have arrived,
                       which the pipeline's checkpoints need
@@ -31,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["pmean", "psum", "all_gather", "all_to_all", "ring_exchange",
-           "exchange", "barrier"]
+           "exchange", "exchange_start", "PendingExchange", "barrier"]
 
 
 def _to_wire(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -102,28 +106,21 @@ def all_gather(tensors, mesh) -> list[torch.Tensor]:
 def all_to_all(sent: torch.Tensor, mesh) -> torch.Tensor:
     """``sent[q]`` (this rank's rows for rank q, ``(P, ...)``) to rank q:
     returns ``recv`` with ``recv[q]`` = the rows rank q sent here."""
-    w = _to_wire(sent, mesh)
-    recv = _empty_wire(w.shape, w.dtype, mesh)
-    p = w.shape[0]
-    dist.all_to_all_single(recv.view(p, -1), w.view(p, -1),
-                           group=mesh.group)
-    return _from_wire(recv, mesh)
+    return exchange_start(sent, mesh).wait()
 
 
-def ring_exchange(sent: torch.Tensor, mesh, chunks: int) -> torch.Tensor:
-    """:func:`all_to_all` as the reference's ring (its ``_exchange`` with
-    ``ring_chunks >= 1``): the self block is copied in place, then in step
-    k = 1 .. P-1 rank p sends its block for (p + k) mod P to that rank and
-    receives (p - k) mod P's block for it, the payload split along the slot
-    axis into ``min(chunks, maxS)`` pieces, each its own send.  Pure data
-    movement, so ``recv`` is bitwise :func:`all_to_all`'s."""
-    w = _to_wire(sent, mesh)
+def _ring_steps(w: torch.Tensor, recv: torch.Tensor, mesh,
+                chunks: int) -> list:
+    """The ring's point-to-point ops, one list per step k = 1 .. P-1 (rank
+    p sends its block for (p + k) mod P there and receives (p - k) mod P's
+    block, split along the slot axis into ``min(chunks, maxS)`` pieces);
+    copies the self block in place first."""
     P, S = w.shape[0], w.shape[1]
     p = mesh.rank
     nc = max(1, min(int(chunks), S))
     bounds = [round(c * S / nc) for c in range(nc + 1)]
-    recv = _empty_wire(w.shape, w.dtype, mesh)
     recv[p].copy_(w[p])
+    steps = []
     for k in range(1, P):
         dst, src = (p + k) % P, (p - k) % P
         ops = []
@@ -132,6 +129,19 @@ def ring_exchange(sent: torch.Tensor, mesh, chunks: int) -> torch.Tensor:
                                   group=mesh.group))
             ops.append(dist.P2POp(dist.irecv, recv[src, lo:hi], src,
                                   group=mesh.group))
+        steps.append(ops)
+    return steps
+
+
+def ring_exchange(sent: torch.Tensor, mesh, chunks: int) -> torch.Tensor:
+    """:func:`all_to_all` as the reference's ring (its ``_exchange`` with
+    ``ring_chunks >= 1``): the self block is copied in place, then the
+    P - 1 steps of :func:`_ring_steps` run one after the other, each its
+    own ``batch_isend_irecv``.  Pure data movement, so ``recv`` is bitwise
+    :func:`all_to_all`'s."""
+    w = _to_wire(sent, mesh)
+    recv = _empty_wire(w.shape, w.dtype, mesh)
+    for ops in _ring_steps(w, recv, mesh, chunks):
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return _from_wire(recv, mesh)
@@ -144,6 +154,45 @@ def exchange(sent: torch.Tensor, mesh, ring_chunks: int = 0) -> torch.Tensor:
     if ring_chunks <= 0:
         return all_to_all(sent, mesh)
     return ring_exchange(sent, mesh, ring_chunks)
+
+
+class PendingExchange:
+    """An exchange in flight: it holds the wire buffers (the send block,
+    and the recv block the collective writes) until :meth:`wait`, which
+    waits for every request and returns ``recv`` on the mesh's device.
+    Nothing may read ``recv`` before that: under NCCL the wait orders the
+    collective's stream before the current one, and under gloo on a card
+    the copy back to the card is issued only after it."""
+
+    def __init__(self, works, wire, recv, mesh):
+        self._works, self._wire, self._recv = works, wire, recv
+        self._mesh = mesh
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        recv, self._works, self._wire = self._recv, (), None
+        return _from_wire(recv, self._mesh)
+
+
+def exchange_start(sent: torch.Tensor, mesh,
+                   ring_chunks: int = 0) -> PendingExchange:
+    """:func:`exchange` started and not waited on: the all_to_all with
+    ``async_op=True``, or every step of the ring posted at once as one
+    ``batch_isend_irecv`` whose requests come back unwaited.  The bytes
+    delivered are :func:`exchange`'s.  Under gloo on a card the send block
+    is copied to pinned host memory before the call returns."""
+    w = _to_wire(sent, mesh)
+    recv = _empty_wire(w.shape, w.dtype, mesh)
+    if ring_chunks <= 0:
+        P = w.shape[0]
+        works = [dist.all_to_all_single(recv.view(P, -1), w.view(P, -1),
+                                        group=mesh.group, async_op=True)]
+    else:
+        ops = [op for step in _ring_steps(w, recv, mesh, ring_chunks)
+               for op in step]
+        works = dist.batch_isend_irecv(ops) if ops else []
+    return PendingExchange(works, w, recv, mesh)
 
 
 def barrier(mesh) -> None:

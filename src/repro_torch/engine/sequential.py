@@ -634,6 +634,23 @@ class SequentialReference:
                                          device=w0.device)
         return self._grad_res
 
+    def comm_state_like(self, params) -> dict:
+        """The ``halo``, ``halo_res`` and ``grad_res`` state a resume loads
+        its checkpoint entries into (mirrors SPMDEngine)."""
+        out = {}
+        if self.halo_cache:
+            out["halo"] = self._halo_state
+        if self.halo_compress != "none":
+            out["halo_res"] = self._halo_residual
+        if self.grad_compress == "topk":
+            n = sum(w.numel() for w in params.parameters())
+            w0 = next(params.parameters())
+            out["grad_res"] = (self._grad_res if self._grad_res is not None
+                               else torch.zeros((self.num_parts, n),
+                                                dtype=w0.dtype,
+                                                device=w0.device))
+        return out
+
     def comm_residual_state(self):
         """``(halo_residual, grad_residual)`` for checkpointing; each entry
         None when the matching compression is off (or, for top-k, before

@@ -44,10 +44,16 @@ the gradients as the reference's fused program does (``all_gather``, then
 a partition-order sum), and phase 1 trains each rank's row with no
 collective until the epoch's end.  Under the feature store a rank holds
 its partition's hot tier and stages its own cold rows; the byte counters
-report the fleet's (the stacked engine's) values.  ROADMAP item 14's part
-3 is still to come: ``overlap_halo``, ``halo_cache``, ``halo_compress``
-and ``grad_compress`` raise ``NotImplementedError`` naming item 14 under
-that mode.
+report the fleet's (the stacked engine's) values.  The communication
+options run there as well: the rank's rows of the halo cache and of the
+halo residual ride through its eval forwards (the refresh plan, a
+function of host state every rank holds, is the same on every rank, and
+a ``(0, 0)`` plan runs no collective), the quantized payload and its
+int8 scales cross the ranks as two collectives, the overlapped forward
+starts its exchange before the interior half and waits for it before
+landing, and phase 0 reduces through the per-shard bucketed ``psum`` or
+top-k ``all_gather`` with the rank's ``(N,)`` residual.  Their
+checkpoint surface gives and takes the stacked layout.
 
 Epoch methods return a trailing ``device_seconds``: host wall time of the
 TRAIN steps, ended by ``torch.cuda.synchronize()`` on the card.  The
@@ -67,11 +73,13 @@ import numpy as np
 import torch
 
 from ..core.gp.trainer import (GPHyperParams, GRAD_COMPRESS_MODES,
+                               make_bucketed_reduce_shard,
                                make_fullgraph_loss_fn, make_generalize_step,
                                make_grad_reduce_stacked,
                                make_mesh_generalize_step,
                                make_personalize_step,
-                               make_reduce_generalize_step)
+                               make_reduce_generalize_step,
+                               make_topk_reduce_shard)
 from ..device import resolve_device
 from ..graph.distributed import (HALO_COMPRESS_MODES, PartitionedGraph,
                                  halo_refresh_plan, make_cached_forward,
@@ -79,6 +87,7 @@ from ..graph.distributed import (HALO_COMPRESS_MODES, PartitionedGraph,
                                  make_export_forward, make_kernel_mean_agg,
                                  make_kernel_split_agg, make_overlap_forward,
                                  make_ref_mean_agg, make_ref_shard_mean_agg,
+                                 make_ref_shard_split_agg,
                                  make_ref_split_agg, make_shard_forward,
                                  wire_row_bytes)
 from ..graph.featstore import (assemble_features, check_feat_budget,
@@ -152,22 +161,6 @@ class EngineConfig:
     # build a configuration whose closed-form peak device feature bytes
     # exceed it (FeatureBudgetError)
     feat_budget_mb: float = 0.0
-
-
-# the options whose mesh spelling is part 3 of ROADMAP item 14
-def _mesh_unported_options(config: EngineConfig) -> list[str]:
-    return [name for name, on in (
-        ("overlap_halo", config.overlap_halo),
-        ("halo_cache", config.halo_cache),
-        ("halo_compress", config.halo_compress != "none"),
-        ("grad_compress", config.grad_compress != "none")) if on]
-
-
-def mesh_not_ported(what: str) -> NotImplementedError:
-    """The refusal of an option the partition mesh does not run yet."""
-    return NotImplementedError(
-        f"{what} on the partition mesh (mode='spmd') is not ported yet "
-        "(ROADMAP item 14); use mode='stacked'")
 
 
 def _resolve_mode(config: EngineConfig, num_parts: int,
@@ -327,8 +320,32 @@ class SPMDEngine:
         self.mesh = None
         if self.mode == "spmd":
             self._build_mesh(pg)
-            return
+        else:
+            self._build_stacked(pg)
+        # the halo exchange's error-feedback residual (on the mesh, the
+        # rank's row)
+        if self.halo_compress != "none":
+            self._halo_residual = self._as_state(self._rank_row(
+                build_stacked_halo_residual(pg, model.layer_input_dims)))
+        # the historical halo cache: its age counts eval forwards, and the
+        # refresh plan is a host-side function of the age
+        if self.halo_cache:
+            self.max_send = pg.send_idx.shape[-1]
+            # real (unpadded) rows per send-slot index, for the refreshed-
+            # payload accounting; their sum is the graph's halo rows
+            self._halo_slot_counts = np.asarray(pg.send_mask).sum(axis=(0, 1))
+            self._halo_byte_per_slot = wire_row_bytes(
+                pg.features.shape[-1], config.halo_compress,
+                pg.features.dtype.itemsize)
+            self._halo_state = self._as_state(self._rank_row(
+                build_stacked_halo_cache(pg, model.layer_input_dims)))
+            self._halo_age = 0
+            self._cached_fwds: dict = {}
 
+    def _build_stacked(self, pg: PartitionedGraph) -> None:
+        """Every partition's arrays stacked on the engine's device, with
+        the forwards of the configuration over them."""
+        config, model = self.config, self.model
         f, dev = config.dtype, self.device
         idx = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
         flt = lambda a: torch.as_tensor(np.asarray(a), dtype=f, device=dev)
@@ -391,24 +408,6 @@ class SPMDEngine:
         self.masks = {k: torch.as_tensor(getattr(pg, f"{k}_mask"), device=dev)
                       for k in ("train", "val", "test")}
         self._fg_loss = make_fullgraph_loss_fn(self.fwd, loss=config.fg_loss)
-        # the halo exchange's error-feedback residual
-        if self.halo_compress != "none":
-            self._halo_residual = self._as_state(build_stacked_halo_residual(
-                pg, model.layer_input_dims))
-        # the historical halo cache: its age counts eval forwards, and the
-        # refresh plan is a host-side function of the age
-        if self.halo_cache:
-            self.max_send = pg.send_idx.shape[-1]
-            # real (unpadded) rows per send-slot index, for the refreshed-
-            # payload accounting; their sum is the graph's halo rows
-            self._halo_slot_counts = np.asarray(pg.send_mask).sum(axis=(0, 1))
-            self._halo_byte_per_slot = wire_row_bytes(
-                pg.features.shape[-1], config.halo_compress,
-                pg.features.dtype.itemsize)
-            self._halo_state = self._as_state(build_stacked_halo_cache(
-                pg, model.layer_input_dims))
-            self._halo_age = 0
-            self._cached_fwds: dict = {}
         if config.feat_groups:
             from .streaming import StreamedEvaluator
             self._streamer = StreamedEvaluator(
@@ -416,19 +415,17 @@ class SPMDEngine:
 
     # ------------------------------------------------- the partition mesh
     def _build_mesh(self, pg: PartitionedGraph) -> None:
-        """This rank's engine on the partition mesh: the options still to
-        port refused, the mesh of the initialized world (``ValueError``
-        outside one of P ranks), the partition checked against every
-        rank's, and only partition ``rank``'s arrays on the rank's device,
-        with its own forward and transpose blocks for the segment kernels.
-        Under the feature store the rank holds its row of the stacked
-        store: the hot tier and scatter maps on the device, its ``(C, D)``
-        cold tier on the host (pinned on a CUDA engine)."""
-        config = self.config
-        refused = _mesh_unported_options(config)
-        if refused:
-            raise mesh_not_ported(
-                f"{refused[0]}={getattr(config, refused[0])!r}")
+        """This rank's engine on the partition mesh: the mesh of the
+        initialized world (``ValueError`` outside one of P ranks), the
+        partition checked against every rank's, and only partition
+        ``rank``'s arrays on the rank's device, with its own forward and
+        transpose blocks for the segment kernels (under ``overlap_halo``
+        its rows of both split halves, each with a plan of its own, and its
+        ``n_int`` as a Python int).  Under the feature store the rank holds
+        its row of the stacked store: the hot tier and scatter maps on the
+        device, its ``(C, D)`` cold tier on the host (pinned on a CUDA
+        engine)."""
+        config, model = self.config, self.model
         self.mesh = make_partition_mesh(self.num_parts, device=self.device)
         self.device = dev = self.mesh.device
         self.rank = r = self.mesh.rank
@@ -441,32 +438,79 @@ class SPMDEngine:
         check_feat_budget(config.feat_budget_mb, self._feat_peak_bytes(pg),
                           context=f"mode={self.mode}")
         a = partition_arrays(pg, r)
-        idx = lambda k: torch.as_tensor(a[k].astype(np.int64), device=dev)
-        flt = lambda k: torch.as_tensor(a[k], dtype=f, device=dev)
-        self.shards = {"send_idx": idx("send_idx"),
-                       "send_mask": flt("send_mask"), "recv_pos": idx("recv_pos"),
-                       "edge_src": idx("edge_src"), "edge_dst": idx("edge_dst"),
-                       "edge_mask": flt("edge_mask")}
+        idx = lambda v: torch.as_tensor(np.asarray(v).astype(np.int64),
+                                        device=dev)
+        flt = lambda v: torch.as_tensor(np.asarray(v), dtype=f, device=dev)
+        self.shards = {"send_idx": idx(a["send_idx"]),
+                       "send_mask": flt(a["send_mask"]),
+                       "recv_pos": idx(a["recv_pos"])}
         if self.feat_store:
             self.shards.update(entries)
             self._cold_host = host_staging(self._fs.cold, dev)
         else:
-            self.shards["features"] = flt("features")
-        if config.use_kernel_agg:
-            # the partition's slots of the stacked structure, with plans of
-            # their own (each launch bitwise its rows of the stacked one)
-            self.shards["blk"] = blocks_to_device(
-                partition_vjp_blocks(build_stacked_vjp_blocks(pg), r), dev)
-            self._mean_agg = make_kernel_mean_agg(pg.max_nodes)
+            self.shards["features"] = flt(a["features"])
+        meta, mesh, ring = self._fwd_meta, self.mesh, config.ring_chunks
+        if config.overlap_halo:
+            self.shards["n_int"] = int(pg.n_int[r])
+            if config.use_kernel_agg:
+                # the partition's rows of each half, with plans of their own
+                bi, bb = build_stacked_split_vjp_blocks(pg)
+                self.shards["blk_int"] = blocks_to_device(
+                    partition_vjp_blocks(bi, r), dev)
+                self.shards["blk_bnd"] = blocks_to_device(
+                    partition_vjp_blocks(bb, r), dev)
+                aggs = make_kernel_split_agg(pg.own_cap)
+            else:
+                self.shards.update({
+                    k: idx(getattr(pg, k)[r])
+                    for k in ("int_src", "int_dst", "bnd_src", "bnd_dst")})
+                self.shards["deg"] = flt(pg.deg[r])
+                aggs = make_ref_shard_split_agg(pg.own_cap)
+            self._mean_agg = None
+            self.fwd = make_shard_forward(model, meta, mesh, ring_chunks=ring,
+                                          overlap=True, split_agg=aggs)
         else:
-            self._mean_agg = make_ref_shard_mean_agg(pg.max_nodes)
-        self.fwd = make_shard_forward(self.model, self._fwd_meta, self.mesh,
-                                      agg=self._mean_agg,
-                                      ring_chunks=config.ring_chunks)
-        self.labels = idx("labels")
+            self.shards.update({"edge_src": idx(a["edge_src"]),
+                                "edge_dst": idx(a["edge_dst"]),
+                                "edge_mask": flt(a["edge_mask"])})
+            if config.use_kernel_agg:
+                # the partition's slots of the stacked structure, with
+                # plans of their own (each launch bitwise its rows of the
+                # stacked one)
+                self.shards["blk"] = blocks_to_device(
+                    partition_vjp_blocks(build_stacked_vjp_blocks(pg), r),
+                    dev)
+                self._mean_agg = make_kernel_mean_agg(pg.max_nodes)
+            else:
+                self._mean_agg = make_ref_shard_mean_agg(pg.max_nodes)
+            self.fwd = make_shard_forward(model, meta, mesh,
+                                          agg=self._mean_agg,
+                                          ring_chunks=ring)
+            if config.halo_compress != "none":
+                self._fwd_comp = make_shard_forward(
+                    model, meta, mesh, agg=self._mean_agg, ring_chunks=ring,
+                    compress=config.halo_compress)
+        self.labels = idx(a["labels"])
         self.masks = {k: torch.as_tensor(a[f"{k}_mask"], device=dev)
                       for k in ("train", "val", "test")}
         self._fg_loss = make_fullgraph_loss_fn(self.fwd, loss=config.fg_loss)
+
+    def _rank_row(self, arrays: dict) -> dict:
+        """Stacked ``(P, ...)`` state: the rank's row on the mesh, the
+        whole stack otherwise."""
+        if self.mesh is None:
+            return arrays
+        return {k: v[self.rank] for k, v in arrays.items()}
+
+    def _stacked(self, state: dict) -> dict:
+        """The rank's rows of per-partition state gathered into the
+        stacked ``(P, ...)`` layout on the mesh (ONE all_gather), as is
+        otherwise."""
+        if self.mesh is None:
+            return state
+        keys = sorted(state)
+        return dict(zip(keys, all_gather([state[k] for k in keys],
+                                         self.mesh)))
 
     def _check_partition_fingerprint(self, pg: PartitionedGraph) -> None:
         """Every rank must hold the same partition and send lists, or the
@@ -553,11 +597,14 @@ class SPMDEngine:
     @torch.no_grad()
     def _eval_mesh(self, params, split: str):
         """This rank's eval forward (its row of per-partition params, or the
-        shared ones) and micro-F1, then ONE all_gather of ``(micro,
-        preds)``: ``((P,), (P, maxN))`` on every rank."""
+        shared ones; against the cache, quantized or overlapped as the
+        configuration says, :meth:`_eval_forward`) and micro-F1, then ONE
+        all_gather of ``(micro, preds)``: ``((P,), (P, maxN))`` on every
+        rank."""
         if params.num_parts is not None:
             params = partition_slice(params, self.rank)
-        preds = torch.argmax(self.fwd(params, self._featurized()), dim=-1)
+        preds = torch.argmax(self._eval_forward(params, self._featurized()),
+                             dim=-1)
         lab = torch.where(self.masks[split], self.labels, -1)
         micro = f1_scores_torch(preds, lab, self.num_classes)[0]
         micro, preds = all_gather([micro, preds], self.mesh)
@@ -573,6 +620,11 @@ class SPMDEngine:
                                    ring_chunks=self.config.ring_chunks,
                                    export=True)
         out = fwd_e(params, self._featurized(counted=False))
+        if self.halo_cache:
+            # the snapshot is exactly a full refresh: the rank's row of it
+            # becomes the rank's cache
+            self._halo_state = {k: v.to(self.config.dtype).clone()
+                                for k, v in out["cache"].items()}
         L = len(out["layers"])
         every = all_gather([*out["layers"], out["logits"],
                             *(out["cache"][f"h{i}"] for i in range(L))],
@@ -673,21 +725,36 @@ class SPMDEngine:
             losses.append(l)
         return params, opt_state, torch.stack(losses)
 
-    def _generalize_step(self, loss_fn, gather_sum: bool = False):
+    def _generalize_step(self, loss_fn, gather_sum: bool = False,
+                         full_graph: bool = False):
         """The phase-0 step of ``grad_compress``: the gradient of the mean
         of the P losses (``none``), or the bucketed or top-k reducer over
         the P per-partition gradients (the top-k step also carries the
         residual); on the mesh, the rank's loss and the gradients'
         ``pmean``, or with ``gather_sum`` (the async epoch) their
-        ``all_gather`` summed in partition order."""
+        ``all_gather`` summed in partition order, or the per-shard
+        bucketed or top-k reducer (on every path, as in the reference; a
+        sampled batch meets the per-partition weights with a partition
+        axis of 1, the full-graph shard as it is)."""
+        cfg = self.config
         if self.mesh is not None:
-            return make_mesh_generalize_step(loss_fn, self.optimizer,
-                                             self.mesh, gather_sum=gather_sum)
+            reduce = None
+            if self.grad_compress == "bucketed":
+                reduce = make_bucketed_reduce_shard(
+                    self.num_parts, self.mesh, cfg.grad_bucket_kb * 1024)
+            elif self.grad_compress == "topk":
+                reduce = make_topk_reduce_shard(self.num_parts, self.mesh,
+                                                cfg.grad_topk_frac)
+            lift = ((lambda b: b) if full_graph else
+                    (lambda b: {k: v[None] for k, v in b.items()}))
+            return make_mesh_generalize_step(
+                loss_fn, self.optimizer, self.mesh, gather_sum=gather_sum,
+                reduce=reduce, topk=self.grad_compress == "topk", lift=lift)
         if self.grad_compress == "none":
             return make_generalize_step(loss_fn, self.optimizer)
         reduce = make_grad_reduce_stacked(
-            self.grad_compress, self.num_parts, self.config.grad_topk_frac,
-            self.config.grad_bucket_kb)
+            self.grad_compress, self.num_parts, cfg.grad_topk_frac,
+            cfg.grad_bucket_kb)
         return make_reduce_generalize_step(loss_fn, self.optimizer,
                                            self.num_parts, reduce,
                                            topk=self.grad_compress == "topk")
@@ -727,23 +794,54 @@ class SPMDEngine:
     def _cached_fwd(self, lo: int, hi: int):
         key = (lo, hi)
         if key not in self._cached_fwds:
-            self._cached_fwds[key] = make_cached_forward(
-                self.model, self._fwd_meta, agg=self._mean_agg,
-                refresh_lo=lo, refresh_hi=hi, compress=self.halo_compress)
+            if self.mesh is not None:
+                self._cached_fwds[key] = make_shard_forward(
+                    self.model, self._fwd_meta, self.mesh,
+                    agg=self._mean_agg, ring_chunks=self.config.ring_chunks,
+                    compress=self.halo_compress, refresh=key)
+            else:
+                self._cached_fwds[key] = make_cached_forward(
+                    self.model, self._fwd_meta, agg=self._mean_agg,
+                    refresh_lo=lo, refresh_hi=hi,
+                    compress=self.halo_compress)
         return self._cached_fwds[key]
 
     # ---- checkpoint surface (the files themselves: ROADMAP item 12) ------
+    # The stacked layout on the mesh too: saving gathers the ranks' rows
+    # (a collective every rank makes), restoring takes the rank's row, so
+    # rank 0's archive is a stacked run's.
     def halo_cache_state(self):
         """(cache dict, age) for checkpointing; None without the cache."""
         if not self.halo_cache:
             return None
-        return self._halo_state, self._halo_age
+        return self._stacked(self._halo_state), self._halo_age
 
     def restore_halo_cache_state(self, state: dict, age: int) -> None:
         if not self.halo_cache:
             raise ValueError("engine built without halo_cache")
-        self._halo_state = self._as_state(state)
+        self._halo_state = self._as_state(self._rank_row(state))
         self._halo_age = int(age)
+
+    def comm_state_like(self, params) -> dict:
+        """What a resume loads the ``halo``, ``halo_res`` and ``grad_res``
+        checkpoint entries into (those this engine carries): its state, or
+        on the mesh templates of the stacked layout (shapes, dtype and
+        device; no collective)."""
+        out = {}
+        if self.halo_cache:
+            out["halo"] = self._halo_state
+        if self.halo_compress != "none":
+            out["halo_res"] = self._halo_residual
+        if self.grad_compress == "topk":
+            out["grad_res"] = (self._grad_res if self._grad_res is not None
+                               else self._zero_grad_residual(params))
+        if self.mesh is None:
+            return out
+        like = lambda t: torch.empty((self.num_parts, *t.shape),
+                                     dtype=t.dtype, device=t.device)
+        return {k: like(v) if isinstance(v, torch.Tensor)
+                else {n: like(t) for n, t in v.items()}
+                for k, v in out.items()}
 
     def _as_state(self, arrays: dict) -> dict:
         """Arrays (NumPy or tensors) as state tensors of the engine's
@@ -763,31 +861,40 @@ class SPMDEngine:
     def _grad_residual(self, params) -> torch.Tensor:
         """The ``(P, N)`` top-k error-feedback state over the flat
         per-partition gradient (``parameters()`` order), zero before the
-        first compressed sync."""
+        first compressed sync; on the mesh the rank's ``(N,)`` row."""
         if self._grad_res is None:
-            n = sum(w.numel() for w in params.parameters())
-            w0 = next(params.parameters())
-            self._grad_res = torch.zeros((self.num_parts, n), dtype=w0.dtype,
-                                         device=w0.device)
+            self._grad_res = self._zero_grad_residual(params)
         return self._grad_res
+
+    def _zero_grad_residual(self, params) -> torch.Tensor:
+        n = sum(w.numel() for w in params.parameters())
+        w0 = next(params.parameters())
+        shape = (n,) if self.mesh is not None else (self.num_parts, n)
+        return torch.zeros(shape, dtype=w0.dtype, device=w0.device)
 
     def comm_residual_state(self):
         """Error-feedback residuals for checkpointing: ``(halo_residual,
-        grad_residual)``; each entry is None when the matching compression
-        is off (or, for top-k, before the first phase-0 step).  None when
-        neither exists."""
+        grad_residual)`` in the stacked layout; each entry is None when the
+        matching compression is off (or, for top-k, before the first
+        phase-0 step).  None when neither exists."""
         h = self._halo_residual if self.halo_compress != "none" else None
         g = self._grad_res if self.grad_compress == "topk" else None
         if h is None and g is None:
             return None
+        if self.mesh is not None:
+            h = None if h is None else self._stacked(h)
+            g = None if g is None else all_gather([g], self.mesh)[0]
         return h, g
 
     def restore_comm_residual_state(self, state) -> None:
         h, g = state
         if h is not None:
-            self._halo_residual = self._as_state(h)
+            self._halo_residual = self._as_state(self._rank_row(h))
         if g is not None:
-            self._grad_res = torch.as_tensor(g).to(self.device)
+            g = torch.as_tensor(g)
+            if self.mesh is not None:
+                g = g[self.rank]
+            self._grad_res = g.to(self.device)
 
     # ------------------------------------------------------- public surface
     def phase0_epoch(self, params, opt_state, batches: dict):
@@ -831,7 +938,7 @@ class SPMDEngine:
             raise ValueError(
                 "top-k gradient sparsification is a sampled phase-0 feature; "
                 "full-graph training keeps the exact (or bucketed) all-reduce")
-        step = self._generalize_step(self._fg_loss)
+        step = self._generalize_step(self._fg_loss, full_graph=True)
         batch = {"shard": self.shards, "labels": self.labels,
                  "train_mask": self.masks["train"]}
         (params, opt_state, losses), dt = self._timed(

@@ -27,7 +27,9 @@ against a historical halo cache (:func:`make_cached_forward`, whose
 refresh slot range :func:`halo_refresh_plan` picks).  The partition mesh
 (``EngineConfig(mode="spmd")``, one partition per ``torch.distributed``
 rank) runs one partition's forward per rank (:func:`make_shard_forward`)
-with the exchange a real collective (:func:`mesh_exchange`).
+with the exchange a real collective (:func:`mesh_exchange`), through the
+same bodies: each builder takes the layout it gathers, exchanges and
+lands with.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ __all__ = ["PartitionedGraph", "build_partitioned_graph",
            "wire_row_bytes", "make_ref_mean_agg",
            "make_kernel_mean_agg", "make_ref_split_agg",
            "make_kernel_split_agg", "make_ref_shard_mean_agg",
+           "make_ref_shard_split_agg",
            "make_shard_forward", "mesh_exchange"]
 
 
@@ -380,6 +383,112 @@ def mesh_exchange(sent: torch.Tensor, mesh,
     return _MeshExchange.apply(sent, mesh, int(ring_chunks))
 
 
+class _MeshExchangeWait(torch.autograd.Function):
+    """The end of an exchange started earlier (``engine.compat.
+    exchange_start``): the forward waits for it and returns ``recv``; the
+    backward is :class:`_MeshExchange`'s, the synchronous exchange of the
+    incoming gradient.  ``sent`` only ties ``recv`` to the send block in
+    the autograd graph."""
+
+    @staticmethod
+    def forward(ctx, sent, pending, mesh, ring_chunks):
+        ctx.mesh, ctx.ring_chunks = mesh, ring_chunks
+        return pending.wait()
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..engine.compat import exchange
+        return exchange(g, ctx.mesh, ctx.ring_chunks), None, None, None
+
+
+# ---------------------------------------------------------------------------
+# layouts: what a forward's body calls to gather, exchange and land
+# ---------------------------------------------------------------------------
+
+class _Stacked:
+    """Every partition on one device, ``(P, ...)`` tensors: the exchange is
+    the index transpose, and starting it computes it."""
+
+    gather = staticmethod(_gather_send)
+    land = staticmethod(_land)
+    exchange = staticmethod(_exchange)
+
+    @staticmethod
+    def start(sent):
+        return _exchange(sent)
+
+    @staticmethod
+    def finish(started):
+        return started
+
+    @staticmethod
+    def layer(model, lp, h, a, activate: bool):
+        return model._layer(lp, h, a, activate)
+
+    @staticmethod
+    def lift(lp, x):
+        return x
+
+    @staticmethod
+    def drop(lp, x):
+        return x
+
+    @staticmethod
+    def interior(n_int, own_cap: int, device):
+        """``(P, own_cap, 1)``: row < the partition's ``n_int``."""
+        rows = torch.arange(own_cap, device=device)[None, :, None]
+        return rows < n_int[:, None, None]
+
+
+STACKED = _Stacked()
+
+
+class _Shard:
+    """One partition of the mesh: the rank's arrays without the partition
+    axis, the exchange a collective (``ring_chunks`` picking its schedule)
+    and ``n_int`` a Python int.  Per-partition params arrive as the
+    rank's row with a partition axis of 1: their products run batched on
+    the rows lifted to that axis, as the stacked forward runs them."""
+
+    gather = staticmethod(_gather_send_shard)
+    land = staticmethod(_land_shard)
+
+    def __init__(self, mesh, ring_chunks: int = 0):
+        self.mesh, self.ring_chunks = mesh, int(ring_chunks)
+
+    def exchange(self, sent):
+        return mesh_exchange(sent, self.mesh, self.ring_chunks)
+
+    def start(self, sent):
+        from ..engine.compat import exchange_start
+        return sent, exchange_start(sent.detach(), self.mesh,
+                                    self.ring_chunks)
+
+    def finish(self, started):
+        sent, pending = started
+        return _MeshExchangeWait.apply(sent, pending, self.mesh,
+                                       self.ring_chunks)
+
+    @staticmethod
+    def layer(model, lp, h, a, activate: bool):
+        if lp.w_self.dim() == 3:
+            return model._layer(lp, h[None], a[None], activate)[0]
+        return model._layer(lp, h, a, activate)
+
+    @staticmethod
+    def lift(lp, x):
+        return x[None] if lp.w_self.dim() == 3 else x
+
+    @staticmethod
+    def drop(lp, x):
+        return x[0] if lp.w_self.dim() == 3 else x
+
+    @staticmethod
+    def interior(n_int: int, own_cap: int, device):
+        """``(own_cap, 1)``: row < ``n_int``."""
+        return torch.arange(own_cap, device=device)[:, None] < n_int
+
+
 # ---------------------------------------------------------------------------
 # wire codecs (compressed communication)
 # ---------------------------------------------------------------------------
@@ -441,9 +550,11 @@ def wire_row_bytes(d: int, mode: str, itemsize: int = 4) -> int:
 
 
 def _ef_quantized_exchange(sent: torch.Tensor, mask3: torch.Tensor,
-                           residual: torch.Tensor, mode: str, out_dtype):
+                           residual: torch.Tensor, mode: str, out_dtype,
+                           exchange=_exchange):
     """Error-compensated quantized exchange of the gathered send buffer
-    ``sent`` ``(P, P, S, D)`` (``sent[p][q]``: p's rows for q).  Returns
+    ``sent`` ``(P, P, S, D)`` (``sent[p][q]``: p's rows for q), or of one
+    partition's ``(P, S, D)`` with the mesh's ``exchange``.  Returns
     ``(recv, new_residual)``:
 
       sent_ef = (sent + residual) * mask        # carry last round's error
@@ -451,14 +562,15 @@ def _ef_quantized_exchange(sent: torch.Tensor, mask3: torch.Tensor,
       new_residual = (sent_ef - dequant(payload)) * mask
       recv = dequant(exchange(payload))         # landed at the receiver
 
-    The int8 per-row scales travel by the same transpose as the payload."""
+    The int8 per-row scales travel after the payload by the same
+    exchange: on the mesh, two collectives, as in the reference."""
     sent_ef = (sent + residual.to(sent.dtype)) * mask3
     payload, scale = quantize_rows(sent_ef, mode)
     deq = dequantize_rows(payload, scale, mode, sent.dtype)
     new_residual = ((sent_ef - deq) * mask3).to(residual.dtype)
-    recv_s = None if scale is None else _exchange(scale)
-    return (dequantize_rows(_exchange(payload), recv_s, mode, out_dtype),
-            new_residual)
+    recv_p = exchange(payload)
+    recv_s = None if scale is None else exchange(scale)
+    return dequantize_rows(recv_p, recv_s, mode, out_dtype), new_residual
 
 
 def halo_refresh_plan(age: int, refresh_every: int, cv: bool,
@@ -576,6 +688,21 @@ def make_ref_shard_mean_agg(max_nodes: int):
     return mean_agg
 
 
+def make_ref_shard_split_agg(own_cap: int):
+    """One partition's :func:`make_ref_split_agg` pair, through the stacked
+    halves on a partition axis of 1 (the same ops, so the same rows)."""
+    halves = make_ref_split_agg(own_cap)
+    keys = ("int_src", "int_dst", "bnd_src", "bnd_dst", "deg")
+
+    def shard_half(half):
+        def agg(h: torch.Tensor, shard: dict) -> torch.Tensor:
+            return half(h[None], {k: shard[k][None] for k in keys})[0]
+
+        return agg
+
+    return tuple(shard_half(h) for h in halves)
+
+
 def make_kernel_split_agg(own_cap: int):
     """Kernel interior/boundary pair (counterpart of
     ``make_pallas_split_agg``): each half is ONE ``segment_mean_op`` launch
@@ -584,8 +711,10 @@ def make_kernel_split_agg(own_cap: int):
     ``engine.stacking.build_stacked_split_vjp_blocks``), placed into the
     ``(P, own_cap, D)`` output at ``row_base`` 0 (interior) or at each
     partition's ``n_int`` (boundary, the ``(P,)`` tensor
-    ``shards["n_int"]``).  Both halves are differentiable: the boundary
-    half's backward reaches owned and halo source rows."""
+    ``shards["n_int"]``; on the partition mesh one partition's unstacked
+    blocks and its ``n_int`` as a Python int, so no row base is read back
+    from the device).  Both halves are differentiable: the boundary half's
+    backward reaches owned and halo source rows."""
     from ..kernels.segment_agg import segment_mean_op
 
     def agg_interior(h: torch.Tensor, shards: dict) -> torch.Tensor:
@@ -604,7 +733,7 @@ def make_kernel_split_agg(own_cap: int):
 # ---------------------------------------------------------------------------
 
 def make_distributed_forward(model, pg_meta: dict, agg=None,
-                             compress: str = "none"):
+                             compress: str = "none", layout=STACKED):
     """The n-layer SYNCHRONOUS forward with halo exchange, over all
     partitions at once: ``fwd(params, shards) -> (P, maxN, C)`` logits,
     ``shards`` holding the stacked ``(P, ...)`` tensors.  ``params`` is a
@@ -620,18 +749,24 @@ def make_distributed_forward(model, pg_meta: dict, agg=None,
     ``fwd(params, shards, residual) -> (logits, new_residual)``, where
     ``residual["r{i}"]`` ``(P, P, maxS, D_i)`` is layer i's carried
     send-side quantization error in send-list layout.
+
+    ``layout`` is what the body gathers, exchanges and lands with: the
+    stacked one here, one partition's on the mesh
+    (:func:`make_shard_forward`).
     """
     mean_agg = agg if agg is not None else make_ref_mean_agg(
         pg_meta["max_nodes"])
+    L = layout
 
     if compress == "none":
         def fwd(params, shards: dict) -> torch.Tensor:
             h = shards["features"]
             last = len(params.layers) - 1
             for i, lp in enumerate(params.layers):
-                h = _halo_exchange(h, shards["send_idx"], shards["send_mask"],
-                                   shards["recv_pos"])
-                h = model._layer(lp, h, mean_agg(h, shards), i < last)
+                recv = L.exchange(L.gather(h, shards["send_idx"],
+                                           shards["send_mask"]))
+                h = L.land(h, recv, shards["recv_pos"])
+                h = L.layer(model, lp, h, mean_agg(h, shards), i < last)
             return h
 
         return fwd
@@ -642,11 +777,12 @@ def make_distributed_forward(model, pg_meta: dict, agg=None,
         last = len(params.layers) - 1
         new_res = {}
         for i, lp in enumerate(params.layers):
-            sent = _gather_send(h, shards["send_idx"], shards["send_mask"])
+            sent = L.gather(h, shards["send_idx"], shards["send_mask"])
             recv, new_res[f"r{i}"] = _ef_quantized_exchange(
-                sent, mask3, residual[f"r{i}"], compress, h.dtype)
-            h = _land(h, recv, shards["recv_pos"])
-            h = model._layer(lp, h, mean_agg(h, shards), i < last)
+                sent, mask3, residual[f"r{i}"], compress, h.dtype,
+                L.exchange)
+            h = L.land(h, recv, shards["recv_pos"])
+            h = L.layer(model, lp, h, mean_agg(h, shards), i < last)
         return h, new_res
 
     return fwd_c
@@ -654,7 +790,7 @@ def make_distributed_forward(model, pg_meta: dict, agg=None,
 
 def make_cached_forward(model, pg_meta: dict, agg=None, refresh_lo: int = 0,
                         refresh_hi: int | None = None,
-                        compress: str = "none"):
+                        compress: str = "none", layout=STACKED):
     """The n-layer forward against a HISTORICAL halo cache, over all
     partitions: ``fwd(params, shards, cache) -> (logits, new_cache)``, where
     ``cache["h{i}"]`` ``(P, P, maxS, D_i)`` holds layer i's last-received
@@ -682,10 +818,15 @@ def make_cached_forward(model, pg_meta: dict, agg=None, refresh_lo: int = 0,
     feedback on the matching residual slice, and the cache stores the
     dequantized rows: ``fwd(params, shards, cache, residual) -> (logits,
     new_cache, new_residual)``.
+
+    With one partition's ``layout`` (:func:`make_shard_forward`) the cache
+    and residual are the rank's ``(P, maxS, D_i)`` rows, and the empty
+    range runs no collective at all.
     """
     mean_agg = agg if agg is not None else make_ref_mean_agg(
         pg_meta["max_nodes"])
     lo = int(refresh_lo)
+    L = layout
 
     def land_and_refresh(h, shards, cached, res=None):
         max_s = shards["send_idx"].shape[-1]
@@ -695,22 +836,22 @@ def make_cached_forward(model, pg_meta: dict, agg=None, refresh_lo: int = 0,
             # gather (and, compressed, quantize) BEFORE any cache landing:
             # send_idx only points at owned rows, and this order keeps the
             # full refresh's ops those of the synchronous forward
-            mask = shards["send_mask"][:, :, lo:hi]
-            sent = _gather_send(h, shards["send_idx"][:, :, lo:hi], mask)
+            mask = shards["send_mask"][..., lo:hi]
+            sent = L.gather(h, shards["send_idx"][..., lo:hi], mask)
         if not full:
-            h = _land(h, cached.detach(), shards["recv_pos"])
+            h = L.land(h, cached.detach(), shards["recv_pos"])
         if hi > lo:
             if res is None:
-                recv = _exchange(sent)
+                recv = L.exchange(sent)
             else:
                 recv, new_r = _ef_quantized_exchange(
-                    sent, mask[..., None], res[:, :, lo:hi], compress,
-                    h.dtype)
+                    sent, mask[..., None], res[..., lo:hi, :], compress,
+                    h.dtype, L.exchange)
                 res = res.clone()
-                res[:, :, lo:hi] = new_r
-            h = _land(h, recv, shards["recv_pos"][:, :, lo:hi])
+                res[..., lo:hi, :] = new_r
+            h = L.land(h, recv, shards["recv_pos"][..., lo:hi])
             cached = cached.detach().clone()
-            cached[:, :, lo:hi] = recv.to(cached.dtype)
+            cached[..., lo:hi, :] = recv.to(cached.dtype)
         return h, cached, res
 
     def fwd(params, shards: dict, cache: dict):
@@ -720,7 +861,7 @@ def make_cached_forward(model, pg_meta: dict, agg=None, refresh_lo: int = 0,
         for i, lp in enumerate(params.layers):
             h, new_cache[f"h{i}"], _ = land_and_refresh(h, shards,
                                                         cache[f"h{i}"])
-            h = model._layer(lp, h, mean_agg(h, shards), i < last)
+            h = L.layer(model, lp, h, mean_agg(h, shards), i < last)
         return h, new_cache
 
     def fwd_c(params, shards: dict, cache: dict, residual: dict):
@@ -730,7 +871,7 @@ def make_cached_forward(model, pg_meta: dict, agg=None, refresh_lo: int = 0,
         for i, lp in enumerate(params.layers):
             h, new_cache[f"h{i}"], new_res[f"r{i}"] = land_and_refresh(
                 h, shards, cache[f"h{i}"], residual[f"r{i}"])
-            h = model._layer(lp, h, mean_agg(h, shards), i < last)
+            h = L.layer(model, lp, h, mean_agg(h, shards), i < last)
         return h, new_cache, new_res
 
     return fwd if compress == "none" else fwd_c
@@ -744,7 +885,7 @@ def _neigh_weights(lp):
 
 
 def make_overlap_forward(model, pg_meta: dict, agg_interior=None,
-                         agg_boundary=None):
+                         agg_boundary=None, layout=STACKED):
     """The n-layer OVERLAPPED split forward over all partitions:
     ``fwd(params, shards) -> (P, maxN, C)``, of which only the owned rows
     ``[0, n_own)`` are meaningful.  Each layer runs the reference's order:
@@ -761,26 +902,31 @@ def make_overlap_forward(model, pg_meta: dict, agg_interior=None,
     rows after them (the trash row stays zero; halo rows are refreshed by
     the next layer's exchange before anything reads them).  Dense products
     and aggregation outputs cover ``own_cap`` rows instead of ``maxN``.
-    On one device the exchange is an index copy on the same stream, so
-    nothing runs concurrently yet.  ``shards`` holds the stacked tensors
-    plus ``n_int`` ``(P,)`` and the split aggregation's structures.
+    Stacked on one device the exchange is an index copy on the same
+    stream, so nothing runs concurrently.  ``shards`` holds the stacked
+    tensors plus ``n_int`` ``(P,)`` and the split aggregation's
+    structures.  With one partition's ``layout`` (:func:`make_shard_forward`)
+    step 1 starts the collective and step 3 waits for it, so it runs while
+    step 2 does (its backward is the synchronous exchange); ``n_int`` is
+    then the rank's Python int.
     """
     max_nodes, own_cap = pg_meta["max_nodes"], pg_meta["own_cap"]
     if agg_interior is None or agg_boundary is None:
         agg_interior, agg_boundary = make_ref_split_agg(own_cap)
+    L = layout
 
     def split_layer(h, shards, lp, activate: bool):
         w_self, w_neigh, b = _neigh_weights(lp)
-        recv = _exchange(_gather_send(h, shards["send_idx"],
-                                      shards["send_mask"]))
+        started = L.start(L.gather(h, shards["send_idx"],
+                                   shards["send_mask"]))
         agg_i = agg_interior(h, shards)
-        self_t = h[:, :own_cap] @ w_self
-        h = _land(h, recv, shards["recv_pos"])
+        self_t = L.lift(lp, h)[..., :own_cap, :] @ w_self
+        h = L.land(h, L.finish(started), shards["recv_pos"])
         agg_b = agg_boundary(h, shards)
-        rows = torch.arange(own_cap, device=h.device)[None, :, None]
-        agg = torch.where(rows < shards["n_int"][:, None, None], agg_i, agg_b)
-        out = self_t + agg @ w_neigh + b
-        return torch.relu(out) if activate else out
+        agg = torch.where(L.interior(shards["n_int"], own_cap, h.device),
+                          agg_i, agg_b)
+        out = self_t + L.lift(lp, agg) @ w_neigh + b
+        return L.drop(lp, torch.relu(out) if activate else out)
 
     def fwd(params, shards: dict) -> torch.Tensor:
         h = shards["features"]
@@ -793,7 +939,7 @@ def make_overlap_forward(model, pg_meta: dict, agg_interior=None,
     return fwd
 
 
-def make_export_forward(model, pg_meta: dict, agg=None):
+def make_export_forward(model, pg_meta: dict, agg=None, layout=STACKED):
     """Synchronous forward that ALSO materializes the serving handoff.
 
     Returns ``fwd(params, shards) -> {"layers", "logits", "cache"}``:
@@ -805,17 +951,19 @@ def make_export_forward(model, pg_meta: dict, agg=None):
     mean_agg = agg if agg is not None else make_ref_mean_agg(
         pg_meta["max_nodes"])
 
+    L = layout
+
     def fwd(params, shards: dict) -> dict:
         h = shards["features"]
         last = len(params.layers) - 1
         layers, cache = [], {}
         for i, lp in enumerate(params.layers):
-            recv = _exchange(_gather_send(h, shards["send_idx"],
-                                          shards["send_mask"])).contiguous()
-            h = _land(h, recv, shards["recv_pos"])
+            recv = L.exchange(L.gather(h, shards["send_idx"],
+                                       shards["send_mask"])).contiguous()
+            h = L.land(h, recv, shards["recv_pos"])
             cache[f"h{i}"] = recv
             layers.append(h)
-            h = model._layer(lp, h, mean_agg(h, shards), i < last)
+            h = L.layer(model, lp, h, mean_agg(h, shards), i < last)
         return {"layers": tuple(layers), "logits": h, "cache": cache}
 
     return fwd
@@ -826,52 +974,55 @@ def make_export_forward(model, pg_meta: dict, agg=None):
 # ---------------------------------------------------------------------------
 
 def make_shard_forward(model, pg_meta: dict, mesh, agg=None,
-                       ring_chunks: int = 0, export: bool = False):
-    """ONE partition's n-layer synchronous forward on the partition mesh,
-    what the reference's :func:`make_distributed_forward` is under
-    ``shard_map``: ``fwd(params, shard) -> (maxN, C)`` logits, ``shard``
-    holding the rank's own arrays (no partition axis) and ``params`` a
-    shared-form ``GraphSAGE``, or one partition's row of per-partition
-    params with its partition axis of 1 (``graph.sage.partition_slice``),
-    whose products run batched as the stacked forward's do.
-    Each layer gathers the send block, exchanges it across the ranks
-    (:func:`mesh_exchange`, ``ring_chunks`` picking the schedule) and lands
-    it; differentiable through the exchange, so every rank must run the
-    backward together.  ``agg(h, shard) -> (maxN, D)`` defaults to
-    :func:`make_ref_shard_mean_agg`; the engine passes
+                       ring_chunks: int = 0, export: bool = False,
+                       compress: str = "none",
+                       refresh: tuple[int, int] | None = None,
+                       overlap: bool = False, split_agg=None):
+    """ONE partition's n-layer forward on the partition mesh, what the
+    reference's forwards are under ``shard_map``: the stacked builders'
+    bodies over one partition's layout, whose exchange crosses the ranks
+    (:func:`mesh_exchange`, ``ring_chunks`` picking the schedule).
+    ``shard`` holds the rank's own arrays (no partition axis) and
+    ``params`` is a shared-form ``GraphSAGE``, or one partition's row of
+    per-partition params with its partition axis of 1
+    (``graph.sage.partition_slice``), whose products run batched as the
+    stacked forward's do.  Differentiable through the exchange, so every
+    rank must run the backward together.  ``agg(h, shard) -> (maxN, D)``
+    defaults to :func:`make_ref_shard_mean_agg`; the engine passes
     :func:`make_kernel_mean_agg` over the partition's own blocks.
 
-    ``export=True`` returns the serving handoff of
-    :func:`make_export_forward` for this partition instead: ``{"layers":
-    (maxN, D_i) per layer, "logits", "cache": {"h{i}": (P, maxS, D_i)}}``.
+      default     :func:`make_distributed_forward`: ``fwd(params, shard)
+                  -> (maxN, C)``; with ``compress`` ``"fp16"`` / ``"int8"``
+                  the error-compensated one, ``fwd(params, shard,
+                  residual) -> (logits, new_residual)``, the payload and
+                  the int8 scales each a collective
+      ``refresh`` ``(lo, hi)``: :func:`make_cached_forward` over the rank's
+                  ``(P, maxS, D_i)`` cache (and residual); ``(0, 0)`` runs
+                  no collective
+      ``overlap`` :func:`make_overlap_forward` over ``split_agg`` (default
+                  :func:`make_ref_shard_split_agg`): the exchange started
+                  before the interior half and waited on before landing
+      ``export``  :func:`make_export_forward`'s handoff for this
+                  partition: ``{"layers": (maxN, D_i) per layer, "logits",
+                  "cache": {"h{i}": (P, maxS, D_i)}}``
     """
+    layout = _Shard(mesh, ring_chunks)
+    if overlap:
+        aggs = (split_agg if split_agg is not None
+                else make_ref_shard_split_agg(pg_meta["own_cap"]))
+        return make_overlap_forward(model, pg_meta, *aggs, layout=layout)
     mean_agg = agg if agg is not None else make_ref_shard_mean_agg(
         pg_meta["max_nodes"])
-
-    def layer(lp, h, a, activate):
-        if lp.w_self.dim() == 3:
-            # one partition's row of per-partition params (a partition axis
-            # of 1): the stacked forward's batched products, on its rows
-            return model._layer(lp, h[None], a[None], activate)[0]
-        return model._layer(lp, h, a, activate)
-
-    def fwd(params, shard: dict):
-        h = shard["features"]
-        last = len(params.layers) - 1
-        layers, cache = [], {}
-        for i, lp in enumerate(params.layers):
-            recv = mesh_exchange(_gather_send_shard(
-                h, shard["send_idx"], shard["send_mask"]), mesh, ring_chunks)
-            h = _land_shard(h, recv, shard["recv_pos"])
-            if export:
-                cache[f"h{i}"] = recv
-                layers.append(h)
-            h = layer(lp, h, mean_agg(h, shard), i < last)
-        if export:
-            return {"layers": tuple(layers), "logits": h, "cache": cache}
-        return h
-
-    return fwd
+    if export:
+        return make_export_forward(model, pg_meta, agg=mean_agg,
+                                   layout=layout)
+    if refresh is not None:
+        return make_cached_forward(model, pg_meta, agg=mean_agg,
+                                   refresh_lo=refresh[0],
+                                   refresh_hi=refresh[1], compress=compress,
+                                   layout=layout)
+    return make_distributed_forward(model, pg_meta, agg=mean_agg,
+                                    compress=compress, layout=layout)
 
 
 class RecomputePlanner:

@@ -11,8 +11,9 @@ segment-mean kernel and, with ``--full-graph-train``, every backward
 through its backward kernel; ``--async-generalize`` and
 ``--async-personalize`` draw the epochs on the card; ``--overlap-halo``
 runs the interior/boundary split forward, whose two halves are two
-row-range launches of the kernel (``--ring-chunks`` is accepted, and on
-one card the exchange stays the transpose); ``--engine
+row-range launches of the kernel (``--ring-chunks`` schedules the
+partition mesh's exchange; stacked, the exchange is the transpose);
+``--engine
 sequential`` runs the Python-loop oracle with the plain aggregation;
 ``--halo-cache`` (with ``--halo-refresh-every`` and ``--halo-cv``) and
 ``--halo-compress`` change the eval forwards' exchange, ``--grad-compress``
@@ -31,8 +32,10 @@ device count), or joined from the environment when ``torchrun`` set
 ``RANK`` and ``WORLD_SIZE``; ``--backend`` picks ``nccl`` (a card per
 rank, the default on CUDA) or ``gloo`` (the CPU, or every rank on one
 card); ``--engine auto`` spawns the mesh only with a card per partition; the
-async phases, the feature store and checkpoint/resume run on it as
-stacked (an injected crash in the world ends the CLI as it does stacked).
+async phases, the feature store, checkpoint/resume and the communication
+options (``--halo-cache``, ``--halo-compress``, ``--overlap-halo``,
+``--grad-compress``) run on it as stacked (an injected crash in the world
+ends the CLI as it does stacked).
 It takes the reference's flags for the
 ported options, plus ``--device`` (``cuda`` by default; raises without a
 card unless ``cpu``).  The reference's other flags belong to paths that

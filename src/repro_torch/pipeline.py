@@ -12,8 +12,9 @@ with its per-layer halo exchange and the segment-mean kernel.
 it on the partition mesh: every rank of a world of P
 (``launch/mesh.py``) calls this function, holds one partition, and
 exchanges halos and gradients through real collectives; the async
-phases, the feature store and checkpoint/resume run there too (rank 0
-writes the archives, every rank reads them).  ``halo_cache`` serves the
+phases, the feature store, checkpoint/resume (rank 0 writes the
+archives, every rank reads them) and every communication option below
+run there too, with the fleet's byte counters.  ``halo_cache`` serves the
 eval forwards' halo rows from a historical cache refreshed every
 ``halo_refresh_every``-th eval (``halo_cv``: a rotating slot chunk in
 between), ``halo_compress`` quantizes their exchange with error feedback,
@@ -648,13 +649,14 @@ def run_eat_distgnn(cfg: EATConfig, verbose: bool = False,
             like.update(global_params=params, pparams=pp,
                         popt=opt.init_stacked(pp.parameters()),
                         best_personal=pp)
-        st = engine.halo_cache_state()
-        if st is not None:
-            like["halo"] = st[0]
+        # the stacked layout's templates (on the mesh too)
+        comm = engine.comm_state_like(params)
+        if "halo" in comm:
+            like["halo"] = comm["halo"]
         if host.get("has_halo_res"):
-            like["halo_res"] = engine._halo_residual
+            like["halo_res"] = comm["halo_res"]
         if host.get("has_grad_res"):
-            like["grad_res"] = engine._grad_residual(params)
+            like["grad_res"] = comm["grad_res"]
         return like
 
     restore_phase1 = None

@@ -165,22 +165,10 @@ def pipeline_digest(res) -> dict:
             "engine": res.engine_mode, "epochs": res.epochs_run}
 
 
-# the engine options the mesh still refuses (ROADMAP item 14, part 3)
-REFUSED = {"overlap_halo": {"overlap_halo": True},
-           "halo_cache": {"halo_cache": True},
-           "halo_compress": {"halo_compress": "int8"},
-           "grad_compress": {"grad_compress": "bucketed"}}
-
-
 def _refusals(g, pg) -> dict:
-    """The messages of what the mesh refuses: the options of item 14's
-    part 3, and ``feat_groups`` (the reference's refusal)."""
+    """The message of what the mesh refuses beyond the stacked engine:
+    ``feat_groups`` (the reference's refusal)."""
     out = {}
-    for name, kw in REFUSED.items():
-        try:
-            engine(pg, g, "spmd", torch.float32, **kw)
-        except NotImplementedError as e:
-            out[name] = str(e)
     try:
         engine(pg, g, "spmd", torch.float32, feat_store=True, feat_groups=2)
     except ValueError as e:

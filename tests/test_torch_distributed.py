@@ -144,9 +144,9 @@ def test_unported_options_raise(setup, option, value, item, monkeypatch):
     """The partition mesh (item 14): ``spmd`` outside a world of P ranks is
     the reference's ``ValueError`` of too few devices, naming
     ``launch.mesh``; under ``spmd`` (asked for, or picked by ``auto``
-    inside a world of P) every option of the mesh's part 3 raises naming
-    item 14 before any collective runs, and the store (ported to the mesh
-    in part 2) goes on to build the mesh.  Item 11's options are ported and
+    inside a world of P) the communication options of the mesh's part 3
+    and the store (part 2) are ported, so they too go on to build the
+    mesh, which raises the same outside a world.  Item 11's options are ported and
     behave as the reference's: the store builds and evaluates bitwise the
     resident engine, and ``feat_groups`` without the store is the
     reference's ValueError."""
@@ -173,15 +173,12 @@ def test_unported_options_raise(setup, option, value, item, monkeypatch):
         with pytest.raises(ValueError, match="launch.mesh"):
             SPMDEngine(m, None, None, pg, None,
                        EngineConfig(device="cpu", mode=value))
-    for part3 in ({"overlap_halo": True}, {"halo_cache": True},
-                  {"halo_compress": "int8"}, {"grad_compress": "bucketed"}):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP item {item}"):
+    for ported in ({"overlap_halo": True}, {"halo_cache": True},
+                   {"halo_compress": "int8"}, {"grad_compress": "bucketed"},
+                   {"feat_store": True}):
+        with pytest.raises(ValueError, match="launch.mesh"):
             SPMDEngine(m, None, None, pg, None,
-                       EngineConfig(device="cpu", mode=value, **part3))
-    with pytest.raises(ValueError, match="launch.mesh"):
-        SPMDEngine(m, None, None, pg, None,
-                   EngineConfig(device="cpu", mode=value, feat_store=True))
+                       EngineConfig(device="cpu", mode=value, **ported))
 
 
 @pytest.mark.parametrize("option,value", [

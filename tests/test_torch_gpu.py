@@ -804,6 +804,79 @@ def test_partition_launch_is_its_rows_of_the_stacked_launch(cuda, split_tiny):
         assert torch.equal(one, whole[p]) and torch.equal(one, again)
 
 
+@pytest.mark.parametrize("half", ["interior", "boundary"])
+def test_partition_split_launch_is_its_rows_of_the_stacked_launch(
+        cuda, split_tiny, half):
+    """The mesh's row-range single-partition use: each partition's rows of
+    a split half (``partition_vjp_blocks``, its own plan) at its n_int as a
+    Python int, forward and backward, bitwise its rows of the stacked
+    launch at every partition's n_int."""
+    from repro_torch.engine.stacking import partition_vjp_blocks
+    _, pg, (bi, bb) = split_tiny
+    bh = bi if half == "interior" else bb
+    n_int = pg.n_int.astype(np.int64) if half == "boundary" else None
+    rb = 0 if n_int is None else torch.as_tensor(n_int, device=cuda)
+    x = torch.randn(4, pg.max_nodes, 64, device=cuda)
+    g = torch.randn(4, pg.own_cap, 64, device=cuda)
+    whole_bl = sa.blocks_to_device(bh, cuda)
+    whole = sa.segment_mean_op(x, whole_bl, num_rows=pg.own_cap, row_base=rb)
+    whole_t = sa.segment_mean_bwd_op(g, whole_bl, n_in=pg.max_nodes,
+                                     row_base=rb)
+    for p in range(4):
+        bl = sa.blocks_to_device(partition_vjp_blocks(bh, p), cuda)
+        rbp = 0 if n_int is None else int(n_int[p])
+        before = sa.kernel_launch_count()
+        one = sa.segment_mean_op(x[p], bl, num_rows=pg.own_cap, row_base=rbp)
+        assert sa.kernel_launch_count() == before + 1
+        assert torch.equal(one, whole[p]), p
+        one_t = sa.segment_mean_bwd_op(g[p], bl, n_in=pg.max_nodes,
+                                       row_base=rbp)
+        assert torch.equal(one_t, whole_t[p]), p
+
+
+@pytest.mark.parametrize("backend,P", [("nccl", 1), ("gloo", 2)])
+def test_mesh_options_on_card_match_stacked(cuda, tmp_path, backend, P):
+    """ROADMAP item 14 part 3 on the card: every eval case of
+    ``tests/_torch_mesh_part3_ranks.py`` with the kernels (the cache's
+    plans, both codecs, the ring, the store, the overlapped forward) from
+    the same shared params and state is bitwise the stacked engine's on
+    every rank, and a (0, 0) plan issues no collective."""
+    import _torch_mesh_part3_ranks as m3
+    import _torch_mesh_ranks as mr
+    from repro_torch.launch.mesh import spawn_partition_world
+
+    outs = spawn_partition_world(m3.card_eval_checks, P, (P,),
+                                 backend=backend, device="cuda",
+                                 workdir=str(tmp_path), timeout_s=120,
+                                 join_timeout_s=600)
+    g, pg = mr.tiny_case(P)
+    want = m3.eval_cases(g, pg, P, "stacked", device="cuda")
+    for r, out in enumerate(outs):
+        for name, w in want.items():
+            got = out[name]
+            for i, (a, b) in enumerate(zip(got["steps"], w["steps"])):
+                assert torch.equal(a["logits"], b["logits"][r].cpu()), (
+                    r, name, i)
+                for k in ("cache", "res"):
+                    assert _nested_equal(a[k], b[k]), (r, name, i, k)
+                assert a["bytes"] == b["bytes"], (r, name, i)
+            if name.startswith("cache_k2"):
+                assert got["steps"][1]["collectives"] == 0, (r, name)
+
+
+def _nested_equal(a, b) -> bool:
+    """Bitwise equality of nested state (b may live on the card)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_nested_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_nested_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b.cpu())
+    return a == b
+
+
 # checkpoint/resume (ROADMAP item 12): the sampled path killed after epoch
 # 1 and resumed on the card is bitwise the uninterrupted run, with the
 # segment forward kernel in every eval of both

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` (and
 ``chip_smoke.py``), the halo cache, the wire codec, the gradient reducers,
 the feature store, the streamed eval, the checkpoint files, the fault
-plan and the partition mesh's collectives included, pulls in neither
+plan and the partition mesh's collectives and reducers included (and, for
+the mesh tests' spawned ranks, their rank modules), pulls in neither
 ``jax`` nor anything of ``repro``; and every entry point defaults to the
 CUDA card, raising without one unless the caller passes
 ``device="cpu"``."""
@@ -51,6 +52,12 @@ for name in ("repro_torch.engine.compat", "repro_torch.launch.mesh"):
 from repro_torch.engine.compat import all_gather, all_to_all, barrier, pmean
 from repro_torch.graph.distributed import make_shard_forward, mesh_exchange
 from repro_torch.launch.mesh import make_partition_mesh, spawn_partition_world
+# its part 3 (the started exchange, the per-shard reducers, the shard
+# forwards' options) stands alone too
+from repro_torch.core.gp.trainer import (make_bucketed_reduce_shard,
+                                         make_topk_reduce_shard)
+from repro_torch.engine.compat import PendingExchange, exchange_start
+from repro_torch.graph.distributed import make_ref_shard_split_agg
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -71,7 +78,7 @@ def test_import_hygiene():
 
 
 @pytest.mark.parametrize("script", ["flash_timing.py", "segment_timing.py",
-                                    "rmsnorm_timing.py"])
+                                    "rmsnorm_timing.py", "mesh_probe.py"])
 def test_timing_scripts_import_hygiene(script):
     """The chip timing scripts run where only the port is installed."""
     code = (
@@ -82,6 +89,23 @@ def test_timing_scripts_import_hygiene(script):
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO_ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO_ROOT, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+@pytest.mark.parametrize("module", ["_torch_mesh_ranks",
+                                    "_torch_mesh_part2_ranks",
+                                    "_torch_mesh_part3_ranks"])
+def test_mesh_rank_modules_import_no_jax(module):
+    """What a spawned rank of the mesh tests imports pulls in no JAX, so a
+    rank starts in seconds."""
+    code = (f"import sys\nimport {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO_ROOT, "src"), os.path.join(REPO_ROOT, "tests")]))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=REPO_ROOT, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]

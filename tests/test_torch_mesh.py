@@ -15,10 +15,10 @@ each spawned once for the module, on tiny with hidden 32.
    (``tests/test_engine_parity.py::test_spmd_shard_map_matches_stacked``);
 5. a world of 1 is bitwise the stacked engine and pipeline;
 6. every rank returns the same result;
-7. the options still to port (item 14's part 3) raise naming item 14,
-   ``feat_groups`` raises the reference's message, a partition that
+7. ``feat_groups`` raises the reference's message, a partition that
    differs across ranks raises on every rank, and a rank that fails or
-   hangs fails the world within its timeouts.
+   hangs fails the world within its timeouts (the communication options
+   of item 14's part 3 run on the mesh: ``tests/test_torch_mesh_comm.py``).
 """
 import time
 
@@ -241,17 +241,14 @@ def test_every_rank_returns_the_same(world4):
 # 7. refusals and failures
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", [*mr.REFUSED, "feat_groups"])
+@pytest.mark.parametrize("name", ["feat_groups"])
 def test_part2_options_raise_item_14(world4, name):
-    """The options whose mesh spelling is still to come raise naming item
-    14; ``feat_groups`` raises the reference's message."""
+    """What the mesh refuses beyond the stacked engine: ``feat_groups``,
+    with the reference's message."""
     got = world4[0]["refusals"]
-    assert set(got) == {*mr.REFUSED, "feat_groups"}, got
-    if name == "feat_groups":
-        assert "one-partition-per-device mesh" in got[name], got[name]
-        assert got[name].endswith("use stacked mode"), got[name]
-    else:
-        assert "ROADMAP item 14" in got[name], (name, got[name])
+    assert set(got) == {"feat_groups"}, got
+    assert "one-partition-per-device mesh" in got[name], got[name]
+    assert got[name].endswith("use stacked mode"), got[name]
 
 
 def test_partition_mismatch_raises_on_every_rank(world4):

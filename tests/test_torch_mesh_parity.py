@@ -1,4 +1,5 @@
-"""The port's partition mesh against the reference's ``mode="spmd"``.
+"""The port's partition mesh against the reference's ``mode="spmd"``
+(ROADMAP item 14, parts 1 and 3).
 
 The port runs a gloo world of 4 ranks on the CPU
 (``repro_torch.launch.mesh``); the reference runs ``shard_map`` over 4
@@ -8,7 +9,10 @@ forced host devices in one subprocess (as
 read the same tiny graph (EW, P=4, hidden 32), start params, batches and
 phase-1 budgets, and run one sampled phase-0 epoch, one full-graph
 phase-0 epoch (2 steps) and one phase-1 epoch, each from the same start,
-then the val and test evals and the export from the start params.
+then the val and test evals and the export from the start params; then
+(part 3) three evals under the halo cache (K = 2: plans full, (0, 0),
+full) with the int8 exchange, one top-k phase-0 epoch (``grad_topk_frac``
+0.1) and one overlapped eval, the cached evals' exchange bytes equal.
 
 Tolerances (max |diff|), the reference's own spmd-against-stacked ones
 (``tests/test_engine_parity.py::test_spmd_shard_map_matches_stacked``):
@@ -29,6 +33,7 @@ import sys
 import numpy as np
 import pytest
 
+import _torch_mesh_part3_ranks as m3
 import _torch_mesh_ranks as mr
 from _jax_cache import CACHE_PRELUDE
 from repro_torch.launch.mesh import spawn_partition_world
@@ -98,6 +103,27 @@ out["val_micro"], out["val_preds"] = eng.evaluate(start, "val",
                                                   per_partition_params=False)
 out["test_micro"], out["test_preds"] = eng.evaluate(pstart, "test")
 out["logits"] = eng.export_serving_state(start)["logits"]
+
+def engine(**kw):
+    return SPMDEngine(model, model.make_loss_fn(), opt, pg, GPHyperParams(),
+                      EngineConfig(mode="spmd", use_pallas_agg=False, **kw))
+
+# item 14 part 3: the cache (K = 2) with int8, top-k, the overlap
+eng = engine(halo_cache=True, halo_refresh_every=2, halo_compress="int8")
+for i, (prm, split, per) in enumerate(((start, "val", False),
+                                       (pstart, "test", True),
+                                       (start, "val", False))):
+    out[f"cache_int8_{i}_micro"], out[f"cache_int8_{i}_preds"] = (
+        eng.evaluate(prm, split, per_partition_params=per))
+out["cache_int8_bytes"] = eng.last_halo_exchange_bytes
+eng = engine(grad_compress="topk", grad_topk_frac=0.1)
+p, _, l, v, _ = eng.phase0_epoch(start, opt.init(start), batches)
+out.update({"topk_loss": l, "topk_val": v,
+            "topk_res": eng.comm_residual_state()[1]})
+out.update({f"topk_p{i}": x for i, x in enumerate(leaves(p))})
+eng = engine(overlap_halo=True)
+out["overlap_micro"], out["overlap_preds"] = eng.evaluate(
+    start, "val", per_partition_params=False)
 np.savez(sys.argv[2], **{k: np.asarray(x) for k, x in out.items()})
 print("REF_DONE")
 """
@@ -114,7 +140,7 @@ def runs(tmp_path_factory):
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                            text=True, env=ENV, cwd=REPO_ROOT)
     try:
-        port = spawn_partition_world(mr.parity_checks, 4, device="cpu",
+        port = spawn_partition_world(m3.parity_world, 4, device="cpu",
                                      workdir=str(d), timeout_s=60,
                                      join_timeout_s=240)
         out, err = ref.communicate(timeout=600)
@@ -153,6 +179,36 @@ def test_evals_and_logits_match_the_reference_spmd(runs):
         _close(micro.numpy(), ref[f"{split}_micro"], F1_TOL, 0)
         assert int((preds.numpy() != ref[f"{split}_preds"]).sum()) \
             <= PRED_MISMATCH, split
+
+
+def test_cached_int8_evals_match_the_reference_spmd(runs):
+    port, ref = runs
+    got = port["part3"]
+    for i, (micro, preds) in enumerate(got["cache_int8"]):
+        _close(micro.numpy(), ref[f"cache_int8_{i}_micro"], F1_TOL, 0)
+        assert int((preds.numpy() != ref[f"cache_int8_{i}_preds"]).sum()) \
+            <= PRED_MISMATCH, i
+    assert got["cache_int8_bytes"] == int(ref["cache_int8_bytes"])
+
+
+def test_topk_epoch_matches_the_reference_spmd(runs):
+    port, ref = runs
+    got = port["part3"]["topk"]
+    tol = EPOCH_TOL["phase0"]
+    _close(got["losses"].numpy(), ref["topk_loss"], tol, 0)
+    for i, w in enumerate(got["params"]):
+        _close(w.numpy(), ref[f"topk_p{i}"], tol, 0)
+    _close(got["val"].numpy(), ref["topk_val"], F1_TOL, 0)
+    assert tuple(got["grad_res"].shape) == ref["topk_res"].shape
+    _close(got["grad_res"].numpy(), ref["topk_res"], tol, 0)
+
+
+def test_overlapped_eval_matches_the_reference_spmd(runs):
+    port, ref = runs
+    micro, preds = port["part3"]["overlap"]
+    _close(micro.numpy(), ref["overlap_micro"], F1_TOL, 0)
+    assert int((preds.numpy() != ref["overlap_preds"]).sum()) \
+        <= PRED_MISMATCH
 
 
 def test_train_cli_spawns_the_mesh():
