@@ -73,7 +73,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
               call (host work counts where the device outruns the host);
               every line adds the device time alone (``*_device_ms``, host
               hidden behind a sleep kernel) and ``call_us``, the host clock
-              over back-to-back calls
+              over back-to-back calls.  The training path: flash
+              attention's forward with the log-sum-exp (its output bitwise
+              serving's prefill, the LSE against ``torch.logsumexp``, -inf
+              where a row sees no key) and its backward kernel (dq, dk, dv
+              against autograd of the plain version, launched twice
+              bitwise) on ``tests/test_kernels.py``'s cases, window 0 and
+              qwen2-0.5b's training shape (q 8x14x512x64, k/v 8x2x512x64),
+              and the RMSNorm backward of both entry points at three
+              shapes and the training rows (8, 512, 896), all in f32 and
+              bf16; at the training shapes their times beside the plain
+              versions' (autograd) and the library's
+              (``scaled_dot_product_attention`` with ``is_causal`` and
+              ``enable_gqa``, ``rms_norm``, their backwards through
+              autograd), with the bounds (operations at the type's peak,
+              bytes at 3.35 TB/s)
   4. serve    ``repro_torch.launch.serve.gnn_main`` at products-s, P=4,
               hidden 128, seed 0: export, 20 ticks of 4 feature updates and
               16 queries, then edge additions (one grows a halo row) and a
@@ -196,12 +210,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
               decode steps and their greedy tokens (asserted); and one
               prefill and 16 decode steps broken down (torch.profiler),
               with the kernel launches and torch's elementwise adds per step
-  7. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
+  7. train    ``repro_torch.launch.train`` ``llm`` with qwen2-0.5b at its
+              published widths (remat on), 4 shards of 8 x 512 tokens, 4
+              phase-0 and 4 phase-1 steps, seed 0: finite losses; every
+              step launches, per shard, the flash training forward 48
+              times (remat replays each layer), its backward 24 times,
+              RMSNorm's forward 97 times and its backward 49 times, and
+              no serving design; step ms (median after a phase's first
+              step), tokens/s and peak memory beside the card's name and
+              power limit.  Then one phase-0 step of the f32 variant
+              from one seed, the kernels against their plain versions
+              (the shards' losses and the mean gradient), and one bf16
+              phase-0 step broken down (torch.profiler)
+  8. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
               use, their row-range use, their single-partition use, whose
               launches include the mesh ranks', and their row-range
               single-partition use, the mesh ranks' overlapped forward;
-              flash attention's two designs, both RMSNorm entry points),
-              then the device line last
+              flash attention's two designs, both RMSNorm entry points,
+              and the training path's flash forward with the LSE, the
+              flash backward and the RMSNorm backward of both entry
+              points), then the device line last
 
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -278,6 +306,32 @@ RMSNORM_TPU = "src/repro/kernels/rmsnorm.py:21"
 # the transformer serving run: qwen2-0.5b at its published widths
 LLM_ARGS = ["--arch", "qwen2-0.5b", "--full", "--batch", "4", "--prompt-len",
             "2048", "--new-tokens", "64", "--seed", "0", "--device", "cuda"]
+# the transformer training run: qwen2-0.5b at its published widths, 4
+# shards of 8 sequences of 512 tokens, 4 phase-0 and 4 phase-1 steps
+LLM_TRAIN_ARGS = ["llm", "--arch", "qwen2-0.5b", "--full", "--shards", "4",
+                  "--batch", "8", "--seq", "512", "--docs", "256", "--steps",
+                  "8", "--phase0-frac", "0.5", "--seed", "0", "--device",
+                  "cuda"]
+# the training path's backward kernels against autograd of their plain
+# versions (tests/test_torch_gpu.py's FLASH_BWD_TOL and RMS_BWD_TOL, the
+# RMSNorm ones relative to each gradient's largest entry): f32 sums in
+# another order; bf16 gradients round once from f32 in the kernels, where
+# the plain flash backward reads the output in f32 and not rounded to bf16
+# as the kernel's D_i does, and autograd rounds the norm's gradient to bf16
+# before it adds the residual's
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+RMS_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# the training forward's log-sum-exp against torch.logsumexp of the scaled
+# live scores: f32, the kernel's exp2 and sums in another order
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+# qwen2-0.5b at full width in float32, one phase-0 step (4 shards' losses
+# and their mean gradient) with the kernels, forward and backward, against
+# the plain versions from the same weights: the GEMMs are the same calls on
+# both sides, the attention's and the norms' sums (forward and backward)
+# run in other orders through 24 layers; each gradient is compared
+# relative to its largest entry
+LLM_TRAIN_LOSS_RTOL = 1e-5
+LLM_TRAIN_GRAD_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -895,6 +949,17 @@ FLASH_CASES = [
 RMS_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (4, 2048, 896),
               (4, 1, 896)]
 RMS_MAIN_SHAPES = RMS_SHAPES[-2:]
+# the training path: tests/test_kernels.py's flash cases and the fully
+# masked row through the forward with the log-sum-exp and the backward,
+# window 0 (no row sees a key), and qwen2-0.5b's training shape (batch 8 x
+# seq 512); RMSNorm's backward at three shapes and qwen2-0.5b's training
+# rows (8, 512, 896)
+FLASH_TRAIN_CASES = FLASH_CASES[:7] + [
+    ("window 0", (1, 4, 2, 70, 70, 64, True, 0, 0)),
+    ("qwen2-0.5b train", (8, 14, 2, 512, 512, 64, True, None, 0)),
+]
+RMS_TRAIN_MAIN = (8, 512, 896)
+RMS_TRAIN_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), RMS_TRAIN_MAIN]
 
 
 def flash_live_pairs(sq, sk, causal, window, q_offset):
@@ -1066,6 +1131,209 @@ def run_rmsnorm_case(rn, shape, dtype_name, flush, iters, record, *,
            "torch_add_device_ms": add_dev, "bound_us": bound * 1e6,
            "bound_by": "bytes" if t_b >= t_o else "operations",
            "device_share": bound * 1e3 / k_dev}
+    log("shape " + json.dumps(row))
+    record.append(row)
+    return row
+
+
+def timed_row(fn, plain, lib, iters, flush):
+    """The kernel's, the plain version's and the library call's times
+    (enqueue and device alone) and the kernel's ``call_us``."""
+    return {"kernel_ms": time_ms(fn, iters, flush),
+            "kernel_device_ms": time_ms(fn, iters, flush, hide_host=True),
+            "call_us": call_us(fn),
+            "plain_ms": time_ms(plain, iters, flush),
+            "plain_device_ms": time_ms(plain, iters, flush, hide_host=True),
+            "library_ms": time_ms(lib, iters, flush),
+            "library_device_ms": time_ms(lib, iters, flush, hide_host=True)}
+
+
+def with_bound(row, flops, nbytes, peak):
+    t_o, t_b = flops / peak, nbytes / HBM_BYTES_S
+    row.update(flops=flops, bytes=nbytes, bound_us=max(t_o, t_b) * 1e6,
+               bound_by="operations" if t_o >= t_b else "bytes")
+    if "kernel_device_ms" in row:
+        row["device_share"] = max(t_o, t_b) * 1e3 / row["kernel_device_ms"]
+    return row
+
+
+def run_flash_train_case(fa, name, case, dtype_name, flush, iters, record, *,
+                         main_path=False):
+    """The training path's two flash launches on the card: the forward
+    with the log-sum-exp (launched twice, bitwise equal; its output
+    bitwise serving's prefill, its LSE
+    against ``torch.logsumexp``, -inf for a row with no key) and the
+    backward (dq, dk, dv against autograd of the plain version, launched
+    twice, bitwise equal, no NaN, zero dq on rows with no key); on the main
+    path's shape their times beside the plain versions' and one
+    ``scaled_dot_product_attention`` call's (``is_causal``,
+    ``enable_gqa``; its backward through autograd) and the bounds.
+    Returns ``(forward row, backward row)``."""
+    import torch
+    import torch.nn.functional as F
+
+    b, hq, hkv, sq, sk, dh, causal, window, q_off = case
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + dh)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for shape in ((b, hq, sq, dh), (b, hkv, sk, dh),
+                                 (b, hkv, sk, dh), (b, hq, sq, dh)))
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    o2, lse2 = fa.flash_attention_lse(q, k, v, **kw)
+    serve = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+        f"flash train {name} {dtype_name}: two launches differ"
+    design = fa.plan(q.shape, k.shape, causal=causal, window=window,
+                     q_offset=q_off, sms=torch.cuda.get_device_properties(
+                         0).multi_processor_count).design
+    if design == "prefill":
+        assert torch.equal(o, serve), \
+            f"flash train {name} {dtype_name}: output is not serving's"
+    live = flash_live_pairs(sq, sk, causal, window, q_off)
+    live_t = torch.as_tensor(live, device="cuda")
+    dead = ~live_t.any(1)
+    kx = k.repeat_interleave(hq // hkv, 1).float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) / dh ** 0.5
+    want_lse = torch.logsumexp(scores.masked_fill(~live_t, float("-inf")),
+                               -1)
+    assert torch.isneginf(lse[:, :, dead]).all(), f"{name}: dead row's LSE"
+    lse_err = float((lse[:, :, ~dead] - want_lse[:, :, ~dead]).abs().max()) \
+        if (~dead).any() else 0.0
+    torch.testing.assert_close(lse[:, :, ~dead], want_lse[:, :, ~dead],
+                               atol=LSE_ATOL, rtol=LSE_RTOL)
+    fwd_err = float((o.float() - fa.flash_attention_plain(
+        q, k, v, **kw).float()).abs().max())
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(grads, again)), \
+        f"flash bwd {name} {dtype_name}: two launches differ"
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out_p = fa.flash_attention_plain(*leaves, **kw)
+    want = torch.autograd.grad(out_p, leaves, do, retain_graph=True)
+    tol = FLASH_BWD_TOL[dtype_name]
+    errs = {}
+    for label, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == dtype and torch.isfinite(g).all(), (name, label)
+        errs[label] = float((g.float() - w.float()).abs().max())
+        assert torch.allclose(g.float(), w.float(), atol=tol, rtol=tol), \
+            (f"flash bwd {name} {dtype_name} {label}: max |kernel - plain| "
+             f"= {errs[label]} above atol {tol} rtol {tol}")
+    assert not grads[0][:, :, dead].float().abs().any(), "dead row's dq"
+    fwd = {"kernel": "flash_attention_train", "shape": name,
+           "q": list(q.shape), "kv": list(k.shape), "dtype": dtype_name,
+           "window": window, "max_abs_err": fwd_err, "lse_max_abs_err":
+           lse_err}
+    bwd = {"kernel": "flash_attention_bwd", "shape": name,
+           "q": list(q.shape), "kv": list(k.shape), "dtype": dtype_name,
+           "window": window, "max_abs_err": max(errs.values()), **errs}
+    if main_path:
+        assert causal and window is None and q_off == 0 and sq == sk
+        lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out_l = F.scaled_dot_product_attention(*lib_leaves, is_causal=True,
+                                               enable_gqa=True)
+        fwd.update(timed_row(
+            lambda: fa.flash_attention_lse(q, k, v, **kw),
+            lambda: fa.flash_attention_plain(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            iters, flush))
+        bwd.update(timed_row(
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+            lambda: torch.autograd.grad(out_p, leaves, do, retain_graph=True),
+            lambda: torch.autograd.grad(out_l, lib_leaves, do,
+                                        retain_graph=True),
+            iters, flush))
+        pairs = int(live.sum()) * b * hq
+        kv_rows = b * hkv * int(live.any(axis=0).sum())
+        es = q.element_size()
+        # forward: q, the live K/V rows in, o and the LSE out; 4 Dh FLOPs a
+        # live pair.  Backward: q, o, dO, the LSE and the live K/V rows in,
+        # dq, dk, dv out; 10 Dh FLOPs a live pair (S, dP, dV, dK, dQ)
+        with_bound(fwd, 4.0 * dh * pairs,
+                   (2 * q.numel() + 2 * kv_rows * dh) * es + lse.numel() * 4,
+                   ATTN_PEAK_FLOPS[dtype_name])
+        with_bound(bwd, 10.0 * dh * pairs,
+                   (4 * q.numel() + 2 * kv_rows * dh + 2 * k.numel()) * es
+                   + lse.numel() * 4, ATTN_PEAK_FLOPS[dtype_name])
+    for row in (fwd, bwd):
+        log("shape " + json.dumps(row))
+        record.append(row)
+    return fwd, bwd
+
+
+def run_rmsnorm_bwd_case(rn, shape, dtype_name, flush, iters, record, *,
+                         fused=False, main_path=False):
+    """The RMSNorm backward on the card for one entry point: ``(ds, dw)``
+    against autograd of the plain version (for the fused one, with the
+    residual's own gradient ``ds_in``: the gradient of x and of delta),
+    launched twice, bitwise equal; on the main path's rows its times beside
+    the plain version's and the library's (autograd of one ``rms_norm``
+    call; for the fused one of ``x + delta``, then ``rms_norm``) and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(shape[-1] + 1)
+    x, delta, dy, ds_in = (torch.randn(shape, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+    w = torch.randn(shape[-1], device="cuda", generator=gen)
+    s = x + delta if fused else x
+    extra = ds_in if fused else None
+    got = rn.rmsnorm_bwd(s, dy, w, extra)
+    again = rn.rmsnorm_bwd(s, dy, w, extra)
+    torch.cuda.synchronize()
+    name = "add_rmsnorm_bwd" if fused else "rmsnorm_bwd"
+    assert all(torch.equal(a, c) for a, c in zip(got, again)), \
+        f"{name} {shape} {dtype_name}: two launches differ"
+    leaves = [t.detach().clone().requires_grad_() for t in (x, delta, w)]
+    if fused:
+        outs = rn.add_rmsnorm_plain(*leaves)
+        want = torch.autograd.grad(outs, leaves, (ds_in, dy),
+                                   retain_graph=True)
+        pairs = [(got[0], want[0]), (got[0], want[1]), (got[1], want[2])]
+        plain = lambda: torch.autograd.grad(outs, leaves, (ds_in, dy),
+                                            retain_graph=True)
+    else:
+        outs = rn.rmsnorm_plain(leaves[0], leaves[2])
+        want = torch.autograd.grad(outs, [leaves[0], leaves[2]], dy,
+                                   retain_graph=True)
+        pairs = [(got[0], want[0]), (got[1], want[1])]
+        plain = lambda: torch.autograd.grad(outs, [leaves[0], leaves[2]], dy,
+                                            retain_graph=True)
+    tol = RMS_BWD_TOL[dtype_name]
+    err = 0.0
+    for g, wt in pairs:
+        scale = float(wt.float().abs().max())
+        err = max(err, float((g.float() - wt.float()).abs().max()))
+        assert torch.allclose(g.float(), wt.float(), atol=tol * scale,
+                              rtol=tol), \
+            (f"{name} {shape} {dtype_name}: max |kernel - plain| {err} above "
+             f"atol {tol} x {scale} rtol {tol}")
+    row = {"kernel": name, "shape": list(shape), "dtype": dtype_name,
+           "max_abs_err": err}
+    if main_path:
+        lib_leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, delta, w.to(dtype))]
+        lx = lib_leaves[0] + lib_leaves[1] if fused else lib_leaves[0]
+        y_l = F.rms_norm(lx, (shape[-1],), lib_leaves[2], 1e-6)
+        lib_in = lib_leaves if fused else [lib_leaves[0], lib_leaves[2]]
+        row.update(timed_row(
+            lambda: rn.rmsnorm_bwd(s, dy, w, extra), plain,
+            lambda: torch.autograd.grad(y_l, lib_in, dy, retain_graph=True),
+            iters, flush))
+        row["library"] = ("autograd of x + delta, then F.rms_norm" if fused
+                          else "autograd of F.rms_norm")
+        # s, dy (and ds_in) and w in, ds and dw out; about ten flops an
+        # element
+        arrays = 4 if fused else 3
+        with_bound(row, 10.0 * x.numel(),
+                   arrays * x.numel() * x.element_size() + 2 * 4 * shape[-1],
+                   PEAK_FLOPS["float32"])
     log("shape " + json.dumps(row))
     record.append(row)
     return row
@@ -3551,6 +3819,127 @@ def llm_phase(torch, fa, rn):
     return n_flash, n_rms
 
 
+def llm_train_phase(torch, fa, rn, card):
+    """qwen2-0.5b at its published widths trained through ``launch.train
+    llm`` (4 shards, 4 phase-0 and 4 phase-1 steps) with every launch count
+    set to 0 just before and read just after: finite losses, every step's
+    launches of the four training kernels (remat replays each layer's
+    forward, so the forward kernels launch twice a layer), none of
+    serving's; step times, tokens/s and peak memory.  Then one phase-0
+    step of the f32 variant, the kernels against their plain versions from
+    the same weights, and one bf16 phase-0 step broken down
+    (torch.profiler).  Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch.launch.train import (build_parser, llm_phase0_step,
+                                          run_llm)
+    from repro_torch.models import Transformer
+
+    fa.reset_flash_launch_count()
+    rn.reset_rmsnorm_launch_count()
+    t0 = time.perf_counter()
+    run = run_llm(build_parser().parse_args(LLM_TRAIN_ARGS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash = {d: fa.flash_launch_count(d)
+             for d in ("train", "backward", "prefill", "decode")}
+    rms = {"rmsnorm": rn.rmsnorm_launch_count()
+           - rn.add_rmsnorm_launch_count(),
+           "add_rmsnorm": rn.add_rmsnorm_launch_count(),
+           "rmsnorm_bwd": rn.rmsnorm_bwd_launch_count()
+           - rn.add_rmsnorm_bwd_launch_count(),
+           "add_rmsnorm_bwd": rn.add_rmsnorm_bwd_launch_count()}
+    cfg, shards = run["cfg"], 4
+    n_layers = cfg.num_layers
+    assert cfg.remat and cfg.d_model == 896 and cfg.vocab_size == 151936
+    # per shard's loss and backward: flash forward (with the LSE) and
+    # backward, RMSNorm forward (both entry points) and backward; the
+    # layers' forwards run twice (remat), the final norm once
+    per_pass = [2 * n_layers, n_layers, 4 * n_layers + 1, 2 * n_layers + 1]
+    steps = run["launches_per_step"]
+    assert len(steps) == 8, steps
+    for i, n in enumerate(steps):
+        assert n == [shards * c for c in per_pass], (i, n, per_pass)
+    assert flash["prefill"] == flash["decode"] == 0, flash
+    assert flash["train"] == 8 * shards * per_pass[0], flash
+    assert flash["backward"] == 8 * shards * per_pass[1], flash
+    # the fused entry point: every norm but layer 0's first takes in the
+    # add before it, twice over (remat) but the final norm's; its backward
+    # gets the sum's own gradient everywhere but at the final norm
+    assert rms == {"rmsnorm": 8 * shards * 2,
+                   "add_rmsnorm": 8 * shards * (4 * n_layers - 1),
+                   "rmsnorm_bwd": 8 * shards * 2,
+                   "add_rmsnorm_bwd": 8 * shards * (2 * n_layers - 1)}, rms
+    losses = [run["phase0_final_loss"]] + run["phase1_final_loss"]
+    assert np.isfinite(losses).all(), losses
+    stats = {k: run[k] for k in ("phase0_step_ms", "phase1_step_ms",
+                                 "tokens_per_step", "phase0_tokens_per_s",
+                                 "phase1_tokens_per_s",
+                                 "max_memory_allocated", "phase0_final_loss",
+                                 "phase1_final_loss", "shard_entropies",
+                                 "wall_s")}
+    step_ms = [np.round(np.array(run["step_s"][i]) * 1e3, 3).tolist()
+               for i in (0, 1)]
+    log(f"llm train {cfg.name} full width ({card}): {json.dumps(stats)}; "
+        f"phase-0 step ms {step_ms[0]}, phase-1 {step_ms[1]}; "
+        f"launches per step (flash fwd, flash bwd, rmsnorm fwd, rmsnorm "
+        f"bwd) {steps[0]} = {shards} x {per_pass}; totals flash {flash} "
+        f"rmsnorm {rms}; main path {wall:.1f} s")
+    nb = run["batcher"].next_batch()
+    model, opt, opt_state = run["model"], run["opt"], run["opt_state"]
+    run.clear()      # the replicas and their optimizer states
+
+    # the f32 variant from one seed: one phase-0 step's losses and mean
+    # gradient, kernels against plain versions
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = Transformer(cfg32, seed=0, device="cuda")
+    weights = list(m32.parameters())
+    names = [n for n, _ in m32.named_parameters()]
+    out = {}
+    for use_kernels in (True, False):
+        m32.use_kernels = use_kernels
+        fa.reset_flash_launch_count()
+        rn.reset_rmsnorm_launch_count()
+        shard_losses, acc = [], None
+        for p in range(shards):
+            loss = m32.train_loss({"tokens": nb["tokens"][p],
+                                   "labels": nb["labels"][p]})
+            g = torch.autograd.grad(loss, weights)
+            shard_losses.append(loss.item())
+            acc = list(g) if acc is None else [a + x for a, x in zip(acc, g)]
+        out[use_kernels] = (shard_losses, [a / shards for a in acc])
+        del acc, g
+        # the kernels' pass went through all four kernels, the plain one
+        # through none
+        n = [fa.flash_launch_count("train"), fa.flash_launch_count("backward"),
+             rn.rmsnorm_launch_count(), rn.rmsnorm_bwd_launch_count()]
+        assert n == [shards * c * use_kernels for c in per_pass], n
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(out[True][0],
+                                                       out[False][0]))
+    rel = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for n, a, b in zip(names, out[True][1], out[False][1])}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    log(f"llm train f32 phase-0 step, kernels vs plain: shard losses "
+        f"{out[True][0]} vs {out[False][0]} (rel diff {loss_err:.3e}, rtol "
+        f"{LLM_TRAIN_LOSS_RTOL}); gradients max |diff| / max |plain| "
+        f"{max(rel.values()):.3e} (limit {LLM_TRAIN_GRAD_RTOL}), worst "
+        f"{worst}")
+    assert loss_err <= LLM_TRAIN_LOSS_RTOL, loss_err
+    assert max(rel.values()) <= LLM_TRAIN_GRAD_RTOL, worst
+    del m32, weights, out
+
+    # where the time goes: one bf16 phase-0 step of the trained model
+    state = {"opt": opt_state}
+
+    def step():
+        state["opt"], _ = llm_phase0_step(model, opt, state["opt"], nb,
+                                          shards)
+
+    step()
+    profile_window(torch, "llm train phase-0 step", step, 1)
+    return flash, rms
+
+
 def main() -> int:
     import torch
 
@@ -3753,6 +4142,21 @@ def main() -> int:
                     rn, shape, dtype_name, flush=flush, iters=10,
                     record=shapes, fused=fused,
                     main_path=shape in RMS_MAIN_SHAPES)
+    # the training path: flash attention's forward with the log-sum-exp and
+    # its backward, RMSNorm's backward for both entry points
+    flash_train_rows, rms_bwd_rows = {}, {}
+    for name, case in FLASH_TRAIN_CASES:
+        for dtype_name in ("float32", "bfloat16"):
+            flash_train_rows[name, dtype_name] = run_flash_train_case(
+                fa, name, case, dtype_name, flush=flush, iters=10,
+                record=shapes, main_path=name == "qwen2-0.5b train")
+    for fused in (False, True):
+        for shape in RMS_TRAIN_SHAPES:
+            for dtype_name in ("float32", "bfloat16"):
+                rms_bwd_rows[fused, shape, dtype_name] = run_rmsnorm_bwd_case(
+                    rn, shape, dtype_name, flush=flush, iters=10,
+                    record=shapes, fused=fused,
+                    main_path=shape == RMS_TRAIN_MAIN)
 
     # ---- 4. main path: GNN serving at products-s, P=4, hidden 128 ----------
     args = build_parser().parse_args(
@@ -3919,7 +4323,10 @@ def main() -> int:
     # ---- 6. main path: transformer serving, qwen2-0.5b at full width -------
     llm_flash, llm_rms = llm_phase(torch, fa, rn)
 
-    # ---- 7. report ---------------------------------------------------------
+    # ---- 7. main path: transformer training, qwen2-0.5b at full width ------
+    train_flash, train_rms = llm_train_phase(torch, fa, rn, card)
+
+    # ---- 8. report ---------------------------------------------------------
     main_row, bwd_row = main_rows[128], bwd_rows[128]
     log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
         f"bwd {train_bwd}; overlapped split forward (row-range use) fwd "
@@ -3927,7 +4334,8 @@ def main() -> int:
         f"fwd {part_fwd}, partition mesh ranks fwd {mesh_fwd} bwd "
         f"{mesh_bwd}; row-range single-partition use (the mesh ranks' "
         f"overlapped forward) fwd {mesh_rows_fwd} bwd {mesh_rows_bwd}; llm "
-        f"serving flash {llm_flash} rmsnorm {llm_rms}")
+        f"serving flash {llm_flash} rmsnorm {llm_rms}; llm training flash "
+        f"{train_flash} rmsnorm {train_rms}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -3995,6 +4403,34 @@ def main() -> int:
             ("add_rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
              rms_rows[True, (4, 2048, 896), "bfloat16"],
              llm_rms["add_rmsnorm"], rms_errs[True])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}", "replaces": tpu,
+            "launches": n, "max_abs_err": max(errs),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    # the training path at qwen2-0.5b's training shape in bf16: the forward
+    # with the log-sum-exp, the flash backward, and the RMSNorm backward of
+    # both entry points at the (8, 512, 896) rows
+    train_main = ("qwen2-0.5b train", "bfloat16")
+    for name, source, tpu, row, n, errs in (
+            ("flash_attention_train", "flash_attention.cu", FLASH_TPU,
+             flash_train_rows[train_main][0], train_flash["train"],
+             [r[0]["max_abs_err"] for r in flash_train_rows.values()]),
+            ("flash_attention_bwd", "flash_attention_bwd.cu", FLASH_TPU,
+             flash_train_rows[train_main][1], train_flash["backward"],
+             [r[1]["max_abs_err"] for r in flash_train_rows.values()]),
+            ("rmsnorm_bwd", "rmsnorm.cu", RMSNORM_TPU,
+             rms_bwd_rows[False, RMS_TRAIN_MAIN, "bfloat16"],
+             train_rms["rmsnorm_bwd"],
+             [r["max_abs_err"] for (f, _, _), r in rms_bwd_rows.items()
+              if not f]),
+            ("add_rmsnorm_bwd", "rmsnorm.cu", RMSNORM_TPU,
+             rms_bwd_rows[True, RMS_TRAIN_MAIN, "bfloat16"],
+             train_rms["add_rmsnorm_bwd"],
+             [r["max_abs_err"] for (f, _, _), r in rms_bwd_rows.items()
+              if f])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}", "replaces": tpu,

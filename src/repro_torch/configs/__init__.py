@@ -4,9 +4,9 @@
 
 Each module defines CONFIG with the exact assigned dimensions and cites its
 source in the docstring.  ``get_config(arch, variant)`` applies serving
-variants (``swa``: rolling-window serving for full-attention archs).  The
-reference's ``shapes.py`` (input specs of the dry-run) is not ported yet
-(ROADMAP item 15).
+variants (``swa``: rolling-window serving for full-attention archs).
+``shapes.py`` holds the four assigned input shapes and their meta-tensor
+input specs.
 """
 from __future__ import annotations
 
@@ -14,8 +14,10 @@ from dataclasses import replace
 from importlib import import_module
 
 from ..models.config import ModelConfig
+from .shapes import SHAPES, InputShape, decode_cache_width, input_specs
 
-__all__ = ["ARCH_IDS", "SWA_SERVE_WINDOW", "get_config"]
+__all__ = ["ARCH_IDS", "SWA_SERVE_WINDOW", "get_config", "SHAPES",
+           "InputShape", "input_specs", "decode_cache_width"]
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",

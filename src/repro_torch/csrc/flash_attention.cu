@@ -74,6 +74,13 @@
 //    or fully masked split has m = -1e30, l = 0, acc = 0 and adds nothing;
 //    a row with no live key ends with l = 0 and gives 0.
 //
+// Training: both prefill designs also write each row's log-sum-exp of its
+// scaled live scores, lse = m + log(l) in natural-log units (-inf for a row
+// that sees no key), when the caller passes a buffer for it; the backward
+// (flash_attention_bwd.cu) recomputes P = exp(s scale - lse) from it.
+// Serving passes null, and the output is the same either way: the LSE is
+// written after it and changes none of its arithmetic.
+//
 // Interface: plain C, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing (the decode partials live in a scratch buffer the
 // wrapper allocates), does not synchronise, returns cudaGetLastError().
@@ -87,6 +94,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // stands for -inf in running maxima
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -205,8 +213,9 @@ __global__ void __launch_bounds__(kPThreads)
 flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, int hq, int hkv,
-                         int sq, int sk, int causal, int window, int q_offset,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int hq, int hkv, int sq,
+                         int sk, int causal, int window, int q_offset,
                          float scale_log2) {
   using Shape = PrefillShape<DH>;
   constexpr int kMT = Shape::kMT;
@@ -419,18 +428,25 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
-    float den[2];
+    float den[2], lsum[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float li = l[mt][i];
       li += __shfl_xor_sync(kFull, li, 1);
       li += __shfl_xor_sync(kFull, li, 2);
+      lsum[i] = li;
       den[i] = li == 0.f ? 1.f : li;
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + mt * 16 + 8 * i;
       if (row >= sq) continue;
+      // the row's natural log-sum-exp of the scaled scores, for the
+      // backward: sum_j e^(s_j scale) = 2^m l
+      if (lse != nullptr && tig == 0)
+        lse[q_base + row] = lsum[i] == 0.f
+                                ? -INFINITY
+                                : (m[mt][i] + log2f(lsum[i])) * kLn2;
       __nv_bfloat16* orow = o + (q_base + row) * DH + tig * 2;
 #pragma unroll
       for (int d = 0; d < kDTiles; ++d)
@@ -452,9 +468,9 @@ constexpr int kDPT = 32;  // head dims owned by one thread
 template <int DH>
 __global__ void __launch_bounds__(kBQ * (DH / kDPT))
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int hq,
-                 int hkv, int sq, int sk, int causal, int window, int q_offset,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int hq, int hkv, int sq, int sk,
+                 int causal, int window, int q_offset, float scale) {
   constexpr int G = DH / kDPT;       // threads per query row
   constexpr int kChunks = kDPT / 4;  // float4 chunks per thread
   constexpr int kRow4 = DH / 4;      // float4 chunks per key row
@@ -571,6 +587,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!active) return;
+  // the row's natural log-sum-exp of the scaled scores, for the backward
+  if (lse != nullptr && g == 0)
+    lse[q_row] = l == 0.f ? -INFINITY : m + logf(l);
   const float denom = l == 0.f ? 1.f : l;
   float* op = o + q_row * DH;
 #pragma unroll
@@ -852,7 +871,8 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
 
 template <int DH>
 int launch_prefill_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int hq, int hkv, int sq, int sk, int causal,
+                        float* lse, int B, int hq, int hkv, int sq, int sk,
+                        int causal,
                         int window, int q_offset, float scale,
                         cudaStream_t stream) {
   using Shape = PrefillShape<DH>;
@@ -867,20 +887,21 @@ int launch_prefill_bf16(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      hq, hkv, sq, sk, causal, window, q_offset, scale * kLog2e);
+      lse, hq, hkv, sq, sk, causal, window, q_offset, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
 int launch_prefill_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int hq, int hkv, int sq, int sk, int causal,
+                       float* lse, int B, int hq, int hkv, int sq, int sk,
+                       int causal,
                        int window, int q_offset, float scale,
                        cudaStream_t stream) {
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, B);
   flash_fwd_kernel<DH><<<grid, kBQ * (DH / kDPT), 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
-      causal, window, q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, hq, hkv, sq,
+      sk, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -911,16 +932,19 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 // Prefill (any Sq).  dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor
 // cores); q, k, v and o all of it.  q and o are (B, hq, sq, dh), k and v
 // (B, hkv, sk, dh), all contiguous; hq a multiple of hkv; dh in
-// {32, 64, 128}; window < 0 means no window; sq > 0.
+// {32, 64, 128}; window < 0 means no window; sq > 0.  lse is null (serving)
+// or (B, hq, sq) float32: each row's log-sum-exp of its scaled live scores,
+// -inf for a row that sees no key (the training forward, for the backward
+// in flash_attention_bwd.cu); the output does not depend on it.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
-                                   const void* v, void* o, int B, int hq,
-                                   int hkv, int sq, int sk, int dh, int causal,
-                                   int window, int q_offset, float scale,
-                                   void* stream) {
+                                   const void* v, void* o, float* lse, int B,
+                                   int hq, int hkv, int sq, int sk, int dh,
+                                   int causal, int window, int q_offset,
+                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_PREFILL(KIND, DH)                                              \
-  return launch_prefill_##KIND<DH>(q, k, v, o, B, hq, hkv, sq, sk, causal, \
-                                   window, q_offset, scale, s)
+#define FLASH_PREFILL(KIND, DH)                                             \
+  return launch_prefill_##KIND<DH>(q, k, v, o, lse, B, hq, hkv, sq, sk,    \
+                                   causal, window, q_offset, scale, s)
   if (dtype == 0) {
     if (dh == 32) FLASH_PREFILL(f32, 32);
     if (dh == 64) FLASH_PREFILL(f32, 64);

@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load_library", "build_log"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("segment_agg", "flash_attention", "rmsnorm")
+SOURCES = ("segment_agg", "flash_attention", "flash_attention_bwd", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # ptxas resource report (registers, spills); changes nothing in the binary

@@ -10,6 +10,17 @@ kernel's design on the host: a decode query (``Sq == 1``, at most
 :data:`DECODE_MAX_GROUP` query heads per KV head) is split over the live
 key range, anything else runs the prefill design (tensor cores in bf16,
 CUDA cores in f32).
+
+Training: where autograd needs a gradient (grad mode on and q, k or v
+requiring one), a CUDA call goes through :class:`FlashAttentionFn`, whose
+forward is the prefill design writing each row's log-sum-exp beside the
+output and whose backward is the hand-written kernel of
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_lse` and
+:func:`flash_attention_bwd` are the two launches); a CPU call
+runs the plain version under autograd.  The reference has no backward of
+its Pallas kernel: it trains through the pure-JAX ``chunked_attention``,
+whose gradient JAX's autodiff computes, and the backward computes that
+gradient.
 """
 from __future__ import annotations
 
@@ -23,7 +34,8 @@ import torch
 from . import ref
 from .build import load_library
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "Plan",
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
+           "flash_attention_bwd", "FlashAttentionFn", "HEAD_DIMS", "Plan",
            "plan", "flash_launch_count", "reset_flash_launch_count"]
 
 HEAD_DIMS = (32, 64, 128)       # head sizes the kernels are instantiated for
@@ -34,13 +46,15 @@ DECODE_MIN_CHUNK = 32   # fewest keys one decode split walks
 DECODE_WAVES = 2        # decode blocks per SM the split count aims at
 
 # calls that launched a kernel, by design, bumped once per call and
-# nowhere else
-_LAUNCHES = {"prefill": 0, "decode": 0}
+# nowhere else: serving's prefill and decode designs, the training forward
+# (the prefill design writing the log-sum-exp) and the backward
+_LAUNCHES = {"prefill": 0, "decode": 0, "train": 0, "backward": 0}
 
 
 def flash_launch_count(design: str | None = None) -> int:
     """Calls that launched a flash attention kernel: of one design
-    (``"prefill"`` or ``"decode"``), or of both."""
+    (``"prefill"``, ``"decode"``, ``"train"`` for the training forward,
+    ``"backward"``), or of all."""
     return sum(_LAUNCHES.values()) if design is None else _LAUNCHES[design]
 
 
@@ -125,10 +139,19 @@ def _kernel_fns():
     lib = load_library("flash_attention")
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     prefill, decode = lib.flash_attention_fwd, lib.flash_decode_fwd
-    prefill.argtypes = [i32, vp, vp, vp, vp] + [i32] * 9 + [f32, vp]
+    prefill.argtypes = [i32, vp, vp, vp, vp, vp] + [i32] * 9 + [f32, vp]
     decode.argtypes = [i32, vp, vp, vp, vp, vp] + [i32] * 9 + [f32, vp]
     prefill.restype = decode.restype = i32
     return prefill, decode
+
+
+@functools.cache
+def _bwd_fn():
+    fn = load_library("flash_attention_bwd").flash_attention_bwd
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [i32] + [vp] * 10 + [i32] * 9 + [f32, vp]
+    fn.restype = i32
+    return fn
 
 
 @functools.cache
@@ -136,15 +159,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
+def _launch(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
+    """One forward launch; with ``lse`` (a ``(B, Hq, Sq)`` float32 buffer)
+    the prefill design also writes each row's log-sum-exp there and counts
+    as a training forward."""
     _check_kernel_inputs(q, k, v)
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    p = plan(q.shape, k.shape, causal=causal, window=window,
-             q_offset=q_offset, sms=_sm_count(q.device.index))
+    p = (Plan("train") if lse is not None else
+         plan(q.shape, k.shape, causal=causal, window=window,
+              q_offset=q_offset, sms=_sm_count(q.device.index)))
     prefill, decode = _kernel_fns()
     code, scale = _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh)
     with torch.cuda.device(q.device):
@@ -158,7 +185,9 @@ def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
                          p.k_lo, p.k_hi, p.chunk, p.n_split, scale, stream)
         else:
             err = prefill(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), b, hq, hkv, sq, sk, dh,
+                          out.data_ptr(),
+                          None if lse is None else lse.data_ptr(),
+                          b, hq, hkv, sq, sk, dh,
                           int(bool(causal)),
                           -1 if window is None else int(window),
                           int(q_offset), scale, stream)
@@ -169,6 +198,84 @@ def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
     return out
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
+                        q_offset=0):
+    """The backward kernel: ``(dq, dk, dv)`` of the forward ``o`` (with its
+    log-sum-exp ``lse``, ``(B, Hq, Sq)`` float32) for the output gradient
+    ``do``, in the inputs' dtype.  CUDA tensors only; raises on what the
+    kernel cannot take."""
+    _check(q, k, v, window)
+    _check_kernel_inputs(q, k, v)
+    if not q.is_cuda:
+        raise ValueError("flash_attention_bwd launches the CUDA kernel; the "
+                         "CPU trains through the plain version")
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or do.dtype != q.dtype or lse.shape != (b, hq, sq)
+            or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
+                         f"and dtype and lse (B, Hq, Sq) float32; got "
+                         f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
+                         f"{do.dtype}, {tuple(lse.shape)} {lse.dtype}")
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = _bwd_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, hq, hkv, sq, sk, dh, int(bool(causal)),
+                 -1 if window is None else int(window), int(q_offset),
+                 1.0 / math.sqrt(dh), stream)
+    _LAUNCHES["backward"] += 1
+    if err != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed "
+                           f"with CUDA error {err}")
+    return dq, dk, dv
+
+
+def flash_attention_lse(q, k, v, *, causal=True, window=None, q_offset=0):
+    """The training forward kernel: ``(out, lse)``, the prefill design's
+    output (bitwise what serving's prefill gives) and each row's
+    log-sum-exp of its scaled live scores, ``(B, Hq, Sq)`` float32, -inf
+    for a row that sees no key.  CUDA tensors only."""
+    _check(q, k, v, window)
+    if not q.is_cuda:
+        raise ValueError("flash_attention_lse launches the CUDA kernel; the "
+                         "CPU trains through the plain version")
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, q_offset, lse=lse), lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention on CUDA tensors with a hand-written backward: the
+    forward is the prefill kernel writing each row's log-sum-exp (the
+    ``"train"`` launches), and saves q, k, v, the output and the LSE; the
+    backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=causal, window=window,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0) -> torch.Tensor:
@@ -177,11 +284,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query head h reads KV head ``h // (Hq // Hkv)``; query row i sits at
     absolute position ``q_offset + i`` and sees key j < Sk when ``j <= pos``
     (``causal``) and ``j > pos - window`` (``window``); a row that sees no
-    key is 0.  A CUDA ``q`` launches the kernel, a CPU ``q`` runs
-    :func:`flash_attention_plain`.
+    key is 0.  A CUDA ``q`` launches the kernel (through
+    :class:`FlashAttentionFn` where autograd needs a gradient), a CPU ``q``
+    runs :func:`flash_attention_plain` (differentiable as it stands).
     """
     _check(q, k, v, window)
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
         return _launch(q, k, v, causal, window, q_offset)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "

@@ -39,8 +39,16 @@ ends the CLI as it does stacked).
 It takes the reference's flags for the
 ported options, plus ``--device`` (``cuda`` by default; raises without a
 card unless ``cpu``).  The reference's other flags belong to paths that
-are not ported yet.  ``llm`` (the transformer path) waits
-for ROADMAP item 15.
+are not ported yet.
+
+    PYTHONPATH=src python -m repro_torch.launch.train llm \\
+        --arch qwen2-0.5b --shards 4 --steps 60 [--full] [--device cpu]
+
+``llm`` trains a transformer of the zoo (``reduced(d_model=--d-model)``,
+or ``--full`` for its published widths) on the entropy-sharded domain
+corpus through both GP phases (:func:`run_llm`), with the reference's flags;
+on the card every attention and RMSNorm call runs the hand-written kernels,
+forward and backward.
 """
 from __future__ import annotations
 
@@ -185,6 +193,174 @@ def _run_torchrun(args):
         dist.destroy_process_group()
 
 
+def _llm_model(cfg, seed, device):
+    """The model a run starts from: random weights drawn from ``seed``."""
+    from repro_torch.models import Transformer
+
+    return Transformer(cfg, seed=seed, device=device)
+
+
+def _launches() -> tuple[int, int, int, int]:
+    """The kernels' launch counts so far: flash attention's training forward
+    and backward, RMSNorm's forward (both entry points) and backward."""
+    from repro_torch.kernels import (flash_launch_count,
+                                     rmsnorm_bwd_launch_count,
+                                     rmsnorm_launch_count)
+
+    return (flash_launch_count("train"), flash_launch_count("backward"),
+            rmsnorm_launch_count(), rmsnorm_bwd_launch_count())
+
+
+def _shard(nb, p) -> dict:
+    return {"tokens": nb["tokens"][p], "labels": nb["labels"][p]}
+
+
+def llm_phase0_step(model, opt, opt_state, nb, shards):
+    """One phase-0 step in the reference's order: a backward per shard, the
+    gradients summed in shard order, divided by the shard count, then one
+    AdamW update.  Returns ``(opt_state, per-shard losses)``."""
+    import torch
+
+    weights = list(model.parameters())
+    losses, acc = [], None
+    for p in range(shards):
+        loss = model.train_loss(_shard(nb, p))
+        grads = torch.autograd.grad(loss, weights)
+        losses.append(loss.item())
+        acc = list(grads) if acc is None else [a + g for a, g in
+                                               zip(acc, grads)]
+    updates, opt_state = opt.update([a / shards for a in acc], opt_state,
+                                    weights)
+    with torch.no_grad():
+        for w, u in zip(weights, updates):
+            w.add_(u)
+    return opt_state, losses
+
+
+def run_llm(args) -> dict:
+    """The LLM path (the reference's ``run_llm``): the entropy-sharded
+    domain corpus, phase 0 (the shards' gradients averaged, then AdamW),
+    phase 1 (each shard's replica descends its own loss plus the prox pull
+    toward the phase-0 model).  Prints and returns the reference's summary
+    (``shard_entropies``, ``phase0_final_loss``, ``phase1_final_loss``,
+    ``wall_s``) with the step times, tokens/s, peak device memory and the
+    kernels' launches per step beside it; the returned dict also holds the
+    run's objects (``cfg``, ``model``, ``replicas``, ``opt``, ``batcher``).
+
+    Phase 1 keeps P replicas and runs the single-partition step on each in
+    turn, where the reference vmaps it over a stacked partition axis: the
+    same math.  ``--full`` takes the arch's published widths, with the
+    corpus drawn over the ``reduced()`` vocabulary (512 ids, valid ids of
+    the full vocabulary; the corpus's per-domain transition tables are
+    (V, V)); the loss still runs over every logit."""
+    import copy
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gp.trainer import (GPHyperParams,
+                                             make_personalize_partition_step)
+    from repro_torch.data import (CorpusSpec, DomainCorpus, ShardedBatcher,
+                                  shard_corpus_by_entropy)
+    from repro_torch.device import resolve_device
+    from repro_torch.train.optim import AdamW
+
+    device = resolve_device(args.device)
+    base = get_config(args.arch)
+    cfg = base if args.full else base.reduced(d_model=args.d_model)
+    vocab = base.reduced().vocab_size if args.full else cfg.vocab_size
+    spec = CorpusSpec(num_docs=args.docs, doc_len=args.seq, vocab_size=vocab,
+                      num_domains=8, seed=args.seed)
+    corpus = DomainCorpus(spec)
+    shards = shard_corpus_by_entropy(corpus, args.shards, method=args.method)
+    print(f"corpus shard domain entropies ({args.method}): "
+          f"{shards.shard_entropies.round(3).tolist()}")
+    batcher = ShardedBatcher(corpus, shards, batch_per_shard=args.batch,
+                             class_balanced=not args.no_cbs, seed=args.seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    opt = AdamW(lr=3e-3, grad_clip=1.0)
+    model = _llm_model(cfg, args.seed, device)
+    opt_state = opt.init(model.parameters())
+    steps_phase0 = int(args.steps * args.phase0_frac)
+    hist, step_s, launches = [], {0: [], 1: []}, []
+    t0 = time.time()
+    for step in range(steps_phase0):
+        nb = batcher.next_batch()
+        sync()
+        n0, ts = _launches(), time.perf_counter()
+        opt_state, losses = llm_phase0_step(model, opt, opt_state, nb,
+                                            args.shards)
+        sync()
+        step_s[0].append(time.perf_counter() - ts)
+        launches.append([b - a for a, b in zip(n0, _launches())])
+        hist.append(float(np.mean(losses)))
+        if step % 10 == 0:
+            print(f"[phase-0] step {step:4d} loss {hist[-1]:.4f}")
+
+    # phase-1: personalization (per-shard replicas, no gradient traffic)
+    global_model = model
+    pstep = make_personalize_partition_step(
+        lambda m, b: m.train_loss(b), opt,
+        GPHyperParams(lambda_prox=args.lambda_prox))
+    replicas, popt = [], []
+    if args.steps > steps_phase0:
+        replicas = [copy.deepcopy(model) for _ in range(args.shards)]
+        popt = [opt.init(r.parameters()) for r in replicas]
+    ploss_hist = []
+    for step in range(args.steps - steps_phase0):
+        nb = batcher.next_batch()
+        sync()
+        n0, ts = _launches(), time.perf_counter()
+        losses = []
+        for p in range(args.shards):
+            _, popt[p], loss = pstep(replicas[p], popt[p], _shard(nb, p),
+                                     global_model, True)
+            losses.append(loss)
+        losses = torch.stack(losses).cpu().numpy()
+        step_s[1].append(time.perf_counter() - ts)
+        launches.append([b - a for a, b in zip(n0, _launches())])
+        ploss_hist.append(losses)
+        if step % 10 == 0:
+            print(f"[phase-1] step {step:4d} per-shard loss "
+                  f"{np.asarray(losses).round(4).tolist()}")
+    wall = time.time() - t0
+
+    # a phase's step time: the median over its steps after the first,
+    # which warms up (allocator, cuBLAS, kernel builds)
+    ms = {p: float(np.median(ts[1:] if len(ts) > 1 else ts)) * 1e3
+          for p, ts in step_s.items() if ts}
+    tokens = args.shards * args.batch * args.seq
+    out = {
+        "arch": args.arch, "method": args.method,
+        "shard_entropies": shards.shard_entropies.tolist(),
+        "phase0_final_loss": hist[-1] if hist else None,
+        "phase1_final_loss": (np.asarray(ploss_hist[-1]).tolist()
+                              if ploss_hist else None),
+        "wall_s": wall,
+        "device": str(device),
+        "phase0_step_ms": ms.get(0),
+        "phase1_step_ms": ms.get(1),
+        "tokens_per_step": tokens,
+        "phase0_tokens_per_s": tokens / ms[0] * 1e3 if 0 in ms else None,
+        "phase1_tokens_per_s": tokens / ms[1] * 1e3 if 1 in ms else None,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+        "launches_per_step": launches,
+    }
+    print(json.dumps(out, indent=2))
+    return dict(out, cfg=cfg, model=model, replicas=replicas, opt=opt,
+                opt_state=opt_state, batcher=batcher,
+                step_s=step_s)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -321,16 +497,34 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--device", default="cuda",
                    help="torch device (cuda by default; cpu for tests)")
 
-    sub.add_parser("llm", help="the transformer path (not ported yet)")
+    l = sub.add_parser("llm", help="the transformer path: an arch trained "
+                       "on the entropy-sharded domain corpus")
+    l.add_argument("--arch", default="llama3.2-1b")
+    l.add_argument("--shards", type=int, default=4)
+    l.add_argument("--method", default="ew", choices=("random", "metis",
+                                                      "ew"))
+    l.add_argument("--no-cbs", action="store_true")
+    l.add_argument("--steps", type=int, default=60)
+    l.add_argument("--phase0-frac", type=float, default=0.6)
+    l.add_argument("--lambda-prox", type=float, default=0.01)
+    l.add_argument("--docs", type=int, default=512)
+    l.add_argument("--seq", type=int, default=64)
+    l.add_argument("--batch", type=int, default=8)
+    l.add_argument("--d-model", type=int, default=128)
+    l.add_argument("--seed", type=int, default=0)
+    l.add_argument("--full", action="store_true",
+                   help="the arch's published widths instead of "
+                        "reduced(d_model=--d-model)")
+    l.add_argument("--device", default="cuda",
+                   help="torch device (cuda by default; cpu for tests)")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mode == "llm":
-        print("train llm: the transformer path is not ported yet "
-              "(ROADMAP item 15)", file=sys.stderr)
-        return 2
+        run_llm(args)
+        return 0
     from repro_torch.robustness import InjectedCrash
 
     try:

@@ -2,7 +2,8 @@
 ``repro/models/layers.py``).
 
 Functional, as in the reference: ``*_init(cfg, gen, device) -> params``
-(dicts of tensors) and ``*_apply(params, x, ...) -> y``.  Attention runs
+(dicts of tensors) and ``*_apply(params, x, ...) -> y``, differentiable
+for training (:func:`attention_apply` is the training form).  Attention runs
 through :func:`ops.flash_attention` (the hand-written kernel on the card)
 where the reference runs its pure-JAX twin ``chunked_attention``; rmsnorm
 runs through :func:`ops.rmsnorm`, or :func:`ops.add_rmsnorm` where the
@@ -27,8 +28,8 @@ from ..kernels.rmsnorm import add_rmsnorm_plain, rmsnorm_plain
 from .config import ModelConfig
 
 __all__ = ["norm_init", "norm_apply", "add_norm_apply", "apply_rope",
-           "sinusoidal_positions", "attention_init", "attention_prefill", "attention_decode",
-           "mlp_init", "mlp_apply"]
+           "sinusoidal_positions", "attention_init", "attention_apply",
+           "attention_prefill", "attention_decode", "mlp_init", "mlp_apply"]
 
 Params = dict[str, torch.Tensor]
 
@@ -152,6 +153,25 @@ def _attend(q, k, v, *, window, q_offset, kernels):
                                    q_offset=q_offset)
     return flash_attention_plain(q, k, v, causal=True, window=window,
                                  q_offset=q_offset)
+
+
+def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                    window: int | None = None,
+                    kernels: bool = True) -> torch.Tensor:
+    """Full-sequence causal attention, the training form of the reference's
+    ``attention_apply`` (no cache; the multimodal prefix is not ported).
+    Differentiable: on the card the kernels go through their autograd
+    functions (the flash forward with the log-sum-exp and its backward
+    kernel), on the CPU and with ``kernels=False`` the plain version runs
+    under autograd."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.rope_theta is not None:
+        pos = torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = _attend(q, k, v, window=window, q_offset=0, kernels=kernels)
+    return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
 def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,

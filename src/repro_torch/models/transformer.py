@@ -1,5 +1,6 @@
-"""The dense decoder: init from a seed, prefill and one-token decode
-(counterpart of ``repro/models/transformer.py`` for the dense family).
+"""The dense decoder: init from a seed, the training loss, prefill and
+one-token decode (counterpart of ``repro/models/transformer.py`` for the
+dense family).
 
 Where the reference scans one stacked block pytree with ``lax.scan``, the
 port loops over an ``nn.ModuleList`` with one module per layer (layer
@@ -9,24 +10,102 @@ allocated by :meth:`Transformer.prefill` (or :meth:`make_decode_cache`) and
 written in place by :meth:`decode_step`; ``cache_len`` is a host int, so a
 decode step never waits for the device to learn where to write.
 
+:meth:`Transformer.train_loss` runs the layers under autograd (each under
+``torch.utils.checkpoint`` when ``cfg.remat``, as the reference checkpoints
+its scan body) and :func:`chunked_ce_loss` over the vocabulary; on the card
+the flash attention and RMSNorm kernels run forward and backward through
+their autograd functions.  The parameters are trainable ``nn.Parameter``s;
+serving runs under ``torch.no_grad``.
+
 Supported: attention + MLP sub-layers, rmsnorm or layernorm, swiglu or
 gelu, QKV bias, RoPE or sinusoidal positions, tied or untied head, a native
 ``sliding_window``.  Mamba2, MoE, cross-attention (whisper), a multimodal
 prefix (paligemma) and the rolling cache (``cache_size`` below the prompt)
-raise ``NotImplementedError``, as do training (``train_loss``,
-``chunked_ce_loss``): ROADMAP item 15.
+raise ``NotImplementedError``: ROADMAP item 15.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
 from .config import ModelConfig
 
-__all__ = ["Transformer"]
+__all__ = ["Transformer", "chunked_ce_loss"]
+
+
+def _chunks(t: int, chunk: int):
+    return [(lo, min(lo + chunk, t)) for lo in range(0, t, chunk)]
+
+
+def _chunk_nll(hx, w32, lx):
+    """Summed masked NLL of one token chunk and its softmax: the chunk's
+    f32 logits ``hx @ W`` exist only inside this call."""
+    logp = torch.log_softmax(hx.float() @ w32, dim=-1)
+    wgt = (lx >= 0).to(torch.float32)
+    nll = -logp.gather(1, lx.clamp_min(0)[:, None])[:, 0]
+    return (nll * wgt).sum(), wgt, logp
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Cross-entropy over the vocabulary, one token chunk at a time, whose
+    backward recomputes each chunk's logits (the reference remats its scan
+    body, ``jax.checkpoint``): peak memory holds one chunk's f32 logits and
+    their softmax, never (T, V)."""
+
+    @staticmethod
+    def forward(ctx, h, w_head, labels, chunk):
+        t = h.shape[0]
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for lo, hi in _chunks(t, chunk):
+            # the head is cast to f32 per chunk, as the reference casts it
+            part, wgt, _ = _chunk_nll(h[lo:hi], w_head.float(), labels[lo:hi])
+            tot, cnt = tot + part, cnt + wgt.sum()
+        denom = torch.clamp_min(cnt, 1.0)
+        ctx.save_for_backward(h, w_head, labels, denom)
+        ctx.chunk = chunk
+        return tot / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w_head, labels, denom = ctx.saved_tensors
+        dh = torch.empty_like(h) if ctx.needs_input_grad[0] else None
+        dw = (torch.zeros(w_head.shape, dtype=torch.float32,
+                          device=w_head.device)
+              if ctx.needs_input_grad[1] else None)
+        scale = g / denom
+        for lo, hi in _chunks(h.shape[0], ctx.chunk):
+            hx, lx = h[lo:hi], labels[lo:hi]
+            w32 = w_head.float()
+            _, wgt, logp = _chunk_nll(hx, w32, lx)
+            # d(sum nll * wgt)/dlogits = (softmax - onehot) * wgt
+            dlog = torch.exp(logp)
+            dlog.scatter_add_(1, lx.clamp_min(0)[:, None],
+                              -torch.ones_like(wgt)[:, None])
+            dlog *= (wgt * scale)[:, None]
+            if dh is not None:
+                dh[lo:hi] = (dlog @ w32.T).to(h.dtype)
+            if dw is not None:
+                dw += hx.float().T @ dlog
+        return (dh, None if dw is None else dw.to(w_head.dtype), None, None)
+
+
+def chunked_ce_loss(h: torch.Tensor, w_head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
+    """Mean cross-entropy of ``h @ w_head`` (T, V) against ``labels`` (T,)
+    without materialising the (T, V) logits: token chunks of ``chunk``
+    (the reference's ``chunked_ce_loss``).  Labels < 0 are masked out, the
+    mean is over the unmasked tokens, and none unmasked gives 0.  The
+    logits, the log-softmax and the sums are f32.  The head's gradient
+    sums the chunks in f32 and is cast to its dtype once (the reference's
+    scan transposes each chunk's into its dtype)."""
+    labels = labels.to(device=h.device, dtype=torch.long)
+    return _ChunkedCE.apply(h, w_head, labels, max(1, min(chunk, h.shape[0])))
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -49,9 +128,8 @@ def _check_supported(cfg: ModelConfig) -> None:
             "(ROADMAP item 15); the port serves dense decoders")
 
 
-def _frozen(params: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in params.items()})
+def _params(params: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in params.items()})
 
 
 class _Layer(nn.Module):
@@ -66,10 +144,10 @@ class _Layer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
-        self.norm_mix = _frozen(L.norm_init(cfg, device=device))
-        self.attn = _frozen(L.attention_init(cfg, gen, device))
-        self.norm_ffn = _frozen(L.norm_init(cfg, device=device))
-        self.mlp = _frozen(L.mlp_init(cfg, gen, device))
+        self.norm_mix = _params(L.norm_init(cfg, device=device))
+        self.attn = _params(L.attention_init(cfg, gen, device))
+        self.norm_ffn = _params(L.norm_init(cfg, device=device))
+        self.mlp = _params(L.mlp_init(cfg, gen, device))
 
     def forward(self, x, delta, cfg, *, kernels, cache=None, cache_len=None,
                 cache_size=None):
@@ -84,6 +162,15 @@ class _Layer(nn.Module):
                 window=cfg.sliding_window, kernels=kernels)
         x, h = L.add_norm_apply(self.norm_ffn, x, mix, cfg, kernels=kernels)
         return x, L.mlp_apply(self.mlp, h, cfg), cache
+
+    def train_forward(self, x, delta, cfg, kernels):
+        """The training form of :meth:`forward`: causal attention over the
+        whole sequence, no cache; returns ``(x, mlp_out)``."""
+        x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
+        mix = L.attention_apply(self.attn, h, cfg, window=cfg.sliding_window,
+                                kernels=kernels)
+        x, h = L.add_norm_apply(self.norm_ffn, x, mix, cfg, kernels=kernels)
+        return x, L.mlp_apply(self.mlp, h, cfg)
 
 
 class Transformer(nn.Module):
@@ -107,14 +194,13 @@ class Transformer(nn.Module):
         d = cfg.d_model
         embed = torch.empty((cfg.vocab_size, d), dtype=torch.float32,
                             device=dev).normal_(generator=gen)
-        self.embed = nn.Parameter((0.02 * embed).to(dt), requires_grad=False)
-        self.final_norm = _frozen(L.norm_init(cfg, device=dev))
+        self.embed = nn.Parameter((0.02 * embed).to(dt))
+        self.final_norm = _params(L.norm_init(cfg, device=dev))
         self.layers = nn.ModuleList(_Layer(cfg, gen, dev)
                                     for _ in range(cfg.num_layers))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
-                L._dense_init(gen, d, cfg.vocab_size, dt, dev),
-                requires_grad=False)
+                L._dense_init(gen, d, cfg.vocab_size, dt, dev))
 
     @property
     def device(self) -> torch.device:
@@ -123,7 +209,10 @@ class Transformer(nn.Module):
     # ============================================================== embed
     def _embed_tokens(self, tokens: torch.Tensor,
                       offset: int = 0) -> torch.Tensor:
-        x = self.embed[tokens]
+        # F.embedding, not self.embed[tokens]: the same rows, and its
+        # backward sums repeated tokens in a fixed order on the CPU, where
+        # indexing's backward does not
+        x = F.embedding(tokens, self.embed)
         if self.cfg.rope_theta is None:
             pos = L.sinusoidal_positions(tokens.shape[1], self.cfg.d_model,
                                          device=x.device, offset=offset)
@@ -146,6 +235,33 @@ class Transformer(nn.Module):
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.as_tensor(np.asarray(tokens))
         return tokens.to(self.device).long()
+
+    # ================================================================ train
+    def train_loss(self, batch: dict) -> torch.Tensor:
+        """The mean next-token loss of ``batch["tokens"]`` (B, S) against
+        ``batch["labels"]`` (B, S; < 0 masked), differentiable in every
+        parameter: the embedding, the layers (each checkpointed when
+        ``cfg.remat``), the final norm over every position, then
+        :func:`chunked_ce_loss` over the head.  The dense family has no
+        auxiliary loss (the reference adds MoE's, 0 here)."""
+        cfg = self.cfg
+        tokens = self._tokens(batch["tokens"])
+        labels = self._tokens(batch["labels"])
+        x, delta = self._embed_tokens(tokens), None
+        for layer in self.layers:
+            if cfg.remat:
+                x, delta = checkpoint(layer.train_forward, x, delta, cfg,
+                                      self.use_kernels, use_reentrant=False)
+            else:
+                x, delta = layer.train_forward(x, delta, cfg,
+                                               self.use_kernels)
+        _, h = L.add_norm_apply(self.final_norm, x, delta, cfg,
+                                kernels=self.use_kernels)
+        b, s, d = h.shape
+        # the reference's measurement mode: one chunk of every token
+        chunk = b * s if cfg.scan_unroll else 4096
+        return chunked_ce_loss(h.reshape(b * s, d), self._head(),
+                               labels.reshape(-1), chunk=chunk)
 
     # ============================================================== prefill
     @torch.no_grad()

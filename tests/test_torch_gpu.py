@@ -946,3 +946,252 @@ def test_mesh_world_on_card_matches_stacked(cuda, tmp_path, backend, P):
         tol = 1e-5 if what == "phase1" else 1e-6
         for a, b in pairs:
             assert float((a - b.cpu()).abs().max()) <= tol, what
+
+
+# --------------------------------------------------------------------------
+# the training path: flash attention's forward with the log-sum-exp and its
+# backward kernel, the RMSNorm backward, one reduced train step
+# --------------------------------------------------------------------------
+
+# tests/test_kernels.py's cases, a row with no key (window 8 past the keys),
+# window 0 (every row sees no key), qwen2-0.5b's training shape, Sq and Sk
+# off the 64-row tiles, GQA groups 1/2/7 and Dh 32/64/128
+FLASH_TRAIN_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, 0),
+    (1, 8, 8, 200, 200, 32, True, None, 0),
+    (1, 4, 1, 96, 96, 64, True, None, 0),
+    (2, 4, 2, 256, 256, 64, True, 64, 0),
+    (1, 4, 2, 1, 300, 64, True, None, 300),
+    (1, 2, 2, 64, 64, 128, False, None, 0),
+    (1, 2, 1, 4, 16, 64, True, 8, 40),
+    (1, 4, 2, 70, 70, 64, True, 0, 0),
+    (2, 14, 2, 512, 512, 64, True, None, 0),
+    (1, 4, 4, 70, 90, 128, True, 33, 20),
+]
+# the backward against autograd of the plain version: f32 sums in another
+# order (observed below 1e-5); bf16 gradients round once from f32 sums in
+# both, and the kernel's D_i reads the output rounded to bf16 where the
+# plain softmax backward reads it in f32, the forward's bf16 tolerance
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _flash_train_inputs(case, dtype, cuda):
+    q, k, v = _flash_inputs(case, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    do = torch.randn(q.shape, device=cuda, generator=gen).to(dtype)
+    return q, k, v, do
+
+
+def _dead_rows(case, cuda):
+    sq, sk = case[3], case[4]
+    causal, window, q_off = case[6:]
+    q_pos = torch.arange(sq, device=cuda) + q_off
+    k_pos = torch.arange(sk, device=cuda)
+    live = torch.ones(sq, sk, dtype=torch.bool, device=cuda)
+    if causal:
+        live &= k_pos[None] <= q_pos[:, None]
+    if window is not None:
+        live &= k_pos[None] > q_pos[:, None] - window
+    return ~live.any(1)
+
+
+@pytest.mark.parametrize("case", FLASH_TRAIN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_train_forward_writes_lse(cuda, case, dtype):
+    """The training forward's output is bitwise the serving forward's (the
+    LSE changes none of its arithmetic), and its log-sum-exp is the plain
+    one of the scaled live scores (-inf for a row with no key)."""
+    causal, window, q_off = case[6:]
+    q, k, v, _ = _flash_train_inputs(case, dtype, cuda)
+    b, hq, sq, dh = q.shape
+    before = fa.flash_launch_count("train")
+    got, lse = fa.flash_attention_lse(q, k, v, causal=causal, window=window,
+                                      q_offset=q_off)
+    torch.cuda.synchronize()
+    assert fa.flash_launch_count("train") == before + 1
+    serve = fa.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_off)
+    plan = fa.plan(q.shape, k.shape, causal=causal, window=window,
+                   q_offset=q_off, sms=132)
+    if plan.design == "prefill":
+        assert torch.equal(got, serve)
+    torch.testing.assert_close(got.float(), fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window, q_offset=q_off).float(),
+        atol=FLASH_BWD_TOL[dtype], rtol=FLASH_BWD_TOL[dtype])
+    kx = k.repeat_interleave(hq // k.shape[1], 1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) / dh ** 0.5
+    dead = _dead_rows(case, cuda)
+    q_pos = torch.arange(sq, device=cuda)[:, None] + q_off
+    k_pos = torch.arange(k.shape[2], device=cuda)[None]
+    mask = torch.ones(sq, k.shape[2], dtype=torch.bool, device=cuda)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    want = torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
+    assert torch.isneginf(lse[:, :, dead]).all()
+    torch.testing.assert_close(lse[:, :, ~dead], want[:, :, ~dead],
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_TRAIN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_matches_plain_autograd(cuda, case, dtype):
+    """dq, dk, dv of the kernels (forward with the LSE, then the backward)
+    against autograd of the plain version, within FLASH_BWD_TOL; rows that
+    see no key give zero dq and no NaN anywhere; each call counts once."""
+    causal, window, q_off = case[6:]
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    q, k, v, do = _flash_train_inputs(case, dtype, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.flash_launch_count("train"), fa.flash_launch_count("backward"))
+    out = fa.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_launch_count("train"),
+            fa.flash_launch_count("backward")) == (before[0] + 1,
+                                                   before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_plain(*plain, **kw), plain,
+                               do)
+    tol = FLASH_BWD_TOL[dtype]
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"d{name}: {m}")
+    dead = _dead_rows(case, cuda)
+    assert not got[0][:, :, dead].float().abs().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_repeats_bitwise(cuda, dtype):
+    """No atomics: two launches of the backward at qwen2-0.5b's training
+    shape give the same bits."""
+    case = (2, 14, 2, 512, 512, 64, True, None, 0)
+    q, k, v, do = _flash_train_inputs(case, dtype, cuda)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_train_refuses_what_it_cannot_take(cuda):
+    """Under autograd too, a head size or dtype the kernels do not take
+    raises; nothing falls back to the plain version."""
+    q = torch.randn(1, 2, 8, 48, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="head sizes"):
+        fa.flash_attention(q, q.detach(), q.detach())
+    for dt in (torch.float16, torch.float64):
+        q = torch.randn(1, 2, 8, 64, device=cuda, dtype=dt,
+                        requires_grad=True)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fa.flash_attention(q, q.detach(), q.detach())
+    q = torch.randn(1, 2, 8, 64, device=cuda)
+    lse = torch.empty(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="q's shape"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q[:, :, :4])
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        fa.flash_attention_bwd(*(t.cpu() for t in (q, q, q, q, lse, q)))
+
+
+RMS_BWD_SHAPES = [(4, 128), (3, 7, 256), (2, 16, 896), (3, 264), (3, 1500),
+                  (2, 8192), (8, 512, 896)]
+# the backward against autograd of the plain version: f32 row sums in
+# another order; bf16 gradients round once from f32 in the kernel, while
+# autograd rounds the norm's gradient to bf16 and then adds s's own
+# gradient in bf16 (one rounding more)
+RMS_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("shape", RMS_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [False, True], ids=["rmsnorm", "add_rmsnorm"])
+def test_rmsnorm_bwd_matches_plain_autograd(cuda, shape, dtype, fused):
+    """Both entry points' gradients (x, delta and the f32 weight) through
+    the hand-written backward against autograd of the plain versions; two
+    launches bitwise equal; each launch counted (the fused one in both
+    counts)."""
+    x, delta, w = _rms_inputs(shape, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    dy = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    ds = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(), delta.clone().requires_grad_(),
+                  w.clone().requires_grad_()]
+        if fused:
+            s, y = fn(*leaves)
+            return torch.autograd.grad((s, y), leaves, (ds, dy))
+        y = fn(leaves[0], leaves[2])
+        return torch.autograd.grad(y, [leaves[0], leaves[2]], dy)
+
+    before = (rn.rmsnorm_bwd_launch_count(),
+              rn.add_rmsnorm_bwd_launch_count())
+    got = grads(rn.add_rmsnorm if fused else rn.rmsnorm)
+    again = grads(rn.add_rmsnorm if fused else rn.rmsnorm)
+    torch.cuda.synchronize()
+    assert (rn.rmsnorm_bwd_launch_count(),
+            rn.add_rmsnorm_bwd_launch_count()) == (before[0] + 2,
+                                                   before[1] + 2 * fused)
+    want = grads(rn.add_rmsnorm_plain if fused else rn.rmsnorm_plain)
+    tol = RMS_BWD_TOL[dtype]
+    for g, a, wt in zip(got, again, want):
+        assert g.dtype == wt.dtype and torch.equal(g, a)
+        scale = float(wt.float().abs().max())
+        torch.testing.assert_close(g.float(), wt.float(), atol=tol * scale,
+                                   rtol=tol)
+
+
+def test_rmsnorm_bwd_refuses_what_it_cannot_take(cuda):
+    x, _, w = _rms_inputs((4, 256), torch.float32, cuda)
+    with pytest.raises(ValueError, match="shape, dtype and device"):
+        rn.rmsnorm_bwd(x, x.bfloat16(), w)
+    with pytest.raises(ValueError, match="at most"):
+        big = torch.randn(2, rn.BWD_MAX_D + 8, device=cuda)
+        rn.rmsnorm_bwd(big, big, torch.ones(big.shape[-1], device=cuda))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rn.rmsnorm(x.half().requires_grad_(), w)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "starcoder2-7b"])
+def test_reduced_train_step_kernels_match_plain(cuda, arch):
+    """One reduced-config f32 train step (loss and every gradient) with the
+    kernels, forward and backward, against the plain versions from the same
+    weights; every attention and RMSNorm call of the step went through the
+    kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    model = Transformer(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 96))
+    batch = {"tokens": tokens,
+             "labels": np.concatenate([tokens[:, 1:], -np.ones((2, 1),
+                                                               np.int64)], 1)}
+    out = {}
+    for use in (True, False):
+        model.use_kernels = use
+        fa.reset_flash_launch_count()
+        rn.reset_rmsnorm_launch_count()
+        loss = model.train_loss(batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        out[use] = (loss, grads, fa.flash_launch_count("train"),
+                    fa.flash_launch_count("backward"),
+                    rn.rmsnorm_launch_count(), rn.rmsnorm_bwd_launch_count())
+    L = cfg.num_layers
+    norms = 0 if cfg.norm == "layernorm" else 1
+    # remat replays each layer's forward in the backward
+    assert out[True][2:] == (2 * L, L, norms * (4 * L + 1),
+                             norms * (2 * L + 1)), out[True][2:]
+    assert out[False][2:] == (0, 0, 0, 0)
+    torch.testing.assert_close(out[True][0], out[False][0], atol=1e-5,
+                               rtol=1e-5)
+    for g, w in zip(out[True][1], out[False][1]):
+        scale = float(w.abs().max()) or 1.0
+        torch.testing.assert_close(g, w, atol=1e-4 * scale, rtol=1e-3)

@@ -58,6 +58,20 @@ from repro_torch.core.gp.trainer import (make_bucketed_reduce_shard,
                                          make_topk_reduce_shard)
 from repro_torch.engine.compat import PendingExchange, exchange_start
 from repro_torch.graph.distributed import make_ref_shard_split_agg
+# the LLM training path (ROADMAP item 15.1): the corpus modules, the input
+# shapes, the step builders, the loss and the kernels' autograd functions
+for name in ("repro_torch.data", "repro_torch.data.corpus",
+             "repro_torch.data.partition", "repro_torch.data.pipeline",
+             "repro_torch.configs.shapes", "repro_torch.launch.steps"):
+    assert name in mods, (name, mods)
+from repro_torch.configs import SHAPES, input_specs
+from repro_torch.data import DomainCorpus, ShardedBatcher
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_bwd)
+from repro_torch.kernels.rmsnorm import AddRMSNormFn, RMSNormFn, rmsnorm_bwd
+from repro_torch.launch.steps import build_step
+from repro_torch.launch.train import run_llm
+from repro_torch.models.transformer import chunked_ce_loss
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -78,7 +92,9 @@ def test_import_hygiene():
 
 
 @pytest.mark.parametrize("script", ["flash_timing.py", "segment_timing.py",
-                                    "rmsnorm_timing.py", "mesh_probe.py"])
+                                    "rmsnorm_timing.py", "mesh_probe.py",
+                                    "train_probe.py",
+                                    "flash_serving_digest.py"])
 def test_timing_scripts_import_hygiene(script):
     """The chip timing scripts run where only the port is installed."""
     code = (
@@ -202,6 +218,16 @@ def test_device_sampler_defaults_to_card(no_cuda, tiny):
     ds = build_device_epoch_sampler(g, [g.train_idx], 1, batch_size=64,
                                     device="cpu")
     assert ds.logp.device.type == "cpu"
+
+
+def test_llm_training_defaults_to_card(no_cuda):
+    """``launch.train llm`` runs on the card unless ``--device cpu``."""
+    from repro_torch.launch.train import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["llm", "--steps", "1"])
+    assert main(["llm", "--arch", "qwen2-0.5b", "--shards", "2",
+                 "--d-model", "32", "--seq", "8", "--docs", "32", "--steps",
+                 "2", "--phase0-frac", "0.5", "--device", "cpu"]) == 0
 
 
 def test_transformer_serving_defaults_to_card(no_cuda):

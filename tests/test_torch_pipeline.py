@@ -57,8 +57,11 @@ def test_train_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[phase-0] epoch" in out and "[phase-1] epoch" in out
     assert '"full_graph_train": true' in out
-    assert main(["llm"]) == 2
-    assert "ROADMAP item 15" in capsys.readouterr().err
+    # the llm mode is ported (ROADMAP item 15.1): it trains, here on the CPU
+    assert main(["llm", "--device", "cpu", "--shards", "2", "--d-model",
+                 "32", "--seq", "8", "--docs", "32", "--steps", "2",
+                 "--phase0-frac", "0.5"]) == 0
+    assert '"phase1_final_loss"' in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("option,value", [
