@@ -243,8 +243,9 @@ def make_personalize_partition_step(loss_fn: Callable, optimizer,
 # The stacked forms of the reference's reducers take the (P, ...)
 # per-partition gradients in ``parameters()`` order and return the mean
 # gradient in one partition's shapes; the shard forms (the partition mesh:
-# a bucketed psum, a top-k all_gather) take one rank's gradients and run
-# the collectives.
+# a bucketed reduce-scatter and all-gather, a top-k all_gather, each
+# summed in partition order) take one rank's gradients and run the
+# collectives.
 # ---------------------------------------------------------------------------
 
 GRAD_COMPRESS_MODES = ("none", "bucketed", "topk")
@@ -336,15 +337,33 @@ def _flat(grads):
 
 def make_bucketed_reduce_shard(num_parts: int, mesh, bucket_bytes: int):
     """Per-shard bucketed all-reduce on the partition mesh: the rank's
-    gradients flattened once, ONE ``psum`` per :func:`_bucket_slices`
-    slice (the buckets a ring all-reduce can schedule one by one), then
-    ``/ P``.  Elementwise the stacked bucketed mean, summed in the
-    collective's order."""
-    from ...engine.compat import psum
+    gradients flattened once and each :func:`_bucket_slices` slice reduced
+    as a ring all-reduce is, in two collectives.  The slice, zero-padded to
+    a multiple of P, is cut into P pieces; ONE ``all_to_all`` hands piece q
+    of every rank to rank q (the reduce-scatter), which sums its ``(P, n/P)``
+    rows in partition order (the stacked reducer's ``sum(dim=0)``); ONE
+    ``all_gather`` of the summed pieces rebuilds the slice; then ``/ P``.
+    That is the stacked bucketed mean, bitwise where the ranks' gradients
+    are the stacked engine's (a ``psum`` sums in the collective's order,
+    and phase 1's AdamW grows that rounding into a 4-epoch params drift
+    past the reference's 1e-5).  Each rank sends ``2 (P-1)/P`` of the
+    padded slice, the ring's closed form of :func:`grad_sync_wire_bytes`
+    plus fewer than P padding entries a slice."""
+    from ...engine.compat import all_gather, all_to_all
+
+    P = int(num_parts)
+
+    def reduce_slice(v):
+        n = v.shape[0]
+        piece = -(-n // P)
+        sent = v.new_zeros(P * piece)
+        sent[:n] = v
+        mine = all_to_all(sent.view(P, piece), mesh).sum(dim=0)
+        return all_gather([mine], mesh)[0].reshape(-1)[:n]
 
     def reduce(grads):
         flat, unravel = _flat(grads)
-        chunks = [psum(flat[lo:hi], mesh)
+        chunks = [reduce_slice(flat[lo:hi])
                   for lo, hi in _bucket_slices(flat.shape[0], bucket_bytes,
                                                flat.element_size())]
         total = chunks[0] if len(chunks) == 1 else torch.cat(chunks)

@@ -51,8 +51,9 @@ function of host state every rank holds, is the same on every rank, and
 a ``(0, 0)`` plan runs no collective), the quantized payload and its
 int8 scales cross the ranks as two collectives, the overlapped forward
 starts its exchange before the interior half and waits for it before
-landing, and phase 0 reduces through the per-shard bucketed ``psum`` or
-top-k ``all_gather`` with the rank's ``(N,)`` residual.  Their
+landing, and phase 0 reduces through the per-shard bucketed
+reduce-scatter and all-gather or the top-k ``all_gather`` (with the
+rank's ``(N,)`` residual), each summed in partition order.  Their
 checkpoint surface gives and takes the stacked layout.
 
 Epoch methods return a trailing ``device_seconds``: host wall time of the

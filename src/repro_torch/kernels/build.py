@@ -18,7 +18,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load_library", "build_log"]
+import torch
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load_library", "build_log",
+           "ticket_counters"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -29,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _REPORT_FLAGS = ("-Xptxas=-v",)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# each kernel's ticket counters per device (see ticket_counters)
+_TICKETS: dict[tuple[str, torch.device], torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -89,3 +94,20 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build_all((name,))[name]))
     return lib
+
+
+def ticket_counters(kernel: str, device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 ticket counters for ``kernel`` on
+    ``device``: one buffer per kernel and device, made once and kept while
+    it is large enough, replaced by a zeroed one twice as large (or ``n``)
+    when a call needs more.  A kernel that takes tickets sets each one
+    back to 0 before it ends, so no launch needs a memset; calls of one
+    kernel on one device share the buffer, so they run one after another
+    on one stream."""
+    key = (kernel, torch.device(device))
+    have = _TICKETS.get(key)
+    if have is None or have.numel() < n:
+        size = max(int(n), 2 * (0 if have is None else have.numel()))
+        have = _TICKETS[key] = torch.zeros(size, dtype=torch.int32,
+                                           device=key[1])
+    return have

@@ -32,11 +32,12 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from .build import load_library
+from .build import load_library, ticket_counters
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
            "flash_attention_bwd", "FlashAttentionFn", "HEAD_DIMS", "Plan",
-           "plan", "flash_launch_count", "reset_flash_launch_count"]
+           "plan", "bwd_part_elems", "bwd_counter_elems",
+           "flash_launch_count", "reset_flash_launch_count"]
 
 HEAD_DIMS = (32, 64, 128)       # head sizes the kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -149,7 +150,7 @@ def _kernel_fns():
 def _bwd_fn():
     fn = load_library("flash_attention_bwd").flash_attention_bwd
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [i32] + [vp] * 10 + [i32] * 9 + [f32, vp]
+    fn.argtypes = [i32] + [vp] * 13 + [i32] * 9 + [f32, vp]
     fn.restype = i32
     return fn
 
@@ -198,6 +199,36 @@ def _launch(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
     return out
 
 
+def bwd_part_elems(q_shape, k_shape, dtype) -> int:
+    """float32 elements of each of the two scratch buffers (dK's and dV's
+    per-query-head partials, ``(B, Hq, Sk, Dh)``) that the bf16 backward
+    sums over each GQA group in head order; 0 where nothing is summed (f32,
+    or one query head per KV head)."""
+    b, hq, _, dh = q_shape
+    hkv, sk = k_shape[1], k_shape[2]
+    return b * hq * sk * dh if dtype == torch.bfloat16 and hq != hkv else 0
+
+
+# rows of a key tile of the bf16 backward's dK/dV grid (kMB in the kernel)
+BWD_KEY_TILE = 64
+
+
+def bwd_counter_elems(q_shape, k_shape, dtype) -> int:
+    """Ticket counters the bf16 backward needs for its GQA sum, one per
+    (B, KV head, key tile of :data:`BWD_KEY_TILE`); 0 where it writes no
+    partials (see :func:`bwd_part_elems`)."""
+    if not bwd_part_elems(q_shape, k_shape, dtype):
+        return 0
+    b, hkv, sk = k_shape[0], k_shape[1], k_shape[2]
+    return b * hkv * -(-sk // BWD_KEY_TILE)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) on a 16-byte boundary, as the kernels' 16-byte
+    copies need: a view at an odd offset is copied into its own buffer."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
                         q_offset=0):
     """The backward kernel: ``(dq, dk, dv)`` of the forward ``o`` (with its
@@ -218,18 +249,28 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
                          f"and dtype and lse (B, Hq, Sq) float32; got "
                          f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
                          f"{do.dtype}, {tuple(lse.shape)} {lse.dtype}")
-    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    q, k, v, o, do = (_aligned(t.contiguous()) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    n_part = bwd_part_elems(q.shape, k.shape, q.dtype)
+    part = (torch.empty(2 * n_part, dtype=torch.float32, device=q.device)
+            if n_part else None)
+    dk_part = None if part is None else part.data_ptr()
+    dv_part = None if part is None else part.data_ptr() + 4 * n_part
+    n_count = bwd_counter_elems(q.shape, k.shape, q.dtype)
+    counters = (ticket_counters("flash_attention_bwd", q.device, n_count)
+                .data_ptr() if n_count else None)
     fn = _bwd_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, hq, hkv, sq, sk, dh, int(bool(causal)),
+                 delta.data_ptr(), dk_part, dv_part, counters, dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, dh,
+                 int(bool(causal)),
                  -1 if window is None else int(window), int(q_offset),
                  1.0 / math.sqrt(dh), stream)
     _LAUNCHES["backward"] += 1

@@ -17,11 +17,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from . import ref
-from .build import load_library
+from .build import load_library, ticket_counters
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "add_rmsnorm", "add_rmsnorm_plain",
            "rmsnorm_bwd", "RMSNormFn", "AddRMSNormFn", "BWD_MAX_D",
@@ -33,8 +35,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the backward's widest row (columns a thread keeps x threads a block)
 BWD_MAX_D = 8192
-# blocks of the backward's row pass per SM (each writes one partial dw row)
-_BWD_BLOCKS_PER_SM = 4
+# blocks of the backward per SM (two 8-warp blocks stay resident; each
+# writes one partial dw row)
+_BWD_BLOCKS_PER_SM = 2
 
 # launches of the CUDA kernels, bumped once per launch and nowhere else:
 # both forward entry points, and the fused one alone; the backward, and its
@@ -91,7 +94,8 @@ def _kernel_fns():
                          ctypes.c_float)
     lib.rmsnorm_fwd.argtypes = [i32, vp, vp, vp, i64, i32, f32, vp]
     lib.add_rmsnorm_fwd.argtypes = [i32, vp, vp, vp, vp, vp, i64, i32, f32, vp]
-    lib.rmsnorm_bwd.argtypes = [i32] + [vp] * 7 + [i64, i32, i32, f32, vp]
+    lib.rmsnorm_bwd.argtypes = [i32] + [vp] * 8 + [i64, i32, i32, i32, f32,
+                                                 vp]
     for fn in (lib.rmsnorm_fwd, lib.add_rmsnorm_fwd, lib.rmsnorm_bwd):
         fn.restype = ctypes.c_int
     return lib.rmsnorm_fwd, lib.add_rmsnorm_fwd, lib.rmsnorm_bwd
@@ -100,6 +104,24 @@ def _kernel_fns():
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class _BwdGrid(NamedTuple):
+    """The backward's grid: ``blocks`` blocks, each writing a partial dw
+    row, summed in ``groups`` groups of ``group`` consecutive blocks."""
+    blocks: int
+    group: int
+    groups: int
+
+
+def _bwd_grid(sms: int) -> _BwdGrid:
+    """The backward's grid on a card of ``sms`` SMs, whatever the row
+    count, so that the order of dw's sum is fixed by the card alone:
+    :data:`_BWD_BLOCKS_PER_SM` blocks an SM, in groups of
+    ``ceil(sqrt(blocks))``."""
+    blocks = _BWD_BLOCKS_PER_SM * sms
+    group = math.isqrt(blocks - 1) + 1
+    return _BwdGrid(blocks, group, -(-blocks // group))
 
 
 def _launch(x, delta, weight, eps):
@@ -172,15 +194,19 @@ def rmsnorm_bwd(s, dy, weight, ds_in=None, *, eps=1e-6):
         return (ds if ds_in is None else ds.copy_(ds_in)), dw
     dw = torch.empty(d, dtype=torch.float32, device=s.device)
     w = weight.to(torch.float32).contiguous()
-    blocks = min(rows, _BWD_BLOCKS_PER_SM * _sm_count(s.device.index))
-    part = torch.empty((blocks, d), dtype=torch.float32, device=s.device)
+    grid = _bwd_grid(_sm_count(s.device.index))
+    part = torch.empty((grid.blocks + grid.groups, d), dtype=torch.float32,
+                       device=s.device)
+    # a ticket per group of blocks, and one for the groups
+    counters = ticket_counters("rmsnorm_bwd", s.device, grid.groups + 1)
     *_, bwd_fn = _kernel_fns()
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
         err = bwd_fn(_DTYPE_CODES[s.dtype], s.data_ptr(), dy.data_ptr(),
                      None if ds_in is None else ds_in.data_ptr(),
                      w.data_ptr(), ds.data_ptr(), part.data_ptr(),
-                     dw.data_ptr(), rows, d, blocks, float(eps), stream)
+                     dw.data_ptr(), counters.data_ptr(), rows, d,
+                     grid.blocks, grid.group, float(eps), stream)
     _BWD_LAUNCHES += 1
     if ds_in is not None:
         _FUSED_BWD_LAUNCHES += 1

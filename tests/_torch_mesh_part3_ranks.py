@@ -10,12 +10,15 @@ tests hold the ranks against.
 """
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 import _torch_mesh_part2_ranks as m2
 import _torch_mesh_ranks as mr
+from repro_torch.core.gp.trainer import make_bucketed_reduce_shard
 from repro_torch.engine.stacking import batches_to_device
+from repro_torch.launch.mesh import make_partition_mesh
 from repro_torch.graph.sage import partition_slice
 from repro_torch.pipeline import run_eat_distgnn
 from repro_torch.robustness import FaultPlan, InjectedCrash
@@ -129,6 +132,55 @@ class CollectiveCount:
     @property
     def total(self) -> int:
         return sum(self.calls.values())
+
+
+class WireBytes:
+    """Counts the bytes this rank sends to its peers through
+    ``all_to_all_single`` (all but its own block) and ``all_gather`` (its
+    tensor to each peer) while it is entered."""
+
+    def __enter__(self):
+        self.sent = 0
+        self._saved = {n: getattr(dist, n)
+                       for n in ("all_to_all_single", "all_gather")}
+
+        def a2a(out, inp, *a, **kw):
+            P = dist.get_world_size(kw.get("group"))
+            self.sent += inp.numel() * inp.element_size() * (P - 1) // P
+            return self._saved["all_to_all_single"](out, inp, *a, **kw)
+
+        def gather(parts, t, *a, **kw):
+            self.sent += t.numel() * t.element_size() * (len(parts) - 1)
+            return self._saved["all_gather"](parts, t, *a, **kw)
+
+        dist.all_to_all_single, dist.all_gather = a2a, gather
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(dist, n, fn)
+
+
+# the bucketed reducer's wire check: gradients of these shapes, drawn per
+# partition from the seed, in buckets of BUCKET_ELEMS f32 entries (the last
+# bucket and every bucket's pieces uneven at P = 4)
+WIRE_SHAPES, BUCKET_ELEMS = [(37, 13), (13,), (5,)], 61
+
+
+def wire_grads(P: int, dtype=F32) -> list:
+    """The ``(P, ...)`` per-partition gradients of the wire check."""
+    rng = np.random.default_rng(7)
+    return [torch.from_numpy(rng.standard_normal((P, *s))).to(dtype)
+            for s in WIRE_SHAPES]
+
+
+def bucketed_wire(rank: int, P: int, mesh) -> dict:
+    """The per-shard bucketed reducer on this rank's rows of
+    :func:`wire_grads`: its result and the bytes it sent."""
+    reduce = make_bucketed_reduce_shard(P, mesh, BUCKET_ELEMS * 4)
+    with WireBytes() as w:
+        out = reduce([g[rank] for g in wire_grads(P)])
+    return {"mean": out, "sent": w.sent}
 
 
 def _state(eng) -> dict:
@@ -291,6 +343,7 @@ def comm_world(rank: int, P: int, workdir: str) -> dict:
     out["refusals"] = refusals(g, pg, "spmd")
     out["export"] = export_refresh(g, pg, P, "spmd")
     out["fg_grads"] = fullgraph_grads(g, pg, "spmd")
+    out["bucketed_wire"] = bucketed_wire(rank, P, make_partition_mesh(P))
     return out
 
 

@@ -955,7 +955,9 @@ def test_mesh_world_on_card_matches_stacked(cuda, tmp_path, backend, P):
 
 # tests/test_kernels.py's cases, a row with no key (window 8 past the keys),
 # window 0 (every row sees no key), qwen2-0.5b's training shape, Sq and Sk
-# off the 64-row tiles, GQA groups 1/2/7 and Dh 32/64/128
+# off the 64-row tiles, GQA groups 1/2/7 and Dh 32/64/128; then the
+# tensor-core backward's work split: group 7 with one and two KV heads, Dh
+# 128 (32-row query steps) with a window, Sq = 1 and Sq = 65 at a q_offset
 FLASH_TRAIN_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, 0),
     (1, 8, 8, 200, 200, 32, True, None, 0),
@@ -967,6 +969,11 @@ FLASH_TRAIN_CASES = [
     (1, 4, 2, 70, 70, 64, True, 0, 0),
     (2, 14, 2, 512, 512, 64, True, None, 0),
     (1, 4, 4, 70, 90, 128, True, 33, 20),
+    (1, 7, 1, 130, 130, 64, True, None, 0),
+    (1, 14, 2, 100, 164, 32, True, None, 64),
+    (1, 4, 2, 200, 200, 128, True, 48, 0),
+    (2, 4, 1, 1, 97, 64, True, None, 96),
+    (1, 6, 2, 65, 200, 128, True, None, 135),
 ]
 # the backward against autograd of the plain version: f32 sums in another
 # order (observed below 1e-5); bf16 gradients round once from f32 sums in
@@ -1064,15 +1071,18 @@ def test_flash_bwd_matches_plain_autograd(cuda, case, dtype):
     assert not got[0][:, :, dead].float().abs().any()
 
 
+@pytest.mark.parametrize("case", [(2, 14, 2, 512, 512, 64, True, None, 0),
+                                  (1, 4, 4, 300, 300, 128, True, 100, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_repeats_bitwise(cuda, dtype):
-    """No atomics: two launches of the backward at qwen2-0.5b's training
-    shape give the same bits."""
-    case = (2, 14, 2, 512, 512, 64, True, None, 0)
+def test_flash_bwd_repeats_bitwise(cuda, case, dtype):
+    """No atomics: two launches of the backward give the same bits, at
+    qwen2-0.5b's training shape (GQA partials summed in head order) and
+    with one query head per KV head (dK, dV written directly)."""
     q, k, v, do = _flash_train_inputs(case, dtype, cuda)
-    o, lse = fa.flash_attention_lse(q, k, v)
-    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    second = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
@@ -1096,8 +1106,13 @@ def test_flash_train_refuses_what_it_cannot_take(cuda):
         fa.flash_attention_bwd(*(t.cpu() for t in (q, q, q, q, lse, q)))
 
 
+# d = 128, 256, 896 (the vector path), 264 and 1,000 (32 lanes with the
+# tail masked), 1,500 (ragged at bf16, past 8 vectors a lane at f32: the
+# wide path), 2,048 (the vector path's widest at bf16, the wide path at
+# f32), 8,192 (the widest row); one row, and fewer rows than the grid's
+# blocks throughout
 RMS_BWD_SHAPES = [(4, 128), (3, 7, 256), (2, 16, 896), (3, 264), (3, 1500),
-                  (2, 8192), (8, 512, 896)]
+                  (2, 8192), (8, 512, 896), (1, 896), (5, 1000), (3, 2048)]
 # the backward against autograd of the plain version: f32 row sums in
 # another order; bf16 gradients round once from f32 in the kernel, while
 # autograd rounds the norm's gradient to bf16 and then adds s's own
@@ -1142,6 +1157,41 @@ def test_rmsnorm_bwd_matches_plain_autograd(cuda, shape, dtype, fused):
         scale = float(wt.float().abs().max())
         torch.testing.assert_close(g.float(), wt.float(), atol=tol * scale,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["rmsnorm", "add_rmsnorm"])
+def test_rmsnorm_bwd_is_one_launch(cuda, fused):
+    """Under torch.profiler each call runs exactly one kernel (dw in the
+    same launch, no memset of its counters); two calls in a row and one at
+    another row count each give the plain version's dw, the repeat bitwise
+    the first: a ticket counter left dirty by a launch would show."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = (8, 512, 896)
+    x, delta, w = _rms_inputs(shape, torch.bfloat16, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dy = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+    ds = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+    rn.rmsnorm_bwd(x, dy, w, ds if fused else None)    # warm: the counters
+    torch.cuda.synchronize()
+    outs = []
+    for rows in (4096, 4096, 37):
+        s, g, i = (t.reshape(-1, 896)[:rows] for t in (x, dy, ds))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = rn.rmsnorm_bwd(s, g, w, i if fused else None)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, [e.name for e in kernels]
+        leaves = [s.clone().requires_grad_(), w.clone().requires_grad_()]
+        y = rn.rmsnorm_plain(*leaves)
+        want = torch.autograd.grad(y, leaves, g)
+        scale = float(want[1].abs().max())
+        torch.testing.assert_close(got[1], want[1],
+                                   atol=RMS_BWD_TOL[torch.bfloat16] * scale,
+                                   rtol=RMS_BWD_TOL[torch.bfloat16])
+        outs.append(got)
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
 
 
 def test_rmsnorm_bwd_refuses_what_it_cannot_take(cuda):

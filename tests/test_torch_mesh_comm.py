@@ -21,7 +21,8 @@ functions in ``tests/_torch_mesh_part3_ranks.py``.
    cache and int8 in the async ones): in float64 within rel 1e-12 of the
    port's ``SequentialReference``, in float32 within the reference's
    spmd-against-stacked tolerances (phase 0: 1e-6; phase 1: 1e-5; val
-   micro-F1: 5e-3).
+   micro-F1: 5e-3).  The bucketed reducer alone, on uneven buckets:
+   bitwise the stacked reducer, sending the ring all-reduce's bytes.
 5. ``run_eat_distgnn`` with the options: within those tolerances of the
    stacked pipeline, every byte counter equal to its.
 6. A cache + int8 + top-k run killed at boundary 1 and resumed is bitwise
@@ -191,6 +192,29 @@ def test_overlapped_fullgraph_gradients(world4, case):
 # --------------------------------------------------------------------------
 # 4. the reducers' epochs
 # --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("P", [1, 4])
+def test_bucketed_reducer_moves_the_ring_bytes(world1, world4, P):
+    """The per-shard bucketed reducer on uneven buckets: bitwise the
+    stacked reducer's mean on every rank, and the fleet sends the ring
+    all-reduce's closed form, ``2 (P-1) B``, plus fewer than P padding
+    entries a bucket in each of its two collectives (an all_gather of the
+    slices would send ``P (P-1) B``)."""
+    from repro_torch.core.gp.trainer import (grad_sync_wire_bytes,
+                                             make_bucketed_reduce_stacked)
+    outs, _ = world4 if P == 4 else world1
+    grads = m3.wire_grads(P)
+    want = make_bucketed_reduce_stacked(P, m3.BUCKET_ELEMS * 4)(grads)
+    n = sum(int(np.prod(s)) for s in m3.WIRE_SHAPES)
+    buckets = -(-n // m3.BUCKET_ELEMS)
+    ring = grad_sync_wire_bytes("bucketed", P, n, itemsize=4)
+    fleet = sum(o["bucketed_wire"]["sent"] for o in outs)
+    for o in outs:
+        assert _equal(o["bucketed_wire"]["mean"], want)
+    assert ring <= fleet <= ring + 2 * (P - 1) * P * buckets * 4
+    if P > 1:
+        assert fleet < grad_sync_wire_bytes("none", P, n, itemsize=4)
+
 
 @pytest.mark.parametrize("what", list(m3.REDUCER_EPOCHS))
 def test_f64_reducer_epochs_match_the_oracle(world4, case, what):
