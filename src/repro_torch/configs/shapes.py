@@ -6,9 +6,9 @@ Decode shapes drive ``serve_step`` (ONE token, KV cache of seq_len);
 sliding-window archs).  Where the reference returns ``jax.ShapeDtypeStruct``
 stand-ins, :func:`input_specs` returns tensors on ``torch.device("meta")``:
 shapes and dtypes, no storage.  A decode spec's caches take the port's
-layout, a list with one ``{"k", "v"}`` of ``(B, Hkv, W, Dh)`` per layer,
-where the reference stacks the layers of a sub-layer on a leading repeat
-axis.
+layout, a list with one dict per layer (``{"k", "v"}`` of ``(B, Hkv, W,
+Dh)`` for attention, ``{"conv", "ssm"}`` for Mamba2), where the reference
+stacks the layers of a sub-layer on a leading repeat axis.
 """
 from __future__ import annotations
 
@@ -58,10 +58,10 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     """Meta-tensor stand-ins for every model input (no allocation).
 
     For train/prefill: the batch dict.  For decode: ``token``, ``caches``
-    (one ``{"k", "v"}`` per layer), ``cache_len`` and ``rolling``, matching
-    ``Transformer.decode_step``.  A decode spec of a non-attention mixer or
-    of cross-attention raises ``NotImplementedError``, as the port's model
-    does (ROADMAP item 15).
+    (one dict per layer, as ``Transformer.make_decode_cache`` builds them),
+    ``cache_len`` and ``rolling``, matching ``Transformer.decode_step``.  A
+    decode spec of cross-attention raises ``NotImplementedError``, as the
+    port's model does (ROADMAP item 15.5).
     """
     b, s = shape.global_batch, shape.seq_len
     act_dt = getattr(torch, cfg.dtype)
@@ -82,17 +82,15 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
         return batch
 
     # decode: one token against a cache of seq_len context
-    for sl in cfg.super_block:
-        if sl.mixer != "attention" or sl.cross_attention:
-            raise NotImplementedError(
-                f"{cfg.name}: the decode cache of a {sl.mixer} mixer"
-                f"{' with cross-attention' if sl.cross_attention else ''} is "
-                "not ported yet (ROADMAP item 15)")
+    from ..models.transformer import zero_layer_cache
+
+    if any(sl.cross_attention for sl in cfg.super_block):
+        raise NotImplementedError(
+            f"{cfg.name}: the decode cache of cross-attention is not ported "
+            "yet (ROADMAP item 15.5)")
     width, rolling = decode_cache_width(cfg, shape)
-    kv = (b, cfg.num_kv_heads, width, cfg.resolved_head_dim)
-    caches = [{"k": torch.empty(kv, dtype=act_dt, device=_META),
-               "v": torch.empty(kv, dtype=act_dt, device=_META)}
-              for _ in range(cfg.num_layers)]
+    caches = [zero_layer_cache(cfg, sl.mixer, b, width, _META)
+              for _ in range(cfg.num_repeats) for sl in cfg.super_block]
     return {
         "token": _tokens(b, 1),
         "caches": caches,

@@ -1,9 +1,10 @@
-"""Serving entry point (CLI) on the CUDA card: batched generation with a dense
-decoder, or the partitioned GNN inference service (counterpart of
-``repro/launch/serve.py``).
+"""Serving entry point (CLI) on the CUDA card: batched generation with a
+decoder of the zoo, or the partitioned GNN inference service (counterpart
+of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
-        --batch 4 --prompt-len 32 --new-tokens 16 [--full] [--device cpu]
+        --batch 4 --prompt-len 32 --new-tokens 16 [--full] [--swa] \\
+        [--device cpu]
 
     PYTHONPATH=src python -m repro_torch.launch.serve --gnn \\
         --dataset products-s --parts 4 --hidden 128 --ticks 20 \\
@@ -13,9 +14,15 @@ decoder, or the partitioned GNN inference service (counterpart of
 
 The transformer path runs the arch's ``reduced()`` config, as the
 reference does, unless ``--full`` asks for its published widths; weights are
-random from ``--seed``.  It prefills a random prompt and decodes through
-``ServeEngine`` with the flash attention and RMSNorm kernels, and reports
-prefill time, decode time per step and both kernels' launches.
+random from ``--seed``.  Every decoder-only arch of the zoo serves (dense,
+MoE, Mamba2 and the jamba hybrid; whisper-small and paligemma-3b wait for
+ROADMAP items 15.5 and 15.6).  It prefills a random prompt and decodes
+through ``ServeEngine`` with the flash attention and RMSNorm kernels, and
+reports prefill time, decode time per step and both kernels' launches.
+``--swa`` serves from the mod-W rolling cache of ``sliding_window`` slots:
+an arch without a native window takes the ``swa`` variant (window 8,192),
+as the reference does; one with a native window (starcoder2-7b) keeps it,
+where the reference's ``get_config(arch, "swa")`` refuses the variant.
 
 The GNN path partitions the graph with EW, exports the per-partition layer
 embeddings from a stacked ``SPMDEngine`` (the full-graph forward through the
@@ -26,8 +33,7 @@ with the kernel aggregation on.  ``--checkpoint`` serves the params of an
 npz written by ``train.checkpoint.save_pytree`` (either package's) instead
 of random ones; ``--fail-partition`` fails that partition at
 ``--fail-at-tick`` and recovers it ``--recover-after-ticks`` later through
-a ``FaultPlan``, and the run reports its degraded queries.  ``--swa``
-(rolling decode) waits for ROADMAP item 15 and says so when asked for.
+a ``FaultPlan``, and the run reports its degraded queries.
 """
 from __future__ import annotations
 
@@ -167,70 +173,87 @@ def _timed(fn, device, times: list, launches: list):
     return call
 
 
-def llm_main(args) -> dict:
-    """Prefill a random ``(batch, prompt_len)`` prompt and greedily (or with
-    ``temperature``) decode ``new_tokens``, after an untimed two-token
-    warm-up generation.  Prints the reference's summary line plus the timing
-    and launch lines, and returns the run: ``cfg``, ``model``, ``engine``,
-    ``batch``, ``tokens``, ``wall_s``, ``tokens_per_s``, ``prefill_ms``,
-    ``decode_ms`` (per step), ``decode_ms_p50``, ``decode_ms_p99`` and
-    ``launches`` (``{"prefill": (flash, rmsnorm, fused), "decode": [(flash,
-    rmsnorm, fused) per step]}``; ``rmsnorm`` counts both RMSNorm entry
-    points, ``fused`` those with the residual add)."""
-    from repro_torch.configs import get_config
-    from repro_torch.device import resolve_device
-    from repro_torch.models import Transformer
+def serve_model(model, batch: dict, *, new_tokens: int, cache_size: int,
+                rolling: bool = False, temperature: float = 0.0,
+                seed: int = 0, label: str = "") -> dict:
+    """Generate ``new_tokens`` for ``batch`` through ``ServeEngine`` after an
+    untimed two-token warm-up generation, timing the engine's prefill and
+    decode calls (synchronised host clock) and counting their kernel
+    launches.  Prints the reference's summary line (``label`` after the
+    rate) plus the timing and launch lines, and returns ``engine``,
+    ``tokens``, ``wall_s``, ``tokens_per_s``, ``prefill_ms``, ``decode_ms``
+    (per step), ``decode_ms_p50``, ``decode_ms_p99`` and ``launches``
+    (``{"prefill": (flash, rmsnorm, fused), "decode": [(flash, rmsnorm,
+    fused) per step]}``; ``rmsnorm`` counts both RMSNorm entry points,
+    ``fused`` those with the residual add)."""
     from repro_torch.serve import ServeEngine
 
-    if args.swa:
-        raise NotImplementedError(
-            "--swa (rolling sliding-window decode) is not ported yet "
-            "(ROADMAP item 15)")
-    device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if not args.full:
-        cfg = cfg.reduced()
-    model = Transformer(cfg, seed=args.seed, device=device)
-    rng = np.random.default_rng(args.seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size,
-                                    (args.batch, args.prompt_len))}
-    engine = ServeEngine(model, cache_size=args.prompt_len + args.new_tokens
-                         + 4)
-    engine.generate(batch, max_new_tokens=2, temperature=args.temperature,
-                    seed=args.seed)
+    device = model.device
+    engine = ServeEngine(model, cache_size=cache_size, rolling=rolling)
+    engine.generate(batch, max_new_tokens=2, temperature=temperature,
+                    seed=seed)
     # the timed run drives the same model through timing wrappers of the
     # two calls the engine makes
     prefill_s, decode_s, prefill_n, decode_n = [], [], [], []
     timed = ServeEngine(SimpleNamespace(
         prefill=_timed(model.prefill, device, prefill_s, prefill_n),
         decode_step=_timed(model.decode_step, device, decode_s, decode_n)),
-        cache_size=engine.cache_size)
+        cache_size=cache_size, rolling=rolling)
     t0 = time.perf_counter()
-    out = timed.generate(batch, max_new_tokens=args.new_tokens,
-                         temperature=args.temperature, seed=args.seed)
+    out = timed.generate(batch, max_new_tokens=new_tokens,
+                         temperature=temperature, seed=seed)
     _sync(device)
     wall = time.perf_counter() - t0
     dec_ms = [t * 1e3 for t in decode_s]
     p50, p99 = (np.percentile(dec_ms, [50, 99]).tolist() if dec_ms
                 else (float("nan"), float("nan")))
     tps = out.size / wall
-    print(f"{cfg.name}: {out.shape[0]} seqs x {out.shape[1]} tokens "
-          f"in {wall:.2f}s ({tps:.1f} tok/s, "
-          f"{'full' if args.full else 'reduced'} config on {device})")
-    print(f"prefill {prefill_s[0] * 1e3:.2f} ms ({args.batch} x "
-          f"{args.prompt_len} tokens), decode p50 {p50:.3f} ms p99 "
-          f"{p99:.3f} ms per step over {len(dec_ms)} steps")
+    b, s = np.shape(batch["tokens"])
+    print(f"{model.cfg.name}: {out.shape[0]} seqs x {out.shape[1]} tokens "
+          f"in {wall:.2f}s ({tps:.1f} tok/s, {label})")
+    print(f"prefill {prefill_s[0] * 1e3:.2f} ms ({b} x {s} tokens), decode "
+          f"p50 {p50:.3f} ms p99 {p99:.3f} ms per step over {len(dec_ms)} "
+          f"steps")
     print(f"kernel launches: prefill flash {prefill_n[0][0]} rmsnorm "
           f"{prefill_n[0][1]} (fused add {prefill_n[0][2]}); decode flash "
           f"{sum(n[0] for n in decode_n)} rmsnorm "
           f"{sum(n[1] for n in decode_n)} (fused add "
           f"{sum(n[2] for n in decode_n)}) over {len(decode_n)} steps")
     print(out)
-    return {"cfg": cfg, "model": model, "engine": engine, "batch": batch,
-            "tokens": out, "wall_s": wall, "tokens_per_s": tps,
-            "prefill_ms": prefill_s[0] * 1e3, "decode_ms": dec_ms,
-            "decode_ms_p50": p50, "decode_ms_p99": p99,
+    return {"engine": engine, "tokens": out, "wall_s": wall,
+            "tokens_per_s": tps, "prefill_ms": prefill_s[0] * 1e3,
+            "decode_ms": dec_ms, "decode_ms_p50": p50, "decode_ms_p99": p99,
             "launches": {"prefill": prefill_n[0], "decode": decode_n}}
+
+
+def llm_main(args) -> dict:
+    """Prefill a random ``(batch, prompt_len)`` prompt and greedily (or with
+    ``temperature``) decode ``new_tokens`` through :func:`serve_model`;
+    ``--swa`` decodes from the rolling cache of ``sliding_window`` slots.
+    Returns :func:`serve_model`'s run with ``cfg``, ``model`` and
+    ``batch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import Transformer
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.swa and cfg.sliding_window is None:
+        cfg = get_config(args.arch, "swa")
+    if not args.full:
+        cfg = cfg.reduced()
+    model = Transformer(cfg, seed=args.seed, device=device)
+    rng = np.random.default_rng(args.seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (args.batch, args.prompt_len))}
+    rolling = args.swa and cfg.sliding_window is not None
+    run = serve_model(
+        model, batch, new_tokens=args.new_tokens,
+        cache_size=(cfg.sliding_window if rolling
+                    else args.prompt_len + args.new_tokens + 4),
+        rolling=rolling, temperature=args.temperature, seed=args.seed,
+        label=f"{'full' if args.full else 'reduced'} config on {device}")
+    return {"cfg": cfg, "model": model, "batch": batch, **run}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -253,7 +276,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fail-at-tick", type=int, default=5)
     ap.add_argument("--recover-after-ticks", type=int, default=8)
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="a dense decoder of repro_torch.configs")
+                    help="an arch of repro_torch.configs: every decoder-only "
+                         "one serves (all but whisper-small and "
+                         "paligemma-3b)")
     ap.add_argument("--full", action="store_true",
                     help="the arch's published widths instead of reduced()")
     ap.add_argument("--batch", type=int, default=4)
@@ -261,7 +286,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--swa", action="store_true",
-                    help="not ported yet (ROADMAP item 15)")
+                    help="serve from the rolling sliding-window cache (the "
+                         "swa variant's window where the arch has none)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")

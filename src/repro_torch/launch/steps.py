@@ -61,7 +61,8 @@ def build_step(cfg: ModelConfig, shape: InputShape, *,
       vmaps the same single-partition step;
     - prefill: ``step(model, batch) -> (logits, caches, cache_len)``;
     - decode: ``step(model, token, caches, cache_len) -> (logits,
-      caches)``.
+      caches)``, from the mod-W rolling cache where the shape's
+      ``decode_cache_width`` says so.
     """
     optimizer = optimizer or AdamW(lr=1e-3, weight_decay=0.01, grad_clip=1.0)
 
@@ -102,11 +103,6 @@ def build_step(cfg: ModelConfig, shape: InputShape, *,
     _, rolling = decode_cache_width(cfg, shape)
 
     def serve_step(model, token, caches, cache_len):
-        if rolling:
-            raise NotImplementedError(
-                f"{cfg.name} at {shape.name} decodes from a rolling "
-                "sliding-window cache, which is not ported yet (ROADMAP item "
-                "15)")
-        return model.decode_step(token, caches, cache_len)
+        return model.decode_step(token, caches, cache_len, rolling=rolling)
 
     return BuiltStep(f"serve:{cfg.name}:{shape.name}", serve_step, specs, cfg)

@@ -36,9 +36,11 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
 def params_from_jax(tree: dict, cfg: ModelConfig, *,
                     device="cuda") -> Transformer:
     """A :class:`Transformer` of ``cfg`` on ``device`` holding the
-    reference's parameters ``tree``.  ``blocks.sub<i>`` leaves carry a
-    leading repeat axis; slice r goes to layer ``r · len(super_block) + i``.
-    Raises on a missing, extra or misshapen leaf."""
+    reference's parameters ``tree``.  ``blocks.sub<i>`` leaves (the groups
+    ``norm_mix``, ``attn`` or ``mamba``, ``norm_ffn``, ``mlp`` or ``moe``)
+    carry a leading repeat axis, so an expert tensor is ``(R, E, d, ff)``;
+    slice r goes to layer ``r · len(super_block) + i``.  Raises on a
+    missing, extra or misshapen leaf."""
     model = Transformer(cfg, device=device)
     expected = {"embed", "final_norm", "blocks"}
     if not cfg.tie_embeddings:

@@ -1,18 +1,23 @@
-"""Layers of the dense decoder (counterpart of the dense subset of
-``repro/models/layers.py``).
+"""Layers of the decoder zoo (counterpart of ``repro/models/layers.py``
+without the encoder's cross-attention and the multimodal prefix).
 
 Functional, as in the reference: ``*_init(cfg, gen, device) -> params``
-(dicts of tensors) and ``*_apply(params, x, ...) -> y``, differentiable
-for training (:func:`attention_apply` is the training form).  Attention runs
+(dicts of tensors) and ``*_apply(params, x, ...) -> y``.  Attention runs
 through :func:`ops.flash_attention` (the hand-written kernel on the card)
-where the reference runs its pure-JAX twin ``chunked_attention``; rmsnorm
-runs through :func:`ops.rmsnorm`, or :func:`ops.add_rmsnorm` where the
-residual add in front of it is fused in (:func:`add_norm_apply`).
+where the reference runs its pure-JAX twin ``chunked_attention``, and its
+decode also serves the rolling mod-W cache (:func:`attention_decode`);
+rmsnorm runs through :func:`ops.rmsnorm`, or :func:`ops.add_rmsnorm` where
+the residual add in front of it is fused in (:func:`add_norm_apply`).
 ``kernels=False`` takes the kernels' plain versions on any device, so the
-kernels can be held against them on the card.  Initialisation draws from an
-explicit ``torch.Generator`` with the reference's distributions; it cannot
-give ``jax.random``'s bits, so parity with the reference goes through
-weights carried across (``models/convert.py``).
+kernels can be held against them on the card.  The mixture-of-experts FFN
+(:func:`moe_apply`) and the Mamba2 / SSD mixer (:func:`mamba2_apply`,
+:func:`mamba2_decode`) are plain PyTorch, as the reference computes them in
+plain ``jnp``; their large products are ``torch.bmm``.  The dense layers
+are differentiable for training (:func:`attention_apply` is the training
+form); MoE and Mamba2 serve only.  Initialisation draws from an explicit
+``torch.Generator`` with the reference's distributions; it cannot give
+``jax.random``'s bits, so parity with the reference goes through weights
+carried across (``models/convert.py``).
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ from .config import ModelConfig
 
 __all__ = ["norm_init", "norm_apply", "add_norm_apply", "apply_rope",
            "sinusoidal_positions", "attention_init", "attention_apply",
-           "attention_prefill", "attention_decode", "mlp_init", "mlp_apply"]
+           "attention_prefill", "attention_decode", "rolling_slot_positions",
+           "mlp_init", "mlp_apply", "moe_init", "moe_capacity", "moe_route",
+           "moe_apply", "mamba2_init", "mamba2_apply", "mamba2_decode"]
 
 Params = dict[str, torch.Tensor]
 
@@ -174,17 +181,25 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
+def rolling_slot_positions(length: int, width: int) -> np.ndarray:
+    """The absolute position held by each of the ``width`` slots of a mod-W
+    rolling cache after ``length`` tokens: slot j holds ``(length-1) -
+    ((length-1-j) mod W)``, the reference's map (negative: empty)."""
+    last = length - 1
+    return last - np.mod(last - np.arange(width), width)
+
+
 def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       window: int | None = None,
                       cache_size: int | None = None, kernels: bool = True):
     """Prefill: run causal attention over the prompt AND return its KV cache,
-    ``{"k", "v"}`` of width ``cache_size`` (default: the prompt length) with
-    the prompt's keys in the first slots and zeros after them."""
+    ``{"k", "v"}`` of width ``cache_size`` (default: the prompt length).  A
+    cache at least as wide as the prompt holds its keys in the first slots
+    and zeros after them.  A narrower one is the mod-W rolling cache: slot j
+    holds the key of position :func:`rolling_slot_positions` ``(S, W)[j]``,
+    the last W positions each at ``p mod W``, gathered from the prompt's
+    keys (an exact copy, so the cache is bitwise those keys)."""
     b, s, _ = x.shape
-    if cache_size is not None and cache_size < s:
-        raise NotImplementedError(
-            "a cache narrower than the prompt (the rolling sliding-window "
-            "cache) is not ported yet (ROADMAP item 15)")
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope_theta is not None:
         pos = torch.arange(s, device=x.device)
@@ -192,6 +207,11 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         k = apply_rope(k, pos, cfg.rope_theta)
     out = _attend(q, k, v, window=window, q_offset=0, kernels=kernels)
     out = out.transpose(1, 2).reshape(b, s, -1)
+    if cache_size is not None and cache_size < s:
+        src = torch.as_tensor(rolling_slot_positions(s, cache_size),
+                              device=x.device)
+        return out @ p["wo"], {"k": k[:, :, src].contiguous(),
+                               "v": v[:, :, src].contiguous()}
     size = cache_size or s
     shape = (b, cfg.num_kv_heads, size, cfg.resolved_head_dim)
     k_c = torch.zeros(shape, dtype=k.dtype, device=x.device)
@@ -203,26 +223,47 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def attention_decode(p: Params, x: torch.Tensor, cache: Params,
                      cache_len: int, cfg: ModelConfig, *,
-                     window: int | None = None, kernels: bool = True):
+                     window: int | None = None, rolling: bool = False,
+                     kernels: bool = True):
     """One-token decode; ``cache_len`` = tokens already in the cache.  Writes
-    the new key and value at slot ``cache_len`` IN PLACE (the reference
-    returns updated copies) and attends over the whole cache width with the
-    query at position ``cache_len``: the causal mask hides the empty slots
-    and the window the old ones, the reference's ``valid`` mask."""
+    the new key and value IN PLACE (the reference returns updated copies),
+    at slot ``cache_len``, or ``cache_len mod W`` with ``rolling`` (the
+    mod-W cache of W = its width slots).
+
+    Without ``rolling`` the query sits at position ``cache_len`` and attends
+    over the whole width: the causal mask hides the empty slots and the
+    window the old ones, the reference's ``valid`` mask; ``cache_len`` must
+    be a slot.  With ``rolling`` any ``cache_len >= 0`` is taken, the window
+    is the cache's own width, and the call is the same kernel with other
+    arguments: after the write the live slots are exactly ``[0, min(len, W))``
+    (len = ``cache_len + 1``; the reference's ``p_j >= 0``), and they hold a
+    permutation of the last ``min(len, W)`` positions, every one inside the
+    window, with its RoPE angle already applied to its key.  Softmax over a
+    set of keys does not depend on their order, so causal attention with
+    the query at ``q_offset = min(cache_len, W - 1)`` and no window, which
+    sees exactly slots ``0 .. q_offset``, is the reference's
+    ``rolling_window_attention`` (which also sums in slot order)."""
     b = x.shape[0]
     width = cache["k"].shape[2]
-    if not 0 <= cache_len < width:
-        raise ValueError(f"cache_len {cache_len} outside the cache's "
-                         f"{width} slots")
+    if rolling:
+        if cache_len < 0:
+            raise ValueError(f"cache_len {cache_len} is negative")
+        slot, q_offset, window = cache_len % width, min(cache_len,
+                                                        width - 1), None
+    else:
+        if not 0 <= cache_len < width:
+            raise ValueError(f"cache_len {cache_len} outside the cache's "
+                             f"{width} slots")
+        slot = q_offset = cache_len
     q, k_new, v_new = _project_qkv(p, x, cfg)
     if cfg.rope_theta is not None:
         pos = torch.full((1,), cache_len, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
-    cache["k"][:, :, cache_len] = k_new[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, :, cache_len] = v_new[:, :, 0].to(cache["v"].dtype)
+    cache["k"][:, :, slot] = k_new[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, slot] = v_new[:, :, 0].to(cache["v"].dtype)
     out = _attend(q, cache["k"], cache["v"], window=window,
-                  q_offset=cache_len, kernels=kernels)
+                  q_offset=q_offset, kernels=kernels)
     out = out.to(x.dtype).transpose(1, 2).reshape(b, 1, -1)
     return out @ p["wo"], cache
 
@@ -253,3 +294,225 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation
     return (F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
             @ p["w_out"] + p["b_out"])
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts (capacity-bounded dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_init(cfg: ModelConfig, gen, device=None) -> Params:
+    d, ff, e, dt = cfg.d_model, cfg.d_ff, cfg.num_experts, _dtype(cfg)
+    scale = math.sqrt(6.0 / (d + ff))
+    return {
+        "router": _dense_init(gen, d, e, torch.float32, device),
+        "expert_gate": _uniform(gen, (e, d, ff), scale, dt, device),
+        "expert_up": _uniform(gen, (e, d, ff), scale, dt, device),
+        "expert_down": _uniform(gen, (e, ff, d), scale, dt, device),
+    }
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``tokens`` tokens (a host int)."""
+    return max(8, int(math.ceil(tokens * cfg.top_k * cfg.capacity_factor
+                                / cfg.num_experts)))
+
+
+def moe_route(p: Params, xf: torch.Tensor, cfg: ModelConfig):
+    """The router of ``xf`` (T, d): f32 logits against the f32 router,
+    softmax, top-k with ties to the lower expert (a stable descending sort,
+    as ``lax.top_k`` breaks them; ``torch.topk`` leaves their order
+    unspecified), the top weights renormalised by their sum floored at 1e-9.
+    Each (token, choice) takes the next slot of its expert in token-major
+    order (the reference's cumsum over the one-hot) and is kept when the
+    slot is below :func:`moe_capacity`.  Returns ``(probs (T, E), top_w (T,
+    K), top_i (T, K), slot (T·K,), keep (T·K,))``, ``slot`` 0 where dropped."""
+    e, k = cfg.num_experts, cfg.top_k
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :k], top_i[:, :k]
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = top_i.reshape(-1)
+    onehot = F.one_hot(flat_e, e)
+    slot = (onehot.cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
+    keep = slot < moe_capacity(xf.shape[0], cfg)
+    return probs, top_w, top_i, torch.where(keep, slot, 0), keep
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k routing (:func:`moe_route`) with capacity-bounded dispatch over
+    ``x`` (B, S, d); returns ``(y, aux)``.
+
+    The kept (token, choice) rows are written into a zero ``(E, C, d)``
+    buffer at their (expert, slot), each pair unique, so a plain
+    ``index_put_`` gives the reference's scatter-add (``mode="drop"``)
+    without atomics, the same bits on every run.  The experts are three
+    ``torch.bmm`` over ``(E, C, ·)``, SiLU(gate) · up; the kept rows are
+    gathered back, weighted by ``top_w`` and summed over K (a dropped choice
+    adds 0).  ``aux`` is the Switch load-balance term, E · Σ_e (share of
+    tokens whose first choice is e) · (mean router probability of e) ·
+    ``router_aux_weight``; serving drops it."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    probs, top_w, top_i, slot, keep = moe_route(p, xf, cfg)
+    flat_e = top_i.reshape(-1)
+    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((e, moe_capacity(t, cfg), d), dtype=x.dtype,
+                      device=x.device)
+    buf[flat_e[keep], slot[keep]] = xf[tok[keep]]
+    h = F.silu(torch.bmm(buf, p["expert_gate"])) * torch.bmm(
+        buf, p["expert_up"])
+    out_buf = torch.bmm(h, p["expert_down"])
+    y_tok = out_buf[flat_e, slot] * keep[:, None].to(x.dtype)
+    y = (y_tok.reshape(t, k, d) * top_w[..., None].to(x.dtype)).sum(1)
+    frac_tokens = F.one_hot(top_i[:, 0], e).float().mean(0)
+    aux = e * (frac_tokens * probs.mean(0)).sum() * cfg.router_aux_weight
+    return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, state-space duality, arXiv:2405.21060)
+# ---------------------------------------------------------------------------
+
+def mamba2_init(cfg: ModelConfig, gen, device=None) -> Params:
+    d, di, n, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim, dt = di + 2 * n, _dtype(cfg)
+
+    def f32_uniform(lo, hi):
+        return torch.empty(h, dtype=torch.float32, device=device).uniform_(
+            lo, hi, generator=gen)
+
+    return {
+        "in_proj": _dense_init(gen, d, 2 * di + 2 * n + h, dt, device),
+        "conv_w": _uniform(gen, (cfg.ssm_conv, conv_dim),
+                           1.0 / math.sqrt(cfg.ssm_conv), dt, device),
+        "conv_b": torch.zeros(conv_dim, dtype=dt, device=device),
+        "a_log": torch.log(f32_uniform(1.0, 16.0)),
+        "dt_bias": torch.log(torch.expm1(f32_uniform(1e-3, 0.1))),
+        "d_skip": torch.ones(h, dtype=torch.float32, device=device),
+        "ssm_norm": torch.ones(di, dtype=torch.float32, device=device),
+        "out_proj": _dense_init(gen, di, d, dt, device),
+    }
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor, state: torch.Tensor | None = None):
+    """x (B, S, C), w (K, C): the causal depthwise convolution in x's dtype,
+    over zeros (or ``state``, the previous K-1 inputs) in front of x.
+    Returns ``(y, new_state)``, the new state the last K-1 inputs."""
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * w[i]
+    return y + b, (xp[:, -(k - 1):] if k > 1 else None)
+
+
+def _ssd_chunked(xh, dt, a, bmat, cmat, chunk, init_state=None):
+    """The SSD chunked scan: xh (B, S, H, P), dt (B, S, H), a (H,), bmat /
+    cmat (B, S, N), all f32.  Returns ``(y (B, S, H, P), final_state (B, H,
+    N, P))``: a Python loop over the S / chunk chunks carrying the f32
+    state (the reference's ``lax.scan``); per-chunk buffers never exceed one
+    chunk's.  The intra-chunk product runs as ``M = scores · L · dt``, (B, L,
+    L, H), then one batched product with x: never the (B, L, L, H, P)
+    tensor a four-operand einsum contracted left to right would build."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the SSD "
+                         f"chunk {chunk}")
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=xh.device))[None, :, :, None]
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=xh.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for lo in range(0, s, chunk):
+        xk, dtk = xh[:, lo:lo + chunk], dt[:, lo:lo + chunk]
+        bk, ck = bmat[:, lo:lo + chunk], cmat[:, lo:lo + chunk]
+        da_cum = torch.cumsum(dtk * a, dim=1)                 # (b, L, h)
+        da_sum = da_cum[:, -1]                                # (b, h)
+        # the upper triangle's raw diff is positive and can overflow exp():
+        # zero it first so the unselected branch stays finite (0 · inf would
+        # be NaN under autodiff), as the reference's double where
+        diff = da_cum[:, :, None, :] - da_cum[:, None, :, :]  # (b, i, j, h)
+        lmat = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        scores = torch.bmm(ck, bk.transpose(1, 2))            # (b, i, j)
+        m = scores[..., None] * lmat * dtk[:, None]           # (b, i, j, h)
+        y_diag = torch.matmul(m.permute(0, 3, 1, 2),
+                              xk.permute(0, 2, 1, 3))         # (b, h, i, p)
+        y_off = torch.einsum("bin,bhnp->bihp", ck, state) \
+            * torch.exp(da_cum)[..., None]
+        w = torch.exp(da_sum[:, None, :] - da_cum) * dtk      # (b, L, h)
+        states = torch.einsum("bjn,bjhp->bhnp", bk, w[..., None] * xk)
+        state = torch.exp(da_sum)[:, :, None, None] * state + states
+        ys.append(y_diag.permute(0, 2, 1, 3) + y_off)
+    return torch.cat(ys, dim=1), state
+
+
+def _mamba2_split(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    di, n = cfg.ssm_d_inner, cfg.ssm_state
+    zxbcdt = x @ p["in_proj"]
+    return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
+            zxbcdt[..., 2 * di + 2 * n:])
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, p: Params) -> torch.Tensor:
+    """``y · silu(z)``, then its RMSNorm by ``ssm_norm``, all f32."""
+    y = y * F.silu(z.float())
+    return y * torch.rsqrt((y * y).mean(-1, keepdim=True) + 1e-6) \
+        * p["ssm_norm"]
+
+
+def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 state: Params | None = None):
+    """The full-sequence SSD forward of x (B, S, d), S a multiple of
+    ``cfg.ssm_chunk``.  Returns ``(y, cache)``, the cache ``{"conv": the
+    last K-1 conv inputs (B, K-1, d_inner + 2N) in x's dtype, "ssm": the
+    final state (B, H, N, P) f32}`` to continue from; ``state`` (such a
+    cache) continues an earlier call."""
+    b, s, _ = x.shape
+    di, n, h, pd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_headdim
+    z, xbc, dt_raw = _mamba2_split(p, x, cfg)
+    xbc, conv_tail = _causal_depthwise_conv(
+        xbc, p["conv_w"], p["conv_b"], None if state is None
+        else state.get("conv"))
+    xbc = F.silu(xbc)
+    xi = xbc[..., :di].reshape(b, s, h, pd).float()
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    y, final = _ssd_chunked(xi, dt, -torch.exp(p["a_log"]),
+                            xbc[..., di:di + n].float(),
+                            xbc[..., di + n:].float(), cfg.ssm_chunk,
+                            None if state is None else state.get("ssm"))
+    y = (y + xi * p["d_skip"][None, None, :, None]).reshape(b, s, di)
+    out = _gated_norm(y, z, p).to(x.dtype) @ p["out_proj"]
+    return out, {"conv": conv_tail, "ssm": final}
+
+
+def mamba2_decode(p: Params, x: torch.Tensor, cache: Params,
+                  cfg: ModelConfig):
+    """One token x (B, 1, d) through the O(1) SSD recurrence from ``cache``
+    (:func:`mamba2_apply`'s); writes the new conv tail and state into the
+    ``cache`` dict and returns ``(y, cache)``."""
+    b = x.shape[0]
+    di, n, h, pd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_headdim
+    z, xbc, dt_raw = _mamba2_split(p, x, cfg)
+    xbc, conv_tail = _causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"],
+                                            cache["conv"])
+    xbc = F.silu(xbc)
+    xi = xbc[:, 0, :di].reshape(b, h, pd).float()
+    bmat, cmat = xbc[:, 0, di:di + n].float(), xbc[:, 0, di + n:].float()
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])      # (B, H)
+    da = torch.exp(dt * -torch.exp(p["a_log"]))
+    upd = (dt[:, :, None, None] * bmat[:, None, :, None]) * xi[:, :, None, :]
+    ssm = da[:, :, None, None] * cache["ssm"] + upd           # (B, H, N, P)
+    y = torch.einsum("bn,bhnp->bhp", cmat, ssm)
+    y = (y + xi * p["d_skip"][None, :, None]).reshape(b, 1, di)
+    cache["conv"], cache["ssm"] = conv_tail, ssm
+    return _gated_norm(y, z, p).to(x.dtype) @ p["out_proj"], cache

@@ -1,14 +1,19 @@
-"""The dense decoder: init from a seed, the training loss, prefill and
-one-token decode (counterpart of ``repro/models/transformer.py`` for the
-dense family).
+"""The decoder zoo: init from a seed, the training loss, prefill and
+one-token decode (counterpart of ``repro/models/transformer.py`` without
+the encoder-decoder and the multimodal prefix).
 
 Where the reference scans one stacked block pytree with ``lax.scan``, the
-port loops over an ``nn.ModuleList`` with one module per layer (layer
-``r · len(super_block) + i`` is sub-layer i of repeat r).  Its KV caches are
-a list with one ``{"k", "v"}`` dict per layer, ``(B, Hkv, W, Dh)``,
-allocated by :meth:`Transformer.prefill` (or :meth:`make_decode_cache`) and
-written in place by :meth:`decode_step`; ``cache_len`` is a host int, so a
-decode step never waits for the device to learn where to write.
+port loops over an ``nn.ModuleList`` with one module per layer: layer
+``r · len(super_block) + i`` is sub-layer i of repeat r, a mixer
+(attention or Mamba2) and an FFN (MLP, mixture of experts or none).  Its
+caches are a list with one dict per layer, ``{"k", "v"}`` ``(B, Hkv, W,
+Dh)`` for attention and ``{"conv", "ssm"}`` (``(B, K-1, d_inner + 2N)`` in
+the model's dtype, ``(B, H, N, P)`` f32) for Mamba2, allocated by
+:meth:`Transformer.prefill` (or :meth:`make_decode_cache`) and written in
+place by :meth:`decode_step`; ``cache_len`` is a host int, so a decode step
+never waits for the device to learn where to write.  ``rolling=True``
+decodes from a mod-W attention cache (the sliding-window serving of
+``--swa``; a prefill into a cache narrower than the prompt fills it).
 
 :meth:`Transformer.train_loss` runs the layers under autograd (each under
 ``torch.utils.checkpoint`` when ``cfg.remat``, as the reference checkpoints
@@ -17,11 +22,12 @@ the flash attention and RMSNorm kernels run forward and backward through
 their autograd functions.  The parameters are trainable ``nn.Parameter``s;
 serving runs under ``torch.no_grad``.
 
-Supported: attention + MLP sub-layers, rmsnorm or layernorm, swiglu or
-gelu, QKV bias, RoPE or sinusoidal positions, tied or untied head, a native
-``sliding_window``.  Mamba2, MoE, cross-attention (whisper), a multimodal
-prefix (paligemma) and the rolling cache (``cache_size`` below the prompt)
-raise ``NotImplementedError``: ROADMAP item 15.
+Supported: attention and Mamba2 mixers, MLP, MoE and no FFN, rmsnorm or
+layernorm, swiglu or gelu, QKV bias, RoPE or sinusoidal positions, tied or
+untied head, a native ``sliding_window`` and the rolling cache.
+Cross-attention and the encoder (whisper; ROADMAP item 15.5) and a
+multimodal prefix (paligemma; item 15.6) raise ``NotImplementedError``, and
+so does training a model with a Mamba2 mixer or an MoE FFN (item 15.9).
 """
 from __future__ import annotations
 
@@ -109,23 +115,32 @@ def chunked_ce_loss(h: torch.Tensor, w_head: torch.Tensor,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    todo = []
-    for sl in cfg.super_block:
-        if sl.mixer != "attention":
-            todo.append(f"the {sl.mixer} mixer")
-        if sl.ffn != "mlp":
-            todo.append(f"the {sl.ffn!r} ffn")
-        if sl.cross_attention:
-            todo.append("cross-attention")
+    """Raise ``NotImplementedError`` for what the port cannot serve yet."""
+    todo = {}
+    if any(sl.cross_attention for sl in cfg.super_block):
+        todo["cross-attention"] = "15.5"
     if cfg.is_encoder_decoder:
-        todo.append("the encoder")
+        todo["the encoder"] = "15.5"
     if cfg.prefix_tokens:
-        todo.append("the multimodal prefix")
+        todo["the multimodal prefix"] = "15.6"
     if todo:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(sorted(set(todo)))} not ported yet "
-            "(ROADMAP item 15); the port serves dense decoders")
+            f"{cfg.name}: " + ", ".join(
+                f"{what} (ROADMAP item {item})" for what, item in todo.items())
+            + " not ported yet; the port serves decoder-only models")
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port only serves."""
+    todo = sorted({f"the {sl.mixer} mixer" for sl in cfg.super_block
+                   if sl.mixer != "attention"}
+                  | {f"the {sl.ffn} ffn" for sl in cfg.super_block
+                     if sl.ffn == "moe"})
+    if todo:
+        raise NotImplementedError(
+            f"{cfg.name}: training {' and '.join(todo)} is not ported yet "
+            "(ROADMAP item 15.9, training the zoo's MoE and Mamba2 "
+            "families); the port serves them")
 
 
 def _params(params: dict) -> nn.ParameterDict:
@@ -133,39 +148,62 @@ def _params(params: dict) -> nn.ParameterDict:
 
 
 class _Layer(nn.Module):
-    """One (attention, MLP) sub-layer with its two norms; parameter names
-    are the reference's ``blocks.sub<i>`` keys.
+    """One sub-layer ``sl`` of the super-block: its mixer (attention or
+    Mamba2) and FFN (MLP, MoE or none) with their norms; parameter names are
+    the reference's ``blocks.sub<i>`` keys (``norm_mix``, ``attn`` |
+    ``mamba``, ``norm_ffn``, ``mlp`` | ``moe``).
 
     The residual add that ends a sub-layer is left to the norm after it,
     which fuses the add in front of the norm: :meth:`forward` takes the
-    residual stream ``x`` and the previous layer's MLP output ``delta`` not
-    yet added (None before the first layer), and returns the stream and its
-    own MLP output for the next norm to add."""
+    residual stream ``x`` and the previous layer's output ``delta`` not yet
+    added (None before the first layer), and returns the stream and its own
+    last output (the FFN's, or the mixer's where there is no FFN) for the
+    next norm to add."""
 
-    def __init__(self, cfg: ModelConfig, gen, device):
+    def __init__(self, cfg: ModelConfig, sl, gen, device):
         super().__init__()
+        self.mixer, self.ffn = sl.mixer, sl.ffn
         self.norm_mix = _params(L.norm_init(cfg, device=device))
-        self.attn = _params(L.attention_init(cfg, gen, device))
-        self.norm_ffn = _params(L.norm_init(cfg, device=device))
-        self.mlp = _params(L.mlp_init(cfg, gen, device))
+        if sl.mixer == "attention":
+            self.attn = _params(L.attention_init(cfg, gen, device))
+        else:
+            self.mamba = _params(L.mamba2_init(cfg, gen, device))
+        if sl.ffn != "none":
+            self.norm_ffn = _params(L.norm_init(cfg, device=device))
+        if sl.ffn == "mlp":
+            self.mlp = _params(L.mlp_init(cfg, gen, device))
+        elif sl.ffn == "moe":
+            self.moe = _params(L.moe_init(cfg, gen, device))
 
-    def forward(self, x, delta, cfg, *, kernels, cache=None, cache_len=None,
-                cache_size=None):
-        x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
+    def _mix(self, h, cfg, kernels, cache, cache_len, cache_size, rolling):
+        if self.mixer == "mamba2":
+            if cache is None:
+                return L.mamba2_apply(self.mamba, h, cfg)
+            return L.mamba2_decode(self.mamba, h, cache, cfg)
         if cache is None:
-            mix, cache = L.attention_prefill(
+            return L.attention_prefill(
                 self.attn, h, cfg, window=cfg.sliding_window,
                 cache_size=cache_size, kernels=kernels)
-        else:
-            mix, cache = L.attention_decode(
-                self.attn, h, cache, cache_len, cfg,
-                window=cfg.sliding_window, kernels=kernels)
+        return L.attention_decode(
+            self.attn, h, cache, cache_len, cfg, window=cfg.sliding_window,
+            rolling=rolling, kernels=kernels)
+
+    def forward(self, x, delta, cfg, *, kernels, cache=None, cache_len=None,
+                cache_size=None, rolling=False):
+        x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
+        mix, cache = self._mix(h, cfg, kernels, cache, cache_len, cache_size,
+                               rolling)
+        if self.ffn == "none":
+            return x, mix, cache
         x, h = L.add_norm_apply(self.norm_ffn, x, mix, cfg, kernels=kernels)
+        if self.ffn == "moe":
+            return x, L.moe_apply(self.moe, h, cfg)[0], cache
         return x, L.mlp_apply(self.mlp, h, cfg), cache
 
     def train_forward(self, x, delta, cfg, kernels):
-        """The training form of :meth:`forward`: causal attention over the
-        whole sequence, no cache; returns ``(x, mlp_out)``."""
+        """The training form of :meth:`forward` for an attention + MLP
+        sub-layer: causal attention over the whole sequence, no cache;
+        returns ``(x, mlp_out)``."""
         x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
         mix = L.attention_apply(self.attn, h, cfg, window=cfg.sliding_window,
                                 kernels=kernels)
@@ -173,9 +211,24 @@ class _Layer(nn.Module):
         return x, L.mlp_apply(self.mlp, h, cfg)
 
 
+def zero_layer_cache(cfg: ModelConfig, mixer: str, batch: int, width: int,
+                     device) -> dict:
+    """One layer's zero decode cache (tensors on ``device``, which may be
+    ``meta``)."""
+    dt = getattr(torch, cfg.dtype)
+    if mixer == "attention":
+        kv = (batch, cfg.num_kv_heads, width, cfg.resolved_head_dim)
+        return {"k": torch.zeros(kv, dtype=dt, device=device),
+                "v": torch.zeros(kv, dtype=dt, device=device)}
+    conv = (batch, cfg.ssm_conv - 1, cfg.ssm_d_inner + 2 * cfg.ssm_state)
+    ssm = (batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim)
+    return {"conv": torch.zeros(conv, dtype=dt, device=device),
+            "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
+
+
 class Transformer(nn.Module):
-    """A dense decoder with random weights from ``seed`` on ``device`` (the
-    CUDA card by default; raises without one unless ``device="cpu"``).
+    """A decoder of the zoo with random weights from ``seed`` on ``device``
+    (the CUDA card by default; raises without one unless ``device="cpu"``).
 
     ``use_kernels=False`` runs the plain versions of the flash attention and
     RMSNorm kernels instead, on any device; it exists so the kernels can be
@@ -196,8 +249,9 @@ class Transformer(nn.Module):
                             device=dev).normal_(generator=gen)
         self.embed = nn.Parameter((0.02 * embed).to(dt))
         self.final_norm = _params(L.norm_init(cfg, device=dev))
-        self.layers = nn.ModuleList(_Layer(cfg, gen, dev)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(_Layer(cfg, sl, gen, dev)
+                                    for _ in range(cfg.num_repeats)
+                                    for sl in cfg.super_block)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 L._dense_init(gen, d, cfg.vocab_size, dt, dev))
@@ -243,8 +297,11 @@ class Transformer(nn.Module):
         parameter: the embedding, the layers (each checkpointed when
         ``cfg.remat``), the final norm over every position, then
         :func:`chunked_ce_loss` over the head.  The dense family has no
-        auxiliary loss (the reference adds MoE's, 0 here)."""
+        auxiliary loss (the reference adds MoE's); a model with a Mamba2
+        mixer or an MoE FFN raises ``NotImplementedError`` (ROADMAP item
+        15.9)."""
         cfg = self.cfg
+        _check_trainable(cfg)
         tokens = self._tokens(batch["tokens"])
         labels = self._tokens(batch["labels"])
         x, delta = self._embed_tokens(tokens), None
@@ -267,8 +324,10 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: dict, *, cache_size: int | None = None):
         """Run the prompt ``batch["tokens"]`` (B, S); returns
-        ``(last_logits (B, V) float32, caches, cache_len)`` with caches of
-        width ``cache_size`` (default S) and ``cache_len == S``."""
+        ``(last_logits (B, V) float32, caches, cache_len)`` with attention
+        caches of width ``cache_size`` (default S; narrower than S: the
+        rolling cache of the last ``cache_size`` positions), Mamba2 caches
+        of the state after the prompt, and ``cache_len == S``."""
         tokens = self._tokens(batch["tokens"])
         x, delta = self._embed_tokens(tokens), None
         caches = []
@@ -280,27 +339,28 @@ class Transformer(nn.Module):
 
     # =============================================================== decode
     @torch.no_grad()
-    def decode_step(self, token, caches: list, cache_len: int):
-        """One-token step.  ``token`` (B, 1); writes each layer's cache at
-        slot ``cache_len`` in place.  Returns ``(logits, caches)``."""
+    def decode_step(self, token, caches: list, cache_len: int, *,
+                    rolling: bool = False):
+        """One-token step.  ``token`` (B, 1); writes each layer's cache in
+        place: attention at slot ``cache_len`` (``cache_len mod W`` with
+        ``rolling``, the mod-W cache), Mamba2's conv tail and state.
+        Returns ``(logits, caches)``."""
         cfg = self.cfg
         cache_len = int(cache_len)
         x = self._embed_tokens(self._tokens(token), offset=cache_len)
         delta = None
         for layer, cache in zip(self.layers, caches):
             x, delta, _ = layer(x, delta, cfg, kernels=self.use_kernels,
-                                cache=cache, cache_len=cache_len)
+                                cache=cache, cache_len=cache_len,
+                                rolling=rolling)
         return self._logits(x, delta), caches
 
     # ======================================================== cache structs
     def make_decode_cache(self, batch: int, cache_width: int) -> list:
-        """Zero caches, one ``{"k", "v"}`` per layer."""
-        cfg = self.cfg
-        shape = (batch, cfg.num_kv_heads, cache_width, cfg.resolved_head_dim)
-        dt = getattr(torch, cfg.dtype)
-        return [{"k": torch.zeros(shape, dtype=dt, device=self.device),
-                 "v": torch.zeros(shape, dtype=dt, device=self.device)}
-                for _ in self.layers]
+        """Zero caches, one per layer: ``{"k", "v"}`` of ``cache_width``
+        slots for attention, ``{"conv", "ssm"}`` for Mamba2."""
+        return [zero_layer_cache(self.cfg, layer.mixer, batch, cache_width,
+                                 self.device) for layer in self.layers]
 
     # ============================================================== params N
     def param_count(self) -> int:

@@ -3,7 +3,9 @@
 
 The model owns its weights (an ``nn.Module``), so the engine holds no
 ``params``; the loop, the EOS rules and the skipped last decode are the
-reference's.  Temperature sampling draws from a ``torch.Generator`` seeded
+reference's; ``rolling`` decodes from the mod-W cache of ``cache_size``
+slots, which the prefill fills with the prompt's last positions.
+Temperature sampling draws from a ``torch.Generator`` seeded
 from ``seed``: it cannot give ``jax.random``'s tokens.
 """
 from __future__ import annotations
@@ -22,12 +24,6 @@ class ServeEngine:
     model: Any
     cache_size: int
     rolling: bool = False
-
-    def __post_init__(self):
-        if self.rolling:
-            raise NotImplementedError(
-                "rolling sliding-window decode is not ported yet (ROADMAP "
-                "item 15)")
 
     def generate(
         self,
@@ -77,7 +73,7 @@ class ServeEngine:
                     break
             if t + 1 < max_new_tokens:   # the last token needs no decode
                 token = torch.as_tensor(tok_np, device=logits.device)[:, None]
-                logits, caches = self.model.decode_step(token, caches,
-                                                        cache_len)
+                logits, caches = self.model.decode_step(
+                    token, caches, cache_len, rolling=self.rolling)
                 cache_len = cache_len + 1
         return out

@@ -1245,3 +1245,109 @@ def test_reduced_train_step_kernels_match_plain(cuda, arch):
     for g, w in zip(out[True][1], out[False][1]):
         scale = float(w.abs().max()) or 1.0
         torch.testing.assert_close(g, w, atol=1e-4 * scale, rtol=1e-3)
+
+
+# ------------------------------------------- the rest of the decoder zoo --
+
+@pytest.mark.parametrize("cache_len", [100, 4095, 4096, 4097, 9000])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_rolling_decode_kernel_matches_plain(cuda, cache_len, dtype, tol):
+    """A rolling decode step's attention (starcoder2's GQA group of 9 at Dh
+    128, a 4,096-slot mod-W cache) through the split-KV decode kernel
+    against the plain version on the same cache: below, at and past the
+    width; and against a softmax over the valid slots in slot order (the
+    reference's ``rolling_window_attention``) computed in f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("starcoder2-7b")
+    w, hq, hkv, dh = 4096, cfg.num_heads, cfg.num_kv_heads, 128
+    gen = torch.Generator(device=cuda).manual_seed(cache_len)
+    q = torch.randn((2, hq, 1, dh), device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn((2, hkv, w, dh), device=cuda, generator=gen)
+            .to(dtype) for _ in range(2))
+    q_offset = min(cache_len, w - 1)
+    before = fa.flash_launch_count("decode")
+    got = fa.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    again = fa.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_launch_count("decode") == before + 2
+    assert torch.equal(got, again)
+    want = fa.flash_attention_plain(q, k, v, causal=True, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    valid = torch.as_tensor(L.rolling_slot_positions(cache_len + 1, w) >= 0,
+                            device=cuda)
+    s = torch.einsum("bhd,bhkd->bhk", q[:, :, 0].float(),
+                     k.float().repeat_interleave(hq // hkv, 1)) / dh ** 0.5
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), -1)
+    oracle = torch.einsum("bhk,bhkd->bhd", p,
+                          v.float().repeat_interleave(hq // hkv, 1))
+    torch.testing.assert_close(got[:, :, 0].float(), oracle, atol=tol,
+                               rtol=tol)
+
+
+def test_moe_and_mamba2_on_card(cuda):
+    """``moe_apply`` and ``mamba2_apply`` / ``mamba2_decode`` (plain
+    PyTorch on the card): two runs bitwise equal, and within f32 tolerance
+    of the CPU on the same inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    moe = L.moe_init(cfg, gen)
+    mamba = L.mamba2_init(cfg, gen)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen)
+    nxt = torch.randn((2, 1, cfg.d_model), generator=gen)
+
+    def run(dev):
+        on = lambda p: {k: v.to(dev) for k, v in p.items()}
+        y, aux = L.moe_apply(on(moe), x.to(dev), cfg)
+        m, cache = L.mamba2_apply(on(mamba), x.to(dev), cfg)
+        d, cache = L.mamba2_decode(on(mamba), nxt.to(dev), cache, cfg)
+        return [t.cpu() for t in (y, aux, m, d, cache["conv"], cache["ssm"])]
+
+    first, second, cpu = run(cuda), run(cuda), run("cpu")
+    for a, b, c in zip(first, second, cpu):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-4)
+
+
+def test_reduced_jamba_decode_kernels_match_plain(cuda):
+    """Reduced jamba (attention, Mamba2, MLP and MoE in one super-block; a
+    mixed cache per layer) in f32: prefill and a decode step through the
+    kernels against the plain versions on the same weights, with each
+    pass's launches: one flash attention, 17 RMSNorm of which 16 fused."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    model = Transformer(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 64))
+    tok = rng.integers(0, cfg.vocab_size, (2, 1))
+    out = {}
+    for use in (True, False):
+        model.use_kernels = use
+        fa.reset_flash_launch_count()
+        rn.reset_rmsnorm_launch_count()
+        lg, caches, n = model.prefill({"tokens": prompt}, cache_size=80)
+        counts = [(fa.flash_launch_count(), rn.rmsnorm_launch_count(),
+                   rn.add_rmsnorm_launch_count())]
+        lg2, caches = model.decode_step(tok, caches, n)
+        torch.cuda.synchronize()
+        counts.append((fa.flash_launch_count() - counts[0][0],
+                       rn.rmsnorm_launch_count() - counts[0][1],
+                       rn.add_rmsnorm_launch_count() - counts[0][2]))
+        out[use] = (lg, lg2, caches, counts)
+    n_layers = cfg.num_layers
+    assert out[True][3] == [(1, 2 * n_layers + 1, 2 * n_layers)] * 2, \
+        out[True][3]
+    assert out[False][3] == [(0, 0, 0)] * 2
+    for a, b in zip(out[True][:2], out[False][:2]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for ck, cp in zip(out[True][2], out[False][2]):
+        assert set(ck) == set(cp)
+        for key in ck:
+            torch.testing.assert_close(ck[key], cp[key], atol=1e-4, rtol=1e-4)
