@@ -60,8 +60,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
               cache at q_offset 2,048) shapes and starcoder2-7b's prefill
               (q 4x36x4608x128, k/v 4x4x4608x128, window 4,096) and
               rolling decode (q 4x36x1x128 against all 4,096 slots of its
-              mod-W cache, q_offset 4,095), the serving shapes launched
-              twice (bitwise equal); RMSNorm, alone and with the
+              mod-W cache, q_offset 4,095), whisper-small's (batch 4:
+              the encoder's bidirectional 1,500 frames, the decoder's
+              causal 384-token prefill, the cross prefill of 384 queries
+              over 1,500 keys, the self decode against 452 slots at
+              q_offset 416, the cross decode over 1,500 keys; Dh 64) and
+              paligemma-3b's (q 4x8x512x256 against one KV head under the
+              prefix-LM mask of 256 patches, and the decode of group 8
+              against 580 slots; Dh 256), and a window whose live range
+              leaves a gap after a prefix, the serving shapes launched
+              twice (bitwise equal; SDPA with a boolean mask beside a
+              prefix, none where every key is live); RMSNorm, alone and with the
               residual add fused in (its sum bitwise torch's ``x + delta``):
               its three shapes and qwen2-0.5b's prefill (4, 2048, 896) and
               decode (4, 1, 896) rows; all in f32 and bf16 (the main path's
@@ -220,7 +229,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
               another tree's by ``scripts/llm_serving_digest.py``); and one
               prefill and 16 decode steps broken down (torch.profiler),
               with the kernel launches and torch's elementwise adds per step
-  6b. zoo     the rest of the decoder zoo served at full width, bf16,
+  6b. zoo     the rest of the zoo served at full width, bf16,
               seed 0 (``ZOO_RUNS``): starcoder2-7b ``--full --swa``
               through ``llm_main`` (batch 4, prompt 4,608 past its 4,096
               window, 64 new tokens, the rolling cache filled by the
@@ -229,13 +238,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
               ``serve_model`` (a ``ServeEngine``) phi3.5-moe cut to 8 of
               its 32 layers (batch 4, prompt 2,048, 64 new) and jamba cut
               to 1 of its 4 super-blocks (batch 4, prompt 2,048, 32 new),
-              widths untouched: prefill ms, decode p50/p99, tokens/s,
-              peak memory, launches per pass asserted (flash 32 / 0 / 8 /
-              1, RMSNorm 0 / 49 / 0 / 17 of which 0 / 48 / 0 / 16 fused;
-              every decode step in the split-KV decode design) and the
-              tokens an MoE prefill drops by capacity; then each one's
-              f32 variant (``ZOO_F32``: starcoder2 4 layers at batch 2,
-              phi3.5-moe 2 layers, jamba its first 4 sub-layers) with the
+              widths untouched; then (ROADMAP items 15.5, 15.6)
+              whisper-small ``--full`` (batch 4, prompt 384, 64 new: the
+              published 448-token decoder context; random 1,500-frame
+              encoder inputs) and paligemma-3b ``--full`` (batch 4, 256
+              random patch embeddings before a 256-token prompt, 64 new),
+              both through ``llm_main``, nothing cut: prefill ms, decode
+              p50/p99, tokens/s, peak memory, launches per prefill and
+              per decode step asserted (flash 32 / 0 / 8 / 1 / 36 and 24 /
+              18, RMSNorm 0 / 49 / 0 / 17 / 0 / 37 of which 0 / 48 / 0 /
+              16 / 0 / 36 fused; every decode step in the split-KV decode
+              design) and the tokens an MoE prefill drops by capacity;
+              then each one's f32 variant (``ZOO_F32``: starcoder2 4
+              layers at batch 2, phi3.5-moe 2 layers, jamba its first 4
+              sub-layers, whisper-small and paligemma-3b whole) with the
               kernels against their plain versions on the same weights:
               prefill logits, 8 teacher-forced decode steps and their
               greedy tokens on the batch rows whose MoE routes agree, the
@@ -257,7 +273,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
               launches include the mesh ranks', and their row-range
               single-partition use, the mesh ranks' overlapped forward;
               flash attention's two designs and both RMSNorm entry points,
-              whose launches include the zoo's,
+              whose launches include the zoo's, flash's Dh 256
+              instantiations apart (paligemma-3b's prefill with its prefix
+              and its decode),
               and the training path's flash forward with the LSE, the
               flash backward and the RMSNorm backward of both entry
               points), then the device line last
@@ -963,11 +981,15 @@ def run_bwd_case(sa, name, g_np, bl_host, n_in, row_base, mean, dtype_name,
     return row
 
 
-# b, hq, hkv, sq, sk, dh, causal, window, q_offset: tests/test_kernels.py's
-# CASES, a fully masked row, then qwen2-0.5b's prefill and decode shapes,
-# then starcoder2-7b's (GQA group 9, Dh 128): its prefill under the 4,096
-# window, and its rolling decode, the query at q_offset W - 1 against all
-# 4,096 slots (any cache_len >= 4,095)
+# b, hq, hkv, sq, sk, dh, causal, window, q_offset[, prefix_len]:
+# tests/test_kernels.py's CASES, a fully masked row, then qwen2-0.5b's
+# prefill and decode shapes, then starcoder2-7b's (GQA group 9, Dh 128): its
+# prefill under the 4,096 window, and its rolling decode, the query at
+# q_offset W - 1 against all 4,096 slots (any cache_len >= 4,095); then
+# whisper-small's (batch 4, prompt 384, 64 new tokens: 452 slots, a decode
+# step's query at 416) and paligemma-3b's (MQA, Dh 256; 256 patches + a
+# 256-token prompt under the prefix-LM mask, 580 slots), and a small case
+# whose window leaves a gap after the prefix
 FLASH_CASES = [
     ("sweep GQA", (2, 4, 2, 128, 128, 64, True, None, 0)),
     ("sweep MHA ragged", (1, 8, 8, 200, 200, 32, True, None, 0)),
@@ -981,9 +1003,21 @@ FLASH_CASES = [
     ("starcoder2-7b prefill", (4, 36, 4, 4608, 4608, 128, True, 4096, 0)),
     ("starcoder2-7b rolling decode", (4, 36, 4, 1, 4096, 128, True, None,
                                       4095)),
+    ("whisper-small encoder self", (4, 12, 12, 1500, 1500, 64, False, None,
+                                    0)),
+    ("whisper-small decoder prefill", (4, 12, 12, 384, 384, 64, True, None,
+                                       0)),
+    ("whisper-small cross prefill", (4, 12, 12, 384, 1500, 64, False, None,
+                                     0)),
+    ("whisper-small self decode", (4, 12, 12, 1, 452, 64, True, None, 416)),
+    ("whisper-small cross decode", (4, 12, 12, 1, 1500, 64, False, None, 0)),
+    ("paligemma-3b prefill", (4, 8, 1, 512, 512, 256, True, None, 0, 256)),
+    ("paligemma-3b decode", (4, 8, 1, 1, 580, 256, True, None, 540)),
+    ("window + prefix", (1, 4, 2, 300, 300, 64, True, 64, 0, 100)),
 ]
 # the serving paths' shapes: held to BF16_MAIN_* in bf16, launched twice
-MAIN_FLASH_CASES = ("qwen2", "starcoder2")
+MAIN_FLASH_CASES = ("qwen2", "starcoder2", "whisper", "paligemma",
+                    "window + prefix")
 # the last two are qwen2-0.5b's prefill and decode rows
 RMS_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (4, 2048, 896),
               (4, 1, 896)]
@@ -1007,7 +1041,7 @@ RMS_TRAIN_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (1, 896),
                     (3, 2048), (2, 8192), RMS_TRAIN_MAIN]
 
 
-def flash_live_pairs(sq, sk, causal, window, q_offset):
+def flash_live_pairs(sq, sk, causal, window, q_offset, prefix_len=0):
     """(query, key) pairs the mask keeps: the work this input needs."""
     q_pos = np.arange(sq)[:, None] + q_offset
     k_pos = np.arange(sk)[None, :]
@@ -1016,7 +1050,7 @@ def flash_live_pairs(sq, sk, causal, window, q_offset):
         live &= k_pos <= q_pos
     if window is not None:
         live &= k_pos > q_pos - window
-    return live
+    return live | (k_pos < prefix_len)
 
 
 def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
@@ -1028,13 +1062,16 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
     import torch
     import torch.nn.functional as F
 
-    b, hq, hkv, sq, sk, dh, causal, window, q_off = case
+    b, hq, hkv, sq, sk, dh, causal, window, q_off, *prefix = case
+    prefix = prefix[0] if prefix else 0
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(sq + sk + dh)
     q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                for shape in ((b, hq, sq, dh), (b, hkv, sk, dh),
                              (b, hkv, sk, dh)))
     kw = dict(causal=causal, window=window, q_offset=q_off)
+    if prefix:
+        kw["prefix_len"] = prefix
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v, **kw)
@@ -1051,12 +1088,12 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
         torch.cuda.synchronize()
         assert torch.equal(got, again), \
             f"flash {name} {dtype_name}: two launches differ"
-    live = flash_live_pairs(sq, sk, causal, window, q_off)
+    live = flash_live_pairs(sq, sk, causal, window, q_off, prefix)
     if not live.any(axis=1).all():
         dead = torch.as_tensor(~live.any(axis=1), device="cuda")
         assert not got[:, :, dead].float().abs().any(), "masked row not 0"
     p = fa.plan(q.shape, k.shape, causal=causal, window=window,
-                q_offset=q_off,
+                q_offset=q_off, prefix_len=prefix,
                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
     # decode: the split grid, then the merge's (one block per query row)
     grids = ([[b * hkv, p.n_split], [b * hkv, hq // hkv]]
@@ -1067,8 +1104,11 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
     k_dev, p_dev = (time_ms(call, iters, flush, hide_host=True),
                     time_ms(plain, iters, flush, hide_host=True))
     k_call = call_us(call)
-    if causal and window is None and q_off == 0 and sq == sk:
+    if causal and window is None and q_off == 0 and sq == sk and not prefix:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                     enable_gqa=True)
+    elif live.all():
+        lib = lambda: F.scaled_dot_product_attention(q, k, v,
                                                      enable_gqa=True)
     else:
         mask = torch.as_tensor(live, device="cuda")
@@ -1088,7 +1128,8 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
     k_s = k_dev * 1e-3
     row = {"kernel": "flash_attention", "shape": name, "q": list(q.shape),
            "kv": list(k.shape), "causal": causal, "window": window,
-           "q_offset": q_off, "dtype": dtype_name, "design": p.design,
+           "q_offset": q_off, "prefix_len": prefix, "dtype": dtype_name,
+           "design": p.design,
            "grids": grids, "max_abs_err": err,
            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
            "kernel_device_ms": k_dev, "plain_device_ms": p_dev,
@@ -4015,22 +4056,35 @@ def llm_phase(torch, fa, rn):
     return n_flash, n_rms
 
 
-# the rest of the decoder zoo at full width (ROADMAP items 15.2-15.4), bf16,
-# seed 0: (label, arch, entry point, config overrides (the depth cuts), batch,
-# prompt, new tokens, launches per pass (flash, rmsnorm, of which fused));
-# "cli" runs launch.serve's llm_main (starcoder2 with --swa: a prompt past
-# the 4,096 window, so the prefill fills the rolling cache through the
-# gather and the decode wraps it), "engine" a ServeEngine over the cut
-# config (the reference's CLI has no depth flag)
+# the rest of the zoo at full width (ROADMAP items 15.2-15.6), bf16, seed
+# 0: (label, arch, entry point, config overrides (the depth cuts), batch,
+# prompt, new tokens, launches per prefill and per decode step, each (flash,
+# rmsnorm, of which fused)); "cli" runs launch.serve's llm_main (starcoder2
+# with --swa: a prompt past the 4,096 window, so the prefill fills the
+# rolling cache through the gather and the decode wraps it; whisper-small at
+# its published decoder context of 448 tokens, 384 + 64; paligemma-3b's 256
+# patch embeddings before a 256-token prompt), "engine" a ServeEngine over
+# the cut config (the reference's CLI has no depth flag).  Whisper's
+# prefill launches the encoder's 12 bidirectional self-attentions, the
+# decoder's 12 causal ones and 12 cross-attentions, its decode step 12 + 12
+# in the decode design; its layernorm is plain PyTorch
 ZOO_RUNS = [
     ("starcoder2-7b --swa", "starcoder2-7b", "cli", {}, 4, 4608, 64,
-     (32, 0, 0)),
-    ("mamba2-370m", "mamba2-370m", "cli", {}, 4, 2048, 64, (0, 49, 48)),
+     ((32, 0, 0), (32, 0, 0))),
+    ("mamba2-370m", "mamba2-370m", "cli", {}, 4, 2048, 64,
+     ((0, 49, 48), (0, 49, 48))),
     ("phi3.5-moe depth 8 of 32", "phi3.5-moe-42b-a6.6b", "engine",
-     {"num_repeats": 8}, 4, 2048, 64, (8, 0, 0)),
+     {"num_repeats": 8}, 4, 2048, 64, ((8, 0, 0), (8, 0, 0))),
     ("jamba depth 1 of 4 super-blocks", "jamba-v0.1-52b", "engine",
-     {"num_repeats": 1}, 4, 2048, 32, (1, 17, 16)),
+     {"num_repeats": 1}, 4, 2048, 32, ((1, 17, 16), (1, 17, 16))),
+    ("whisper-small", "whisper-small", "cli", {}, 4, 384, 64,
+     ((36, 0, 0), (24, 0, 0))),
+    ("paligemma-3b", "paligemma-3b", "cli", {}, 4, 256, 64,
+     ((18, 37, 36), (18, 37, 36))),
 ]
+# the runs whose attention is flash's Dh 256 instantiations (the kernels
+# line lists their launches apart)
+ZOO_DH256 = ("paligemma-3b",)
 # the f32 variant of each, kernels against plain versions on the same
 # weights, cut further to fit beside the plain attention's dense f32 scores:
 # (overrides, batch rows); starcoder2 4 of 32 layers at batch 2 (its plain
@@ -4040,7 +4094,9 @@ ZOO_RUNS = [
 ZOO_F32 = {"starcoder2-7b": ({"num_repeats": 4}, 2),
            "mamba2-370m": ({}, 4),
            "phi3.5-moe-42b-a6.6b": ({"num_repeats": 2}, 4),
-           "jamba-v0.1-52b": ({"num_repeats": 1, "sub_layers": 4}, 4)}
+           "jamba-v0.1-52b": ({"num_repeats": 1, "sub_layers": 4}, 4),
+           "whisper-small": ({}, 4),
+           "paligemma-3b": ({}, 4)}
 # the zoo's f32 runs, kernels against plain versions: as LLM_F32_*, every
 # GEMM and every plain op (Mamba2's scan, the MoE experts, layernorm) is the
 # same call on both sides, the difference the attention's and the RMSNorms'
@@ -4120,17 +4176,17 @@ def zoo_f32_check(torch, label, arch, batch, rolling, steps=8):
 
     overrides, rows = ZOO_F32[arch]
     cfg = zoo_config(arch, overrides, "float32")
-    tokens = np.asarray(batch["tokens"])[:rows]
-    b, s = tokens.shape
-    width = cfg.sliding_window if rolling else s + steps + 4
+    inputs = {k: np.asarray(v)[:rows] for k, v in batch.items()}
+    b, s = inputs["tokens"].shape
+    width = (cfg.sliding_window if rolling
+             else cfg.prefix_tokens + s + steps + 4)
     model = Transformer(cfg, seed=0, device="cuda")
     forced = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, steps))
     outs, calls = {}, {}
     for use in (True, False):
         model.use_kernels = use
         with RouteLog() as rl:
-            lg, caches, n = model.prefill({"tokens": tokens},
-                                          cache_size=width)
+            lg, caches, n = model.prefill(inputs, cache_size=width)
             seq = [lg]
             for t in range(steps):
                 lg, caches = model.decode_step(forced[:, t:t + 1], caches,
@@ -4166,19 +4222,22 @@ def zoo_f32_check(torch, label, arch, batch, rolling, steps=8):
 
 
 def zoo_phase(torch, fa, rn, card):
-    """The rest of the decoder zoo served at full width (``ZOO_RUNS``), each
-    with every launch count set to 0 just before its run and read just
-    after: prefill ms, decode p50/p99 per step, tokens/s, peak memory and
-    launches per pass (asserted), the tokens dropped by capacity in a
-    prefill where MoE routes; then each one's f32 variant kernels against
-    plain (``zoo_f32_check``).  Returns the runs' launches: flash by design
-    and RMSNorm by entry point."""
+    """The rest of the zoo served at full width (``ZOO_RUNS``), each with
+    every launch count set to 0 just before its run and read just after:
+    prefill ms, decode p50/p99 per step, tokens/s, peak memory and launches
+    per prefill and per decode step (asserted), the tokens dropped by
+    capacity in a prefill where MoE routes; then each one's f32 variant
+    kernels against plain (``zoo_f32_check``).  Returns the runs' launches:
+    flash by design and RMSNorm by entry point, and apart from them the
+    flash launches of the ``ZOO_DH256`` runs (``"prefill_dh256"``,
+    ``"decode_dh256"``)."""
     from repro_torch.launch.serve import build_parser, llm_main, serve_model
     from repro_torch.models import Transformer
 
-    totals = {"prefill": 0, "decode": 0, "rmsnorm": 0, "add_rmsnorm": 0}
+    totals = {"prefill": 0, "decode": 0, "rmsnorm": 0, "add_rmsnorm": 0,
+              "prefill_dh256": 0, "decode_dh256": 0}
     t_zoo = time.perf_counter()
-    for label, arch, how, overrides, b, s, new, per_pass in ZOO_RUNS:
+    for label, arch, how, overrides, b, s, new, (pre, dec) in ZOO_RUNS:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4210,22 +4269,23 @@ def zoo_phase(torch, fa, rn, card):
         assert toks.shape == (b, new) and ((toks >= 0)
                                            & (toks < cfg.vocab_size)).all()
         assert rolling == ("--swa" in label), (label, rolling)
-        assert run["launches"]["prefill"] == per_pass, (
+        assert run["launches"]["prefill"] == pre, (
             label, run["launches"]["prefill"])
-        assert all(n == per_pass for n in run["launches"]["decode"]), (
+        assert all(n == dec for n in run["launches"]["decode"]), (
             label, run["launches"]["decode"])
         # the warm-up generation (a prefill and one decode step) and the
         # timed one (a prefill and new - 1 steps): new decode steps, every
         # attention layer's prefill in the prefill design and every decode
         # step's in the split-KV decode design
-        assert n_flash == {"prefill": 2 * per_pass[0],
-                           "decode": new * per_pass[0]}, (label, n_flash)
+        assert n_flash == {"prefill": 2 * pre[0], "decode": new * dec[0]}, (
+            label, n_flash)
         assert (n_rms + n_fused, n_fused) == (
-            (new + 2) * per_pass[1], (new + 2) * per_pass[2]), (
+            2 * pre[1] + new * dec[1], 2 * pre[2] + new * dec[2]), (
             label, n_rms, n_fused)
-        for k, n in (("prefill", n_flash["prefill"]),
-                     ("decode", n_flash["decode"]), ("rmsnorm", n_rms),
-                     ("add_rmsnorm", n_fused)):
+        dh256 = "_dh256" if arch in ZOO_DH256 else ""
+        for k, n in (("prefill" + dh256, n_flash["prefill"]),
+                     ("decode" + dh256, n_flash["decode"]),
+                     ("rmsnorm", n_rms), ("add_rmsnorm", n_fused)):
             totals[k] += n
         dropped = ""
         if any(layer.ffn == "moe" for layer in model.layers):
@@ -4243,7 +4303,7 @@ def zoo_phase(torch, fa, rn, card):
             f"{new} new tokens{', rolling cache ' + str(engine.cache_size) if rolling else ''}: "
             f"{json.dumps(stats)}; max_memory_allocated "
             f"{peak / 2**30:.2f} GiB; launches per prefill and per decode "
-            f"step (flash, rmsnorm, of which fused add) {per_pass}; this "
+            f"step (flash, rmsnorm, of which fused add) {pre}, {dec}; this "
             f"run's totals flash {n_flash} rmsnorm {n_rms} fused "
             f"{n_fused}{dropped}; {time.perf_counter() - t0:.1f} s")
         del model, run, engine
@@ -4839,7 +4899,9 @@ def main() -> int:
     # the main path's shapes in its working type: flash attention's prefill
     # (tensor cores) and decode (split over the KV length) designs, the
     # prefill's (B·S, d_model) rows for both RMSNorm entry points (the
-    # decode rows are in the log)
+    # decode rows are in the log); then the Dh 256 instantiations of both
+    # flash designs at paligemma-3b's shapes (the prefill with its prefix),
+    # their launches those of the paligemma run
     rms_errs = {f: [r["max_abs_err"] for (g, c, _), r in rms_rows.items()
                     if g == f and c in RMS_MAIN_SHAPES] for f in (False, True)}
     for name, source, tpu, row, n, errs in (
@@ -4853,6 +4915,16 @@ def main() -> int:
              llm_flash["decode"] + zoo_launches["decode"],
              [r["max_abs_err"] for (c, _), r in flash_rows.items()
               if c == "qwen2-0.5b decode"]),
+            ("flash_attention_dh256_prefix", "flash_attention.cu", FLASH_TPU,
+             flash_rows["paligemma-3b prefill", "bfloat16"],
+             zoo_launches["prefill_dh256"],
+             [r["max_abs_err"] for (c, _), r in flash_rows.items()
+              if c == "paligemma-3b prefill"]),
+            ("flash_attention_decode_dh256", "flash_attention.cu", FLASH_TPU,
+             flash_rows["paligemma-3b decode", "bfloat16"],
+             zoo_launches["decode_dh256"],
+             [r["max_abs_err"] for (c, _), r in flash_rows.items()
+              if c == "paligemma-3b decode"]),
             ("rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
              rms_rows[False, (4, 2048, 896), "bfloat16"],
              llm_rms["rmsnorm"] + zoo_launches["rmsnorm"], rms_errs[False]),

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -36,15 +37,22 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
 
     digests = {}
-    for name, (b, hq, hkv, sq, sk, dh, causal, window, q_off) in \
+    takes_prefix = "prefix_len" in inspect.signature(
+        fa.flash_attention).parameters
+    for name, (b, hq, hkv, sq, sk, dh, causal, window, q_off, *prefix) in \
             cs.FLASH_CASES:
+        # a case the tree's kernels cannot take (a prefix, a head size) is
+        # left out of its digests
+        if dh not in fa.HEAD_DIMS or (prefix and not takes_prefix):
+            continue
+        kw = {"prefix_len": prefix[0]} if prefix else {}
         for dtype_name in ("float32", "bfloat16"):
             gen = torch.Generator(device="cuda").manual_seed(sq + sk + dh)
             q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(
                 getattr(torch, dtype_name)) for shape in (
                 (b, hq, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh)))
             out = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                     q_offset=q_off)
+                                     q_offset=q_off, **kw)
             raw = out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
             digests[f"{name} {dtype_name}"] = hashlib.sha256(raw).hexdigest()
     print(json.dumps({"label": args.label, "source": fa.__file__,

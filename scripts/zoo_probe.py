@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Run the decoder zoo's checks of ``chip_smoke.py`` alone on one CUDA
-card: build the kernels, hold flash attention at starcoder2-7b's prefill
-and rolling-decode shapes against its plain version (``chip_smoke``'s
-phase-3 lines, f32 and bf16), then the zoo phase (``chip_smoke.zoo_phase``:
-starcoder2-7b ``--swa``, mamba2-370m, phi3.5-moe at depth 8 and jamba at
-one super-block, served at full width, and each one's f32 variant kernels
+"""Run the zoo's checks of ``chip_smoke.py`` alone on one CUDA card: build
+the kernels, hold flash attention at starcoder2-7b's, whisper-small's and
+paligemma-3b's serving shapes and the window + prefix case against its
+plain version (``chip_smoke``'s phase-3 lines, f32 and bf16), then the zoo
+phase (``chip_smoke.zoo_phase``: starcoder2-7b ``--swa``, mamba2-370m,
+phi3.5-moe at depth 8, jamba at one super-block, whisper-small and
+paligemma-3b, served at full width, and each one's f32 variant kernels
 against plain), and unless ``--no-mesh`` the sequential oracle's 4-epoch
 drift from the stacked engine (``chip_smoke.mesh_oracle_drift``).  Prints
 what those print, the card's name and power limit first.
@@ -46,7 +47,7 @@ def main() -> int:
     cs.log(f"build {time.perf_counter() - t0:.1f} s")
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     for name, case in cs.FLASH_CASES:
-        if name.startswith("starcoder2"):
+        if name.startswith(cs.MAIN_FLASH_CASES[1:]):
             for dtype_name in ("float32", "bfloat16"):
                 cs.run_flash_case(fa, name, case, dtype_name, flush=flush,
                                   iters=10, record=[], main_path=True)

@@ -7,8 +7,10 @@ sliding-window archs).  Where the reference returns ``jax.ShapeDtypeStruct``
 stand-ins, :func:`input_specs` returns tensors on ``torch.device("meta")``:
 shapes and dtypes, no storage.  A decode spec's caches take the port's
 layout, a list with one dict per layer (``{"k", "v"}`` of ``(B, Hkv, W,
-Dh)`` for attention, ``{"conv", "ssm"}`` for Mamba2), where the reference
-stacks the layers of a sub-layer on a leading repeat axis.
+Dh)`` for attention, ``{"conv", "ssm"}`` for Mamba2, and beside them
+``"cross"``, ``{"k", "v"}`` of ``(B, Hkv, encoder_seq, Dh)``, where a layer
+has cross-attention), where the reference stacks the layers of a sub-layer
+on a leading repeat axis.
 """
 from __future__ import annotations
 
@@ -58,10 +60,9 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     """Meta-tensor stand-ins for every model input (no allocation).
 
     For train/prefill: the batch dict.  For decode: ``token``, ``caches``
-    (one dict per layer, as ``Transformer.make_decode_cache`` builds them),
-    ``cache_len`` and ``rolling``, matching ``Transformer.decode_step``.  A
-    decode spec of cross-attention raises ``NotImplementedError``, as the
-    port's model does (ROADMAP item 15.5).
+    (one dict per layer, as ``Transformer.make_decode_cache`` builds them,
+    with the cross-attention caches of ``encoder_seq`` positions),
+    ``cache_len`` and ``rolling``, matching ``Transformer.decode_step``.
     """
     b, s = shape.global_batch, shape.seq_len
     act_dt = getattr(torch, cfg.dtype)
@@ -84,12 +85,10 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     # decode: one token against a cache of seq_len context
     from ..models.transformer import zero_layer_cache
 
-    if any(sl.cross_attention for sl in cfg.super_block):
-        raise NotImplementedError(
-            f"{cfg.name}: the decode cache of cross-attention is not ported "
-            "yet (ROADMAP item 15.5)")
     width, rolling = decode_cache_width(cfg, shape)
-    caches = [zero_layer_cache(cfg, sl.mixer, b, width, _META)
+    caches = [zero_layer_cache(cfg, sl.mixer, b, width, _META,
+                               cfg.encoder_seq if sl.cross_attention
+                               else None)
               for _ in range(cfg.num_repeats) for sl in cfg.super_block]
     return {
         "token": _tokens(b, 1),

@@ -11,8 +11,11 @@
 //     o[b, h, i] = sum_j softmax_j(q[b,h,i] . k[b,h/group,j] / sqrt(Dh)) v[b,h/group,j]
 //
 // over the keys j < Sk that are live: j <= q_pos if causal, and
-// j > q_pos - window if a window is given.  A row with no live key gives 0
-// (the TPU kernel's l == 0 -> 1).  Scores, softmax statistics and the
+// j > q_pos - window if a window is given, unless j < prefix_len: the keys
+// of a prefix (paligemma's image patches, the reference's prefix-LM mask,
+// `_mask_block` at src/repro/models/layers.py:112) are seen by every query
+// through the causal mask and the window alike.  A row with no live key
+// gives 0 (the TPU kernel's l == 0 -> 1).  Scores, softmax statistics and the
 // accumulator are f32; the output is rounded once to q's dtype.  The TPU
 // grid walks (q-tile, k-tile) cells in order and carries m, l and the
 // accumulator in VMEM scratch across the sequential k axis; CUDA blocks run
@@ -27,8 +30,20 @@
 //    card's 989 TFLOP/s bf16 rate).  One block of four warps per
 //    (b, h, q tile): 32 rows per warp (two 16-row mma tiles, so every K/V
 //    fragment read from shared memory feeds two products) at Dh <= 64,
-//    16 at Dh 128, where the accumulators leave no registers for a second
-//    tile; the heaviest causal tiles launch first.  K/V tiles of 64 keys
+//    16 at Dh 128 and 256, where the accumulators leave no registers for a
+//    second tile.  At Dh 256 one warp's whole O would take 128 registers a
+//    thread, and ptxas spilled at 255 with Q's fragments reloaded from
+//    shared memory: so eight warps, two per 16-row group, both computing
+//    the group's S = Q.K^T (Q reloaded by ldmatrix at each k-step, the
+//    scores and softmax statistics the same in both) and each accumulating
+//    half of O's 256 dims (165 KB of shared memory, one block an SM); the
+//    pair's duplicated S adds a third to a row group's tensor-core work (S
+//    once, P_hi.V and P_lo.V twice it).  A call with a prefix runs an
+//    instantiation of its own, so one without runs the code it ran before
+//    prefixes existed.  The heaviest causal tiles launch first.  The block
+//    visits the key tiles of its live range and, with a prefix, the
+//    prefix's tiles before them (`tile_walk`: one run of tiles, or two
+//    where a window leaves a gap after the prefix).  K/V tiles
 //    stream through a two-stage shared-memory ring by cp.async (tile t+1 is
 //    in flight while tile t is used); rows are padded by 16 bytes so
 //    ldmatrix reads conflict-free.  S = Q.K^T by mma.sync m16n8k16 (bf16
@@ -51,10 +66,13 @@
 //
 // 2. f32 prefill: CUDA cores (`flash_fwd_kernel`), because TF32 tensor cores
 //    would not hold the f32 tolerances.  One block per (b, h, 64-row q
-//    tile); a query row is owned by Dh/32 neighbouring threads holding
-//    interleaved float4 chunks (conflict-free shared-memory reads, one
-//    xor-shuffle per dot product at Dh 64); 32-key f32 K/V tiles in shared
-//    memory, keys past Sk zero-filled, dead tiles skipped.
+//    tile; 32 rows at Dh 256, so that 256 threads may each hold 80 floats
+//    in registers); a query row is owned by Dh/32 neighbouring threads
+//    holding interleaved float4 chunks (conflict-free shared-memory reads,
+//    one xor-shuffle per dot product at Dh 64); 32-key f32 K/V tiles in
+//    shared memory (16 keys at Dh 256, under the 48 KB of static shared
+//    memory), keys past Sk zero-filled, dead tiles skipped (`tile_walk`, as
+//    above).
 //
 // 3. decode (Sq = 1, Hq/Hkv <= 16), bf16 and f32: a split over the KV
 //    length (`flash_decode_split_kernel` + `flash_decode_combine_kernel`).
@@ -72,7 +90,12 @@
 //    per query row) merges the splits by log-sum-exp.  Every sum runs in a
 //    fixed order (no atomics), so two calls are bitwise equal.  An empty
 //    or fully masked split has m = -1e30, l = 0, acc = 0 and adds nothing;
-//    a row with no live key ends with l = 0 and gives 0.
+//    a row with no live key ends with l = 0 and gives 0.  At Dh 256 the
+//    K/V tiles shrink to 12 KB each (static shared memory stays under 48
+//    KB), a key row's scores are split over 32 lanes of two f32 segments
+//    each, and the merge's threads each own Dh / 128 dims over all splits.
+//    The decode design takes no prefix: the reference's decode never
+//    rescues one (`attention_decode`'s `valid`, layers.py:357).
 //
 // Training: both prefill designs also write each row's log-sum-exp of its
 // scaled live scores, lse = m + log(l) in natural-log units (-inf for a row
@@ -106,10 +129,47 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
+// kPrefix: the call has a prefix (a kernel instantiation of its own, so
+// that a call without one runs the arithmetic and holds the registers it
+// did before prefixes existed)
+template <bool kPrefix>
 __device__ __forceinline__ bool key_live(int key, int q_pos, int sk,
-                                         int causal, int window) {
-  return key < sk && (!causal || key <= q_pos) &&
-         (window < 0 || key > q_pos - window);
+                                         int causal, int window,
+                                         int prefix) {
+  return key < sk &&
+         ((kPrefix && key < prefix) ||
+          ((!causal || key <= q_pos) && (window < 0 || key > q_pos - window)));
+}
+
+// The key tiles of `tile` keys a block of query positions [q_first, q_last]
+// visits, in order: the tiles of the prefix [0, prefix) that every query
+// sees, then those of the live range [k_lo, k_hi) of the causal mask and
+// the window (the reference's tile skip, "in_prefix" at layers.py:177).
+// One run of tiles, or two where the window leaves a gap after the prefix;
+// without a prefix, the live range's tiles as before.
+struct TileWalk {
+  int first, n_first, second, n;
+  template <bool kPrefix>
+  __device__ __forceinline__ int key0(int t, int tile) const {
+    if (!kPrefix) return (first + t) * tile;  // one run of tiles
+    return (t < n_first ? first + t : second + (t - n_first)) * tile;
+  }
+};
+
+__device__ __forceinline__ TileWalk tile_walk(int tile, int q_first,
+                                              int q_last, int sk, int causal,
+                                              int window, int prefix) {
+  const int k_hi = causal ? min(sk, q_last + 1) : sk;
+  const int k_lo = window >= 0 ? max(0, q_first - window + 1) : 0;
+  const int lo = k_lo / tile;
+  const int hi = k_hi > k_lo ? (k_hi + tile - 1) / tile : lo;
+  if (prefix <= 0) return {lo, hi - lo, 0, hi - lo};
+  const int tp = (min(prefix, sk) + tile - 1) / tile;  // prefix tiles [0, tp)
+  if (lo <= tp) {
+    const int n = max(hi, tp);
+    return {0, n, 0, n};
+  }
+  return {0, tp, lo, tp + hi - lo};
 }
 
 // ---------------------------------------------------------------------------
@@ -194,35 +254,45 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
 // 1. bf16 prefill on tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kPK = 64;         // keys per K/V tile
-constexpr int kPThreads = 128;  // four warps
+constexpr int kPK = 64;  // keys per K/V tile
 
 // MT 16-row mma tiles per warp: two where registers allow (Dh <= 64), so
-// every K/V fragment read from shared memory feeds two products
+// every K/V fragment read from shared memory feeds two products.  Up to Dh
+// 128 four warps each own their rows' whole output and keep Q's fragments
+// in registers; at Dh 256 eight: two warps share each 16-row group, both
+// compute its scores S = Q.K^T (Q reloaded from shared memory at each
+// k-step) and each accumulates half of the output's dims
 template <int DH>
 struct PrefillShape {
   static constexpr int kMT = DH <= 64 ? 2 : 1;
+  static constexpr bool kQRegs = DH <= 128;
+  static constexpr int kDS = DH <= 128 ? 1 : 2;    // warps per row group
+  static constexpr int kThreads = 128 * kDS;
   static constexpr int kBQ = 4 * 16 * kMT;     // query rows per block
   static constexpr int kStride = DH + 8;       // bf16 per row: 16-byte pad
-  static constexpr int kTile = kPK * kStride;  // bf16 per K or V tile
+  static constexpr int kTile = kPK * kStride;   // bf16 per K or V tile
   static constexpr int kBytes = (kBQ * kStride + 4 * kTile) * 2;
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kPThreads)
+// one block an SM is enough: without that bound ptxas held the Dh 256
+// instantiation to 128 registers a thread and spilled
+template <int DH, bool kPrefix>
+__global__ void __launch_bounds__(PrefillShape<DH>::kThreads, 1)
 flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ o,
                          float* __restrict__ lse, int hq, int hkv, int sq,
-                         int sk, int causal, int window, int q_offset,
-                         float scale_log2) {
+                         int sk, int causal, int window, int prefix,
+                         int q_offset, float scale_log2) {
   using Shape = PrefillShape<DH>;
   constexpr int kMT = Shape::kMT;
   constexpr int kBQ = Shape::kBQ;
   constexpr int kStride = Shape::kStride;
+  constexpr int kThreads = Shape::kThreads;
   constexpr int kKSteps = DH / 16;  // k-steps of Q.K^T
-  constexpr int kDTiles = DH / 8;   // n-tiles of O
+  constexpr int kDW = DH / Shape::kDS;  // dims of O a warp owns
+  constexpr int kDTiles = kDW / 8;  // its n-tiles of O
   constexpr int kNT = kPK / 8;      // n-tiles of S
   constexpr int kChunks = DH / 8;   // 16-byte chunks per row
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
@@ -232,6 +302,9 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
+  // the warp's row group, and its part of the output's dims
+  const int rw = Shape::kDS == 1 ? warp : warp % 4;
+  const int half = Shape::kDS == 1 ? 0 : warp / 4;
   const int lane = tid % 32;
   const int g = lane / 4;    // fragment row (and row + 8)
   const int tig = lane % 4;  // fragment column pair
@@ -246,17 +319,14 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kp = k + kv_base;
   const __nv_bfloat16* vp = v + kv_base;
 
-  // live key range [k_lo, k_hi) of the whole block, tile-aligned below
+  // the key tiles the whole block visits
   const int q_first = q_offset + q_tile;
   const int q_last = q_offset + min(q_tile + kBQ, sq) - 1;
-  int k_hi = sk;
-  if (causal) k_hi = min(k_hi, q_last + 1);
-  int k_lo = 0;
-  if (window >= 0) k_lo = max(0, q_first - window + 1);
-  k_lo = (k_lo / kPK) * kPK;
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kPK - 1) / kPK : 0;
+  const TileWalk walk = tile_walk(kPK, q_first, q_last, sk, causal, window,
+                                  kPrefix ? prefix : 0);
+  const int n_tiles = walk.n;
 
-  for (int idx = tid; idx < kBQ * kChunks; idx += kPThreads) {
+  for (int idx = tid; idx < kBQ * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
     const bool ok = q_tile + r < sq;
@@ -266,7 +336,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_kv = [&](int k0, int buf) {
     __nv_bfloat16* kd = ks + buf * Shape::kTile;
     __nv_bfloat16* vd = vs + buf * Shape::kTile;
-    for (int idx = tid; idx < kPK * kChunks; idx += kPThreads) {
+    for (int idx = tid; idx < kPK * kChunks; idx += kThreads) {
       const int r = idx / kChunks;
       const int c = idx % kChunks;
       const bool ok = k0 + r < sk;  // keys past Sk are zero-filled
@@ -275,11 +345,11 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async16(smem_u32(vd + r * kStride + c * 8), vp + off, ok);
     }
   };
-  if (n_tiles > 0) load_kv(k_lo, 0);
+  if (n_tiles > 0) load_kv(walk.key0<kPrefix>(0, kPK), 0);
   cp_async_commit();  // group: Q and the first tile
 
   // this thread's rows: row0 + 16 mt and row0 + 16 mt + 8
-  const int row0 = q_tile + warp * 16 * kMT + g;
+  const int row0 = q_tile + rw * 16 * kMT + g;
   float acc[kMT][kDTiles][4];
   float m[kMT][2], l[kMT][2];  // l: this thread's share of the row sums
 #pragma unroll
@@ -294,22 +364,26 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l[mt][i] = 0.f;
     }
   }
-  uint32_t qf[kMT][kKSteps][4];
+  uint32_t qf[kMT][Shape::kQRegs ? kKSteps : 1][4];
+  // Q's fragment row of this lane in 16-row tile mt (ldmatrix x4 over a 16
+  // x 16 block)
+  auto q_row = [&](int mt) {
+    return rw * 16 * kMT + mt * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+  };
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = k_lo + t * kPK;
+    const int k0 = walk.key0<kPrefix>(t, kPK);
     const int buf = t & 1;
-    if (t + 1 < n_tiles) load_kv(k0 + kPK, buf ^ 1);
+    if (t + 1 < n_tiles) load_kv(walk.key0<kPrefix>(t + 1, kPK), buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // everything but the tile just issued has landed
     __syncthreads();
-    if (t == 0) {
+    if (Shape::kQRegs && t == 0) {
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
-        const int r = warp * 16 * kMT + mt * 16 + (lane % 8) +
-                      ((lane / 8) % 2) * 8;
+        const int r = q_row(mt);
 #pragma unroll
-        for (int kk = 0; kk < kKSteps; ++kk)
+        for (int kk = 0; kk < (Shape::kQRegs ? kKSteps : 1); ++kk)
           ldsm_x4(smem_u32(qs + r * kStride + kk * 16 + (lane / 16) * 8),
                   qf[mt][kk][0], qf[mt][kk][1], qf[mt][kk][2],
                   qf[mt][kk][3]);
@@ -318,7 +392,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* kt = ks + buf * Shape::kTile;
     const __nv_bfloat16* vt = vs + buf * Shape::kTile;
 
-    // S = Q . K^T, 16 kMT rows x 64 keys per warp
+    // S = Q . K^T, 16 kMT rows x kPK keys per warp
     float s[kMT][kNT][4];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
@@ -328,6 +402,18 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t qk[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if constexpr (Shape::kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qk[mt][e] = qf[mt][kk][e];
+        } else {
+          ldsm_x4(smem_u32(qs + q_row(mt) * kStride + kk * 16 +
+                           (lane / 16) * 8),
+                  qk[mt][0], qk[mt][1], qk[mt][2], qk[mt][3]);
+        }
+      }
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         const int key = np * 16 + (lane % 8) + (lane / 16) * 8;
@@ -336,8 +422,8 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
         ldsm_x4(smem_u32(kt + key * kStride + dim), b0, b1, b2, b3);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(s[mt][2 * np], qf[mt][kk], b0, b1);
-          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], b2, b3);
+          mma_bf16(s[mt][2 * np], qk[mt], b0, b1);
+          mma_bf16(s[mt][2 * np + 1], qk[mt], b2, b3);
         }
       }
     }
@@ -345,9 +431,13 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // online softmax in the log2 domain, m the running max of the scaled
     // scores: the max is taken on the raw scores (the scale is positive)
     // and p = 2^(s * scale - m) is one fma; masked scores are -inf, so
-    // their p is exactly 0 while m stays finite (-1e30 at worst)
-    const bool edge = k0 + kPK > sk || (causal && k0 + kPK - 1 > q_first) ||
-                      (window >= 0 && k0 <= q_last - window);
+    // their p is exactly 0 while m stays finite (-1e30 at worst).  A tile
+    // inside the prefix is masked only at the Sk tail; one across its edge
+    // takes the mask like any other
+    const bool edge = k0 + kPK > sk ||
+                      ((!kPrefix || k0 + kPK > prefix) &&
+                       ((causal && k0 + kPK - 1 > q_first) ||
+                        (window >= 0 && k0 <= q_last - window)));
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
       if (edge) {
@@ -357,8 +447,8 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
           const int key = k0 + j * 8 + tig * 2;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (!key_live(key + (e & 1), pos0 + 8 * (e >> 1), sk, causal,
-                          window))
+            if (!key_live<kPrefix>(key + (e & 1), pos0 + 8 * (e >> 1), sk,
+                                   causal, window, prefix))
               s[mt][j][e] = -INFINITY;
         }
       }
@@ -408,9 +498,9 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                    pl[mt][3]);
       }
 #pragma unroll
-      for (int nd = 0; nd < DH / 16; ++nd) {
+      for (int nd = 0; nd < kDW / 16; ++nd) {
         const int key = kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-        const int dim = nd * 16 + (lane / 16) * 8;
+        const int dim = half * kDW + nd * 16 + (lane / 16) * 8;
         uint32_t b0, b1, b2, b3;
         ldsm_x4_t(smem_u32(vt + key * kStride + dim), b0, b1, b2, b3);
 #pragma unroll
@@ -443,11 +533,11 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if (row >= sq) continue;
       // the row's natural log-sum-exp of the scaled scores, for the
       // backward: sum_j e^(s_j scale) = 2^m l
-      if (lse != nullptr && tig == 0)
+      if (lse != nullptr && tig == 0 && half == 0)
         lse[q_base + row] = lsum[i] == 0.f
                                 ? -INFINITY
                                 : (m[mt][i] + log2f(lsum[i])) * kLn2;
-      __nv_bfloat16* orow = o + (q_base + row) * DH + tig * 2;
+      __nv_bfloat16* orow = o + (q_base + row) * DH + half * kDW + tig * 2;
 #pragma unroll
       for (int d = 0; d < kDTiles; ++d)
         *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) =
@@ -461,16 +551,30 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // 2. f32 prefill on CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 32;   // keys per shared-memory tile
 constexpr int kDPT = 32;  // head dims owned by one thread
 
+// query rows per block and keys per shared-memory tile: 64 rows and K/V
+// tiles of 32 keys; at Dh 256 32 rows (256 threads, so a thread may hold
+// the 80 floats of its Q, O and score slices in registers) and 16 keys
+// (static shared memory stays under 48 KB)
 template <int DH>
-__global__ void __launch_bounds__(kBQ * (DH / kDPT))
+struct FwdShape {
+  static constexpr int kBQ = DH <= 128 ? 64 : 32;
+  static constexpr int kBK = DH <= 128 ? 32 : 16;
+  static constexpr int kThreads = kBQ * (DH / kDPT);
+};
+
+// one block an SM is enough: without that bound ptxas has held the Dh 256
+// instantiation to 128 registers a thread and spilled
+template <int DH, bool kPrefix>
+__global__ void __launch_bounds__(FwdShape<DH>::kThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int hq, int hkv, int sq, int sk,
-                 int causal, int window, int q_offset, float scale) {
+                 int causal, int window, int prefix, int q_offset,
+                 float scale) {
+  constexpr int kBQ = FwdShape<DH>::kBQ;
+  constexpr int kBK = FwdShape<DH>::kBK;
   constexpr int G = DH / kDPT;       // threads per query row
   constexpr int kChunks = kDPT / 4;  // float4 chunks per thread
   constexpr int kRow4 = DH / 4;      // float4 chunks per key row
@@ -507,16 +611,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m = kNegInf;
   float l = 0.f;
 
-  // live key range [k_lo, k_hi) of the whole block, tile-aligned below
+  // the key tiles the whole block visits
   const int q_first = q_offset + q_tile;
   const int q_last = q_offset + min(q_tile + kBQ, sq) - 1;
-  int k_hi = sk;
-  if (causal) k_hi = min(k_hi, q_last + 1);
-  int k_lo = 0;
-  if (window >= 0) k_lo = max(0, q_first - window + 1);
-  k_lo = (k_lo / kBK) * kBK;
+  const TileWalk walk = tile_walk(kBK, q_first, q_last, sk, causal, window,
+                                  kPrefix ? prefix : 0);
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
+  for (int t = 0; t < walk.n; ++t) {
+    const int k0 = walk.key0<kPrefix>(t, kBK);
     __syncthreads();  // the previous tile is consumed
     for (int idx = tid; idx < kBK * kRow4; idx += blockDim.x) {
       const int j = idx / kRow4;
@@ -554,7 +656,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float m_cur = kNegInf;
 #pragma unroll
     for (int j = 0; j < kBK; ++j) {
-      const bool live = key_live(k0 + j, q_pos, sk, causal, window);
+      const bool live =
+          key_live<kPrefix>(k0 + j, q_pos, sk, causal, window, prefix);
       s[j] = live ? s[j] : kNegInf;
       m_cur = fmaxf(m_cur, s[j]);
     }
@@ -563,7 +666,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < kBK; ++j) {
-      const bool live = key_live(k0 + j, q_pos, sk, causal, window);
+      const bool live =
+          key_live<kPrefix>(k0 + j, q_pos, sk, causal, window, prefix);
       const float p = live ? expf(s[j] - m_new) : 0.f;
       s[j] = p;
       psum += p;
@@ -614,7 +718,12 @@ template <typename T, int DH>
 struct DecodeShape {
   static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 B
   static constexpr int kSegs = DH / kVec;  // 16-byte segments per row
-  static constexpr int kTileBytes = 16384;
+  // lanes that split one key row's scores, each over kSegsPerLane segments
+  static constexpr int kLanes = kSegs < 32 ? kSegs : 32;
+  static constexpr int kSegsPerLane = kSegs / kLanes;
+  // bytes of the K (and of the V) tile: 12 KB at Dh 256, where the query
+  // rows take 16 KB, so that static shared memory stays under 48 KB
+  static constexpr int kTileBytes = DH <= 128 ? 16384 : 12288;
   static constexpr int kFit = kTileBytes / (DH * static_cast<int>(sizeof(T)));
   static constexpr int kKC = kFit < 64 ? kFit : 64;  // keys per tile
   static constexpr int kSStride = kKC + 1;           // padded score rows
@@ -657,7 +766,9 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kVec = Shape::kVec;
   constexpr int kSegs = Shape::kSegs;
   constexpr int kKC = Shape::kKC;
-  constexpr int kKeysPerPass = 32 / kSegs;  // keys a warp scores at once
+  constexpr int kLanes = Shape::kLanes;
+  constexpr int kSPL = Shape::kSegsPerLane;
+  constexpr int kKeysPerPass = 32 / kLanes;  // keys a warp scores at once
   __shared__ __align__(16) T kt[kKC * DH];
   __shared__ __align__(16) T vt[kKC * DH];
   __shared__ __align__(16) float qs[kDMaxRows * DH];
@@ -707,31 +818,38 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < kVec; ++e) acc[i][e] = 0.f;
 
-  const int seg = lane % kSegs;
+  const int seg = lane % kLanes;
   for (int c0 = c_lo; c0 < c_hi; c0 += kKC) {
     const int n = min(kKC, c_hi - c0);
     cp_async_wait<1>();  // K has landed, V may still be in flight
     __syncthreads();
 
-    // scores: kSegs lanes split one key row, every row of the group at once
+    // scores: kLanes lanes split one key row (segments seg, seg + kLanes,
+    // ...), every row of the group at once
     for (int j0 = warp * kKeysPerPass; j0 < n; j0 += 4 * kKeysPerPass) {
-      const int j = j0 + lane / kSegs;
-      float kv[kVec];
-      if (j < n) {
-        load_vec(kt + j * DH + seg * kVec, kv);
-      } else {
+      const int j = j0 + lane / kLanes;
+      float kv[kSPL][kVec];
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) kv[e] = 0.f;
+      for (int i = 0; i < kSPL; ++i) {
+        if (j < n) {
+          load_vec(kt + j * DH + (seg + i * kLanes) * kVec, kv[i]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) kv[i][e] = 0.f;
+        }
       }
 #pragma unroll
       for (int r = 0; r < kDMaxRows; ++r) {
         if (r < rows) {
-          const float* qr = qs + r * DH + seg * kVec;
           float a = 0.f;
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) a = fmaf(qr[e], kv[e], a);
+          for (int i = 0; i < kSPL; ++i) {
+            const float* qr = qs + r * DH + (seg + i * kLanes) * kVec;
 #pragma unroll
-          for (int off = kSegs / 2; off > 0; off >>= 1)
+            for (int e = 0; e < kVec; ++e) a = fmaf(qr[e], kv[i][e], a);
+          }
+#pragma unroll
+          for (int off = kLanes / 2; off > 0; off >>= 1)
             a += __shfl_xor_sync(kFull, a, off);
           if (seg == 0 && j < n) ss[r * Shape::kSStride + j] = a * scale_log2;
         }
@@ -812,13 +930,14 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // o[b, hk*rows + r] = sum_s acc_s w_s / sum_s l_s w_s, w_s = 2^(m_s - max m):
 // one block per (b * hkv + hk, r); warp 0 finds the weights, then the
 // block's kDThreads / DH thread groups sum interleaved subsets of the
-// splits, in order, and group 0 adds the groups' sums in order
+// splits, in order, and group 0 adds the groups' sums in order; where Dh
+// exceeds the block's threads (Dh 256), each thread sums every split, in
+// order, for each of its Dh / kDThreads dims
 template <typename T, int DH>
 __global__ void __launch_bounds__(kDThreads)
 flash_decode_combine_kernel(const float* __restrict__ part_acc,
                             const float* __restrict__ part_ml,
                             T* __restrict__ o, int hq, int hkv, int n_split) {
-  constexpr int kGroups = kDThreads / DH;
   __shared__ float w_s[kMaxSplit];
   __shared__ float num_s[kDThreads];
   __shared__ float den_s;
@@ -850,18 +969,30 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
     if (tid == 0) den_s = den == 0.f ? 1.f : den;
   }
   __syncthreads();
-  const int d = tid % DH;
-  float num = 0.f;
+  T* orow = o + (static_cast<int64_t>(b) * hq + hk * rows + r) * DH;
+  if constexpr (DH >= kDThreads) {
+    for (int d = tid; d < DH; d += kDThreads) {
+      float num = 0.f;
 #pragma unroll 4
-  for (int s = tid / DH; s < n_split; s += kGroups)
-    num = fmaf(part_acc[(row0 + static_cast<int64_t>(s) * rows) * DH + d],
-               w_s[s], num);
-  num_s[tid] = num;
-  __syncthreads();
-  if (tid < DH) {
-    for (int grp = 1; grp < kGroups; ++grp) num += num_s[grp * DH + tid];
-    store(o + ((static_cast<int64_t>(b) * hq + hk * rows + r) * DH + tid),
-          num / den_s);
+      for (int s = 0; s < n_split; ++s)
+        num = fmaf(part_acc[(row0 + static_cast<int64_t>(s) * rows) * DH + d],
+                   w_s[s], num);
+      store(orow + d, num / den_s);
+    }
+  } else {
+    constexpr int kGroups = kDThreads / DH;
+    const int d = tid % DH;
+    float num = 0.f;
+#pragma unroll 4
+    for (int s = tid / DH; s < n_split; s += kGroups)
+      num = fmaf(part_acc[(row0 + static_cast<int64_t>(s) * rows) * DH + d],
+                 w_s[s], num);
+    num_s[tid] = num;
+    __syncthreads();
+    if (tid < DH) {
+      for (int grp = 1; grp < kGroups; ++grp) num += num_s[grp * DH + tid];
+      store(orow + tid, num / den_s);
+    }
   }
 }
 
@@ -869,39 +1000,40 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
 // launchers
 // ---------------------------------------------------------------------------
 
-template <int DH>
+template <int DH, bool kPrefix>
 int launch_prefill_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int hq, int hkv, int sq, int sk,
-                        int causal,
-                        int window, int q_offset, float scale,
-                        cudaStream_t stream) {
+                        int causal, int window, int prefix, int q_offset,
+                        float scale, cudaStream_t stream) {
   using Shape = PrefillShape<DH>;
   constexpr int smem = Shape::kBytes;
   // above 48 KB a block's dynamic shared memory needs the attribute
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_mma_kernel<DH>,
+      flash_prefill_mma_kernel<DH, kPrefix>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + Shape::kBQ - 1) / Shape::kBQ, hq, B);
-  flash_prefill_mma_kernel<DH><<<grid, kPThreads, smem, stream>>>(
+  flash_prefill_mma_kernel<DH, kPrefix>
+      <<<grid, Shape::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, hq, hkv, sq, sk, causal, window, q_offset, scale * kLog2e);
+      lse, hq, hkv, sq, sk, causal, window, prefix, q_offset,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int DH, bool kPrefix>
 int launch_prefill_f32(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int hq, int hkv, int sq, int sk,
-                       int causal,
-                       int window, int q_offset, float scale,
-                       cudaStream_t stream) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, hq, B);
-  flash_fwd_kernel<DH><<<grid, kBQ * (DH / kDPT), 0, stream>>>(
+                       int causal, int window, int prefix, int q_offset,
+                       float scale, cudaStream_t stream) {
+  using Shape = FwdShape<DH>;
+  const dim3 grid((sq + Shape::kBQ - 1) / Shape::kBQ, hq, B);
+  flash_fwd_kernel<DH, kPrefix><<<grid, Shape::kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, hq, hkv, sq,
-      sk, causal, window, q_offset, scale);
+      sk, causal, window, prefix, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -932,27 +1064,36 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 // Prefill (any Sq).  dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor
 // cores); q, k, v and o all of it.  q and o are (B, hq, sq, dh), k and v
 // (B, hkv, sk, dh), all contiguous; hq a multiple of hkv; dh in
-// {32, 64, 128}; window < 0 means no window; sq > 0.  lse is null (serving)
-// or (B, hq, sq) float32: each row's log-sum-exp of its scaled live scores,
-// -inf for a row that sees no key (the training forward, for the backward
-// in flash_attention_bwd.cu); the output does not depend on it.
+// {32, 64, 128, 256}; window < 0 means no window; prefix >= 0 keys every
+// query sees (0: none); sq > 0.  lse is null (serving) or (B, hq, sq)
+// float32: each row's log-sum-exp of its scaled live scores, -inf for a row
+// that sees no key (the training forward, for the backward in
+// flash_attention_bwd.cu); the output does not depend on it.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, float* lse, int B,
                                    int hq, int hkv, int sq, int sk, int dh,
-                                   int causal, int window, int q_offset,
-                                   float scale, void* stream) {
+                                   int causal, int window, int prefix,
+                                   int q_offset, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_PREFILL(KIND, DH)                                             \
-  return launch_prefill_##KIND<DH>(q, k, v, o, lse, B, hq, hkv, sq, sk,    \
-                                   causal, window, q_offset, scale, s)
+  if (prefix < 0) return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_PREFILL(KIND, DH)                                              \
+  return prefix > 0                                                          \
+             ? launch_prefill_##KIND<DH, true>(q, k, v, o, lse, B, hq, hkv,  \
+                                               sq, sk, causal, window,       \
+                                               prefix, q_offset, scale, s)   \
+             : launch_prefill_##KIND<DH, false>(q, k, v, o, lse, B, hq, hkv, \
+                                                sq, sk, causal, window, 0,   \
+                                                q_offset, scale, s)
   if (dtype == 0) {
     if (dh == 32) FLASH_PREFILL(f32, 32);
     if (dh == 64) FLASH_PREFILL(f32, 64);
     if (dh == 128) FLASH_PREFILL(f32, 128);
+    if (dh == 256) FLASH_PREFILL(f32, 256);
   } else if (dtype == 1) {
     if (dh == 32) FLASH_PREFILL(bf16, 32);
     if (dh == 64) FLASH_PREFILL(bf16, 64);
     if (dh == 128) FLASH_PREFILL(bf16, 128);
+    if (dh == 256) FLASH_PREFILL(bf16, 256);
   }
 #undef FLASH_PREFILL
   return static_cast<int>(cudaErrorInvalidValue);
@@ -977,10 +1118,12 @@ extern "C" int flash_decode_fwd(int dtype, const void* q, const void* k,
     if (dh == 32) FLASH_DECODE(float, 32);
     if (dh == 64) FLASH_DECODE(float, 64);
     if (dh == 128) FLASH_DECODE(float, 128);
+    if (dh == 256) FLASH_DECODE(float, 256);
   } else if (dtype == 1) {
     if (dh == 32) FLASH_DECODE(__nv_bfloat16, 32);
     if (dh == 64) FLASH_DECODE(__nv_bfloat16, 64);
     if (dh == 128) FLASH_DECODE(__nv_bfloat16, 128);
+    if (dh == 256) FLASH_DECODE(__nv_bfloat16, 256);
   }
 #undef FLASH_DECODE
   return static_cast<int>(cudaErrorInvalidValue);

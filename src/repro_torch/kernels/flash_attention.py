@@ -1,15 +1,16 @@
-"""Flash attention with GQA, causal mask, sliding window and ``q_offset``:
-the wrapper of the hand-written Hopper kernels in
+"""Flash attention with GQA, causal mask, sliding window, a bidirectional
+prefix and ``q_offset``: the wrapper of the hand-written Hopper kernels in
 ``csrc/flash_attention.cu`` (counterpart of
-``repro/kernels/flash_attention.py``).
+``repro/kernels/flash_attention.py``, whose Pallas kernel has no prefix: the
+prefix-LM mask is the reference's ``chunked_attention(prefix_len=)``).
 
 A CUDA tensor launches a kernel (or raises); a CPU tensor takes the plain
 version ``ref.attention_ref``.  There is no fallback between the two.  The
-layout is the reference's, ``(B, H, S, Dh)``.  :func:`plan` picks the
-kernel's design on the host: a decode query (``Sq == 1``, at most
-:data:`DECODE_MAX_GROUP` query heads per KV head) is split over the live
-key range, anything else runs the prefill design (tensor cores in bf16,
-CUDA cores in f32).
+layout is the reference's, ``(B, H, S, Dh)``, Dh in :data:`HEAD_DIMS`.
+:func:`plan` picks the kernel's design on the host: a decode query
+(``Sq == 1``, at most :data:`DECODE_MAX_GROUP` query heads per KV head, no
+prefix) is split over the live key range, anything else runs the prefill
+design (tensor cores in bf16, CUDA cores in f32).
 
 Training: where autograd needs a gradient (grad mode on and q, k or v
 requiring one), a CUDA call goes through :class:`FlashAttentionFn`, whose
@@ -20,7 +21,9 @@ output and whose backward is the hand-written kernel of
 runs the plain version under autograd.  The reference has no backward of
 its Pallas kernel: it trains through the pure-JAX ``chunked_attention``,
 whose gradient JAX's autodiff computes, and the backward computes that
-gradient.
+gradient.  The backward takes Dh in :data:`BWD_HEAD_DIMS` and no prefix:
+training with Dh 256 or a prefix (paligemma; whisper's cross-attention)
+raises, naming ROADMAP item 15.10.
 """
 from __future__ import annotations
 
@@ -35,11 +38,15 @@ from . import ref
 from .build import load_library, ticket_counters
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
-           "flash_attention_bwd", "FlashAttentionFn", "HEAD_DIMS", "Plan",
+           "flash_attention_bwd", "FlashAttentionFn", "HEAD_DIMS",
+           "BWD_HEAD_DIMS", "Plan",
            "plan", "bwd_part_elems", "bwd_counter_elems",
            "flash_launch_count", "reset_flash_launch_count"]
 
-HEAD_DIMS = (32, 64, 128)       # head sizes the kernels are instantiated for
+# head sizes the forward kernels (prefill and decode designs) are
+# instantiated for, and those of the backward kernel
+HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # query heads per KV head a decode block takes (kDMaxRows in the kernel)
 DECODE_MAX_GROUP = 16
@@ -77,15 +84,17 @@ class Plan(NamedTuple):
 
 
 def plan(q_shape, k_shape, *, causal: bool, window: int | None,
-         q_offset: int, sms: int) -> Plan:
+         q_offset: int, sms: int, prefix_len: int = 0) -> Plan:
     """Pick the design for q ``(B, Hq, Sq, Dh)`` against k ``(B, Hkv, Sk,
     Dh)`` on a card with ``sms`` SMs.  Decode splits the live keys of its
     single query position so that ``B * Hkv * n_split`` blocks fill about
     :data:`DECODE_WAVES` waves, each walking at least
-    :data:`DECODE_MIN_CHUNK` keys."""
+    :data:`DECODE_MIN_CHUNK` keys; a prefix (which the decode design does
+    not take: its live keys need not be one range) runs the prefill
+    design."""
     b, hq, sq = q_shape[:3]
     hkv, sk = k_shape[1], k_shape[2]
-    if sq != 1 or hq // hkv > DECODE_MAX_GROUP:
+    if sq != 1 or hq // hkv > DECODE_MAX_GROUP or prefix_len > 0:
         return Plan("prefill")
     k_hi = min(sk, q_offset + 1) if causal else sk
     k_lo = 0 if window is None else max(0, q_offset - window + 1)
@@ -95,13 +104,14 @@ def plan(q_shape, k_shape, *, causal: bool, window: int | None,
     return Plan("decode", k_lo, k_hi, chunk, max(1, -(-live // chunk)))
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0):
+def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
+                          prefix_len=0):
     """The plain PyTorch version: the dense oracle ``ref.attention_ref``."""
     return ref.attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
+                             q_offset=q_offset, prefix_len=prefix_len)
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, window, prefix_len=0) -> None:
     """Shapes, types and devices every input must have, on either device."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention takes q (B, Hq, Sq, Dh) and k, v "
@@ -119,6 +129,8 @@ def _check(q, k, v, window) -> None:
                          f"{k.device}, {v.device}")
     if window is not None and window < 0:
         raise ValueError(f"window must be None or >= 0, got {window}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
 
 
 def _check_kernel_inputs(q, k, v) -> None:
@@ -140,7 +152,7 @@ def _kernel_fns():
     lib = load_library("flash_attention")
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     prefill, decode = lib.flash_attention_fwd, lib.flash_decode_fwd
-    prefill.argtypes = [i32, vp, vp, vp, vp, vp] + [i32] * 9 + [f32, vp]
+    prefill.argtypes = [i32, vp, vp, vp, vp, vp] + [i32] * 10 + [f32, vp]
     decode.argtypes = [i32, vp, vp, vp, vp, vp] + [i32] * 9 + [f32, vp]
     prefill.restype = decode.restype = i32
     return prefill, decode
@@ -160,7 +172,8 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
+def _launch(q, k, v, causal, window, q_offset, lse=None,
+            prefix_len=0) -> torch.Tensor:
     """One forward launch; with ``lse`` (a ``(B, Hq, Sq)`` float32 buffer)
     the prefill design also writes each row's log-sum-exp there and counts
     as a training forward."""
@@ -172,7 +185,8 @@ def _launch(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
         return out
     p = (Plan("train") if lse is not None else
          plan(q.shape, k.shape, causal=causal, window=window,
-              q_offset=q_offset, sms=_sm_count(q.device.index)))
+              q_offset=q_offset, sms=_sm_count(q.device.index),
+              prefix_len=prefix_len))
     prefill, decode = _kernel_fns()
     code, scale = _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh)
     with torch.cuda.device(q.device):
@@ -191,7 +205,7 @@ def _launch(q, k, v, causal, window, q_offset, lse=None) -> torch.Tensor:
                           b, hq, hkv, sq, sk, dh,
                           int(bool(causal)),
                           -1 if window is None else int(window),
-                          int(q_offset), scale, stream)
+                          int(prefix_len), int(q_offset), scale, stream)
     _LAUNCHES[p.design] += 1
     if err != 0:
         raise RuntimeError(f"flash attention {p.design} kernel launch failed "
@@ -240,6 +254,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     if not q.is_cuda:
         raise ValueError("flash_attention_bwd launches the CUDA kernel; the "
                          "CPU trains through the plain version")
+    _check_trainable(q.shape[3], 0)
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
@@ -293,14 +308,27 @@ def flash_attention_lse(q, k, v, *, causal=True, window=None, q_offset=0):
     return _launch(q, k, v, causal, window, q_offset, lse=lse), lse
 
 
+def _check_trainable(dh: int, prefix_len: int) -> None:
+    """The backward kernel takes Dh in :data:`BWD_HEAD_DIMS` and no prefix:
+    a head size only the forward takes, or a prefix, raises before a launch
+    (no fallback); one no kernel takes is ``_check_kernel_inputs``'s."""
+    if (dh in HEAD_DIMS and dh not in BWD_HEAD_DIMS) or prefix_len:
+        raise NotImplementedError(
+            f"the flash attention backward takes head sizes {BWD_HEAD_DIMS} "
+            f"and no prefix, got Dh {dh}, prefix_len {prefix_len}: training "
+            "with Dh 256 or a prefix waits for ROADMAP item 15.10")
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on CUDA tensors with a hand-written backward: the
     forward is the prefill kernel writing each row's log-sum-exp (the
     ``"train"`` launches), and saves q, k, v, the output and the LSE; the
-    backward is :func:`flash_attention_bwd`."""
+    backward is :func:`flash_attention_bwd`.  Raises on a head size or a
+    prefix the backward does not take (ROADMAP item 15.10)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(ctx, q, k, v, causal, window, q_offset, prefix_len=0):
+        _check_trainable(q.shape[3], prefix_len)
         out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -314,29 +342,33 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=causal, window=window,
                                          q_offset=q_offset)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, prefix_len: int = 0) -> torch.Tensor:
     """Online-softmax attention ``(B, Hq, Sq, Dh)`` in q's dtype.
 
     Query head h reads KV head ``h // (Hq // Hkv)``; query row i sits at
     absolute position ``q_offset + i`` and sees key j < Sk when ``j <= pos``
-    (``causal``) and ``j > pos - window`` (``window``); a row that sees no
-    key is 0.  A CUDA ``q`` launches the kernel (through
-    :class:`FlashAttentionFn` where autograd needs a gradient), a CPU ``q``
-    runs :func:`flash_attention_plain` (differentiable as it stands).
+    (``causal``) and ``j > pos - window`` (``window``), or when ``j <
+    prefix_len`` (the prefix-LM mask: a prefix every query sees, rescued
+    from the causal mask and the window alike); a row that sees no key is
+    0.  A CUDA ``q`` launches the kernel (through :class:`FlashAttentionFn`
+    where autograd needs a gradient), a CPU ``q`` runs
+    :func:`flash_attention_plain` (differentiable as it stands).
     """
-    _check(q, k, v, window)
+    _check(q, k, v, window, prefix_len)
     if q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
-        return _launch(q, k, v, causal, window, q_offset)
+            return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                          prefix_len)
+        return _launch(q, k, v, causal, window, q_offset,
+                       prefix_len=prefix_len)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, prefix_len=prefix_len)

@@ -66,9 +66,12 @@ def attention_ref(
     causal: bool = True,
     window: int | None = None,   # sliding window over keys (None = full)
     q_offset: int = 0,           # absolute position of q[0] (decode: cache len)
+    prefix_len: int = 0,         # keys every query sees (prefix-LM)
 ) -> torch.Tensor:
     """Dense-softmax GQA attention oracle: f32 logits with ``-inf`` masking,
-    fully masked rows set to 0, output in q's dtype."""
+    fully masked rows set to 0, output in q's dtype.  The mask is the
+    reference's ``_mask_block``: keys below ``prefix_len`` are seen by every
+    query, rescued from the causal mask and from the window alike."""
     _, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -83,6 +86,8 @@ def attention_ref(
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= k_pos > q_pos - window
+    if prefix_len:
+        mask |= k_pos < prefix_len
     logits = logits.masked_fill(~mask, float("-inf"))
     w = torch.softmax(logits, dim=-1)
     w = torch.nan_to_num(w, nan=0.0)  # fully-masked rows -> 0

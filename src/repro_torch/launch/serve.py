@@ -14,11 +14,13 @@ of ``repro/launch/serve.py``).
 
 The transformer path runs the arch's ``reduced()`` config, as the
 reference does, unless ``--full`` asks for its published widths; weights are
-random from ``--seed``.  Every decoder-only arch of the zoo serves (dense,
-MoE, Mamba2 and the jamba hybrid; whisper-small and paligemma-3b wait for
-ROADMAP items 15.5 and 15.6).  It prefills a random prompt and decodes
-through ``ServeEngine`` with the flash attention and RMSNorm kernels, and
-reports prefill time, decode time per step and both kernels' launches.
+random from ``--seed``.  Every arch of the zoo serves (dense, MoE, Mamba2,
+the jamba hybrid, the whisper-small encoder-decoder and the paligemma-3b
+prefix-LM).  It prefills a random prompt (with random ``patch_embeds`` or
+``enc_embeds`` where the arch takes them, drawn as the reference CLI draws
+them) and decodes through ``ServeEngine`` with the flash attention and
+RMSNorm kernels, and reports prefill time, decode time per step and both
+kernels' launches.
 ``--swa`` serves from the mod-W rolling cache of ``sliding_window`` slots:
 an arch without a native window takes the ``swa`` variant (window 8,192),
 as the reference does; one with a native window (starcoder2-7b) keeps it,
@@ -230,8 +232,12 @@ def llm_main(args) -> dict:
     """Prefill a random ``(batch, prompt_len)`` prompt and greedily (or with
     ``temperature``) decode ``new_tokens`` through :func:`serve_model`;
     ``--swa`` decodes from the rolling cache of ``sliding_window`` slots.
-    Returns :func:`serve_model`'s run with ``cfg``, ``model`` and
-    ``batch``."""
+    A prefix-LM's ``patch_embeds`` and an encoder-decoder's ``enc_embeds``
+    are standard normal draws from the same generator after the tokens,
+    in that order (the reference CLI's); the cache holds the prefix too
+    (the reference CLI's ``prompt_len + new_tokens + 4`` slots would not,
+    ROADMAP §3).  Returns :func:`serve_model`'s run with ``cfg``, ``model``
+    and ``batch``."""
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.models import Transformer
@@ -246,11 +252,20 @@ def llm_main(args) -> dict:
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (args.batch, args.prompt_len))}
+    if cfg.prefix_tokens:
+        batch["patch_embeds"] = rng.normal(
+            0, 1, (args.batch, cfg.prefix_tokens, cfg.d_model)).astype(
+                np.float32)
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = rng.normal(
+            0, 1, (args.batch, cfg.encoder_seq, cfg.d_model)).astype(
+                np.float32)
     rolling = args.swa and cfg.sliding_window is not None
     run = serve_model(
         model, batch, new_tokens=args.new_tokens,
         cache_size=(cfg.sliding_window if rolling
-                    else args.prompt_len + args.new_tokens + 4),
+                    else cfg.prefix_tokens + args.prompt_len
+                    + args.new_tokens + 4),
         rolling=rolling, temperature=args.temperature, seed=args.seed,
         label=f"{'full' if args.full else 'reduced'} config on {device}")
     return {"cfg": cfg, "model": model, "batch": batch, **run}
@@ -276,9 +291,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fail-at-tick", type=int, default=5)
     ap.add_argument("--recover-after-ticks", type=int, default=8)
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="an arch of repro_torch.configs: every decoder-only "
-                         "one serves (all but whisper-small and "
-                         "paligemma-3b)")
+                    help="an arch of repro_torch.configs (every one serves)")
     ap.add_argument("--full", action="store_true",
                     help="the arch's published widths instead of reduced()")
     ap.add_argument("--batch", type=int, default=4)

@@ -59,10 +59,13 @@ def build_step(cfg: ModelConfig, shape: InputShape, *,
       per-partition models (``batch_p`` has a leading partition axis of
       ``num_partitions``, ``active`` is a bool ``(P,)``); the reference
       vmaps the same single-partition step;
-    - prefill: ``step(model, batch) -> (logits, caches, cache_len)``;
+    - prefill: ``step(model, batch) -> (logits, caches, cache_len)``, the
+      batch with its extra inputs (``patch_embeds``, ``enc_embeds``) where
+      the model takes them;
     - decode: ``step(model, token, caches, cache_len) -> (logits,
       caches)``, from the mod-W rolling cache where the shape's
-      ``decode_cache_width`` says so.
+      ``decode_cache_width`` says so; the encoder's keys and values ride in
+      the caches (``"cross"``).
     """
     optimizer = optimizer or AdamW(lr=1e-3, weight_decay=0.01, grad_clip=1.0)
 

@@ -1,11 +1,15 @@
-"""Layers of the decoder zoo (counterpart of ``repro/models/layers.py``
-without the encoder's cross-attention and the multimodal prefix).
+"""Layers of the architecture zoo (counterpart of
+``repro/models/layers.py``).
 
 Functional, as in the reference: ``*_init(cfg, gen, device) -> params``
 (dicts of tensors) and ``*_apply(params, x, ...) -> y``.  Attention runs
 through :func:`ops.flash_attention` (the hand-written kernel on the card)
-where the reference runs its pure-JAX twin ``chunked_attention``, and its
-decode also serves the rolling mod-W cache (:func:`attention_decode`);
+where the reference runs its pure-JAX twin ``chunked_attention``: causal
+or bidirectional (whisper's encoder), with the prefix-LM mask of a
+multimodal prefix (paligemma's ``prefix_len``), and as whisper's
+cross-attention over the encoder's output (:func:`attention_apply` with
+``enc_out``, :func:`cross_attention_prefill`, and :func:`attention_decode`
+with ``enc_cache``); its decode also serves the rolling mod-W cache;
 rmsnorm runs through :func:`ops.rmsnorm`, or :func:`ops.add_rmsnorm` where
 the residual add in front of it is fused in (:func:`add_norm_apply`).
 ``kernels=False`` takes the kernels' plain versions on any device, so the
@@ -34,7 +38,8 @@ from .config import ModelConfig
 
 __all__ = ["norm_init", "norm_apply", "add_norm_apply", "apply_rope",
            "sinusoidal_positions", "attention_init", "attention_apply",
-           "attention_prefill", "attention_decode", "rolling_slot_positions",
+           "cross_attention_prefill", "attention_prefill",
+           "attention_decode", "rolling_slot_positions",
            "mlp_init", "mlp_apply", "moe_init", "moe_capacity", "moe_route",
            "moe_apply", "mamba2_init", "mamba2_apply", "mamba2_decode"]
 
@@ -141,44 +146,85 @@ def attention_init(cfg: ModelConfig, gen, device=None) -> Params:
     return p
 
 
-def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 kv_input: torch.Tensor | None = None):
+    """q from ``x``, k and v from ``kv_input`` (the encoder's output for
+    cross-attention) or from ``x``."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    kv_x = x if kv_input is None else kv_input
+    skv = kv_x.shape[1]
+    q, k, v = x @ p["wq"], kv_x @ p["wk"], kv_x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     q = q.reshape(b, s, h, dh).transpose(1, 2)
-    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
-    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
+    k = k.reshape(b, skv, hkv, dh).transpose(1, 2)
+    v = v.reshape(b, skv, hkv, dh).transpose(1, 2)
     return q, k, v
 
 
-def _attend(q, k, v, *, window, q_offset, kernels):
+def _attend(q, k, v, *, window, q_offset, kernels, causal=True,
+            prefix_len=0):
     if kernels:
         return ops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=True, window=window,
-                                   q_offset=q_offset)
-    return flash_attention_plain(q, k, v, causal=True, window=window,
-                                 q_offset=q_offset)
+                                   v.contiguous(), causal=causal,
+                                   window=window, q_offset=q_offset,
+                                   prefix_len=prefix_len)
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, prefix_len=prefix_len)
+
+
+def _merge_heads(out: torch.Tensor, p: Params) -> torch.Tensor:
+    b, _, s, _ = out.shape
+    return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+
+
+def _cross(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
+           cfg: ModelConfig, kernels: bool):
+    """Cross-attention of ``x`` over ``enc_out``: bidirectional, no RoPE
+    (the reference's ``attention_apply(enc_out=)``); returns the output and
+    the encoder's k and v."""
+    q, k, v = _project_qkv(p, x, cfg, kv_input=enc_out)
+    out = _attend(q, k, v, causal=False, window=None, q_offset=0,
+                  kernels=kernels)
+    return _merge_heads(out, p), k, v
 
 
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                    window: int | None = None,
+                    causal: bool = True, window: int | None = None,
+                    prefix_len: int = 0, enc_out: torch.Tensor | None = None,
                     kernels: bool = True) -> torch.Tensor:
-    """Full-sequence causal attention, the training form of the reference's
-    ``attention_apply`` (no cache; the multimodal prefix is not ported).
-    Differentiable: on the card the kernels go through their autograd
-    functions (the flash forward with the log-sum-exp and its backward
-    kernel), on the CPU and with ``kernels=False`` the plain version runs
-    under autograd."""
-    b, s, _ = x.shape
+    """Full-sequence attention with no cache: the training form, the
+    encoder's bidirectional self-attention (``causal=False``) and, with
+    ``enc_out``, cross-attention over the encoder's output (bidirectional,
+    no RoPE), as the reference's ``attention_apply``; ``prefix_len`` keys
+    are seen by every query (the prefix-LM mask).  Differentiable: on the
+    card the kernels go through their autograd functions (the flash forward
+    with the log-sum-exp and its backward kernel, which take no prefix and
+    Dh <= 128: ROADMAP item 15.10), on the CPU and with ``kernels=False``
+    the plain version runs under autograd."""
+    if enc_out is not None:
+        return _cross(p, x, enc_out, cfg, kernels)[0]
+    s = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope_theta is not None:
         pos = torch.arange(s, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    out = _attend(q, k, v, window=window, q_offset=0, kernels=kernels)
-    return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    out = _attend(q, k, v, causal=causal, window=window, q_offset=0,
+                  prefix_len=prefix_len, kernels=kernels)
+    return _merge_heads(out, p)
+
+
+def cross_attention_prefill(p: Params, x: torch.Tensor,
+                            enc_out: torch.Tensor, cfg: ModelConfig, *,
+                            kernels: bool = True):
+    """Cross-attention over ``enc_out`` (B, Se, d) AND the decode's cross
+    cache ``{"k", "v"}`` of ``(B, Hkv, Se, Dh)``: the encoder's keys and
+    values, projected once for both (the reference projects them a second
+    time for the cache, to the same values)."""
+    out, k, v = _cross(p, x, enc_out, cfg, kernels)
+    return out, {"k": k.contiguous(), "v": v.contiguous()}
 
 
 def rolling_slot_positions(length: int, width: int) -> np.ndarray:
@@ -190,9 +236,11 @@ def rolling_slot_positions(length: int, width: int) -> np.ndarray:
 
 
 def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                      window: int | None = None,
+                      window: int | None = None, prefix_len: int = 0,
                       cache_size: int | None = None, kernels: bool = True):
-    """Prefill: run causal attention over the prompt AND return its KV cache,
+    """Prefill: run causal attention over the prompt (its first
+    ``prefix_len`` positions seen by every query: the prefix-LM mask) AND
+    return its KV cache,
     ``{"k", "v"}`` of width ``cache_size`` (default: the prompt length).  A
     cache at least as wide as the prompt holds its keys in the first slots
     and zeros after them.  A narrower one is the mod-W rolling cache: slot j
@@ -205,7 +253,8 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         pos = torch.arange(s, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    out = _attend(q, k, v, window=window, q_offset=0, kernels=kernels)
+    out = _attend(q, k, v, window=window, q_offset=0, prefix_len=prefix_len,
+                  kernels=kernels)
     out = out.transpose(1, 2).reshape(b, s, -1)
     if cache_size is not None and cache_size < s:
         src = torch.as_tensor(rolling_slot_positions(s, cache_size),
@@ -221,14 +270,20 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return out @ p["wo"], {"k": k_c, "v": v_c}
 
 
-def attention_decode(p: Params, x: torch.Tensor, cache: Params,
+def attention_decode(p: Params, x: torch.Tensor, cache: Params | None,
                      cache_len: int, cfg: ModelConfig, *,
                      window: int | None = None, rolling: bool = False,
-                     kernels: bool = True):
+                     enc_cache: Params | None = None, kernels: bool = True):
     """One-token decode; ``cache_len`` = tokens already in the cache.  Writes
     the new key and value IN PLACE (the reference returns updated copies),
     at slot ``cache_len``, or ``cache_len mod W`` with ``rolling`` (the
     mod-W cache of W = its width slots).
+
+    ``enc_cache`` (the encoder's ``{"k", "v"}`` of
+    :func:`cross_attention_prefill`) makes it cross-attention: a query-only
+    projection attending over every encoder position, no RoPE, ``cache``
+    returned untouched.  No decode rescues a prefix (the reference's
+    ``valid`` mask has none), so a prefix-LM decodes causally.
 
     Without ``rolling`` the query sits at position ``cache_len`` and attends
     over the whole width: the causal mask hides the empty slots and the
@@ -244,6 +299,15 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params,
     sees exactly slots ``0 .. q_offset``, is the reference's
     ``rolling_window_attention`` (which also sums in slot order)."""
     b = x.shape[0]
+    if enc_cache is not None:
+        h, dh = cfg.num_heads, cfg.resolved_head_dim
+        q = x @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["b_q"]
+        q = q.reshape(b, 1, h, dh).transpose(1, 2)
+        out = _attend(q, enc_cache["k"], enc_cache["v"], causal=False,
+                      window=None, q_offset=0, kernels=kernels)
+        return _merge_heads(out.to(x.dtype), p), cache
     width = cache["k"].shape[2]
     if rolling:
         if cache_len < 0:

@@ -1,6 +1,5 @@
-"""The decoder zoo: init from a seed, the training loss, prefill and
-one-token decode (counterpart of ``repro/models/transformer.py`` without
-the encoder-decoder and the multimodal prefix).
+"""The architecture zoo: init from a seed, the training loss, prefill and
+one-token decode (counterpart of ``repro/models/transformer.py``).
 
 Where the reference scans one stacked block pytree with ``lax.scan``, the
 port loops over an ``nn.ModuleList`` with one module per layer: layer
@@ -24,10 +23,14 @@ serving runs under ``torch.no_grad``.
 
 Supported: attention and Mamba2 mixers, MLP, MoE and no FFN, rmsnorm or
 layernorm, swiglu or gelu, QKV bias, RoPE or sinusoidal positions, tied or
-untied head, a native ``sliding_window`` and the rolling cache.
-Cross-attention and the encoder (whisper; ROADMAP item 15.5) and a
-multimodal prefix (paligemma; item 15.6) raise ``NotImplementedError``, and
-so does training a model with a Mamba2 mixer or an MoE FFN (item 15.9).
+untied head, a native ``sliding_window`` and the rolling cache; the
+encoder-decoder (whisper: :meth:`Transformer.encode`, cross-attention after
+each decoder layer's self-attention, whose decode reads the encoder's keys
+and values from the layer cache's ``"cross"`` entry) and the prefix-LM
+(paligemma: ``patch_embeds`` prepended to the tokens, seen by every query).
+Training serves the dense decoders only: a Mamba2 mixer or an MoE FFN
+raises ``NotImplementedError`` (ROADMAP item 15.9), and so do
+cross-attention, the encoder and a prefix (item 15.10).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
-from .config import ModelConfig
+from .config import ModelConfig, SubLayer
 
 __all__ = ["Transformer", "chunked_ce_loss"]
 
@@ -114,22 +117,6 @@ def chunked_ce_loss(h: torch.Tensor, w_head: torch.Tensor,
     return _ChunkedCE.apply(h, w_head, labels, max(1, min(chunk, h.shape[0])))
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot serve yet."""
-    todo = {}
-    if any(sl.cross_attention for sl in cfg.super_block):
-        todo["cross-attention"] = "15.5"
-    if cfg.is_encoder_decoder:
-        todo["the encoder"] = "15.5"
-    if cfg.prefix_tokens:
-        todo["the multimodal prefix"] = "15.6"
-    if todo:
-        raise NotImplementedError(
-            f"{cfg.name}: " + ", ".join(
-                f"{what} (ROADMAP item {item})" for what, item in todo.items())
-            + " not ported yet; the port serves decoder-only models")
-
-
 def _check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port only serves."""
     todo = sorted({f"the {sl.mixer} mixer" for sl in cfg.super_block
@@ -141,6 +128,16 @@ def _check_trainable(cfg: ModelConfig) -> None:
             f"{cfg.name}: training {' and '.join(todo)} is not ported yet "
             "(ROADMAP item 15.9, training the zoo's MoE and Mamba2 "
             "families); the port serves them")
+    todo = [what for what, has in (
+        ("cross-attention", any(sl.cross_attention for sl in cfg.super_block)),
+        ("the encoder", cfg.is_encoder_decoder),
+        ("the multimodal prefix", bool(cfg.prefix_tokens))) if has]
+    if todo:
+        raise NotImplementedError(
+            f"{cfg.name}: training {', '.join(todo)} is not ported yet "
+            "(ROADMAP item 15.10, training whisper and paligemma: the flash "
+            "backward at Dh 256 and with a prefix, cross-attention's "
+            "backward); the port serves them")
 
 
 def _params(params: dict) -> nn.ParameterDict:
@@ -149,9 +146,11 @@ def _params(params: dict) -> nn.ParameterDict:
 
 class _Layer(nn.Module):
     """One sub-layer ``sl`` of the super-block: its mixer (attention or
-    Mamba2) and FFN (MLP, MoE or none) with their norms; parameter names are
-    the reference's ``blocks.sub<i>`` keys (``norm_mix``, ``attn`` |
-    ``mamba``, ``norm_ffn``, ``mlp`` | ``moe``).
+    Mamba2), cross-attention where ``sl`` has it (whisper's decoder), and
+    FFN (MLP, MoE or none) with their norms; parameter names are the
+    reference's ``blocks.sub<i>`` keys (``norm_mix``, ``attn`` | ``mamba``,
+    ``norm_cross``, ``cross``, ``norm_ffn``, ``mlp`` | ``moe``).  An
+    encoder layer is one of attention + MLP (``encoder.blocks.sub0``).
 
     The residual add that ends a sub-layer is left to the norm after it,
     which fuses the add in front of the norm: :meth:`forward` takes the
@@ -163,11 +162,15 @@ class _Layer(nn.Module):
     def __init__(self, cfg: ModelConfig, sl, gen, device):
         super().__init__()
         self.mixer, self.ffn = sl.mixer, sl.ffn
+        self.cross_attention = sl.cross_attention
         self.norm_mix = _params(L.norm_init(cfg, device=device))
         if sl.mixer == "attention":
             self.attn = _params(L.attention_init(cfg, gen, device))
         else:
             self.mamba = _params(L.mamba2_init(cfg, gen, device))
+        if sl.cross_attention:
+            self.norm_cross = _params(L.norm_init(cfg, device=device))
+            self.cross = _params(L.attention_init(cfg, gen, device))
         if sl.ffn != "none":
             self.norm_ffn = _params(L.norm_init(cfg, device=device))
         if sl.ffn == "mlp":
@@ -175,7 +178,8 @@ class _Layer(nn.Module):
         elif sl.ffn == "moe":
             self.moe = _params(L.moe_init(cfg, gen, device))
 
-    def _mix(self, h, cfg, kernels, cache, cache_len, cache_size, rolling):
+    def _mix(self, h, cfg, kernels, cache, cache_len, cache_size, rolling,
+             prefix_len):
         if self.mixer == "mamba2":
             if cache is None:
                 return L.mamba2_apply(self.mamba, h, cfg)
@@ -183,16 +187,32 @@ class _Layer(nn.Module):
         if cache is None:
             return L.attention_prefill(
                 self.attn, h, cfg, window=cfg.sliding_window,
-                cache_size=cache_size, kernels=kernels)
+                prefix_len=prefix_len, cache_size=cache_size,
+                kernels=kernels)
         return L.attention_decode(
             self.attn, h, cache, cache_len, cfg, window=cfg.sliding_window,
             rolling=rolling, kernels=kernels)
 
     def forward(self, x, delta, cfg, *, kernels, cache=None, cache_len=None,
-                cache_size=None, rolling=False):
+                cache_size=None, rolling=False, prefix_len=0, enc_out=None):
+        """A prefill (``cache`` None: returns the new cache) or a decode
+        step (writes ``cache``); ``enc_out`` is the encoder's output a
+        prefill's cross-attention reads, and whose keys and values it
+        stashes as the cache's ``"cross"`` entry for the decode."""
         x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
+        prefill = cache is None
         mix, cache = self._mix(h, cfg, kernels, cache, cache_len, cache_size,
-                               rolling)
+                               rolling, prefix_len)
+        if self.cross_attention:
+            x, h = L.add_norm_apply(self.norm_cross, x, mix, cfg,
+                                    kernels=kernels)
+            if prefill:
+                mix, cache["cross"] = L.cross_attention_prefill(
+                    self.cross, h, enc_out, cfg, kernels=kernels)
+            else:
+                mix, _ = L.attention_decode(
+                    self.cross, h, None, cache_len, cfg,
+                    enc_cache=cache["cross"], kernels=kernels)
         if self.ffn == "none":
             return x, mix, cache
         x, h = L.add_norm_apply(self.norm_ffn, x, mix, cfg, kernels=kernels)
@@ -200,35 +220,47 @@ class _Layer(nn.Module):
             return x, L.moe_apply(self.moe, h, cfg)[0], cache
         return x, L.mlp_apply(self.mlp, h, cfg), cache
 
-    def train_forward(self, x, delta, cfg, kernels):
-        """The training form of :meth:`forward` for an attention + MLP
-        sub-layer: causal attention over the whole sequence, no cache;
-        returns ``(x, mlp_out)``."""
+    def train_forward(self, x, delta, cfg, kernels, causal=True):
+        """The whole-sequence form of :meth:`forward` for an attention + MLP
+        sub-layer, no cache: the training form (causal, under the config's
+        window) or, ``causal=False``, an encoder layer (bidirectional, no
+        window); returns ``(x, mlp_out)``."""
         x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
-        mix = L.attention_apply(self.attn, h, cfg, window=cfg.sliding_window,
+        mix = L.attention_apply(self.attn, h, cfg, causal=causal,
+                                window=cfg.sliding_window if causal else None,
                                 kernels=kernels)
         x, h = L.add_norm_apply(self.norm_ffn, x, mix, cfg, kernels=kernels)
         return x, L.mlp_apply(self.mlp, h, cfg)
 
 
 def zero_layer_cache(cfg: ModelConfig, mixer: str, batch: int, width: int,
-                     device) -> dict:
+                     device, enc_seq: int | None = None) -> dict:
     """One layer's zero decode cache (tensors on ``device``, which may be
-    ``meta``)."""
+    ``meta``); ``enc_seq`` adds the cross-attention's ``"cross"`` entry,
+    ``{"k", "v"}`` of ``(batch, Hkv, enc_seq, Dh)``."""
     dt = getattr(torch, cfg.dtype)
     if mixer == "attention":
         kv = (batch, cfg.num_kv_heads, width, cfg.resolved_head_dim)
-        return {"k": torch.zeros(kv, dtype=dt, device=device),
-                "v": torch.zeros(kv, dtype=dt, device=device)}
-    conv = (batch, cfg.ssm_conv - 1, cfg.ssm_d_inner + 2 * cfg.ssm_state)
-    ssm = (batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim)
-    return {"conv": torch.zeros(conv, dtype=dt, device=device),
-            "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
+        cache = {"k": torch.zeros(kv, dtype=dt, device=device),
+                 "v": torch.zeros(kv, dtype=dt, device=device)}
+    else:
+        conv = (batch, cfg.ssm_conv - 1, cfg.ssm_d_inner + 2 * cfg.ssm_state)
+        ssm = (batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim)
+        cache = {"conv": torch.zeros(conv, dtype=dt, device=device),
+                 "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
+    if enc_seq is not None:
+        kv = (batch, cfg.num_kv_heads, enc_seq, cfg.resolved_head_dim)
+        cache["cross"] = {"k": torch.zeros(kv, dtype=dt, device=device),
+                          "v": torch.zeros(kv, dtype=dt, device=device)}
+    return cache
 
 
 class Transformer(nn.Module):
-    """A decoder of the zoo with random weights from ``seed`` on ``device``
+    """A model of the zoo with random weights from ``seed`` on ``device``
     (the CUDA card by default; raises without one unless ``device="cpu"``).
+    An encoder-decoder also holds ``encoder`` (its layers) and
+    ``encoder_norm`` (the reference's ``encoder.blocks`` and
+    ``encoder.final_norm``).
 
     ``use_kernels=False`` runs the plain versions of the flash attention and
     RMSNorm kernels instead, on any device; it exists so the kernels can be
@@ -238,7 +270,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda",
                  use_kernels: bool = True):
         super().__init__()
-        _check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.use_kernels = use_kernels
@@ -255,6 +286,11 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 L._dense_init(gen, d, cfg.vocab_size, dt, dev))
+        if cfg.is_encoder_decoder:
+            enc = SubLayer(mixer="attention", ffn="mlp")
+            self.encoder = nn.ModuleList(_Layer(cfg, enc, gen, dev)
+                                         for _ in range(cfg.encoder_layers))
+            self.encoder_norm = _params(L.norm_init(cfg, device=dev))
 
     @property
     def device(self) -> torch.device:
@@ -290,6 +326,36 @@ class Transformer(nn.Module):
             tokens = torch.as_tensor(np.asarray(tokens))
         return tokens.to(self.device).long()
 
+    def _embeds(self, x, name: str, seq: int | None = None) -> torch.Tensor:
+        """The input embeddings ``x`` (B, seq, d_model) on the model's device
+        in its dtype (the reference CLI feeds f32: ROADMAP §3)."""
+        if x is None:
+            raise ValueError(f"{self.cfg.name} takes batch[{name!r}]")
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x))
+        if x.dim() != 3 or x.shape[2] != self.cfg.d_model or (
+                seq is not None and x.shape[1] != seq):
+            raise ValueError(f"{name} must be (B, {seq or 'S'}, "
+                             f"{self.cfg.d_model}), got {tuple(x.shape)}")
+        return x.to(device=self.device, dtype=self.embed.dtype)
+
+    # ============================================================ encoder
+    @torch.no_grad()
+    def encode(self, enc_embeds) -> torch.Tensor:
+        """The encoder over the (stub) frame embeddings ``enc_embeds`` (B,
+        Se, d_model): sinusoidal positions, ``encoder_layers`` layers of
+        bidirectional attention + MLP, the final norm (the reference's
+        ``encode``)."""
+        x = self._embeds(enc_embeds, "enc_embeds")
+        pos = L.sinusoidal_positions(x.shape[1], self.cfg.d_model,
+                                     device=x.device)
+        x, delta = x + pos[None].to(x.dtype), None
+        for layer in self.encoder:
+            x, delta = layer.train_forward(x, delta, self.cfg,
+                                           self.use_kernels, causal=False)
+        return L.add_norm_apply(self.encoder_norm, x, delta, self.cfg,
+                                kernels=self.use_kernels)[1]
+
     # ================================================================ train
     def train_loss(self, batch: dict) -> torch.Tensor:
         """The mean next-token loss of ``batch["tokens"]`` (B, S) against
@@ -299,7 +365,8 @@ class Transformer(nn.Module):
         :func:`chunked_ce_loss` over the head.  The dense family has no
         auxiliary loss (the reference adds MoE's); a model with a Mamba2
         mixer or an MoE FFN raises ``NotImplementedError`` (ROADMAP item
-        15.9)."""
+        15.9), and so does one with cross-attention, an encoder or a prefix
+        (item 15.10)."""
         cfg = self.cfg
         _check_trainable(cfg)
         tokens = self._tokens(batch["tokens"])
@@ -325,17 +392,31 @@ class Transformer(nn.Module):
     def prefill(self, batch: dict, *, cache_size: int | None = None):
         """Run the prompt ``batch["tokens"]`` (B, S); returns
         ``(last_logits (B, V) float32, caches, cache_len)`` with attention
-        caches of width ``cache_size`` (default S; narrower than S: the
+        caches of width ``cache_size`` (default the sequence; narrower: the
         rolling cache of the last ``cache_size`` positions), Mamba2 caches
-        of the state after the prompt, and ``cache_len == S``."""
+        of the state after the prompt, and ``cache_len`` the sequence's
+        length.  A prefix-LM prepends ``batch["patch_embeds"]`` (B, P,
+        d_model) to the tokens, seen by every query, so the sequence is P +
+        S; an encoder-decoder encodes ``batch["enc_embeds"]`` (B, Se,
+        d_model) and its cross-attention layers add the encoder's keys and
+        values to their caches (``"cross"``)."""
+        cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         x, delta = self._embed_tokens(tokens), None
+        prefix_len = cfg.prefix_tokens
+        if prefix_len:
+            x = torch.cat([self._embeds(batch.get("patch_embeds"),
+                                        "patch_embeds", prefix_len), x],
+                          dim=1)
+        enc_out = (self.encode(batch.get("enc_embeds"))
+                   if cfg.is_encoder_decoder else None)
         caches = []
         for layer in self.layers:
-            x, delta, c = layer(x, delta, self.cfg, kernels=self.use_kernels,
-                                cache_size=cache_size)
+            x, delta, c = layer(x, delta, cfg, kernels=self.use_kernels,
+                                cache_size=cache_size, prefix_len=prefix_len,
+                                enc_out=enc_out)
             caches.append(c)
-        return self._logits(x, delta), caches, int(tokens.shape[1])
+        return self._logits(x, delta), caches, int(x.shape[1])
 
     # =============================================================== decode
     @torch.no_grad()
@@ -343,8 +424,9 @@ class Transformer(nn.Module):
                     rolling: bool = False):
         """One-token step.  ``token`` (B, 1); writes each layer's cache in
         place: attention at slot ``cache_len`` (``cache_len mod W`` with
-        ``rolling``, the mod-W cache), Mamba2's conv tail and state.
-        Returns ``(logits, caches)``."""
+        ``rolling``, the mod-W cache), Mamba2's conv tail and state;
+        cross-attention reads its ``"cross"`` entry and leaves it as it
+        is.  Returns ``(logits, caches)``."""
         cfg = self.cfg
         cache_len = int(cache_len)
         x = self._embed_tokens(self._tokens(token), offset=cache_len)
@@ -356,11 +438,17 @@ class Transformer(nn.Module):
         return self._logits(x, delta), caches
 
     # ======================================================== cache structs
-    def make_decode_cache(self, batch: int, cache_width: int) -> list:
+    def make_decode_cache(self, batch: int, cache_width: int,
+                          enc_seq: int | None = None) -> list:
         """Zero caches, one per layer: ``{"k", "v"}`` of ``cache_width``
-        slots for attention, ``{"conv", "ssm"}`` for Mamba2."""
+        slots for attention, ``{"conv", "ssm"}`` for Mamba2, and beside
+        them, in a layer with cross-attention, ``"cross"``: ``{"k", "v"}``
+        of ``enc_seq`` (default ``cfg.encoder_seq``) encoder positions."""
+        se = enc_seq or self.cfg.encoder_seq
         return [zero_layer_cache(self.cfg, layer.mixer, batch, cache_width,
-                                 self.device) for layer in self.layers]
+                                 self.device,
+                                 se if layer.cross_attention else None)
+                for layer in self.layers]
 
     # ============================================================== params N
     def param_count(self) -> int:

@@ -4,7 +4,9 @@
 The model owns its weights (an ``nn.Module``), so the engine holds no
 ``params``; the loop, the EOS rules and the skipped last decode are the
 reference's; ``rolling`` decodes from the mod-W cache of ``cache_size``
-slots, which the prefill fills with the prompt's last positions.
+slots, which the prefill fills with the prompt's last positions.  A batch's
+extra inputs (``patch_embeds``, ``enc_embeds``) pass to the model's prefill
+with the tokens, which moves them all to its device.
 Temperature sampling draws from a ``torch.Generator`` seeded
 from ``seed``: it cannot give ``jax.random``'s tokens.
 """
@@ -35,8 +37,8 @@ class ServeEngine:
         eos_id: int | None = None,
         truncate_done: bool = False,
     ) -> np.ndarray:
-        """batch: {"tokens": (B, S)} -> (B, max_new_tokens) generated ids
-        (greedy if temperature == 0).
+        """batch: {"tokens": (B, S)[, "patch_embeds" / "enc_embeds"]} ->
+        (B, max_new_tokens) generated ids (greedy if temperature == 0).
 
         When every row has emitted ``eos_id`` the decode loop stops early,
         but the result is still padded to ``max_new_tokens`` with ``eos_id``

@@ -298,6 +298,18 @@ FLASH_CASES = [
     (1, 4, 1, 1, 64, 64, True, 8, 80),
     (1, 4, 2, 1, 200, 64, False, None, 0),
     (1, 32, 1, 1, 100, 64, True, None, 99),
+    # Dh 256 (paligemma-3b's MQA heads): the tensor-core prefill with Q
+    # reloaded from shared memory, ragged and bidirectional, the f32
+    # prefill's 16-key tiles; decode at group 8 against 580 slots, a
+    # window, bidirectional; whisper-small's cross-attention (Sq != Sk,
+    # bidirectional) at a cut length
+    (1, 8, 1, 130, 130, 256, True, None, 0),
+    (1, 4, 4, 70, 90, 256, False, None, 0),
+    (1, 2, 1, 200, 333, 256, True, 77, 150),
+    (2, 8, 1, 1, 580, 256, True, None, 512),
+    (1, 16, 1, 1, 200, 256, True, 33, 150),
+    (1, 2, 2, 1, 300, 256, False, None, 0),
+    (1, 12, 12, 96, 1500, 64, False, None, 0),
 ]
 
 
@@ -349,6 +361,8 @@ BF16_ONE_ULP_CASES = [
     (2, 3, 3, 130, 130, 32, True, 40, 0),
     (4, 14, 2, 1, 2116, 64, True, None, 2048),
     (1, 16, 2, 1, 1000, 128, True, 64, 700),
+    (2, 8, 1, 300, 300, 256, True, None, 0),
+    (4, 8, 1, 1, 580, 256, True, None, 512),
 ]
 
 
@@ -381,6 +395,84 @@ def test_flash_kernel_repeats_bitwise(cuda, case, design, dtype):
     torch.cuda.synchronize()
     assert fa.flash_launch_count(design) == before + 2
     assert torch.equal(first, second)
+
+
+# the prefix-LM mask (b, hq, hkv, sq, sk, dh, causal, window, q_offset,
+# prefix_len): a prefix edge inside a key tile, on a tile edge, past Sk;
+# with a window whose live range leaves a gap after the prefix (two runs of
+# tiles); at a q_offset; bidirectional (the prefix changes nothing); Sq = 1
+# (the prefill design, which alone takes a prefix); paligemma-3b's prefill
+# shape cut to batch 1 (MQA, Dh 256, prefix 256 of 512)
+FLASH_PREFIX_CASES = [
+    (1, 4, 2, 200, 200, 64, True, None, 0, 37),
+    (1, 2, 2, 96, 96, 128, True, 16, 0, 64),
+    (1, 2, 2, 40, 40, 32, True, None, 0, 64),
+    (1, 4, 1, 300, 300, 64, True, 64, 0, 100),
+    (2, 4, 2, 300, 300, 256, True, 50, 0, 70),
+    (1, 2, 1, 48, 170, 64, True, 40, 122, 30),
+    (1, 2, 2, 64, 64, 64, False, None, 0, 20),
+    (1, 4, 2, 1, 90, 64, True, None, 50, 70),
+    (1, 8, 1, 512, 512, 256, True, None, 0, 256),
+]
+
+
+def _prefix_live(case, device):
+    sq, sk = case[3], case[4]
+    causal, window, q_off, prefix = case[6:]
+    q_pos = torch.arange(sq, device=device)[:, None] + q_off
+    k_pos = torch.arange(sk, device=device)[None]
+    live = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        live &= k_pos <= q_pos
+    if window is not None:
+        live &= k_pos > q_pos - window
+    return live | (k_pos < prefix)
+
+
+@pytest.mark.parametrize("case", FLASH_PREFIX_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_prefix_matches_plain(cuda, case, dtype, tol):
+    """The prefix-LM mask in both prefill designs against the plain
+    version (whose mask is the reference's ``_mask_block``); bf16 also
+    within one bf16 rounding; two launches bitwise equal, each counted once
+    under the prefill design."""
+    causal, window, q_off, prefix = case[6:]
+    q, k, v = _flash_inputs(case, dtype, cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_off,
+              prefix_len=prefix)
+    before = fa.flash_launch_count("prefill")
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_launch_count("prefill") == before + 2
+    assert torch.equal(got, again)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                                   rtol=2.0 ** -7)
+    dead = ~_prefix_live(case, cuda).any(1)
+    assert not got[:, :, dead].float().abs().any()
+
+
+def test_flash_prefix_and_dh256_refuse_training(cuda):
+    """Under autograd a prefix or Dh 256 raises before any launch, naming
+    ROADMAP item 15.10 (the backward takes neither); serving takes both."""
+    for dh, prefix in ((256, 0), (64, 16)):
+        q = torch.randn(1, 2, 32, dh, device=cuda, requires_grad=True)
+        k = torch.randn(1, 2, 32, dh, device=cuda)
+        before = fa.flash_launch_count()
+        with pytest.raises(NotImplementedError, match=r"item 15\.10"):
+            fa.flash_attention(q, k, k, prefix_len=prefix)
+        assert fa.flash_launch_count() == before
+        with torch.no_grad():
+            assert fa.flash_attention(q, k, k, prefix_len=prefix).shape == \
+                q.shape
+    q = torch.randn(1, 2, 8, 256, device=cuda)
+    lse = torch.empty(1, 2, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match=r"item 15\.10"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q)
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):

@@ -7,8 +7,8 @@ across by ``params_from_jax``: prefill logits and KV caches, teacher-forced
 decode steps, decode from an empty cache and greedy ``generate`` tokens.
 The layer loop with the residual adds fused into the norms against the
 unfused order, bitwise.  Also the copied configs, the EOS rules of ``ServeEngine`` (mirrors of
-``tests/test_system.py``'s scripted-model tests), the unsupported families
-(whisper, paligemma) and the CLI.  Everything runs on the CPU, where the kernel wrappers take
+``tests/test_system.py``'s scripted-model tests), the families that serve
+but do not train (whisper, paligemma) and the CLI.  Everything runs on the CPU, where the kernel wrappers take
 their plain versions."""
 import dataclasses
 from functools import partial
@@ -237,14 +237,16 @@ def test_configs_equal_reference(arch):
     assert SWA_SERVE_WINDOW == 8192
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-small", "15.5"),
-                                       ("paligemma-3b", "15.6")])
+@pytest.mark.parametrize("arch,item", [("whisper-small", "15.10"),
+                                       ("paligemma-3b", "15.10")])
 def test_unsupported_families_raise(arch, item):
-    """The encoder-decoder and the multimodal prefix still raise, naming
-    their ROADMAP items (the MoE, Mamba2 and rolling families serve:
-    ``tests/test_torch_zoo.py``)."""
+    """The encoder-decoder and the multimodal prefix serve
+    (``tests/test_torch_encdec.py``), but training them raises, naming
+    their ROADMAP item."""
+    model = Transformer(get_config(arch).reduced(), device="cpu")
+    tokens = np.zeros((1, 8), np.int64)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        Transformer(get_config(arch).reduced(), device="cpu")
+        model.train_loss({"tokens": tokens, "labels": tokens})
 
 
 def test_rolling_cache_and_swa_raise():

@@ -510,8 +510,9 @@ def test_decode_specs_build_mamba_caches():
     assert spec["caches"][0]["k"].device.type == "meta"
     spec = input_specs(get_config("starcoder2-7b"), SHAPES["long_500k"])
     assert spec["rolling"] and spec["caches"][0]["k"].shape[2] == 4096
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.5"):
-        input_specs(get_config("whisper-small"), SHAPES["decode_32k"])
+    spec = input_specs(get_config("whisper-small"), SHAPES["decode_32k"])
+    assert spec["caches"][0]["cross"]["k"].shape == (128, 12, 1500, 64)
+    assert spec["caches"][0]["k"].shape == (128, 12, 32768, 64)
 
 
 def test_rolling_serve_step_runs():
