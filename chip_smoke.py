@@ -268,6 +268,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
               from one seed, the kernels against their plain versions
               (the shards' losses and the mean gradient), and one bf16
               phase-0 step broken down (torch.profiler)
+  7b. shard   the sharded steps (ROADMAP item 15.7,
+              ``launch/steps.py::build_step(cfg, shape, mesh)``): qwen2-0.5b
+              bf16 at full width and depth (train 8 x 512 with remat,
+              prefill 4 x 2,048, 16 greedy decode steps, a personalize
+              step of 2 replicas) and its f32 variant cut to 4 layers; an
+              NCCL world of 1 on a (1, 1) mesh bitwise the unsharded steps
+              (what differs is named); a world of 4 sharing the card on
+              (2, 2) over the ``staged`` backend (a gloo world of 2 shows
+              first what DTensor on gloo does with card tensors), each
+              rank's launches equal to the unsharded step's, its staged
+              bytes equal to ``step_collective_bytes``, the f32 loss,
+              logits and gradients within 1e-5 of the world of 1's, the
+              gradients' global norm (AdamW's clip) within 1e-6, the
+              weights after one step within 1e-5 of the largest weight
+              where the gradient is at least 1e-6 (the rest reported); step ms on
+              the slowest rank, peak memory per rank, the bf16 greedy
+              tokens' agreement reported
   8. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
               use, their row-range use, their single-partition use, whose
               launches include the mesh ranks', and their row-range
@@ -4452,6 +4469,434 @@ def llm_train_phase(torch, fa, rn, card):
     return flash, rms
 
 
+# --------------------------------------------------------------------------
+# phase 7b: the sharded LLM steps (ROADMAP item 15.7)
+# --------------------------------------------------------------------------
+
+SHARD_ARCH = "qwen2-0.5b"
+SHARD_TRAIN = (8, 512)        # global batch x sequence, remat on
+SHARD_PREFILL = (4, 2048)     # batch x prompt
+SHARD_DECODE = 16             # greedy decode steps
+SHARD_PARTS = 2               # personalize replicas
+SHARD_F32_LAYERS = 4          # the f32 variant: full width cut to 4 layers
+SHARD_MESH = (2, 2)           # the world of 4 sharing the card
+# the f32 variant, the world of 4 against the world of 1: loss, logits and
+# every gradient within 1e-5 of the tensor's largest entry; the gradients'
+# global norm, which AdamW's clip divides by, within 1e-6 relative (the
+# clip's scale cancels from AdamW's first update wherever |g| >> eps, so the
+# norm is held on its own); the weights after AdamW's first step within
+# 1e-5 of the model's largest weight where the world of 1's gradient is at
+# least 1e-6 (100 x AdamW's eps): below it the update -lr g / (|g| + eps)
+# turns on the gradient's rounding, up to 2 lr = 2e-3 (such entries are
+# counted and their largest difference printed)
+SHARD_REL = 1e-5
+SHARD_NORM_REL = 1e-6
+SHARD_GRAD_FLOOR = 1e-6
+
+
+def shard_cfg(f32: bool):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(SHARD_ARCH)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  num_repeats=SHARD_F32_LAYERS)
+    return cfg
+
+
+def shard_inputs(cfg):
+    """The train batch (next-token labels, the last masked) and the prompt,
+    from seed 0."""
+    rng = np.random.default_rng(0)
+    b, s = SHARD_TRAIN
+    tokens = rng.integers(0, cfg.vocab_size, (b, s))
+    labels = np.concatenate([tokens[:, 1:], np.full((b, 1), -1)], axis=1)
+    pb, ps = SHARD_PREFILL
+    return ({"tokens": tokens, "labels": labels},
+            rng.integers(0, cfg.vocab_size, (pb, ps)))
+
+
+def shard_counts():
+    """The flash and RMSNorm kernels' launches since the last call, then
+    zeroed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    out = {d: fa.flash_launch_count(d)
+           for d in ("prefill", "decode", "train", "backward")}
+    out.update(rmsnorm=rn.rmsnorm_launch_count()
+               - rn.add_rmsnorm_launch_count(),
+               add_rmsnorm=rn.add_rmsnorm_launch_count(),
+               rmsnorm_bwd=rn.rmsnorm_bwd_launch_count()
+               - rn.add_rmsnorm_bwd_launch_count(),
+               add_rmsnorm_bwd=rn.add_rmsnorm_bwd_launch_count())
+    fa.reset_flash_launch_count()
+    rn.reset_rmsnorm_launch_count()
+    return out
+
+
+def shard_sync(torch):
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    if dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def shard_steps(torch, cfg, mesh, *, steps=1, personalize=True,
+                grads=False):
+    """qwen2-0.5b's prefill and greedy decode, (with ``grads``) the
+    gradients of the train loss, then the train step(s) and (optionally) a
+    personalize step, on ``mesh`` (None: the unsharded steps), from the
+    weights of seed 0; each step between synchronised host clocks (CUDA
+    synchronised, then a barrier of the world) with its kernels' launches
+    and its staged bytes.  Returns the results and the model (for
+    comparisons in the rank)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import staged_backend as sb
+    from repro_torch.launch.steps import _sync, build_step
+    from repro_torch.models import Transformer
+    from repro_torch.train.optim import AdamW
+
+    every = {}          # every launch of the run, timed or not
+
+    def count():
+        n = shard_counts()
+        for k, v in n.items():
+            every[k] = every.get(k, 0) + v
+        return n
+
+    def clock(fn):
+        shard_sync(torch)
+        count()
+        sb.reset_staged_bytes()
+        t0 = time.perf_counter()
+        r = fn()
+        shard_sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+        return r, ms, count(), sb.staged_bytes()
+
+    shard_counts()
+
+    batch, prompt = shard_inputs(cfg)
+    b, s = SHARD_TRAIN
+    pb, ps = SHARD_PREFILL
+    opt = AdamW(lr=1e-3, weight_decay=0.01, grad_clip=1.0)
+    out = {"ms": {}, "launches": {}, "bytes": {}}
+    built = build_step(cfg, InputShape("shard_train", s, b, "train"), mesh,
+                       optimizer=opt)
+    model = built.shard_model(Transformer(cfg, seed=0, device="cuda"))
+    full = lambda t: (t.full_tensor() if mesh is not None else t).float()
+    # serving: the prefill step (once untimed, to warm the card and the
+    # host's caches), then a prefill into a cache with room for the greedy
+    # decode steps
+    pre = build_step(cfg, InputShape("shard_prefill", ps, pb, "prefill"),
+                     mesh)
+    pre.step(model, {"tokens": prompt})
+    (logits, caches, n_ctx), ms, n, nb = clock(
+        lambda: pre.step(model, {"tokens": prompt}))
+    out["ms"]["prefill"], out["launches"]["prefill"] = ms, n
+    out["bytes"]["prefill"] = nb
+    out["prefill"] = full(logits).cpu()
+    width = ps + SHARD_DECODE
+    dec = build_step(cfg, InputShape("shard_decode", width, pb, "decode"),
+                     mesh)
+    logits, caches, n_ctx = model.prefill({"tokens": prompt},
+                                          cache_size=width)
+    tok = full(logits).argmax(-1, keepdim=True).cpu().numpy()
+    steps_ms, dlog, toks = [], [], [tok[:, 0]]
+    for t in range(SHARD_DECODE):
+        (logits, caches), ms, n, nb = clock(
+            lambda: dec.step(model, tok, caches, n_ctx + t))
+        steps_ms.append(ms)
+        if t == 0:
+            out["launches"]["decode"], out["bytes"]["decode"] = n, nb
+        dlog.append(full(logits).cpu())
+        tok = dlog[-1].argmax(-1, keepdim=True).numpy()
+        toks.append(tok[:, 0])
+    out["ms"]["decode_p50"] = float(np.median(steps_ms))
+    out["decode"], out["tokens"] = torch.stack(dlog), np.stack(toks, 1)
+    out["caches"] = caches
+    del logits
+    weights = list(model.parameters())
+    if grads:
+        g = torch.autograd.grad(model.train_loss(batch), weights)
+        out["grads"] = _sync(g, weights) if mesh is not None else g
+    state = opt.init(weights)
+    for i in range(steps):
+        (model, state, loss), ms, n, nb = clock(
+            lambda: built.step(model, state, batch))
+        out["ms"][f"train{i}"], out["launches"]["train"] = ms, n
+        out["bytes"]["train"] = nb
+    out["loss"] = float(loss.full_tensor() if mesh is not None else loss)
+    if personalize:
+        pbuilt = build_step(cfg, InputShape("shard_train", s, b, "train"),
+                            mesh, phase="personalize",
+                            num_partitions=SHARD_PARTS, optimizer=opt)
+        reps = pbuilt.shard_replicas([Transformer(cfg, seed=0, device="cuda")
+                                      for _ in range(SHARD_PARTS)])
+        states = [opt.init(r.parameters()) for r in reps]
+        batch_p = {k: v.reshape(SHARD_PARTS, b // SHARD_PARTS, s)
+                   for k, v in batch.items()}
+        active = np.ones(SHARD_PARTS, bool)
+        (reps, states, losses), ms, n, nb = clock(
+            lambda: pbuilt.step(reps, states, batch_p, model, active))
+        # a rank steps the replicas its data coordinate owns: count a
+        # replica's launches
+        assert all(v % len(reps) == 0 for v in n.values()), n
+        out["ms"]["personalize"] = ms
+        out["launches"]["personalize"] = {k: v // len(reps)
+                                          for k, v in n.items()}
+        out["personalize"] = full(losses).cpu()
+        out["replicas"] = reps
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    count()
+    out["every"] = every
+    return out, model
+
+
+def shard_differs(torch, a, b, ma, mb) -> list:
+    """What of the sharded run ``a`` (model ``ma``) is not bitwise the
+    unsharded run ``b`` (model ``mb``), by name."""
+    bad = []
+    if a["loss"] != b["loss"]:
+        bad.append("train loss")
+    for (n, p), q in zip(ma.named_parameters(), mb.parameters()):
+        if not torch.equal(p.to_local(), q):
+            bad.append(f"train step weight {n}")
+    for key in ("prefill", "decode", "personalize"):
+        if key in a and not torch.equal(a[key], b[key]):
+            bad.append(f"{key} output")
+    if not np.array_equal(a["tokens"], b["tokens"]):
+        bad.append("greedy tokens")
+    for i, (ca, cb) in enumerate(zip(a["caches"], b["caches"])):
+        for k in ("k", "v"):
+            if not torch.equal(ca[k].to_local(), cb[k]):
+                bad.append(f"decode cache layer {i} {k}")
+    for j, (ra, rb) in enumerate(zip(a.get("replicas", ()),
+                                     b.get("replicas", ()))):
+        for (n, p), q in zip(ra.named_parameters(), rb.parameters()):
+            if not torch.equal(p.to_local(), q):
+                bad.append(f"personalize replica {j} weight {n}")
+    return bad
+
+
+def shard_rank(rank, mesh_shape, ref_path):
+    """One rank of a world on a ``("data", "model")`` mesh of
+    ``mesh_shape``: qwen2-0.5b bf16 at full depth, then the f32 4-layer
+    variant.  The world of 1 also runs the unsharded steps and names what
+    is not bitwise; it saves its f32 results to ``ref_path``, which the
+    world of 4 holds its own shards against."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.sharded import local_shard
+    from repro_torch.train.optim import global_norm
+
+    mesh = make_mesh_compat(mesh_shape, ("data", "model"))
+    one = mesh.size() == 1
+    out = {}
+    cfg = shard_cfg(False)
+    sh, model = shard_steps(torch, cfg, mesh, steps=2)
+    if one:
+        pl, plain = shard_steps(torch, cfg, None, steps=2)
+        out["differs"] = shard_differs(torch, sh, pl, model, plain)
+        out["plain_launches"], out["plain_ms"] = pl["launches"], pl["ms"]
+        del plain, pl
+    keep = ("loss", "ms", "launches", "bytes", "prefill", "decode", "tokens",
+            "personalize", "peak_gib", "every")
+    out["bf16"] = {k: sh[k] for k in keep}
+    del sh, model
+    torch.cuda.empty_cache()
+    cfg = shard_cfg(True)
+    f32, model = shard_steps(torch, cfg, mesh, personalize=False, grads=True)
+    names = [n for n, _ in model.named_parameters()]
+    local = lambda t: t.detach().to_local().cpu()
+    norm = float(global_norm(f32["grads"]))
+    if one:
+        torch.save({"loss": f32["loss"], "prefill": f32["prefill"],
+                    "grad_norm": norm,
+                    "decode": f32["decode"], "tokens": f32["tokens"],
+                    "grads": {n: local(g) for n, g in zip(names,
+                                                          f32["grads"])},
+                    "weights": {n: local(p)
+                                for n, p in model.named_parameters()}},
+                   ref_path)
+        out["f32"] = {k: f32[k] for k in ("loss", "launches", "every")}
+        out["f32"]["grad_norm"] = norm
+        return out
+    ref = torch.load(ref_path, weights_only=False)
+    rel = lambda a, b: float((a - b).abs().max()) / (
+        float(b.abs().max()) or 1.0)
+    w_max = max(float(w.abs().max()) for w in ref["weights"].values())
+    grad_rel, w_held, w_rest, n_rest = 0.0, 0.0, 0.0, 0
+    for (n, p), g in zip(model.named_parameters(), f32["grads"]):
+        want = ref["grads"][n]
+        g1 = local_shard(want, mesh, g.placements)
+        err = float((local(g) - g1).abs().max())
+        grad_rel = max(grad_rel, err / (float(want.abs().max()) or 1.0))
+        # the weights after one step, apart where the world of 1's gradient
+        # is below SHARD_GRAD_FLOOR: there AdamW's first update g / (|g| +
+        # eps) turns on the gradient's rounding
+        dw = (local(p) - local_shard(ref["weights"][n], mesh,
+                                     p.placements)).abs()
+        small = g1.abs() < SHARD_GRAD_FLOOR
+        if (~small).any():
+            w_held = max(w_held, float(dw[~small].max()))
+        if small.any():
+            w_rest = max(w_rest, float(dw[small].max()))
+            n_rest += int(small.sum())
+    out["f32"] = {
+        "loss": abs(f32["loss"] - ref["loss"]) / abs(ref["loss"]),
+        "prefill": rel(f32["prefill"], ref["prefill"]),
+        "decode": rel(f32["decode"], ref["decode"]),
+        "grads": grad_rel,
+        "grad_norm": abs(norm - ref["grad_norm"]) / ref["grad_norm"],
+        "tokens": bool(np.array_equal(f32["tokens"], ref["tokens"])),
+        "weights": w_held / w_max, "weights_small_grad": w_rest,
+        "small_grad_entries": n_rest,
+        "launches": f32["launches"], "every": f32["every"]}
+    return out
+
+
+def shard_probe_rank(rank):
+    """DTensor over a gloo world on card tensors (the question of
+    ``scripts/collective_probe.py``): a Shard to Replicate round trip."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("model",))
+    full = torch.arange(8.0, device="cuda").view(4, 2)
+    d = DTensor.from_local(full.chunk(2)[rank], mesh, [Shard(0)])
+    return bool(torch.equal(d.full_tensor(), full))
+
+
+def shard_checks(torch, card):
+    """Phase 7b: qwen2-0.5b's train, prefill, greedy decode and personalize
+    steps on a mesh (``launch/steps.py::build_step(cfg, shape, mesh)``), bf16
+    at full width and depth and an f32 variant cut to 4 layers: an NCCL
+    world of 1 on a ``(1, 1)`` mesh bitwise the unsharded steps (what is
+    not is named, and the phase fails); a world of 4 sharing the card on
+    ``(2, 2)`` (the ``staged`` backend: gloo carries DTensor's collectives
+    on card tensors only to a SIGSEGV, which a gloo world of 2 shows here
+    first) with each rank's flash and RMSNorm launches equal to the
+    unsharded step's and its staged bytes equal to
+    ``step_collective_bytes``; its f32 loss, logits and weights after one
+    step held against the world of 1's.  Prints step ms (slowest rank,
+    synchronised host clock), bytes, peak memory per rank, and for bf16
+    the share of equal greedy tokens and the largest logit difference.
+    Returns the ranks' launches (the sharded runs') by kernel."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_partition_world
+    from repro_torch.launch.steps import _make_policy
+    from repro_torch.models.sharded import step_collective_bytes
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    try:
+        probe = spawn_partition_world(shard_probe_rank, 2, backend="gloo",
+                                      device="cuda", timeout_s=60,
+                                      join_timeout_s=120)
+        probe = f"ok, results {probe}"
+    except Exception as e:  # noqa: BLE001 - the probe's answer is printed
+        probe = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    log(f"shard probe ({card}): a gloo world of 2 on this card, DTensor "
+        f"Shard to Replicate on card tensors: {probe} "
+        f"({time.perf_counter() - t0:.1f} s); the world of 4 runs the "
+        "staged backend")
+    tmp = tempfile.mkdtemp(prefix="shard_")
+    try:
+        ref = os.path.join(tmp, "world1_f32.pt")
+        t0 = time.perf_counter()
+        one = spawn_partition_world(shard_rank, 1, ((1, 1), ref),
+                                    backend="nccl", device="cuda",
+                                    timeout_s=300, join_timeout_s=900)[0]
+        t1 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        four = spawn_partition_world(shard_rank, 4, (SHARD_MESH, ref),
+                                     backend="staged", device="cuda",
+                                     timeout_s=600, join_timeout_s=900)
+        t4 = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not one["differs"], (
+        f"the world of 1 is not bitwise the unsharded steps: "
+        f"{one['differs'][:8]}")
+    log(f"shard world of 1 (nccl, (1, 1), {card}): train, prefill, "
+        f"{SHARD_DECODE} decode steps, personalize bitwise the unsharded "
+        f"steps (loss {one['bf16']['loss']:.6f}); ms {json.dumps(one['bf16']['ms'])} "
+        f"(unsharded {json.dumps(one['plain_ms'])}); peak "
+        f"{one['bf16']['peak_gib']:.2f} GiB; {t1:.1f} s")
+    want = one["plain_launches"]
+    cfg16, cfg32 = shard_cfg(False), shard_cfg(True)
+    b, s = SHARD_TRAIN
+    pb, ps = SHARD_PREFILL
+
+    class _Mesh:
+        shape = dict(zip(("data", "model"), SHARD_MESH))
+        mesh_dim_names = ("data", "model")
+    pol = _make_policy(_Mesh())
+    closed = {"train": step_collective_bytes(cfg16, "train", b, s, pol),
+              "prefill": step_collective_bytes(cfg16, "prefill", pb, ps, pol),
+              "decode": step_collective_bytes(cfg16, "decode", pb, 1, pol,
+                                              cache_width=ps + SHARD_DECODE)}
+    closed = {k: sum(v.values()) for k, v in closed.items()}
+    for r, o in enumerate(four):
+        got = o["bf16"]
+        for kind, n in want.items():
+            assert got["launches"][kind] == n, (
+                f"rank {r}'s {kind} launches {got['launches'][kind]} are not "
+                f"the unsharded step's {n}")
+        for kind, n in closed.items():
+            assert got["bytes"][kind] == n, (
+                f"rank {r}'s {kind} step moved {got['bytes'][kind]} B, the "
+                f"closed form says {n}")
+        f = o["f32"]
+        assert max(f["loss"], f["prefill"], f["decode"],
+                   f["grads"]) <= SHARD_REL and f["tokens"], (r, f)
+        assert f["grad_norm"] <= SHARD_NORM_REL, (r, f)
+        assert f["weights"] <= SHARD_REL, (r, f)
+        assert got["loss"] == four[0]["bf16"]["loss"], r
+    slow = {k: max(o["bf16"]["ms"][k] for o in four)
+            for k in four[0]["bf16"]["ms"]}
+    g0 = four[0]["bf16"]
+    same = float((g0["tokens"] == one["bf16"]["tokens"]).mean())
+    ldiff = float((g0["decode"] - one["bf16"]["decode"]).abs().max())
+    pdiff = float((g0["prefill"] - one["bf16"]["prefill"]).abs().max())
+    log(f"shard world of 4 (staged, {SHARD_MESH}, {card}): launches per rank "
+        f"equal the unsharded step's {json.dumps(want)}; staged bytes a step "
+        f"equal the closed form {json.dumps(closed)}; ms on the slowest rank "
+        f"(synchronised host clock) {json.dumps(slow)}; peak GiB per rank "
+        f"{[round(o['bf16']['peak_gib'], 2) for o in four]}; loss "
+        f"{g0['loss']:.6f} vs {one['bf16']['loss']:.6f}; {t4:.1f} s")
+    log(f"shard bf16 full depth, world of 4 vs world of 1 ({card}): equal "
+        f"greedy tokens {same:.4f} of {g0['tokens'].size}, largest logit "
+        f"difference {ldiff:.4g} over {SHARD_DECODE} decode steps, "
+        f"{pdiff:.4g} on the prefill's")
+    log(f"shard f32 {SHARD_F32_LAYERS} layers, world of 4 vs world of 1 "
+        f"({card}): " + json.dumps([{k: v for k, v in o["f32"].items()
+                                     if k not in ("launches", "every")}
+                                    for o in four])
+        + f" (limits {SHARD_REL} relative, the gradients' global norm "
+        f"{SHARD_NORM_REL}, {one['f32']['grad_norm']:.6g} in the world of 1; "
+        f"weights {SHARD_REL} of the largest where the gradient is at least "
+        f"{SHARD_GRAD_FLOOR}, reported below)")
+    log(f"shard_checks: {time.perf_counter() - t_all:.1f} s")
+    # every launch of the sharded runs: the world of 1's and every rank's of
+    # 4 (the world of 1's unsharded runs apart)
+    total = {}
+    for o in [one] + four:
+        for part in ("bf16", "f32"):
+            for k, v in o[part]["every"].items():
+                total[k] = total.get(k, 0) + v
+    assert all(total[k] > 0 for k in ("prefill", "decode", "train",
+                                      "backward", "rmsnorm", "add_rmsnorm",
+                                      "rmsnorm_bwd", "add_rmsnorm_bwd")), total
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4841,6 +5286,9 @@ def main() -> int:
     # ---- 7. main path: transformer training, qwen2-0.5b at full width ------
     train_flash, train_rms = llm_train_phase(torch, fa, rn, card)
 
+    # ---- 7b. main path: the sharded steps on a mesh (ROADMAP 15.7) --------
+    shard_launches = shard_checks(torch, card)
+
     # ---- 8. report ---------------------------------------------------------
     main_row, bwd_row = main_rows[128], bwd_rows[128]
     log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
@@ -4851,7 +5299,7 @@ def main() -> int:
         f"overlapped forward) fwd {mesh_rows_fwd} bwd {mesh_rows_bwd}; llm "
         f"serving flash {llm_flash} rmsnorm {llm_rms}; the zoo's serving "
         f"{zoo_launches}; llm training flash {train_flash} rmsnorm "
-        f"{train_rms}")
+        f"{train_rms}; the sharded steps {shard_launches}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -4907,12 +5355,14 @@ def main() -> int:
     for name, source, tpu, row, n, errs in (
             ("flash_attention", "flash_attention.cu", FLASH_TPU,
              flash_rows["qwen2-0.5b prefill", "bfloat16"],
-             llm_flash["prefill"] + zoo_launches["prefill"],
+             llm_flash["prefill"] + zoo_launches["prefill"]
+             + shard_launches["prefill"],
              [r["max_abs_err"] for (c, _), r in flash_rows.items()
               if c == "qwen2-0.5b prefill"]),
             ("flash_attention_decode", "flash_attention.cu", FLASH_TPU,
              flash_rows["qwen2-0.5b decode", "bfloat16"],
-             llm_flash["decode"] + zoo_launches["decode"],
+             llm_flash["decode"] + zoo_launches["decode"]
+             + shard_launches["decode"],
              [r["max_abs_err"] for (c, _), r in flash_rows.items()
               if c == "qwen2-0.5b decode"]),
             ("flash_attention_dh256_prefix", "flash_attention.cu", FLASH_TPU,
@@ -4927,10 +5377,12 @@ def main() -> int:
               if c == "paligemma-3b decode"]),
             ("rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
              rms_rows[False, (4, 2048, 896), "bfloat16"],
-             llm_rms["rmsnorm"] + zoo_launches["rmsnorm"], rms_errs[False]),
+             llm_rms["rmsnorm"] + zoo_launches["rmsnorm"]
+             + shard_launches["rmsnorm"], rms_errs[False]),
             ("add_rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
              rms_rows[True, (4, 2048, 896), "bfloat16"],
-             llm_rms["add_rmsnorm"] + zoo_launches["add_rmsnorm"],
+             llm_rms["add_rmsnorm"] + zoo_launches["add_rmsnorm"]
+             + shard_launches["add_rmsnorm"],
              rms_errs[True])):
         kernels.append({
             "name": name, "route": "cuda",
@@ -4945,19 +5397,21 @@ def main() -> int:
     train_main = ("qwen2-0.5b train", "bfloat16")
     for name, source, tpu, row, n, errs in (
             ("flash_attention_train", "flash_attention.cu", FLASH_TPU,
-             flash_train_rows[train_main][0], train_flash["train"],
+             flash_train_rows[train_main][0],
+             train_flash["train"] + shard_launches["train"],
              [r[0]["max_abs_err"] for r in flash_train_rows.values()]),
             ("flash_attention_bwd", "flash_attention_bwd.cu", FLASH_TPU,
-             flash_train_rows[train_main][1], train_flash["backward"],
+             flash_train_rows[train_main][1],
+             train_flash["backward"] + shard_launches["backward"],
              [r[1]["max_abs_err"] for r in flash_train_rows.values()]),
             ("rmsnorm_bwd", "rmsnorm.cu", RMSNORM_TPU,
              rms_bwd_rows[False, RMS_TRAIN_MAIN, "bfloat16"],
-             train_rms["rmsnorm_bwd"],
+             train_rms["rmsnorm_bwd"] + shard_launches["rmsnorm_bwd"],
              [r["max_abs_err"] for (f, _, _), r in rms_bwd_rows.items()
               if not f]),
             ("add_rmsnorm_bwd", "rmsnorm.cu", RMSNORM_TPU,
              rms_bwd_rows[True, RMS_TRAIN_MAIN, "bfloat16"],
-             train_rms["add_rmsnorm_bwd"],
+             train_rms["add_rmsnorm_bwd"] + shard_launches["add_rmsnorm_bwd"],
              [r["max_abs_err"] for (f, _, _), r in rms_bwd_rows.items()
               if f])):
         kernels.append({

@@ -16,12 +16,18 @@ the group through pinned host buffers, ``engine/compat.py``), which is how
 a world of P ranks runs on a host with one card.  NCCL refuses two ranks
 on one card.
 
-The reference's 2-D and 3-D LLM meshes (``make_mesh_compat``,
-``make_production_mesh``, ``data_axes_of``, ``model_axis_of``) serve the
-transformer training path and wait for ROADMAP item 15.7.
+The LLM meshes (the reference's ``make_mesh_compat``,
+``make_production_mesh``, ``data_axes_of``, ``model_axis_of``): a named
+``DeviceMesh`` over the initialized world, ``("data", "model")`` or
+``("pod", "data", "model")``, on which the sharded LLM steps
+(``launch/steps.py`` with a mesh) place DTensors.  A world of several ranks
+on one card runs the ``staged`` backend (``launch/staged_backend.py``):
+DTensor's collectives over gloo on card tensors end the rank in SIGSEGV on
+the card's torch (``scripts/collective_probe.py``).
 """
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import tempfile
@@ -33,7 +39,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["PartitionMesh", "make_partition_mesh", "partition_world_size",
-           "spawn_partition_world", "default_backend"]
+           "spawn_partition_world", "default_backend", "make_mesh_compat",
+           "make_production_mesh", "data_axes_of", "model_axis_of"]
 
 # seconds a collective may wait for its peers before the group fails it
 GROUP_TIMEOUT_S = 120.0
@@ -102,6 +109,52 @@ def make_partition_mesh(num_parts: int, axis_name: str = "parts",
                          backend=backend, axis_name=axis_name)
 
 
+def make_mesh_compat(shape: tuple[int, ...], axes: tuple[str, ...],
+                     device=None):
+    """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the
+    initialized default group, rank ``i`` at the row-major position ``i``
+    (``init_device_mesh``).  ``device`` (the mesh's device type) defaults to
+    ``"cuda"`` under ``nccl`` and ``staged`` when a card is visible, and to
+    ``"cpu"`` otherwise.  Raises ``ValueError`` outside a group and when the
+    world is not ``prod(shape)`` ranks (the reference's ``jax.make_mesh``
+    raises when it has too few devices)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    need = math.prod(shape)
+    world = partition_world_size()
+    if world is None:
+        raise ValueError(f"a mesh of {tuple(shape)} needs a world of {need} "
+                         "ranks, and no process group is initialized")
+    if world != need:
+        raise ValueError(f"a mesh of {tuple(shape)} needs a world of {need} "
+                         f"ranks, have {world}")
+    if len(axes) != len(shape):
+        raise ValueError(f"{len(shape)} mesh dims need as many names, got "
+                         f"{tuple(axes)}")
+    if device is None:
+        on_card = (str(dist.get_backend()) in ("nccl", "staged")
+                   and torch.cuda.is_available())
+        device = "cuda" if on_card else "cpu"
+    return init_device_mesh(torch.device(device).type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: (16, 16) = 256 ranks, axes (data, model).
+    Multi-pod:  (2, 16, 16) = 512 ranks, axes (pod, data, model)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_compat(shape, axes)
+
+
+def data_axes_of(mesh) -> tuple[str, ...]:
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+
+
+def model_axis_of(mesh) -> str | None:
+    return "model" if "model" in mesh.mesh_dim_names else None
+
+
 def _rank_main(rank, fn, args, world, backend, device, store_path,
                out_dir, timeout_s, reraise=()):
     """One spawned rank: join the group, run ``fn(rank, *args)``, save its
@@ -111,6 +164,8 @@ def _rank_main(rank, fn, args, world, backend, device, store_path,
     if dev.type == "cuda":
         # nccl: a card per rank; gloo: every rank on the named card
         torch.cuda.set_device(rank if backend == "nccl" else (dev.index or 0))
+    if backend == "staged":
+        from . import staged_backend  # noqa: F401  (registers the backend)
     store = dist.FileStore(store_path, world)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world,

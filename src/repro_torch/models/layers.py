@@ -38,8 +38,8 @@ from .config import ModelConfig
 
 __all__ = ["norm_init", "norm_apply", "add_norm_apply", "apply_rope",
            "sinusoidal_positions", "attention_init", "attention_apply",
-           "cross_attention_prefill", "attention_prefill",
-           "attention_decode", "rolling_slot_positions",
+           "cross_attention_prefill", "attention_prefill", "prefill_cache",
+           "attention_decode", "decode_slot", "rolling_slot_positions",
            "mlp_init", "mlp_apply", "moe_init", "moe_capacity", "moe_route",
            "moe_apply", "mamba2_init", "mamba2_apply", "mamba2_decode"]
 
@@ -256,18 +256,41 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     out = _attend(q, k, v, window=window, q_offset=0, prefix_len=prefix_len,
                   kernels=kernels)
     out = out.transpose(1, 2).reshape(b, s, -1)
+    return out @ p["wo"], prefill_cache(k, v, cache_size)
+
+
+def prefill_cache(k: torch.Tensor, v: torch.Tensor,
+                  cache_size: int | None) -> Params:
+    """The prompt's keys and values ``(B, Hkv, S, Dh)`` as a decode cache
+    of ``cache_size`` slots (default S): the prompt in the first slots and
+    zeros after them, or, narrower than the prompt, the mod-W rolling cache
+    (slot j holds position :func:`rolling_slot_positions` ``(S, W)[j]``)."""
+    s = k.shape[2]
     if cache_size is not None and cache_size < s:
         src = torch.as_tensor(rolling_slot_positions(s, cache_size),
-                              device=x.device)
-        return out @ p["wo"], {"k": k[:, :, src].contiguous(),
-                               "v": v[:, :, src].contiguous()}
-    size = cache_size or s
-    shape = (b, cfg.num_kv_heads, size, cfg.resolved_head_dim)
-    k_c = torch.zeros(shape, dtype=k.dtype, device=x.device)
-    v_c = torch.zeros(shape, dtype=v.dtype, device=x.device)
+                              device=k.device)
+        return {"k": k[:, :, src].contiguous(), "v": v[:, :, src].contiguous()}
+    shape = (*k.shape[:2], cache_size or s, k.shape[3])
+    k_c = torch.zeros(shape, dtype=k.dtype, device=k.device)
+    v_c = torch.zeros(shape, dtype=v.dtype, device=v.device)
     k_c[:, :, :s] = k
     v_c[:, :, :s] = v
-    return out @ p["wo"], {"k": k_c, "v": v_c}
+    return {"k": k_c, "v": v_c}
+
+
+def decode_slot(cache_len: int, width: int, window: int | None,
+                rolling: bool) -> tuple[int, int, int | None]:
+    """Where a decode step at ``cache_len`` writes its key in a cache of
+    ``width`` slots, and the query's ``(q_offset, window)`` for the kernel:
+    ``(slot, q_offset, window)`` (see :func:`attention_decode`)."""
+    if rolling:
+        if cache_len < 0:
+            raise ValueError(f"cache_len {cache_len} is negative")
+        return cache_len % width, min(cache_len, width - 1), None
+    if not 0 <= cache_len < width:
+        raise ValueError(f"cache_len {cache_len} outside the cache's "
+                         f"{width} slots")
+    return cache_len, cache_len, window
 
 
 def attention_decode(p: Params, x: torch.Tensor, cache: Params | None,
@@ -308,17 +331,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params | None,
         out = _attend(q, enc_cache["k"], enc_cache["v"], causal=False,
                       window=None, q_offset=0, kernels=kernels)
         return _merge_heads(out.to(x.dtype), p), cache
-    width = cache["k"].shape[2]
-    if rolling:
-        if cache_len < 0:
-            raise ValueError(f"cache_len {cache_len} is negative")
-        slot, q_offset, window = cache_len % width, min(cache_len,
-                                                        width - 1), None
-    else:
-        if not 0 <= cache_len < width:
-            raise ValueError(f"cache_len {cache_len} outside the cache's "
-                             f"{width} slots")
-        slot = q_offset = cache_len
+    slot, q_offset, window = decode_slot(cache_len, cache["k"].shape[2],
+                                         window, rolling)
     q, k_new, v_new = _project_qkv(p, x, cfg)
     if cfg.rope_theta is not None:
         pos = torch.full((1,), cache_len, device=x.device)

@@ -43,8 +43,10 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from . import layers as L
 from .config import ModelConfig, SubLayer
+from .sharding import NO_SHARDING
 
-__all__ = ["Transformer", "chunked_ce_loss"]
+__all__ = ["Transformer", "chunked_ce_loss", "chunked_ce_sum",
+           "check_shardable"]
 
 
 def _chunks(t: int, chunk: int):
@@ -67,7 +69,7 @@ class _ChunkedCE(torch.autograd.Function):
     their softmax, never (T, V)."""
 
     @staticmethod
-    def forward(ctx, h, w_head, labels, chunk):
+    def forward(ctx, h, w_head, labels, chunk, mean=True):
         t = h.shape[0]
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -77,8 +79,8 @@ class _ChunkedCE(torch.autograd.Function):
             tot, cnt = tot + part, cnt + wgt.sum()
         denom = torch.clamp_min(cnt, 1.0)
         ctx.save_for_backward(h, w_head, labels, denom)
-        ctx.chunk = chunk
-        return tot / denom
+        ctx.chunk, ctx.mean = chunk, mean
+        return tot / denom if mean else tot
 
     @staticmethod
     def backward(ctx, g):
@@ -87,7 +89,7 @@ class _ChunkedCE(torch.autograd.Function):
         dw = (torch.zeros(w_head.shape, dtype=torch.float32,
                           device=w_head.device)
               if ctx.needs_input_grad[1] else None)
-        scale = g / denom
+        scale = g / denom if ctx.mean else g
         for lo, hi in _chunks(h.shape[0], ctx.chunk):
             hx, lx = h[lo:hi], labels[lo:hi]
             w32 = w_head.float()
@@ -101,7 +103,8 @@ class _ChunkedCE(torch.autograd.Function):
                 dh[lo:hi] = (dlog @ w32.T).to(h.dtype)
             if dw is not None:
                 dw += hx.float().T @ dlog
-        return (dh, None if dw is None else dw.to(w_head.dtype), None, None)
+        return (dh, None if dw is None else dw.to(w_head.dtype), None, None,
+                None)
 
 
 def chunked_ce_loss(h: torch.Tensor, w_head: torch.Tensor,
@@ -115,6 +118,39 @@ def chunked_ce_loss(h: torch.Tensor, w_head: torch.Tensor,
     scan transposes each chunk's into its dtype)."""
     labels = labels.to(device=h.device, dtype=torch.long)
     return _ChunkedCE.apply(h, w_head, labels, max(1, min(chunk, h.shape[0])))
+
+
+def chunked_ce_sum(h: torch.Tensor, w_head: torch.Tensor,
+                   labels: torch.Tensor, chunk: int = 4096):
+    """:func:`chunked_ce_loss` before its mean: ``(sum, count)``, the
+    summed nll of the unmasked tokens (differentiable) and their count
+    (float32).  Rows of one shard give its part of both, so a mean over
+    shards holding different counts divides the summed sums by the summed
+    counts."""
+    labels = labels.to(device=h.device, dtype=torch.long)
+    tot = _ChunkedCE.apply(h, w_head, labels,
+                           max(1, min(chunk, h.shape[0])), False)
+    return tot, (labels >= 0).to(torch.float32).sum()
+
+
+def check_shardable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the sharded steps do not
+    run yet: a mesh runs the dense decoders (attention + MLP)."""
+    todo = sorted({f"the {sl.mixer} mixer" for sl in cfg.super_block
+                   if sl.mixer != "attention"}
+                  | {f"the {sl.ffn} ffn" for sl in cfg.super_block
+                     if sl.ffn != "mlp"})
+    todo += [what for what, has in (
+        ("cross-attention", any(sl.cross_attention for sl in cfg.super_block)),
+        ("the encoder", cfg.is_encoder_decoder),
+        ("the multimodal prefix", bool(cfg.prefix_tokens)),
+        ("sinusoidal positions", cfg.rope_theta is None)) if has]
+    if todo:
+        raise NotImplementedError(
+            f"{cfg.name}: running {' and '.join(todo)} on a mesh is not "
+            "ported yet (ROADMAP item 15.7b, the sharded MoE, Mamba2, "
+            "encoder-decoder and prefix-LM families); the port runs them on "
+            "one card")
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
@@ -178,34 +214,37 @@ class _Layer(nn.Module):
         elif sl.ffn == "moe":
             self.moe = _params(L.moe_init(cfg, gen, device))
 
-    def _mix(self, h, cfg, kernels, cache, cache_len, cache_size, rolling,
+    def _mix(self, h, ops, cache, cache_len, cache_size, rolling,
              prefix_len):
+        cfg = ops.cfg
         if self.mixer == "mamba2":
             if cache is None:
                 return L.mamba2_apply(self.mamba, h, cfg)
             return L.mamba2_decode(self.mamba, h, cache, cfg)
         if cache is None:
-            return L.attention_prefill(
-                self.attn, h, cfg, window=cfg.sliding_window,
-                prefix_len=prefix_len, cache_size=cache_size,
-                kernels=kernels)
-        return L.attention_decode(
-            self.attn, h, cache, cache_len, cfg, window=cfg.sliding_window,
-            rolling=rolling, kernels=kernels)
+            return ops.attention_prefill(
+                self.attn, h, window=cfg.sliding_window,
+                prefix_len=prefix_len, cache_size=cache_size)
+        return ops.attention_decode(
+            self.attn, h, cache, cache_len, window=cfg.sliding_window,
+            rolling=rolling)
 
-    def forward(self, x, delta, cfg, *, kernels, cache=None, cache_len=None,
+    def forward(self, x, delta, ops, *, cache=None, cache_len=None,
                 cache_size=None, rolling=False, prefix_len=0, enc_out=None):
         """A prefill (``cache`` None: returns the new cache) or a decode
         step (writes ``cache``); ``enc_out`` is the encoder's output a
         prefill's cross-attention reads, and whose keys and values it
-        stashes as the cache's ``"cross"`` entry for the decode."""
-        x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
+        stashes as the cache's ``"cross"`` entry for the decode.  ``ops``
+        runs the sub-layers (:class:`_LocalOps`, or on a mesh
+        ``models/sharded.py::ShardedOps``)."""
+        cfg, kernels = ops.cfg, ops.kernels
+        x, h = ops.add_norm(self.norm_mix, x, delta)
         prefill = cache is None
-        mix, cache = self._mix(h, cfg, kernels, cache, cache_len, cache_size,
-                               rolling, prefix_len)
+        mix, cache = self._mix(h, ops, cache, cache_len, cache_size, rolling,
+                               prefix_len)
+        mix = ops.residual(mix)
         if self.cross_attention:
-            x, h = L.add_norm_apply(self.norm_cross, x, mix, cfg,
-                                    kernels=kernels)
+            x, h = ops.add_norm(self.norm_cross, x, mix)
             if prefill:
                 mix, cache["cross"] = L.cross_attention_prefill(
                     self.cross, h, enc_out, cfg, kernels=kernels)
@@ -215,22 +254,79 @@ class _Layer(nn.Module):
                     enc_cache=cache["cross"], kernels=kernels)
         if self.ffn == "none":
             return x, mix, cache
-        x, h = L.add_norm_apply(self.norm_ffn, x, mix, cfg, kernels=kernels)
+        x, h = ops.add_norm(self.norm_ffn, x, mix)
         if self.ffn == "moe":
             return x, L.moe_apply(self.moe, h, cfg)[0], cache
-        return x, L.mlp_apply(self.mlp, h, cfg), cache
+        return x, ops.residual(ops.mlp(self.mlp, h)), cache
 
-    def train_forward(self, x, delta, cfg, kernels, causal=True):
+    def train_forward(self, x, delta, ops, causal=True):
         """The whole-sequence form of :meth:`forward` for an attention + MLP
         sub-layer, no cache: the training form (causal, under the config's
         window) or, ``causal=False``, an encoder layer (bidirectional, no
         window); returns ``(x, mlp_out)``."""
-        x, h = L.add_norm_apply(self.norm_mix, x, delta, cfg, kernels=kernels)
-        mix = L.attention_apply(self.attn, h, cfg, causal=causal,
-                                window=cfg.sliding_window if causal else None,
-                                kernels=kernels)
-        x, h = L.add_norm_apply(self.norm_ffn, x, mix, cfg, kernels=kernels)
-        return x, L.mlp_apply(self.mlp, h, cfg)
+        x, h = ops.add_norm(self.norm_mix, x, delta)
+        mix = ops.attention(self.attn, h, causal=causal,
+                            window=ops.cfg.sliding_window if causal else None)
+        x, h = ops.add_norm(self.norm_ffn, x, ops.residual(mix))
+        return x, ops.residual(ops.mlp(self.mlp, h))
+
+
+class _LocalOps:
+    """The sub-layers and the model's ends on one device: the plain layers
+    of ``models/layers.py`` with the model's kernels (``use_kernels`` read
+    at each call).  :meth:`Transformer.distribute` puts
+    ``models/sharded.py::ShardedOps`` in its place, the same calls on a
+    mesh; ``residual`` is where the reference constrains the residual
+    stream, nothing here."""
+
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+
+    @property
+    def kernels(self) -> bool:
+        return self.model.use_kernels
+
+    def residual(self, x):
+        return x
+
+    def tokens(self, tokens):
+        return self.model._tokens(tokens)
+
+    def embed(self, tokens, offset: int = 0):
+        return self.model._embed_tokens(tokens, offset)
+
+    def add_norm(self, p, x, delta):
+        return L.add_norm_apply(p, x, delta, self.cfg, kernels=self.kernels)
+
+    def attention(self, p, h, *, causal=True, window=None):
+        return L.attention_apply(p, h, self.cfg, causal=causal, window=window,
+                                 kernels=self.kernels)
+
+    def attention_prefill(self, p, h, *, window=None, cache_size=None,
+                          prefix_len=0):
+        return L.attention_prefill(p, h, self.cfg, window=window,
+                                   prefix_len=prefix_len,
+                                   cache_size=cache_size,
+                                   kernels=self.kernels)
+
+    def attention_decode(self, p, h, cache, cache_len, *, window=None,
+                         rolling=False):
+        return L.attention_decode(p, h, cache, cache_len, self.cfg,
+                                  window=window, rolling=rolling,
+                                  kernels=self.kernels)
+
+    def mlp(self, p, h):
+        return L.mlp_apply(p, h, self.cfg)
+
+    def loss(self, h, labels):
+        b, s, d = h.shape
+        # the reference's measurement mode: one chunk of every token
+        chunk = b * s if self.cfg.scan_unroll else 4096
+        return chunked_ce_loss(h.reshape(b * s, d), self.model._head(),
+                               labels.reshape(-1), chunk=chunk)
+
+    def logits(self, x, delta):
+        return self.model._logits(x, delta)
 
 
 def zero_layer_cache(cfg: ModelConfig, mixer: str, batch: int, width: int,
@@ -264,16 +360,28 @@ class Transformer(nn.Module):
 
     ``use_kernels=False`` runs the plain versions of the flash attention and
     RMSNorm kernels instead, on any device; it exists so the kernels can be
-    held against them on the card.
+    held against them on the card.  ``device="meta"`` gives the parameters'
+    names and shapes with no storage.
+
+    ``policy`` (``models/sharding.py``) is how the model maps onto a mesh;
+    :meth:`distribute` places the parameters on one as DTensors, after
+    which the same layer loop of :meth:`train_loss`, :meth:`prefill` and
+    :meth:`decode_step` runs its sub-layers through
+    ``models/sharded.py::ShardedOps`` in place of :class:`_LocalOps`, the
+    dense decoders only.
     """
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, policy=NO_SHARDING):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.use_kernels = use_kernels
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.policy = policy
+        self._mesh = None
+        # a meta tensor draws nothing: no generator there
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         dt = getattr(torch, cfg.dtype)
         d = cfg.d_model
         embed = torch.empty((cfg.vocab_size, d), dtype=torch.float32,
@@ -295,6 +403,40 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def _ops(self):
+        """What runs the sub-layers: made per call, so the model holds no
+        reference to it (a cycle would keep a deleted model's card memory
+        until the cycle collector runs)."""
+        if self._mesh is None:
+            return _LocalOps(self)
+        from .sharded import ShardedOps
+        return ShardedOps(self, self._mesh)
+
+    # ============================================================= the mesh
+    def distribute(self, mesh) -> "Transformer":
+        """Place every parameter on ``mesh`` (a named ``DeviceMesh``) as a
+        DTensor: the rank keeps its shard of each, as ``self.policy``'s
+        ``param_specs`` sanitized against its shape place it.  Every rank
+        must hold the same weights before the call.  Returns the model."""
+        from . import sharded
+
+        if not self.policy.enabled:
+            raise ValueError("distribute needs an enabled ShardingPolicy")
+        check_shardable(self.cfg)
+        for name, pl in sharded.param_placements(self, mesh).items():
+            owner, _, key = name.rpartition(".")
+            mod = self.get_submodule(owner) if owner else self
+            old = getattr(mod, key) if not isinstance(
+                mod, nn.ParameterDict) else mod[key]
+            new = nn.Parameter(sharded.shard_tensor(old.detach(), mesh, pl))
+            if isinstance(mod, nn.ParameterDict):
+                mod[key] = new
+            else:
+                setattr(mod, key, new)
+        self._mesh = mesh
+        return self
 
     # ============================================================== embed
     def _embed_tokens(self, tokens: torch.Tensor,
@@ -351,8 +493,7 @@ class Transformer(nn.Module):
                                      device=x.device)
         x, delta = x + pos[None].to(x.dtype), None
         for layer in self.encoder:
-            x, delta = layer.train_forward(x, delta, self.cfg,
-                                           self.use_kernels, causal=False)
+            x, delta = layer.train_forward(x, delta, self._ops, causal=False)
         return L.add_norm_apply(self.encoder_norm, x, delta, self.cfg,
                                 kernels=self.use_kernels)[1]
 
@@ -367,25 +508,19 @@ class Transformer(nn.Module):
         mixer or an MoE FFN raises ``NotImplementedError`` (ROADMAP item
         15.9), and so does one with cross-attention, an encoder or a prefix
         (item 15.10)."""
-        cfg = self.cfg
+        cfg, ops = self.cfg, self._ops
         _check_trainable(cfg)
-        tokens = self._tokens(batch["tokens"])
-        labels = self._tokens(batch["labels"])
-        x, delta = self._embed_tokens(tokens), None
+        tokens, labels = ops.tokens(batch["tokens"]), ops.tokens(
+            batch["labels"])
+        x, delta = ops.residual(ops.embed(tokens)), None
         for layer in self.layers:
             if cfg.remat:
-                x, delta = checkpoint(layer.train_forward, x, delta, cfg,
-                                      self.use_kernels, use_reentrant=False)
+                x, delta = checkpoint(layer.train_forward, x, delta, ops,
+                                      use_reentrant=False)
             else:
-                x, delta = layer.train_forward(x, delta, cfg,
-                                               self.use_kernels)
-        _, h = L.add_norm_apply(self.final_norm, x, delta, cfg,
-                                kernels=self.use_kernels)
-        b, s, d = h.shape
-        # the reference's measurement mode: one chunk of every token
-        chunk = b * s if cfg.scan_unroll else 4096
-        return chunked_ce_loss(h.reshape(b * s, d), self._head(),
-                               labels.reshape(-1), chunk=chunk)
+                x, delta = layer.train_forward(x, delta, ops)
+        _, h = ops.add_norm(self.final_norm, x, delta)
+        return ops.loss(h, labels)
 
     # ============================================================== prefill
     @torch.no_grad()
@@ -400,9 +535,8 @@ class Transformer(nn.Module):
         S; an encoder-decoder encodes ``batch["enc_embeds"]`` (B, Se,
         d_model) and its cross-attention layers add the encoder's keys and
         values to their caches (``"cross"``)."""
-        cfg = self.cfg
-        tokens = self._tokens(batch["tokens"])
-        x, delta = self._embed_tokens(tokens), None
+        cfg, ops = self.cfg, self._ops
+        x = ops.embed(ops.tokens(batch["tokens"]))
         prefix_len = cfg.prefix_tokens
         if prefix_len:
             x = torch.cat([self._embeds(batch.get("patch_embeds"),
@@ -410,13 +544,13 @@ class Transformer(nn.Module):
                           dim=1)
         enc_out = (self.encode(batch.get("enc_embeds"))
                    if cfg.is_encoder_decoder else None)
+        x, delta = ops.residual(x), None
         caches = []
         for layer in self.layers:
-            x, delta, c = layer(x, delta, cfg, kernels=self.use_kernels,
-                                cache_size=cache_size, prefix_len=prefix_len,
-                                enc_out=enc_out)
+            x, delta, c = layer(x, delta, ops, cache_size=cache_size,
+                                prefix_len=prefix_len, enc_out=enc_out)
             caches.append(c)
-        return self._logits(x, delta), caches, int(x.shape[1])
+        return ops.logits(x, delta), caches, int(x.shape[1])
 
     # =============================================================== decode
     @torch.no_grad()
@@ -427,15 +561,14 @@ class Transformer(nn.Module):
         ``rolling``, the mod-W cache), Mamba2's conv tail and state;
         cross-attention reads its ``"cross"`` entry and leaves it as it
         is.  Returns ``(logits, caches)``."""
-        cfg = self.cfg
+        ops = self._ops
         cache_len = int(cache_len)
-        x = self._embed_tokens(self._tokens(token), offset=cache_len)
+        x = ops.residual(ops.embed(ops.tokens(token), offset=cache_len))
         delta = None
         for layer, cache in zip(self.layers, caches):
-            x, delta, _ = layer(x, delta, cfg, kernels=self.use_kernels,
-                                cache=cache, cache_len=cache_len,
-                                rolling=rolling)
-        return self._logits(x, delta), caches
+            x, delta, _ = layer(x, delta, ops, cache=cache,
+                                cache_len=cache_len, rolling=rolling)
+        return ops.logits(x, delta), caches
 
     # ======================================================== cache structs
     def make_decode_cache(self, batch: int, cache_width: int,

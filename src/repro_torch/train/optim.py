@@ -23,7 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["OptState", "AdamW", "global_norm", "clip_by_global_norm",
+__all__ = ["OptState", "AdamW", "global_norm", "sum_of_squares",
+           "clip_by_global_norm",
            "apply_updates", "opt_state_from_numpy"]
 
 
@@ -34,11 +35,50 @@ class OptState(NamedTuple):
 
 
 def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
-                          for t in tensors))
+    return torch.sqrt(sum_of_squares(tensors))
+
+
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def sum_of_squares(tensors) -> torch.Tensor:
+    """``Σ_t Σ t²`` in float32 over the tensors, in their order.  For
+    DTensors (the sharded LLM steps' gradients and weights) the full
+    tensors' sum, never a shard's: each tensor's local sum of squares is
+    its part of a sum over the mesh dims that shard it; those of one set of
+    sharded dims are all-reduced together (one collective a set), then
+    summed in the tensors' order; a plain scalar, the same on every rank,
+    differentiable in the tensors."""
+    tensors = list(tensors)
+    if not (tensors and _is_dtensor(tensors[0])):
+        return sum(torch.sum(torch.square(t.to(torch.float32)))
+                   for t in tensors)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = tensors[0].device_mesh
+    sq = [torch.sum(torch.square(t.to_local().to(torch.float32)))
+          for t in tensors]
+    groups: dict[tuple, list[int]] = {}
+    for i, t in enumerate(tensors):
+        key = tuple(not p.is_replicate() and mesh.size(d) > 1
+                    for d, p in enumerate(t.placements))
+        groups.setdefault(key, []).append(i)
+    full = list(sq)
+    for key, idx in groups.items():
+        if not any(key):
+            continue
+        part = DTensor.from_local(
+            torch.stack([sq[i] for i in idx]), mesh,
+            [Partial() if k else Replicate() for k in key], run_check=False)
+        tot = part.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+        for j, i in enumerate(idx):
+            full[i] = tot[j]
+    return sum(full)
 
 
 def clip_by_global_norm(tensors, max_norm: float) -> list[torch.Tensor]:
+    tensors = list(tensors)
     scale = torch.clamp_max(max_norm / (global_norm(tensors) + 1e-9), 1.0)
     return [t * scale for t in tensors]
 

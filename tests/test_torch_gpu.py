@@ -1443,3 +1443,72 @@ def test_reduced_jamba_decode_kernels_match_plain(cuda):
         assert set(ck) == set(cp)
         for key in ck:
             torch.testing.assert_close(ck[key], cp[key], atol=1e-4, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the sharded LLM steps on a mesh (ROADMAP item 15.7)
+# --------------------------------------------------------------------------
+
+def test_sharded_steps_on_card(cuda, tmp_path):
+    """A world of 2 ranks sharing the card (the ``staged`` backend) on a
+    ``(1, 2)`` mesh runs the four step kinds of reduced f32 qwen2-0.5b with
+    the kernels on each rank's shard: within 1e-5 of the largest entry of
+    the world of 1's (NCCL, ``(1, 1)``) loss, gradients, logits and caches,
+    greedy tokens equal, the gradients' global norm (AdamW's clip) within
+    1e-6 relative, the weights after one step as
+    ``test_torch_sharding_world.py`` holds them; each rank launches the flash and RMSNorm kernels
+    as often as the unsharded step does; the staged backend's bytes equal
+    ``step_collective_bytes``.  The world of 1 is bitwise its own
+    unsharded steps."""
+    import _torch_sharding_ranks as sr
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_partition_world
+
+    build.build_all()
+    one = spawn_partition_world(sr.card_checks, 1, ((1, 1),),
+                                backend="nccl", device="cuda",
+                                workdir=str(tmp_path / "w1"), timeout_s=120,
+                                join_timeout_s=600)[0]
+    two = spawn_partition_world(sr.card_checks, 2, ((1, 2),),
+                                backend="staged", device="cuda",
+                                workdir=str(tmp_path / "w2"), timeout_s=120,
+                                join_timeout_s=600)
+    a, b = one["sharded"], one["plain"]
+    for key in ("loss", "grad_norm", "prefill", "prefill_k", "decode",
+                "tokens"):
+        assert np.array_equal(a[key], b[key]), key
+    for n in b["grads"]:
+        assert np.array_equal(a["grads"][n], b["grads"][n]), n
+        assert np.array_equal(a["params"][n], b["params"][n]), n
+    for r, out in enumerate(two):
+        got, plain = out["sharded"], out["plain"]
+        for kind, counts in plain["launches"].items():
+            assert got["launches"][kind] == counts, (r, kind)
+            assert sum(counts.values()) > 0, kind
+        for kind in ("train", "prefill", "decode"):
+            assert got[f"{kind}_bytes"] == got["closed_form"][kind], (
+                r, kind, got[f"{kind}_bytes"], got["closed_form"][kind])
+        scale = lambda x: float(np.abs(x).max()) or 1.0
+        for key in ("loss", "prefill", "prefill_k", "prefill_v", "decode",
+                    "decode_k"):
+            err = float(np.abs(np.asarray(got[key]) - a[key]).max())
+            assert err <= 1e-5 * scale(a[key]), (r, key, err)
+        # the clip's norm, of the full gradients; the weights after AdamW's
+        # first step within 1e-5 of the largest weight where the gradient
+        # is at least 1e-6, within 1e-4 below (there -lr g / (|g| + eps)
+        # turns on the gradient's rounding)
+        assert abs(got["grad_norm"] - a["grad_norm"]) <= 1e-6 * a[
+            "grad_norm"], (r, got["grad_norm"], a["grad_norm"])
+        w_max = max(scale(p) for p in a["params"].values())
+        for n in a["grads"]:
+            err = float(np.abs(got["grads"][n] - a["grads"][n]).max())
+            assert err <= 1e-5 * scale(a["grads"][n]), (r, n, err)
+            dw = np.abs(got["params"][n] - a["params"][n])
+            big = np.abs(a["grads"][n]) >= 1e-6
+            assert dw[big].max(initial=0) <= 1e-5 * w_max, (r, n)
+            assert dw[~big].max(initial=0) <= 1e-4, (r, n)
+        np.testing.assert_array_equal(got["tokens"], a["tokens"])
+        sp, pp = out["personalize"]
+        assert sp["launches"] == pp["launches"], r
+        np.testing.assert_allclose(sp["losses"], one["personalize"][0][
+            "losses"], rtol=1e-5)

@@ -72,6 +72,17 @@ from repro_torch.kernels.rmsnorm import AddRMSNormFn, RMSNormFn, rmsnorm_bwd
 from repro_torch.launch.steps import build_step
 from repro_torch.launch.train import run_llm
 from repro_torch.models.transformer import chunked_ce_loss
+# the sharding policy, the LLM meshes and the sharded steps (ROADMAP item
+# 15.7), and the staged backend that carries a world sharing one card
+for name in ("repro_torch.models.sharding", "repro_torch.models.sharded",
+             "repro_torch.launch.staged_backend"):
+    assert name in mods, (name, mods)
+from repro_torch.launch.mesh import (data_axes_of, make_mesh_compat,
+                                     make_production_mesh, model_axis_of)
+from repro_torch.launch.staged_backend import StagedProcessGroup
+from repro_torch.launch.steps import sanitize_spec
+from repro_torch.models.sharded import ShardedOps, step_collective_bytes
+from repro_torch.models.sharding import NO_SHARDING, P, ShardingPolicy
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -94,7 +105,9 @@ def test_import_hygiene():
 @pytest.mark.parametrize("script", ["flash_timing.py", "segment_timing.py",
                                     "rmsnorm_timing.py", "mesh_probe.py",
                                     "train_probe.py",
-                                    "flash_serving_digest.py"])
+                                    "flash_serving_digest.py",
+                                    "collective_probe.py",
+                                    "shard_probe.py"])
 def test_timing_scripts_import_hygiene(script):
     """The chip timing scripts run where only the port is installed."""
     code = (
@@ -112,7 +125,8 @@ def test_timing_scripts_import_hygiene(script):
 
 @pytest.mark.parametrize("module", ["_torch_mesh_ranks",
                                     "_torch_mesh_part2_ranks",
-                                    "_torch_mesh_part3_ranks"])
+                                    "_torch_mesh_part3_ranks",
+                                    "_torch_sharding_ranks"])
 def test_mesh_rank_modules_import_no_jax(module):
     """What a spawned rank of the mesh tests imports pulls in no JAX, so a
     rank starts in seconds."""
@@ -125,6 +139,35 @@ def test_mesh_rank_modules_import_no_jax(module):
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=REPO_ROOT, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
+
+
+def test_sharding_example_imports_no_jax():
+    """``examples/llm_entropy_sharding_torch.py`` runs where only the port
+    is installed."""
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('e', "
+        "'examples/llm_entropy_sharding_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO_ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO_ROOT, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+def test_sharding_example_defaults_to_card(no_cuda, monkeypatch):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "llm_entropy_sharding_torch",
+        os.path.join(REPO_ROOT, "examples", "llm_entropy_sharding_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(sys, "argv", ["x", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main()
 
 
 @pytest.fixture
