@@ -267,7 +267,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
               power limit.  Then one phase-0 step of the f32 variant
               from one seed, the kernels against their plain versions
               (the shards' losses and the mean gradient), and one bf16
-              phase-0 step broken down (torch.profiler)
+              phase-0 step broken down (torch.profiler, from fresh AdamW
+              moments: the run frees phase 0's when phase 1 starts)
   7b. shard   the sharded steps (ROADMAP item 15.7,
               ``launch/steps.py::build_step(cfg, shape, mesh)``): qwen2-0.5b
               bf16 at full width and depth (train 8 x 512 with remat,
@@ -285,6 +286,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
               where the gradient is at least 1e-6 (the rest reported); step ms on
               the slowest rank, peak memory per rank, the bf16 greedy
               tokens' agreement reported
+  7c. dryrun  the dry run and the roofline (ROADMAP item 15.8): the fake
+              backend probed (``scripts/fake_world_probe.py``), then
+              ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
+              --shape all --auto-swa`` on the fake (16, 16) world (four
+              rows ``ok``, the collectives' input-plus-output bytes equal
+              to ``step_collective_bytes`` where it applies); then one
+              qwen2-0.5b bf16 train step at full width (8 x 512, remat, no
+              mesh) counted on the card by the same counters while the
+              kernels run: its FLOPs and every kernel's count equal to the
+              same step's on meta, its launches asserted; compute_s,
+              memory_s and the model FLOPs beside the measured step ms
+              (median of 5) and the share of the bf16 peak, with the
+              card's name and power limit
+  7d. zoo-train  the MoE and Mamba2 families trained (ROADMAP item 15.9,
+              ``ZOO_TRAIN_RUNS``): ``launch.train llm`` bf16, seed 0, the
+              published widths and every expert, cut in depth only, 2
+              phase-0 and 2 phase-1 steps: mamba2-370m whole and
+              phi3.5-moe at 1 of 32 layers on 2 shards of 4 x 512, jamba
+              at its first 2 sub-layers (attention + MLP, Mamba2 + MoE) on
+              1 shard of 8 x 512 (two replicas and their AdamW moments
+              would not fit the card); finite
+              losses, each step's flash and RMSNorm launches asserted,
+              step ms, tokens/s, peak memory; then the ``ZOO_F32``
+              variants' training pass (loss and every gradient) with the
+              kernels against the plain versions on a batch whose MoE
+              routes agree, the flipped routes of the others counted
   8. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
               use, their row-range use, their single-partition use, whose
               launches include the mesh ranks', and their row-range
@@ -295,7 +322,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
               and its decode),
               and the training path's flash forward with the LSE, the
               flash backward and the RMSNorm backward of both entry
-              points), then the device line last
+              points, whose launches include phases 7, 7c and 7d, as the
+              RMSNorm rows include their forwards), then the device line
+              last
 
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -313,6 +342,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# the kernels' work formulas and the card's rates (the roofline's)
+from repro_torch.kernels import work  # noqa: E402
+from repro_torch.roofline import HW  # noqa: E402
+
+_HW = HW()
 
 # tolerances of the kernel against its plain version on the card: f32 sums
 # run in another order (the plain version's index_add_ uses atomics), bf16
@@ -360,10 +395,15 @@ LLM_F32_ATOL, LLM_F32_RTOL = 1e-4, 1e-4
 # kernel wrapper's host work); a whole forward or step, whose host work can
 # pass 2 ms, is timed behind 10 times as many
 SLEEP_CYCLES = 4_000_000
-HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
+# the card's rates, one definition with the roofline's
+# (repro_torch/roofline/analysis.py::HW, the H100 SXM5's datasheet): HBM3
+# bytes/s, f32 on the CUDA cores (the norm's and the segment kernels'
+# arithmetic in either type), f64 on the CUDA cores
+HBM_BYTES_S = _HW.hbm_bw
+PEAK_FLOPS = {"float32": _HW.peak_flops_f32, "bfloat16": _HW.peak_flops_f32,
+              "float64": 34e12}
 # attention's products: f32 on CUDA cores, bf16 on the tensor cores (dense)
-ATTN_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+ATTN_PEAK_FLOPS = {"float32": _HW.peak_flops_f32, "bfloat16": _HW.peak_flops}
 SEGMENT_AGG_TPU = "src/repro/kernels/segment_agg.py:161"
 SEGMENT_AGG_BWD_TPU = "src/repro/kernels/segment_agg.py:332"
 SEGMENT_AGG_ROWS_TPU = "src/repro/kernels/segment_agg.py:239"
@@ -645,24 +685,13 @@ def library_matrix(bl_host, num_rows, row_base, n_in, mean, dtype, device,
     return a.coalesce().to(dtype=dtype, device=device).to_sparse_csr()
 
 
-def plan_bytes(bl_host, prefix=""):
-    from repro_torch.kernels.segment_agg import PLAN_KEYS
-
-    return sum(np.asarray(bl_host[prefix + k]).nbytes for k in PLAN_KEYS)
-
-
 def bound_of(x, bl_host, num_rows, dtype_name):
-    """Least time (s) and what bounds it: each input read once, the output
-    written once, real edges only (src int64 + mask f32), the work plan and
-    deg, and 2 flops per real edge and feature."""
-    mask = np.asarray(bl_host["mask"])
-    real = int((mask > 0).sum())
-    parts = x.shape[0] if x.dim() == 3 else 1
-    d = x.shape[-1]
-    item = x.element_size()
-    nbytes = (x.numel() * item + parts * num_rows * d * item + real * (8 + 4)
-              + plan_bytes(bl_host) + np.asarray(bl_host["deg"]).size * 4)
-    flops = 2.0 * real * d
+    """Least time (s) and what bounds it, by ``kernels/work.py``'s formula:
+    each input read once, the output written once, real edges only (src
+    int64 + mask f32), the work plan and deg, and 2 flops per real edge and
+    feature."""
+    flops, nbytes = work.segment_fwd_work(tuple(x.shape), x.element_size(),
+                                          bl_host, num_rows)
     t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype_name]
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -931,16 +960,13 @@ def bwd_kernel_cases(sa):
 
 
 def bwd_bound_of(g, bl_host, n_in, dtype_name):
-    """Least time (s) of the backward and what bounds it: g read once, dx
-    written once, the real transpose slots (t_src int64 + t_mask f32), the
-    transpose work plan and deg; a divide per placed forward row and
-    feature, a multiply and an add per real edge and feature."""
-    real = int((np.asarray(bl_host["t_mask"]) > 0).sum())
-    parts = g.shape[0] if g.dim() == 3 else 1
-    d, item = g.shape[-1], g.element_size()
-    nbytes = (g.numel() * item + parts * n_in * d * item + real * (8 + 4)
-              + plan_bytes(bl_host, "t_") + np.asarray(bl_host["deg"]).size * 4)
-    flops = 2.0 * real * d + np.asarray(bl_host["deg"]).size * d
+    """Least time (s) of the backward and what bounds it, by
+    ``kernels/work.py``'s formula: g read once, dx written once, the real
+    transpose slots (t_src int64 + t_mask f32), the transpose work plan and
+    deg; a divide per placed forward row and feature, a multiply and an add
+    per real edge and feature."""
+    flops, nbytes = work.segment_bwd_work(tuple(g.shape), g.element_size(),
+                                          bl_host, n_in)
     t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype_name]
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -1058,18 +1084,6 @@ RMS_TRAIN_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (1, 896),
                     (3, 2048), (2, 8192), RMS_TRAIN_MAIN]
 
 
-def flash_live_pairs(sq, sk, causal, window, q_offset, prefix_len=0):
-    """(query, key) pairs the mask keeps: the work this input needs."""
-    q_pos = np.arange(sq)[:, None] + q_offset
-    k_pos = np.arange(sk)[None, :]
-    live = np.ones((sq, sk), bool)
-    if causal:
-        live &= k_pos <= q_pos
-    if window is not None:
-        live &= k_pos > q_pos - window
-    return live | (k_pos < prefix_len)
-
-
 def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
                    main_path=False):
     """The flash kernel against its plain version on the card, its time,
@@ -1105,7 +1119,7 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
         torch.cuda.synchronize()
         assert torch.equal(got, again), \
             f"flash {name} {dtype_name}: two launches differ"
-    live = flash_live_pairs(sq, sk, causal, window, q_off, prefix)
+    live = work.flash_live_mask(sq, sk, causal, window, q_off, prefix)
     if not live.any(axis=1).all():
         dead = torch.as_tensor(~live.any(axis=1), device="cuda")
         assert not got[:, :, dead].float().abs().any(), "masked row not 0"
@@ -1134,10 +1148,9 @@ def run_flash_case(fa, name, case, dtype_name, flush, iters, record, *,
     lib_ms = time_ms(lib, iters, flush)
     lib_dev = time_ms(lib, iters, flush, hide_host=True)
     # the K/V rows of keys some query may see: the kernel never loads the
-    # others (decode's dead cache tail)
-    flops = 4.0 * dh * int(live.sum()) * b * hq
-    kv_rows = b * hkv * int(live.any(axis=0).sum())
-    nbytes = (2 * q.numel() + 2 * kv_rows * dh) * q.element_size()
+    # others (decode's dead cache tail); kernels/work.py's formula
+    flops, nbytes = work.flash_fwd_work(tuple(q.shape), tuple(k.shape),
+                                        q.element_size(), **kw)
     t_o, t_b = flops / ATTN_PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_S
     # the share of the bound the device reached: TFLOP/s over the type's
     # peak where operations bound the call, bytes/s over HBM's rate where
@@ -1219,10 +1232,9 @@ def run_rmsnorm_case(rn, shape, dtype_name, flush, iters, record, *,
     add_dev = time_ms(lambda: x + delta, iters, flush, hide_host=True)
     # each input read once, each output written once: x (and delta) in, y
     # (and s) out, w; a square, a sum and two products per element (and the
-    # add)
-    arrays = 4 if fused else 2
-    nbytes = arrays * x.numel() * x.element_size() + w.numel() * 4
-    flops = (5.0 if fused else 4.0) * x.numel()
+    # add): kernels/work.py's formula
+    flops, nbytes = work.rmsnorm_work(x.numel(), shape[-1], x.element_size(),
+                                      fused=fused)
     t_b, t_o = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["float32"]
     bound = max(t_b, t_o)
     row = {"kernel": name, "shape": list(shape), "dtype": dtype_name,
@@ -1317,7 +1329,7 @@ def run_flash_train_case(fa, name, case, dtype_name, flush, iters, record, *,
     if design == "prefill":
         assert torch.equal(o, serve), \
             f"flash train {name} {dtype_name}: output is not serving's"
-    live = flash_live_pairs(sq, sk, causal, window, q_off)
+    live = work.flash_live_mask(sq, sk, causal, window, q_off)
     live_t = torch.as_tensor(live, device="cuda")
     dead = ~live_t.any(1)
     kx = k.repeat_interleave(hq // hkv, 1).float()
@@ -1384,18 +1396,15 @@ def run_flash_train_case(fa, name, case, dtype_name, flush, iters, record, *,
             lambda: torch.autograd.grad(out_l, lib_leaves, do,
                                         retain_graph=True),
             iters, flush))
-        pairs = int(live.sum()) * b * hq
-        kv_rows = b * hkv * int(live.any(axis=0).sum())
-        es = q.element_size()
         # forward: q, the live K/V rows in, o and the LSE out; 4 Dh FLOPs a
         # live pair.  Backward: q, o, dO, the LSE and the live K/V rows in,
-        # dq, dk, dv out; 10 Dh FLOPs a live pair (S, dP, dV, dK, dQ)
-        with_bound(fwd, 4.0 * dh * pairs,
-                   (2 * q.numel() + 2 * kv_rows * dh) * es + lse.numel() * 4,
+        # dq, dk, dv out; 10 Dh FLOPs a live pair (S, dP, dV, dK, dQ):
+        # kernels/work.py's formulas
+        shapes = (tuple(q.shape), tuple(k.shape), q.element_size())
+        with_bound(fwd, *work.flash_fwd_work(*shapes, lse=True, **kw),
                    ATTN_PEAK_FLOPS[dtype_name])
-        with_bound(bwd, 10.0 * dh * pairs,
-                   (4 * q.numel() + 2 * kv_rows * dh + 2 * k.numel()) * es
-                   + lse.numel() * 4, ATTN_PEAK_FLOPS[dtype_name])
+        with_bound(bwd, *work.flash_bwd_work(*shapes, **kw),
+                   ATTN_PEAK_FLOPS[dtype_name])
     for row in (fwd, bwd):
         log("shape " + json.dumps(row))
         record.append(row)
@@ -1469,11 +1478,10 @@ def run_rmsnorm_bwd_case(rn, shape, dtype_name, flush, iters, record, *,
         row["kernels_per_call"], row["profiled_us"] = kernels_per_call(
             lambda: rn.rmsnorm_bwd(s, dy, w, extra))
         # s, dy (and ds_in) and w in, ds and dw out; about ten flops an
-        # element
-        arrays = 4 if fused else 3
-        with_bound(row, 10.0 * x.numel(),
-                   arrays * x.numel() * x.element_size() + 2 * 4 * shape[-1],
-                   PEAK_FLOPS["float32"])
+        # element: kernels/work.py's formula
+        with_bound(row, *work.rmsnorm_bwd_work(
+            x.numel(), shape[-1], x.element_size(), fused=fused),
+            PEAK_FLOPS["float32"])
     log("shape " + json.dumps(row))
     record.append(row)
     return row
@@ -4399,7 +4407,10 @@ def llm_train_phase(torch, fa, rn, card):
         f"bwd) {steps[0]} = {shards} x {per_pass}; totals flash {flash} "
         f"rmsnorm {rms}; main path {wall:.1f} s")
     nb = run["batcher"].next_batch()
-    model, opt, opt_state = run["model"], run["opt"], run["opt_state"]
+    # run_llm frees phase 0's AdamW state when phase 1 starts: the profiled
+    # step below starts from fresh moments (the same work)
+    model, opt = run["model"], run["opt"]
+    opt_state = opt.init(model.parameters())
     run.clear()      # the replicas and their optimizer states
 
     # the f32 variant from one seed: one phase-0 step's losses and mean
@@ -4897,6 +4908,352 @@ def shard_checks(torch, card):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 7c: the dry run and the roofline on the card's terms (ROADMAP 15.8)
+# --------------------------------------------------------------------------
+
+# the dry run's CLI on the fake (16, 16) world: qwen2-0.5b's four shapes,
+# long_500k through the swa variant
+DRYRUN_ARGS = ["--arch", "qwen2-0.5b", "--shape", "all", "--auto-swa"]
+# the counted step on the card: phase 7's shard batch, 8 sequences of 512
+ROOFLINE_BATCH, ROOFLINE_SEQ = 8, 512
+
+
+def run_script(args, timeout_s):
+    """``python args...`` from the checkout's root with its ``src`` on the
+    path; its output, or a raise with the end of its errors."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout_s)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(args)} exited {proc.returncode}: "
+                           f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def train_launches_per_pass(cfg) -> list[int]:
+    """A training pass's launches (flash training forward, flash backward,
+    RMSNorm forward of both entry points, RMSNorm backward) of ``cfg``:
+    remat replays each layer's forward, the final norm runs once; a
+    layernorm model launches no RMSNorm."""
+    attn = sum(sl.mixer == "attention" for sl in cfg.super_block) \
+        * cfg.num_repeats
+    norms = sum(1 + (sl.ffn != "none") for sl in cfg.super_block) \
+        * cfg.num_repeats + 1
+    replay = 2 if cfg.remat else 1
+    rms = cfg.norm == "rmsnorm"
+    return [replay * attn, attn, rms * (replay * (norms - 1) + 1),
+            rms * norms]
+
+
+def dryrun_phase(torch, fa, rn, card):
+    """The dry run (``launch/dryrun.py``) and the roofline on the card: the
+    fake backend probed first, then qwen2-0.5b's four shapes on the fake
+    (16, 16) world (every row ``ok``, the collectives' input-plus-output
+    bytes equal to ``step_collective_bytes`` wherever it applies); then one
+    qwen2-0.5b bf16 train step at full width (8 x 512, remat, no mesh) on
+    the card counted by the same counters while the kernels run, its
+    counted FLOPs and every kernel's count equal to the same step's on
+    meta exactly, its roofline terms beside the measured step time.
+    Returns the card steps' launches."""
+    import tempfile
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.dryrun import active_params, closed_form_holds
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import Transformer
+    from repro_torch.roofline import (CollectiveCounter, StepCounter,
+                                      analyze_step)
+    from repro_torch.train.optim import AdamW
+
+    t_phase = time.perf_counter()
+    out = run_script(["scripts/fake_world_probe.py"], 300)
+    log("fake world probe: " + " ".join(
+        line for line in out.splitlines() if line.startswith("fake world")))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rows.json")
+        t0 = time.perf_counter()
+        run_script(["-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+                    "--out", path], 600)
+        dry_s = time.perf_counter() - t0
+        with open(path) as f:
+            rows = json.load(f)
+    assert [r["status"] for r in rows] == ["ok"] * 4, rows
+    for r in rows:
+        held = closed_form_holds(r)
+        assert held is not False, (r["shape"], r["coll_in_out"],
+                                   r["coll_closed_form"])
+        log("dryrun " + json.dumps({k: r[k] for k in (
+            "name", "chips", "compute_s", "memory_s", "collective_s",
+            "dominant", "hlo_flops_per_chip", "hlo_bytes_per_chip",
+            "coll_in_out", "peak_memory_per_chip_gb", "fits",
+            "useful_flops_ratio", "lower_s", "compile_s", "variant")})
+            + f" closed form {'held' if held else 'not applicable'}")
+    log(f"dryrun CLI: {dry_s:.1f} s for {len(rows)} rows")
+
+    # one train step on the card, counted, and the same step on meta
+    cfg = get_config("qwen2-0.5b")
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    shape = InputShape("train_8x512", ROOFLINE_SEQ, ROOFLINE_BATCH, "train")
+    built = build_step(cfg, shape)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (ROOFLINE_BATCH, ROOFLINE_SEQ),
+                           generator=gen, device="cuda")
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                       dim=1)
+    batch = {"tokens": tokens, "labels": labels}
+    model = Transformer(cfg, seed=0, device="cuda")
+    state = {"opt": AdamW().init(model.parameters())}
+
+    def step():
+        _, state["opt"], loss = built.step(model, state["opt"], batch)
+        return loss
+
+    fa.reset_flash_launch_count()
+    rn.reset_rmsnorm_launch_count()
+    step()                                  # warm-up: builds, cuBLAS
+    torch.cuda.synchronize()
+    with CollectiveCounter() as coll, StepCounter() as card_counts:
+        loss = step()
+        torch.cuda.synchronize()
+    assert torch.isfinite(loss).all(), loss
+    meta = Transformer(cfg, device="meta")
+    meta_state = AdamW().init(meta.parameters())
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batch.items()}
+    with StepCounter() as meta_counts:
+        built.step(meta, meta_state, meta_batch)
+    del meta, meta_state
+    log(f"roofline step counted ({card}): card flops "
+        f"{card_counts.flops:.6e} bytes {card_counts.bytes:.6e} peak "
+        f"{card_counts.peak_bytes / 2**30:.2f} GiB (argument "
+        f"{card_counts.argument_bytes / 2**30:.2f}, output "
+        f"{card_counts.output_bytes / 2**30:.2f}, temp "
+        f"{card_counts.temp_bytes / 2**30:.2f}); meta flops "
+        f"{meta_counts.flops:.6e} bytes {meta_counts.bytes:.6e} peak "
+        f"{meta_counts.peak_bytes / 2**30:.2f} GiB; kernels "
+        f"{json.dumps(card_counts.kernels)}; collectives {coll.out_bytes}")
+    assert card_counts.flops == meta_counts.flops, (card_counts.flops,
+                                                    meta_counts.flops)
+    assert card_counts.kernels == meta_counts.kernels, (
+        card_counts.kernels, meta_counts.kernels)
+    assert not coll.out_bytes, coll.out_bytes
+    # the step's time, uncounted: the median of 5 synchronised steps
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times))
+    launches = {"train": fa.flash_launch_count("train"),
+                "backward": fa.flash_launch_count("backward"),
+                "rmsnorm_bwd": rn.rmsnorm_bwd_launch_count()
+                - rn.add_rmsnorm_bwd_launch_count(),
+                "add_rmsnorm_bwd": rn.add_rmsnorm_bwd_launch_count(),
+                "rmsnorm": rn.rmsnorm_launch_count()
+                - rn.add_rmsnorm_launch_count(),
+                "add_rmsnorm": rn.add_rmsnorm_launch_count()}
+    per_pass = train_launches_per_pass(cfg)
+    n_steps = 7                             # warm-up, counted, 5 timed
+    assert [launches["train"], launches["backward"],
+            launches["rmsnorm"] + launches["add_rmsnorm"],
+            launches["rmsnorm_bwd"] + launches["add_rmsnorm_bwd"]] == [
+        n_steps * c for c in per_pass], (launches, per_pass)
+    rep = analyze_step(built.name, card_counts, chips=1,
+                       n_active_params=active_params(cfg)[1],
+                       tokens=ROOFLINE_BATCH * ROOFLINE_SEQ)
+    row = rep.row()
+    log(f"roofline train step qwen2-0.5b 8x512 bf16 ({card}): " + json.dumps(
+        {"compute_s": row["compute_s"], "memory_s": row["memory_s"],
+         "dominant": row["dominant"], "model_flops": row["model_flops"],
+         "counted_flops": row["hlo_flops_per_chip"],
+         "counted_bytes": row["hlo_bytes_per_chip"],
+         "useful_flops_ratio": row["useful_flops_ratio"],
+         "step_ms": step_s * 1e3,
+         "step_ms_all": [t * 1e3 for t in times],
+         "compute_share": rep.compute_s / step_s,
+         "memory_share": rep.memory_s / step_s,
+         "mfu": rep.model_flops_total / step_s / _HW.peak_flops,
+         "peak_gib_counted": card_counts.peak_bytes / 2**30,
+         "max_memory_allocated_gib":
+             torch.cuda.max_memory_allocated() / 2**30})
+        + f"; launches {launches} = {n_steps} x {per_pass}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 7d: training the zoo's MoE and Mamba2 families (ROADMAP 15.9)
+# --------------------------------------------------------------------------
+
+# (label, arch, cuts, shards, sequences a shard): launch.train llm bf16 at
+# the published widths, every expert kept, 512 tokens a sequence, 2
+# phase-0 and 2 phase-1 steps, cut in depth only.  jamba's first 2
+# sub-layers hold 3.67 B parameters: phase 1's replicas with their f32
+# AdamW moments take 10 bytes a parameter each (34.2 GiB), so two of them
+# beside the phase-0 model (6.8 GiB) and one replica's gradients (6.8 GiB)
+# need 82 GiB, more than the card's 80 GiB, even with the moments stepped in
+# place; jamba runs one shard of 8 sequences (the same 4,096 tokens a step)
+ZOO_TRAIN_RUNS = [
+    ("mamba2-370m", "mamba2-370m", [], 2, 4),
+    ("phi3.5-moe 1 of 32 layers", "phi3.5-moe-42b-a6.6b",
+     ["--num-repeats", "1"], 2, 4),
+    ("jamba first 2 sub-layers, 1 shard", "jamba-v0.1-52b",
+     ["--num-repeats", "1", "--sub-layers", "2"], 1, 8),
+]
+# the f32 variant's kernels-against-plain training pass: a batch of 2
+# sequences of 512 tokens, tried until one whose MoE routes all agree
+ZOO_TRAIN_F32_ROWS, ZOO_TRAIN_F32_TRIES = 2, 4
+
+
+def zoo_train_f32_check(torch, fa, rn, arch):
+    """The f32 variant of ``arch`` cut as ``ZOO_F32`` cuts it, one training
+    pass (loss and every gradient) with the kernels against the plain
+    versions from the same weights, on a batch whose MoE routes agree
+    between the two (the flipped routes of the batches passed over are
+    counted); each gradient within ``LLM_TRAIN_GRAD_RTOL`` of its largest
+    entry, the loss within ``LLM_TRAIN_LOSS_RTOL``."""
+    from repro_torch.models import Transformer
+
+    overrides, _ = ZOO_F32[arch]
+    cfg = zoo_config(arch, overrides, "float32")
+    model = Transformer(cfg, seed=0, device="cuda")
+    weights = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    flipped, tried = 0, 0
+    for attempt in range(ZOO_TRAIN_F32_TRIES):
+        gen = torch.Generator(device="cuda").manual_seed(100 + attempt)
+        tokens = torch.randint(0, cfg.vocab_size, (ZOO_TRAIN_F32_ROWS, 512),
+                               generator=gen, device="cuda")
+        labels = torch.cat([tokens[:, 1:],
+                            torch.full_like(tokens[:, :1], -1)], dim=1)
+        batch = {"tokens": tokens, "labels": labels}
+        res = {}
+        for use in (True, False):
+            model.use_kernels = use
+            fa.reset_flash_launch_count()
+            rn.reset_rmsnorm_launch_count()
+            with RouteLog() as rl:
+                loss = model.train_loss(batch)
+                grads = torch.autograd.grad(loss, weights)
+            n = [fa.flash_launch_count("train"),
+                 fa.flash_launch_count("backward"),
+                 rn.rmsnorm_launch_count(), rn.rmsnorm_bwd_launch_count()]
+            assert n == [c * use for c in train_launches_per_pass(cfg)], n
+            # the kernels' gradients wait on the host while the plain ones
+            # are made (jamba's f32 cut holds 27 GB of them)
+            res[use] = (loss.item(), [g.cpu() if use else g for g in grads],
+                        rl.calls)
+            del grads
+        tried += 1
+        flips = sum(int(((ik != ip) | (kk != kp)).any(1).sum())
+                    for (ik, kk), (ip, kp) in zip(res[True][2],
+                                                  res[False][2]))
+        assert len(res[True][2]) == len(res[False][2])
+        if flips == 0:
+            break
+        flipped += flips
+        res.clear()
+    assert res, f"{arch}: no batch's MoE routes agreed in {tried} tries"
+    loss_err = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    rel = {}
+    for name, a, b in zip(names, res[True][1], res[False][1]):
+        rel[name] = float((a.to(b.device) - b).abs().max()
+                          / b.abs().max().clamp_min(1e-30))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    n_calls = len(res[True][2])
+    log(f"zoo train f32 {arch} ({cfg.num_layers} layers, batch "
+        f"{ZOO_TRAIN_F32_ROWS} x 512) kernels vs plain: loss "
+        f"{res[True][0]} vs {res[False][0]} (rel diff {loss_err:.3e}, rtol "
+        f"{LLM_TRAIN_LOSS_RTOL}); gradients max |diff| / max |plain| "
+        f"{max(rel.values()):.3e} (limit {LLM_TRAIN_GRAD_RTOL}), worst "
+        f"{worst}; batches tried {tried}, routes flipped on the others "
+        f"{flipped}, MoE calls on the held batch {n_calls}")
+    assert loss_err <= LLM_TRAIN_LOSS_RTOL, loss_err
+    assert max(rel.values()) <= LLM_TRAIN_GRAD_RTOL, worst
+    del model, weights, res
+    torch.cuda.empty_cache()
+
+
+def zoo_train_phase(torch, fa, rn, card):
+    """``ZOO_TRAIN_RUNS`` through ``launch.train llm`` (bf16, seed 0, the
+    published widths), each with every launch count set to 0 just before
+    its run and read just after: finite losses, every step's launches equal
+    to the shards' passes (``train_launches_per_pass``), none of serving's;
+    step ms, tokens/s and peak memory.  Then each one's f32 variant, the
+    kernels against their plain versions (``zoo_train_f32_check``).
+    Returns the runs' launches."""
+    from repro_torch.launch.train import build_parser, run_llm
+
+    totals = {"train": 0, "backward": 0, "rmsnorm": 0, "add_rmsnorm": 0,
+              "rmsnorm_bwd": 0, "add_rmsnorm_bwd": 0}
+    t_zoo = time.perf_counter()
+    for label, arch, cut, shards, rows in ZOO_TRAIN_RUNS:
+        torch.cuda.empty_cache()
+        argv = ["llm", "--arch", arch, "--full", "--shards", str(shards),
+                "--batch", str(rows), "--seq", "512", "--docs", "128",
+                "--steps", "4", "--phase0-frac", "0.5", "--seed", "0",
+                "--device", "cuda", *cut]
+        fa.reset_flash_launch_count()
+        rn.reset_rmsnorm_launch_count()
+        t0 = time.perf_counter()
+        run = run_llm(build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flash = {d: fa.flash_launch_count(d)
+                 for d in ("train", "backward", "prefill", "decode")}
+        rms = {"rmsnorm": rn.rmsnorm_launch_count()
+               - rn.add_rmsnorm_launch_count(),
+               "add_rmsnorm": rn.add_rmsnorm_launch_count(),
+               "rmsnorm_bwd": rn.rmsnorm_bwd_launch_count()
+               - rn.add_rmsnorm_bwd_launch_count(),
+               "add_rmsnorm_bwd": rn.add_rmsnorm_bwd_launch_count()}
+        cfg = run["cfg"]
+        per_pass = train_launches_per_pass(cfg)
+        steps = run["launches_per_step"]
+        assert len(steps) == 4, steps
+        for i, n in enumerate(steps):
+            assert n == [shards * c for c in per_pass], (label, i, n,
+                                                         per_pass)
+        assert flash["prefill"] == flash["decode"] == 0, flash
+        losses = [run["phase0_final_loss"]] + run["phase1_final_loss"]
+        assert np.isfinite(losses).all(), (label, losses)
+        for k in ("train", "backward"):
+            totals[k] += flash[k]
+        for k, v in rms.items():
+            totals[k] += v
+        stats = {k: run[k] for k in ("phase0_step_ms", "phase1_step_ms",
+                                     "tokens_per_step", "phase0_tokens_per_s",
+                                     "phase1_tokens_per_s",
+                                     "max_memory_allocated",
+                                     "phase0_final_loss",
+                                     "phase1_final_loss", "wall_s")}
+        n_params = sum(p.numel() for p in run["model"].parameters())
+        step_ms = [np.round(np.array(run["step_s"][i]) * 1e3, 3).tolist()
+                   for i in (0, 1)]
+        log(f"zoo train {label} ({card}): {arch}, {cfg.num_layers} layers, "
+            f"{n_params} params, {shards} shard(s) of {rows} x 512: "
+            f"{json.dumps(stats)}; phase-0 step ms {step_ms[0]}, phase-1 "
+            f"{step_ms[1]}; launches per step (flash fwd, flash bwd, "
+            f"rmsnorm fwd, rmsnorm bwd) {steps[0]} = {shards} x {per_pass}; "
+            f"totals flash {flash} rmsnorm {rms}; max_memory_allocated "
+            f"{run['max_memory_allocated'] / 2**30:.2f} GiB; {wall:.1f} s")
+        run.clear()
+        del run
+        torch.cuda.empty_cache()
+    for _, arch, *_ in ZOO_TRAIN_RUNS:
+        zoo_train_f32_check(torch, fa, rn, arch)
+    log(f"zoo train phase: {time.perf_counter() - t_zoo:.1f} s")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5289,6 +5646,15 @@ def main() -> int:
     # ---- 7b. main path: the sharded steps on a mesh (ROADMAP 15.7) --------
     shard_launches = shard_checks(torch, card)
 
+    # ---- 7c. the dry run and the roofline on the card (ROADMAP 15.8) ------
+    dry_launches = dryrun_phase(torch, fa, rn, card)
+
+    # ---- 7d. main path: training the MoE and Mamba2 families (15.9) -------
+    zoo_train = zoo_train_phase(torch, fa, rn, card)
+    # the training forward and backward launches of phases 7, 7c and 7d
+    train_all = {k: train_flash.get(k, 0) + train_rms.get(k, 0)
+                 + dry_launches[k] + zoo_train[k] for k in zoo_train}
+
     # ---- 8. report ---------------------------------------------------------
     main_row, bwd_row = main_rows[128], bwd_rows[128]
     log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
@@ -5299,7 +5665,8 @@ def main() -> int:
         f"overlapped forward) fwd {mesh_rows_fwd} bwd {mesh_rows_bwd}; llm "
         f"serving flash {llm_flash} rmsnorm {llm_rms}; the zoo's serving "
         f"{zoo_launches}; llm training flash {train_flash} rmsnorm "
-        f"{train_rms}; the sharded steps {shard_launches}")
+        f"{train_rms}; the sharded steps {shard_launches}; the roofline "
+        f"step {dry_launches}; the zoo's training {zoo_train}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -5378,11 +5745,12 @@ def main() -> int:
             ("rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
              rms_rows[False, (4, 2048, 896), "bfloat16"],
              llm_rms["rmsnorm"] + zoo_launches["rmsnorm"]
-             + shard_launches["rmsnorm"], rms_errs[False]),
+             + shard_launches["rmsnorm"] + train_all["rmsnorm"],
+             rms_errs[False]),
             ("add_rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
              rms_rows[True, (4, 2048, 896), "bfloat16"],
              llm_rms["add_rmsnorm"] + zoo_launches["add_rmsnorm"]
-             + shard_launches["add_rmsnorm"],
+             + shard_launches["add_rmsnorm"] + train_all["add_rmsnorm"],
              rms_errs[True])):
         kernels.append({
             "name": name, "route": "cuda",
@@ -5398,20 +5766,20 @@ def main() -> int:
     for name, source, tpu, row, n, errs in (
             ("flash_attention_train", "flash_attention.cu", FLASH_TPU,
              flash_train_rows[train_main][0],
-             train_flash["train"] + shard_launches["train"],
+             train_all["train"] + shard_launches["train"],
              [r[0]["max_abs_err"] for r in flash_train_rows.values()]),
             ("flash_attention_bwd", "flash_attention_bwd.cu", FLASH_TPU,
              flash_train_rows[train_main][1],
-             train_flash["backward"] + shard_launches["backward"],
+             train_all["backward"] + shard_launches["backward"],
              [r[1]["max_abs_err"] for r in flash_train_rows.values()]),
             ("rmsnorm_bwd", "rmsnorm.cu", RMSNORM_TPU,
              rms_bwd_rows[False, RMS_TRAIN_MAIN, "bfloat16"],
-             train_rms["rmsnorm_bwd"] + shard_launches["rmsnorm_bwd"],
+             train_all["rmsnorm_bwd"] + shard_launches["rmsnorm_bwd"],
              [r["max_abs_err"] for (f, _, _), r in rms_bwd_rows.items()
               if not f]),
             ("add_rmsnorm_bwd", "rmsnorm.cu", RMSNORM_TPU,
              rms_bwd_rows[True, RMS_TRAIN_MAIN, "bfloat16"],
-             train_rms["add_rmsnorm_bwd"] + shard_launches["add_rmsnorm_bwd"],
+             train_all["add_rmsnorm_bwd"] + shard_launches["add_rmsnorm_bwd"],
              [r["max_abs_err"] for (f, _, _), r in rms_bwd_rows.items()
               if f])):
         kernels.append({

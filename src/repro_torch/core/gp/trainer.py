@@ -203,8 +203,8 @@ def make_personalize_step(loss_fn: Callable, optimizer,
 
 
 def make_personalize_partition_step(loss_fn: Callable, optimizer,
-                                    hp: GPHyperParams = GPHyperParams()
-                                    ) -> Callable:
+                                    hp: GPHyperParams = GPHyperParams(),
+                                    inplace: bool = False) -> Callable:
     """SINGLE-partition phase-1 step, no leading partition axis anywhere:
     ``(params, opt_state, batch, global_params, active) -> (params,
     opt_state, loss)``.  ``params`` is a shared-form ``GraphSAGE`` (one
@@ -214,15 +214,26 @@ def make_personalize_partition_step(loss_fn: Callable, optimizer,
     enters detached.  An inactive partition's params and optimizer state
     come back bitwise unchanged: the new values are selected with
     ``torch.where``, never multiplied by a gate (``p + 0.0`` flips the sign
-    of ``-0.0``)."""
+    of ``-0.0``).
+
+    ``inplace`` steps the params and ``opt_state`` in place through
+    ``optimizer.update_`` (bitwise the same values, without a second copy
+    of the moments); the partition must then be active (``active`` True),
+    and the ``opt_state`` passed in is consumed."""
 
     def step(params, opt_state, batch, global_params, active):
+        if inplace and active is not True:
+            raise ValueError("an in-place personalize step needs an active "
+                             f"partition (active=True), got {active!r}")
         weights = list(params.parameters())
         loss = loss_fn(params, batch)
         if hp.use_prox:
             gw = [g.detach() for g in global_params.parameters()]
             loss = loss + hp.lambda_prox * prox_penalty(weights, gw)
         grads = torch.autograd.grad(loss, weights)
+        if inplace:
+            return params, optimizer.update_(list(grads), opt_state,
+                                             weights), loss.detach()
         old = [w.detach() for w in weights]
         updates, new_state = optimizer.update(grads, opt_state, old)
         act = torch.as_tensor(active, dtype=torch.bool, device=old[0].device)

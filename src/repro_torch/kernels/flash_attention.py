@@ -5,7 +5,9 @@ prefix and ``q_offset``: the wrapper of the hand-written Hopper kernels in
 prefix-LM mask is the reference's ``chunked_attention(prefix_len=)``).
 
 A CUDA tensor launches a kernel (or raises); a CPU tensor takes the plain
-version ``ref.attention_ref``.  There is no fallback between the two.  The
+version ``ref.attention_ref``.  There is no fallback between the two.  A
+meta tensor gives the output's shape (no data), and every route reports
+``kernels/work.py``'s formulas to a step counter.  The
 layout is the reference's, ``(B, H, S, Dh)``, Dh in :data:`HEAD_DIMS`.
 :func:`plan` picks the kernel's design on the host: a decode query
 (``Sq == 1``, at most :data:`DECODE_MAX_GROUP` query heads per KV head, no
@@ -34,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import ref
+from . import ref, work
 from .build import load_library, ticket_counters
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
@@ -329,20 +331,38 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, prefix_len=0):
         _check_trainable(q.shape[3], prefix_len)
-        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset)
+        mask = dict(causal=causal, window=window, q_offset=q_offset)
+        with work.block(_work, q, k, mask, True):
+            out, lse = flash_attention_lse(q, k, v, **mask)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, window, q_offset)
+        ctx.mask = mask
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, q_offset = ctx.mask
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
-                                         causal=causal, window=window,
-                                         q_offset=q_offset)
+        with work.block(_bwd_work, q, k, ctx.mask):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                             **ctx.mask)
         return dq, dk, dv, None, None, None, None
+
+
+def _work(q, k, mask, train):
+    """``kernel_work``'s ``(name, work)`` of a forward: the training
+    forward (writing the log-sum-exp) or serving's."""
+    return (("flash_attention_train" if train else "flash_attention"),
+            lambda: work.flash_fwd_work(tuple(q.shape), tuple(k.shape),
+                                        q.element_size(), lse=train, **mask))
+
+
+def _serve_work(q, k, causal, window, q_offset, prefix_len):
+    return _work(q, k, _mask(causal, window, q_offset, prefix_len), False)
+
+
+def _bwd_work(q, k, mask):
+    return ("flash_attention_bwd",
+            lambda: work.flash_bwd_work(tuple(q.shape), tuple(k.shape),
+                                        q.element_size(), **mask))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -357,18 +377,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from the causal mask and the window alike); a row that sees no key is
     0.  A CUDA ``q`` launches the kernel (through :class:`FlashAttentionFn`
     where autograd needs a gradient), a CPU ``q`` runs
-    :func:`flash_attention_plain` (differentiable as it stands).
+    :func:`flash_attention_plain` (differentiable as it stands), and a meta
+    ``q`` gives the output's shape (no data; its gradients too, with the
+    backward kernel's refusals).  Every route reports
+    ``kernels/work.py``'s formulas to a step counter.
     """
     _check(q, k, v, window, prefix_len)
+    train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
     if q.is_cuda:
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if train:
             return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
                                           prefix_len)
-        return _launch(q, k, v, causal, window, q_offset,
-                       prefix_len=prefix_len)
+        with work.block(_serve_work, q, k, causal, window, q_offset,
+                        prefix_len):
+            return _launch(q, k, v, causal, window, q_offset,
+                           prefix_len=prefix_len)
+    mask = _mask(causal, window, q_offset, prefix_len)
+    if q.device.type == "meta":
+        if train:
+            _check_trainable(q.shape[3], prefix_len)
+        return work.counted(_work(q, k, mask, train), _bwd_work(q, k, mask),
+                            lambda q, k, v: torch.empty_like(q), q, k, v)
     if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
-                         f"{q.device}")
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, prefix_len=prefix_len)
+        raise ValueError(f"flash_attention runs on CUDA, CPU or meta "
+                         f"tensors, got {q.device}")
+
+    def plain(q, k, v):
+        return flash_attention_plain(q, k, v, **mask)
+
+    if not work.counting():
+        return plain(q, k, v)
+    return work.counted(_work(q, k, mask, train), _bwd_work(q, k, mask),
+                        plain, q, k, v)
+
+
+def _mask(causal, window, q_offset, prefix_len):
+    return dict(causal=causal, window=window, q_offset=q_offset,
+                prefix_len=prefix_len)

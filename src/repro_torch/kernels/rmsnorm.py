@@ -4,7 +4,9 @@ wrappers of the hand-written Hopper kernels in ``csrc/rmsnorm.cu``
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version (``ref.rmsnorm_ref``, after a plain add for :func:`add_rmsnorm`).
-There is no fallback between the two.
+There is no fallback between the two.  A meta tensor gives the outputs'
+shapes (no data), and every route reports ``kernels/work.py``'s formulas
+to a step counter.
 
 Training: where autograd needs a gradient, a CUDA call goes through
 :class:`RMSNormFn` or :class:`AddRMSNormFn`, whose forward is the kernel
@@ -22,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import ref
+from . import ref, work
 from .build import load_library, ticket_counters
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "add_rmsnorm", "add_rmsnorm_plain",
@@ -225,12 +227,14 @@ class RMSNormFn(torch.autograd.Function):
     def forward(ctx, x, weight, eps):
         ctx.save_for_backward(x, weight)
         ctx.eps = eps
-        return _launch(x, None, weight, eps)
+        with work.block(_work, x, False):
+            return _launch(x, None, weight, eps)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        dx, dw = rmsnorm_bwd(x, dy, weight, eps=ctx.eps)
+        with work.block(_bwd_work, x, False):
+            dx, dw = rmsnorm_bwd(x, dy, weight, eps=ctx.eps)
         return dx, dw.to(weight.dtype), None
 
 
@@ -242,7 +246,8 @@ class AddRMSNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, delta, weight, eps):
-        s, y = _launch(x, delta, weight, eps)
+        with work.block(_work, x, True):
+            s, y = _launch(x, delta, weight, eps)
         ctx.save_for_backward(s, weight)
         ctx.eps = eps
         ctx.set_materialize_grads(False)
@@ -253,8 +258,23 @@ class AddRMSNormFn(torch.autograd.Function):
         s, weight = ctx.saved_tensors
         if dy is None:      # y unused: s's gradient passes straight through
             return ds_out, ds_out, None, None
-        ds, dw = rmsnorm_bwd(s, dy, weight, ds_out, eps=ctx.eps)
+        with work.block(_bwd_work, s, True):
+            ds, dw = rmsnorm_bwd(s, dy, weight, ds_out, eps=ctx.eps)
         return ds, ds, dw.to(weight.dtype), None
+
+
+def _work(x, fused):
+    """``kernel_work``'s ``(name, work)`` of a forward of either entry
+    point."""
+    return (("add_rmsnorm" if fused else "rmsnorm"),
+            lambda: work.rmsnorm_work(x.numel(), x.shape[-1],
+                                      x.element_size(), fused=fused))
+
+
+def _bwd_work(x, fused):
+    return (("add_rmsnorm_bwd" if fused else "rmsnorm_bwd"),
+            lambda: work.rmsnorm_bwd_work(x.numel(), x.shape[-1],
+                                          x.element_size(), fused=fused))
 
 
 def _needs_grad(*tensors) -> bool:
@@ -268,8 +288,8 @@ def _check(x, weight):
     if weight.device != x.device:
         raise ValueError(f"x and weight must lie on one device, got "
                          f"{x.device}, {weight.device}")
-    if not x.is_cuda and x.device.type != "cpu":
-        raise ValueError(f"rmsnorm runs on CUDA or CPU tensors, got "
+    if not x.is_cuda and x.device.type not in ("cpu", "meta"):
+        raise ValueError(f"rmsnorm runs on CUDA, CPU or meta tensors, got "
                          f"{x.device}")
 
 
@@ -278,13 +298,24 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
     """``x · rsqrt(mean(x²) + eps) · weight`` over the last dim, f32 math,
     output in x's dtype.  A CUDA ``x`` launches the kernel (through
     :class:`RMSNormFn` where autograd needs a gradient), a CPU ``x`` runs
-    :func:`rmsnorm_plain`."""
+    :func:`rmsnorm_plain`, a meta ``x`` gives the output's shape."""
     _check(x, weight)
     if x.is_cuda:
         if _needs_grad(x, weight):
             return RMSNormFn.apply(x, weight, eps)
-        return _launch(x, None, weight, eps)
-    return rmsnorm_plain(x, weight, eps=eps)
+        with work.block(_work, x, False):
+            return _launch(x, None, weight, eps)
+    if x.device.type == "meta":
+        return work.counted(_work(x, False), _bwd_work(x, False),
+                            lambda x, w: torch.empty_like(x), x, weight)
+
+    def plain(x, w):
+        return rmsnorm_plain(x, w, eps=eps)
+
+    if not work.counting():
+        return plain(x, weight)
+    return work.counted(_work(x, False), _bwd_work(x, False), plain, x,
+                        weight)
 
 
 def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
@@ -294,7 +325,7 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
     rounded ``s``; returns ``(s, y)``.  x and delta share shape, dtype and
     device and are contiguous.  CUDA tensors launch the kernel (through
     :class:`AddRMSNormFn` where autograd needs a gradient), CPU tensors run
-    :func:`add_rmsnorm_plain`."""
+    :func:`add_rmsnorm_plain`, meta tensors give the outputs' shapes."""
     if (delta.shape != x.shape or delta.dtype != x.dtype
             or delta.device != x.device):
         raise ValueError(
@@ -307,5 +338,18 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
     if x.is_cuda:
         if _needs_grad(x, delta, weight):
             return AddRMSNormFn.apply(x, delta, weight, eps)
-        return _launch(x, delta, weight, eps)
-    return add_rmsnorm_plain(x, delta, weight, eps=eps)
+        with work.block(_work, x, True):
+            return _launch(x, delta, weight, eps)
+    if x.device.type == "meta":
+        return work.counted(_work(x, True), _bwd_work(x, True),
+                            lambda x, d, w: (torch.empty_like(x),
+                                             torch.empty_like(x)),
+                            x, delta, weight)
+
+    def plain(x, d, w):
+        return add_rmsnorm_plain(x, d, w, eps=eps)
+
+    if not work.counting():
+        return plain(x, delta, weight)
+    return work.counted(_work(x, True), _bwd_work(x, True), plain, x, delta,
+                        weight)

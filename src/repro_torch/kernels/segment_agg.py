@@ -28,8 +28,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import ref
+from . import ref, work
 from .build import load_library
+from .work import PLAN_KEYS
 
 __all__ = ["EdgeBlocks", "BN", "BEC", "build_edge_blocks",
            "build_edge_blocks_from_edges", "build_transpose_blocks",
@@ -45,7 +46,6 @@ BEC = 128   # edge-slot granule: BE is a multiple of it
 ROW_WORK_K = 128   # most real slots one work item of the kernels sums
 ZERO_RUN = 32      # most empty rows one work entry zero-fills
 # the work plan's keys (``t_`` + each for the transpose mirror)
-PLAN_KEYS = ("row_part", "row_work", "row_split", "row_space")
 _INT32_KEYS = {*PLAN_KEYS, *("t_" + k for k in PLAN_KEYS)}
 
 # Launch counters of the CUDA kernels (counterpart of ``pallas_call_count``),
@@ -545,17 +545,31 @@ def _launch_bwd_kernel(g: torch.Tensor, blocks: dict, n_in: int, row_base,
 def _device_kind(t: torch.Tensor) -> str:
     if t.is_cuda:
         return "cuda"
-    if t.device.type != "cpu":
-        raise ValueError(f"segment_mean_op runs on CUDA or CPU tensors, got "
-                         f"{t.device}")
-    return "cpu"
+    if t.device.type not in ("cpu", "meta"):
+        raise ValueError(f"segment_mean_op runs on CUDA, CPU or meta "
+                         f"tensors, got {t.device}")
+    return t.device.type
+
+
+def _fwd_work(x, blocks, num_rows):
+    return ("segment_mean_fwd", lambda: work.segment_fwd_work(
+        tuple(x.shape), x.element_size(), blocks, num_rows))
+
+
+def _bwd_work(g, blocks, n_in):
+    return ("segment_mean_bwd", lambda: work.segment_bwd_work(
+        tuple(g.shape), g.element_size(), blocks, n_in))
 
 
 def _fwd(x, blocks, num_rows, row_base, mean):
-    if _device_kind(x) == "cuda":
-        return _launch_kernel(x, blocks, num_rows, row_base, mean)
-    return segment_mean_plain(x, blocks, num_rows=num_rows,
-                              row_base=row_base, mean=mean)
+    kind = _device_kind(x)
+    with work.block(_fwd_work, x, blocks, num_rows):
+        if kind == "cuda":
+            return _launch_kernel(x, blocks, num_rows, row_base, mean)
+        if kind == "meta":
+            return x.new_empty((*x.shape[:-2], num_rows, x.shape[-1]))
+        return segment_mean_plain(x, blocks, num_rows=num_rows,
+                                  row_base=row_base, mean=mean)
 
 
 def _bwd(g, blocks, n_in, row_base, mean):
@@ -564,10 +578,14 @@ def _bwd(g, blocks, n_in, row_base, mean):
         raise ValueError(f"the backward of segment_mean_op needs the "
                          f"transpose blocks, missing {missing} (build the "
                          "blocks with build_vjp_blocks)")
-    if _device_kind(g) == "cuda":
-        return _launch_bwd_kernel(g, blocks, n_in, row_base, mean)
-    return segment_mean_bwd_plain(g, blocks, n_in=n_in, row_base=row_base,
-                                  mean=mean)
+    kind = _device_kind(g)
+    with work.block(_bwd_work, g, blocks, n_in):
+        if kind == "cuda":
+            return _launch_bwd_kernel(g, blocks, n_in, row_base, mean)
+        if kind == "meta":
+            return g.new_empty((*g.shape[:-2], n_in, g.shape[-1]))
+        return segment_mean_bwd_plain(g, blocks, n_in=n_in,
+                                      row_base=row_base, mean=mean)
 
 
 class _SegmentMean(torch.autograd.Function):
@@ -630,7 +648,10 @@ def segment_mean_op(x: torch.Tensor, blocks: dict, *, num_rows: int,
     gradient.  On both passes a CUDA tensor goes to the hand-written
     kernels (or raises: they need the blocks' work plan, see
     :func:`block_row_work`) and a CPU tensor to the plain version; there is
-    no fallback between the two.
+    no fallback between the two.  A meta tensor gives the output's shape
+    (no data); both passes report ``kernels/work.py``'s formulas to a step
+    counter, whose count then needs the blocks' masks on the CPU or the
+    card.
     """
     _device_kind(x)
     return _SegmentMean.apply(x, blocks, int(num_rows), row_base, bool(mean))

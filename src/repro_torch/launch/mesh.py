@@ -24,6 +24,8 @@ The LLM meshes (the reference's ``make_mesh_compat``,
 on one card runs the ``staged`` backend (``launch/staged_backend.py``):
 DTensor's collectives over gloo on card tensors end the rank in SIGSEGV on
 the card's torch (``scripts/collective_probe.py``).
+:func:`make_dryrun_world` makes the dry run's world: rank 0 of 512 ranks
+on the ``fake`` backend, which moves no data.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import torch.distributed as dist
 
 __all__ = ["PartitionMesh", "make_partition_mesh", "partition_world_size",
            "spawn_partition_world", "default_backend", "make_mesh_compat",
-           "make_production_mesh", "data_axes_of", "model_axis_of"]
+           "make_production_mesh", "make_dryrun_world", "data_axes_of",
+           "model_axis_of"]
 
 # seconds a collective may wait for its peers before the group fails it
 GROUP_TIMEOUT_S = 120.0
@@ -145,6 +148,40 @@ def make_production_mesh(*, multi_pod: bool = False):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh_compat(shape, axes)
+
+
+_DRYRUN_MESHES: dict = {}
+
+
+def make_dryrun_world(*, multi_pod: bool = False):
+    """This process as rank 0 of a world of 512 ranks on the ``fake``
+    backend, whose collectives move nothing and return outputs of the right
+    shapes, and the production mesh over its first 256 ranks, ``(16, 16)``
+    ``("data", "model")``, or over all 512 with ``multi_pod``, ``(2, 16,
+    16)`` ``("pod", "data", "model")`` (device type ``"cpu"``): the dry
+    run's world, the counterpart of the reference's 512 forced host devices
+    (its single-pod mesh takes the first 256).  Both meshes live in the one
+    world, each made once; any other initialized group raises."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = 512
+    if dist.is_initialized() and (str(dist.get_backend()) != "fake"
+                                  or dist.get_world_size() != world):
+        raise ValueError("the dry run's world needs this process outside "
+                         f"any other group, it is in a {dist.get_backend()} "
+                         f"world of {dist.get_world_size()}")
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+        _DRYRUN_MESHES.clear()
+    if multi_pod not in _DRYRUN_MESHES:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+        _DRYRUN_MESHES[multi_pod] = DeviceMesh(
+            "cpu", torch.arange(math.prod(shape)).reshape(shape),
+            mesh_dim_names=axes)
+    return _DRYRUN_MESHES[multi_pod]
 
 
 def data_axes_of(mesh) -> tuple[str, ...]:

@@ -132,10 +132,13 @@ def _train_loss(model, batch):
     return model.train_loss(batch)
 
 
-def _make_policy(mesh) -> ShardingPolicy:
+def _make_policy(mesh, *, seq_shard_residual: bool = True,
+                 constrain_attn: bool = True) -> ShardingPolicy:
     return ShardingPolicy(
         data_axes=data_axes_of(mesh),
         model_axis=model_axis_of(mesh),
+        seq_shard_residual=seq_shard_residual,
+        constrain_attn=constrain_attn,
         enabled=True,
         axis_sizes=_axis_sizes(mesh),
     )
@@ -144,7 +147,9 @@ def _make_policy(mesh) -> ShardingPolicy:
 def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
                optimizer: AdamW | None = None,
                phase: str = "generalize",
-               num_partitions: int | None = None) -> BuiltStep:
+               num_partitions: int | None = None,
+               seq_shard_residual: bool = True,
+               constrain_attn: bool = True) -> BuiltStep:
     """The step of ``shape``'s kind for models of ``cfg``:
 
     - train, ``phase="generalize"``: ``step(model, opt_state, batch) ->
@@ -163,6 +168,11 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
       ``decode_cache_width`` says so; the encoder's keys and values ride in
       the caches (``"cross"``).
 
+    ``seq_shard_residual`` and ``constrain_attn`` are the reference's
+    policy options (``models/sharding.py::ShardingPolicy``): the residual's
+    sequence over ``"model"`` between sub-layers, and the head constraint
+    on training attention; without a mesh they change nothing.
+
     With a ``mesh`` the model is one placed by :meth:`BuiltStep.shard_model`
     (the personalize step's ``models`` are this rank's replicas, from
     :meth:`BuiltStep.shard_replicas`, and its ``opt_states`` theirs); the
@@ -173,7 +183,9 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
     optimizer = optimizer or AdamW(lr=1e-3, weight_decay=0.01, grad_clip=1.0)
     if mesh is not None:
         return _build_sharded(cfg, shape, mesh, optimizer, phase,
-                              num_partitions)
+                              num_partitions, dict(
+                                  seq_shard_residual=seq_shard_residual,
+                                  constrain_attn=constrain_attn))
 
     if shape.kind == "train" and phase == "generalize":
         return BuiltStep(f"train:{cfg.name}:{shape.name}",
@@ -254,15 +266,15 @@ def _global(v):
     return torch.as_tensor(np.asarray(v))
 
 
-def _build_sharded(cfg, shape, mesh, optimizer, phase,
-                   num_partitions) -> BuiltStep:
+def _build_sharded(cfg, shape, mesh, optimizer, phase, num_partitions,
+                   options) -> BuiltStep:
     from torch.distributed.tensor import Replicate
 
     from ..models.transformer import Transformer, check_shardable
 
     check_shardable(cfg)
     dax = data_axes_of(mesh)
-    policy = _make_policy(mesh)
+    policy = _make_policy(mesh, **options)
     rep = [Replicate()] * mesh.ndim
     shapes = {n: tuple(p.shape) for n, p in Transformer(
         cfg, device="meta").named_parameters()}
@@ -362,7 +374,9 @@ def _build_personalize(cfg, shape, mesh, optimizer, dax, policy, p_specs,
     model_ax = model_axis_of(mesh)
     sub = mesh[model_ax] if model_ax else None
     sub_policy = ShardingPolicy(
-        data_axes=(), model_axis=model_ax, enabled=True,
+        data_axes=(), model_axis=model_ax,
+        seq_shard_residual=policy.seq_shard_residual,
+        constrain_attn=policy.constrain_attn, enabled=True,
         axis_sizes={model_ax: mesh.size(names.index(model_ax))}
         if model_ax else {})
     pp_shard = {n: placements(sanitize_spec(P(dax, *p_specs[n]),

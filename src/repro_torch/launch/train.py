@@ -218,7 +218,8 @@ def _shard(nb, p) -> dict:
 def llm_phase0_step(model, opt, opt_state, nb, shards):
     """One phase-0 step in the reference's order: a backward per shard, the
     gradients summed in shard order, divided by the shard count, then one
-    AdamW update.  Returns ``(opt_state, per-shard losses)``."""
+    AdamW update, all in place (``AdamW.update_``: the state passed in is
+    consumed).  Returns ``(opt_state, per-shard losses)``."""
     import torch
 
     weights = list(model.parameters())
@@ -227,14 +228,15 @@ def llm_phase0_step(model, opt, opt_state, nb, shards):
         loss = model.train_loss(_shard(nb, p))
         grads = torch.autograd.grad(loss, weights)
         losses.append(loss.item())
-        acc = list(grads) if acc is None else [a + g for a, g in
-                                               zip(acc, grads)]
-    updates, opt_state = opt.update([a / shards for a in acc], opt_state,
-                                    weights)
-    with torch.no_grad():
-        for w, u in zip(weights, updates):
-            w.add_(u)
-    return opt_state, losses
+        if acc is None:
+            acc = list(grads)
+        else:
+            for a, g in zip(acc, grads):
+                a.add_(g)
+        del loss, grads
+    for a in acc:
+        a.div_(shards)
+    return opt.update_(acc, opt_state, weights), losses
 
 
 def run_llm(args) -> dict:
@@ -252,8 +254,14 @@ def run_llm(args) -> dict:
     same math.  ``--full`` takes the arch's published widths, with the
     corpus drawn over the ``reduced()`` vocabulary (512 ids, valid ids of
     the full vocabulary; the corpus's per-domain transition tables are
-    (V, V)); the loss still runs over every logit."""
+    (V, V)); the loss still runs over every logit.  ``--num-repeats`` and
+    ``--sub-layers`` cut the depth (the super-block's repeats, its first
+    sub-layers); the widths stay.  Both phases step the weights and the
+    AdamW moments in place (``AdamW.update_``), and phase 0's AdamW state
+    is freed when phase 1 starts: ``opt_state`` is returned only when
+    phase 1 did not run."""
     import copy
+    import dataclasses
     import time
 
     import numpy as np
@@ -270,6 +278,12 @@ def run_llm(args) -> dict:
     device = resolve_device(args.device)
     base = get_config(args.arch)
     cfg = base if args.full else base.reduced(d_model=args.d_model)
+    cut = {}
+    if getattr(args, "num_repeats", None):
+        cut["num_repeats"] = args.num_repeats
+    if getattr(args, "sub_layers", None):
+        cut["super_block"] = cfg.super_block[:args.sub_layers]
+    cfg = dataclasses.replace(cfg, **cut) if cut else cfg
     vocab = base.reduced().vocab_size if args.full else cfg.vocab_size
     spec = CorpusSpec(num_docs=args.docs, doc_len=args.seq, vocab_size=vocab,
                       num_domains=8, seed=args.seed)
@@ -309,9 +323,12 @@ def run_llm(args) -> dict:
     global_model = model
     pstep = make_personalize_partition_step(
         lambda m, b: m.train_loss(b), opt,
-        GPHyperParams(lambda_prox=args.lambda_prox))
+        GPHyperParams(lambda_prox=args.lambda_prox), inplace=True)
     replicas, popt = [], []
     if args.steps > steps_phase0:
+        # phase 1 never reads phase 0's AdamW state (8 bytes a parameter on
+        # the card): free it before the replicas and theirs are made
+        opt_state = None
         replicas = [copy.deepcopy(model) for _ in range(args.shards)]
         popt = [opt.init(r.parameters()) for r in replicas]
     ploss_hist = []
@@ -515,6 +532,12 @@ def build_parser() -> argparse.ArgumentParser:
     l.add_argument("--full", action="store_true",
                    help="the arch's published widths instead of "
                         "reduced(d_model=--d-model)")
+    l.add_argument("--num-repeats", type=int, default=None,
+                   help="cut the depth: this many repeats of the "
+                        "super-block (widths untouched)")
+    l.add_argument("--sub-layers", type=int, default=None,
+                   help="cut the depth: the first N sub-layers of the "
+                        "super-block")
     l.add_argument("--device", default="cuda",
                    help="torch device (cuda by default; cpu for tests)")
     return ap

@@ -428,7 +428,11 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
     gathered back, weighted by ``top_w`` and summed over K (a dropped choice
     adds 0).  ``aux`` is the Switch load-balance term, E · Σ_e (share of
     tokens whose first choice is e) · (mean router probability of e) ·
-    ``router_aux_weight``; serving drops it."""
+    ``router_aux_weight``: training adds it to the loss, serving drops it.
+    Under autograd the gradient reaches the router through the top-k
+    weights and ``aux``'s mean probabilities, and the kept rows through
+    the ``index_put_`` and the gather back (a dropped choice gets none),
+    as the reference's scatter-add and gather differentiate."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     t = b * s
@@ -498,7 +502,8 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, chunk, init_state=None):
     state (the reference's ``lax.scan``); per-chunk buffers never exceed one
     chunk's.  The intra-chunk product runs as ``M = scores · L · dt``, (B, L,
     L, H), then one batched product with x: never the (B, L, L, H, P)
-    tensor a four-operand einsum contracted left to right would build."""
+    tensor a four-operand einsum contracted left to right would build.
+    Differentiable (training runs it under autograd and remat)."""
     b, s, h, p = xh.shape
     n = bmat.shape[-1]
     if s % chunk:

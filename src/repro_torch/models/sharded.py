@@ -6,7 +6,10 @@ policy is ``models/sharding.py``).
 Parameters are DTensors placed by their sanitized ``param_specs``; the
 batch is sharded over the data axes; between sub-layers the residual
 stream is placed by ``policy.residual`` (batch over data, sequence over
-``"model"``).  Each sub-layer runs as ONE ``local_map`` on the ranks'
+``"model"``; with ``seq_shard_residual`` off the sequence stays replicated
+there, so a sub-layer needs no gather and its ``Partial`` output is
+all-reduced; with ``constrain_attn`` off training attention computes every
+head on each model rank).  Each sub-layer runs as ONE ``local_map`` on the ranks'
 local shards, so every hand-written kernel (flash attention, RMSNorm and
 their backwards) runs on a rank's shard, and the communication is the
 ``redistribute`` calls around the sub-layers:
@@ -98,12 +101,16 @@ class _AttnLayout:
     """How one attention sub-layer splits over ``"model"`` (``m`` ranks,
     this one ``r``): query heads local (the sanitized head spec keeps
     ``"model"``) or all; KV heads local (both head counts divide ``m``) or
-    all, with the KV heads this rank's query heads read picked from them."""
+    all, with the KV heads this rank's query heads read picked from them.
+    ``constrain=False`` (training attention under a policy without
+    ``constrain_attn``) puts no head constraint on the activations: every
+    model rank computes all heads from gathered projections."""
 
-    def __init__(self, cfg, policy, m: int, r: int, b: int, s: int):
+    def __init__(self, cfg, policy, m: int, r: int, b: int, s: int,
+                 constrain: bool = True):
         h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         qspec = policy._sanitize(policy.attn_act_spec(), (b, h, s, dh))
-        self.q_local = m == 1 or qspec[1] is not None
+        self.q_local = m == 1 or (constrain and qspec[1] is not None)
         self.kv_local = self.q_local and hkv % m == 0
         self.cfg_local = cfg if m == 1 else replace(
             cfg, num_heads=h // m if self.q_local else h,
@@ -302,7 +309,9 @@ class ShardedOps:
     def mlp(self, p, h):
         """The MLP on the gathered rows: its FFN-hidden slice where the
         hidden divides ``|model|``, else all of it on model rank 0 (0 on
-        the others); a Partial output."""
+        the others); a Partial output.  The replicated hidden bias
+        ``b_in`` (the reference's specs leave it whole) is sliced to the
+        rank's hidden columns, and ``b_out`` added on model rank 0 alone."""
         cfg = self.cfg
         hf = self.gathered(h)
         keys, ws = self._block_weights(p, set())
@@ -311,10 +320,15 @@ class ShardedOps:
         hsplit = self.m > 1 and isinstance(
             p[first].placements[self.model_dim], Shard)
         zero = self._zero_unless_first
+        r = self.r
 
         def fn(hl, pd):
-            if self.m > 1 and "b_out" in pd:
-                pd = {**pd, "b_out": zero(pd["b_out"])} if hsplit else pd
+            if hsplit and "b_out" in pd:
+                pd = {**pd, "b_out": zero(pd["b_out"])}
+            if hsplit and "b_in" in pd and \
+                    pd["b_in"].shape[-1] != pd["w_in"].shape[-1]:
+                c = pd["w_in"].shape[-1]
+                pd = {**pd, "b_in": pd["b_in"][..., r * c:(r + 1) * c]}
             y = L.mlp_apply(pd, hl, cfg)
             return y if hsplit or self.m == 1 else zero(y)
 
@@ -355,7 +369,7 @@ class ShardedOps:
         cfg, kernels = self.cfg, self.kernels
         hf = self.gathered(h)
         lay = _AttnLayout(cfg, self.policy, self.m, self.r, h.shape[0],
-                          h.shape[1])
+                          h.shape[1], constrain=self.policy.constrain_attn)
         keys, ws = self._attn_weights(p, lay)
 
         def fn(hl, pd):
@@ -484,8 +498,9 @@ class ShardedOps:
 
         cfg, tied = self.cfg, self.cfg.tie_embeddings
         hp = list(h.placements)
-        labels = self.policy.constrain(labels, P(self.policy.data_axes,
-                                                 self.policy.model_axis))
+        # the labels' rows placed as the residual's
+        labels = self.policy.constrain(labels,
+                                       P(*self.policy.residual_spec()[:2]))
         head = self._head()
         rep = [Replicate()] * self.mesh.ndim
         head = head.redistribute(self.mesh, rep)
@@ -553,11 +568,17 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     input and its output (``launch/staged_backend.py``'s count), a gather
     of a local block of ``n`` bytes over ``k`` ranks ``n (1 + k)``, a
     reduce-scatter the same, an all-reduce ``2 n``.  ``policy`` carries the
-    mesh's axis sizes.  Covers the dense decoders with the sequence split
-    over ``"model"`` in training and prefill (``seq`` divisible), the
-    vocabulary split over ``"model"`` and a batch split over all the data
-    axes; with ``cfg.remat`` the backward replays each layer's forward up
-    to its last saved input (the MLP's reduce-scatter is not replayed)."""
+    mesh's axis sizes and its two options: with ``seq_shard_residual``
+    the sequence is split over ``"model"`` in training and prefill
+    (``seq`` divisible) and each sub-layer gathers it and reduce-scatters
+    its output; without, each sub-layer's output is all-reduced (``2 n``
+    of the whole sequence's block), in the backward too, and nothing is
+    gathered; without ``constrain_attn`` training attention gathers the
+    ``"model"``-sharded query, key and value projections.  Covers the
+    dense decoders with the vocabulary split over ``"model"`` and a batch
+    split over all the data axes; with ``cfg.remat`` the backward replays
+    each layer's forward up to its last saved input (the MLP's
+    collective is not replayed)."""
     from .transformer import Transformer
 
     sizes = policy.axis_sizes
@@ -583,42 +604,55 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     if m > 1 and not sharded("embed"):
         raise NotImplementedError("the closed form takes a vocabulary split "
                                   "over 'model'")
-    if kind != "decode" and m > 1 and seq % m:
+    sp = policy.seq_shard_residual
+    if batch % int(np.prod(ddims or [1])):
+        raise NotImplementedError("the closed form takes the batch split "
+                                  "over all the data axes")
+    if kind != "decode" and m > 1 and sp and seq % m:
         raise NotImplementedError("the closed form takes the sequence split "
                                   "over 'model'")
     out = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
-    lay = _AttnLayout(cfg, policy, m, 0, batch, seq)
+    lay = _AttnLayout(cfg, policy, m, 0, batch, seq,
+                      constrain=kind != "train" or policy.constrain_attn)
     layer0 = [n for n in shapes if n.startswith("layers.0.")]
     gathered = [n for n in layer0 if m > 1 and sharded(n) and (
         (n.endswith((".wq", ".b_q")) and not lay.q_local)
         or (n.endswith((".wk", ".wv", ".b_k", ".b_v")) and not lay.kv_local))]
     w_gather = sum(e * numel(n) // m * (1 + m) for n in gathered)
     n_layers = cfg.num_layers
+    reduced = kind == "decode" or not sp        # all-reduced block outputs
     if m == 1:
         act = 0
-    elif kind == "decode":
-        act = 2 * e * b * d                     # an all-reduce a block
+    elif reduced:
+        act = 2 * e * b * d * (1 if kind == "decode" else seq)
     else:
         act = e * b * d * (seq // m + seq)      # a gather or a scatter
     blocks = 2 * n_layers + 1                   # two a layer, the embedding
     if kind in ("prefill", "decode"):
-        if kind == "decode":
+        if reduced:
             out["all_reduce"] += blocks * act
+        if kind == "decode":
             if m > 1 and not lay.kv_local and cache_width and \
                     cache_width % m == 0 and hkv % m:
                 # the context-parallel cache gathered, k and v, a layer
                 out["all_gather"] += n_layers * 2 * e * b * hkv * dh * (
                     cache_width // m + cache_width)
-        else:
+        elif not reduced:
             out["reduce_scatter"] += blocks * act
             out["all_gather"] += (2 * n_layers + 2) * act   # + x, delta
         out["all_gather"] += n_layers * w_gather
         return out
     # train: forward, the layers' replay, backward
-    fwd_ag, fwd_rs = 2 * n_layers, 2 * n_layers + 1
-    rep_ag, rep_rs = (2 * n_layers, n_layers) if cfg.remat else (0, 0)
-    out["all_gather"] += (fwd_ag + rep_ag + fwd_rs) * act
-    out["reduce_scatter"] += (fwd_rs + rep_rs + fwd_ag) * act
+    if reduced:
+        # a block's output all-reduced, the attention's replayed; in the
+        # backward each block input's Partial gradient all-reduced
+        out["all_reduce"] += (blocks + n_layers * int(cfg.remat)
+                              + 2 * n_layers) * act
+    else:
+        fwd_ag, fwd_rs = 2 * n_layers, 2 * n_layers + 1
+        rep_ag, rep_rs = (2 * n_layers, n_layers) if cfg.remat else (0, 0)
+        out["all_gather"] += (fwd_ag + rep_ag + fwd_rs) * act
+        out["reduce_scatter"] += (fwd_rs + rep_rs + fwd_ag) * act
     reps = 1 + int(cfg.remat)
     out["all_gather"] += n_layers * reps * w_gather
     # the gathered weights' gradients: summed over the data ranks whole,
@@ -630,16 +664,17 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     hb = e * numel(head)
     if m > 1:
         out["all_gather"] += hb // m * (1 + m)
-        out["reduce_scatter"] += hb + hb // m
+        # its gradient a Partial sum over "model" where the loss's rows are
+        # split there (reduce-scattered); with the sequence replicated, every
+        # model rank holds it whole
+        if sp:
+            out["reduce_scatter"] += hb + hb // m
     out["all_reduce"] += 2 * hb * len(dsplit)
     # the loss's sum and count: one all-reduce a dim that splits the rows
-    out["all_reduce"] += 2 * 8 * (len(dsplit) + int(m > 1))
+    out["all_reduce"] += 2 * 8 * (len(dsplit) + int(m > 1 and sp))
     # the other gradients summed into their parameters' placements
     gset = {f"layers.{i}.{n[len('layers.0.'):]}" for n in gathered
             for i in range(n_layers)}
-    ff_split = m == 1 or sharded(
-        "layers.0.mlp.w_gate" if cfg.activation == "swiglu"
-        else "layers.0.mlp.w_in")
     for n in shapes:
         if n in gset or n == head:
             continue
@@ -649,10 +684,11 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
             out["all_reduce"] += 2 * pb // m * len(dsplit)
             continue
         # replicated over "model": its gradient is a partial sum over every
-        # rank of a block that splits the work there
-        mlp_rep = ".mlp." in n and not ff_split
+        # rank of a block that splits the work there (an attention or MLP
+        # block always does; a norm's rows only with the sequence)
+        in_block = ".attn." in n or ".mlp." in n
         norm = ".norm" in n or n.startswith("final_norm")
-        over_m = int(m > 1 and (norm or mlp_rep))
+        over_m = int(m > 1 and ((norm and sp) or in_block))
         out["all_reduce"] += 2 * pb * (len(dsplit) + over_m)
     if cfg.tie_embeddings:
         # the embedding's own gradient, summed over the data ranks when

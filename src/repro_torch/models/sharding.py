@@ -6,9 +6,11 @@ The reference's scheme, kept rule for rule:
   · params: Megatron 2D — heads / ffn-hidden / experts / vocab over "model";
     everything batch-like over ("pod", "data");
   · residual stream (B, S, d): batch over the data axes, sequence over
-    "model" between blocks (Megatron sequence parallelism);
+    "model" between blocks (Megatron sequence parallelism;
+    ``seq_shard_residual=False`` keeps it replicated there);
   · attention / MLP internals: heads (resp. ffn hidden) over "model",
-    sequence gathered.
+    sequence gathered (``constrain_attn=False`` drops the head constraint
+    on training attention's activations).
 
 The reference states this as ``PartitionSpec``s and lets GSPMD insert the
 collectives.  Here a spec is the small :class:`P` below, and
@@ -121,14 +123,20 @@ def cache_spec_for(path: str, shape, dax, axis_sizes) -> P:
 class ShardingPolicy:
     data_axes: tuple[str, ...] = ("data",)
     model_axis: str | None = "model"
+    # Megatron sequence parallelism: the residual stream's sequence over
+    # "model" between sub-layers (off: replicated there, each sub-layer's
+    # output all-reduced)
+    seq_shard_residual: bool = True
+    # the head constraint on training attention's activations (off: each
+    # model rank computes every head from gathered projections)
+    constrain_attn: bool = True
     enabled: bool = True
     # mesh axis sizes: required for divisibility-aware activation constraints
     axis_sizes: Any = None   # dict[str, int] | None
 
     # ---- activation specs -------------------------------------------------
     def residual_spec(self) -> P:
-        # the reference's default, seq_shard_residual: sequence over model
-        if self.model_axis:
+        if self.seq_shard_residual and self.model_axis:
             return P(self.data_axes, self.model_axis, None)
         return P(self.data_axes, None, None)
 

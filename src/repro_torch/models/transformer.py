@@ -28,9 +28,10 @@ encoder-decoder (whisper: :meth:`Transformer.encode`, cross-attention after
 each decoder layer's self-attention, whose decode reads the encoder's keys
 and values from the layer cache's ``"cross"`` entry) and the prefix-LM
 (paligemma: ``patch_embeds`` prepended to the tokens, seen by every query).
-Training serves the dense decoders only: a Mamba2 mixer or an MoE FFN
-raises ``NotImplementedError`` (ROADMAP item 15.9), and so do
-cross-attention, the encoder and a prefix (item 15.10).
+Training runs the decoder-only families: attention or Mamba2 mixers, MLP,
+MoE or no FFN, with MoE's Switch auxiliary loss summed over the layers into
+the loss; cross-attention, the encoder and a prefix raise
+``NotImplementedError`` (ROADMAP item 15.10).
 """
 from __future__ import annotations
 
@@ -139,7 +140,7 @@ def check_shardable(cfg: ModelConfig) -> None:
     todo = sorted({f"the {sl.mixer} mixer" for sl in cfg.super_block
                    if sl.mixer != "attention"}
                   | {f"the {sl.ffn} ffn" for sl in cfg.super_block
-                     if sl.ffn != "mlp"})
+                     if sl.ffn not in ("mlp", "none")})
     todo += [what for what, has in (
         ("cross-attention", any(sl.cross_attention for sl in cfg.super_block)),
         ("the encoder", cfg.is_encoder_decoder),
@@ -154,16 +155,8 @@ def check_shardable(cfg: ModelConfig) -> None:
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port only serves."""
-    todo = sorted({f"the {sl.mixer} mixer" for sl in cfg.super_block
-                   if sl.mixer != "attention"}
-                  | {f"the {sl.ffn} ffn" for sl in cfg.super_block
-                     if sl.ffn == "moe"})
-    if todo:
-        raise NotImplementedError(
-            f"{cfg.name}: training {' and '.join(todo)} is not ported yet "
-            "(ROADMAP item 15.9, training the zoo's MoE and Mamba2 "
-            "families); the port serves them")
+    """Raise ``NotImplementedError`` for a family the port only serves:
+    cross-attention, the encoder and a multimodal prefix."""
     todo = [what for what, has in (
         ("cross-attention", any(sl.cross_attention for sl in cfg.super_block)),
         ("the encoder", cfg.is_encoder_decoder),
@@ -260,15 +253,27 @@ class _Layer(nn.Module):
         return x, ops.residual(ops.mlp(self.mlp, h)), cache
 
     def train_forward(self, x, delta, ops, causal=True):
-        """The whole-sequence form of :meth:`forward` for an attention + MLP
-        sub-layer, no cache: the training form (causal, under the config's
-        window) or, ``causal=False``, an encoder layer (bidirectional, no
-        window); returns ``(x, mlp_out)``."""
+        """The whole-sequence form of :meth:`forward`, no cache: the
+        training form (causal, under the config's window) or, ``causal=False``,
+        an encoder layer (bidirectional, no window).  Returns ``(x, out,
+        aux)``: the stream, the layer's last output not yet added (the
+        FFN's, or the mixer's where there is no FFN) and MoE's Switch
+        auxiliary loss (None without an MoE FFN)."""
+        cfg = ops.cfg
         x, h = ops.add_norm(self.norm_mix, x, delta)
-        mix = ops.attention(self.attn, h, causal=causal,
-                            window=ops.cfg.sliding_window if causal else None)
-        x, h = ops.add_norm(self.norm_ffn, x, ops.residual(mix))
-        return x, ops.residual(ops.mlp(self.mlp, h))
+        if self.mixer == "mamba2":
+            mix = L.mamba2_apply(self.mamba, h, cfg)[0]
+        else:
+            mix = ops.attention(self.attn, h, causal=causal,
+                                window=cfg.sliding_window if causal else None)
+        mix = ops.residual(mix)
+        if self.ffn == "none":
+            return x, mix, None
+        x, h = ops.add_norm(self.norm_ffn, x, mix)
+        if self.ffn == "moe":
+            y, aux = L.moe_apply(self.moe, h, cfg)
+            return x, ops.residual(y), aux
+        return x, ops.residual(ops.mlp(self.mlp, h)), None
 
 
 class _LocalOps:
@@ -493,7 +498,8 @@ class Transformer(nn.Module):
                                      device=x.device)
         x, delta = x + pos[None].to(x.dtype), None
         for layer in self.encoder:
-            x, delta = layer.train_forward(x, delta, self._ops, causal=False)
+            x, delta, _ = layer.train_forward(x, delta, self._ops,
+                                              causal=False)
         return L.add_norm_apply(self.encoder_norm, x, delta, self.cfg,
                                 kernels=self.use_kernels)[1]
 
@@ -503,24 +509,27 @@ class Transformer(nn.Module):
         ``batch["labels"]`` (B, S; < 0 masked), differentiable in every
         parameter: the embedding, the layers (each checkpointed when
         ``cfg.remat``), the final norm over every position, then
-        :func:`chunked_ce_loss` over the head.  The dense family has no
-        auxiliary loss (the reference adds MoE's); a model with a Mamba2
-        mixer or an MoE FFN raises ``NotImplementedError`` (ROADMAP item
-        15.9), and so does one with cross-attention, an encoder or a prefix
-        (item 15.10)."""
+        :func:`chunked_ce_loss` over the head, plus MoE's Switch auxiliary
+        loss summed over the layers in layer order (the reference's
+        ``loss + aux``; a model without MoE adds nothing).  A model with
+        cross-attention, an encoder or a prefix raises
+        ``NotImplementedError`` (ROADMAP item 15.10)."""
         cfg, ops = self.cfg, self._ops
         _check_trainable(cfg)
         tokens, labels = ops.tokens(batch["tokens"]), ops.tokens(
             batch["labels"])
-        x, delta = ops.residual(ops.embed(tokens)), None
+        x, delta, aux = ops.residual(ops.embed(tokens)), None, None
         for layer in self.layers:
             if cfg.remat:
-                x, delta = checkpoint(layer.train_forward, x, delta, ops,
-                                      use_reentrant=False)
+                x, delta, a = checkpoint(layer.train_forward, x, delta, ops,
+                                         use_reentrant=False)
             else:
-                x, delta = layer.train_forward(x, delta, ops)
+                x, delta, a = layer.train_forward(x, delta, ops)
+            if a is not None:
+                aux = a if aux is None else aux + a
         _, h = ops.add_norm(self.final_norm, x, delta)
-        return ops.loss(h, labels)
+        loss = ops.loss(h, labels)
+        return loss if aux is None else loss + aux
 
     # ============================================================== prefill
     @torch.no_grad()

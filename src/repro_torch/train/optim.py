@@ -134,19 +134,24 @@ class AdamW:
               for m, g in zip(state.mu, grads, strict=True)]
         nu = [b2 * v + (1 - b2) * torch.square(g.to(torch.float32))
               for v, g in zip(state.nu, grads, strict=True)]
-        t = step.to(torch.float32)
-        mu_hat_scale = 1.0 / (1.0 - b1 ** t)
-        nu_hat_scale = 1.0 / (1.0 - b2 ** t)
+        mu_hat_scale, nu_hat_scale = self._bias_scales(step)
 
         def upd(m, v, p):
-            lr_, muh, nuh = (shape(lr, p), shape(mu_hat_scale, p),
-                             shape(nu_hat_scale, p))
-            u = -lr_ * (m * muh) / (torch.sqrt(v * nuh) + self.eps)
-            if self.weight_decay:
-                u = u - lr_ * self.weight_decay * p.to(torch.float32)
-            return u.to(p.dtype)
+            return self._delta(m, v, p, shape(lr, p), shape(mu_hat_scale, p),
+                               shape(nu_hat_scale, p))
 
         return [upd(m, v, p) for m, v, p in zip(mu, nu, params)], mu, nu
+
+    def _bias_scales(self, step):
+        t = step.to(torch.float32)
+        return 1.0 / (1.0 - self.b1 ** t), 1.0 / (1.0 - self.b2 ** t)
+
+    def _delta(self, m, v, p, lr, muh, nuh):
+        """One leaf's update from its new moments, in p's dtype."""
+        u = -lr * (m * muh) / (torch.sqrt(v * nuh) + self.eps)
+        if self.weight_decay:
+            u = u - lr * self.weight_decay * p.to(torch.float32)
+        return u.to(p.dtype)
 
     def update(self, grads, state: OptState, params):
         """One step on shared params: ``(updates, new_state)``."""
@@ -158,6 +163,36 @@ class AdamW:
                                         self._lr_at(state.step), params,
                                         lambda s, p: s)
         return updates, OptState(step=step, mu=mu, nu=nu)
+
+    def update_(self, grads: list, state: OptState, params) -> OptState:
+        """:meth:`update` followed by ``p += u``, done in place leaf by leaf:
+        each moment and each parameter is overwritten, and each entry of
+        ``grads`` (a list the caller gives up) is dropped once its leaf is
+        done, so the step holds one leaf's temporaries beside the state
+        where :meth:`update` holds a second set of moments and the updates.
+        Bitwise the same values.  Returns the new state, which holds
+        ``state``'s moment tensors: the old state is gone."""
+        params = list(params)
+        scale = None
+        if self.grad_clip is not None:
+            scale = torch.clamp_max(
+                self.grad_clip / (global_norm(grads) + 1e-9), 1.0)
+        step = state.step + 1
+        lr = self._lr_at(state.step)
+        muh, nuh = self._bias_scales(step)
+        b1, b2 = self.b1, self.b2
+        with torch.no_grad():
+            for i, (m, v, p) in enumerate(zip(state.mu, state.nu, params,
+                                              strict=True)):
+                g, grads[i] = grads[i], None
+                if scale is not None:
+                    g = g * scale
+                g = g.to(torch.float32)
+                m.mul_(b1).add_((1 - b1) * g)
+                v.mul_(b2).add_((1 - b2) * torch.square(g))
+                del g
+                p.add_(self._delta(m, v, p, lr, muh, nuh))
+        return OptState(step=step, mu=state.mu, nu=state.nu)
 
     def step_stacked(self, grads, state: OptState, params,
                      active: torch.Tensor):

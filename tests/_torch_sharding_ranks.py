@@ -26,18 +26,27 @@ from repro_torch.train.optim import AdamW, global_norm
 # qkv bias, tied), llama (MHA 4/4), qwen2 with one KV head (the KV heads do
 # not divide "model": each rank takes the KV head its query heads read, and
 # the decode cache is the context-parallel one), qwen2 with 6 query heads
-# (they do not divide a model axis of 4: every rank computes them all)
+# (they do not divide a model axis of 4: every rank computes them all),
+# starcoder2 (gelu MLP with biases: the replicated hidden bias is sliced
+# to each rank's hidden columns; its window of 64 is past the sequence)
 CASES = {
     "qwen2": ("qwen2-0.5b", {}),
     "llama": ("llama3.2-1b", {}),
     "qwen2-mqa": ("qwen2-0.5b", {"num_kv_heads": 1}),
     "qwen2-h6": ("qwen2-0.5b", {"num_heads": 6, "head_dim": 64}),
+    "starcoder2": ("starcoder2-7b", {}),
 }
-# (mesh name, shape, axis names, cases)
+# (mesh name, shape, axis names, cases, build_step's policy options): the
+# two options of the reference's dry run on (2, 2), each off alone
 MESHES = [
-    ("2x2", (2, 2), ("data", "model"), ("qwen2", "llama", "qwen2-mqa")),
-    ("2x2x1", (2, 2, 1), ("pod", "data", "model"), ("qwen2", "llama")),
-    ("1x4", (1, 4), ("data", "model"), ("qwen2-h6",)),
+    ("2x2", (2, 2), ("data", "model"),
+     ("qwen2", "llama", "qwen2-mqa", "starcoder2"), {}),
+    ("2x2x1", (2, 2, 1), ("pod", "data", "model"), ("qwen2", "llama"), {}),
+    ("1x4", (1, 4), ("data", "model"), ("qwen2-h6",), {}),
+    ("2x2-no-seq-shard", (2, 2), ("data", "model"), ("qwen2",),
+     {"seq_shard_residual": False}),
+    ("2x2-no-constrain-attn", (2, 2), ("data", "model"), ("qwen2",),
+     {"constrain_attn": False}),
 ]
 B, S, DECODE = 4, 16, 8
 WIDTH = S + DECODE
@@ -103,8 +112,10 @@ def _launches():
     return out
 
 
-def run_case(cfg, tree, mesh, device="cpu"):
-    """One config on ``mesh`` (None: the unsharded steps): the train step
+def run_case(cfg, tree, mesh, device="cpu", **opts):
+    """One config on ``mesh`` (None: the unsharded steps), its steps built
+    with the policy options ``opts`` (``build_step``'s
+    ``seq_shard_residual``, ``constrain_attn``): the train step
     (loss, gradients, weights after one AdamW step), the prefill (logits,
     caches) and 8 greedy decode steps (logits, tokens) from a prefill into
     a cache of ``WIDTH`` slots; with a mesh also each step's collective
@@ -120,7 +131,7 @@ def run_case(cfg, tree, mesh, device="cpu"):
         return params_from_jax(tree, cfg, device=device)
 
     opt = optimizer()
-    built = build_step(cfg, TRAIN, mesh, optimizer=opt)
+    built = build_step(cfg, TRAIN, mesh, optimizer=opt, **opts)
     model = built.shard_model(weights())
     names = [n for n, _ in model.named_parameters()]
     batch = train_batch(cfg)
@@ -143,7 +154,7 @@ def run_case(cfg, tree, mesh, device="cpu"):
     out["params"] = {n: _full(p) for n, p in model.named_parameters()}
     # prefill (the built step) and greedy decode
     model = built.shard_model(weights())
-    pre = build_step(cfg, PREFILL, mesh)
+    pre = build_step(cfg, PREFILL, mesh, **opts)
     toks = prompt(cfg)
     sb.reset_staged_bytes()
     _launches()
@@ -156,7 +167,7 @@ def run_case(cfg, tree, mesh, device="cpu"):
     if mesh is not None:
         out["cache_placements"] = _names(caches[0]["k"].placements)
         out["logits_placements"] = _names(logits.placements)
-    dec = build_step(cfg, DECODE_SHAPE, mesh)
+    dec = build_step(cfg, DECODE_SHAPE, mesh, **opts)
     logits, caches, n = model.prefill({"tokens": toks}, cache_size=WIDTH)
     tok = np.argmax(_full(logits), axis=-1)[:, None]
     steps, tokens = [], [tok[:, 0]]
@@ -226,10 +237,11 @@ def world_checks(rank, trees, personalize):
     a digest of theirs (every rank must hold the same full tensors)."""
     torch.set_num_threads(1)
     out = {}
-    for mname, shape, axes, cases in MESHES:
+    for mname, shape, axes, cases, opts in MESHES:
         mesh = make_mesh_compat(shape, axes)
         for name in cases:
-            out[mname, name] = run_case(case_cfg(name), trees[name], mesh)
+            out[mname, name] = run_case(case_cfg(name), trees[name], mesh,
+                                        **opts)
     mesh = make_mesh_compat((2, 2), ("data", "model"))
     g, reps, active = personalize
     out["personalize"] = run_personalize(case_cfg(PERSONALIZE_CASE), g, reps,

@@ -1512,3 +1512,99 @@ def test_sharded_steps_on_card(cuda, tmp_path):
         assert sp["launches"] == pp["launches"], r
         np.testing.assert_allclose(sp["losses"], one["personalize"][0][
             "losses"], rtol=1e-5)
+
+
+# ------------------------------- training MoE and Mamba2 (ROADMAP 15.9) --
+
+def _train_pass_launches(cfg):
+    """A training pass's (flash forward, flash backward, RMSNorm forward,
+    RMSNorm backward) launches: remat replays each layer's forward."""
+    attn = sum(sl.mixer == "attention" for sl in cfg.super_block) \
+        * cfg.num_repeats
+    norms = sum(1 + (sl.ffn != "none") for sl in cfg.super_block) \
+        * cfg.num_repeats + 1
+    rms = cfg.norm == "rmsnorm"
+    return (2 * attn, attn, rms * (2 * (norms - 1) + 1), rms * norms)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "phi3.5-moe-42b-a6.6b",
+                                  "qwen3-moe-235b-a22b", "jamba-v0.1-52b"])
+def test_reduced_zoo_train_kernels_match_plain(cuda, arch):
+    """A reduced f32 training pass (loss with MoE's auxiliary loss, every
+    gradient) of the MoE and Mamba2 families with the kernels, forward and
+    backward, against the plain versions from the same weights, on a batch
+    whose MoE routes agree between the two; the kernels' launches are the
+    pass's attention and RMSNorm calls."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    model = Transformer(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 64))
+    batch = {"tokens": tokens,
+             "labels": np.concatenate([tokens[:, 1:], -np.ones((2, 1),
+                                                               np.int64)], 1)}
+    out, inner = {}, L.moe_route
+    for use in (True, False):
+        model.use_kernels = use
+        fa.reset_flash_launch_count()
+        rn.reset_rmsnorm_launch_count()
+        routes = []
+
+        def spy(p, xf, c):
+            r = inner(p, xf, c)
+            routes.append((r[2].cpu(), r[4].cpu()))
+            return r
+
+        L.moe_route = spy
+        try:
+            loss = model.train_loss(batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        finally:
+            L.moe_route = inner
+        torch.cuda.synchronize()
+        out[use] = (loss, grads, routes, (
+            fa.flash_launch_count("train"), fa.flash_launch_count("backward"),
+            rn.rmsnorm_launch_count(), rn.rmsnorm_bwd_launch_count()))
+    assert out[True][3] == _train_pass_launches(cfg), out[True][3]
+    assert out[False][3] == (0, 0, 0, 0)
+    for (ik, kk), (ip, kp) in zip(out[True][2], out[False][2]):
+        assert torch.equal(ik, ip) and torch.equal(kk, kp)
+    assert torch.isfinite(out[True][0])
+    torch.testing.assert_close(out[True][0], out[False][0], atol=1e-5,
+                               rtol=1e-5)
+    for g, w in zip(out[True][1], out[False][1]):
+        assert torch.isfinite(g).all()
+        scale = float(w.abs().max()) or 1.0
+        torch.testing.assert_close(g, w, atol=1e-4 * scale, rtol=1e-3)
+
+
+def test_train_step_counts_on_the_card_equal_meta(cuda):
+    """A reduced bf16 qwen2-0.5b train step counted on the card (the
+    kernels run) and on meta: the same FLOPs and every kernel's count
+    (ROADMAP 15.8)."""
+    import dataclasses
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import Transformer
+    from repro_torch.roofline import StepCounter
+    from repro_torch.train.optim import AdamW
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="bfloat16", remat=True)
+    built = build_step(cfg, InputShape("t", 64, 2, "train"))
+    counts = {}
+    for dev in ("cuda", "meta"):
+        model = Transformer(cfg, seed=0, device=dev)
+        state = AdamW().init(model.parameters())
+        tokens = torch.zeros((2, 64), dtype=torch.long, device=dev)
+        with StepCounter() as sc:
+            built.step(model, state, {"tokens": tokens, "labels": tokens})
+        counts[dev] = sc
+    assert counts["cuda"].flops == counts["meta"].flops > 0
+    assert counts["cuda"].kernels == counts["meta"].kernels

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` (and
 ``chip_smoke.py``), the halo cache, the wire codec, the gradient reducers,
 the feature store, the streamed eval, the checkpoint files, the fault
-plan and the partition mesh's collectives and reducers included (and, for
-the mesh tests' spawned ranks, their rank modules), pulls in neither
+plan, the partition mesh's collectives and reducers, the dry run and the
+roofline included (and, for the mesh tests' spawned ranks, their rank
+modules), pulls in neither
 ``jax`` nor anything of ``repro``; and every entry point defaults to the
 CUDA card, raising without one unless the caller passes
 ``device="cpu"``."""
@@ -83,6 +84,15 @@ from repro_torch.launch.staged_backend import StagedProcessGroup
 from repro_torch.launch.steps import sanitize_spec
 from repro_torch.models.sharded import ShardedOps, step_collective_bytes
 from repro_torch.models.sharding import NO_SHARDING, P, ShardingPolicy
+# the dry run and the roofline (ROADMAP item 15.8) stand alone too
+for name in ("repro_torch.roofline", "repro_torch.roofline.analysis",
+             "repro_torch.launch.dryrun", "repro_torch.kernels.work"):
+    assert name in mods, (name, mods)
+from repro_torch.kernels.work import counted, kernel_work
+from repro_torch.launch.dryrun import active_params, run_one
+from repro_torch.launch.mesh import make_dryrun_world
+from repro_torch.roofline import (HW, CollectiveCounter, RooflineReport,
+                                  StepCounter, analyze_step)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -107,7 +117,9 @@ def test_import_hygiene():
                                     "train_probe.py",
                                     "flash_serving_digest.py",
                                     "collective_probe.py",
-                                    "shard_probe.py"])
+                                    "shard_probe.py",
+                                    "fake_world_probe.py",
+                                    "zoo_train_probe.py"])
 def test_timing_scripts_import_hygiene(script):
     """The chip timing scripts run where only the port is installed."""
     code = (
@@ -126,7 +138,9 @@ def test_timing_scripts_import_hygiene(script):
 @pytest.mark.parametrize("module", ["_torch_mesh_ranks",
                                     "_torch_mesh_part2_ranks",
                                     "_torch_mesh_part3_ranks",
-                                    "_torch_sharding_ranks"])
+                                    "_torch_sharding_ranks",
+                                    "_torch_roofline_ranks",
+                                    "_torch_dryrun_world"])
 def test_mesh_rank_modules_import_no_jax(module):
     """What a spawned rank of the mesh tests imports pulls in no JAX, so a
     rank starts in seconds."""

@@ -32,6 +32,13 @@ greedy decode steps (logits, tokens), held
 - the bytes each step's collectives move equal to
   ``models/sharded.py::step_collective_bytes``, worked out from the specs.
 
+Reduced qwen2 on ``(2, 2)`` again with each of the reference's dry-run
+options off (``build_step(..., seq_shard_residual=False)``: the residual
+replicated over ``"model"``, each sub-layer's output all-reduced; and
+``constrain_attn=False``: every head on each model rank), held the same
+ways against the reference (whose math the options leave as it is) and the
+unsharded port, their bytes against the closed form with the option.
+
 The personalize step with 2 replicas on ``(2, 2)`` against the
 reference's; a world of 1 on a ``(1, 1)`` mesh bitwise ``mesh=None`` for
 all four step kinds; a mesh that is not the world's size raises.
@@ -63,7 +70,7 @@ NORM_REL = 1e-6                  # the gradients' global norm (AdamW's clip)
 # rounding, up to 2 lr, and is held to STEP_ATOL
 STEP_REL, GRAD_FLOOR, STEP_ATOL = 1e-5, 1e-6, 1e-4
 
-CASES = [(mname, name) for mname, _, _, cases in sr.MESHES
+CASES = [(mname, name) for mname, _, _, cases, _ in sr.MESHES
          for name in cases]
 
 

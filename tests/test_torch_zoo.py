@@ -494,10 +494,20 @@ def test_jamba_layers_follow_the_super_block():
                                   "phi3.5-moe-42b-a6.6b",
                                   "qwen3-moe-235b-a22b"])
 def test_train_loss_refuses_the_served_families(arch):
+    """Since ROADMAP item 15.9 these four families train (the loss and its
+    gradients against the reference are tests/test_torch_zoo_train.py's):
+    ``train_loss`` gives a finite scalar with a gradient, and the families
+    only served, whisper-small and paligemma-3b, still raise (item
+    15.10)."""
     model = Transformer(get_config(arch).reduced(), device="cpu")
     tokens = np.zeros((1, 32), np.int64)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.9"):
-        model.train_loss({"tokens": tokens, "labels": tokens})
+    loss = model.train_loss({"tokens": tokens, "labels": tokens})
+    assert loss.dim() == 0 and torch.isfinite(loss) and loss.requires_grad
+    for served in ("whisper-small", "paligemma-3b"):
+        other = Transformer(get_config(served).reduced(), device="meta")
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP item 15\.10"):
+            other.train_loss({"tokens": tokens, "labels": tokens})
 
 
 def test_decode_specs_build_mamba_caches():
