@@ -91,14 +91,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
               serving's prefill, the LSE against ``torch.logsumexp``, -inf
               where a row sees no key) and its backward kernel (dq, dk, dv
               against autograd of the plain version, launched twice
-              bitwise) on ``tests/test_kernels.py``'s cases, window 0 and
+              bitwise) on ``tests/test_kernels.py``'s cases, window 0,
               qwen2-0.5b's training shape (q 8x14x512x64, k/v 8x2x512x64),
+              the prefix-LM mask and Dh 256 (group 8, the Sq and Sk tails),
+              paligemma-3b's training shape (q 4x8x768x256 against one KV
+              head, prefix 256) and whisper-small's (the encoder's 8 x 12
+              x 1,500^2 bidirectional, the decoder's causal 448, the
+              cross-attention's 448 over 1,500; Dh 64),
               and the RMSNorm backward of both entry points at three
               shapes and the training rows (8, 512, 896), all in f32 and
               bf16; at the training shapes their times beside the plain
               versions' (autograd) and the library's
-              (``scaled_dot_product_attention`` with ``is_causal`` and
-              ``enable_gqa``, ``rms_norm``, their backwards through
+              (``scaled_dot_product_attention`` with ``is_causal``, or a
+              boolean mask of the live pairs beside a prefix, and
+              ``enable_gqa``; ``rms_norm``; their backwards through
               autograd), with the bounds (operations at the type's peak,
               bytes at 3.35 TB/s)
   4. serve    ``repro_torch.launch.serve.gnn_main`` at products-s, P=4,
@@ -312,6 +318,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
               variants' training pass (loss and every gradient) with the
               kernels against the plain versions on a batch whose MoE
               routes agree, the flipped routes of the others counted
+  7e. encdec-train  whisper-small and paligemma-3b trained (ROADMAP item
+              15.10, ``ENCDEC_TRAIN_RUNS``) through ``launch/steps.py::
+              build_step`` with no mesh, bf16, seed 0, whole at their
+              published widths: whisper 8 x 448 decoder tokens over 1,500
+              random frames, paligemma 4 x (256 random patches + 512
+              tokens); 2 generalize steps, then 2 personalize steps (2
+              replicas for whisper, 1 for paligemma, whose two replicas
+              would not fit the card); finite losses, each step's flash
+              and RMSNorm launches asserted (the encoder not under remat,
+              the decoder under it), no prefill or decode launch, step
+              ms, tokens/s and peak memory; then each one's f32 training
+              pass with the kernels against the plain versions
   8. report   a ``{"kernels": [...]}`` line (the segment kernels' whole-space
               use, their row-range use, their single-partition use, whose
               launches include the mesh ranks', and their row-range
@@ -322,9 +340,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
               and its decode),
               and the training path's flash forward with the LSE, the
               flash backward and the RMSNorm backward of both entry
-              points, whose launches include phases 7, 7c and 7d, as the
-              RMSNorm rows include their forwards), then the device line
-              last
+              points, whose launches include phases 7, 7c, 7d and 7e, as
+              the RMSNorm rows include their forwards, both flash
+              launches' Dh 256 instantiations with the prefix apart at
+              paligemma-3b's training shape, with 7e's paligemma
+              launches), then the device line last
 
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -426,6 +446,11 @@ LLM_TRAIN_ARGS = ["llm", "--arch", "qwen2-0.5b", "--full", "--shards", "4",
 # as the kernel's D_i does, and autograd rounds the norm's gradient to bf16
 # before it adds the residual's
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# and in bf16 each gradient's max |kernel - plain| within this share of its
+# largest plain entry: at long key ranges (whisper's 1,500 frames) P is
+# ~1/1,500 and a typical |dk| or |dv| is no larger than FLASH_BWD_TOL's
+# atol, so that alone would miss a lost query tile
+FLASH_BWD_TOP_RTOL = 3e-2
 RMS_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # the training forward's log-sum-exp against torch.logsumexp of the scaled
 # live scores: f32, the kernel's exp2 and sums in another order
@@ -1078,7 +1103,31 @@ FLASH_TRAIN_CASES = FLASH_CASES[:7] + [
     ("dh 128 window", (1, 4, 2, 200, 200, 128, True, 48, 0)),
     ("sq 65 q_offset", (1, 6, 2, 65, 200, 128, True, None, 135)),
     ("qwen2-0.5b train", (8, 14, 2, 512, 512, 64, True, None, 0)),
+    # the prefix-LM mask and Dh 256 (ROADMAP 15.10; a tenth entry is the
+    # prefix): a prefix edge inside a key tile at Dh 64, a window leaving a
+    # gap after it; Dh 256 at group 8 with the Sq and Sk tails, with and
+    # without a prefix; then the training shapes of paligemma-3b (q 4 x 8 x
+    # 768 x 256 against one KV head, prefix 256) and whisper-small (the
+    # encoder's 8 x 12 x 1,500^2, the decoder's causal 448, the
+    # cross-attention's 448 over 1,500)
+    ("prefix 37", (1, 4, 2, 200, 200, 64, True, None, 0, 37)),
+    ("window + prefix gap", (1, 4, 1, 300, 300, 64, True, 64, 0, 100)),
+    ("dh 256 group 8 tails", (1, 8, 1, 130, 190, 256, True, None, 60)),
+    ("dh 256 group 8 prefix", (1, 8, 1, 300, 300, 256, True, None, 0, 100)),
+    ("paligemma-3b train", (4, 8, 1, 768, 768, 256, True, None, 0, 256)),
+    ("whisper-small encoder train", (8, 12, 12, 1500, 1500, 64, False, None,
+                                     0)),
+    ("whisper-small decoder train", (8, 12, 12, 448, 448, 64, True, None,
+                                     0)),
+    ("whisper-small cross train", (8, 12, 12, 448, 1500, 64, False, None,
+                                   0)),
 ]
+# the training shapes timed beside their bounds, the plain versions and
+# scaled_dot_product_attention's backward
+FLASH_TRAIN_MAIN = ("qwen2-0.5b train", "paligemma-3b train",
+                    "whisper-small encoder train",
+                    "whisper-small decoder train",
+                    "whisper-small cross train")
 RMS_TRAIN_MAIN = (8, 512, 896)
 RMS_TRAIN_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (1, 896),
                     (3, 2048), (2, 8192), RMS_TRAIN_MAIN]
@@ -1301,22 +1350,27 @@ def run_flash_train_case(fa, name, case, dtype_name, flush, iters, record, *,
     with the log-sum-exp (launched twice, bitwise equal; its output
     bitwise serving's prefill, its LSE
     against ``torch.logsumexp``, -inf for a row with no key) and the
-    backward (dq, dk, dv against autograd of the plain version, launched
-    twice, bitwise equal, no NaN, zero dq on rows with no key); on the main
-    path's shape their times beside the plain versions' and one
-    ``scaled_dot_product_attention`` call's (``is_causal``,
-    ``enable_gqa``; its backward through autograd) and the bounds.
-    Returns ``(forward row, backward row)``."""
+    backward (dq, dk, dv against autograd of the plain version, in bf16
+    also within ``FLASH_BWD_TOP_RTOL`` of each one's largest entry,
+    launched twice, bitwise equal, no NaN, zero dq on rows with no key); on
+    the main path's shapes their device times beside the bounds, and in
+    bf16 beside the plain versions' and one
+    ``scaled_dot_product_attention`` call's (``is_causal`` where the mask
+    is causal alone, else a boolean mask of the live pairs; ``enable_gqa``;
+    its backward through autograd).  A case's optional
+    tenth entry is its prefix.  Returns ``(forward row, backward row)``."""
     import torch
     import torch.nn.functional as F
 
-    b, hq, hkv, sq, sk, dh, causal, window, q_off = case
+    b, hq, hkv, sq, sk, dh, causal, window, q_off, *pre = case
+    prefix = pre[0] if pre else 0
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(sq + sk + dh)
     q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                    for shape in ((b, hq, sq, dh), (b, hkv, sk, dh),
                                  (b, hkv, sk, dh), (b, hq, sq, dh)))
-    kw = dict(causal=causal, window=window, q_offset=q_off)
+    kw = dict(causal=causal, window=window, q_offset=q_off,
+              prefix_len=prefix)
     o, lse = fa.flash_attention_lse(q, k, v, **kw)
     o2, lse2 = fa.flash_attention_lse(q, k, v, **kw)
     serve = fa.flash_attention(q, k, v, **kw)
@@ -1325,11 +1379,11 @@ def run_flash_train_case(fa, name, case, dtype_name, flush, iters, record, *,
         f"flash train {name} {dtype_name}: two launches differ"
     design = fa.plan(q.shape, k.shape, causal=causal, window=window,
                      q_offset=q_off, sms=torch.cuda.get_device_properties(
-                         0).multi_processor_count).design
+                         0).multi_processor_count, prefix_len=prefix).design
     if design == "prefill":
         assert torch.equal(o, serve), \
             f"flash train {name} {dtype_name}: output is not serving's"
-    live = work.flash_live_mask(sq, sk, causal, window, q_off)
+    live = work.flash_live_mask(sq, sk, causal, window, q_off, prefix)
     live_t = torch.as_tensor(live, device="cuda")
     dead = ~live_t.any(1)
     kx = k.repeat_interleave(hq // hkv, 1).float()
@@ -1352,25 +1406,39 @@ def run_flash_train_case(fa, name, case, dtype_name, flush, iters, record, *,
     out_p = fa.flash_attention_plain(*leaves, **kw)
     want = torch.autograd.grad(out_p, leaves, do, retain_graph=True)
     tol = FLASH_BWD_TOL[dtype_name]
-    errs = {}
+    errs, tops = {}, {}
     for label, g, w in zip(("dq", "dk", "dv"), grads, want):
         assert g.dtype == dtype and torch.isfinite(g).all(), (name, label)
         errs[label] = float((g.float() - w.float()).abs().max())
+        tops[label] = float(w.float().abs().max())
+        if dtype_name == "bfloat16":
+            assert errs[label] <= FLASH_BWD_TOP_RTOL * tops[label], \
+                (f"flash bwd {name} {dtype_name} {label}: max |kernel - "
+                 f"plain| = {errs[label]} above {FLASH_BWD_TOP_RTOL} of the "
+                 f"largest plain entry {tops[label]}")
         assert torch.allclose(g.float(), w.float(), atol=tol, rtol=tol), \
             (f"flash bwd {name} {dtype_name} {label}: max |kernel - plain| "
              f"= {errs[label]} above atol {tol} rtol {tol}")
     assert not grads[0][:, :, dead].float().abs().any(), "dead row's dq"
     fwd = {"kernel": "flash_attention_train", "shape": name,
            "q": list(q.shape), "kv": list(k.shape), "dtype": dtype_name,
-           "window": window, "max_abs_err": fwd_err, "lse_max_abs_err":
-           lse_err}
+           "window": window, "prefix_len": prefix, "max_abs_err": fwd_err,
+           "lse_max_abs_err": lse_err}
     bwd = {"kernel": "flash_attention_bwd", "shape": name,
            "q": list(q.shape), "kv": list(k.shape), "dtype": dtype_name,
-           "window": window, "max_abs_err": max(errs.values()), **errs}
+           "window": window, "prefix_len": prefix,
+           "max_abs_err": max(errs.values()), **errs,
+           "max_plain": tops,
+           "err_over_max_plain": {k: errs[k] / tops[k] if tops[k] else 0.0
+                                  for k in errs}}
     if main_path:
-        assert causal and window is None and q_off == 0 and sq == sk
+        assert window is None and q_off == 0
+        # the library's call: is_causal where the mask is the causal one
+        # alone, else the boolean mask of the live pairs
+        sdpa = (dict(is_causal=True) if causal and not prefix and sq == sk
+                else dict(attn_mask=live_t) if causal or prefix else {})
         lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        out_l = F.scaled_dot_product_attention(*lib_leaves, is_causal=True,
+        out_l = F.scaled_dot_product_attention(*lib_leaves, **sdpa,
                                                enable_gqa=True)
         # the library's own error against the same plain reference, from
         # the same inputs: the kernel is no less exact than it where its
@@ -1384,18 +1452,29 @@ def run_flash_train_case(fa, name, case, dtype_name, flush, iters, record, *,
             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
         bwd["scratch_bytes"] = 2 * 4 * fa.bwd_part_elems(q.shape, k.shape,
                                                          dtype)
-        fwd.update(timed_row(
-            lambda: fa.flash_attention_lse(q, k, v, **kw),
-            lambda: fa.flash_attention_plain(q, k, v, **kw),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True),
-            iters, flush))
-        bwd.update(timed_row(
-            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
-            lambda: torch.autograd.grad(out_p, leaves, do, retain_graph=True),
-            lambda: torch.autograd.grad(out_l, lib_leaves, do,
-                                        retain_graph=True),
-            iters, flush))
+        fwd_call = lambda: fa.flash_attention_lse(q, k, v, **kw)
+        bwd_call = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        if dtype_name == "bfloat16":
+            fwd.update(timed_row(
+                fwd_call, lambda: fa.flash_attention_plain(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(q, k, v, **sdpa,
+                                                       enable_gqa=True),
+                iters, flush))
+            bwd.update(timed_row(
+                bwd_call,
+                lambda: torch.autograd.grad(out_p, leaves, do,
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(out_l, lib_leaves, do,
+                                            retain_graph=True),
+                iters, flush))
+        else:
+            # f32: the kernels' device times alone; the plain versions'
+            # and the library's f32 times at these shapes are the costliest
+            # timings of the phase and feed no line the run prints last
+            fwd["kernel_device_ms"] = time_ms(fwd_call, iters, flush,
+                                              hide_host=True)
+            bwd["kernel_device_ms"] = time_ms(bwd_call, iters, flush,
+                                              hide_host=True)
         # forward: q, the live K/V rows in, o and the LSE out; 4 Dh FLOPs a
         # live pair.  Backward: q, o, dO, the LSE and the live K/V rows in,
         # dq, dk, dv out; 10 Dh FLOPs a live pair (S, dP, dV, dK, dQ):
@@ -4937,16 +5016,20 @@ def run_script(args, timeout_s):
 def train_launches_per_pass(cfg) -> list[int]:
     """A training pass's launches (flash training forward, flash backward,
     RMSNorm forward of both entry points, RMSNorm backward) of ``cfg``:
-    remat replays each layer's forward, the final norm runs once; a
-    layernorm model launches no RMSNorm."""
-    attn = sum(sl.mixer == "attention" for sl in cfg.super_block) \
-        * cfg.num_repeats
-    norms = sum(1 + (sl.ffn != "none") for sl in cfg.super_block) \
-        * cfg.num_repeats + 1
+    remat replays each decoder layer's forward (its self- and
+    cross-attention and norms), never the encoder's, which runs once; the
+    final norms run once; a layernorm model launches no RMSNorm."""
+    attn = sum((sl.mixer == "attention") + sl.cross_attention
+               for sl in cfg.super_block) * cfg.num_repeats
+    norms = sum(1 + sl.cross_attention + (sl.ffn != "none")
+                for sl in cfg.super_block) * cfg.num_repeats + 1
+    enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
+    enc_norms = 2 * enc + 1 if enc else 0
     replay = 2 if cfg.remat else 1
     rms = cfg.norm == "rmsnorm"
-    return [replay * attn, attn, rms * (replay * (norms - 1) + 1),
-            rms * norms]
+    return [replay * attn + enc, attn + enc,
+            rms * (replay * (norms - 1) + 1 + enc_norms),
+            rms * (norms + enc_norms)]
 
 
 def dryrun_phase(torch, fa, rn, card):
@@ -5254,6 +5337,210 @@ def zoo_train_phase(torch, fa, rn, card):
     return totals
 
 
+# the encoder-decoder and the prefix-LM trained (ROADMAP 15.10) through
+# build_step(cfg, InputShape(...), mesh=None) at their published widths,
+# bf16, seed 0, whole (no depth cut): (label, arch, batch rows, text
+# tokens, personalize replicas).  whisper-small: 8 x 448 decoder tokens
+# (its text context) over 1,500 random frames; paligemma-3b: 4 x (256
+# patches + 512 tokens).  Personalize takes 2 replicas where the peak stays
+# under 76 GiB: paligemma's 2.51 B parameters take 5 GB of bf16 weights and
+# 20 GB of f32 AdamW moments a replica, and the functional step holds the
+# new moments beside the old (20 GB more), so two replicas beside the
+# global model need ~80 GB: it runs 1
+ENCDEC_TRAIN_RUNS = [
+    ("whisper-small", "whisper-small", 8, 448, 2),
+    ("paligemma-3b", "paligemma-3b", 4, 512, 1),
+]
+ENCDEC_TRAIN_STEPS = 2
+# the f32 variants' kernels-against-plain training pass: 2 rows of the
+# run's shape
+ENCDEC_TRAIN_F32_ROWS = 2
+
+
+def encdec_batch(torch, cfg, rows, seq, seed, lead=()):
+    """A training batch on the card from ``seed``: ``rows`` x ``seq``
+    tokens, next-token labels (the last -1), and the arch's extra input in
+    the model's dtype (``enc_embeds`` of ``encoder_seq`` frames,
+    ``patch_embeds`` of ``prefix_tokens``); ``lead`` a leading partition
+    shape that ``rows`` splits into."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens,
+             "labels": torch.cat([tokens[:, 1:],
+                                  torch.full_like(tokens[:, :1], -1)], 1)}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = torch.randn(
+            (rows, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device="cuda").to(dt)
+    if cfg.prefix_tokens:
+        batch["patch_embeds"] = torch.randn(
+            (rows, cfg.prefix_tokens, cfg.d_model), generator=gen,
+            device="cuda").to(dt)
+    return {k: v.reshape(*lead, -1, *v.shape[1:]) if lead else v
+            for k, v in batch.items()}
+
+
+def train_counts(fa, rn):
+    """The training launches since the last reset: flash forward, flash
+    backward, RMSNorm forward (both entry points), RMSNorm backward."""
+    return [fa.flash_launch_count("train"), fa.flash_launch_count("backward"),
+            rn.rmsnorm_launch_count(), rn.rmsnorm_bwd_launch_count()]
+
+
+def encdec_train_f32_check(torch, fa, rn, arch, seq):
+    """The f32 variant of ``arch`` cut as ``ZOO_F32`` cuts it (whisper and
+    paligemma whole), one training pass (loss and every gradient) with the
+    kernels against the plain versions from the same weights on
+    ``ENCDEC_TRAIN_F32_ROWS`` rows; each gradient within
+    ``LLM_TRAIN_GRAD_RTOL`` of its largest entry (a key bias, whose
+    gradient is 0 in exact arithmetic where there is no RoPE, of its
+    projection's), the loss within ``LLM_TRAIN_LOSS_RTOL``."""
+    from repro_torch.models import Transformer
+
+    cfg = zoo_config(arch, ZOO_F32[arch][0], "float32")
+    model = Transformer(cfg, seed=0, device="cuda")
+    weights = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    batch = encdec_batch(torch, cfg, ENCDEC_TRAIN_F32_ROWS, seq, seed=100)
+    res = {}
+    for use in (True, False):
+        model.use_kernels = use
+        fa.reset_flash_launch_count()
+        rn.reset_rmsnorm_launch_count()
+        loss = model.train_loss(batch)
+        grads = torch.autograd.grad(loss, weights)
+        n = train_counts(fa, rn)
+        assert n == [c * use for c in train_launches_per_pass(cfg)], n
+        res[use] = (loss.item(), [g.cpu() if use else g for g in grads])
+        del grads
+    loss_err = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    plain = dict(zip(names, res[False][1]))
+    rel = {}
+    for name, a, b in zip(names, res[True][1], res[False][1]):
+        like = plain[name[:-3] + "wk"] if name.endswith(".b_k") else b
+        rel[name] = float((a.to(b.device) - b).abs().max()
+                          / like.abs().max().clamp_min(1e-30))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    log(f"encdec train f32 {arch} ({cfg.num_layers} layers, "
+        f"{cfg.encoder_layers if cfg.is_encoder_decoder else 0} encoder "
+        f"layers, batch {ENCDEC_TRAIN_F32_ROWS} x "
+        f"{cfg.prefix_tokens + seq}) kernels vs plain: loss {res[True][0]} "
+        f"vs {res[False][0]} (rel diff {loss_err:.3e}, rtol "
+        f"{LLM_TRAIN_LOSS_RTOL}); gradients max |diff| / max |plain| "
+        f"{max(rel.values()):.3e} (limit {LLM_TRAIN_GRAD_RTOL}), worst "
+        f"{worst}")
+    assert loss_err <= LLM_TRAIN_LOSS_RTOL, loss_err
+    assert max(rel.values()) <= LLM_TRAIN_GRAD_RTOL, worst
+    del model, weights, res, plain
+    torch.cuda.empty_cache()
+
+
+def encdec_train_phase(torch, fa, rn, card):
+    """``ENCDEC_TRAIN_RUNS`` through ``launch/steps.py::build_step`` with
+    ``mesh=None``: ``ENCDEC_TRAIN_STEPS`` generalize steps of one model,
+    then as many personalize steps of the run's replicas (copies of it,
+    the prox pull toward it), each step's launch counts set to 0 just
+    before it and read just after: finite losses, the flash forward and
+    backward and RMSNorm forward and backward launches equal to the
+    passes' (``train_launches_per_pass``: the encoder not under remat, the
+    decoder under it), none of serving's; step ms, tokens/s and peak
+    memory.  Then each one's f32 variant, the kernels against their plain
+    versions (``encdec_train_f32_check``).  Returns the launches, the Dh
+    256 flash launches (paligemma's) apart."""
+    import copy
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import Transformer
+    from repro_torch.train.optim import AdamW
+
+    totals = {"train": 0, "backward": 0, "train_dh256": 0,
+              "backward_dh256": 0, "rmsnorm": 0, "add_rmsnorm": 0,
+              "rmsnorm_bwd": 0, "add_rmsnorm_bwd": 0}
+    t_phase = time.perf_counter()
+    for label, arch, rows, seq, npart in ENCDEC_TRAIN_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = zoo_config(arch, {})
+        dh256 = cfg.resolved_head_dim == 256
+        shape = InputShape(f"{arch}-train", cfg.prefix_tokens + seq, rows,
+                           "train")
+        opt = AdamW(lr=1e-4, weight_decay=0.01, grad_clip=1.0)
+        per_pass = train_launches_per_pass(cfg)
+        model = Transformer(cfg, seed=0, device="cuda")
+        n_params = model.param_count()
+        runs = {}
+        for phase in ("generalize", "personalize"):
+            built = build_step(cfg, shape, phase=phase, optimizer=opt,
+                               num_partitions=npart)
+            if phase == "generalize":
+                state = opt.init(model.parameters())
+            else:
+                del state
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reps = [copy.deepcopy(model) for _ in range(npart)]
+                states = [opt.init(r.parameters()) for r in reps]
+                active = torch.ones(npart, dtype=torch.bool, device="cuda")
+            step_ms, losses = [], []
+            for i in range(ENCDEC_TRAIN_STEPS):
+                lead = (npart,) if phase == "personalize" else ()
+                batch = encdec_batch(torch, cfg, rows, seq, seed=i, lead=lead)
+                torch.cuda.synchronize()
+                fa.reset_flash_launch_count()
+                rn.reset_rmsnorm_launch_count()
+                t0 = time.perf_counter()
+                if phase == "generalize":
+                    model, state, loss = built.step(model, state, batch)
+                else:
+                    reps, states, loss = built.step(reps, states, batch,
+                                                    model, active)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                n = train_counts(fa, rn)
+                reps_n = npart if phase == "personalize" else 1
+                assert n == [reps_n * c for c in per_pass], (label, phase,
+                                                             i, n, per_pass)
+                assert fa.flash_launch_count("prefill") == 0
+                assert fa.flash_launch_count("decode") == 0
+                for key, c in zip(("train", "backward"), n[:2]):
+                    totals[key + ("_dh256" if dh256 else "")] += c
+                fused = rn.add_rmsnorm_launch_count()
+                fused_bwd = rn.add_rmsnorm_bwd_launch_count()
+                totals["rmsnorm"] += n[2] - fused
+                totals["add_rmsnorm"] += fused
+                totals["rmsnorm_bwd"] += n[3] - fused_bwd
+                totals["add_rmsnorm_bwd"] += fused_bwd
+                losses.append(loss.float().cpu().tolist())
+            assert np.isfinite(np.asarray(losses, float)).all(), (label,
+                                                                  losses)
+            tokens = rows * (cfg.prefix_tokens + seq)
+            runs[phase] = {
+                "step_ms": [round(t, 3) for t in step_ms],
+                "tokens_per_s": [round(tokens / t * 1e3, 1)
+                                 for t in step_ms],
+                "losses": losses, "replicas": npart if phase ==
+                "personalize" else 1,
+                "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30,
+                                  2)}
+        enc = (f"{cfg.encoder_layers} encoder layers over "
+               f"{cfg.encoder_seq} frames" if cfg.is_encoder_decoder
+               else "no encoder")
+        log(f"encdec train {label} ({card}): {cfg.num_layers} decoder "
+            f"layers, {enc}, {n_params} params, batch {rows} x "
+            f"{cfg.prefix_tokens + seq} ({cfg.prefix_tokens} prefix): "
+            f"{json.dumps(runs)}; launches per pass (flash fwd, flash bwd, "
+            f"rmsnorm fwd, rmsnorm bwd) {per_pass}")
+        del model, reps, states, runs
+        torch.cuda.empty_cache()
+    for _, arch, _, seq, _ in ENCDEC_TRAIN_RUNS:
+        encdec_train_f32_check(torch, fa, rn, arch, seq)
+    log(f"encdec train phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5297,6 +5584,7 @@ def main() -> int:
                 log(f"ptxas {name} {kernel}: {line.strip()}")
 
     # ---- 3. kernels vs plain versions on the card --------------------------
+    log(f"phase 3 starts at {time.perf_counter() - t_all:.1f} s")
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     shapes = []
     for case in kernel_cases(sa):
@@ -5458,12 +5746,14 @@ def main() -> int:
                     main_path=shape in RMS_MAIN_SHAPES)
     # the training path: flash attention's forward with the log-sum-exp and
     # its backward, RMSNorm's backward for both entry points
+    log(f"phase 3's training kernels start at "
+        f"{time.perf_counter() - t_all:.1f} s")
     flash_train_rows, rms_bwd_rows = {}, {}
     for name, case in FLASH_TRAIN_CASES:
         for dtype_name in ("float32", "bfloat16"):
             flash_train_rows[name, dtype_name] = run_flash_train_case(
                 fa, name, case, dtype_name, flush=flush, iters=10,
-                record=shapes, main_path=name == "qwen2-0.5b train")
+                record=shapes, main_path=name in FLASH_TRAIN_MAIN)
     for fused in (False, True):
         for shape in RMS_TRAIN_SHAPES:
             for dtype_name in ("float32", "bfloat16"):
@@ -5473,6 +5763,7 @@ def main() -> int:
                     main_path=shape == RMS_TRAIN_MAIN)
 
     # ---- 4. main path: GNN serving at products-s, P=4, hidden 128 ----------
+    log(f"phase 4 starts at {time.perf_counter() - t_all:.1f} s")
     args = build_parser().parse_args(
         ["--gnn", "--dataset", "products-s", "--parts", "4", "--hidden",
          "128", "--ticks", "20", "--updates-per-tick", "4",
@@ -5549,6 +5840,7 @@ def main() -> int:
     del srv, eng, eng2, run
 
     # ---- 5. main path: training at products-s, P=4, hidden 128 ------------
+    log(f"phase 5 starts at {time.perf_counter() - t_all:.1f} s")
     # a warm-up run first (CUDA modules, cuBLAS handles, pinned pools), so
     # the epoch times below are steady-state; its launches are not counted
     from repro_torch.launch.train import run_gnn
@@ -5635,27 +5927,40 @@ def main() -> int:
     del flush
 
     # ---- 6. main path: transformer serving, qwen2-0.5b at full width -------
+    log(f"phase 6 starts at {time.perf_counter() - t_all:.1f} s")
     llm_flash, llm_rms = llm_phase(torch, fa, rn)
 
     # ---- 6b. main path: the rest of the decoder zoo at full width ---------
+    log(f"phase 6b starts at {time.perf_counter() - t_all:.1f} s")
     zoo_launches = zoo_phase(torch, fa, rn, card)
 
     # ---- 7. main path: transformer training, qwen2-0.5b at full width ------
+    log(f"phase 7 starts at {time.perf_counter() - t_all:.1f} s")
     train_flash, train_rms = llm_train_phase(torch, fa, rn, card)
 
     # ---- 7b. main path: the sharded steps on a mesh (ROADMAP 15.7) --------
+    log(f"phase 7b starts at {time.perf_counter() - t_all:.1f} s")
     shard_launches = shard_checks(torch, card)
 
     # ---- 7c. the dry run and the roofline on the card (ROADMAP 15.8) ------
+    log(f"phase 7c starts at {time.perf_counter() - t_all:.1f} s")
     dry_launches = dryrun_phase(torch, fa, rn, card)
 
     # ---- 7d. main path: training the MoE and Mamba2 families (15.9) -------
+    log(f"phase 7d starts at {time.perf_counter() - t_all:.1f} s")
     zoo_train = zoo_train_phase(torch, fa, rn, card)
-    # the training forward and backward launches of phases 7, 7c and 7d
+
+    # ---- 7e. main path: training whisper and paligemma (15.10) -----------
+    log(f"phase 7e starts at {time.perf_counter() - t_all:.1f} s")
+    encdec_train = encdec_train_phase(torch, fa, rn, card)
+    # the training forward and backward launches of phases 7, 7c, 7d and
+    # 7e (paligemma's Dh 256 flash launches apart)
     train_all = {k: train_flash.get(k, 0) + train_rms.get(k, 0)
-                 + dry_launches[k] + zoo_train[k] for k in zoo_train}
+                 + dry_launches[k] + zoo_train[k] + encdec_train[k]
+                 for k in zoo_train}
 
     # ---- 8. report ---------------------------------------------------------
+    log(f"phase 8 starts at {time.perf_counter() - t_all:.1f} s")
     main_row, bwd_row = main_rows[128], bwd_rows[128]
     log(f"launches: serving fwd {launches}; training fwd {train_fwd} "
         f"bwd {train_bwd}; overlapped split forward (row-range use) fwd "
@@ -5666,7 +5971,8 @@ def main() -> int:
         f"serving flash {llm_flash} rmsnorm {llm_rms}; the zoo's serving "
         f"{zoo_launches}; llm training flash {train_flash} rmsnorm "
         f"{train_rms}; the sharded steps {shard_launches}; the roofline "
-        f"step {dry_launches}; the zoo's training {zoo_train}")
+        f"step {dry_launches}; the zoo's training {zoo_train}; whisper's "
+        f"and paligemma's training {encdec_train}")
     kernels = [{
         "name": "segment_mean_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -5761,9 +6067,22 @@ def main() -> int:
             "library_ms": row["library_ms"]})
     # the training path at qwen2-0.5b's training shape in bf16: the forward
     # with the log-sum-exp, the flash backward, and the RMSNorm backward of
-    # both entry points at the (8, 512, 896) rows
+    # both entry points at the (8, 512, 896) rows; then both flash launches'
+    # Dh 256 instantiations with the prefix at paligemma-3b's training shape
+    # (whisper-small's shapes run the Dh 64 ones: their rows are in the log)
     train_main = ("qwen2-0.5b train", "bfloat16")
+    pali = ("paligemma-3b train", "bfloat16")
+    dh256 = [r for (c, _), r in flash_train_rows.items()
+             if c.startswith(("dh 256", "paligemma"))]
     for name, source, tpu, row, n, errs in (
+            ("flash_attention_train_dh256_prefix", "flash_attention.cu",
+             FLASH_TPU, flash_train_rows[pali][0],
+             encdec_train["train_dh256"], [r[0]["max_abs_err"]
+                                           for r in dh256]),
+            ("flash_attention_bwd_dh256_prefix", "flash_attention_bwd.cu",
+             FLASH_TPU, flash_train_rows[pali][1],
+             encdec_train["backward_dh256"], [r[1]["max_abs_err"]
+                                              for r in dh256]),
             ("flash_attention_train", "flash_attention.cu", FLASH_TPU,
              flash_train_rows[train_main][0],
              train_all["train"] + shard_launches["train"],

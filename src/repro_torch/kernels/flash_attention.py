@@ -23,9 +23,8 @@ output and whose backward is the hand-written kernel of
 runs the plain version under autograd.  The reference has no backward of
 its Pallas kernel: it trains through the pure-JAX ``chunked_attention``,
 whose gradient JAX's autodiff computes, and the backward computes that
-gradient.  The backward takes Dh in :data:`BWD_HEAD_DIMS` and no prefix:
-training with Dh 256 or a prefix (paligemma; whisper's cross-attention)
-raises, naming ROADMAP item 15.10.
+gradient, with every head size of :data:`HEAD_DIMS`, a prefix, and
+``Sq != Sk`` (cross-attention).
 """
 from __future__ import annotations
 
@@ -40,15 +39,13 @@ from . import ref, work
 from .build import load_library, ticket_counters
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
-           "flash_attention_bwd", "FlashAttentionFn", "HEAD_DIMS",
-           "BWD_HEAD_DIMS", "Plan",
+           "flash_attention_bwd", "FlashAttentionFn", "HEAD_DIMS", "Plan",
            "plan", "bwd_part_elems", "bwd_counter_elems",
            "flash_launch_count", "reset_flash_launch_count"]
 
-# head sizes the forward kernels (prefill and decode designs) are
-# instantiated for, and those of the backward kernel
+# head sizes the kernels (the forward's prefill and decode designs, the
+# backward) are instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # query heads per KV head a decode block takes (kDMaxRows in the kernel)
 DECODE_MAX_GROUP = 16
@@ -164,7 +161,7 @@ def _kernel_fns():
 def _bwd_fn():
     fn = load_library("flash_attention_bwd").flash_attention_bwd
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [i32] + [vp] * 13 + [i32] * 9 + [f32, vp]
+    fn.argtypes = [i32] + [vp] * 13 + [i32] * 10 + [f32, vp]
     fn.restype = i32
     return fn
 
@@ -246,17 +243,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
-                        q_offset=0):
+                        q_offset=0, prefix_len=0):
     """The backward kernel: ``(dq, dk, dv)`` of the forward ``o`` (with its
     log-sum-exp ``lse``, ``(B, Hq, Sq)`` float32) for the output gradient
-    ``do``, in the inputs' dtype.  CUDA tensors only; raises on what the
-    kernel cannot take."""
-    _check(q, k, v, window)
+    ``do``, in the inputs' dtype, under the forward's mask (its first
+    ``prefix_len`` keys seen by every query).  CUDA tensors only; raises on
+    what the kernel cannot take."""
+    _check(q, k, v, window, prefix_len)
     _check_kernel_inputs(q, k, v)
     if not q.is_cuda:
         raise ValueError("flash_attention_bwd launches the CUDA kernel; the "
                          "CPU trains through the plain version")
-    _check_trainable(q.shape[3], 0)
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
@@ -288,8 +285,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
                  delta.data_ptr(), dk_part, dv_part, counters, dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, dh,
                  int(bool(causal)),
-                 -1 if window is None else int(window), int(q_offset),
-                 1.0 / math.sqrt(dh), stream)
+                 -1 if window is None else int(window), int(prefix_len),
+                 int(q_offset), 1.0 / math.sqrt(dh), stream)
     _LAUNCHES["backward"] += 1
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed "
@@ -297,41 +294,30 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     return dq, dk, dv
 
 
-def flash_attention_lse(q, k, v, *, causal=True, window=None, q_offset=0):
+def flash_attention_lse(q, k, v, *, causal=True, window=None, q_offset=0,
+                        prefix_len=0):
     """The training forward kernel: ``(out, lse)``, the prefill design's
     output (bitwise what serving's prefill gives) and each row's
     log-sum-exp of its scaled live scores, ``(B, Hq, Sq)`` float32, -inf
     for a row that sees no key.  CUDA tensors only."""
-    _check(q, k, v, window)
+    _check(q, k, v, window, prefix_len)
     if not q.is_cuda:
         raise ValueError("flash_attention_lse launches the CUDA kernel; the "
                          "CPU trains through the plain version")
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    return _launch(q, k, v, causal, window, q_offset, lse=lse), lse
-
-
-def _check_trainable(dh: int, prefix_len: int) -> None:
-    """The backward kernel takes Dh in :data:`BWD_HEAD_DIMS` and no prefix:
-    a head size only the forward takes, or a prefix, raises before a launch
-    (no fallback); one no kernel takes is ``_check_kernel_inputs``'s."""
-    if (dh in HEAD_DIMS and dh not in BWD_HEAD_DIMS) or prefix_len:
-        raise NotImplementedError(
-            f"the flash attention backward takes head sizes {BWD_HEAD_DIMS} "
-            f"and no prefix, got Dh {dh}, prefix_len {prefix_len}: training "
-            "with Dh 256 or a prefix waits for ROADMAP item 15.10")
+    return _launch(q, k, v, causal, window, q_offset, lse=lse,
+                   prefix_len=prefix_len), lse
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on CUDA tensors with a hand-written backward: the
     forward is the prefill kernel writing each row's log-sum-exp (the
     ``"train"`` launches), and saves q, k, v, the output and the LSE; the
-    backward is :func:`flash_attention_bwd`.  Raises on a head size or a
-    prefix the backward does not take (ROADMAP item 15.10)."""
+    backward is :func:`flash_attention_bwd`, under the same mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, prefix_len=0):
-        _check_trainable(q.shape[3], prefix_len)
-        mask = dict(causal=causal, window=window, q_offset=q_offset)
+        mask = _mask(causal, window, q_offset, prefix_len)
         with work.block(_work, q, k, mask, True):
             out, lse = flash_attention_lse(q, k, v, **mask)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -378,8 +364,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     0.  A CUDA ``q`` launches the kernel (through :class:`FlashAttentionFn`
     where autograd needs a gradient), a CPU ``q`` runs
     :func:`flash_attention_plain` (differentiable as it stands), and a meta
-    ``q`` gives the output's shape (no data; its gradients too, with the
-    backward kernel's refusals).  Every route reports
+    ``q`` gives the output's shape (no data; its gradients too).  Every
+    route reports
     ``kernels/work.py``'s formulas to a step counter.
     """
     _check(q, k, v, window, prefix_len)
@@ -395,8 +381,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            prefix_len=prefix_len)
     mask = _mask(causal, window, q_offset, prefix_len)
     if q.device.type == "meta":
-        if train:
-            _check_trainable(q.shape[3], prefix_len)
         return work.counted(_work(q, k, mask, train), _bwd_work(q, k, mask),
                             lambda q, k, v: torch.empty_like(q), q, k, v)
     if q.device.type != "cpu":

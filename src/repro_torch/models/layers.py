@@ -200,9 +200,9 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     no RoPE), as the reference's ``attention_apply``; ``prefix_len`` keys
     are seen by every query (the prefix-LM mask).  Differentiable: on the
     card the kernels go through their autograd functions (the flash forward
-    with the log-sum-exp and its backward kernel, which take no prefix and
-    Dh <= 128: ROADMAP item 15.10), on the CPU and with ``kernels=False``
-    the plain version runs under autograd."""
+    with the log-sum-exp and its backward kernel, with the prefix, at every
+    head size, and at ``Sq != Sk`` for cross-attention), on the CPU and
+    with ``kernels=False`` the plain version runs under autograd."""
     if enc_out is not None:
         return _cross(p, x, enc_out, cfg, kernels)[0]
     s = x.shape[1]

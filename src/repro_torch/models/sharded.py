@@ -363,9 +363,10 @@ class ShardedOps:
         c = wo.shape[0]
         return out[..., self.r * c:(self.r + 1) * c] @ wo
 
-    def attention(self, p, h, *, causal=True, window=None):
+    def attention(self, p, h, *, causal=True, window=None, prefix_len=0):
         """Training attention over the gathered rows (flash forward and
-        backward on the local heads)."""
+        backward on the local heads).  A mesh runs no prefix
+        (``check_shardable``): ``prefix_len`` is 0."""
         cfg, kernels = self.cfg, self.kernels
         hf = self.gathered(h)
         lay = _AttnLayout(cfg, self.policy, self.m, self.r, h.shape[0],

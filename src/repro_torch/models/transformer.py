@@ -28,10 +28,11 @@ encoder-decoder (whisper: :meth:`Transformer.encode`, cross-attention after
 each decoder layer's self-attention, whose decode reads the encoder's keys
 and values from the layer cache's ``"cross"`` entry) and the prefix-LM
 (paligemma: ``patch_embeds`` prepended to the tokens, seen by every query).
-Training runs the decoder-only families: attention or Mamba2 mixers, MLP,
-MoE or no FFN, with MoE's Switch auxiliary loss summed over the layers into
-the loss; cross-attention, the encoder and a prefix raise
-``NotImplementedError`` (ROADMAP item 15.10).
+Training runs every family: attention or Mamba2 mixers, MLP, MoE or no
+FFN, with MoE's Switch auxiliary loss summed over the layers into the loss;
+the encoder-decoder (the encoder under autograd, not checkpointed, and each
+decoder layer's cross-attention over its output) and the prefix-LM (the
+patch embeddings prepended, their labels masked).
 """
 from __future__ import annotations
 
@@ -154,21 +155,6 @@ def check_shardable(cfg: ModelConfig) -> None:
             "one card")
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port only serves:
-    cross-attention, the encoder and a multimodal prefix."""
-    todo = [what for what, has in (
-        ("cross-attention", any(sl.cross_attention for sl in cfg.super_block)),
-        ("the encoder", cfg.is_encoder_decoder),
-        ("the multimodal prefix", bool(cfg.prefix_tokens))) if has]
-    if todo:
-        raise NotImplementedError(
-            f"{cfg.name}: training {', '.join(todo)} is not ported yet "
-            "(ROADMAP item 15.10, training whisper and paligemma: the flash "
-            "backward at Dh 256 and with a prefix, cross-attention's "
-            "backward); the port serves them")
-
-
 def _params(params: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v) for k, v in params.items()})
 
@@ -252,10 +238,13 @@ class _Layer(nn.Module):
             return x, L.moe_apply(self.moe, h, cfg)[0], cache
         return x, ops.residual(ops.mlp(self.mlp, h)), cache
 
-    def train_forward(self, x, delta, ops, causal=True):
+    def train_forward(self, x, delta, ops, causal=True, prefix_len=0,
+                      enc_out=None):
         """The whole-sequence form of :meth:`forward`, no cache: the
-        training form (causal, under the config's window) or, ``causal=False``,
-        an encoder layer (bidirectional, no window).  Returns ``(x, out,
+        training form (causal, under the config's window, its first
+        ``prefix_len`` positions seen by every query, cross-attention over
+        ``enc_out`` where the layer has it) or, ``causal=False``, an
+        encoder layer (bidirectional, no window).  Returns ``(x, out,
         aux)``: the stream, the layer's last output not yet added (the
         FFN's, or the mixer's where there is no FFN) and MoE's Switch
         auxiliary loss (None without an MoE FFN)."""
@@ -265,8 +254,14 @@ class _Layer(nn.Module):
             mix = L.mamba2_apply(self.mamba, h, cfg)[0]
         else:
             mix = ops.attention(self.attn, h, causal=causal,
-                                window=cfg.sliding_window if causal else None)
+                                window=cfg.sliding_window if causal else None,
+                                prefix_len=prefix_len)
         mix = ops.residual(mix)
+        if self.cross_attention:
+            x, h = ops.add_norm(self.norm_cross, x, mix)
+            mix = ops.residual(L.attention_apply(self.cross, h, cfg,
+                                                 enc_out=enc_out,
+                                                 kernels=ops.kernels))
         if self.ffn == "none":
             return x, mix, None
         x, h = ops.add_norm(self.norm_ffn, x, mix)
@@ -303,9 +298,9 @@ class _LocalOps:
     def add_norm(self, p, x, delta):
         return L.add_norm_apply(p, x, delta, self.cfg, kernels=self.kernels)
 
-    def attention(self, p, h, *, causal=True, window=None):
+    def attention(self, p, h, *, causal=True, window=None, prefix_len=0):
         return L.attention_apply(p, h, self.cfg, causal=causal, window=window,
-                                 kernels=self.kernels)
+                                 prefix_len=prefix_len, kernels=self.kernels)
 
     def attention_prefill(self, p, h, *, window=None, cache_size=None,
                           prefix_len=0):
@@ -487,12 +482,12 @@ class Transformer(nn.Module):
         return x.to(device=self.device, dtype=self.embed.dtype)
 
     # ============================================================ encoder
-    @torch.no_grad()
     def encode(self, enc_embeds) -> torch.Tensor:
         """The encoder over the (stub) frame embeddings ``enc_embeds`` (B,
         Se, d_model): sinusoidal positions, ``encoder_layers`` layers of
         bidirectional attention + MLP, the final norm (the reference's
-        ``encode``)."""
+        ``encode``).  Differentiable (the training loss runs it under
+        autograd); serving calls it under ``torch.no_grad``."""
         x = self._embeds(enc_embeds, "enc_embeds")
         pos = L.sinusoidal_positions(x.shape[1], self.cfg.d_model,
                                      device=x.device)
@@ -511,20 +506,38 @@ class Transformer(nn.Module):
         ``cfg.remat``), the final norm over every position, then
         :func:`chunked_ce_loss` over the head, plus MoE's Switch auxiliary
         loss summed over the layers in layer order (the reference's
-        ``loss + aux``; a model without MoE adds nothing).  A model with
-        cross-attention, an encoder or a prefix raises
-        ``NotImplementedError`` (ROADMAP item 15.10)."""
+        ``loss + aux``; a model without MoE adds nothing).  A prefix-LM
+        prepends ``batch["patch_embeds"]`` (B, P, d_model), seen by every
+        query, whose P positions take label -1 (no loss); an
+        encoder-decoder encodes ``batch["enc_embeds"]`` (B, Se, d_model)
+        under autograd, not checkpointed (the reference checkpoints only its
+        decoder's scan body), and every decoder layer's cross-attention
+        reads the encoder's output (an input of each layer's checkpoint).
+        A missing input raises ``ValueError`` naming it."""
         cfg, ops = self.cfg, self._ops
-        _check_trainable(cfg)
         tokens, labels = ops.tokens(batch["tokens"]), ops.tokens(
             batch["labels"])
-        x, delta, aux = ops.residual(ops.embed(tokens)), None, None
+        x = ops.embed(tokens)
+        prefix_len = cfg.prefix_tokens
+        if prefix_len:
+            x = torch.cat([self._embeds(batch.get("patch_embeds"),
+                                        "patch_embeds", prefix_len), x],
+                          dim=1)
+            labels = torch.cat([labels.new_full((labels.shape[0],
+                                                 prefix_len), -1), labels],
+                               dim=1)
+        enc_out = (self.encode(batch.get("enc_embeds"))
+                   if cfg.is_encoder_decoder else None)
+        x, delta, aux = ops.residual(x), None, None
         for layer in self.layers:
             if cfg.remat:
                 x, delta, a = checkpoint(layer.train_forward, x, delta, ops,
-                                         use_reentrant=False)
+                                         prefix_len=prefix_len,
+                                         enc_out=enc_out, use_reentrant=False)
             else:
-                x, delta, a = layer.train_forward(x, delta, ops)
+                x, delta, a = layer.train_forward(x, delta, ops,
+                                                  prefix_len=prefix_len,
+                                                  enc_out=enc_out)
             if a is not None:
                 aux = a if aux is None else aux + a
         _, h = ops.add_norm(self.final_norm, x, delta)

@@ -13,8 +13,8 @@ encoder); 8 teacher-forced decode steps' logits and the caches after them
 ``chunked_attention(prefix_len=)`` at Dh 64 and 256, with and without a
 window; a Python mirror of the flash prefill kernels' key-tile walk with a
 prefix; whisper's decode input specs against the reference's;
-``params_from_jax`` refusing a missing encoder leaf; and the training
-refusals (ROADMAP item 15.10).  Everything runs on the CPU, where the
+``params_from_jax`` refusing a missing encoder leaf; and the flash
+backward taking Dh 256 and a prefix (ROADMAP item 15.10).  Everything runs on the CPU, where the
 kernel wrappers take their plain versions."""
 import sys
 from functools import partial
@@ -129,7 +129,8 @@ def test_encode_matches_reference(pair):
     cfg, jm, jp, model, batch, _, _ = pair
     want = np.asarray(jax.jit(jm.encode)(jp, jnp.asarray(
         batch["enc_embeds"], jnp.float32)))
-    got = model.encode(batch["enc_embeds"])
+    with torch.no_grad():      # encode is differentiable: serving's use
+        got = model.encode(batch["enc_embeds"])
     assert tuple(got.shape) == (B, cfg.encoder_seq, cfg.d_model)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
@@ -397,9 +398,21 @@ def test_params_from_jax_refuses_a_missing_encoder_leaf():
 
 @pytest.mark.parametrize("dh,prefix", [(256, 0), (64, 8), (256, 8)])
 def test_flash_backward_refuses_dh256_and_a_prefix(dh, prefix):
-    """The check ``FlashAttentionFn`` makes before a launch: the backward
-    kernel takes Dh <= 128 and no prefix (ROADMAP item 15.10)."""
-    with pytest.raises(NotImplementedError, match=r"item 15\.10"):
-        fa._check_trainable(dh, prefix)
-    fa._check_trainable(128, 0)
-    fa._check_trainable(48, 0)     # the kernel inputs' check names it
+    """Since ROADMAP item 15.10 the backward takes Dh 256 and a prefix:
+    no training check stands between ``FlashAttentionFn`` and the kernel,
+    a meta q that needs a gradient gives q's, k's and v's gradient shapes
+    at that head size and prefix, and the kernel inputs' check takes every
+    size of ``HEAD_DIMS``; a head size outside it still raises."""
+    assert not hasattr(fa, "_check_trainable")
+    assert not hasattr(fa, "BWD_HEAD_DIMS") and dh in fa.HEAD_DIMS
+    q = torch.empty(1, 8, 40, dh, device="meta", requires_grad=True)
+    k = torch.empty(1, 1, 40, dh, device="meta", requires_grad=True)
+    out = fa.flash_attention(q, k, k, prefix_len=prefix)
+    grads = torch.autograd.grad(out, [q, k], torch.empty_like(out))
+    assert [tuple(g.shape) for g in grads] == [tuple(q.shape),
+                                               tuple(k.shape)]
+    x = torch.empty(1, 2, 8, dh)
+    fa._check_kernel_inputs(x, x, x)
+    with pytest.raises(ValueError, match="head sizes"):
+        y = torch.empty(1, 2, 8, 48)
+        fa._check_kernel_inputs(y, y, y)

@@ -457,22 +457,32 @@ def test_flash_prefix_matches_plain(cuda, case, dtype, tol):
 
 
 def test_flash_prefix_and_dh256_refuse_training(cuda):
-    """Under autograd a prefix or Dh 256 raises before any launch, naming
-    ROADMAP item 15.10 (the backward takes neither); serving takes both."""
-    for dh, prefix in ((256, 0), (64, 16)):
+    """Under autograd a prefix and Dh 256 train (one training forward and
+    one backward launch each); what the kernels still refuse is a head
+    size outside HEAD_DIMS, with a prefix too, before any launch, in the
+    autograd route and in ``flash_attention_bwd`` alike."""
+    for dh, prefix in ((256, 0), (64, 16), (256, 16)):
         q = torch.randn(1, 2, 32, dh, device=cuda, requires_grad=True)
         k = torch.randn(1, 2, 32, dh, device=cuda)
+        before = (fa.flash_launch_count("train"),
+                  fa.flash_launch_count("backward"))
+        out = fa.flash_attention(q, k, k, prefix_len=prefix)
+        (g,) = torch.autograd.grad(out.sum(), [q])
+        torch.cuda.synchronize()
+        assert g.shape == q.shape and torch.isfinite(g).all()
+        assert (fa.flash_launch_count("train"),
+                fa.flash_launch_count("backward")) == (before[0] + 1,
+                                                       before[1] + 1)
+    for dh in (48, 512):
+        q = torch.randn(1, 2, 32, dh, device=cuda, requires_grad=True)
         before = fa.flash_launch_count()
-        with pytest.raises(NotImplementedError, match=r"item 15\.10"):
-            fa.flash_attention(q, k, k, prefix_len=prefix)
+        with pytest.raises(ValueError, match="head sizes"):
+            fa.flash_attention(q, q.detach(), q.detach(), prefix_len=8)
+        lse = torch.empty(1, 2, 32, device=cuda)
+        x = q.detach()
+        with pytest.raises(ValueError, match="head sizes"):
+            fa.flash_attention_bwd(x, x, x, x, lse, x, prefix_len=8)
         assert fa.flash_launch_count() == before
-        with torch.no_grad():
-            assert fa.flash_attention(q, k, k, prefix_len=prefix).shape == \
-                q.shape
-    q = torch.randn(1, 2, 8, 256, device=cuda)
-    lse = torch.empty(1, 2, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match=r"item 15\.10"):
-        fa.flash_attention_bwd(q, q, q, q, lse, q)
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
@@ -1049,7 +1059,16 @@ def test_mesh_world_on_card_matches_stacked(cuda, tmp_path, backend, P):
 # window 0 (every row sees no key), qwen2-0.5b's training shape, Sq and Sk
 # off the 64-row tiles, GQA groups 1/2/7 and Dh 32/64/128; then the
 # tensor-core backward's work split: group 7 with one and two KV heads, Dh
-# 128 (32-row query steps) with a window, Sq = 1 and Sq = 65 at a q_offset
+# 128 (32-row query steps) with a window, Sq = 1 and Sq = 65 at a q_offset.
+# Then (b, hq, hkv, sq, sk, dh, causal, window, q_offset, prefix_len): the
+# prefix-LM mask at Dh 32/64/128 (a prefix edge inside a key tile, on a
+# tile edge, past Sk; a window leaving a gap after the prefix; at a
+# q_offset; bidirectional); Dh 256 (eight warps, two per row group, in bf16;
+# 32-row tiles in f32) with paligemma-3b's MQA group of 8, with and without
+# a prefix, the Sq and Sk tails, a window gap, Sq != Sk, bidirectional;
+# whisper-small's three shapes at batch 1 (the encoder's 12 heads over
+# 1,500 frames, the decoder's causal 448, the cross-attention's 448 over
+# 1,500: the Sk tail of 1,500 in both grids)
 FLASH_TRAIN_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, 0),
     (1, 8, 8, 200, 200, 32, True, None, 0),
@@ -1066,12 +1085,31 @@ FLASH_TRAIN_CASES = [
     (1, 4, 2, 200, 200, 128, True, 48, 0),
     (2, 4, 1, 1, 97, 64, True, None, 96),
     (1, 6, 2, 65, 200, 128, True, None, 135),
+    (1, 4, 2, 200, 200, 64, True, None, 0, 37),
+    (1, 2, 2, 96, 96, 128, True, 16, 0, 64),
+    (1, 2, 2, 40, 40, 32, True, None, 0, 64),
+    (1, 4, 1, 300, 300, 64, True, 64, 0, 100),
+    (1, 2, 1, 48, 170, 64, True, 40, 122, 30),
+    (1, 2, 2, 64, 64, 64, False, None, 0, 20),
+    (1, 8, 1, 200, 200, 256, True, None, 0, 0),
+    (1, 8, 1, 300, 300, 256, True, None, 0, 100),
+    (1, 8, 1, 130, 190, 256, True, None, 60, 64),
+    (2, 4, 2, 300, 300, 256, True, 50, 0, 70),
+    (1, 2, 2, 100, 70, 256, False, None, 0, 0),
+    (1, 8, 1, 768, 768, 256, True, None, 0, 256),
+    (1, 12, 12, 1500, 1500, 64, False, None, 0),
+    (1, 12, 12, 448, 448, 64, True, None, 0),
+    (1, 12, 12, 448, 1500, 64, False, None, 0),
 ]
 # the backward against autograd of the plain version: f32 sums in another
 # order (observed below 1e-5); bf16 gradients round once from f32 sums in
 # both, and the kernel's D_i reads the output rounded to bf16 where the
 # plain softmax backward reads it in f32, the forward's bf16 tolerance
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# and in bf16 each gradient's max |kernel - plain| within this share of its
+# largest plain entry (chip_smoke.py's FLASH_BWD_TOP_RTOL): over long key
+# ranges a typical |dk| or |dv| is no larger than the atol above
+FLASH_BWD_TOP_RTOL = 3e-2
 
 
 def _flash_train_inputs(case, dtype, cuda):
@@ -1081,17 +1119,20 @@ def _flash_train_inputs(case, dtype, cuda):
     return q, k, v, do
 
 
+def _train_kw(case):
+    """The mask arguments of a FLASH_TRAIN_CASES case (its prefix, 0 where
+    the case has none)."""
+    causal, window, q_off, *prefix = case[6:]
+    return dict(causal=causal, window=window, q_offset=q_off,
+                prefix_len=prefix[0] if prefix else 0)
+
+
+def _train_live(case, cuda):
+    return _prefix_live((*case[:6], *_train_kw(case).values()), cuda)
+
+
 def _dead_rows(case, cuda):
-    sq, sk = case[3], case[4]
-    causal, window, q_off = case[6:]
-    q_pos = torch.arange(sq, device=cuda) + q_off
-    k_pos = torch.arange(sk, device=cuda)
-    live = torch.ones(sq, sk, dtype=torch.bool, device=cuda)
-    if causal:
-        live &= k_pos[None] <= q_pos[:, None]
-    if window is not None:
-        live &= k_pos[None] > q_pos[:, None] - window
-    return ~live.any(1)
+    return ~_train_live(case, cuda).any(1)
 
 
 @pytest.mark.parametrize("case", FLASH_TRAIN_CASES)
@@ -1100,33 +1141,26 @@ def test_flash_train_forward_writes_lse(cuda, case, dtype):
     """The training forward's output is bitwise the serving forward's (the
     LSE changes none of its arithmetic), and its log-sum-exp is the plain
     one of the scaled live scores (-inf for a row with no key)."""
-    causal, window, q_off = case[6:]
+    kw = _train_kw(case)
     q, k, v, _ = _flash_train_inputs(case, dtype, cuda)
     b, hq, sq, dh = q.shape
     before = fa.flash_launch_count("train")
-    got, lse = fa.flash_attention_lse(q, k, v, causal=causal, window=window,
-                                      q_offset=q_off)
+    got, lse = fa.flash_attention_lse(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_launch_count("train") == before + 1
-    serve = fa.flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_off)
-    plan = fa.plan(q.shape, k.shape, causal=causal, window=window,
-                   q_offset=q_off, sms=132)
+    serve = fa.flash_attention(q, k, v, **kw)
+    plan = fa.plan(q.shape, k.shape, causal=kw["causal"],
+                   window=kw["window"], q_offset=kw["q_offset"], sms=132,
+                   prefix_len=kw["prefix_len"])
     if plan.design == "prefill":
         assert torch.equal(got, serve)
     torch.testing.assert_close(got.float(), fa.flash_attention_plain(
-        q, k, v, causal=causal, window=window, q_offset=q_off).float(),
+        q, k, v, **kw).float(),
         atol=FLASH_BWD_TOL[dtype], rtol=FLASH_BWD_TOL[dtype])
     kx = k.repeat_interleave(hq // k.shape[1], 1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) / dh ** 0.5
     dead = _dead_rows(case, cuda)
-    q_pos = torch.arange(sq, device=cuda)[:, None] + q_off
-    k_pos = torch.arange(k.shape[2], device=cuda)[None]
-    mask = torch.ones(sq, k.shape[2], dtype=torch.bool, device=cuda)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
+    mask = _train_live(case, cuda)
     want = torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
     assert torch.isneginf(lse[:, :, dead]).all()
     torch.testing.assert_close(lse[:, :, ~dead], want[:, :, ~dead],
@@ -1137,10 +1171,10 @@ def test_flash_train_forward_writes_lse(cuda, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_matches_plain_autograd(cuda, case, dtype):
     """dq, dk, dv of the kernels (forward with the LSE, then the backward)
-    against autograd of the plain version, within FLASH_BWD_TOL; rows that
+    against autograd of the plain version, within FLASH_BWD_TOL (and in
+    bf16 within FLASH_BWD_TOP_RTOL of each one's largest entry); rows that
     see no key give zero dq and no NaN anywhere; each call counts once."""
-    causal, window, q_off = case[6:]
-    kw = dict(causal=causal, window=window, q_offset=q_off)
+    kw = _train_kw(case)
     q, k, v, do = _flash_train_inputs(case, dtype, cuda)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = (fa.flash_launch_count("train"), fa.flash_launch_count("backward"))
@@ -1159,19 +1193,26 @@ def test_flash_bwd_matches_plain_autograd(cuda, case, dtype):
         assert torch.isfinite(g).all(), name
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol,
                                    msg=lambda m: f"d{name}: {m}")
+        if dtype == torch.bfloat16:
+            err = float((g.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            assert err <= FLASH_BWD_TOP_RTOL * top, (name, err, top)
     dead = _dead_rows(case, cuda)
     assert not got[0][:, :, dead].float().abs().any()
 
 
 @pytest.mark.parametrize("case", [(2, 14, 2, 512, 512, 64, True, None, 0),
-                                  (1, 4, 4, 300, 300, 128, True, 100, 0)])
+                                  (1, 4, 4, 300, 300, 128, True, 100, 0),
+                                  (2, 8, 1, 768, 768, 256, True, None, 0,
+                                   256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_repeats_bitwise(cuda, case, dtype):
     """No atomics: two launches of the backward give the same bits, at
-    qwen2-0.5b's training shape (GQA partials summed in head order) and
-    with one query head per KV head (dK, dV written directly)."""
+    qwen2-0.5b's training shape (GQA partials summed in head order), with
+    one query head per KV head (dK, dV written directly), and at
+    paligemma-3b's (Dh 256, group 8, prefix 256) cut to batch 2."""
     q, k, v, do = _flash_train_inputs(case, dtype, cuda)
-    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    kw = _train_kw(case)
     o, lse = fa.flash_attention_lse(q, k, v, **kw)
     first = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     second = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1518,13 +1559,75 @@ def test_sharded_steps_on_card(cuda, tmp_path):
 
 def _train_pass_launches(cfg):
     """A training pass's (flash forward, flash backward, RMSNorm forward,
-    RMSNorm backward) launches: remat replays each layer's forward."""
-    attn = sum(sl.mixer == "attention" for sl in cfg.super_block) \
-        * cfg.num_repeats
-    norms = sum(1 + (sl.ffn != "none") for sl in cfg.super_block) \
-        * cfg.num_repeats + 1
+    RMSNorm backward) launches: remat replays each decoder layer's forward
+    (its self- and cross-attention and norms), not the encoder's; the
+    final norms run once."""
+    attn = sum((sl.mixer == "attention") + sl.cross_attention
+               for sl in cfg.super_block) * cfg.num_repeats
+    norms = sum(1 + sl.cross_attention + (sl.ffn != "none")
+                for sl in cfg.super_block) * cfg.num_repeats + 1
+    enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
+    enc_norms = 2 * enc + 1 if enc else 0
     rms = cfg.norm == "rmsnorm"
-    return (2 * attn, attn, rms * (2 * (norms - 1) + 1), rms * norms)
+    return (2 * attn + enc, attn + enc,
+            rms * (2 * (norms - 1) + 1 + enc_norms), rms * (norms + enc_norms))
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "paligemma-3b"])
+def test_reduced_encdec_train_kernels_match_plain(cuda, arch):
+    """A reduced f32 training pass of the encoder-decoder (the encoder
+    under autograd, the decoder's cross-attention at Sq != Sk) and the
+    prefix-LM (its prefix through the flash backward, at Dh 256) with the
+    kernels, forward and backward, against the plain versions from the same
+    weights: the loss and every gradient; the kernels' launches are the
+    pass's attention and RMSNorm calls."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    if arch == "paligemma-3b":
+        cfg = dataclasses.replace(cfg, head_dim=256)
+    model = Transformer(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 80))
+    batch = {"tokens": tokens,
+             "labels": np.concatenate([tokens[:, 1:], -np.ones((2, 1),
+                                                               np.int64)], 1)}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = rng.normal(0, 1, (2, cfg.encoder_seq,
+                                                cfg.d_model))
+    if cfg.prefix_tokens:
+        batch["patch_embeds"] = rng.normal(0, 1, (2, cfg.prefix_tokens,
+                                                  cfg.d_model))
+    out = {}
+    for use in (True, False):
+        model.use_kernels = use
+        fa.reset_flash_launch_count()
+        rn.reset_rmsnorm_launch_count()
+        loss = model.train_loss(batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        out[use] = (loss, grads, (
+            fa.flash_launch_count("train"), fa.flash_launch_count("backward"),
+            rn.rmsnorm_launch_count(), rn.rmsnorm_bwd_launch_count()))
+    assert out[True][2] == _train_pass_launches(cfg), out[True][2]
+    assert out[False][2] == (0, 0, 0, 0)
+    assert torch.isfinite(out[True][0])
+    torch.testing.assert_close(out[True][0], out[False][0], atol=1e-5,
+                               rtol=1e-5)
+    names = [n for n, _ in model.named_parameters()]
+    plain = dict(zip(names, out[False][1]))
+    for name, g, w in zip(names, out[True][1], out[False][1]):
+        assert torch.isfinite(g).all(), name
+        # whisper's key bias has a gradient of 0 in exact arithmetic (no
+        # RoPE: q . b_k is the same for every key), rounding alone on both
+        # sides: held against its projection's gradient
+        like = plain[name[:-3] + "wk"] if name.endswith(".b_k") else w
+        scale = float(like.abs().max()) or 1.0
+        torch.testing.assert_close(g, w, atol=1e-4 * scale, rtol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "phi3.5-moe-42b-a6.6b",

@@ -43,6 +43,7 @@ from repro_torch.graph import distributed as td
 from repro_torch.graph.sage import broadcast_to_partitions
 from repro_torch.pipeline import EATConfig, run_eat_distgnn
 from repro_torch.train.optim import AdamW, opt_state_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P, HIDDEN, LR = 4, 16, 1e-2
 # one forward's f32 logits: sums in another order than XLA's

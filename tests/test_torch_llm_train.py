@@ -25,6 +25,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, InputShape, get_config
 from repro_torch.configs import input_specs
 from repro_torch.models import params_from_jax
 from repro_torch.models.transformer import chunked_ce_loss
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # f32 over the vocabulary in chunks: the same sums in another order
 CE_RTOL, CE_ATOL = 1e-5, 1e-6

@@ -10,6 +10,7 @@ import torch
 from repro.pipeline import EATConfig as JEATConfig
 from repro.pipeline import run_eat_distgnn as j_run_eat_distgnn
 from repro_torch.pipeline import EATConfig, run_eat_distgnn
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(dataset="tiny", num_parts=4, max_epochs=6, hidden_dim=16,
             batch_size=64, fanouts=(5, 5), phase0_fraction=0.5, seed=0)

@@ -372,10 +372,24 @@ def test_step_counter_memory():
 
 
 def test_meta_flash_training_refuses_what_the_card_refuses():
-    """A meta q that needs a gradient is held to the backward kernel's
-    head sizes and prefix, as a CUDA q is (ROADMAP item 15.10)."""
-    q = torch.empty(1, 2, 8, 256, device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"15\.10"):
-        fa.flash_attention(q, q.detach(), q.detach())
-    out = fa.flash_attention(q.detach(), q.detach(), q.detach())
+    """A meta q that needs a gradient takes what the card's backward takes
+    since ROADMAP item 15.10: at Dh 256 with a prefix the gradients' shapes
+    come back, and the counter holds the training forward and the
+    backward by ``kernels/work.py``'s formulas with the prefix; serving
+    gives the output's shape."""
+    q_shape, k_shape = (1, 8, 40, 256), (1, 1, 40, 256)
+    mask = dict(causal=True, prefix_len=16)
+    q, k, v = _leaves("meta", (q_shape, k_shape, k_shape), True)
+    sc = _count(lambda q, k, v: fa.flash_attention(q, k, v, **mask), q, k, v)
+    assert sc.kernels == {
+        "flash_attention_train": [1, *work.flash_fwd_work(
+            q_shape, k_shape, 4, lse=True, **mask)],
+        "flash_attention_bwd": [1, *work.flash_bwd_work(q_shape, k_shape, 4,
+                                                        **mask)]}
+    assert work.flash_bwd_work(q_shape, k_shape, 4, **mask) != \
+        work.flash_bwd_work(q_shape, k_shape, 4, causal=True)
+    out = fa.flash_attention(q, k, v, **mask)
+    grads = torch.autograd.grad(out, [q, k, v], torch.empty_like(out))
+    assert [tuple(g.shape) for g in grads] == [q_shape, k_shape, k_shape]
+    out = fa.flash_attention(q.detach(), k.detach(), v.detach())
     assert out.device.type == "meta"

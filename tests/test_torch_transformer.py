@@ -240,13 +240,29 @@ def test_configs_equal_reference(arch):
 @pytest.mark.parametrize("arch,item", [("whisper-small", "15.10"),
                                        ("paligemma-3b", "15.10")])
 def test_unsupported_families_raise(arch, item):
-    """The encoder-decoder and the multimodal prefix serve
-    (``tests/test_torch_encdec.py``), but training them raises, naming
-    their ROADMAP item."""
-    model = Transformer(get_config(arch).reduced(), device="cpu")
+    """The encoder-decoder and the multimodal prefix train since ROADMAP
+    item 15.10 (their loss and gradients against the reference are
+    ``tests/test_torch_encdec_train.py``'s): ``train_loss`` gives a finite
+    scalar with a gradient.  ``launch.train llm``, which feeds only
+    tokens and labels as the reference's ``run_llm`` does, fails naming
+    the input the arch lacks, and no longer the item."""
+    import repro_torch.launch.train as T
+
+    cfg = get_config(arch).reduced()
+    model = Transformer(cfg, device="cpu")
     tokens = np.zeros((1, 8), np.int64)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        model.train_loss({"tokens": tokens, "labels": tokens})
+    extra = ("enc_embeds", cfg.encoder_seq) if cfg.is_encoder_decoder \
+        else ("patch_embeds", cfg.prefix_tokens)
+    batch = {"tokens": tokens, "labels": tokens,
+             extra[0]: np.zeros((1, extra[1], cfg.d_model), np.float32)}
+    loss = model.train_loss(batch)
+    assert loss.dim() == 0 and torch.isfinite(loss) and loss.requires_grad
+    with pytest.raises(ValueError, match=extra[0]) as err:
+        T.run_llm(T.build_parser().parse_args(
+            ["llm", "--arch", arch, "--shards", "2", "--d-model", "64",
+             "--seq", "16", "--docs", "64", "--steps", "1", "--device",
+             "cpu"]))
+    assert item not in str(err.value)
 
 
 def test_rolling_cache_and_swa_raise():

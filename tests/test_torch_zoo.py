@@ -32,6 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import Transformer, params_from_jax
 from repro_torch.models import layers as L
 from repro_torch.serve import ServeEngine
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # f32 through a few layers: the port's dense attention, torch's GEMMs and
 # cumsum sum in another order than the reference's chunked online softmax,
@@ -496,17 +497,25 @@ def test_jamba_layers_follow_the_super_block():
 def test_train_loss_refuses_the_served_families(arch):
     """Since ROADMAP item 15.9 these four families train (the loss and its
     gradients against the reference are tests/test_torch_zoo_train.py's):
-    ``train_loss`` gives a finite scalar with a gradient, and the families
-    only served, whisper-small and paligemma-3b, still raise (item
-    15.10)."""
+    ``train_loss`` gives a finite scalar with a gradient.  Since item
+    15.10 the families that were only served train too: whisper-small and
+    paligemma-3b give a loss (on meta: its shape, needing a gradient)
+    given their extra input, and refuse a batch without it, naming it."""
     model = Transformer(get_config(arch).reduced(), device="cpu")
     tokens = np.zeros((1, 32), np.int64)
     loss = model.train_loss({"tokens": tokens, "labels": tokens})
     assert loss.dim() == 0 and torch.isfinite(loss) and loss.requires_grad
-    for served in ("whisper-small", "paligemma-3b"):
-        other = Transformer(get_config(served).reduced(), device="meta")
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP item 15\.10"):
+    for served, name in (("whisper-small", "enc_embeds"),
+                         ("paligemma-3b", "patch_embeds")):
+        cfg = get_config(served).reduced()
+        other = Transformer(cfg, device="meta")
+        seq = cfg.encoder_seq if name == "enc_embeds" else cfg.prefix_tokens
+        extra = torch.empty((1, seq, cfg.d_model), device="meta")
+        out = other.train_loss({"tokens": tokens, "labels": tokens,
+                                name: extra})
+        assert out.dim() == 0 and out.device.type == "meta"
+        assert out.requires_grad
+        with pytest.raises(ValueError, match=name):
             other.train_loss({"tokens": tokens, "labels": tokens})
 
 

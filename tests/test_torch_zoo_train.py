@@ -25,6 +25,7 @@ from repro.models import layers as JL
 from repro_torch.configs import InputShape, get_config
 from repro_torch.models import Transformer, params_from_jax
 from repro_torch.models import layers as L
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # f32 through two reduced layers (jamba: a super-block of eight sub-layers):
 # torch's GEMMs, dense attention, cumsum and the SSD loop sum in another
@@ -188,8 +189,10 @@ def test_zoo_train_step_matches_reference_adamw(arch):
     batch = _batch(cfg, 2, s, seed=11)
     jl, jg = vg(jp, {k: jnp.asarray(v) for k, v in batch.items()})
     jopt = JAdamW(lr=LR, weight_decay=WD, grad_clip=1.0)
-    updates, _ = jopt.update(jg, jopt.init(jp), jp)
-    jp1 = j_apply(jp, updates)
+    # one compiled program: the eager update compiles each primitive of
+    # every leaf's shape on its own
+    jp1 = jax.jit(lambda p, g: j_apply(p, jopt.update(g, jopt.init(p),
+                                                      p)[0]))(jp, jg)
     built = build_step(cfg, InputShape("tiny_train", s, 2, "train"),
                        optimizer=AdamW(lr=LR, weight_decay=WD,
                                        grad_clip=1.0))
