@@ -275,23 +275,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
               (the shards' losses and the mean gradient), and one bf16
               phase-0 step broken down (torch.profiler, from fresh AdamW
               moments: the run frees phase 0's when phase 1 starts)
-  7b. shard   the sharded steps (ROADMAP item 15.7,
-              ``launch/steps.py::build_step(cfg, shape, mesh)``): qwen2-0.5b
-              bf16 at full width and depth (train 8 x 512 with remat,
-              prefill 4 x 2,048, 16 greedy decode steps, a personalize
-              step of 2 replicas) and its f32 variant cut to 4 layers; an
-              NCCL world of 1 on a (1, 1) mesh bitwise the unsharded steps
-              (what differs is named); a world of 4 sharing the card on
-              (2, 2) over the ``staged`` backend (a gloo world of 2 shows
-              first what DTensor on gloo does with card tensors), each
-              rank's launches equal to the unsharded step's, its staged
-              bytes equal to ``step_collective_bytes``, the f32 loss,
-              logits and gradients within 1e-5 of the world of 1's, the
-              gradients' global norm (AdamW's clip) within 1e-6, the
-              weights after one step within 1e-5 of the largest weight
-              where the gradient is at least 1e-6 (the rest reported); step ms on
-              the slowest rank, peak memory per rank, the bf16 greedy
-              tokens' agreement reported
+  7b. shard   the sharded steps (ROADMAP items 15.7 and 15.7b,
+              ``launch/steps.py::build_step(cfg, shape, mesh)``,
+              ``SHARD_RUNS``), bf16 at full width, seed 0: paligemma-3b
+              (train 4 x (256 random patches + 512), prefill 4 x (256 +
+              256); whole
+              with 1 replica in the world of 1, 4 of 18 layers in the
+              world of 4), qwen2-0.5b (whole in the world of 1, 8 of its
+              24 layers in the world of 4; train 8 x 512 with remat, prefill 4 x 2,048, a personalize step of 2
+              replicas) and whisper-small whole (train 8 x 448 over 1,500
+              random frames, prefill 4 x (1,500 frames + 384), 2
+              replicas), 16 greedy decode steps each, and their f32
+              variants cut to 2, 4 and 2 + 2 layers; an NCCL world of 1
+              on a (1, 1) mesh
+              bitwise the unsharded steps (what differs is named); a world
+              of 4 sharing the card on (2, 2) over the ``staged`` backend
+              (``scripts/collective_probe.py`` shows what DTensor on gloo
+              does with card tensors), each rank's launches equal to the
+              unsharded step's at its depth, its staged bytes equal to
+              ``step_collective_bytes``, the f32 loss, logits and
+              gradients within 1e-5 of the world of 1's (a key bias's of
+              its projection's), the gradients' global norm (AdamW's clip)
+              within 1e-6, the weights after one step within 1e-5 of the
+              largest weight where the gradient is at least 1e-6 (the rest
+              reported); step ms on the slowest rank, peak memory per
+              rank, the bf16 greedy tokens' agreement reported
   7c. dryrun  the dry run and the roofline (ROADMAP item 15.8): the fake
               backend probed (``scripts/fake_world_probe.py``), then
               ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
@@ -343,8 +351,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
               points, whose launches include phases 7, 7c, 7d and 7e, as
               the RMSNorm rows include their forwards, both flash
               launches' Dh 256 instantiations with the prefix apart at
-              paligemma-3b's training shape, with 7e's paligemma
-              launches), then the device line last
+              paligemma-3b's training shape, with 7e's and 7b's world of
+              1's paligemma launches, and all four Dh 256 uses at a rank's
+              GQA group of 4 with 7b's world of 4's), then the device line
+              last
 
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -1081,6 +1091,12 @@ FLASH_CASES = [
     ("whisper-small cross decode", (4, 12, 12, 1, 1500, 64, False, None, 0)),
     ("paligemma-3b prefill", (4, 8, 1, 512, 512, 256, True, None, 0, 256)),
     ("paligemma-3b decode", (4, 8, 1, 1, 580, 256, True, None, 540)),
+    # a rank's of phase 7b's (2, 2) mesh: half the batch, 4 of the 8 query
+    # heads over the one KV head (a GQA group of 4), the context-parallel
+    # cache gathered whole for the decode
+    ("paligemma-3b rank prefill", (2, 4, 1, 512, 512, 256, True, None, 0,
+                                   256)),
+    ("paligemma-3b rank decode", (2, 4, 1, 1, 528, 256, True, None, 512)),
     ("window + prefix", (1, 4, 2, 300, 300, 64, True, 64, 0, 100)),
 ]
 # the serving paths' shapes: held to BF16_MAIN_* in bf16, launched twice
@@ -1115,6 +1131,12 @@ FLASH_TRAIN_CASES = FLASH_CASES[:7] + [
     ("dh 256 group 8 tails", (1, 8, 1, 130, 190, 256, True, None, 60)),
     ("dh 256 group 8 prefix", (1, 8, 1, 300, 300, 256, True, None, 0, 100)),
     ("paligemma-3b train", (4, 8, 1, 768, 768, 256, True, None, 0, 256)),
+    # a rank's of a (2, 2) mesh (phase 7b's world of 4: GQA group 4) and of
+    # a (1, 4) one (group 2)
+    ("paligemma-3b rank train", (2, 4, 1, 768, 768, 256, True, None, 0,
+                                 256)),
+    ("paligemma-3b rank train group 2", (4, 2, 1, 768, 768, 256, True, None,
+                                         0, 256)),
     ("whisper-small encoder train", (8, 12, 12, 1500, 1500, 64, False, None,
                                      0)),
     ("whisper-small decoder train", (8, 12, 12, 448, 448, 64, True, None,
@@ -1125,6 +1147,8 @@ FLASH_TRAIN_CASES = FLASH_CASES[:7] + [
 # the training shapes timed beside their bounds, the plain versions and
 # scaled_dot_product_attention's backward
 FLASH_TRAIN_MAIN = ("qwen2-0.5b train", "paligemma-3b train",
+                    "paligemma-3b rank train",
+                    "paligemma-3b rank train group 2",
                     "whisper-small encoder train",
                     "whisper-small decoder train",
                     "whisper-small cross train")
@@ -3339,6 +3363,31 @@ def mesh_rank(rank, P, ckdir):
     return out
 
 
+def in_background(fn):
+    """Start ``fn()`` in a thread of this process; returns the function
+    that waits for it and gives its result (or raises its exception)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 - raised by the waiter
+            box["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return wait
+
+
 def mesh_stacked(torch, P):
     """The stacked engine's side of the comparison, in this process."""
     from repro_torch.pipeline import run_eat_distgnn
@@ -3895,7 +3944,9 @@ def mesh_checks(torch, card):
     ``ring_chunks=2`` bitwise 0), the same on an NCCL world of 4 where
     there are 4 cards; in each world the store runs and the resumes
     (``mesh_part2_checks``) and the communication options
-    (``mesh_part3_checks``); every rank's result equal to rank 0's.
+    (``mesh_part3_checks``); every rank's result equal to rank 0's.  The
+    stacked runs each world is held against run in this process while
+    the world's ranks run (its printed times are taken beside them).
     Returns the segment kernels' single-partition launches the ranks' runs
     reported: ``(fwd, bwd)`` of the whole-space use, then of the
     row-range use."""
@@ -3945,7 +3996,8 @@ def mesh_checks(torch, card):
             f"synchronised, slowest rank) phase 0 "
             f"{[round(x * 1e3, 2) for x in got['async_s']['phase0']]} ms, "
             f"phase 1 {[round(x * 1e3, 2) for x in got['async_s']['phase1']]}"
-            f" ms against stacked "
+            f" ms against stacked (each side timed while the other runs "
+            f"on the card: not comparable with runs that timed them apart) "
             f"{[round(x * 1e3, 2) for x in want['async_s']['phase0']]} / "
             f"{[round(x * 1e3, 2) for x in want['async_s']['phase1']]} ms; "
             f"rank 0's checkpoint save ms median "
@@ -3958,14 +4010,18 @@ def mesh_checks(torch, card):
         for i, n in enumerate(counts):
             launches[i] += n
 
-    w1 = world(1, "nccl")
+    # the stacked side runs in this process while the spawned world runs:
+    # both sides' times are taken beside each other, not alone
+    pending = in_background(lambda: world(1, "nccl"))
     s1 = mesh_stacked(torch, 1)
+    w1 = pending()
     mesh_compare(torch, w1[0], s1, "nccl world 1", bitwise=True)
     mesh_part2_checks(torch, 1, w1[0], "nccl world 1")
     part2_times("nccl world 1", w1[0], s1)
     part3(1, w1, s1, "nccl world 1", bitwise=True)
-    w4 = world(4, "gloo")
+    pending = in_background(lambda: world(4, "gloo"))
     s4 = mesh_stacked(torch, 4)
+    w4 = pending()
     mesh_compare(torch, w4[0], s4, "gloo world 4 on one card", bitwise=False)
     mesh_part2_checks(torch, 4, w4[0], "gloo world 4 on one card")
     part2_times("gloo world 4, 4 processes sharing one card (not a "
@@ -4560,18 +4616,40 @@ def llm_train_phase(torch, fa, rn, card):
 
 
 # --------------------------------------------------------------------------
-# phase 7b: the sharded LLM steps (ROADMAP item 15.7)
+# phase 7b: the sharded steps (ROADMAP items 15.7 and 15.7b)
 # --------------------------------------------------------------------------
 
-SHARD_ARCH = "qwen2-0.5b"
-SHARD_TRAIN = (8, 512)        # global batch x sequence, remat on
-SHARD_PREFILL = (4, 2048)     # batch x prompt
+# (arch, train batch x text tokens (remat on), prefill batch x prompt,
+# personalize replicas in the world of 1, the depth cut of the bf16 world
+# of 4, the f32 variant's depth cut), seed 0, bf16 at the published widths:
+# paligemma-3b 4 x (256 random patches + 512 tokens), 7e's shape (at 256
+# + 256 the f32 port's own gradients stand up to 1.45e-5 of their largest
+# entries from float64's, the f32 loss head's rounding, which puts the
+# worlds over SHARD_REL too: ``scripts/shard_f32_witness.py``), prefill
+# 4 x (256 + 256), whole in the world of 1 with one personalize replica
+# (``ENCDEC_TRAIN_RUNS``; it runs first, in a fresh process: the world of
+# 1's personalize steps peak at 62-67 GiB), 4 of its 18 layers in the
+# world of 4, whose four ranks' weights, gradients and f32 AdamW moments
+# share the card; qwen2-0.5b whole in the world of 1, 8 of its 24 layers
+# in the world of 4 (whole, its staged world took a minute); whisper-small
+# whole, 8 x 448 decoder tokens over 1,500 random frames, prefill 4 x
+# (1,500 frames + 384 tokens); the f32 variants cut to 2 layers
+# (paligemma), 4 (qwen2) and 2 + 2 (whisper's encoder and decoder)
+SHARD_RUNS = [
+    ("paligemma-3b", (4, 512), (4, 256), 1, {"num_repeats": 4},
+     {"num_repeats": 2}),
+    ("qwen2-0.5b", (8, 512), (4, 2048), 2, {"num_repeats": 8},
+     {"num_repeats": 4}),
+    ("whisper-small", (8, 448), (4, 384), 2, {},
+     {"num_repeats": 2, "encoder_layers": 2}),
+]
 SHARD_DECODE = 16             # greedy decode steps
-SHARD_PARTS = 2               # personalize replicas
-SHARD_F32_LAYERS = 4          # the f32 variant: full width cut to 4 layers
+SHARD_PARTS = 2               # personalize replicas in the world of 4
 SHARD_MESH = (2, 2)           # the world of 4 sharing the card
 # the f32 variant, the world of 4 against the world of 1: loss, logits and
-# every gradient within 1e-5 of the tensor's largest entry; the gradients'
+# every gradient within 1e-5 of the tensor's largest entry (a key bias
+# b_k's of its projection wk's: without RoPE, whisper's b_k has a gradient
+# of 0 in exact arithmetic and rounding on every side); the gradients'
 # global norm, which AdamW's clip divides by, within 1e-6 relative (the
 # clip's scale cancels from AdamW's first update wherever |g| >> eps, so the
 # norm is held on its own); the weights after AdamW's first step within
@@ -4584,27 +4662,21 @@ SHARD_NORM_REL = 1e-6
 SHARD_GRAD_FLOOR = 1e-6
 
 
-def shard_cfg(f32: bool):
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    cfg = get_config(SHARD_ARCH)
-    if f32:
-        cfg = dataclasses.replace(cfg, dtype="float32",
-                                  num_repeats=SHARD_F32_LAYERS)
-    return cfg
+def shard_cfg(arch, overrides, f32=False):
+    return zoo_config(arch, overrides, "float32" if f32 else "bfloat16")
 
 
-def shard_inputs(cfg):
-    """The train batch (next-token labels, the last masked) and the prompt,
-    from seed 0."""
-    rng = np.random.default_rng(0)
-    b, s = SHARD_TRAIN
-    tokens = rng.integers(0, cfg.vocab_size, (b, s))
-    labels = np.concatenate([tokens[:, 1:], np.full((b, 1), -1)], axis=1)
-    pb, ps = SHARD_PREFILL
-    return ({"tokens": tokens, "labels": labels},
-            rng.integers(0, cfg.vocab_size, (pb, ps)))
+def shard_inputs(torch, cfg, train, prefill, parts):
+    """The train batch (next-token labels, the last masked, and the arch's
+    extra input), the prompt (with its extra input) and the personalize
+    batch (``parts`` partitions), on the card from seeds 0, 1, 2."""
+    b, s = train
+    pb, ps = prefill
+    batch = encdec_batch(torch, cfg, b, s, seed=0)
+    prompt = encdec_batch(torch, cfg, pb, ps, seed=1)
+    del prompt["labels"]
+    return batch, prompt, encdec_batch(torch, cfg, b, s, seed=2,
+                                       lead=(parts,))
 
 
 def shard_counts():
@@ -4632,15 +4704,28 @@ def shard_sync(torch):
         dist.barrier()
 
 
-def shard_steps(torch, cfg, mesh, *, steps=1, personalize=True,
-                grads=False):
-    """qwen2-0.5b's prefill and greedy decode, (with ``grads``) the
-    gradients of the train loss, then the train step(s) and (optionally) a
-    personalize step, on ``mesh`` (None: the unsharded steps), from the
-    weights of seed 0; each step between synchronised host clocks (CUDA
-    synchronised, then a barrier of the world) with its kernels' launches
-    and its staged bytes.  Returns the results and the model (for
-    comparisons in the rank)."""
+def _host(torch, t):
+    """A tensor, a DTensor's local shard, or a tree of them, on the host."""
+    if isinstance(t, dict):
+        return {k: _host(torch, v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_host(torch, v) for v in t]
+    t = t.detach()
+    return (t.to_local() if type(t).__name__ == "DTensor" else t).cpu()
+
+
+def shard_steps(torch, cfg, mesh, run, *, parts, steps=1, personalize=True,
+                grads=False, keep=False):
+    """One ``SHARD_RUNS`` entry's prefill and greedy decode, (with
+    ``grads``) the gradients of the train loss, then the train step(s) and
+    (optionally) a personalize step of ``parts`` replicas, on ``mesh``
+    (None: the unsharded steps), from the weights of seed 0; each step
+    between synchronised host clocks (CUDA synchronised, then a barrier of
+    the world) with its kernels' launches and its staged bytes.  Returns
+    the results; ``keep`` adds host copies of the weights after the train
+    steps, the caches and the replicas' weights (``weights``, ``caches``,
+    ``replica_weights``), ``grads`` the model (``model``) and the
+    gradients."""
     from repro_torch.configs import InputShape
     from repro_torch.launch import staged_backend as sb
     from repro_torch.launch.steps import _sync, build_step
@@ -4666,32 +4751,33 @@ def shard_steps(torch, cfg, mesh, *, steps=1, personalize=True,
         return r, ms, count(), sb.staged_bytes()
 
     shard_counts()
-
-    batch, prompt = shard_inputs(cfg)
-    b, s = SHARD_TRAIN
-    pb, ps = SHARD_PREFILL
+    _, train, prefill = run[:3]
+    batch, prompt, batch_p = shard_inputs(torch, cfg, train, prefill, parts)
+    b, s = train
+    pb, ps = prefill
+    n_pre = cfg.prefix_tokens
     opt = AdamW(lr=1e-3, weight_decay=0.01, grad_clip=1.0)
     out = {"ms": {}, "launches": {}, "bytes": {}}
-    built = build_step(cfg, InputShape("shard_train", s, b, "train"), mesh,
-                       optimizer=opt)
+    built = build_step(cfg, InputShape("shard_train", n_pre + s, b,
+                                       "train"), mesh, optimizer=opt)
     model = built.shard_model(Transformer(cfg, seed=0, device="cuda"))
     full = lambda t: (t.full_tensor() if mesh is not None else t).float()
     # serving: the prefill step (once untimed, to warm the card and the
     # host's caches), then a prefill into a cache with room for the greedy
     # decode steps
-    pre = build_step(cfg, InputShape("shard_prefill", ps, pb, "prefill"),
-                     mesh)
-    pre.step(model, {"tokens": prompt})
+    pre = build_step(cfg, InputShape("shard_prefill", n_pre + ps, pb,
+                                     "prefill"), mesh)
+    pre.step(model, prompt)
     (logits, caches, n_ctx), ms, n, nb = clock(
-        lambda: pre.step(model, {"tokens": prompt}))
+        lambda: pre.step(model, prompt))
     out["ms"]["prefill"], out["launches"]["prefill"] = ms, n
     out["bytes"]["prefill"] = nb
     out["prefill"] = full(logits).cpu()
-    width = ps + SHARD_DECODE
+    del logits, caches
+    width = n_pre + ps + SHARD_DECODE
     dec = build_step(cfg, InputShape("shard_decode", width, pb, "decode"),
                      mesh)
-    logits, caches, n_ctx = model.prefill({"tokens": prompt},
-                                          cache_size=width)
+    logits, caches, n_ctx = model.prefill(prompt, cache_size=width)
     tok = full(logits).argmax(-1, keepdim=True).cpu().numpy()
     steps_ms, dlog, toks = [], [], [tok[:, 0]]
     for t in range(SHARD_DECODE):
@@ -4705,12 +4791,14 @@ def shard_steps(torch, cfg, mesh, *, steps=1, personalize=True,
         toks.append(tok[:, 0])
     out["ms"]["decode_p50"] = float(np.median(steps_ms))
     out["decode"], out["tokens"] = torch.stack(dlog), np.stack(toks, 1)
-    out["caches"] = caches
-    del logits
+    if keep:
+        out["caches"] = _host(torch, caches)
+    del logits, caches
     weights = list(model.parameters())
     if grads:
         g = torch.autograd.grad(model.train_loss(batch), weights)
         out["grads"] = _sync(g, weights) if mesh is not None else g
+        out["model"] = model
     state = opt.init(weights)
     for i in range(steps):
         (model, state, loss), ms, n, nb = clock(
@@ -4718,16 +4806,21 @@ def shard_steps(torch, cfg, mesh, *, steps=1, personalize=True,
         out["ms"][f"train{i}"], out["launches"]["train"] = ms, n
         out["bytes"]["train"] = nb
     out["loss"] = float(loss.full_tensor() if mesh is not None else loss)
+    # the train step's AdamW moments are freed before the replicas'
+    del state, loss
+    if keep:
+        out["weights"] = {n: _host(torch, p)
+                          for n, p in model.named_parameters()}
     if personalize:
-        pbuilt = build_step(cfg, InputShape("shard_train", s, b, "train"),
+        torch.cuda.empty_cache()
+        pbuilt = build_step(cfg, InputShape("shard_train", n_pre + s, b,
+                                            "train"),
                             mesh, phase="personalize",
-                            num_partitions=SHARD_PARTS, optimizer=opt)
+                            num_partitions=parts, optimizer=opt)
         reps = pbuilt.shard_replicas([Transformer(cfg, seed=0, device="cuda")
-                                      for _ in range(SHARD_PARTS)])
+                                      for _ in range(parts)])
         states = [opt.init(r.parameters()) for r in reps]
-        batch_p = {k: v.reshape(SHARD_PARTS, b // SHARD_PARTS, s)
-                   for k, v in batch.items()}
-        active = np.ones(SHARD_PARTS, bool)
+        active = np.ones(parts, bool)
         (reps, states, losses), ms, n, nb = clock(
             lambda: pbuilt.step(reps, states, batch_p, model, active))
         # a rank steps the replicas its data coordinate owns: count a
@@ -4737,21 +4830,25 @@ def shard_steps(torch, cfg, mesh, *, steps=1, personalize=True,
         out["launches"]["personalize"] = {k: v // len(reps)
                                           for k, v in n.items()}
         out["personalize"] = full(losses).cpu()
-        out["replicas"] = reps
+        if keep:
+            out["replica_weights"] = [
+                {n: _host(torch, p) for n, p in r.named_parameters()}
+                for r in reps]
+        del reps, states
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     count()
     out["every"] = every
-    return out, model
+    return out
 
 
-def shard_differs(torch, a, b, ma, mb) -> list:
-    """What of the sharded run ``a`` (model ``ma``) is not bitwise the
-    unsharded run ``b`` (model ``mb``), by name."""
+def shard_differs(torch, a, b) -> list:
+    """What of the sharded run ``a`` is not bitwise the unsharded run
+    ``b`` (both with ``keep``), by name."""
     bad = []
     if a["loss"] != b["loss"]:
         bad.append("train loss")
-    for (n, p), q in zip(ma.named_parameters(), mb.parameters()):
-        if not torch.equal(p.to_local(), q):
+    for n, p in a["weights"].items():
+        if not torch.equal(p, b["weights"][n]):
             bad.append(f"train step weight {n}")
     for key in ("prefill", "decode", "personalize"):
         if key in a and not torch.equal(a[key], b[key]):
@@ -4759,46 +4856,33 @@ def shard_differs(torch, a, b, ma, mb) -> list:
     if not np.array_equal(a["tokens"], b["tokens"]):
         bad.append("greedy tokens")
     for i, (ca, cb) in enumerate(zip(a["caches"], b["caches"])):
-        for k in ("k", "v"):
-            if not torch.equal(ca[k].to_local(), cb[k]):
-                bad.append(f"decode cache layer {i} {k}")
-    for j, (ra, rb) in enumerate(zip(a.get("replicas", ()),
-                                     b.get("replicas", ()))):
-        for (n, p), q in zip(ra.named_parameters(), rb.parameters()):
-            if not torch.equal(p.to_local(), q):
+        for k in ca:
+            pairs = ([(k, ca[k], cb[k])] if k != "cross" else
+                     [(f"cross {j}", ca[k][j], cb[k][j]) for j in ca[k]])
+            for name, x, y in pairs:
+                if not torch.equal(x, y):
+                    bad.append(f"decode cache layer {i} {name}")
+    for j, (ra, rb) in enumerate(zip(a.get("replica_weights", ()),
+                                     b.get("replica_weights", ()))):
+        for n, p in ra.items():
+            if not torch.equal(p, rb[n]):
                 bad.append(f"personalize replica {j} weight {n}")
     return bad
 
 
-def shard_rank(rank, mesh_shape, ref_path):
-    """One rank of a world on a ``("data", "model")`` mesh of
-    ``mesh_shape``: qwen2-0.5b bf16 at full depth, then the f32 4-layer
-    variant.  The world of 1 also runs the unsharded steps and names what
-    is not bitwise; it saves its f32 results to ``ref_path``, which the
-    world of 4 holds its own shards against."""
-    import torch
-
-    from repro_torch.launch.mesh import make_mesh_compat
+def shard_f32(torch, run, mesh, one, ref_path):
+    """The f32 variant of ``run`` (its depth cut) on ``mesh``: the world of
+    1 saves its loss, logits, tokens, gradients, their global norm and the
+    weights after one step to ``ref_path``; the world of 4 holds its own
+    shards against them (see ``SHARD_REL``)."""
     from repro_torch.models.sharded import local_shard
     from repro_torch.train.optim import global_norm
 
-    mesh = make_mesh_compat(mesh_shape, ("data", "model"))
-    one = mesh.size() == 1
-    out = {}
-    cfg = shard_cfg(False)
-    sh, model = shard_steps(torch, cfg, mesh, steps=2)
-    if one:
-        pl, plain = shard_steps(torch, cfg, None, steps=2)
-        out["differs"] = shard_differs(torch, sh, pl, model, plain)
-        out["plain_launches"], out["plain_ms"] = pl["launches"], pl["ms"]
-        del plain, pl
-    keep = ("loss", "ms", "launches", "bytes", "prefill", "decode", "tokens",
-            "personalize", "peak_gib", "every")
-    out["bf16"] = {k: sh[k] for k in keep}
-    del sh, model
-    torch.cuda.empty_cache()
-    cfg = shard_cfg(True)
-    f32, model = shard_steps(torch, cfg, mesh, personalize=False, grads=True)
+    arch, _, _, _, _, cut32 = run
+    cfg = shard_cfg(arch, cut32, f32=True)
+    f32 = shard_steps(torch, cfg, mesh, run, parts=1, personalize=False,
+                      grads=True)
+    model = f32.pop("model")
     names = [n for n, _ in model.named_parameters()]
     local = lambda t: t.detach().to_local().cpu()
     norm = float(global_norm(f32["grads"]))
@@ -4811,19 +4895,23 @@ def shard_rank(rank, mesh_shape, ref_path):
                     "weights": {n: local(p)
                                 for n, p in model.named_parameters()}},
                    ref_path)
-        out["f32"] = {k: f32[k] for k in ("loss", "launches", "every")}
-        out["f32"]["grad_norm"] = norm
+        out = {k: f32[k] for k in ("loss", "launches", "every")}
+        out["grad_norm"] = norm
         return out
     ref = torch.load(ref_path, weights_only=False)
     rel = lambda a, b: float((a - b).abs().max()) / (
         float(b.abs().max()) or 1.0)
     w_max = max(float(w.abs().max()) for w in ref["weights"].values())
     grad_rel, w_held, w_rest, n_rest = 0.0, 0.0, 0.0, 0
+    worst = None
     for (n, p), g in zip(model.named_parameters(), f32["grads"]):
         want = ref["grads"][n]
         g1 = local_shard(want, mesh, g.placements)
         err = float((local(g) - g1).abs().max())
-        grad_rel = max(grad_rel, err / (float(want.abs().max()) or 1.0))
+        # a key bias is held against its projection's gradient
+        scale = ref["grads"][n[:-3] + "wk"] if n.endswith(".b_k") else want
+        if err / (float(scale.abs().max()) or 1.0) >= grad_rel:
+            grad_rel, worst = err / (float(scale.abs().max()) or 1.0), n
         # the weights after one step, apart where the world of 1's gradient
         # is below SHARD_GRAD_FLOOR: there AdamW's first update g / (|g| +
         # eps) turns on the gradient's rounding
@@ -4835,47 +4923,86 @@ def shard_rank(rank, mesh_shape, ref_path):
         if small.any():
             w_rest = max(w_rest, float(dw[small].max()))
             n_rest += int(small.sum())
-    out["f32"] = {
+    return {
         "loss": abs(f32["loss"] - ref["loss"]) / abs(ref["loss"]),
         "prefill": rel(f32["prefill"], ref["prefill"]),
         "decode": rel(f32["decode"], ref["decode"]),
-        "grads": grad_rel,
+        "grads": grad_rel, "grads_worst": worst,
         "grad_norm": abs(norm - ref["grad_norm"]) / ref["grad_norm"],
         "tokens": bool(np.array_equal(f32["tokens"], ref["tokens"])),
         "weights": w_held / w_max, "weights_small_grad": w_rest,
         "small_grad_entries": n_rest,
         "launches": f32["launches"], "every": f32["every"]}
+
+
+def shard_rank(rank, mesh_shape, ref_dir):
+    """One rank of a world on a ``("data", "model")`` mesh of
+    ``mesh_shape``, every ``SHARD_RUNS`` entry in turn: bf16 (whole in the
+    world of 1, cut as the entry says in the world of 4), then the f32
+    variant.  The world of 1 also runs the unsharded steps, names what is
+    not bitwise, runs the unsharded steps at the world of 4's depth cut
+    where there is one (their launches, which the world of 4's are held
+    to) and saves its f32 results under ``ref_dir``, which the world of 4
+    holds its own shards against."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    mesh = make_mesh_compat(mesh_shape, ("data", "model"))
+    one = mesh.size() == 1
+    out = {}
+    keep = ("loss", "ms", "launches", "bytes", "prefill", "decode", "tokens",
+            "personalize", "peak_gib", "every")
+    for run in SHARD_RUNS:
+        arch, parts, cut = run[0], run[3], run[4]
+        res = {}
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = shard_cfg(arch, {} if one else cut)
+        sh = shard_steps(torch, cfg, mesh, run, parts=parts if one
+                         else SHARD_PARTS, steps=2, keep=one)
+        if one:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            pl = shard_steps(torch, cfg, None, run, parts=parts, steps=2,
+                             keep=True)
+            res["differs"] = shard_differs(torch, sh, pl)
+            res["plain_launches"], res["plain_ms"] = pl["launches"], pl["ms"]
+            res["plain_peak_gib"] = pl["peak_gib"]
+            del pl
+            if cut:
+                torch.cuda.empty_cache()
+                res["plain_launches_cut"] = shard_steps(
+                    torch, shard_cfg(arch, cut), None, run, parts=1)[
+                    "launches"]
+        res["bf16"] = {k: sh[k] for k in keep}
+        del sh
+        torch.cuda.empty_cache()
+        res["f32"] = shard_f32(torch, run, mesh, one,
+                               os.path.join(ref_dir, f"{arch}_f32.pt"))
+        res["s"] = time.perf_counter() - t0
+        out[arch] = res
     return out
 
 
-def shard_probe_rank(rank):
-    """DTensor over a gloo world on card tensors (the question of
-    ``scripts/collective_probe.py``): a Shard to Replicate round trip."""
-    import torch
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor, Shard
-
-    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("model",))
-    full = torch.arange(8.0, device="cuda").view(4, 2)
-    d = DTensor.from_local(full.chunk(2)[rank], mesh, [Shard(0)])
-    return bool(torch.equal(d.full_tensor(), full))
-
-
 def shard_checks(torch, card):
-    """Phase 7b: qwen2-0.5b's train, prefill, greedy decode and personalize
-    steps on a mesh (``launch/steps.py::build_step(cfg, shape, mesh)``), bf16
-    at full width and depth and an f32 variant cut to 4 layers: an NCCL
-    world of 1 on a ``(1, 1)`` mesh bitwise the unsharded steps (what is
-    not is named, and the phase fails); a world of 4 sharing the card on
-    ``(2, 2)`` (the ``staged`` backend: gloo carries DTensor's collectives
-    on card tensors only to a SIGSEGV, which a gloo world of 2 shows here
-    first) with each rank's flash and RMSNorm launches equal to the
-    unsharded step's and its staged bytes equal to
-    ``step_collective_bytes``; its f32 loss, logits and weights after one
-    step held against the world of 1's.  Prints step ms (slowest rank,
-    synchronised host clock), bytes, peak memory per rank, and for bf16
-    the share of equal greedy tokens and the largest logit difference.
-    Returns the ranks' launches (the sharded runs') by kernel."""
+    """Phase 7b: each ``SHARD_RUNS`` entry's train, prefill, greedy decode
+    and personalize steps on a mesh (``launch/steps.py::build_step(cfg,
+    shape, mesh)``), bf16 at full width and an f32 variant cut in depth:
+    an NCCL world of 1 on a ``(1, 1)`` mesh bitwise the unsharded steps
+    (what is not is named, and the phase fails); a world of 4 sharing the
+    card on ``(2, 2)`` (the ``staged`` backend: gloo carries DTensor's
+    collectives on card tensors only to a SIGSEGV, as
+    ``scripts/collective_probe.py`` shows) with each rank's flash and
+    RMSNorm launches equal to
+    the unsharded step's (at the world of 4's depth) and its staged bytes
+    equal to ``step_collective_bytes``; its f32 loss, logits, gradients and
+    weights after one step held against the world of 1's.  Prints step ms
+    (slowest rank, synchronised host clock), bytes, peak memory per rank,
+    and for bf16 at the world of 1's depth the share of equal greedy tokens
+    and the largest logit difference.  Returns the ranks' launches (the
+    sharded runs') by kernel, flash's Dh 256 ones (paligemma's) apart."""
     import shutil
     import tempfile
 
@@ -4883,107 +5010,129 @@ def shard_checks(torch, card):
     from repro_torch.launch.steps import _make_policy
     from repro_torch.models.sharded import step_collective_bytes
 
+    import gc
+
     t_all = time.perf_counter()
-    t0 = time.perf_counter()
-    try:
-        probe = spawn_partition_world(shard_probe_rank, 2, backend="gloo",
-                                      device="cuda", timeout_s=60,
-                                      join_timeout_s=120)
-        probe = f"ok, results {probe}"
-    except Exception as e:  # noqa: BLE001 - the probe's answer is printed
-        probe = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
-    log(f"shard probe ({card}): a gloo world of 2 on this card, DTensor "
-        f"Shard to Replicate on card tensors: {probe} "
-        f"({time.perf_counter() - t0:.1f} s); the world of 4 runs the "
-        "staged backend")
+    # the world of 1 holds paligemma-3b whole beside its AdamW moments (a
+    # 75 GiB peak): this process's cached blocks go back to the card first
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"shard_checks: this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     tmp = tempfile.mkdtemp(prefix="shard_")
     try:
-        ref = os.path.join(tmp, "world1_f32.pt")
         t0 = time.perf_counter()
-        one = spawn_partition_world(shard_rank, 1, ((1, 1), ref),
+        one = spawn_partition_world(shard_rank, 1, ((1, 1), tmp),
                                     backend="nccl", device="cuda",
                                     timeout_s=300, join_timeout_s=900)[0]
         t1 = time.perf_counter() - t0
         t0 = time.perf_counter()
-        four = spawn_partition_world(shard_rank, 4, (SHARD_MESH, ref),
+        four = spawn_partition_world(shard_rank, 4, (SHARD_MESH, tmp),
                                      backend="staged", device="cuda",
                                      timeout_s=600, join_timeout_s=900)
         t4 = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    assert not one["differs"], (
-        f"the world of 1 is not bitwise the unsharded steps: "
-        f"{one['differs'][:8]}")
-    log(f"shard world of 1 (nccl, (1, 1), {card}): train, prefill, "
-        f"{SHARD_DECODE} decode steps, personalize bitwise the unsharded "
-        f"steps (loss {one['bf16']['loss']:.6f}); ms {json.dumps(one['bf16']['ms'])} "
-        f"(unsharded {json.dumps(one['plain_ms'])}); peak "
-        f"{one['bf16']['peak_gib']:.2f} GiB; {t1:.1f} s")
-    want = one["plain_launches"]
-    cfg16, cfg32 = shard_cfg(False), shard_cfg(True)
-    b, s = SHARD_TRAIN
-    pb, ps = SHARD_PREFILL
 
     class _Mesh:
         shape = dict(zip(("data", "model"), SHARD_MESH))
         mesh_dim_names = ("data", "model")
     pol = _make_policy(_Mesh())
-    closed = {"train": step_collective_bytes(cfg16, "train", b, s, pol),
-              "prefill": step_collective_bytes(cfg16, "prefill", pb, ps, pol),
-              "decode": step_collective_bytes(cfg16, "decode", pb, 1, pol,
-                                              cache_width=ps + SHARD_DECODE)}
-    closed = {k: sum(v.values()) for k, v in closed.items()}
-    for r, o in enumerate(four):
-        got = o["bf16"]
-        for kind, n in want.items():
-            assert got["launches"][kind] == n, (
-                f"rank {r}'s {kind} launches {got['launches'][kind]} are not "
-                f"the unsharded step's {n}")
-        for kind, n in closed.items():
-            assert got["bytes"][kind] == n, (
-                f"rank {r}'s {kind} step moved {got['bytes'][kind]} B, the "
-                f"closed form says {n}")
-        f = o["f32"]
-        assert max(f["loss"], f["prefill"], f["decode"],
-                   f["grads"]) <= SHARD_REL and f["tokens"], (r, f)
-        assert f["grad_norm"] <= SHARD_NORM_REL, (r, f)
-        assert f["weights"] <= SHARD_REL, (r, f)
-        assert got["loss"] == four[0]["bf16"]["loss"], r
-    slow = {k: max(o["bf16"]["ms"][k] for o in four)
-            for k in four[0]["bf16"]["ms"]}
-    g0 = four[0]["bf16"]
-    same = float((g0["tokens"] == one["bf16"]["tokens"]).mean())
-    ldiff = float((g0["decode"] - one["bf16"]["decode"]).abs().max())
-    pdiff = float((g0["prefill"] - one["bf16"]["prefill"]).abs().max())
-    log(f"shard world of 4 (staged, {SHARD_MESH}, {card}): launches per rank "
-        f"equal the unsharded step's {json.dumps(want)}; staged bytes a step "
-        f"equal the closed form {json.dumps(closed)}; ms on the slowest rank "
-        f"(synchronised host clock) {json.dumps(slow)}; peak GiB per rank "
-        f"{[round(o['bf16']['peak_gib'], 2) for o in four]}; loss "
-        f"{g0['loss']:.6f} vs {one['bf16']['loss']:.6f}; {t4:.1f} s")
-    log(f"shard bf16 full depth, world of 4 vs world of 1 ({card}): equal "
-        f"greedy tokens {same:.4f} of {g0['tokens'].size}, largest logit "
-        f"difference {ldiff:.4g} over {SHARD_DECODE} decode steps, "
-        f"{pdiff:.4g} on the prefill's")
-    log(f"shard f32 {SHARD_F32_LAYERS} layers, world of 4 vs world of 1 "
-        f"({card}): " + json.dumps([{k: v for k, v in o["f32"].items()
-                                     if k not in ("launches", "every")}
-                                    for o in four])
-        + f" (limits {SHARD_REL} relative, the gradients' global norm "
-        f"{SHARD_NORM_REL}, {one['f32']['grad_norm']:.6g} in the world of 1; "
-        f"weights {SHARD_REL} of the largest where the gradient is at least "
-        f"{SHARD_GRAD_FLOOR}, reported below)")
-    log(f"shard_checks: {time.perf_counter() - t_all:.1f} s")
-    # every launch of the sharded runs: the world of 1's and every rank's of
-    # 4 (the world of 1's unsharded runs apart)
+    log(f"shard world of 1 (nccl, (1, 1)): {t1:.1f} s; world of 4 (staged, "
+        f"{SHARD_MESH}): {t4:.1f} s ({card})")
     total = {}
-    for o in [one] + four:
-        for part in ("bf16", "f32"):
-            for k, v in o[part]["every"].items():
-                total[k] = total.get(k, 0) + v
-    assert all(total[k] > 0 for k in ("prefill", "decode", "train",
-                                      "backward", "rmsnorm", "add_rmsnorm",
-                                      "rmsnorm_bwd", "add_rmsnorm_bwd")), total
+    for arch, train, prefill, parts, cut, cut32 in SHARD_RUNS:
+        o1 = one[arch]
+        assert not o1["differs"], (
+            f"{arch}: the world of 1 is not bitwise the unsharded steps: "
+            f"{o1['differs'][:8]}")
+        cfg = shard_cfg(arch, cut)
+        log(f"shard {arch} world of 1 (nccl, (1, 1), {card}): "
+            f"{shard_cfg(arch, {}).num_layers} layers, train, prefill, "
+            f"{SHARD_DECODE} decode steps, "
+            f"personalize ({parts} replica(s)) bitwise the unsharded steps "
+            f"(loss {o1['bf16']['loss']:.6f}); ms "
+            f"{json.dumps(o1['bf16']['ms'])} (unsharded "
+            f"{json.dumps(o1['plain_ms'])}); peak "
+            f"{o1['bf16']['peak_gib']:.2f} GiB (unsharded "
+            f"{o1['plain_peak_gib']:.2f}); {o1['s']:.1f} s")
+        want = o1["plain_launches_cut" if cut else "plain_launches"]
+        b, s = train
+        pb, ps = prefill
+        closed = {"train": step_collective_bytes(cfg, "train", b, s, pol),
+                  "prefill": step_collective_bytes(cfg, "prefill", pb, ps,
+                                                   pol),
+                  "decode": step_collective_bytes(
+                      cfg, "decode", pb, 1, pol,
+                      cache_width=cfg.prefix_tokens + ps + SHARD_DECODE)}
+        closed = {k: sum(v.values()) for k, v in closed.items()}
+        for r, o in enumerate(four):
+            got = o[arch]["bf16"]
+            for kind, n in want.items():
+                assert got["launches"][kind] == n, (
+                    f"{arch}: rank {r}'s {kind} launches "
+                    f"{got['launches'][kind]} are not the unsharded "
+                    f"step's {n}")
+            for kind, n in closed.items():
+                assert got["bytes"][kind] == n, (
+                    f"{arch}: rank {r}'s {kind} step moved "
+                    f"{got['bytes'][kind]} B, the closed form says {n}")
+            f = o[arch]["f32"]
+            assert max(f["loss"], f["prefill"], f["decode"],
+                       f["grads"]) <= SHARD_REL and f["tokens"], (arch, r, f)
+            assert f["grad_norm"] <= SHARD_NORM_REL, (arch, r, f)
+            assert f["weights"] <= SHARD_REL, (arch, r, f)
+            assert got["loss"] == four[0][arch]["bf16"]["loss"], (arch, r)
+        g0 = four[0][arch]["bf16"]
+        slow = {k: max(o[arch]["bf16"]["ms"][k] for o in four) for k in g0["ms"]}
+        log(f"shard {arch} world of 4 (staged, {SHARD_MESH}, {card}): "
+            f"{cfg.num_layers} layers"
+            f"{' (cut: ' + json.dumps(cut) + ')' if cut else ''}, "
+            f"personalize {SHARD_PARTS} replicas; launches per rank equal "
+            f"the unsharded step's {json.dumps(want)}; staged bytes a step "
+            f"equal the closed form {json.dumps(closed)}; ms on the slowest "
+            f"rank (synchronised host clock) {json.dumps(slow)}; peak GiB "
+            f"per rank {[round(o[arch]['bf16']['peak_gib'], 2) for o in four]}"
+            f"; loss {g0['loss']:.6f}; {max(o[arch]['s'] for o in four):.1f} s")
+        if not cut:
+            same = float((g0["tokens"] == o1["bf16"]["tokens"]).mean())
+            ldiff = float((g0["decode"] - o1["bf16"]["decode"]).abs().max())
+            pdiff = float((g0["prefill"]
+                           - o1["bf16"]["prefill"]).abs().max())
+            log(f"shard {arch} bf16, world of 4 vs world of 1 ({card}): "
+                f"equal greedy tokens {same:.4f} of {g0['tokens'].size}, "
+                f"largest logit difference {ldiff:.4g} over {SHARD_DECODE} "
+                f"decode steps, {pdiff:.4g} on the prefill's (loss "
+                f"{g0['loss']:.6f} vs {o1['bf16']['loss']:.6f})")
+        log(f"shard {arch} f32 ({json.dumps(cut32)}), world of 4 vs world of "
+            f"1 ({card}): " + json.dumps([{k: v for k, v in o[arch]["f32"].items()
+                                           if k not in ("launches", "every")}
+                                          for o in four])
+            + f" (limits {SHARD_REL} relative, the gradients' global norm "
+            f"{SHARD_NORM_REL}, {o1['f32']['grad_norm']:.6g} in the world "
+            f"of 1; weights {SHARD_REL} of the largest where the gradient "
+            f"is at least {SHARD_GRAD_FLOOR}, reported below)")
+        # every launch of the sharded runs: the world of 1's and every
+        # rank's of 4 (the world of 1's unsharded runs apart), paligemma's
+        # flash launches apart (its Dh 256 instantiations: the world of 1's
+        # at its group of 8, the world of 4's at a rank's 4)
+        dh256 = shard_cfg(arch, {}).resolved_head_dim == 256
+        for tag, runs in (("_dh256", [o1]),
+                          ("_dh256_group4", [x[arch] for x in four])):
+            for o in runs:
+                for part in ("bf16", "f32"):
+                    for k, v in o[part]["every"].items():
+                        key = (k + tag if dh256 and k in (
+                            "prefill", "decode", "train", "backward")
+                            else k)
+                        total[key] = total.get(key, 0) + v
+    log(f"shard_checks: {time.perf_counter() - t_all:.1f} s")
+    assert all(total.get(k + g, 0) > 0
+               for k in ("prefill", "decode", "train", "backward")
+               for g in ("", "_dh256", "_dh256_group4")), total
+    assert all(total.get(k, 0) > 0 for k in (
+        "rmsnorm", "add_rmsnorm", "rmsnorm_bwd", "add_rmsnorm_bwd")), total
     return total
 
 
@@ -6040,14 +6189,25 @@ def main() -> int:
               if c == "qwen2-0.5b decode"]),
             ("flash_attention_dh256_prefix", "flash_attention.cu", FLASH_TPU,
              flash_rows["paligemma-3b prefill", "bfloat16"],
-             zoo_launches["prefill_dh256"],
+             zoo_launches["prefill_dh256"] + shard_launches["prefill_dh256"],
              [r["max_abs_err"] for (c, _), r in flash_rows.items()
               if c == "paligemma-3b prefill"]),
             ("flash_attention_decode_dh256", "flash_attention.cu", FLASH_TPU,
              flash_rows["paligemma-3b decode", "bfloat16"],
-             zoo_launches["decode_dh256"],
+             zoo_launches["decode_dh256"] + shard_launches["decode_dh256"],
              [r["max_abs_err"] for (c, _), r in flash_rows.items()
               if c == "paligemma-3b decode"]),
+            # phase 7b's world of 4: a rank's GQA group of 4
+            ("flash_attention_dh256_prefix_group4", "flash_attention.cu",
+             FLASH_TPU, flash_rows["paligemma-3b rank prefill", "bfloat16"],
+             shard_launches["prefill_dh256_group4"],
+             [r["max_abs_err"] for (c, _), r in flash_rows.items()
+              if c == "paligemma-3b rank prefill"]),
+            ("flash_attention_decode_dh256_group4", "flash_attention.cu",
+             FLASH_TPU, flash_rows["paligemma-3b rank decode", "bfloat16"],
+             shard_launches["decode_dh256_group4"],
+             [r["max_abs_err"] for (c, _), r in flash_rows.items()
+              if c == "paligemma-3b rank decode"]),
             ("rmsnorm", "rmsnorm.cu", RMSNORM_TPU,
              rms_rows[False, (4, 2048, 896), "bfloat16"],
              llm_rms["rmsnorm"] + zoo_launches["rmsnorm"]
@@ -6072,17 +6232,30 @@ def main() -> int:
     # (whisper-small's shapes run the Dh 64 ones: their rows are in the log)
     train_main = ("qwen2-0.5b train", "bfloat16")
     pali = ("paligemma-3b train", "bfloat16")
+    pali4 = ("paligemma-3b rank train", "bfloat16")
     dh256 = [r for (c, _), r in flash_train_rows.items()
              if c.startswith(("dh 256", "paligemma"))]
     for name, source, tpu, row, n, errs in (
             ("flash_attention_train_dh256_prefix", "flash_attention.cu",
              FLASH_TPU, flash_train_rows[pali][0],
-             encdec_train["train_dh256"], [r[0]["max_abs_err"]
-                                           for r in dh256]),
+             encdec_train["train_dh256"] + shard_launches["train_dh256"],
+             [r[0]["max_abs_err"] for r in dh256]),
             ("flash_attention_bwd_dh256_prefix", "flash_attention_bwd.cu",
              FLASH_TPU, flash_train_rows[pali][1],
-             encdec_train["backward_dh256"], [r[1]["max_abs_err"]
-                                              for r in dh256]),
+             encdec_train["backward_dh256"]
+             + shard_launches["backward_dh256"],
+             [r[1]["max_abs_err"] for r in dh256]),
+            # phase 7b's world of 4: a rank's GQA group of 4
+            ("flash_attention_train_dh256_group4", "flash_attention.cu",
+             FLASH_TPU, flash_train_rows[pali4][0],
+             shard_launches["train_dh256_group4"],
+             [r[0]["max_abs_err"] for (c, _), r in flash_train_rows.items()
+              if c.startswith("paligemma-3b rank")]),
+            ("flash_attention_bwd_dh256_group4", "flash_attention_bwd.cu",
+             FLASH_TPU, flash_train_rows[pali4][1],
+             shard_launches["backward_dh256_group4"],
+             [r[1]["max_abs_err"] for (c, _), r in flash_train_rows.items()
+              if c.startswith("paligemma-3b rank")]),
             ("flash_attention_train", "flash_attention.cu", FLASH_TPU,
              flash_train_rows[train_main][0],
              train_all["train"] + shard_launches["train"],

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Run the sharded steps' checks of ``chip_smoke.py`` alone on one CUDA
 card (phase 7b, ``chip_smoke.shard_checks``): build the kernels, then
-qwen2-0.5b's train, prefill, greedy decode and personalize steps on an
-NCCL world of 1 (bitwise the unsharded steps) and on a world of 4 sharing
-the card over the ``staged`` backend (launches, staged bytes against the
-closed form, the f32 4-layer variant against the world of 1, step ms,
-peak memory).  Prints what the phase prints, the card's name and power
-limit first.
+phase 3's flash lines at a rank's shapes (paligemma-3b's Dh 256 prefill,
+decode and training forward and backward at the GQA groups of a (2, 2)
+and a (1, 4) mesh, f32 and bf16, against the plain versions, timed beside
+their bounds and SDPA's), then ``chip_smoke.SHARD_RUNS``' train, prefill,
+greedy decode and personalize steps (qwen2-0.5b, whisper-small,
+paligemma-3b) on an NCCL world of 1 (bitwise the unsharded steps) and on
+a world of 4 sharing the card over the ``staged`` backend (launches,
+staged bytes against the closed form, the f32 variants against the world
+of 1, step ms, peak memory).  Prints what the phases print, the card's
+name and power limit first, the wall time last.
 
     python3 scripts/shard_probe.py
 """
@@ -33,10 +37,28 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     card = card.splitlines()[0]
     cs.log(card)
-    t0 = time.perf_counter()
+    t_all = time.perf_counter()
     build.build_all()
-    cs.log(f"build {time.perf_counter() - t0:.1f} s")
+    cs.log(f"build {time.perf_counter() - t_all:.1f} s")
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    for name, case in cs.FLASH_CASES:
+        if name.startswith("paligemma-3b rank"):
+            for dtype_name in ("float32", "bfloat16"):
+                cs.run_flash_case(fa, name, case, dtype_name, flush=flush,
+                                  iters=10, record=[], main_path=True)
+    for name, case in cs.FLASH_TRAIN_CASES:
+        if name.startswith("paligemma-3b rank"):
+            for dtype_name in ("float32", "bfloat16"):
+                cs.run_flash_train_case(
+                    fa, name, case, dtype_name, flush=flush, iters=10,
+                    record=[], main_path=name in cs.FLASH_TRAIN_MAIN)
+    del flush
+    cs.log(f"flash lines at a rank's shapes "
+           f"{time.perf_counter() - t_all:.1f} s")
     cs.log(f"shard launches {cs.shard_checks(torch, card)}")
+    cs.log(f"wall {time.perf_counter() - t_all:.1f} s")
     return 0
 
 

@@ -212,9 +212,10 @@ def make_personalize_partition_step(loss_fn: Callable, optimizer,
     is one partition's batch and ``active`` a bool (or 0-d bool tensor).
     The loss adds the Eq. 4 prox pull toward ``global_params``, which
     enters detached.  An inactive partition's params and optimizer state
-    come back bitwise unchanged: the new values are selected with
-    ``torch.where``, never multiplied by a gate (``p + 0.0`` flips the sign
-    of ``-0.0``).
+    come back bitwise unchanged: the new values are selected, never
+    multiplied by a gate (``p + 0.0`` flips the sign of ``-0.0``), as
+    whole tensors on the host's reading of ``active`` (no third set of
+    moments beside the old and the new).
 
     ``inplace`` steps the params and ``opt_state`` in place through
     ``optimizer.update_`` (bitwise the same values, without a second copy
@@ -236,8 +237,8 @@ def make_personalize_partition_step(loss_fn: Callable, optimizer,
                                              weights), loss.detach()
         old = [w.detach() for w in weights]
         updates, new_state = optimizer.update(grads, opt_state, old)
-        act = torch.as_tensor(active, dtype=torch.bool, device=old[0].device)
-        sel = lambda new, prev: torch.where(act, new, prev)
+        keep_new = bool(active)
+        sel = lambda new, prev: new if keep_new else prev
         _assign(params, [sel(w + u, w) for w, u in zip(old, updates)])
         kept = type(opt_state)(
             step=sel(new_state.step, opt_state.step),

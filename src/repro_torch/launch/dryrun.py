@@ -29,9 +29,11 @@ where XLA counts a loop body once, so the unrolled R=1/R=2 extrapolation
 (``--no-measure``'s) is not needed and ``--no-measure`` changes nothing;
 the bytes are unfused (each op's inputs and outputs); the collective term
 takes the output bytes, as the reference's; and a family the mesh does not
-run yet (``models/transformer.py::check_shardable``: MoE, Mamba2, the
-encoder-decoder and the prefix-LM) gets a ``skipped`` row naming ROADMAP
-item 15.7b, so ``--arch all`` exits 0 when nothing else failed.
+run yet (``models/transformer.py::check_shardable``: the MoE FFN and the
+Mamba2 mixer) gets a ``skipped`` row naming ROADMAP item 15.7b, so ``--arch
+all`` exits 0 when nothing else failed.  The encoder-decoder and the
+prefix-LM run (whisper-small, paligemma-3b); their closed form takes the
+shape's tokens, the prefix beside them.
 
 Exit code 0: every combination ran (or was skipped); anything else is a
 fault in the distribution (a placement, a shape, a collective).
@@ -191,10 +193,12 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             from repro_torch.configs import decode_cache_width
             width = decode_cache_width(cfg, shape)[0]
         try:
+            # the shape's sequence holds a prefix-LM's prefix; the closed
+            # form takes the tokens
             closed = step_collective_bytes(
                 cfg, kind, shape.global_batch,
-                1 if kind == "decode" else shape.seq_len, built.policy,
-                cache_width=width)
+                1 if kind == "decode" else shape.seq_len - cfg.prefix_tokens,
+                built.policy, cache_width=width)
         except NotImplementedError:
             closed = None
     row = rep.row()

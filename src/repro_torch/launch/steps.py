@@ -22,8 +22,10 @@ placements, in the reference's argument order, as ``in_shardings`` and
 axis is only applied to a dim it divides evenly (e.g. whisper's vocab
 51865 stays replicated; qwen2's 14 heads skip the head constraint on a
 model axis of 4 while its packed 896-wide projections still shard).  A
-mesh runs the dense decoders; the other families raise
-``NotImplementedError`` (ROADMAP item 15.7b).
+mesh runs the dense decoders, the encoder-decoder (whisper: the encoder,
+cross-attention and its ``"cross"`` cache) and the prefix-LM (paligemma:
+the patch embeddings, batch leaves like the tokens); the Mamba2 mixer and
+the MoE FFN raise ``NotImplementedError`` (ROADMAP item 15.7b).
 """
 from __future__ import annotations
 
@@ -312,9 +314,12 @@ def _build_sharded(cfg, shape, mesh, optimizer, phase, num_partitions,
         batch_struct = input_specs(cfg, shape)
         b_shard = _tree_shardings(_batch_specs(batch_struct, dax),
                                   batch_struct, mesh)
-        b, s = batch_struct["tokens"].shape
+        # the caches hold the prefix too: the shape's whole sequence
+        b, s = batch_struct["tokens"].shape[0], shape.seq_len
         from ..models.transformer import zero_layer_cache
-        caches = [zero_layer_cache(cfg, sl.mixer, b, s, "meta")
+        caches = [zero_layer_cache(cfg, sl.mixer, b, s, "meta",
+                                   cfg.encoder_seq if sl.cross_attention
+                                   else None)
                   for _ in range(cfg.num_repeats) for sl in cfg.super_block]
         logits_sh = placements(sanitize_spec(P(dax, "model"),
                                              (b, cfg.vocab_size), mesh), mesh)
@@ -338,11 +343,15 @@ def _build_sharded(cfg, shape, mesh, optimizer, phase, num_partitions,
 
     def serve_step(model, token, caches, cache_len):
         from ..models.sharded import shard_tensor
-        caches = [{k: v if type(v).__name__ == "DTensor"
-                   else shard_tensor(_global(v).to(model.device), mesh,
-                                     c_shard[i][k])
-                   for k, v in layer.items()}
-                  for i, layer in enumerate(caches)]
+
+        def place(v, pls):
+            if isinstance(v, dict):          # a layer's "cross" entry
+                return {k: place(x, pls[k]) for k, x in v.items()}
+            if type(v).__name__ == "DTensor":
+                return v
+            return shard_tensor(_global(v).to(model.device), mesh, pls)
+
+        caches = [place(layer, c_shard[i]) for i, layer in enumerate(caches)]
         return model.decode_step(_global(token), caches, cache_len,
                                  rolling=rolling)
 

@@ -39,7 +39,8 @@ from .config import ModelConfig
 __all__ = ["norm_init", "norm_apply", "add_norm_apply", "apply_rope",
            "sinusoidal_positions", "attention_init", "attention_apply",
            "cross_attention_prefill", "attention_prefill", "prefill_cache",
-           "attention_decode", "decode_slot", "rolling_slot_positions",
+           "attention_decode", "cross_decode_heads", "decode_slot",
+           "rolling_slot_positions",
            "mlp_init", "mlp_apply", "moe_init", "moe_capacity", "moe_route",
            "moe_apply", "mamba2_init", "mamba2_apply", "mamba2_decode"]
 
@@ -293,6 +294,23 @@ def decode_slot(cache_len: int, width: int, window: int | None,
     return cache_len, cache_len, window
 
 
+def cross_decode_heads(p: Params, x: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, cfg: ModelConfig,
+                       kernels: bool) -> torch.Tensor:
+    """One decode step's cross-attention up to ``wo``: a query-only
+    projection of ``x`` (B, 1, d) over the encoder's ``k``, ``v``, no RoPE;
+    returns the merged heads (B, 1, H * Dh) in ``x``'s dtype.  ``cfg``
+    gives the head count (a mesh rank passes its local one)."""
+    b, h, dh = x.shape[0], cfg.num_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["b_q"]
+    q = q.reshape(b, 1, h, dh).transpose(1, 2)
+    out = _attend(q, k, v, causal=False, window=None, q_offset=0,
+                  kernels=kernels)
+    return out.to(x.dtype).transpose(1, 2).reshape(b, 1, -1)
+
+
 def attention_decode(p: Params, x: torch.Tensor, cache: Params | None,
                      cache_len: int, cfg: ModelConfig, *,
                      window: int | None = None, rolling: bool = False,
@@ -323,14 +341,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params | None,
     ``rolling_window_attention`` (which also sums in slot order)."""
     b = x.shape[0]
     if enc_cache is not None:
-        h, dh = cfg.num_heads, cfg.resolved_head_dim
-        q = x @ p["wq"]
-        if cfg.qkv_bias:
-            q = q + p["b_q"]
-        q = q.reshape(b, 1, h, dh).transpose(1, 2)
-        out = _attend(q, enc_cache["k"], enc_cache["v"], causal=False,
-                      window=None, q_offset=0, kernels=kernels)
-        return _merge_heads(out.to(x.dtype), p), cache
+        return cross_decode_heads(p, x, enc_cache["k"], enc_cache["v"], cfg,
+                                  kernels) @ p["wo"], cache
     slot, q_offset, window = decode_slot(cache_len, cache["k"].shape[2],
                                          window, rolling)
     q, k_new, v_new = _project_qkv(p, x, cfg)

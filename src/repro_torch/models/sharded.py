@@ -1,4 +1,5 @@
-"""The dense decoder on a mesh of ranks: tensor (Megatron) and sequence
+"""The attention + MLP families on a mesh of ranks (the dense decoders,
+the encoder-decoder and the prefix-LM): tensor (Megatron) and sequence
 parallelism over ``"model"``, data parallelism over the data axes, as
 DTensors (the port's counterpart of the reference's GSPMD sharding, whose
 policy is ``models/sharding.py``).
@@ -27,7 +28,16 @@ their backwards) runs on a rank's shard, and the communication is the
   and computes every query head, and where only the KV heads do not divide
   it takes the KV heads its query heads read;
 - the embedding is row-sharded over ``"model"``: a masked lookup of the
-  rank's vocabulary rows, ``Partial``, reduce-scattered like a sub-layer;
+  rank's vocabulary rows, ``Partial``, reduce-scattered like a sub-layer
+  (a vocabulary that does not divide ``"model"``, whisper's, stays whole:
+  each rank looks up its own rows of the residual); a prefix-LM's patch
+  embeddings are placed beside the token rows before that scatter;
+- an encoder runs the same blocks on its own rows (``P(data, "model",
+  None)``, replicated over ``"model"`` where its sequence does not divide
+  it); its output is gathered over ``"model"`` once, and each decoder
+  layer's cross-attention block takes its queries from the gathered rows
+  and its keys and values from that output, whose gradient comes back a
+  Partial sum;
 - the loss gathers the tied head once (one all-gather) and sums the nll
   and counts the unmasked labels of the rank's rows; both sums are
   all-reduced and divided, never a mean of the ranks' means.
@@ -38,7 +48,8 @@ the work gets its gradient back ``Partial`` there (``in_grad_placements``).
 Decode caches are placed by ``cache_spec_for``: heads over ``"model"``,
 or, where the KV heads do not divide it, the sequence (the context-
 parallel cache, gathered over ``"model"`` before each decode step's
-kernel).
+kernel); the ``"cross"`` cache by the same rule over the encoder's
+sequence.
 """
 from __future__ import annotations
 
@@ -170,6 +181,14 @@ class ShardedOps:
         return [Partial() if isinstance(p, Replicate) and sp else p
                 for p, sp in zip(pls, split)]
 
+    def _model_split(self, pls, dim: int) -> bool:
+        """Whether placements ``pls`` split tensor dim ``dim`` over more
+        than one model rank (a sequence: 1 for the rows, 2 for a KV cache,
+        the context-parallel one)."""
+        Shard = _dt()[3]
+        return (self.model_dim is not None and self.m > 1
+                and pls[self.model_dim] == Shard(dim))
+
     def _model_partial(self, pls) -> list:
         """``pls`` with the model dim Partial (a block's output: its part of
         a sum over the model ranks), Replicate for one model rank."""
@@ -235,32 +254,111 @@ class ShardedOps:
 
     # ------------------------------------------------------- the embedding
     def embed(self, tokens, offset: int = 0):
-        """The lookup of ``tokens`` (B, S): with the vocabulary over
-        ``"model"``, each rank looks up the tokens in its rows (0 for the
-        others), a Partial sum.  RoPE models only (``check_shardable``):
-        ``offset`` places no positions here."""
+        """The lookup of ``tokens`` (B, S), plus the sinusoidal positions
+        ``offset ..`` where the model has no RoPE (whisper's decoder).  With
+        the vocabulary over ``"model"`` each rank looks up the tokens in its
+        rows (0 for the others), a Partial sum, the positions added on
+        model rank 0 alone.  With the vocabulary whole (whisper's 51,865 is
+        odd, so ``sanitize_spec`` leaves it replicated) and no prefix to
+        place beside them, the tokens are placed as the residual's rows (a
+        local slice) and each rank looks up its own: the output is in the
+        residual's placements, and the table's gradient a Partial sum over
+        the ranks that split the rows."""
         w = self.model.embed
         Shard = _dt()[3]
         vsplit = (self.model_dim is not None and self.m > 1
                   and isinstance(w.placements[self.model_dim], Shard))
+        if not vsplit and not self.cfg.prefix_tokens:
+            tokens = self.policy.constrain(
+                tokens, P(*self.policy.residual_spec()[:2]))
         r = self.r
         tpl = list(tokens.placements)
-        out = list(tpl)
-        if self.model_dim is not None:
-            out = self._model_partial(tpl) if vsplit else tpl
+        out = self._model_partial(tpl) if vsplit else tpl
+        seq_split = self._model_split(tpl, 1)
+        sinus = self.cfg.rope_theta is None and (not vsplit or r == 0)
+        d = self.cfg.d_model
 
         def fn(tl, wl):
-            if not vsplit:
-                return F.embedding(tl, wl)
-            n = wl.shape[0]
-            idx = tl - r * n
-            valid = (idx >= 0) & (idx < n)
-            rows = F.embedding(idx.clamp(0, n - 1), wl)
-            return rows * valid[..., None].to(wl.dtype)
+            if vsplit:
+                n = wl.shape[0]
+                idx = tl - r * n
+                valid = (idx >= 0) & (idx < n)
+                rows = F.embedding(idx.clamp(0, n - 1), wl)
+                x = rows * valid[..., None].to(wl.dtype)
+            else:
+                x = F.embedding(tl, wl)
+            if sinus:
+                sl = tl.shape[1]
+                pos = L.sinusoidal_positions(
+                    sl, d, device=x.device,
+                    offset=offset + (r * sl if seq_split else 0))
+                x = x + pos[None].to(x.dtype)
+            return x
 
         split = self._split(tpl)
         return self._lmap(fn, [tpl, list(w.placements)], out,
                           [tpl, self._grad(w.placements, split)])(tokens, w)
+
+    def prefix(self, x, patch_embeds, labels=None):
+        """The prefix-LM's input: the patch embeddings (B, P, d) placed
+        beside the token rows ``x`` (B, S, d) under x's placements (batch
+        over the data axes; over ``"model"`` the embedding's Partial sum,
+        to which the patches are added on model rank 0 alone, or
+        replicated; :meth:`embed` never splits a prefix-LM's rows) and
+        concatenated on each rank, before ``policy.residual`` splits the P
+        + S rows; ``labels`` (B, S) get P labels -1 in front, placed as
+        they are.  Returns ``(x, labels)``."""
+        DTensor, _, Replicate, _ = _dt()
+        n = self.cfg.prefix_tokens
+        xp = list(x.placements)
+        pe = self.place(self.model._embeds(patch_embeds, "patch_embeds", n),
+                        self.policy.batch_spec(3))
+        coord = self.mesh.get_coordinate()
+        first = all(coord[i] == 0 for i, p in enumerate(xp)
+                    if p.is_partial())
+
+        def fn(xl, pl):
+            pl = pl.to(xl.dtype)
+            return torch.cat([pl if first else torch.zeros_like(pl), xl],
+                             dim=1)
+
+        # x's gradient comes back whole where x is a Partial sum
+        xg = [Replicate() if p.is_partial() else p for p in xp]
+        x = self._lmap(fn, [xp, list(pe.placements)], xp,
+                       [xg, list(pe.placements)])(x, pe)
+        if labels is not None:
+            ll = labels.to_local()
+            ll = torch.cat([ll.new_full((ll.shape[0], n), -1), ll], dim=1)
+            labels = DTensor.from_local(ll, self.mesh,
+                                        list(labels.placements),
+                                        run_check=False)
+        return x, labels
+
+    # ----------------------------------------------------------- the encoder
+    def encoder_input(self, enc_embeds):
+        """The encoder's input: the frame embeddings (B, Se, d) placed as
+        the residual (``P(data, "model", None)``, sanitized: an encoder
+        sequence that does not divide ``"model"`` stays replicated there,
+        as the dry run's 1,500 frames over 16), plus the sinusoidal
+        positions of each rank's rows."""
+        x = self.place(self.model._embeds(enc_embeds, "enc_embeds"),
+                       self.policy.residual_spec())
+        xp = list(x.placements)
+        seq_split = self._model_split(xp, 1)
+        r, d = self.r, self.cfg.d_model
+
+        def fn(xl):
+            sl = xl.shape[1]
+            pos = L.sinusoidal_positions(sl, d, device=xl.device,
+                                         offset=r * sl if seq_split else 0)
+            return xl + pos[None].to(xl.dtype)
+
+        return self._lmap(fn, [xp], xp, [xp])(x)
+
+    def cross_input(self, enc_out):
+        """The encoder's output as every decoder layer's cross-attention
+        reads it: its sequence gathered over ``"model"``, once a step."""
+        return self.gathered(enc_out)
 
     # ---------------------------------------------------------- the blocks
     def _block_weights(self, p, gather: set):
@@ -280,10 +378,12 @@ class ShardedOps:
             ws.append(w)
         return keys, ws
 
-    def _block(self, fn, h, keys, ws, extra=(), extra_out=()):
-        """Run ``fn(h_local, params_dict, *extra_local)`` on every rank: its
-        part of a sum over the model ranks, plus ``extra_out`` placed
-        outputs (prefill caches)."""
+    def _block(self, fn, h, keys, ws, extra=(), extra_out=(), acts=()):
+        """Run ``fn(h_local, params_dict, *acts_local, *extra_local)`` on
+        every rank: its part of a sum over the model ranks, plus
+        ``extra_out`` placed outputs (prefill caches).  ``acts`` are
+        activations beside ``h`` (the encoder's output), whose gradients
+        come back Partial like ``h``'s; ``extra`` take none (caches)."""
         hp = list(h.placements)
         split = self._split(hp)
         if self.model_dim is not None:
@@ -294,14 +394,16 @@ class ShardedOps:
             return fn(hl, dict(zip(keys, args[:nk])), *args[nk:])
 
         ins = [hp] + [list(w.placements) for w in ws] + [
+            list(a.placements) for a in acts] + [
             list(e.placements) for e in extra]
         grads = [self._grad(hp, split)] + [
             self._grad(w.placements, split) for w in ws] + [
+            self._grad(a.placements, split) for a in acts] + [
             list(e.placements) for e in extra]
         outs = self._model_partial(hp)
         if extra_out:
             outs = (outs, *extra_out)
-        return self._lmap(local, ins, outs, grads)(h, *ws, *extra)
+        return self._lmap(local, ins, outs, grads)(h, *ws, *acts, *extra)
 
     def _zero_unless_first(self, y):
         return y if self.r == 0 else y * 0
@@ -365,8 +467,8 @@ class ShardedOps:
 
     def attention(self, p, h, *, causal=True, window=None, prefix_len=0):
         """Training attention over the gathered rows (flash forward and
-        backward on the local heads).  A mesh runs no prefix
-        (``check_shardable``): ``prefix_len`` is 0."""
+        backward on the local heads), its first ``prefix_len`` keys seen
+        by every query (the prefix-LM mask)."""
         cfg, kernels = self.cfg, self.kernels
         hf = self.gathered(h)
         lay = _AttnLayout(cfg, self.policy, self.m, self.r, h.shape[0],
@@ -377,13 +479,15 @@ class ShardedOps:
             if lay.plain:
                 return L.attention_apply(pd, hl, lay.cfg_local,
                                          causal=causal, window=window,
+                                         prefix_len=prefix_len,
                                          kernels=kernels)
             b, s, _ = hl.shape
             q, k, v = self._project(pd, hl, lay,
                                     torch.arange(s, device=hl.device))
             k, v = lay.pick(k, v)
             out = L._attend(q, k, v, window=window, q_offset=0,
-                            kernels=kernels, causal=causal)
+                            kernels=kernels, causal=causal,
+                            prefix_len=prefix_len)
             return self._out(out.transpose(1, 2).reshape(b, s, -1), pd, lay)
 
         return self._block(fn, hf, keys, ws)
@@ -397,8 +501,8 @@ class ShardedOps:
                           prefix_len=0):
         """Prefill attention and the layer's decode cache ``{"k", "v"}``,
         placed by ``cache_spec_for``: this rank's KV heads, or its slice of
-        the sequence (the context-parallel cache), or all of it.  A mesh
-        runs no prefix (``check_shardable``): ``prefix_len`` is 0."""
+        the sequence (the context-parallel cache), or all of it; the
+        first ``prefix_len`` positions are seen by every query."""
         cfg, kernels = self.cfg, self.kernels
         hf = self.gathered(h)
         b, s = h.shape[0], h.shape[1]
@@ -407,15 +511,13 @@ class ShardedOps:
         width = cache_size or s
         cshape = (b, cfg.num_kv_heads, width, cfg.resolved_head_dim)
         cpl = self._cache_placements(cshape)
-        Shard = _dt()[3]
-        seq_split = (self.model_dim is not None and self.m > 1
-                     and isinstance(cpl[self.model_dim], Shard)
-                     and cpl[self.model_dim].dim == 2)
+        seq_split = self._model_split(cpl, 2)
 
         def fn(hl, pd):
             if lay.plain:
                 return L.attention_prefill(pd, hl, lay.cfg_local,
                                            window=window,
+                                           prefix_len=prefix_len,
                                            cache_size=cache_size,
                                            kernels=kernels)
             bl, sl, _ = hl.shape
@@ -428,7 +530,7 @@ class ShardedOps:
                          for n, c in cache.items()}
             kk, vv = lay.pick(k, v)
             out = L._attend(q, kk, vv, window=window, q_offset=0,
-                            kernels=kernels)
+                            prefix_len=prefix_len, kernels=kernels)
             return (self._out(out.transpose(1, 2).reshape(bl, sl, -1), pd,
                               lay), cache)
 
@@ -442,16 +544,14 @@ class ShardedOps:
         sequence-sharded context-parallel cache).  Returns ``(out,
         cache)``."""
         cfg, kernels = self.cfg, self.kernels
-        _, _, Replicate, Shard = _dt()
+        _, _, Replicate, _ = _dt()
         lay = _AttnLayout(cfg, self.policy, self.m, self.r, h.shape[0],
                           h.shape[1])
         keys, ws = self._attn_weights(p, lay)
         hf = self.gathered(h)
         ck, cv = cache["k"], cache["v"]
         cpl = list(ck.placements)
-        seq_split = (self.model_dim is not None and self.m > 1
-                     and isinstance(cpl[self.model_dim], Shard)
-                     and cpl[self.model_dim].dim == 2)
+        seq_split = self._model_split(cpl, 2)
         extra = [ck, cv]
         if seq_split:
             full = list(cpl)
@@ -486,6 +586,93 @@ class ShardedOps:
 
         return self._block(fn, hf, keys, ws, extra=extra), cache
 
+    # ---------------------------------------------------- cross-attention
+    def cross_attention(self, p, h, enc_out):
+        """Training cross-attention: queries from the gathered rows of
+        ``h``, keys and values from ``enc_out`` (:meth:`cross_input`'s,
+        gathered over ``"model"``), bidirectional, on the local heads (all
+        of them, from gathered projections, where the heads do not divide
+        ``"model"``); ``enc_out``'s gradient comes back a Partial sum over
+        the model ranks."""
+        cfg, kernels = self.cfg, self.kernels
+        hf = self.gathered(h)
+        lay = _AttnLayout(cfg, self.policy, self.m, self.r, h.shape[0],
+                          h.shape[1], constrain=self.policy.constrain_attn)
+        keys, ws = self._attn_weights(p, lay)
+
+        def fn(hl, pd, el):
+            if lay.plain:
+                return L._cross(pd, hl, el, lay.cfg_local, kernels)[0]
+            return self._cross_out(pd, hl, el, lay)[0]
+
+        return self._block(fn, hf, keys, ws, acts=[enc_out])
+
+    def _cross_out(self, pd, hl, el, lay):
+        """The gathered-projection cross-attention of one rank: its part of
+        the output, and the KV heads it projected."""
+        q, k, v = L._project_qkv(pd, hl, lay.cfg_local, kv_input=el)
+        kk, vv = lay.pick(k, v)
+        out = L._attend(q, kk, vv, causal=False, window=None, q_offset=0,
+                        kernels=self.kernels)
+        b, s = hl.shape[:2]
+        return self._out(out.transpose(1, 2).reshape(b, s, -1), pd, lay), \
+            k, v
+
+    def cross_attention_prefill(self, p, h, enc_out):
+        """Prefill cross-attention and the decode's ``"cross"`` cache
+        ``{"k", "v"}`` of ``(B, Hkv, Se, Dh)``, placed by
+        ``cache_spec_for``: this rank's KV heads, its slice of the encoder
+        sequence, or all of it."""
+        cfg, kernels = self.cfg, self.kernels
+        hf = self.gathered(h)
+        b = h.shape[0]
+        lay = _AttnLayout(cfg, self.policy, self.m, self.r, b, h.shape[1])
+        keys, ws = self._attn_weights(p, lay)
+        cpl = self._cache_placements((b, cfg.num_kv_heads, enc_out.shape[1],
+                                      cfg.resolved_head_dim))
+        seq_split = self._model_split(cpl, 2)
+
+        def fn(hl, pd, el):
+            if lay.plain:
+                return L.cross_attention_prefill(pd, hl, el, lay.cfg_local,
+                                                 kernels=kernels)
+            out, k, v = self._cross_out(pd, hl, el, lay)
+            cache = {"k": k.contiguous(), "v": v.contiguous()}
+            if seq_split:
+                w = k.shape[2] // self.m
+                cache = {n: c[:, :, self.r * w:(self.r + 1) * w].contiguous()
+                         for n, c in cache.items()}
+            return out, cache
+
+        return self._block(fn, hf, keys, ws, acts=[enc_out],
+                           extra_out=(cpl, cpl))
+
+    def cross_attention_decode(self, p, h, enc_cache):
+        """One decode step's cross-attention over the ``"cross"`` cache
+        (gathered over ``"model"`` first where it splits the encoder
+        sequence): a query-only projection, so only ``wq`` (``b_q``) and
+        ``wo`` enter the block."""
+        cfg, kernels = self.cfg, self.kernels
+        _, _, Replicate, _ = _dt()
+        lay = _AttnLayout(cfg, self.policy, self.m, self.r, h.shape[0],
+                          h.shape[1])
+        keys, ws = self._attn_weights({k: p[k] for k in ("wq", "b_q", "wo")
+                                       if k in p}, lay)
+        hf = self.gathered(h)
+        ck, cv = enc_cache["k"], enc_cache["v"]
+        if self._model_split(ck.placements, 2):
+            full = list(ck.placements)
+            full[self.model_dim] = Replicate()
+            ck, cv = (ck.redistribute(self.mesh, full),
+                      cv.redistribute(self.mesh, full))
+
+        def fn(hl, pd, kl, vl):
+            return self._out(L.cross_decode_heads(pd, hl, *lay.pick(kl, vl),
+                                                  lay.cfg_local, kernels),
+                             pd, lay)
+
+        return self._block(fn, hf, keys, ws, extra=[ck, cv])
+
     # ---------------------------------------------------- the model's ends
     def _head(self):
         m = self.model
@@ -504,7 +691,10 @@ class ShardedOps:
                                        P(*self.policy.residual_spec()[:2]))
         head = self._head()
         rep = [Replicate()] * self.mesh.ndim
-        head = head.redistribute(self.mesh, rep)
+        if list(head.placements) != rep:
+            # a whole head (whisper's) is not redistributed: its gradient
+            # stays a Partial sum until the step sums it with the lookup's
+            head = head.redistribute(self.mesh, rep)
         split = self._split(hp)
 
         def fn(hl, ll, wl):
@@ -574,11 +764,21 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     (``seq`` divisible) and each sub-layer gathers it and reduce-scatters
     its output; without, each sub-layer's output is all-reduced (``2 n``
     of the whole sequence's block), in the backward too, and nothing is
-    gathered; without ``constrain_attn`` training attention gathers the
-    ``"model"``-sharded query, key and value projections.  Covers the
-    dense decoders with the vocabulary split over ``"model"`` and a batch
-    split over all the data axes; with ``cfg.remat`` the backward replays
-    each layer's forward up to its last saved input (the MLP's
+    gathered; without ``constrain_attn`` training attention (and the
+    encoder's, which runs the training form) gathers the
+    ``"model"``-sharded query, key and value projections.  ``seq`` is the
+    token sequence: a prefix-LM's residual holds ``prefix_tokens`` more
+    rows.  The vocabulary split over ``"model"`` makes the embedding a
+    Partial block, reduce-scattered; a whole one (whisper's) looks up the
+    residual's rows where they hold no prefix, and its tied head's
+    gradient is all-reduced whole.  An encoder-decoder adds the encoder's
+    blocks on its ``encoder_seq`` rows (split over ``"model"`` where they
+    divide it, else each block all-reduced), its output gathered once, a
+    cross-attention block in each decoder layer (its gradient summed back
+    once, not checkpointed) and in decode the ``"cross"`` cache gathered
+    where it splits the encoder sequence.  Covers a batch split over all
+    the data axes; with ``cfg.remat`` the backward replays each decoder
+    layer's forward up to its last saved input (the layer's last block's
     collective is not replayed)."""
     from .transformer import Transformer
 
@@ -588,8 +788,7 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     dsplit = [n for n in ddims if n > 1]
     b = batch // int(np.prod(ddims or [1]))
     e = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-    d, hq, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                      cfg.resolved_head_dim)
+    d, hkv, dh = cfg.d_model, cfg.num_kv_heads, cfg.resolved_head_dim
     meta = Transformer(cfg, device="meta")
     shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
     specs = policy.param_specs(shapes)
@@ -602,33 +801,66 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     def numel(name):
         return int(np.prod(shapes[name]))
 
-    if m > 1 and not sharded("embed"):
-        raise NotImplementedError("the closed form takes a vocabulary split "
-                                  "over 'model'")
     sp = policy.seq_shard_residual
+    vsplit = m > 1 and sharded("embed")
+    if m > 1 and cfg.prefix_tokens and not vsplit:
+        raise NotImplementedError("the closed form takes a prefix-LM's "
+                                  "vocabulary split over 'model'")
     if batch % int(np.prod(ddims or [1])):
         raise NotImplementedError("the closed form takes the batch split "
                                   "over all the data axes")
-    if kind != "decode" and m > 1 and sp and seq % m:
+    sd = 1 if kind == "decode" else seq + cfg.prefix_tokens
+    if kind != "decode" and m > 1 and sp and sd % m:
         raise NotImplementedError("the closed form takes the sequence split "
                                   "over 'model'")
     out = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
     lay = _AttnLayout(cfg, policy, m, 0, batch, seq,
                       constrain=kind != "train" or policy.constrain_attn)
-    layer0 = [n for n in shapes if n.startswith("layers.0.")]
-    gathered = [n for n in layer0 if m > 1 and sharded(n) and (
-        (n.endswith((".wq", ".b_q")) and not lay.q_local)
-        or (n.endswith((".wk", ".wv", ".b_k", ".b_v")) and not lay.kv_local))]
-    w_gather = sum(e * numel(n) // m * (1 + m) for n in gathered)
+    lay_enc = _AttnLayout(cfg, policy, m, 0, batch, seq,
+                          constrain=policy.constrain_attn)
+
+    def gathered(prefix, lay):
+        return [n for n in shapes if n.startswith(prefix) and m > 1
+                and sharded(n) and (
+                    (n.endswith((".wq", ".b_q")) and not lay.q_local)
+                    or (n.endswith((".wk", ".wv", ".b_k", ".b_v"))
+                        and not lay.kv_local))]
+
+    dec_g = gathered("layers.0.", lay)
+    if kind == "decode":
+        # a decode's cross-attention projects its query alone
+        dec_g = [n for n in dec_g if ".cross." not in n
+                 or n.endswith((".wq", ".b_q"))]
+    n_enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
+    enc_g = gathered("encoder.0.", lay_enc) if n_enc else []
+
+    def w_gather(names):
+        return sum(e * numel(n) // m * (1 + m) for n in names)
+
     n_layers = cfg.num_layers
+    # blocks a decoder layer runs: its mixer, cross-attention, FFN
+    per_rep = sum(1 + sl.cross_attention + (sl.ffn != "none")
+                  for sl in cfg.super_block)
+    n_blocks = per_rep * cfg.num_repeats
+    n_cross = sum(sl.cross_attention for sl in cfg.super_block) \
+        * cfg.num_repeats
     reduced = kind == "decode" or not sp        # all-reduced block outputs
     if m == 1:
         act = 0
     elif reduced:
-        act = 2 * e * b * d * (1 if kind == "decode" else seq)
+        act = 2 * e * b * d * sd
     else:
-        act = e * b * d * (seq // m + seq)      # a gather or a scatter
-    blocks = 2 * n_layers + 1                   # two a layer, the embedding
+        act = e * b * d * (sd // m + sd)        # a gather or a scatter
+    blocks = n_blocks + int(vsplit)             # and the embedding's
+    # the encoder's rows: split over "model" where they divide it
+    se = cfg.encoder_seq
+    enc_split = bool(n_enc) and m > 1 and sp and se % m == 0
+    if m == 1 or not n_enc:
+        act_e = 0
+    elif enc_split:
+        act_e = e * b * d * (se // m + se)
+    else:
+        act_e = 2 * e * b * d * se
     if kind in ("prefill", "decode"):
         if reduced:
             out["all_reduce"] += blocks * act
@@ -638,63 +870,96 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
                 # the context-parallel cache gathered, k and v, a layer
                 out["all_gather"] += n_layers * 2 * e * b * hkv * dh * (
                     cache_width // m + cache_width)
+            if m > 1 and hkv % m and se % m == 0:
+                # the cross cache split over the encoder's sequence
+                out["all_gather"] += n_cross * 2 * e * b * hkv * dh * (
+                    se // m + se)
         elif not reduced:
             out["reduce_scatter"] += blocks * act
-            out["all_gather"] += (2 * n_layers + 2) * act   # + x, delta
-        out["all_gather"] += n_layers * w_gather
+            out["all_gather"] += (n_blocks + 2) * act   # + x, delta
+        out["all_gather"] += n_layers * w_gather(dec_g)
+        if kind == "prefill" and n_enc:
+            if enc_split:
+                # two blocks a layer, then the output gathered once
+                out["all_gather"] += (2 * n_enc + 1) * act_e
+                out["reduce_scatter"] += 2 * n_enc * act_e
+            else:
+                out["all_reduce"] += 2 * n_enc * act_e
+            out["all_gather"] += n_enc * w_gather(enc_g)
         return out
     # train: forward, the layers' replay, backward
+    replay = n_blocks - n_layers if cfg.remat else 0
     if reduced:
-        # a block's output all-reduced, the attention's replayed; in the
-        # backward each block input's Partial gradient all-reduced
-        out["all_reduce"] += (blocks + n_layers * int(cfg.remat)
-                              + 2 * n_layers) * act
+        # a block's output all-reduced, those replayed; in the backward
+        # each block input's Partial gradient all-reduced
+        out["all_reduce"] += (blocks + replay + n_blocks) * act
     else:
-        fwd_ag, fwd_rs = 2 * n_layers, 2 * n_layers + 1
-        rep_ag, rep_rs = (2 * n_layers, n_layers) if cfg.remat else (0, 0)
-        out["all_gather"] += (fwd_ag + rep_ag + fwd_rs) * act
-        out["reduce_scatter"] += (fwd_rs + rep_rs + fwd_ag) * act
+        rep_ag = n_blocks if cfg.remat else 0
+        out["all_gather"] += (n_blocks + rep_ag + blocks) * act
+        out["reduce_scatter"] += (blocks + replay + n_blocks) * act
+    if n_enc:
+        # the encoder's blocks, forward and backward (no replay), its
+        # output gathered and its gradient summed back once
+        if enc_split:
+            out["all_gather"] += (4 * n_enc + 1) * act_e
+            out["reduce_scatter"] += (4 * n_enc + 1) * act_e
+        else:
+            out["all_reduce"] += (4 * n_enc + 1) * act_e
     reps = 1 + int(cfg.remat)
-    out["all_gather"] += n_layers * reps * w_gather
+    out["all_gather"] += n_layers * reps * w_gather(dec_g) \
+        + n_enc * w_gather(enc_g)
     # the gathered weights' gradients: summed over the data ranks whole,
     # then reduce-scattered over "model"
-    full = sum(e * numel(n) for n in gathered) * n_layers
+    full = sum(e * numel(n) for n in dec_g) * n_layers + sum(
+        e * numel(n) for n in enc_g) * n_enc
     out["all_reduce"] += 2 * full * len(dsplit)
     out["reduce_scatter"] += full + full // m if m > 1 else 0
     head = "embed" if cfg.tie_embeddings else "lm_head"
     hb = e * numel(head)
-    if m > 1:
-        out["all_gather"] += hb // m * (1 + m)
-        # its gradient a Partial sum over "model" where the loss's rows are
-        # split there (reduce-scattered); with the sequence replicated, every
-        # model rank holds it whole
-        if sp:
-            out["reduce_scatter"] += hb + hb // m
-    out["all_reduce"] += 2 * hb * len(dsplit)
+    if sharded(head):
+        if m > 1:
+            out["all_gather"] += hb // m * (1 + m)
+            # its gradient a Partial sum over "model" where the loss's rows
+            # are split there (reduce-scattered); with the sequence
+            # replicated, every model rank holds it whole
+            if sp:
+                out["reduce_scatter"] += hb + hb // m
+        out["all_reduce"] += 2 * hb * len(dsplit)
+        if cfg.tie_embeddings:
+            # the embedding's own gradient, summed over the data ranks when
+            # the head's (already summed) is added to it
+            out["all_reduce"] += 2 * hb // m * len(dsplit)
+    else:
+        # a whole head: its gradient (with a tied one the lookup's, Partial
+        # over the same dims) all-reduced over every dim that splits rows
+        out["all_reduce"] += 2 * hb * (len(dsplit) + int(m > 1 and sp))
     # the loss's sum and count: one all-reduce a dim that splits the rows
     out["all_reduce"] += 2 * 8 * (len(dsplit) + int(m > 1 and sp))
     # the other gradients summed into their parameters' placements
-    gset = {f"layers.{i}.{n[len('layers.0.'):]}" for n in gathered
-            for i in range(n_layers)}
+    gset = {f"layers.{i}.{n[len('layers.0.'):]}" for n in dec_g
+            for i in range(n_layers)} | {
+        f"encoder.{i}.{n[len('encoder.0.'):]}" for n in enc_g
+        for i in range(n_enc)}
     for n in shapes:
         if n in gset or n == head:
             continue
-        pb = numel(n) * (4 if n.endswith(("scale", "bias")) and ".norm"
-                         in n or n.startswith("final_norm") else e)
+        norm = (".norm" in n and n.endswith(("scale", "bias"))) \
+            or n.startswith(("final_norm", "encoder_norm"))
+        pb = numel(n) * (4 if norm else e)
         if sharded(n):
             out["all_reduce"] += 2 * pb // m * len(dsplit)
             continue
         # replicated over "model": its gradient is a partial sum over every
-        # rank of a block that splits the work there (an attention or MLP
-        # block always does; a norm's rows only with the sequence)
-        in_block = ".attn." in n or ".mlp." in n
-        norm = ".norm" in n or n.startswith("final_norm")
-        over_m = int(m > 1 and ((norm and sp) or in_block))
+        # rank of a block that splits the work there (an attention, cross-
+        # attention or MLP block always does; a norm's rows, or a whole
+        # embedding's lookup, only with the rows split)
+        in_block = any(g in n for g in (".attn.", ".mlp.", ".cross."))
+        rows = enc_split if n.startswith("encoder") else sp
+        if n == "embed":
+            rows = sp and not cfg.prefix_tokens
+        over_m = int(m > 1 and (((norm or n == "embed") and rows)
+                                or in_block))
         out["all_reduce"] += 2 * pb * (len(dsplit) + over_m)
-    if cfg.tie_embeddings:
-        # the embedding's own gradient, summed over the data ranks when
-        # the head's (already summed) is added to it
-        out["all_reduce"] += 2 * hb // m * len(dsplit)
     # AdamW's clip: the sharded gradients' sums of squares, one all-reduce
     n_sh = sum(1 for n in shapes if sharded(n))
     if m > 1 and n_sh:

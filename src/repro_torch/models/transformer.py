@@ -137,22 +137,18 @@ def chunked_ce_sum(h: torch.Tensor, w_head: torch.Tensor,
 
 def check_shardable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the sharded steps do not
-    run yet: a mesh runs the dense decoders (attention + MLP)."""
+    run yet: a mesh runs attention + MLP layers (the dense decoders, the
+    encoder-decoder and the prefix-LM), not the Mamba2 mixer or the MoE
+    FFN."""
     todo = sorted({f"the {sl.mixer} mixer" for sl in cfg.super_block
                    if sl.mixer != "attention"}
                   | {f"the {sl.ffn} ffn" for sl in cfg.super_block
                      if sl.ffn not in ("mlp", "none")})
-    todo += [what for what, has in (
-        ("cross-attention", any(sl.cross_attention for sl in cfg.super_block)),
-        ("the encoder", cfg.is_encoder_decoder),
-        ("the multimodal prefix", bool(cfg.prefix_tokens)),
-        ("sinusoidal positions", cfg.rope_theta is None)) if has]
     if todo:
         raise NotImplementedError(
             f"{cfg.name}: running {' and '.join(todo)} on a mesh is not "
-            "ported yet (ROADMAP item 15.7b, the sharded MoE, Mamba2, "
-            "encoder-decoder and prefix-LM families); the port runs them on "
-            "one card")
+            "ported yet (ROADMAP item 15.7b, the sharded MoE and Mamba2 "
+            "families); the port runs them on one card")
 
 
 def _params(params: dict) -> nn.ParameterDict:
@@ -216,7 +212,7 @@ class _Layer(nn.Module):
         stashes as the cache's ``"cross"`` entry for the decode.  ``ops``
         runs the sub-layers (:class:`_LocalOps`, or on a mesh
         ``models/sharded.py::ShardedOps``)."""
-        cfg, kernels = ops.cfg, ops.kernels
+        cfg = ops.cfg
         x, h = ops.add_norm(self.norm_mix, x, delta)
         prefill = cache is None
         mix, cache = self._mix(h, ops, cache, cache_len, cache_size, rolling,
@@ -225,12 +221,12 @@ class _Layer(nn.Module):
         if self.cross_attention:
             x, h = ops.add_norm(self.norm_cross, x, mix)
             if prefill:
-                mix, cache["cross"] = L.cross_attention_prefill(
-                    self.cross, h, enc_out, cfg, kernels=kernels)
+                mix, cache["cross"] = ops.cross_attention_prefill(
+                    self.cross, h, enc_out)
             else:
-                mix, _ = L.attention_decode(
-                    self.cross, h, None, cache_len, cfg,
-                    enc_cache=cache["cross"], kernels=kernels)
+                mix = ops.cross_attention_decode(self.cross, h,
+                                                 cache["cross"])
+            mix = ops.residual(mix)
         if self.ffn == "none":
             return x, mix, cache
         x, h = ops.add_norm(self.norm_ffn, x, mix)
@@ -259,9 +255,7 @@ class _Layer(nn.Module):
         mix = ops.residual(mix)
         if self.cross_attention:
             x, h = ops.add_norm(self.norm_cross, x, mix)
-            mix = ops.residual(L.attention_apply(self.cross, h, cfg,
-                                                 enc_out=enc_out,
-                                                 kernels=ops.kernels))
+            mix = ops.residual(ops.cross_attention(self.cross, h, enc_out))
         if self.ffn == "none":
             return x, mix, None
         x, h = ops.add_norm(self.norm_ffn, x, mix)
@@ -315,8 +309,42 @@ class _LocalOps:
                                   window=window, rolling=rolling,
                                   kernels=self.kernels)
 
+    def cross_attention(self, p, h, enc_out):
+        # a view a layer: the encoder output's gradient sums each layer's
+        # part first, as a mesh's block does, so a world of 1 is bitwise
+        return L.attention_apply(p, h, self.cfg,
+                                 enc_out=enc_out.view_as(enc_out),
+                                 kernels=self.kernels)
+
+    def cross_attention_prefill(self, p, h, enc_out):
+        return L.cross_attention_prefill(p, h, enc_out, self.cfg,
+                                         kernels=self.kernels)
+
+    def cross_attention_decode(self, p, h, enc_cache):
+        return L.attention_decode(p, h, None, 0, self.cfg,
+                                  enc_cache=enc_cache,
+                                  kernels=self.kernels)[0]
+
     def mlp(self, p, h):
         return L.mlp_apply(p, h, self.cfg)
+
+    def encoder_input(self, enc_embeds):
+        x = self.model._embeds(enc_embeds, "enc_embeds")
+        pos = L.sinusoidal_positions(x.shape[1], self.cfg.d_model,
+                                     device=x.device)
+        return x + pos[None].to(x.dtype)
+
+    def cross_input(self, enc_out):
+        return enc_out
+
+    def prefix(self, x, patch_embeds, labels=None):
+        n = self.cfg.prefix_tokens
+        x = torch.cat([self.model._embeds(patch_embeds, "patch_embeds", n),
+                       x], dim=1)
+        if labels is not None:
+            labels = torch.cat([labels.new_full((labels.shape[0], n), -1),
+                                labels], dim=1)
+        return x, labels
 
     def loss(self, h, labels):
         b, s, d = h.shape
@@ -367,8 +395,9 @@ class Transformer(nn.Module):
     :meth:`distribute` places the parameters on one as DTensors, after
     which the same layer loop of :meth:`train_loss`, :meth:`prefill` and
     :meth:`decode_step` runs its sub-layers through
-    ``models/sharded.py::ShardedOps`` in place of :class:`_LocalOps`, the
-    dense decoders only.
+    ``models/sharded.py::ShardedOps`` in place of :class:`_LocalOps`: the
+    dense decoders, the encoder-decoder and the prefix-LM, not the Mamba2
+    mixer or the MoE FFN (:func:`check_shardable`).
     """
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -488,15 +517,11 @@ class Transformer(nn.Module):
         bidirectional attention + MLP, the final norm (the reference's
         ``encode``).  Differentiable (the training loss runs it under
         autograd); serving calls it under ``torch.no_grad``."""
-        x = self._embeds(enc_embeds, "enc_embeds")
-        pos = L.sinusoidal_positions(x.shape[1], self.cfg.d_model,
-                                     device=x.device)
-        x, delta = x + pos[None].to(x.dtype), None
+        ops = self._ops
+        x, delta = ops.encoder_input(enc_embeds), None
         for layer in self.encoder:
-            x, delta, _ = layer.train_forward(x, delta, self._ops,
-                                              causal=False)
-        return L.add_norm_apply(self.encoder_norm, x, delta, self.cfg,
-                                kernels=self.use_kernels)[1]
+            x, delta, _ = layer.train_forward(x, delta, ops, causal=False)
+        return ops.add_norm(self.encoder_norm, x, delta)[1]
 
     # ================================================================ train
     def train_loss(self, batch: dict) -> torch.Tensor:
@@ -520,13 +545,8 @@ class Transformer(nn.Module):
         x = ops.embed(tokens)
         prefix_len = cfg.prefix_tokens
         if prefix_len:
-            x = torch.cat([self._embeds(batch.get("patch_embeds"),
-                                        "patch_embeds", prefix_len), x],
-                          dim=1)
-            labels = torch.cat([labels.new_full((labels.shape[0],
-                                                 prefix_len), -1), labels],
-                               dim=1)
-        enc_out = (self.encode(batch.get("enc_embeds"))
+            x, labels = ops.prefix(x, batch.get("patch_embeds"), labels)
+        enc_out = (ops.cross_input(self.encode(batch.get("enc_embeds")))
                    if cfg.is_encoder_decoder else None)
         x, delta, aux = ops.residual(x), None, None
         for layer in self.layers:
@@ -561,10 +581,8 @@ class Transformer(nn.Module):
         x = ops.embed(ops.tokens(batch["tokens"]))
         prefix_len = cfg.prefix_tokens
         if prefix_len:
-            x = torch.cat([self._embeds(batch.get("patch_embeds"),
-                                        "patch_embeds", prefix_len), x],
-                          dim=1)
-        enc_out = (self.encode(batch.get("enc_embeds"))
+            x, _ = ops.prefix(x, batch.get("patch_embeds"))
+        enc_out = (ops.cross_input(self.encode(batch.get("enc_embeds")))
                    if cfg.is_encoder_decoder else None)
         x, delta = ops.residual(x), None
         caches = []

@@ -12,9 +12,16 @@ runs it), every step on ``meta`` tensors.
 - ``--no-seq-shard`` and ``--no-constrain-attn`` (the reference's policy
   options): ``ok`` rows equal to their closed forms and moving other
   collectives than the default;
+- whisper-small and paligemma-3b (the encoder-decoder and the prefix-LM)
+  ``ok`` at train_4k, prefill_32k and decode_32k on (16, 16) and at
+  train_4k on (2, 16, 16), each equal to its closed form: whisper's 12
+  heads and paligemma's 8 divide no model axis of 16 (the
+  gathered-projection path), whisper's 1,500 frames stay replicated over
+  it and its vocabulary whole, paligemma's one KV head makes its decode
+  cache the context-parallel one;
 - an MoE arch ``skipped`` naming ROADMAP item 15.7b, a full-attention arch
-  at long_500k without ``swa`` skipped by the reference's rule, every run's
-  exit code 0.
+  at long_500k without ``swa`` skipped by the reference's rule (whisper
+  and paligemma too), every run's exit code 0.
 """
 import json
 import os
@@ -41,7 +48,14 @@ GROUPS = [
     ["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "train_4k"],
     ["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "long_500k"],
     ["--arch", "qwen2-0.5b", "--shape", "long_500k"],
+    ["--arch", "whisper-small", "--shape", "all"],
+    ["--arch", "paligemma-3b", "--shape", "all"],
+    ["--arch", "whisper-small", "--shape", "train_4k", "--multi-pod",
+     "--tag", "pod"],
+    ["--arch", "paligemma-3b", "--shape", "train_4k", "--multi-pod",
+     "--tag", "pod"],
 ]
+ENCDEC = ["whisper-small", "paligemma-3b"]
 # the keys of a row of the reference's run_one (tag where one is given)
 REFERENCE_KEYS = {
     "name", "chips", "compute_s", "memory_s", "collective_s", "dominant",
@@ -107,6 +121,32 @@ def test_dense_rows_are_ok_and_match_the_closed_form(run, arch, shape):
                    else "flash_attention"][1] > 0
 
 
+@pytest.mark.parametrize("shape", SHAPES[:3])
+@pytest.mark.parametrize("arch", ENCDEC)
+def test_encdec_rows_are_ok_and_match_the_closed_form(run, arch, shape):
+    r = _row(run[1], arch, shape)
+    assert REFERENCE_KEYS <= set(r)
+    assert r["chips"] == 256 and not r["multi_pod"]
+    assert r["mesh_device"] == "cpu" and r["fits"]
+    assert r["hlo_flops_per_chip"] > 0 and r["hlo_bytes_per_chip"] > 0
+    assert r["coll_breakdown"] and sum(r["coll_in_out"].values()) > 0
+    assert closed_form_holds(r), (r["coll_in_out"], r["coll_closed_form"])
+    kernels = r["kernels"]
+    assert ("flash_attention_bwd" in kernels) == (shape == "train_4k")
+    assert kernels["flash_attention_train" if shape == "train_4k"
+                   else "flash_attention"][1] > 0
+    # whisper's norms are layernorms: plain ops, no RMSNorm kernel
+    assert ("rmsnorm" in kernels or "add_rmsnorm" in kernels) == (
+        arch == "paligemma-3b")
+
+
+@pytest.mark.parametrize("arch", ENCDEC)
+def test_encdec_multi_pod_row(run, arch):
+    r = _row(run[1], arch, "train_4k", "pod")
+    assert r["chips"] == 512 and r["multi_pod"] and r["fits"]
+    assert closed_form_holds(r), (r["coll_in_out"], r["coll_closed_form"])
+
+
 def test_multi_pod_row(run):
     r = _row(run[1], "qwen2-0.5b", "decode_32k", "pod")
     assert r["chips"] == 512 and r["multi_pod"]
@@ -146,3 +186,8 @@ def test_skipped_rows(run):
     # the reference's skipped rows carry no tag
     full = _row(rows, "qwen2-0.5b", "long_500k", status="skipped")
     assert full["reason"] == "full attention; run with --variant swa"
+    # the encoder-decoder and the prefix-LM run on a mesh: at long_500k
+    # only the reference's full-attention rule skips them
+    for arch in ENCDEC:
+        full = _row(rows, arch, "long_500k", status="skipped")
+        assert full["reason"] == "full attention; run with --variant swa"

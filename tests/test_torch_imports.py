@@ -118,6 +118,7 @@ def test_import_hygiene():
                                     "flash_serving_digest.py",
                                     "collective_probe.py",
                                     "shard_probe.py",
+                                    "shard_f32_witness.py",
                                     "fake_world_probe.py",
                                     "zoo_train_probe.py"])
 def test_timing_scripts_import_hygiene(script):
@@ -139,6 +140,7 @@ def test_timing_scripts_import_hygiene(script):
                                     "_torch_mesh_part2_ranks",
                                     "_torch_mesh_part3_ranks",
                                     "_torch_sharding_ranks",
+                                    "_torch_sharding_encdec_ranks",
                                     "_torch_roofline_ranks",
                                     "_torch_dryrun_world"])
 def test_mesh_rank_modules_import_no_jax(module):

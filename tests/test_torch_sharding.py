@@ -14,9 +14,11 @@ item 15.7) against the reference's, with no world of ranks:
   path), the port's one cache dict per layer against the reference's
   stacked tree;
 - ``placements``: a tuple entry nests its mesh dims in mesh order;
-- the refusals: the families a mesh does not run yet
-  (``NotImplementedError`` naming ROADMAP item 15.7b), a mesh outside a
-  process group (``ValueError``);
+- the refusals: the families a mesh does not run yet, the Mamba2 mixer and
+  the MoE FFN (``NotImplementedError`` naming ROADMAP item 15.7b), a mesh
+  outside a process group (``ValueError``); the encoder-decoder and the
+  prefix-LM built and distributed on the dry run's fake (16, 16) world in
+  a process of its own;
 - the example ``examples/llm_entropy_sharding_torch.py`` at ``--steps 2
   --device cpu``.
 
@@ -206,15 +208,14 @@ def test_tuple_entries_nest_in_mesh_order():
 
 FAMILIES_OUTSIDE = [("mamba2-370m", "mamba2 mixer"),
                     ("phi3.5-moe-42b-a6.6b", "moe ffn"),
-                    ("jamba-v0.1-52b", "mamba2 mixer"),
-                    ("whisper-small", "the encoder"),
-                    ("paligemma-3b", "multimodal prefix")]
+                    ("jamba-v0.1-52b", "mamba2 mixer")]
 
 
 @pytest.mark.parametrize("arch,what", FAMILIES_OUTSIDE)
 def test_families_outside_the_slice_raise(arch, what):
-    """A mesh runs the dense decoders; MoE, Mamba2, the encoder-decoder and
-    the prefix-LM raise before any collective, naming item 15.7b."""
+    """A mesh runs attention + MLP layers; the Mamba2 mixer and the MoE FFN
+    raise before any collective, naming item 15.7b and nothing that a mesh
+    runs (jamba names both of its own)."""
     from repro_torch.launch.steps import build_step
     from repro_torch.models.sharding import ShardingPolicy
 
@@ -222,10 +223,90 @@ def test_families_outside_the_slice_raise(arch, what):
     with pytest.raises(NotImplementedError, match=r"15\.7b") as e:
         build_step(cfg, SHAPES["train_4k"], object())
     assert what in str(e.value)
+    for ran in ("encoder", "cross", "prefix", "sinusoidal", "prefix-LM"):
+        assert ran not in str(e.value), ran
     model = Transformer(cfg, device="meta", policy=ShardingPolicy(
         axis_sizes={"data": 1, "model": 1}))
     with pytest.raises(NotImplementedError, match=r"15\.7b"):
         model.distribute(None)
+
+
+# run in a process of its own: the fake world of the dry run is its only
+# process group.  Each arch at full width on ``meta``: build_step's four
+# step kinds on the (16, 16) mesh, and the model distributed by the train
+# step's policy (every parameter a DTensor with the policy's placements)
+_SHARDABLE = """
+import json, sys
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch.mesh import make_dryrun_world
+from repro_torch.launch.steps import build_step
+from repro_torch.models import Transformer
+from repro_torch.models.sharded import param_placements
+from repro_torch.models.transformer import check_shardable
+
+mesh = make_dryrun_world()
+out = {}
+for arch in sys.argv[1:]:
+    cfg = get_config(arch)
+    check_shardable(cfg)
+    built = {}
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        built[shape] = build_step(cfg, SHAPES[shape], mesh).name
+    built["personalize"] = build_step(cfg, SHAPES["train_4k"], mesh,
+                                      phase="personalize").name
+    step = build_step(cfg, SHAPES["train_4k"], mesh)
+    model = step.shard_model(Transformer(cfg, device="meta"))
+    want = param_placements(model, mesh)
+    placed = {n: [str(p) for p in w.placements]
+              for n, w in model.named_parameters()
+              if type(w.data).__name__ == "DTensor"
+              and list(w.placements) == want[n]}
+    out[arch] = {"built": built, "placed": placed,
+                 "params": [n for n, _ in model.named_parameters()],
+                 "b_shard": {k: [str(p) for p in v]
+                             for k, v in step.in_shardings[2].items()}}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def shardable():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO_ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _SHARDABLE, *ENCDEC],
+                       capture_output=True, text=True, env=env,
+                       cwd=REPO_ROOT, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    import json
+    return json.loads(r.stdout.splitlines()[-1])
+
+
+ENCDEC = ["whisper-small", "paligemma-3b"]
+
+
+@pytest.mark.parametrize("arch", ENCDEC)
+def test_encdec_and_prefix_lm_run_on_a_mesh(shardable, arch):
+    """The encoder-decoder and the prefix-LM at full width on ``meta``:
+    ``build_step`` builds their four step kinds on the (16, 16) mesh and
+    ``distribute`` places every parameter (the encoder's, the
+    cross-attention's) by the policy; the extra input is a batch leaf
+    split over the data axes."""
+    got = shardable[arch]
+    assert got["built"] == {
+        "train_4k": f"train:{arch}:train_4k",
+        "prefill_32k": f"prefill:{arch}:prefill_32k",
+        "decode_32k": f"serve:{arch}:decode_32k",
+        "personalize": f"train-personalize:{arch}:train_4k"}
+    assert sorted(got["placed"]) == sorted(got["params"])
+    extra = "enc_embeds" if arch == "whisper-small" else "patch_embeds"
+    assert got["b_shard"][extra] == ["S(0)", "R"]
+    if arch == "whisper-small":
+        assert any(n.startswith("encoder.") for n in got["params"])
+        # 51,865 is odd: the vocabulary stays whole
+        assert got["placed"]["embed"] == ["R", "R"]
+        assert got["placed"]["layers.0.cross.wq"] == ["R", "S(1)"]
+    else:
+        assert got["placed"]["embed"] == ["R", "S(0)"]
 
 
 def test_mesh_outside_a_group_raises():
