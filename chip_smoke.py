@@ -177,7 +177,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
               store.  Then
               ``mesh_checks``, the partition mesh (``mode="spmd"``): an
               NCCL world of 1 at P = 1 and a gloo world of 4 ranks sharing
-              the card (an NCCL world of 4 where there are 4 cards), each
+              the card, the two at once (an NCCL world of 4 where there
+              are 4 cards), each
               rank running the pipeline sampled, full-graph and phase 0
               alone, held against the stacked runs (the world of 1
               bitwise; the world of 4 within the reference's spmd
@@ -279,29 +280,39 @@ Phases, each of which fails the run (non-zero exit) on any error:
               ``launch/steps.py::build_step(cfg, shape, mesh)``,
               ``SHARD_RUNS``), bf16 at full width, seed 0: paligemma-3b
               (train 4 x (256 random patches + 512), prefill 4 x (256 +
-              256); whole
-              with 1 replica in the world of 1, 4 of 18 layers in the
-              world of 4), qwen2-0.5b (whole in the world of 1, 8 of its
-              24 layers in the world of 4; train 8 x 512 with remat, prefill 4 x 2,048, a personalize step of 2
-              replicas) and whisper-small whole (train 8 x 448 over 1,500
-              random frames, prefill 4 x (1,500 frames + 384), 2
-              replicas), 16 greedy decode steps each, and their f32
-              variants cut to 2, 4 and 2 + 2 layers; an NCCL world of 1
-              on a (1, 1) mesh
-              bitwise the unsharded steps (what differs is named); a world
-              of 4 sharing the card on (2, 2) over the ``staged`` backend
+              256); whole with 1 replica in the world of 1, 2 of 18
+              layers with 2 in the world of 4), qwen2-0.5b (whole in the
+              world of 1, 4 of
+              its 24 layers in the world of 4; train 8 x 512 with remat,
+              prefill 4 x 2,048, a personalize step of 2 replicas),
+              whisper-small whole (train 8 x 448 over 1,500 random
+              frames, prefill 4 x (1,500 frames + 384), 2 replicas),
+              phi3.5-moe at 1 of 32 layers (every expert; train and
+              prefill 4 x 512), mamba2-370m (whole in the world of 1 with
+              1 replica, 6 of 48 layers in the world of 4 with 2; 4 x
+              512) and
+              jamba's first 2 sub-layers (4 x 512; its world of 4 on (1,
+              4)), 16 greedy decode steps each (8 in the world of 4), and
+              their exact variants
+              (f32; float64 for the Mamba2 archs); an NCCL world of 1 on a
+              (1, 1) mesh bitwise the unsharded steps (what differs is
+              named); a world of 4 sharing the card on (2, 2) (jamba's on
+              (1, 4)) over the ``staged`` backend
               (``scripts/collective_probe.py`` shows what DTensor on gloo
               does with card tensors), each rank's launches equal to the
               unsharded step's at its depth, its staged bytes equal to
-              ``step_collective_bytes``, the f32 loss, logits and
-              gradients within 1e-5 of the world of 1's (a key bias's of
-              its projection's), the gradients' global norm (AdamW's clip)
-              within 1e-6, the weights after one step within 1e-5 of the
-              largest weight where the gradient is at least 1e-6 (the rest
-              reported); step ms on the slowest rank, peak memory per
-              rank, the bf16 greedy tokens' agreement reported
+              ``step_collective_bytes``, the exact variants' loss, logits
+              and gradients within 1e-5 of the world of 1's (a key bias's
+              of its projection's) on a batch whose MoE routes agree, the
+              gradients' global norm (AdamW's clip) within 1e-6, the
+              weights after one step within 1e-5 of the largest weight
+              where the gradient is at least 1e-6 (the rest reported);
+              step ms on the slowest rank, peak memory per rank, the MoE
+              choices dropped and lost to the earlier data ranks' slots,
+              the bf16 greedy tokens' agreement reported
   7c. dryrun  the dry run and the roofline (ROADMAP item 15.8): the fake
-              backend probed (``scripts/fake_world_probe.py``), then
+              backend probed (``scripts/fake_world_probe.py``, run on
+              the host beside phase 7b, as is the dry run's CLI), then
               ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
               --shape all --auto-swa`` on the fake (16, 16) world (four
               rows ``ok``, the collectives' input-plus-output bytes equal
@@ -1098,9 +1109,17 @@ FLASH_CASES = [
                                    256)),
     ("paligemma-3b rank decode", (2, 4, 1, 1, 528, 256, True, None, 512)),
     ("window + prefix", (1, 4, 2, 300, 300, 64, True, 64, 0, 100)),
+    # a rank's of phase 7b's MoE worlds at Dh 128: phi3.5-moe on (2, 2)
+    # (half the batch of 4 x 512, 16 of the 32 query heads over 4 of the 8
+    # KV heads) and jamba on (1, 4) (the batch, 8 query heads over 2); the
+    # decode against the prompt's 512 slots and 16 more
+    ("phi3.5-moe rank prefill", (2, 16, 4, 512, 512, 128, True, None, 0)),
+    ("phi3.5-moe rank decode", (2, 16, 4, 1, 528, 128, True, None, 512)),
+    ("jamba rank prefill", (4, 8, 2, 512, 512, 128, True, None, 0)),
+    ("jamba rank decode", (4, 8, 2, 1, 528, 128, True, None, 512)),
 ]
 # the serving paths' shapes: held to BF16_MAIN_* in bf16, launched twice
-MAIN_FLASH_CASES = ("qwen2", "starcoder2", "whisper", "paligemma",
+MAIN_FLASH_CASES = ("qwen2", "starcoder2", "whisper", "paligemma", "phi3.5-moe", "jamba",
                     "window + prefix")
 # the last two are qwen2-0.5b's prefill and decode rows
 RMS_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (4, 2048, 896),
@@ -1143,6 +1162,9 @@ FLASH_TRAIN_CASES = FLASH_CASES[:7] + [
                                      0)),
     ("whisper-small cross train", (8, 12, 12, 448, 1500, 64, False, None,
                                    0)),
+    # phase 7b's MoE worlds' training shapes on a rank (as FLASH_CASES')
+    ("phi3.5-moe rank train", (2, 16, 4, 512, 512, 128, True, None, 0)),
+    ("jamba rank train", (4, 8, 2, 512, 512, 128, True, None, 0)),
 ]
 # the training shapes timed beside their bounds, the plain versions and
 # scaled_dot_product_attention's backward
@@ -1151,7 +1173,8 @@ FLASH_TRAIN_MAIN = ("qwen2-0.5b train", "paligemma-3b train",
                     "paligemma-3b rank train group 2",
                     "whisper-small encoder train",
                     "whisper-small decoder train",
-                    "whisper-small cross train")
+                    "whisper-small cross train",
+                    "phi3.5-moe rank train", "jamba rank train")
 RMS_TRAIN_MAIN = (8, 512, 896)
 RMS_TRAIN_SHAPES = [(4, 128), (3, 7, 512), (2, 5, 33, 256), (1, 896),
                     (3, 2048), (2, 8192), RMS_TRAIN_MAIN]
@@ -3945,8 +3968,9 @@ def mesh_checks(torch, card):
     there are 4 cards; in each world the store runs and the resumes
     (``mesh_part2_checks``) and the communication options
     (``mesh_part3_checks``); every rank's result equal to rank 0's.  The
-    stacked runs each world is held against run in this process while
-    the world's ranks run (its printed times are taken beside them).
+    NCCL world of 1 and the gloo world of 4 run at once, and the stacked
+    runs they are held against run in this process beside them (the
+    printed times are taken beside each other).
     Returns the segment kernels' single-partition launches the ranks' runs
     reported: ``(fwd, bwd)`` of the whole-space use, then of the
     row-range use."""
@@ -3968,6 +3992,10 @@ def mesh_checks(torch, card):
                                          join_timeout_s=600)
         finally:
             shutil.rmtree(ckdir, ignore_errors=True)
+        return outs, time.perf_counter() - t0
+
+    def held(P, backend, got):
+        outs, wall = got
         for r, o in enumerate(outs):
             for group in ("pipelines", "store", "resumed"):
                 for k, d in o[group].items():
@@ -3982,7 +4010,7 @@ def mesh_checks(torch, card):
             assert torch.equal(o["logits"], outs[0]["logits"]), r
             launches[0] += o["launches"][0]
             launches[1] += o["launches"][1]
-        log(f"mesh {backend} world {P}: {time.perf_counter() - t0:.1f} s "
+        log(f"mesh {backend} world {P}: {wall:.1f} s "
             f"(spawn, build, checks); pipeline wall per rank "
             f"{[round(o['wall'], 2) for o in outs]} s, launches per rank "
             f"(fwd, bwd) {[o['launches'] for o in outs]}; single-partition "
@@ -4010,18 +4038,19 @@ def mesh_checks(torch, card):
         for i, n in enumerate(counts):
             launches[i] += n
 
-    # the stacked side runs in this process while the spawned world runs:
-    # both sides' times are taken beside each other, not alone
-    pending = in_background(lambda: world(1, "nccl"))
+    # the two spawned worlds run at once, and the stacked sides in this
+    # process beside them: every side's times are taken beside the others,
+    # not alone
+    pending1 = in_background(lambda: world(1, "nccl"))
+    pending4 = in_background(lambda: world(4, "gloo"))
     s1 = mesh_stacked(torch, 1)
-    w1 = pending()
+    s4 = mesh_stacked(torch, 4)
+    w1 = held(1, "nccl", pending1())
     mesh_compare(torch, w1[0], s1, "nccl world 1", bitwise=True)
     mesh_part2_checks(torch, 1, w1[0], "nccl world 1")
     part2_times("nccl world 1", w1[0], s1)
     part3(1, w1, s1, "nccl world 1", bitwise=True)
-    pending = in_background(lambda: world(4, "gloo"))
-    s4 = mesh_stacked(torch, 4)
-    w4 = pending()
+    w4 = held(4, "gloo", pending4())
     mesh_compare(torch, w4[0], s4, "gloo world 4 on one card", bitwise=False)
     mesh_part2_checks(torch, 4, w4[0], "gloo world 4 on one card")
     part2_times("gloo world 4, 4 processes sharing one card (not a "
@@ -4031,7 +4060,7 @@ def mesh_checks(torch, card):
     part3(4, w4, s4, "gloo world 4, 4 processes sharing one card (not a "
           "multi-card time)", bitwise=False, oracle=oracle)
     if torch.cuda.device_count() >= 4:
-        n4 = world(4, "nccl")
+        n4 = held(4, "nccl", world(4, "nccl"))
         mesh_compare(torch, n4[0], s4, "nccl world 4", bitwise=False)
         mesh_part2_checks(torch, 4, n4[0], "nccl world 4")
         part2_times("nccl world 4", n4[0], s4)
@@ -4273,19 +4302,30 @@ ZOO_F32_ATOL, ZOO_F32_RTOL = 1e-4, 1e-4
 
 
 class RouteLog:
-    """Records every MoE routing call (``models.layers.moe_route``) made
-    inside the block: each call's ``(top_i (T, K), keep (T, K))`` on the
-    host, in call order."""
+    """Records the MoE routing calls (``models.layers.moe_route``) made
+    inside the block, in call order, on the card until read (no call waits
+    on the host): ``calls`` gives each call's ``(top_i (T, K), keep (T,
+    K))`` on the host.  ``mesh``: only a mesh's routing calls (those given
+    the global token count, not its count exchange's); :meth:`counts` adds
+    the choices dropped and those a data rank's rows lose to the slots of
+    the earlier data ranks (kept by their slots among the rank's rows
+    alone, dropped at those slots plus the recorded offsets), worked out on
+    the host."""
+
+    def __init__(self, mesh=False):
+        self.mesh = mesh
 
     def __enter__(self):
         from repro_torch.models import layers
 
-        self.mod, self.inner, self.calls = layers, layers.moe_route, []
+        self.mod, self.inner, self.raw = layers, layers.moe_route, []
 
-        def route(p, xf, cfg):
-            out = self.inner(p, xf, cfg)
-            self.calls.append((out[2].cpu(), out[4].cpu().reshape(
-                out[2].shape)))
+        def route(p, xf, cfg, offset=None, tokens=None):
+            out = self.inner(p, xf, cfg, offset=offset, tokens=tokens)
+            if tokens is not None or not self.mesh:
+                cap = layers.moe_capacity(tokens or xf.shape[0], cfg)
+                self.raw.append((out[2].detach(),
+                                 out[4].reshape(out[2].shape), offset, cap))
             return out
 
         layers.moe_route = route
@@ -4293,6 +4333,25 @@ class RouteLog:
 
     def __exit__(self, *exc):
         self.mod.moe_route = self.inner
+
+    @property
+    def calls(self) -> list:
+        return [(i.cpu(), k.cpu()) for i, k, _, _ in self.raw]
+
+    def counts(self) -> dict:
+        import torch
+
+        dropped = lost = 0
+        for (top_i, keep), (_, _, offset, cap) in zip(self.calls, self.raw):
+            dropped += int((~keep).sum())
+            if offset is None:
+                continue
+            flat = top_i.reshape(-1)
+            onehot = torch.nn.functional.one_hot(flat, len(offset))
+            alone = (onehot.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+            lost += int(((alone < cap) & ~keep.reshape(-1)).sum())
+        return {"calls": len(self.raw), "dropped": dropped,
+                "lost_to_earlier_ranks": lost}
 
 
 def zoo_config(arch, overrides, dtype="bfloat16"):
@@ -4621,31 +4680,74 @@ def llm_train_phase(torch, fa, rn, card):
 
 # (arch, train batch x text tokens (remat on), prefill batch x prompt,
 # personalize replicas in the world of 1, the depth cut of the bf16 world
-# of 4, the f32 variant's depth cut), seed 0, bf16 at the published widths:
+# of 4, the f32 variant's cut, the world of 1's depth cut, the world of 4's
+# mesh, its personalize replicas), seed 0, bf16 at the published widths:
 # paligemma-3b 4 x (256 random patches + 512 tokens), 7e's shape (at 256
 # + 256 the f32 port's own gradients stand up to 1.45e-5 of their largest
 # entries from float64's, the f32 loss head's rounding, which puts the
 # worlds over SHARD_REL too: ``scripts/shard_f32_witness.py``), prefill
-# 4 x (256 + 256), whole in the world of 1 with one personalize replica
+# 4 x (256 + 256), whole with one personalize replica in the world of 1
 # (``ENCDEC_TRAIN_RUNS``; it runs first, in a fresh process: the world of
-# 1's personalize steps peak at 62-67 GiB), 4 of its 18 layers in the
-# world of 4, whose four ranks' weights, gradients and f32 AdamW moments
-# share the card; qwen2-0.5b whole in the world of 1, 8 of its 24 layers
-# in the world of 4 (whole, its staged world took a minute); whisper-small
-# whole, 8 x 448 decoder tokens over 1,500 random frames, prefill 4 x
-# (1,500 frames + 384 tokens); the f32 variants cut to 2 layers
-# (paligemma), 4 (qwen2) and 2 + 2 (whisper's encoder and decoder)
+# 1's personalize steps peak at 62-67 GiB), 2 of its 18 layers with 2
+# replicas in the world of 4, whose four ranks' weights, gradients and f32
+# AdamW moments share the card (its 257,216 x 2,048 tied head, not its
+# depth, sets the staged world's time: 89 s at 4 layers, 94 s at 2);
+# qwen2-0.5b whole in the world of 1, 4 of its 24 layers
+# in the world of 4; whisper-small whole, 8 x 448 decoder tokens over
+# 1,500 random frames, prefill 4 x (1,500 frames + 384 tokens); the f32
+# variants cut to 2 layers (paligemma), 4 (qwen2) and 2 + 2 (whisper's
+# encoder and decoder).  The MoE and Mamba2 families, every expert:
+# phi3.5-moe at 1 of its 32 layers in both worlds (1.56 B parameters; a
+# personalize replica in the world of 1 only, which peaks at 41.82 GiB
+# with the personalize step's old and new AdamW moments: two replicas on
+# (2, 2) put half of that on each of the four ranks, ~84 GiB); mamba2-370m whole in the world of 1 (1 replica), 6 of its 48
+# layers in the world of 4 (2 replicas); jamba's first 2 sub-layers (attention + MLP, Mamba2 + MoE:
+# 3.41 B parameters) in both worlds, no personalize step (a replica beside
+# the model needs 20 bytes a parameter more than the card holds), its
+# world of 4 on (1, 4) (on (2, 2) the two model ranks of each data rank
+# hold half the model each, two copies across the world: 82 GB); their
+# exact variants at 1 layer and 4 of the 16 experts (phi3.5-moe, f32), 4
+# layers (mamba2-370m) and the 2 sub-layers with 4 experts (jamba, d_model
+# 1,024: 32 SSM heads), both float64 on the plain versions, the MoE archs'
+# FFN hidden 1,024 and vocabulary 4,096: the world of 1 writes each
+# variant's gradients and weights for the world of 4 to read, and a call
+# may write 45 GiB to its disk (at jamba's full width, 25 GB a batch); at
+# every expert, the f32 weights, the held gradients and the step's moments
+# of phi3.5-moe's four ranks would need 87 GB of the card.
+# A Mamba2 mixer's per-head parameters (a_log, dt_bias, d_skip) sum every
+# token's term through the scan with heavy cancellation, so their f32
+# gradients move by 1-3e-5 of their largest entry under any 1-ulp
+# perturbation: phase 7d's unsharded kernels against plain versions put
+# mamba2-370m's dt_bias 2.96e-5 apart, and the worlds'
+# f32 stood 1.28e-5 (8 x 512) and 1.90e-5 (4 x 512) apart on dt_bias and
+# a_log alone; in float64 the worlds' math is held to SHARD_REL
+# with room to spare (the f32 parameters' own rounding, ~1e-7, is left)
 SHARD_RUNS = [
-    ("paligemma-3b", (4, 512), (4, 256), 1, {"num_repeats": 4},
-     {"num_repeats": 2}),
-    ("qwen2-0.5b", (8, 512), (4, 2048), 2, {"num_repeats": 8},
-     {"num_repeats": 4}),
+    ("paligemma-3b", (4, 512), (4, 256), 1, {"num_repeats": 2},
+     {"num_repeats": 2}, {}, (2, 2), 2),
+    ("qwen2-0.5b", (8, 512), (4, 2048), 2, {"num_repeats": 4},
+     {"num_repeats": 4}, {}, (2, 2), 2),
     ("whisper-small", (8, 448), (4, 384), 2, {},
-     {"num_repeats": 2, "encoder_layers": 2}),
+     {"num_repeats": 2, "encoder_layers": 2}, {}, (2, 2), 2),
+    ("phi3.5-moe-42b-a6.6b", (4, 512), (4, 512), 1, {"num_repeats": 1},
+     {"num_repeats": 1, "num_experts": 4, "d_ff": 1024,
+      "vocab_size": 4096}, {"num_repeats": 1}, (2, 2), 0),
+    ("mamba2-370m", (4, 512), (4, 512), 1, {"num_repeats": 6},
+     {"num_repeats": 4, "dtype": "float64"}, {}, (2, 2), 2),
+    ("jamba-v0.1-52b", (4, 512), (4, 512), 0,
+     {"num_repeats": 1, "sub_layers": 2},
+     {"num_repeats": 1, "sub_layers": 2, "num_experts": 4, "d_ff": 1024,
+      "vocab_size": 4096, "d_model": 1024, "dtype": "float64"},
+     {"num_repeats": 1, "sub_layers": 2}, (1, 4), 0),
 ]
-SHARD_DECODE = 16             # greedy decode steps
-SHARD_PARTS = 2               # personalize replicas in the world of 4
-SHARD_MESH = (2, 2)           # the world of 4 sharing the card
+SHARD_DECODE = 16             # greedy decode steps (the caches' room)
+SHARD_DECODE_4 = 8            # of them, those the staged world of 4 runs
+SHARD_MESH = (2, 2)           # the world of 4's mesh but where a run says
+# an MoE arch's f32 variant tries batches (seeds 0, 10, ...) until one whose
+# routes (every choice's expert and keep flag, in every MoE call) agree
+# between the worlds: the world of 1 saves each, the world of 4 runs the
+# next only where a rank's routes flipped on the last
+SHARD_F32_TRIES = 2
 # the f32 variant, the world of 4 against the world of 1: loss, logits and
 # every gradient within 1e-5 of the tensor's largest entry (a key bias
 # b_k's of its projection wk's: without RoPE, whisper's b_k has a gradient
@@ -4663,20 +4765,25 @@ SHARD_GRAD_FLOOR = 1e-6
 
 
 def shard_cfg(arch, overrides, f32=False):
-    return zoo_config(arch, overrides, "float32" if f32 else "bfloat16")
+    """``arch`` cut by ``overrides``, bf16, or with ``f32`` the exact
+    variant's dtype (float32 unless the overrides name one)."""
+    kw = dict(overrides)
+    dtype = kw.pop("dtype", "float32") if f32 else "bfloat16"
+    return zoo_config(arch, kw, dtype)
 
 
-def shard_inputs(torch, cfg, train, prefill, parts):
+def shard_inputs(torch, cfg, train, prefill, parts, seed=0):
     """The train batch (next-token labels, the last masked, and the arch's
     extra input), the prompt (with its extra input) and the personalize
-    batch (``parts`` partitions), on the card from seeds 0, 1, 2."""
+    batch (``parts`` partitions), on the card from seeds ``seed``, ``seed +
+    1``, ``seed + 2``."""
     b, s = train
     pb, ps = prefill
-    batch = encdec_batch(torch, cfg, b, s, seed=0)
-    prompt = encdec_batch(torch, cfg, pb, ps, seed=1)
+    batch = encdec_batch(torch, cfg, b, s, seed=seed)
+    prompt = encdec_batch(torch, cfg, pb, ps, seed=seed + 1)
     del prompt["labels"]
-    return batch, prompt, encdec_batch(torch, cfg, b, s, seed=2,
-                                       lead=(parts,))
+    return batch, prompt, encdec_batch(torch, cfg, b, s, seed=seed + 2,
+                                       lead=(max(parts, 1),))
 
 
 def shard_counts():
@@ -4715,7 +4822,7 @@ def _host(torch, t):
 
 
 def shard_steps(torch, cfg, mesh, run, *, parts, steps=1, personalize=True,
-                grads=False, keep=False):
+                grads=False, keep=False, seed=0, decode=SHARD_DECODE):
     """One ``SHARD_RUNS`` entry's prefill and greedy decode, (with
     ``grads``) the gradients of the train loss, then the train step(s) and
     (optionally) a personalize step of ``parts`` replicas, on ``mesh``
@@ -4725,7 +4832,9 @@ def shard_steps(torch, cfg, mesh, run, *, parts, steps=1, personalize=True,
     the results; ``keep`` adds host copies of the weights after the train
     steps, the caches and the replicas' weights (``weights``, ``caches``,
     ``replica_weights``), ``grads`` the model (``model``) and the
-    gradients."""
+    gradients.  The inputs come from ``seed`` (:func:`shard_inputs`);
+    ``decode`` greedy steps run from a cache with room for
+    ``SHARD_DECODE``."""
     from repro_torch.configs import InputShape
     from repro_torch.launch import staged_backend as sb
     from repro_torch.launch.steps import _sync, build_step
@@ -4752,7 +4861,8 @@ def shard_steps(torch, cfg, mesh, run, *, parts, steps=1, personalize=True,
 
     shard_counts()
     _, train, prefill = run[:3]
-    batch, prompt, batch_p = shard_inputs(torch, cfg, train, prefill, parts)
+    batch, prompt, batch_p = shard_inputs(torch, cfg, train, prefill, parts,
+                                          seed)
     b, s = train
     pb, ps = prefill
     n_pre = cfg.prefix_tokens
@@ -4760,14 +4870,19 @@ def shard_steps(torch, cfg, mesh, run, *, parts, steps=1, personalize=True,
     out = {"ms": {}, "launches": {}, "bytes": {}}
     built = build_step(cfg, InputShape("shard_train", n_pre + s, b,
                                        "train"), mesh, optimizer=opt)
-    model = built.shard_model(Transformer(cfg, seed=0, device="cuda"))
+    # the kernels take f32 and bf16: a float64 variant runs the plain
+    # versions
+    kernels = cfg.dtype != "float64"
+    model = built.shard_model(Transformer(cfg, seed=0, device="cuda",
+                                          use_kernels=kernels))
     full = lambda t: (t.full_tensor() if mesh is not None else t).float()
     # serving: the prefill step (once untimed, to warm the card and the
-    # host's caches), then a prefill into a cache with room for the greedy
-    # decode steps
+    # host's caches, where the step is timed: not for the exact variants),
+    # then a prefill into a cache with room for the greedy decode steps
     pre = build_step(cfg, InputShape("shard_prefill", n_pre + ps, pb,
                                      "prefill"), mesh)
-    pre.step(model, prompt)
+    if not grads:
+        pre.step(model, prompt)
     (logits, caches, n_ctx), ms, n, nb = clock(
         lambda: pre.step(model, prompt))
     out["ms"]["prefill"], out["launches"]["prefill"] = ms, n
@@ -4780,7 +4895,7 @@ def shard_steps(torch, cfg, mesh, run, *, parts, steps=1, personalize=True,
     logits, caches, n_ctx = model.prefill(prompt, cache_size=width)
     tok = full(logits).argmax(-1, keepdim=True).cpu().numpy()
     steps_ms, dlog, toks = [], [], [tok[:, 0]]
-    for t in range(SHARD_DECODE):
+    for t in range(decode):
         (logits, caches), ms, n, nb = clock(
             lambda: dec.step(model, tok, caches, n_ctx + t))
         steps_ms.append(ms)
@@ -4870,139 +4985,205 @@ def shard_differs(torch, a, b) -> list:
     return bad
 
 
-def shard_f32(torch, run, mesh, one, ref_path):
-    """The f32 variant of ``run`` (its depth cut) on ``mesh``: the world of
-    1 saves its loss, logits, tokens, gradients, their global norm and the
-    weights after one step to ``ref_path``; the world of 4 holds its own
-    shards against them (see ``SHARD_REL``)."""
+def shard_f32(torch, run, mesh, one, ref_dir):
+    """The f32 variant of ``run`` (its cut) on ``mesh``: the world of 1
+    saves its loss, logits, tokens, gradients, their global norm, the
+    weights after one step and its MoE routes under ``ref_dir``; the world
+    of 4 holds its own shards against them (see ``SHARD_REL``) and counts
+    the rows of its MoE calls whose routes differ from the world of 1's
+    (``flips``).  An MoE arch runs ``SHARD_F32_TRIES`` batches, each held
+    on its own; the caller takes the first whose routes agree on every
+    rank."""
+    import torch.distributed as dist
+
     from repro_torch.models.sharded import local_shard
     from repro_torch.train.optim import global_norm
 
-    arch, _, _, _, _, cut32 = run
+    arch, cut32 = run[0], run[5]
     cfg = shard_cfg(arch, cut32, f32=True)
-    f32 = shard_steps(torch, cfg, mesh, run, parts=1, personalize=False,
-                      grads=True)
-    model = f32.pop("model")
-    names = [n for n, _ in model.named_parameters()]
-    local = lambda t: t.detach().to_local().cpu()
-    norm = float(global_norm(f32["grads"]))
-    if one:
-        torch.save({"loss": f32["loss"], "prefill": f32["prefill"],
-                    "grad_norm": norm,
-                    "decode": f32["decode"], "tokens": f32["tokens"],
-                    "grads": {n: local(g) for n, g in zip(names,
-                                                          f32["grads"])},
-                    "weights": {n: local(p)
-                                for n, p in model.named_parameters()}},
-                   ref_path)
-        out = {k: f32[k] for k in ("loss", "launches", "every")}
-        out["grad_norm"] = norm
-        return out
-    ref = torch.load(ref_path, weights_only=False)
-    rel = lambda a, b: float((a - b).abs().max()) / (
-        float(b.abs().max()) or 1.0)
-    w_max = max(float(w.abs().max()) for w in ref["weights"].values())
-    grad_rel, w_held, w_rest, n_rest = 0.0, 0.0, 0.0, 0
-    worst = None
-    for (n, p), g in zip(model.named_parameters(), f32["grads"]):
-        want = ref["grads"][n]
-        g1 = local_shard(want, mesh, g.placements)
-        err = float((local(g) - g1).abs().max())
-        # a key bias is held against its projection's gradient
-        scale = ref["grads"][n[:-3] + "wk"] if n.endswith(".b_k") else want
-        if err / (float(scale.abs().max()) or 1.0) >= grad_rel:
-            grad_rel, worst = err / (float(scale.abs().max()) or 1.0), n
-        # the weights after one step, apart where the world of 1's gradient
-        # is below SHARD_GRAD_FLOOR: there AdamW's first update g / (|g| +
-        # eps) turns on the gradient's rounding
-        dw = (local(p) - local_shard(ref["weights"][n], mesh,
-                                     p.placements)).abs()
-        small = g1.abs() < SHARD_GRAD_FLOOR
-        if (~small).any():
-            w_held = max(w_held, float(dw[~small].max()))
-        if small.any():
-            w_rest = max(w_rest, float(dw[small].max()))
-            n_rest += int(small.sum())
-    return {
-        "loss": abs(f32["loss"] - ref["loss"]) / abs(ref["loss"]),
-        "prefill": rel(f32["prefill"], ref["prefill"]),
-        "decode": rel(f32["decode"], ref["decode"]),
-        "grads": grad_rel, "grads_worst": worst,
-        "grad_norm": abs(norm - ref["grad_norm"]) / ref["grad_norm"],
-        "tokens": bool(np.array_equal(f32["tokens"], ref["tokens"])),
-        "weights": w_held / w_max, "weights_small_grad": w_rest,
-        "small_grad_entries": n_rest,
-        "launches": f32["launches"], "every": f32["every"]}
+    tries, every = [], {}
+    for t in range(SHARD_F32_TRIES if cfg.num_experts else 1):
+        ref_path = os.path.join(ref_dir, f"{arch}_f32_{t}.pt")
+        with RouteLog(mesh=True) as rt:
+            f32 = shard_steps(torch, cfg, mesh, run, parts=1,
+                              personalize=False, grads=True, seed=10 * t,
+                              decode=SHARD_DECODE if one
+                              else SHARD_DECODE_4)
+        routes = rt.calls
+        for k, v in f32["every"].items():
+            every[k] = every.get(k, 0) + v
+        model = f32.pop("model")
+        names = [n for n, _ in model.named_parameters()]
+        local = lambda t: t.detach().to_local().cpu()
+        norm = float(global_norm(f32["grads"]))
+        if one:
+            torch.save({"loss": f32["loss"], "prefill": f32["prefill"],
+                        "grad_norm": norm, "routes": routes,
+                        "decode": f32["decode"], "tokens": f32["tokens"],
+                        "grads": {n: local(g) for n, g in zip(
+                            names, f32["grads"])},
+                        "weights": {n: local(p)
+                                    for n, p in model.named_parameters()}},
+                       ref_path)
+            tries.append({"loss": f32["loss"], "grad_norm": norm})
+            del model, f32
+            torch.cuda.empty_cache()
+            continue
+        # mapped, not read whole: a rank reads the pages of its shards
+        ref = torch.load(ref_path, weights_only=False, mmap=True)
+        # the world of 1's routes of this rank's rows (its data coordinate's
+        # block of each call's rows), in call order: the two prefills, the
+        # decode steps, the train loss and step; the world of 4 runs the
+        # first SHARD_DECODE_4 decode steps
+        c, n_data = mesh.get_coordinate()[0], mesh.size(0)
+        n_dec = f32["decode"].shape[0]
+        n_moe = sum(sl.ffn == "moe" for sl in cfg.super_block) \
+            * cfg.num_repeats
+        ref_routes = (ref["routes"][:(2 + n_dec) * n_moe]
+                      + ref["routes"][(2 + SHARD_DECODE) * n_moe:])
+        flips = 0 if len(routes) == len(ref_routes) else -1
+        for (i4, k4), (i1, k1) in zip(routes, ref_routes):
+            n = i4.shape[0]
+            if i1.shape[0] != n * n_data:
+                flips = -1
+                break
+            rows = slice(c * n, (c + 1) * n)
+            flips += int(((i4 != i1[rows]) | (k4 != k1[rows])).any(1)
+                         .sum())
+        rel = lambda a, b: float((a - b).abs().max()) / (
+            float(b.abs().max()) or 1.0)
+        w_max = max(float(w.abs().max()) for w in ref["weights"].values())
+        grad_rel, w_held, w_rest, n_rest = 0.0, 0.0, 0.0, 0
+        worst = None
+        for (n, p), g in zip(model.named_parameters(), f32["grads"]):
+            want = ref["grads"][n]
+            g1 = local_shard(want, mesh, g.placements)
+            err = float((local(g) - g1).abs().max())
+            # a key bias is held against its projection's gradient
+            scale = (ref["grads"][n[:-3] + "wk"] if n.endswith(".b_k")
+                     else want)
+            if err / (float(scale.abs().max()) or 1.0) >= grad_rel:
+                grad_rel = err / (float(scale.abs().max()) or 1.0)
+                worst = n
+            # the weights after one step, apart where the world of 1's
+            # gradient is below SHARD_GRAD_FLOOR: there AdamW's first update
+            # g / (|g| + eps) turns on the gradient's rounding
+            dw = (local(p) - local_shard(ref["weights"][n], mesh,
+                                         p.placements)).abs()
+            small = g1.abs() < SHARD_GRAD_FLOOR
+            if (~small).any():
+                w_held = max(w_held, float(dw[~small].max()))
+            if small.any():
+                w_rest = max(w_rest, float(dw[small].max()))
+                n_rest += int(small.sum())
+        tries.append({
+            "loss": abs(f32["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "prefill": rel(f32["prefill"], ref["prefill"]),
+            "decode": rel(f32["decode"], ref["decode"][:n_dec]),
+            "grads": grad_rel, "grads_worst": worst,
+            "grad_norm": abs(norm - ref["grad_norm"]) / ref["grad_norm"],
+            "tokens": bool(np.array_equal(f32["tokens"],
+                                          ref["tokens"][:, :n_dec + 1])),
+            "weights": w_held / w_max, "weights_small_grad": w_rest,
+            "small_grad_entries": n_rest, "moe_calls": len(routes),
+            "flips": flips})
+        del model, f32, ref
+        torch.cuda.empty_cache()
+        # the next batch only where some rank's routes flipped on this one
+        flipped = torch.tensor([int(flips != 0)])
+        dist.all_reduce(flipped)
+        if not int(flipped):
+            break
+    return {"tries": tries, "every": every,
+            "grad_norm": tries[0]["grad_norm"]}
 
 
-def shard_rank(rank, mesh_shape, ref_dir):
-    """One rank of a world on a ``("data", "model")`` mesh of
-    ``mesh_shape``, every ``SHARD_RUNS`` entry in turn: bf16 (whole in the
-    world of 1, cut as the entry says in the world of 4), then the f32
-    variant.  The world of 1 also runs the unsharded steps, names what is
-    not bitwise, runs the unsharded steps at the world of 4's depth cut
-    where there is one (their launches, which the world of 4's are held
-    to) and saves its f32 results under ``ref_dir``, which the world of 4
-    holds its own shards against."""
+def shard_runs(archs=None) -> list:
+    """``SHARD_RUNS``, or its entries of the archs named."""
+    return [r for r in SHARD_RUNS if archs is None or r[0] in archs]
+
+
+def shard_rank(rank, world, ref_dir, archs=None):
+    """One rank of a world of ``world`` ranks, every ``SHARD_RUNS`` entry
+    in turn on a ``("data", "model")`` mesh ((1, 1) in the world of 1, the
+    run's own in the world of 4): bf16 (cut as the entry says for each
+    world), then the f32 variant.  The world of 1 also runs the unsharded
+    steps, names what is not bitwise, runs the unsharded steps at the world
+    of 4's depth cut where it differs (their launches, which the world of
+    4's are held to) and saves its f32 results under ``ref_dir``, which the
+    world of 4 holds its own shards against.  The MoE blocks' routing
+    calls are recorded in the bf16 runs (their drops).  ``archs`` names
+    the entries to run (default all)."""
     import torch
 
     from repro_torch.launch.mesh import make_mesh_compat
 
-    mesh = make_mesh_compat(mesh_shape, ("data", "model"))
-    one = mesh.size() == 1
+    one = world == 1
     out = {}
     keep = ("loss", "ms", "launches", "bytes", "prefill", "decode", "tokens",
             "personalize", "peak_gib", "every")
-    for run in SHARD_RUNS:
-        arch, parts, cut = run[0], run[3], run[4]
+    for run in shard_runs(archs):
+        arch, parts1, cut4, _, cut1, mesh4, parts4 = (run[0], *run[3:])
+        mesh = make_mesh_compat((1, 1) if one else mesh4, ("data", "model"))
+        parts = parts1 if one else parts4
         res = {}
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cfg = shard_cfg(arch, {} if one else cut)
-        sh = shard_steps(torch, cfg, mesh, run, parts=parts if one
-                         else SHARD_PARTS, steps=2, keep=one)
+        cfg = shard_cfg(arch, cut1 if one else cut4)
+        with RouteLog(mesh=True) as rt:
+            # two train steps in the world of 1 (the second bitwise too),
+            # one in the staged world of 4, whose steps take seconds
+            sh = shard_steps(torch, cfg, mesh, run, parts=parts,
+                             steps=2 if one else 1,
+                             decode=SHARD_DECODE if one else SHARD_DECODE_4,
+                             personalize=parts > 0, keep=one)
+        res["routes"] = rt.counts()
+        del rt
         if one:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             pl = shard_steps(torch, cfg, None, run, parts=parts, steps=2,
-                             keep=True)
+                             personalize=parts > 0, keep=True)
             res["differs"] = shard_differs(torch, sh, pl)
             res["plain_launches"], res["plain_ms"] = pl["launches"], pl["ms"]
             res["plain_peak_gib"] = pl["peak_gib"]
             del pl
-            if cut:
+            if cut4 != cut1:
+                # launches alone: one decode step gives them
                 torch.cuda.empty_cache()
                 res["plain_launches_cut"] = shard_steps(
-                    torch, shard_cfg(arch, cut), None, run, parts=1)[
-                    "launches"]
-        res["bf16"] = {k: sh[k] for k in keep}
+                    torch, shard_cfg(arch, cut4), None, run, parts=1,
+                    personalize=parts4 > 0, decode=1)["launches"]
+        res["bf16"] = {k: sh[k] for k in keep if k in sh}
         del sh
         torch.cuda.empty_cache()
-        res["f32"] = shard_f32(torch, run, mesh, one,
-                               os.path.join(ref_dir, f"{arch}_f32.pt"))
+        res["f32"] = shard_f32(torch, run, mesh, one, ref_dir)
         res["s"] = time.perf_counter() - t0
         out[arch] = res
     return out
 
 
-def shard_checks(torch, card):
+def shard_checks(torch, card, archs=None):
     """Phase 7b: each ``SHARD_RUNS`` entry's train, prefill, greedy decode
     and personalize steps on a mesh (``launch/steps.py::build_step(cfg,
-    shape, mesh)``), bf16 at full width and an f32 variant cut in depth:
+    shape, mesh)``), bf16 at full width (cut in depth) and an f32 variant:
     an NCCL world of 1 on a ``(1, 1)`` mesh bitwise the unsharded steps
     (what is not is named, and the phase fails); a world of 4 sharing the
-    card on ``(2, 2)`` (the ``staged`` backend: gloo carries DTensor's
+    card on the run's mesh (the ``staged`` backend: gloo carries DTensor's
     collectives on card tensors only to a SIGSEGV, as
     ``scripts/collective_probe.py`` shows) with each rank's flash and
-    RMSNorm launches equal to
-    the unsharded step's (at the world of 4's depth) and its staged bytes
-    equal to ``step_collective_bytes``; its f32 loss, logits, gradients and
-    weights after one step held against the world of 1's.  Prints step ms
-    (slowest rank, synchronised host clock), bytes, peak memory per rank,
-    and for bf16 at the world of 1's depth the share of equal greedy tokens
-    and the largest logit difference.  Returns the ranks' launches (the
-    sharded runs') by kernel, flash's Dh 256 ones (paligemma's) apart."""
+    RMSNorm launches equal to the unsharded step's (at the world of 4's
+    depth) and its staged bytes equal to ``step_collective_bytes``; its f32
+    loss, logits, gradients and weights after one step held against the
+    world of 1's on a batch whose MoE routes agree (the flipped routes of
+    the batches passed over are counted).  Prints step ms (slowest rank,
+    synchronised host clock), bytes, peak memory per rank, the MoE
+    choices dropped (and lost to the earlier data ranks' slots), and for
+    bf16 at the world of 1's depth the share of equal greedy tokens and the
+    largest logit difference.  Returns the ranks' launches (the sharded
+    runs') by kernel, flash's Dh 256 ones (paligemma's) apart.  ``archs``
+    names the entries to run (default all)."""
     import shutil
     import tempfile
 
@@ -5023,12 +5204,12 @@ def shard_checks(torch, card):
     tmp = tempfile.mkdtemp(prefix="shard_")
     try:
         t0 = time.perf_counter()
-        one = spawn_partition_world(shard_rank, 1, ((1, 1), tmp),
+        one = spawn_partition_world(shard_rank, 1, (1, tmp, archs),
                                     backend="nccl", device="cuda",
                                     timeout_s=300, join_timeout_s=900)[0]
         t1 = time.perf_counter() - t0
         t0 = time.perf_counter()
-        four = spawn_partition_world(shard_rank, 4, (SHARD_MESH, tmp),
+        four = spawn_partition_world(shard_rank, 4, (4, tmp, archs),
                                      backend="staged", device="cuda",
                                      timeout_s=600, join_timeout_s=900)
         t4 = time.perf_counter() - t0
@@ -5036,28 +5217,32 @@ def shard_checks(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
     class _Mesh:
-        shape = dict(zip(("data", "model"), SHARD_MESH))
         mesh_dim_names = ("data", "model")
-    pol = _make_policy(_Mesh())
-    log(f"shard world of 1 (nccl, (1, 1)): {t1:.1f} s; world of 4 (staged, "
-        f"{SHARD_MESH}): {t4:.1f} s ({card})")
+
+        def __init__(self, shape):
+            self.shape = dict(zip(self.mesh_dim_names, shape))
+    log(f"shard world of 1 (nccl, (1, 1)): {t1:.1f} s; world of 4 (staged): "
+        f"{t4:.1f} s ({card})")
     total = {}
-    for arch, train, prefill, parts, cut, cut32 in SHARD_RUNS:
+    for run in shard_runs(archs):
+        arch, train, prefill, parts, cut, _, cut1, mesh4, parts4 = run
+        pol = _make_policy(_Mesh(mesh4))
         o1 = one[arch]
         assert not o1["differs"], (
             f"{arch}: the world of 1 is not bitwise the unsharded steps: "
             f"{o1['differs'][:8]}")
         cfg = shard_cfg(arch, cut)
         log(f"shard {arch} world of 1 (nccl, (1, 1), {card}): "
-            f"{shard_cfg(arch, {}).num_layers} layers, train, prefill, "
+            f"{shard_cfg(arch, cut1).num_layers} layers, train, prefill, "
             f"{SHARD_DECODE} decode steps, "
             f"personalize ({parts} replica(s)) bitwise the unsharded steps "
             f"(loss {o1['bf16']['loss']:.6f}); ms "
             f"{json.dumps(o1['bf16']['ms'])} (unsharded "
             f"{json.dumps(o1['plain_ms'])}); peak "
             f"{o1['bf16']['peak_gib']:.2f} GiB (unsharded "
-            f"{o1['plain_peak_gib']:.2f}); {o1['s']:.1f} s")
-        want = o1["plain_launches_cut" if cut else "plain_launches"]
+            f"{o1['plain_peak_gib']:.2f}); MoE routing "
+            f"{json.dumps(o1['routes'])}; {o1['s']:.1f} s")
+        want = o1["plain_launches_cut" if cut != cut1 else "plain_launches"]
         b, s = train
         pb, ps = prefill
         closed = {"train": step_collective_bytes(cfg, "train", b, s, pol),
@@ -5067,9 +5252,21 @@ def shard_checks(torch, card):
                       cfg, "decode", pb, 1, pol,
                       cache_width=cfg.prefix_tokens + ps + SHARD_DECODE)}
         closed = {k: sum(v.values()) for k, v in closed.items()}
+        # the f32 comparison: the first batch whose MoE routes agree on
+        # every rank
+        n_tries = len(four[0][arch]["f32"]["tries"])
+        flips = [[o[arch]["f32"]["tries"][t]["flips"] for o in four]
+                 for t in range(n_tries)]
+        held = next((t for t in range(n_tries)
+                     if all(f == 0 for f in flips[t])), None)
+        assert held is not None, (
+            f"{arch}: no f32 batch's MoE routes agreed between the worlds: "
+            f"{flips}")
         for r, o in enumerate(four):
             got = o[arch]["bf16"]
             for kind, n in want.items():
+                if kind == "personalize" and not parts4:
+                    continue
                 assert got["launches"][kind] == n, (
                     f"{arch}: rank {r}'s {kind} launches "
                     f"{got['launches'][kind]} are not the unsharded "
@@ -5078,41 +5275,57 @@ def shard_checks(torch, card):
                 assert got["bytes"][kind] == n, (
                     f"{arch}: rank {r}'s {kind} step moved "
                     f"{got['bytes'][kind]} B, the closed form says {n}")
-            f = o[arch]["f32"]
+            f = o[arch]["f32"]["tries"][held]
             assert max(f["loss"], f["prefill"], f["decode"],
                        f["grads"]) <= SHARD_REL and f["tokens"], (arch, r, f)
             assert f["grad_norm"] <= SHARD_NORM_REL, (arch, r, f)
             assert f["weights"] <= SHARD_REL, (arch, r, f)
             assert got["loss"] == four[0][arch]["bf16"]["loss"], (arch, r)
         g0 = four[0][arch]["bf16"]
-        slow = {k: max(o[arch]["bf16"]["ms"][k] for o in four) for k in g0["ms"]}
-        log(f"shard {arch} world of 4 (staged, {SHARD_MESH}, {card}): "
+        slow = {k: max(o[arch]["bf16"]["ms"][k] for o in four)
+                for k in g0["ms"]}
+        log(f"shard {arch} world of 4 (staged, {mesh4}, {card}): "
             f"{cfg.num_layers} layers"
             f"{' (cut: ' + json.dumps(cut) + ')' if cut else ''}, "
-            f"personalize {SHARD_PARTS} replicas; launches per rank equal "
+            f"personalize {parts4} replicas; launches per rank equal "
             f"the unsharded step's {json.dumps(want)}; staged bytes a step "
             f"equal the closed form {json.dumps(closed)}; ms on the slowest "
             f"rank (synchronised host clock) {json.dumps(slow)}; peak GiB "
             f"per rank {[round(o[arch]['bf16']['peak_gib'], 2) for o in four]}"
             f"; loss {g0['loss']:.6f}; {max(o[arch]['s'] for o in four):.1f} s")
-        if not cut:
-            same = float((g0["tokens"] == o1["bf16"]["tokens"]).mean())
-            ldiff = float((g0["decode"] - o1["bf16"]["decode"]).abs().max())
+        if cfg.num_experts:
+            # the data-rank slot scan: choices a data rank's tokens lose to
+            # the slots the earlier data ranks' tokens took
+            lost = [o[arch]["routes"] for o in four]
+            log(f"shard {arch} world of 4 MoE routing per rank (calls, "
+                f"choices dropped, lost to the earlier data ranks' slots) "
+                f"over every bf16 step: {json.dumps(lost)}"
+                + ("" if any(x["lost_to_earlier_ranks"] for x in lost)
+                   else "; no choice was lost to an earlier data rank"))
+        if cut == cut1:
+            nd = g0["decode"].shape[0]
+            same = float((g0["tokens"] == o1["bf16"]["tokens"][:, :nd + 1])
+                         .mean())
+            ldiff = float((g0["decode"]
+                           - o1["bf16"]["decode"][:nd]).abs().max())
             pdiff = float((g0["prefill"]
                            - o1["bf16"]["prefill"]).abs().max())
             log(f"shard {arch} bf16, world of 4 vs world of 1 ({card}): "
                 f"equal greedy tokens {same:.4f} of {g0['tokens'].size}, "
-                f"largest logit difference {ldiff:.4g} over {SHARD_DECODE} "
+                f"largest logit difference {ldiff:.4g} over {nd} "
                 f"decode steps, {pdiff:.4g} on the prefill's (loss "
                 f"{g0['loss']:.6f} vs {o1['bf16']['loss']:.6f})")
-        log(f"shard {arch} f32 ({json.dumps(cut32)}), world of 4 vs world of "
-            f"1 ({card}): " + json.dumps([{k: v for k, v in o[arch]["f32"].items()
-                                           if k not in ("launches", "every")}
-                                          for o in four])
-            + f" (limits {SHARD_REL} relative, the gradients' global norm "
-            f"{SHARD_NORM_REL}, {o1['f32']['grad_norm']:.6g} in the world "
-            f"of 1; weights {SHARD_REL} of the largest where the gradient "
-            f"is at least {SHARD_GRAD_FLOOR}, reported below)")
+        f32s = [{k: v for k, v in o[arch]["f32"]["tries"][held].items()}
+                for o in four]
+        log(f"shard {arch} {shard_cfg(arch, run[5], f32=True).dtype} "
+            f"({json.dumps(run[5])}), world of 4 vs world "
+            f"of 1 ({card}): " + json.dumps(f32s)
+            + f" (batch {held} of {n_tries}, routes flipped per rank on the "
+            f"batches before it {flips[:held]}; limits {SHARD_REL} "
+            f"relative, the gradients' global norm {SHARD_NORM_REL}, "
+            f"{o1['f32']['grad_norm']:.6g} in the world of 1; weights "
+            f"{SHARD_REL} of the largest where the gradient is at least "
+            f"{SHARD_GRAD_FLOOR}, reported below)")
         # every launch of the sharded runs: the world of 1's and every
         # rank's of 4 (the world of 1's unsharded runs apart), paligemma's
         # flash launches apart (its Dh 256 instantiations: the world of 1's
@@ -5128,6 +5341,8 @@ def shard_checks(torch, card):
                             else k)
                         total[key] = total.get(key, 0) + v
     log(f"shard_checks: {time.perf_counter() - t_all:.1f} s")
+    if archs is not None:
+        return total
     assert all(total.get(k + g, 0) > 0
                for k in ("prefill", "decode", "train", "backward")
                for g in ("", "_dh256", "_dh256_group4")), total
@@ -5181,18 +5396,35 @@ def train_launches_per_pass(cfg) -> list[int]:
             rms * (norms + enc_norms)]
 
 
-def dryrun_phase(torch, fa, rn, card):
-    """The dry run (``launch/dryrun.py``) and the roofline on the card: the
-    fake backend probed first, then qwen2-0.5b's four shapes on the fake
-    (16, 16) world (every row ``ok``, the collectives' input-plus-output
-    bytes equal to ``step_collective_bytes`` wherever it applies); then one
+def dryrun_scripts():
+    """The fake backend's probe (``scripts/fake_world_probe.py``) and the
+    dry run's CLI on qwen2-0.5b's four shapes, two subprocesses on the
+    host (no card): the probe's output, the rows and the CLI's seconds."""
+    import tempfile
+
+    out = run_script(["scripts/fake_world_probe.py"], 300)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rows.json")
+        t0 = time.perf_counter()
+        run_script(["-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+                    "--out", path], 600)
+        dry_s = time.perf_counter() - t0
+        with open(path) as f:
+            return out, json.load(f), dry_s
+
+
+def dryrun_phase(torch, fa, rn, card, scripts):
+    """The dry run (``launch/dryrun.py``) and the roofline on the card:
+    ``scripts``, the waiter of :func:`dryrun_scripts` (started beside
+    phase 7b, as they need no card), gives the fake backend's probe and
+    qwen2-0.5b's four shapes on the fake (16, 16) world (every row ``ok``,
+    the collectives' input-plus-output bytes equal to
+    ``step_collective_bytes`` wherever it applies); then one
     qwen2-0.5b bf16 train step at full width (8 x 512, remat, no mesh) on
     the card counted by the same counters while the kernels run, its
     counted FLOPs and every kernel's count equal to the same step's on
     meta exactly, its roofline terms beside the measured step time.
     Returns the card steps' launches."""
-    import tempfile
-
     from repro_torch.configs import InputShape, get_config
     from repro_torch.launch.dryrun import active_params, closed_form_holds
     from repro_torch.launch.steps import build_step
@@ -5202,17 +5434,9 @@ def dryrun_phase(torch, fa, rn, card):
     from repro_torch.train.optim import AdamW
 
     t_phase = time.perf_counter()
-    out = run_script(["scripts/fake_world_probe.py"], 300)
+    out, rows, dry_s = scripts()
     log("fake world probe: " + " ".join(
         line for line in out.splitlines() if line.startswith("fake world")))
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "rows.json")
-        t0 = time.perf_counter()
-        run_script(["-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
-                    "--out", path], 600)
-        dry_s = time.perf_counter() - t0
-        with open(path) as f:
-            rows = json.load(f)
     assert [r["status"] for r in rows] == ["ok"] * 4, rows
     for r in rows:
         held = closed_form_holds(r)
@@ -5327,14 +5551,17 @@ def dryrun_phase(torch, fa, rn, card):
 
 # (label, arch, cuts, shards, sequences a shard): launch.train llm bf16 at
 # the published widths, every expert kept, 512 tokens a sequence, 2
-# phase-0 and 2 phase-1 steps, cut in depth only.  jamba's first 2
+# phase-0 and 2 phase-1 steps, cut in depth only (mamba2-370m to 24 of its
+# 48 layers, for the run's time: phase 7b trains it whole on a mesh of
+# one).  jamba's first 2
 # sub-layers hold 3.67 B parameters: phase 1's replicas with their f32
 # AdamW moments take 10 bytes a parameter each (34.2 GiB), so two of them
 # beside the phase-0 model (6.8 GiB) and one replica's gradients (6.8 GiB)
 # need 82 GiB, more than the card's 80 GiB, even with the moments stepped in
 # place; jamba runs one shard of 8 sequences (the same 4,096 tokens a step)
 ZOO_TRAIN_RUNS = [
-    ("mamba2-370m", "mamba2-370m", [], 2, 4),
+    ("mamba2-370m 24 of 48 layers", "mamba2-370m", ["--num-repeats", "24"],
+     2, 4),
     ("phi3.5-moe 1 of 32 layers", "phi3.5-moe-42b-a6.6b",
      ["--num-repeats", "1"], 2, 4),
     ("jamba first 2 sub-layers, 1 shard", "jamba-v0.1-52b",
@@ -6089,11 +6316,13 @@ def main() -> int:
 
     # ---- 7b. main path: the sharded steps on a mesh (ROADMAP 15.7) --------
     log(f"phase 7b starts at {time.perf_counter() - t_all:.1f} s")
+    # phase 7c's host scripts (no card) run beside phase 7b
+    dry_scripts = in_background(dryrun_scripts)
     shard_launches = shard_checks(torch, card)
 
     # ---- 7c. the dry run and the roofline on the card (ROADMAP 15.8) ------
     log(f"phase 7c starts at {time.perf_counter() - t_all:.1f} s")
-    dry_launches = dryrun_phase(torch, fa, rn, card)
+    dry_launches = dryrun_phase(torch, fa, rn, card, dry_scripts)
 
     # ---- 7d. main path: training the MoE and Mamba2 families (15.9) -------
     log(f"phase 7d starts at {time.perf_counter() - t_all:.1f} s")

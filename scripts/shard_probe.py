@@ -6,14 +6,17 @@ decode and training forward and backward at the GQA groups of a (2, 2)
 and a (1, 4) mesh, f32 and bf16, against the plain versions, timed beside
 their bounds and SDPA's), then ``chip_smoke.SHARD_RUNS``' train, prefill,
 greedy decode and personalize steps (qwen2-0.5b, whisper-small,
-paligemma-3b) on an NCCL world of 1 (bitwise the unsharded steps) and on
-a world of 4 sharing the card over the ``staged`` backend (launches,
-staged bytes against the closed form, the f32 variants against the world
-of 1, step ms, peak memory).  Prints what the phases print, the card's
-name and power limit first, the wall time last.
+paligemma-3b, phi3.5-moe, mamba2-370m, jamba) on an NCCL world of 1
+(bitwise the unsharded steps) and on a world of 4 sharing the card over
+the ``staged`` backend (launches, staged bytes against the closed form,
+the f32 variants against the world of 1, step ms, peak memory, MoE drops).
+Prints what the phases print, the card's name and power limit first, the
+wall time last.  ``--arch`` runs the entries of the archs named alone, and
+the flash lines of their rank shapes.
 
-    python3 scripts/shard_probe.py
+    python3 scripts/shard_probe.py [--arch phi3.5-moe-42b-a6.6b ...]
 """
+import argparse
 import os
 import subprocess
 import sys
@@ -26,6 +29,12 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", nargs="+", default=None)
+    archs = ap.parse_args().arch
+    prefixes = ("paligemma-3b",) if archs is None else tuple(
+        a.split("-")[0] for a in archs)
 
     from repro_torch.kernels import build
 
@@ -44,12 +53,12 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     for name, case in cs.FLASH_CASES:
-        if name.startswith("paligemma-3b rank"):
+        if name.startswith(prefixes) and " rank" in name:
             for dtype_name in ("float32", "bfloat16"):
                 cs.run_flash_case(fa, name, case, dtype_name, flush=flush,
                                   iters=10, record=[], main_path=True)
     for name, case in cs.FLASH_TRAIN_CASES:
-        if name.startswith("paligemma-3b rank"):
+        if name.startswith(prefixes) and " rank" in name:
             for dtype_name in ("float32", "bfloat16"):
                 cs.run_flash_train_case(
                     fa, name, case, dtype_name, flush=flush, iters=10,
@@ -57,7 +66,7 @@ def main() -> int:
     del flush
     cs.log(f"flash lines at a rank's shapes "
            f"{time.perf_counter() - t_all:.1f} s")
-    cs.log(f"shard launches {cs.shard_checks(torch, card)}")
+    cs.log(f"shard launches {cs.shard_checks(torch, card, archs)}")
     cs.log(f"wall {time.perf_counter() - t_all:.1f} s")
     return 0
 

@@ -44,7 +44,9 @@ def main() -> int:
     build.build_all()
     cs.log(f"build {time.perf_counter() - t_all:.1f} s")
     if not args.no_dryrun:
-        cs.log(f"roofline step launches {cs.dryrun_phase(torch, fa, rn, card)}")
+        scripts = cs.in_background(cs.dryrun_scripts)
+        cs.log("roofline step launches "
+               f"{cs.dryrun_phase(torch, fa, rn, card, scripts)}")
     if not args.no_zoo:
         cs.log(f"zoo train launches {cs.zoo_train_phase(torch, fa, rn, card)}")
     cs.log(f"wall {time.perf_counter() - t_all:.1f} s")

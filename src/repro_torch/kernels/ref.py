@@ -68,17 +68,19 @@ def attention_ref(
     q_offset: int = 0,           # absolute position of q[0] (decode: cache len)
     prefix_len: int = 0,         # keys every query sees (prefix-LM)
 ) -> torch.Tensor:
-    """Dense-softmax GQA attention oracle: f32 logits with ``-inf`` masking,
+    """Dense-softmax GQA attention oracle: f32 (f64 for f64 inputs) logits
+    with ``-inf`` masking,
     fully masked rows set to 0, output in q's dtype.  The mask is the
     reference's ``_mask_block``: keys below ``prefix_len`` are seen by every
     query, rescued from the causal mask and from the window alike."""
     _, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
-    kx = k.repeat_interleave(group, dim=1).float()
-    vx = v.repeat_interleave(group, dim=1).float()
-    scale = 1.0 / torch.sqrt(torch.tensor(dh, dtype=torch.float32))
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kx = k.repeat_interleave(group, dim=1).to(acc)
+    vx = v.repeat_interleave(group, dim=1).to(acc)
+    scale = 1.0 / torch.sqrt(torch.tensor(dh, dtype=acc))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kx) * scale
     q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
     k_pos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -96,7 +98,9 @@ def attention_ref(
 
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
-    """``x · rsqrt(mean(x²) + eps) · w`` in float32, cast back to x's dtype."""
-    xf = x.float()
+    """``x · rsqrt(mean(x²) + eps) · w`` in float32 (float64 for float64
+    inputs), cast back to x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * scale * weight.float()).to(x.dtype)
+    return (xf * scale * weight.to(acc)).to(x.dtype)

@@ -28,12 +28,11 @@ Deliberate differences from the reference: an eager run sees every layer,
 where XLA counts a loop body once, so the unrolled R=1/R=2 extrapolation
 (``--no-measure``'s) is not needed and ``--no-measure`` changes nothing;
 the bytes are unfused (each op's inputs and outputs); the collective term
-takes the output bytes, as the reference's; and a family the mesh does not
-run yet (``models/transformer.py::check_shardable``: the MoE FFN and the
-Mamba2 mixer) gets a ``skipped`` row naming ROADMAP item 15.7b, so ``--arch
-all`` exits 0 when nothing else failed.  The encoder-decoder and the
-prefix-LM run (whisper-small, paligemma-3b); their closed form takes the
-shape's tokens, the prefix beside them.
+takes the output bytes, as the reference's.  Every family runs: the
+encoder-decoder and the prefix-LM (whisper-small, paligemma-3b; their
+closed form takes the shape's tokens, the prefix beside them), the MoE FFN
+and the Mamba2 mixer; only the reference's long-context rule writes
+``skipped`` rows.
 
 Exit code 0: every combination ran (or was skipped); anything else is a
 fault in the distribution (a placement, a shape, a collective).
@@ -141,18 +140,12 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     from repro_torch.launch.mesh import make_dryrun_world
     from repro_torch.launch.steps import build_step
     from repro_torch.models.sharded import step_collective_bytes
-    from repro_torch.models.transformer import check_shardable
     from repro_torch.roofline import (HW, CollectiveCounter, StepCounter,
                                       analyze_step)
 
     del measure
     shape = SHAPES[shape_name]
     base_cfg = get_config(arch)
-    # a family no mesh runs yet (ROADMAP item 15.7b), whatever the shape
-    try:
-        check_shardable(base_cfg)
-    except NotImplementedError as e:
-        return _skipped(arch, shape_name, multi_pod, str(e))
     # long_500k policy (DESIGN.md): full-attention archs need the swa variant
     if shape_name == "long_500k" and not base_cfg.supports_long_context \
             and variant not in ("swa",):

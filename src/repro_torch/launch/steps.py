@@ -22,10 +22,11 @@ placements, in the reference's argument order, as ``in_shardings`` and
 axis is only applied to a dim it divides evenly (e.g. whisper's vocab
 51865 stays replicated; qwen2's 14 heads skip the head constraint on a
 model axis of 4 while its packed 896-wide projections still shard).  A
-mesh runs the dense decoders, the encoder-decoder (whisper: the encoder,
-cross-attention and its ``"cross"`` cache) and the prefix-LM (paligemma:
-the patch embeddings, batch leaves like the tokens); the Mamba2 mixer and
-the MoE FFN raise ``NotImplementedError`` (ROADMAP item 15.7b).
+mesh runs every family of the zoo: the dense decoders, the
+encoder-decoder (whisper: the encoder, cross-attention and its ``"cross"``
+cache), the prefix-LM (paligemma: the patch embeddings, batch leaves like
+the tokens), the MoE FFN and the Mamba2 mixer (a hybrid's caches mix KV
+and SSM entries in one list, each placed by ``cache_spec_for``).
 """
 from __future__ import annotations
 
@@ -37,13 +38,12 @@ import numpy as np
 import torch
 
 from ..configs import InputShape, decode_cache_width, input_specs
-from ..core.gp.trainer import (GPHyperParams, make_generalize_step,
-                               make_personalize_partition_step)
+from ..core.gp.trainer import GPHyperParams, make_personalize_partition_step
 from ..models.config import ModelConfig
 from ..models.sharding import (NO_SHARDING, P, ShardingPolicy,
                                cache_spec_for, placements)
 from ..models.sharding import sanitize_spec as _sanitize
-from ..train.optim import AdamW, OptState, apply_updates, sum_of_squares
+from ..train.optim import AdamW, OptState, sum_of_squares
 from .mesh import data_axes_of, model_axis_of
 
 __all__ = ["BuiltStep", "build_step", "sanitize_spec"]
@@ -155,7 +155,9 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
     """The step of ``shape``'s kind for models of ``cfg``:
 
     - train, ``phase="generalize"``: ``step(model, opt_state, batch) ->
-      (model, opt_state, loss)``, one AdamW step on the global batch;
+      (model, opt_state, loss)``, one AdamW step on the global batch, its
+      moments and the weights stepped in place (``AdamW.update_``, bitwise
+      the functional step: the state passed in is consumed);
     - train, ``phase="personalize"``: ``step(models, opt_states, batch_p,
       global_model, active) -> (models, opt_states, losses (P,))``, the
       port's :func:`make_personalize_partition_step` on each of the P
@@ -191,8 +193,8 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
 
     if shape.kind == "train" and phase == "generalize":
         return BuiltStep(f"train:{cfg.name}:{shape.name}",
-                         make_generalize_step(_train_loss, optimizer),
-                         input_specs(cfg, shape), cfg)
+                         _train_step(optimizer), input_specs(cfg, shape),
+                         cfg)
 
     if shape.kind == "train" and phase == "personalize":
         npart = num_partitions or 1
@@ -227,6 +229,27 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
         return model.decode_step(token, caches, cache_len, rolling=rolling)
 
     return BuiltStep(f"serve:{cfg.name}:{shape.name}", serve_step, specs, cfg)
+
+
+def _train_step(optimizer, mesh=None):
+    """The generalize step: the loss of the batch, its gradients (on a mesh
+    summed into their parameters' placements), then AdamW in place, leaf by
+    leaf (``AdamW.update_``), so the step holds one leaf's temporaries
+    beside the moments where the functional update holds a second set of
+    moments and the updates."""
+
+    def train_step(model, opt_state, batch):
+        weights = list(model.parameters())
+        loss = model.train_loss({k: _global(v) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss.mean(), weights)
+        if mesh is not None:
+            grads = _sync(grads, weights)
+        opt_state = optimizer.update_(list(grads), opt_state, weights)
+        loss = loss.detach()
+        return model, opt_state, (loss if mesh is None
+                                  else _replicated(loss, mesh))
+
+    return train_step
 
 
 def _partition_specs(cfg, shape, npart) -> dict:
@@ -272,9 +295,8 @@ def _build_sharded(cfg, shape, mesh, optimizer, phase, num_partitions,
                    options) -> BuiltStep:
     from torch.distributed.tensor import Replicate
 
-    from ..models.transformer import Transformer, check_shardable
+    from ..models.transformer import Transformer
 
-    check_shardable(cfg)
     dax = data_axes_of(mesh)
     policy = _make_policy(mesh, **options)
     rep = [Replicate()] * mesh.ndim
@@ -291,16 +313,8 @@ def _build_sharded(cfg, shape, mesh, optimizer, phase, num_partitions,
         b_shard = _tree_shardings(_batch_specs(batch_struct, dax),
                                   batch_struct, mesh)
 
-        def train_step(model, opt_state, batch):
-            weights = list(model.parameters())
-            loss = model.train_loss({k: _global(v) for k, v in batch.items()})
-            grads = _sync(torch.autograd.grad(loss.mean(), weights), weights)
-            updates, opt_state = optimizer.update(grads, opt_state, weights)
-            _assign(weights, apply_updates([w.detach() for w in weights],
-                                           updates))
-            return model, opt_state, _replicated(loss.detach(), mesh)
-
-        return BuiltStep(f"train:{cfg.name}:{shape.name}", train_step,
+        return BuiltStep(f"train:{cfg.name}:{shape.name}",
+                         _train_step(optimizer, mesh),
                          batch_struct, in_shardings=(p_shard, o_shard,
                                                      b_shard),
                          out_shardings=(p_shard, o_shard, rep), **built)

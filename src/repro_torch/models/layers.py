@@ -16,9 +16,13 @@ the residual add in front of it is fused in (:func:`add_norm_apply`).
 kernels can be held against them on the card.  The mixture-of-experts FFN
 (:func:`moe_apply`) and the Mamba2 / SSD mixer (:func:`mamba2_apply`,
 :func:`mamba2_decode`) are plain PyTorch, as the reference computes them in
-plain ``jnp``; their large products are ``torch.bmm``.  The dense layers
-are differentiable for training (:func:`attention_apply` is the training
-form); MoE and Mamba2 serve only.  Initialisation draws from an explicit
+plain ``jnp``; their large products are ``torch.bmm``.  Every layer is
+differentiable for training (:func:`attention_apply` is attention's
+training form).  MoE and Mamba2 come in pieces a mesh rank can run on its
+rows, experts and heads (:func:`moe_route` with a slot offset,
+:func:`moe_dispatch`, :func:`mamba2_mix` on some heads,
+:func:`_gated_norm` with the mean square from outside), which the
+single-card path composes as one call.  Initialisation draws from an explicit
 ``torch.Generator`` with the reference's distributions; it cannot give
 ``jax.random``'s bits, so parity with the reference goes through weights
 carried across (``models/convert.py``).
@@ -42,7 +46,10 @@ __all__ = ["norm_init", "norm_apply", "add_norm_apply", "apply_rope",
            "attention_decode", "cross_decode_heads", "decode_slot",
            "rolling_slot_positions",
            "mlp_init", "mlp_apply", "moe_init", "moe_capacity", "moe_route",
-           "moe_apply", "mamba2_init", "mamba2_apply", "mamba2_decode"]
+           "moe_expert_counts", "moe_dispatch", "moe_experts", "moe_combine",
+           "moe_aux", "moe_apply", "mamba2_init", "mamba2_mix", "mamba2_ssd",
+           "mamba2_apply", "mamba2_decode_mix", "mamba2_step",
+           "mamba2_decode"]
 
 Params = dict[str, torch.Tensor]
 
@@ -76,7 +83,7 @@ def norm_init(cfg: ModelConfig, device=None) -> Params:
 def norm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                eps: float = 1e-6, *, kernels: bool = True) -> torch.Tensor:
     if cfg.norm == "layernorm":
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
         out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
@@ -407,25 +414,90 @@ def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
                                 / cfg.num_experts)))
 
 
-def moe_route(p: Params, xf: torch.Tensor, cfg: ModelConfig):
+def moe_route(p: Params, xf: torch.Tensor, cfg: ModelConfig,
+              offset: torch.Tensor | None = None, tokens: int | None = None):
     """The router of ``xf`` (T, d): f32 logits against the f32 router,
     softmax, top-k with ties to the lower expert (a stable descending sort,
     as ``lax.top_k`` breaks them; ``torch.topk`` leaves their order
     unspecified), the top weights renormalised by their sum floored at 1e-9.
     Each (token, choice) takes the next slot of its expert in token-major
     order (the reference's cumsum over the one-hot) and is kept when the
-    slot is below :func:`moe_capacity`.  Returns ``(probs (T, E), top_w (T,
-    K), top_i (T, K), slot (T·K,), keep (T·K,))``, ``slot`` 0 where dropped."""
+    slot is below :func:`moe_capacity` of ``tokens`` (default T).  The rows
+    may be one data rank's block of a global batch of ``tokens`` tokens:
+    ``offset`` (E,) then holds the slots of each expert that the earlier
+    ranks' tokens take, and a choice's global slot is its slot among the
+    block's plus its expert's offset.  Returns ``(probs (T, E), top_w (T,
+    K), top_i (T, K), slot (T·K,), keep (T·K,))``, ``slot`` the slot among
+    the block's (the global one without ``offset``), 0 where dropped."""
     e, k = cfg.num_experts, cfg.top_k
-    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+    acc = torch.promote_types(xf.dtype, torch.float32)
+    probs = torch.softmax(xf.to(acc) @ p["router"].to(acc), dim=-1)
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = top_w[:, :k], top_i[:, :k]
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
     flat_e = top_i.reshape(-1)
     onehot = F.one_hot(flat_e, e)
     slot = (onehot.cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
-    keep = slot < moe_capacity(xf.shape[0], cfg)
+    glob = slot if offset is None else slot + offset[flat_e]
+    keep = glob < moe_capacity(tokens or xf.shape[0], cfg)
     return probs, top_w, top_i, torch.where(keep, slot, 0), keep
+
+
+def moe_expert_counts(p: Params, xf: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """How many (token, choice) pairs of the rows ``xf`` each expert is
+    routed, (E,) int64: the slots the rows take (no gradient)."""
+    top_i = moe_route(p, xf, cfg)[2]
+    return F.one_hot(top_i.reshape(-1), cfg.num_experts).sum(0)
+
+
+def moe_dispatch(xf: torch.Tensor, top_i: torch.Tensor, slot: torch.Tensor,
+                 keep: torch.Tensor, lo: int, n: int, cap: int):
+    """The ``(n, cap, d)`` buffer of experts ``lo .. lo + n - 1``: row
+    ``slot`` of expert e holds the token of each kept (token, choice)
+    routed to it.  Every other choice (dropped, or another expert's) is
+    written to one row past the buffer's end and never read, so no shape
+    depends on the routing (it runs on ``meta``) and a choice written
+    there gets a zero gradient.  Returns ``(buf, mine (T·K,) bool)``."""
+    t, k = top_i.shape
+    flat_e = top_i.reshape(-1)
+    mine = keep & (flat_e >= lo) & (flat_e < lo + n)
+    idx = torch.where(mine, (flat_e - lo) * cap + slot, n * cap)
+    tok = torch.arange(t, device=xf.device).repeat_interleave(k)
+    buf = xf.new_zeros((n * cap + 1, xf.shape[1]))
+    buf[idx] = xf[tok]
+    return buf[:-1].view(n, cap, xf.shape[1]), mine
+
+
+def moe_experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """The experts ``p`` holds over their ``(E, C, d)`` buffer: three
+    ``torch.bmm``, SiLU(gate) · up, then down."""
+    h = F.silu(torch.bmm(buf, p["expert_gate"])) * torch.bmm(
+        buf, p["expert_up"])
+    return torch.bmm(h, p["expert_down"])
+
+
+def moe_combine(out_buf: torch.Tensor, top_i: torch.Tensor,
+                slot: torch.Tensor, mask: torch.Tensor, top_w: torch.Tensor,
+                lo: int = 0) -> torch.Tensor:
+    """Each token's output (T, d): its choices' rows of ``out_buf`` (the
+    buffer of experts ``lo ..``) weighted by ``top_w`` and summed over K, a
+    choice outside ``mask`` adding 0."""
+    t, k = top_i.shape
+    d = out_buf.shape[-1]
+    e_idx = (top_i.reshape(-1) - lo).clamp(0, out_buf.shape[0] - 1)
+    y_tok = out_buf[e_idx, slot] * mask[:, None].to(out_buf.dtype)
+    return (y_tok.reshape(t, k, d)
+            * top_w[..., None].to(out_buf.dtype)).sum(1)
+
+
+def moe_aux(frac_tokens: torch.Tensor, frac_probs: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """The Switch load-balance term: E · Σ_e (share of the tokens whose
+    first choice is e) · (mean router probability of e) ·
+    ``router_aux_weight``."""
+    return (cfg.num_experts * (frac_tokens * frac_probs).sum()
+            * cfg.router_aux_weight)
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -433,35 +505,29 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
     ``x`` (B, S, d); returns ``(y, aux)``.
 
     The kept (token, choice) rows are written into a zero ``(E, C, d)``
-    buffer at their (expert, slot), each pair unique, so a plain
-    ``index_put_`` gives the reference's scatter-add (``mode="drop"``)
-    without atomics, the same bits on every run.  The experts are three
-    ``torch.bmm`` over ``(E, C, ·)``, SiLU(gate) · up; the kept rows are
-    gathered back, weighted by ``top_w`` and summed over K (a dropped choice
-    adds 0).  ``aux`` is the Switch load-balance term, E · Σ_e (share of
-    tokens whose first choice is e) · (mean router probability of e) ·
-    ``router_aux_weight``: training adds it to the loss, serving drops it.
-    Under autograd the gradient reaches the router through the top-k
-    weights and ``aux``'s mean probabilities, and the kept rows through
-    the ``index_put_`` and the gather back (a dropped choice gets none),
-    as the reference's scatter-add and gather differentiate."""
+    buffer at their (expert, slot) (:func:`moe_dispatch` over every expert),
+    each pair unique, so a plain ``index_put_`` gives the reference's
+    scatter-add (``mode="drop"``) without atomics, the same bits on every
+    run.  The experts are three
+    ``torch.bmm`` over ``(E, C, ·)``, SiLU(gate) · up (:func:`moe_experts`);
+    the kept rows are gathered back, weighted by ``top_w`` and summed over K
+    (:func:`moe_combine`; a dropped choice adds 0).  ``aux`` is the Switch
+    load-balance term (:func:`moe_aux`): training adds it to the loss,
+    serving drops it.  Under autograd the gradient reaches the router
+    through the top-k weights and ``aux``'s mean probabilities, and the kept
+    rows through the ``index_put_`` and the gather back (a dropped choice
+    gets none), as the reference's scatter-add and gather differentiate.
+    A mesh runs the same pieces on a data rank's rows and a model rank's
+    experts (``models/sharded.py::ShardedOps.moe``)."""
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.top_k
+    e = cfg.num_experts
     t = b * s
     xf = x.reshape(t, d)
     probs, top_w, top_i, slot, keep = moe_route(p, xf, cfg)
-    flat_e = top_i.reshape(-1)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e, moe_capacity(t, cfg), d), dtype=x.dtype,
-                      device=x.device)
-    buf[flat_e[keep], slot[keep]] = xf[tok[keep]]
-    h = F.silu(torch.bmm(buf, p["expert_gate"])) * torch.bmm(
-        buf, p["expert_up"])
-    out_buf = torch.bmm(h, p["expert_down"])
-    y_tok = out_buf[flat_e, slot] * keep[:, None].to(x.dtype)
-    y = (y_tok.reshape(t, k, d) * top_w[..., None].to(x.dtype)).sum(1)
-    frac_tokens = F.one_hot(top_i[:, 0], e).float().mean(0)
-    aux = e * (frac_tokens * probs.mean(0)).sum() * cfg.router_aux_weight
+    buf, _ = moe_dispatch(xf, top_i, slot, keep, 0, e, moe_capacity(t, cfg))
+    y = moe_combine(moe_experts(p, buf), top_i, slot, keep, top_w)
+    aux = moe_aux(F.one_hot(top_i[:, 0], e).float().mean(0), probs.mean(0),
+                  cfg)
     return y.reshape(b, s, d), aux
 
 
@@ -523,8 +589,8 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, chunk, init_state=None):
                          f"chunk {chunk}")
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=xh.device))[None, :, :, None]
-    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=xh.device)
-             if init_state is None else init_state.float())
+    state = (torch.zeros((b, h, n, p), dtype=xh.dtype, device=xh.device)
+             if init_state is None else init_state.to(xh.dtype))
     ys = []
     for lo in range(0, s, chunk):
         xk, dtk = xh[:, lo:lo + chunk], dt[:, lo:lo + chunk]
@@ -549,18 +615,71 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, chunk, init_state=None):
     return torch.cat(ys, dim=1), state
 
 
-def _mamba2_split(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    di, n = cfg.ssm_d_inner, cfg.ssm_state
+def _mamba2_split(p: Params, x: torch.Tensor, cfg: ModelConfig, di: int):
+    """``x @ in_proj`` split into z (di), the conv input [x, B, C] (di + 2N)
+    and dt: the layout of the whole ``in_proj`` with ``di`` channels."""
+    n = cfg.ssm_state
     zxbcdt = x @ p["in_proj"]
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
             zxbcdt[..., 2 * di + 2 * n:])
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, p: Params) -> torch.Tensor:
-    """``y · silu(z)``, then its RMSNorm by ``ssm_norm``, all f32."""
-    y = y * F.silu(z.float())
-    return y * torch.rsqrt((y * y).mean(-1, keepdim=True) + 1e-6) \
-        * p["ssm_norm"]
+def _gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``y · silu(z)`` in y's dtype (f32; f64 for a float64 model)."""
+    return y * F.silu(z.to(y.dtype))
+
+
+def _gated_norm(g: torch.Tensor, p: Params,
+                ms: torch.Tensor | None = None) -> torch.Tensor:
+    """The gated output ``g`` (:func:`_gate`) normalised by its root mean
+    square over the last dim and scaled by ``ssm_norm``, all f32.  ``ms``,
+    the rows' mean square (..., 1), comes from outside where ``g`` holds
+    only some of d_inner's channels (a model rank's heads)."""
+    if ms is None:
+        ms = (g * g).mean(-1, keepdim=True)
+    return g * torch.rsqrt(ms + 1e-6) * p["ssm_norm"]
+
+
+def mamba2_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               heads: int | None = None, state: Params | None = None):
+    """The SSD mixer of x (B, S, d) up to the gated norm on ``heads`` of the
+    SSM heads (default all), S a multiple of ``cfg.ssm_chunk``.  ``p`` holds
+    those heads' pieces laid out as the whole layer's with d_inner = heads ·
+    P: ``in_proj``'s columns [z | x, B, C | dt] (B and C every head's),
+    the conv channels [x, B, C], ``a_log``, ``dt_bias`` and ``d_skip``.
+    Returns ``(g, cache)``: ``g = y · silu(z)`` (B, S, heads · P) f32 and the
+    cache ``{"conv": the last K-1 conv inputs (B, K-1, heads · P + 2N) in
+    x's dtype, "ssm": the final state (B, heads, N, P) f32}`` to continue
+    from; ``state`` (such a cache) continues an earlier call."""
+    h = heads or cfg.ssm_heads
+    z, xbc, dt_raw = _mamba2_split(p, x, cfg, h * cfg.ssm_headdim)
+    xbc, conv_tail = _causal_depthwise_conv(
+        xbc, p["conv_w"], p["conv_b"], None if state is None
+        else state.get("conv"))
+    g, final = mamba2_ssd(p, z, F.silu(xbc), dt_raw, cfg, h,
+                          None if state is None else state.get("ssm"))
+    return g, {"conv": conv_tail, "ssm": final}
+
+
+def mamba2_ssd(p: Params, z: torch.Tensor, xbc: torch.Tensor,
+               dt_raw: torch.Tensor, cfg: ModelConfig, heads: int,
+               ssm: torch.Tensor | None = None):
+    """:func:`mamba2_mix` from the conv's SiLU'd output on: ``z`` (B, S,
+    heads · P), ``xbc`` (B, S, heads · P + 2N: the heads' x, then B and C)
+    and ``dt_raw`` (B, S, heads) through the chunked scan (from the state
+    ``ssm``, default zeros), the skip and the gate.  ``p`` holds the heads'
+    ``a_log``, ``dt_bias``, ``d_skip``.  Returns ``(g, final state)``."""
+    b, s, _ = z.shape
+    n, pd = cfg.ssm_state, cfg.ssm_headdim
+    di = heads * pd
+    acc = torch.promote_types(xbc.dtype, torch.float32)
+    xi = xbc[..., :di].reshape(b, s, heads, pd).to(acc)
+    dt = F.softplus(dt_raw.to(acc) + p["dt_bias"])
+    y, final = _ssd_chunked(xi, dt, -torch.exp(p["a_log"]),
+                            xbc[..., di:di + n].to(acc),
+                            xbc[..., di + n:].to(acc), cfg.ssm_chunk, ssm)
+    y = (y + xi * p["d_skip"][None, None, :, None]).reshape(b, s, di)
+    return _gate(y, z), final
 
 
 def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -570,23 +689,45 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     last K-1 conv inputs (B, K-1, d_inner + 2N) in x's dtype, "ssm": the
     final state (B, H, N, P) f32}`` to continue from; ``state`` (such a
     cache) continues an earlier call."""
-    b, s, _ = x.shape
-    di, n, h, pd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_headdim
-    z, xbc, dt_raw = _mamba2_split(p, x, cfg)
-    xbc, conv_tail = _causal_depthwise_conv(
-        xbc, p["conv_w"], p["conv_b"], None if state is None
-        else state.get("conv"))
-    xbc = F.silu(xbc)
-    xi = xbc[..., :di].reshape(b, s, h, pd).float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    y, final = _ssd_chunked(xi, dt, -torch.exp(p["a_log"]),
-                            xbc[..., di:di + n].float(),
-                            xbc[..., di + n:].float(), cfg.ssm_chunk,
-                            None if state is None else state.get("ssm"))
-    y = (y + xi * p["d_skip"][None, None, :, None]).reshape(b, s, di)
-    out = _gated_norm(y, z, p).to(x.dtype) @ p["out_proj"]
-    return out, {"conv": conv_tail, "ssm": final}
+    g, cache = mamba2_mix(p, x, cfg, state=state)
+    return _gated_norm(g, p).to(x.dtype) @ p["out_proj"], cache
+
+
+def mamba2_decode_mix(p: Params, x: torch.Tensor, cache: Params,
+                      cfg: ModelConfig, heads: int | None = None):
+    """One token x (B, 1, d) through the O(1) SSD recurrence from ``cache``
+    on ``heads`` of the SSM heads (default all; ``p`` and the cache hold
+    those heads' pieces, as :func:`mamba2_mix` takes them).  Returns ``(g,
+    conv, ssm)``: the gated output (B, 1, heads · P) f32, the new conv tail
+    and the new state."""
+    h = heads or cfg.ssm_heads
+    z, xbc, dt_raw = _mamba2_split(p, x, cfg, h * cfg.ssm_headdim)
+    xbc, conv_tail = _causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"],
+                                            cache["conv"])
+    g, ssm = mamba2_step(p, z, F.silu(xbc), dt_raw, cache["ssm"], cfg, h)
+    return g, conv_tail, ssm
+
+
+def mamba2_step(p: Params, z: torch.Tensor, xbc: torch.Tensor,
+                dt_raw: torch.Tensor, ssm: torch.Tensor, cfg: ModelConfig,
+                heads: int):
+    """:func:`mamba2_decode_mix` from the conv's SiLU'd output on (one
+    token, the pieces laid out as :func:`mamba2_ssd` takes them): the
+    recurrence from the state ``ssm`` (B, heads, N, P), the skip and the
+    gate.  Returns ``(g, new state)``."""
+    b = z.shape[0]
+    n, pd = cfg.ssm_state, cfg.ssm_headdim
+    di = heads * pd
+    acc = torch.promote_types(xbc.dtype, torch.float32)
+    xi = xbc[:, 0, :di].reshape(b, heads, pd).to(acc)
+    bmat, cmat = xbc[:, 0, di:di + n].to(acc), xbc[:, 0, di + n:].to(acc)
+    dt = F.softplus(dt_raw[:, 0].to(acc) + p["dt_bias"])      # (B, H)
+    da = torch.exp(dt * -torch.exp(p["a_log"]))
+    upd = (dt[:, :, None, None] * bmat[:, None, :, None]) * xi[:, :, None, :]
+    ssm = da[:, :, None, None] * ssm + upd                    # (B, H, N, P)
+    y = torch.einsum("bn,bhnp->bhp", cmat, ssm)
+    y = (y + xi * p["d_skip"][None, :, None]).reshape(b, 1, di)
+    return _gate(y, z), ssm
 
 
 def mamba2_decode(p: Params, x: torch.Tensor, cache: Params,
@@ -594,20 +735,5 @@ def mamba2_decode(p: Params, x: torch.Tensor, cache: Params,
     """One token x (B, 1, d) through the O(1) SSD recurrence from ``cache``
     (:func:`mamba2_apply`'s); writes the new conv tail and state into the
     ``cache`` dict and returns ``(y, cache)``."""
-    b = x.shape[0]
-    di, n, h, pd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_headdim
-    z, xbc, dt_raw = _mamba2_split(p, x, cfg)
-    xbc, conv_tail = _causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"],
-                                            cache["conv"])
-    xbc = F.silu(xbc)
-    xi = xbc[:, 0, :di].reshape(b, h, pd).float()
-    bmat, cmat = xbc[:, 0, di:di + n].float(), xbc[:, 0, di + n:].float()
-    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])      # (B, H)
-    da = torch.exp(dt * -torch.exp(p["a_log"]))
-    upd = (dt[:, :, None, None] * bmat[:, None, :, None]) * xi[:, :, None, :]
-    ssm = da[:, :, None, None] * cache["ssm"] + upd           # (B, H, N, P)
-    y = torch.einsum("bn,bhnp->bhp", cmat, ssm)
-    y = (y + xi * p["d_skip"][None, :, None]).reshape(b, 1, di)
-    cache["conv"], cache["ssm"] = conv_tail, ssm
-    return _gated_norm(y, z, p).to(x.dtype) @ p["out_proj"], cache
+    g, cache["conv"], cache["ssm"] = mamba2_decode_mix(p, x, cache, cfg)
+    return _gated_norm(g, p).to(x.dtype) @ p["out_proj"], cache

@@ -1,8 +1,8 @@
-"""The attention + MLP families on a mesh of ranks (the dense decoders,
-the encoder-decoder and the prefix-LM): tensor (Megatron) and sequence
-parallelism over ``"model"``, data parallelism over the data axes, as
-DTensors (the port's counterpart of the reference's GSPMD sharding, whose
-policy is ``models/sharding.py``).
+"""The model zoo on a mesh of ranks (the dense decoders, the
+encoder-decoder, the prefix-LM, the MoE and the Mamba2 families): tensor
+(Megatron), expert and sequence parallelism over ``"model"``, data
+parallelism over the data axes, as DTensors (the port's counterpart of the
+reference's GSPMD sharding, whose policy is ``models/sharding.py``).
 
 Parameters are DTensors placed by their sanitized ``param_specs``; the
 batch is sharded over the data axes; between sub-layers the residual
@@ -40,7 +40,20 @@ their backwards) runs on a rank's shard, and the communication is the
   Partial sum;
 - the loss gathers the tied head once (one all-gather) and sums the nll
   and counts the unmasked labels of the rank's rows; both sums are
-  all-reduced and divided, never a mean of the ranks' means.
+  all-reduced and divided, never a mean of the ranks' means;
+- the mixture of experts routes the gathered rows on every model rank
+  (the router replicated), places each choice at the global batch's slot
+  (each expert's count of the earlier data ranks' choices gathered over
+  the data axes, an exclusive scan) and runs the rank's experts on its
+  own tokens' slots, a Partial output; the Switch auxiliary is built from
+  sums all-reduced over the data axes (:meth:`ShardedOps.moe`);
+- Mamba2 runs its SSM heads over ``"model"`` on the gathered rows: in
+  training the packed ``in_proj`` and the conv's weights (whose even cuts
+  do not fall on the heads) are gathered over ``"model"`` a call; serving
+  gathers the rows' projections onto them instead, where those are the
+  fewer bytes (a decode step always); the gated norm's mean square over
+  every head is all-reduced between two local maps
+  (:meth:`ShardedOps.mamba2`, :meth:`ShardedOps.mamba2_decode`).
 
 Inside a ``local_map`` a rank's result is its part of a sum over the
 ranks, so every input the block holds replicated over a dim that splits
@@ -49,7 +62,8 @@ Decode caches are placed by ``cache_spec_for``: heads over ``"model"``,
 or, where the KV heads do not divide it, the sequence (the context-
 parallel cache, gathered over ``"model"`` before each decode step's
 kernel); the ``"cross"`` cache by the same rule over the encoder's
-sequence.
+sequence; Mamba2's ``ssm`` state by heads and its ``conv`` tail by an even
+cut of its channels (each rank steps its block of the conv in place).
 """
 from __future__ import annotations
 
@@ -63,7 +77,7 @@ from . import layers as L
 from .sharding import P, cache_spec_for, placements
 
 __all__ = ["ShardedOps", "param_placements", "shard_tensor",
-           "local_shard"]
+           "local_shard", "ssm_serves_activations"]
 
 
 def _dt():
@@ -673,6 +687,368 @@ class ShardedOps:
 
         return self._block(fn, hf, keys, ws, extra=[ck, cv])
 
+    # ------------------------------------------------- mixture of experts
+    def _data_rank(self) -> tuple[int, int, list]:
+        """This rank's data coordinate (the outer data axis first, so the
+        order of the batch's blocks), the number of data coordinates, and
+        the mesh dims that split the batch (more than one rank)."""
+        names = list(self.mesh.mesh_dim_names)
+        coord = self.mesh.get_coordinate()
+        dims = [names.index(a) for a in self.policy.data_axes
+                if a in names and self.mesh.size(names.index(a)) > 1]
+        c, n = 0, 1
+        for i in dims:
+            c, n = c * self.mesh.size(i) + coord[i], n * self.mesh.size(i)
+        return c, n, dims
+
+    def _expert_offsets(self, hf, router, c, dims):
+        """The slots of each expert that the earlier data ranks' tokens
+        take (E,): every rank routes its rows, the counts (E integers a
+        rank) are gathered over the data axes and summed over the ranks
+        before this one (the batch is block-sharded, so data-coordinate
+        order is token-major order)."""
+        _, _, Replicate, Shard = _dt()
+        cfg = self.cfg
+        pls = [Shard(0) if i in dims else Replicate()
+               for i in range(self.mesh.ndim)]
+
+        def fn(hl, rl):
+            xf = hl.reshape(-1, hl.shape[-1])
+            return L.moe_expert_counts({"router": rl}, xf, cfg)[None]
+
+        with torch.no_grad():
+            counts = self._lmap(fn, [list(hf.placements),
+                                     list(router.placements)], pls)(
+                hf, router)
+            every = counts.redistribute(
+                self.mesh, [Replicate()] * self.mesh.ndim).to_local()
+        return every[:c].sum(0)
+
+    def moe(self, p, h, aux=True):
+        """The mixture of experts on the rows gathered over ``"model"``:
+        every model rank routes them (the router is replicated, f32), and
+        runs its experts (its ``Shard(0)`` block, or where E does not divide
+        ``|model|`` its range ``r E / m ..`` of the replicated ones) on the
+        choices its data rank's tokens hold, a Partial output.  Slots and
+        capacity are the global batch's: each expert's count of the earlier
+        data ranks' choices (:meth:`_expert_offsets`) offsets the rank's
+        slots, and the capacity is that of all B · S tokens; the rank's
+        buffer holds at most its own tokens' slots, ``min(C, T_rank)`` an
+        expert.  The Switch auxiliary is built from global sums: each data
+        rank's first-choice shares and mean probabilities over its rows
+        scaled by its share of the tokens, all-reduced (model rank 0's
+        alone, so its gradient reaches the router once); it comes back a
+        local scalar, as the loss does.  ``aux=False`` (serving) skips it.
+        Returns ``(y, aux)``."""
+        _, Partial, Replicate, _ = _dt()
+        cfg = self.cfg
+        hf = self.gathered(h)
+        keys, ws = self._block_weights(p, set())
+        e, m, r = cfg.num_experts, self.m, self.r
+        lo, hi = r * e // m, (r + 1) * e // m
+        b, s = hf.to_local().shape[:2]
+        c, nd, dims = self._data_rank()
+        t_loc = b * s
+        cap = L.moe_capacity(t_loc * nd, cfg)
+        if nd > 1:
+            cap = min(cap, t_loc)
+        offset = (self._expert_offsets(hf, p["router"], c, dims)
+                  if nd > 1 else None)
+        share, first = 1.0 / nd, r == 0
+
+        def fn(hl, pd):
+            xf = hl.reshape(-1, hl.shape[-1])
+            probs, top_w, top_i, slot, keep = L.moe_route(
+                pd, xf, cfg, offset=offset, tokens=t_loc * nd)
+            ex = {k: pd[k] if pd[k].shape[0] == hi - lo else pd[k][lo:hi]
+                  for k in ("expert_gate", "expert_up", "expert_down")}
+            buf, mine = L.moe_dispatch(xf, top_i, slot, keep, lo, hi - lo,
+                                       cap)
+            y = L.moe_combine(L.moe_experts(ex, buf), top_i, slot, mine,
+                              top_w, lo).reshape(hl.shape)
+            if not aux:
+                return y
+            st = torch.stack([F.one_hot(top_i[:, 0], e).float().mean(0),
+                              probs.mean(0)]) * share
+            return y, (st if first else st * 0)
+
+        if not aux:
+            return self._block(fn, hf, keys, ws), None
+        st_pl = [Partial() if (i in dims or (i == self.model_dim and m > 1))
+                 else Replicate() for i in range(self.mesh.ndim)]
+        y, st = self._block(fn, hf, keys, ws, extra_out=(st_pl,))
+        st = st.redistribute(self.mesh, [Replicate()] * self.mesh.ndim)
+        return y, L.moe_aux(st[0], st[1], cfg).to_local()
+
+    # ------------------------------------------------------------- Mamba2
+    def _ssm_heads(self) -> tuple[bool, int, int]:
+        """Whether the SSM heads split over ``"model"`` (they divide it),
+        and this rank's heads ``lo, hi`` (all where they do not split)."""
+        h = self.cfg.ssm_heads
+        if self.m > 1 and h % self.m == 0:
+            n = h // self.m
+            return True, self.r * n, (self.r + 1) * n
+        return False, 0, h
+
+    def _ssm_local(self, pd, lo, hi) -> dict:
+        """The pieces of heads ``lo .. hi`` (:func:`layers.mamba2_mix`'s
+        ``p``) from the layer's whole ``in_proj``, ``conv_w``, ``conv_b``
+        (gathered) and its per-head parameters (this rank's block, or
+        whole)."""
+        cfg = self.cfg
+        di, n, pdim = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_headdim
+        c0, c1 = lo * pdim, hi * pdim
+        w = pd["in_proj"]
+        cols = [(c0, c1), (di + c0, di + c1), (2 * di, 2 * di + 2 * n),
+                (2 * di + 2 * n + lo, 2 * di + 2 * n + hi)]
+        ch = [(c0, c1), (di, di + 2 * n)]
+        out = {"in_proj": torch.cat([w[:, a:b] for a, b in cols], 1),
+               "conv_w": torch.cat([pd["conv_w"][:, a:b] for a, b in ch], 1),
+               "conv_b": torch.cat([pd["conv_b"][a:b] for a, b in ch])}
+        for k in ("a_log", "dt_bias", "d_skip"):
+            v = pd[k]
+            out[k] = v if v.shape[0] == hi - lo else v[lo:hi]
+        return out
+
+    def _ssm_out(self, g, ms, ns, wo, c0, c1, dtype):
+        """This rank's part of ``out_proj`` applied to the gated norm: the
+        channels ``c0 .. c1`` of ``g`` (which holds them, or all of them;
+        ``ms`` the rows' mean square over every channel), normed by their
+        ``ssm_norm`` and against their rows of ``out_proj`` (the rank's
+        blocks, or slices of whole ones)."""
+        n = c1 - c0
+        if g.shape[-1] != n:
+            g = g[..., c0:c1]
+        ns = ns if ns.shape[0] == n else ns[c0:c1]
+        wo = wo if wo.shape[0] == n else wo[c0:c1]
+        return L._gated_norm(g, {"ssm_norm": ns}, ms).to(dtype) @ wo
+
+    def _conv_block(self, cpl) -> tuple[int, int]:
+        """The conv channels of this rank's block of a conv cache placed
+        ``cpl``."""
+        cd = self.cfg.ssm_d_inner + 2 * self.cfg.ssm_state
+        if self._model_split(cpl, 2):
+            w = cd // self.m
+            return self.r * w, (self.r + 1) * w
+        return 0, cd
+
+    def _ssm_cache_placements(self, b):
+        cfg, pol = self.cfg, self.policy
+        cd = cfg.ssm_d_inner + 2 * cfg.ssm_state
+        conv = placements(cache_spec_for(
+            "conv", (b, cfg.ssm_conv - 1, cd), pol.data_axes,
+            pol.axis_sizes), self.mesh)
+        ssm = placements(cache_spec_for(
+            "ssm", (b, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim),
+            pol.data_axes, pol.axis_sizes), self.mesh)
+        return conv, ssm
+
+    def _ssm_blocks(self, p, hf, f1, first, gather=(), outs_extra=(),
+                    extra=()):
+        """Run a Mamba2 block on the gathered rows ``hf``: ``f1(hl, pd, r0,
+        r1, *extra)`` gives the gated output of this rank's heads and its
+        cache pieces (placed ``outs_extra``), where ``r0, r1`` is its head
+        range and ``pd`` the parameters ``first`` (those in ``gather``
+        gathered over ``"model"``); ``extra`` (caches, serving's
+        activations) take no gradient.  Heads over ``"model"``: ``f1``'s
+        ``g`` (its channels) and the rows' mean square (Partial) leave the
+        first local map, the mean square is all-reduced, and a second
+        applies the norm and ``out_proj``'s row block; heads not split: one
+        local map."""
+        _, _, Replicate, Shard = _dt()
+        cfg = self.cfg
+        split_h, lo, hi = self._ssm_heads()
+        keys, ws = self._block_weights({k: p[k] for k in first},
+                                       set(gather) if self.m > 1 else set())
+        out_keys = ("ssm_norm", "out_proj")
+        rows = list(hf.placements)
+        split = self._split(rows)
+        if self.model_dim is not None:
+            split[self.model_dim] = self.m > 1
+        nk, di = len(keys), cfg.ssm_d_inner
+        dtype = hf.dtype
+        ins_extra = [list(e.placements) for e in extra]
+        ins = [rows] + [list(w.placements) for w in ws]
+        grads = [self._grad(rows, split)] + [self._grad(w.placements, split)
+                                             for w in ws]
+        if not split_h:
+            ow = [p[k] for k in out_keys]
+            keys_all = list(keys) + list(out_keys)
+            c0, c1 = self.r * di // self.m, (self.r + 1) * di // self.m
+
+            def fn(hl, *args):
+                pd = dict(zip(keys_all, args[:nk + 2]))
+                g, *rest = f1(hl, pd, lo, hi, *args[nk + 2:])
+                y = self._ssm_out(g, (g * g).mean(-1, keepdim=True),
+                                  pd["ssm_norm"], pd["out_proj"], c0, c1,
+                                  dtype)
+                return (y, *rest) if rest else y
+
+            outs = self._model_partial(rows)
+            res = self._lmap(
+                fn, ins + [list(w.placements) for w in ow] + ins_extra,
+                (outs, *outs_extra) if outs_extra else outs,
+                grads + [self._grad(w.placements, split) for w in ow]
+                + ins_extra)(hf, *ws, *ow, *extra)
+            return (res[0], tuple(res[1:])) if outs_extra else (res, ())
+        g_pl = list(rows)
+        g_pl[self.model_dim] = Shard(2)
+        ms_pl = self._model_partial(rows)
+        share = (hi - lo) / cfg.ssm_heads
+
+        def f_heads(hl, *args):
+            pd = dict(zip(keys, args[:nk]))
+            g, *rest = f1(hl, pd, lo, hi, *args[nk:])
+            return (g, (g * g).mean(-1, keepdim=True) * share, *rest)
+
+        g, ms, *rest = self._lmap(f_heads, ins + ins_extra,
+                                  (g_pl, ms_pl, *outs_extra),
+                                  grads + ins_extra)(hf, *ws, *extra)
+        ms = ms.redistribute(self.mesh, [
+            Replicate() if i == self.model_dim else pl
+            for i, pl in enumerate(ms.placements)])
+        ow = [p[k] for k in out_keys]
+        c0, c1 = lo * cfg.ssm_headdim, hi * cfg.ssm_headdim
+
+        def f_out(gl, msl, ns, wo):
+            return self._ssm_out(gl, msl, ns, wo, c0, c1, dtype)
+
+        ms_in = list(ms.placements)
+        y = self._lmap(f_out, [g_pl, ms_in] + [list(w.placements)
+                                               for w in ow],
+                       self._model_partial(rows),
+                       [g_pl, self._grad(ms_in, split)]
+                       + [self._grad(w.placements, split) for w in ow])(
+            g, ms, *ow)
+        return y, tuple(rest)
+
+    def mamba2(self, p, h, cache=True):
+        """The Mamba2 mixer on the rows gathered over ``"model"``, heads
+        over ``"model"`` where they divide it (else every model rank runs
+        every head).  Training (and a prefill where
+        :func:`ssm_serves_activations` says the weights are the fewer
+        bytes) gathers ``in_proj``, ``conv_w`` and ``conv_b`` over
+        ``"model"`` a call (their even cuts do not fall on the heads'
+        columns of z, x and dt, and every head reads all of B and C), their
+        gradients reduce-scattered back; a rank projects only its heads'
+        columns and B, C.  Other prefills gather the projected activations
+        instead (:meth:`_ssm_serve`).  The gated norm's mean square over
+        every head is all-reduced between two local maps (see
+        :meth:`_ssm_blocks`).  ``cache`` (prefill) adds the decode cache
+        placed by ``cache_spec_for``: the ``ssm`` state by heads, the
+        ``conv`` tail by an even cut of its channels (a rank projects the
+        last K-1 rows onto its block's channels).  Returns ``(y, cache or
+        None)``."""
+        cfg = self.cfg
+        hf = self.gathered(h)
+        b, s = hf.to_local().shape[:2]
+        if cache and self.m > 1 and ssm_serves_activations(cfg, b * s):
+            return self._ssm_serve(p, hf)
+        b = hf.shape[0]
+        kc = cfg.ssm_conv - 1
+        di = cfg.ssm_d_inner
+        cpl = self._ssm_cache_placements(b) if cache else ()
+        clo, chi = self._conv_block(cpl[0]) if cache else (0, 0)
+        split_h = self._ssm_heads()[0]
+
+        def f1(hl, pd, lo, hi):
+            pl = self._ssm_local(pd, lo, hi) if split_h else pd
+            g, c = L.mamba2_mix(pl, hl, cfg, heads=hi - lo)
+            if not cache:
+                return (g,)
+            if not split_h:
+                conv = c["conv"]
+                if (clo, chi) != (0, conv.shape[-1]):
+                    conv = conv[..., clo:chi].contiguous()
+            else:
+                conv = hl[:, -kc:] @ pd["in_proj"][:, di + clo:di + chi]
+            return g, conv, c["ssm"]
+
+        y, caches = self._ssm_blocks(
+            p, hf, f1, ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias",
+                        "d_skip"), {"in_proj", "conv_w", "conv_b"}, cpl)
+        if not cache:
+            return y, None
+        return y, {"conv": caches[0], "ssm": caches[1]}
+
+    def mamba2_decode(self, p, h, cache):
+        """One decode step of the Mamba2 mixer (heads as :meth:`mamba2`),
+        by the projected activations (:meth:`_ssm_serve`); the cache's
+        entries are replaced by the new ones, placed as before.  Returns
+        ``(y, cache)``."""
+        y, new = self._ssm_serve(p, self.gathered(h), cache)
+        cache.update(new)
+        return y, cache
+
+    def _ssm_serve(self, p, hf, cache=None):
+        """A serving Mamba2 call on the gathered rows ``hf`` by their
+        projected activations: a prefill (``cache`` None) or one decode
+        step from ``cache``.  Each rank projects the rows onto its block of
+        ``in_proj``'s columns and the blocks [z | x, B, C | dt] are
+        gathered over ``"model"``; the conv runs on the rank's block of
+        the channels (its ``conv_w``, ``conv_b`` and conv cache blocks, so
+        the new tail, the block's last K-1 inputs, stays where it is), and
+        its SiLU'd output is gathered over ``"model"``; then each rank's
+        heads, the norm and ``out_proj`` as :meth:`_ssm_blocks` runs them.
+        No weight moves.  Returns ``(y, {"conv": tail, "ssm": state})``,
+        placed by ``cache_spec_for``."""
+        _, _, _, Shard = _dt()
+        cfg, md = self.cfg, self.model_dim
+        di, n, pdim = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_headdim
+        rows = list(hf.placements)
+        cpl = ([list(cache["conv"].placements), list(cache["ssm"].placements)]
+               if cache is not None else self._ssm_cache_placements(
+                   hf.shape[0]))
+
+        def cut(w):
+            # the placements of an activation whose last dim is w's columns
+            pls = list(rows)
+            if self.m > 1 and isinstance(w.placements[md], Shard):
+                pls[md] = Shard(2)
+            return pls
+
+        w = p["in_proj"]
+        zx_pl = cut(w)
+        zx = self._lmap(lambda hl, wl: hl @ wl, [rows, list(w.placements)],
+                        zx_pl)(hf, w)
+        if zx_pl != rows:
+            zx = zx.redistribute(self.mesh, rows)
+        clo, chi = self._conv_block(cpl[0])
+        xc_pl = cut(p["conv_w"])
+        if (xc_pl != rows) != ((clo, chi) != (0, di + 2 * n)):
+            raise ValueError("the conv cache's channels are not cut as "
+                             "conv_w's")
+        state = [] if cache is None else [cache["conv"]]
+
+        def f_conv(zl, wl, bl, *cl):
+            y, tail = L._causal_depthwise_conv(
+                zl[..., di + clo:di + chi], wl, bl, cl[0] if cl else None)
+            return F.silu(y), tail
+
+        xbc, tail = self._lmap(
+            f_conv, [rows, list(p["conv_w"].placements),
+                     list(p["conv_b"].placements)] + [cpl[0]] * len(state),
+            (xc_pl, cpl[0]))(zx, p["conv_w"], p["conv_b"], *state)
+        if xc_pl != rows:
+            xbc = xbc.redistribute(self.mesh, rows)
+
+        def f1(hl, pd, lo, hi, zl, xl, *sl):
+            c0, c1 = lo * pdim, hi * pdim
+            z = zl[..., c0:c1]
+            dt_raw = zl[..., 2 * di + 2 * n + lo:2 * di + 2 * n + hi]
+            if (lo, hi) != (0, cfg.ssm_heads):
+                xl = torch.cat([xl[..., c0:c1], xl[..., di:]], -1)
+            pl = {k: v if v.shape[0] == hi - lo else v[lo:hi]
+                  for k, v in pd.items()}
+            if cache is None:
+                return L.mamba2_ssd(pl, z, xl, dt_raw, cfg, hi - lo)
+            return L.mamba2_step(pl, z, xl, dt_raw, sl[0], cfg, hi - lo)
+
+        y, (ssm,) = self._ssm_blocks(
+            p, hf, f1, ("a_log", "dt_bias", "d_skip"), (), (cpl[1],),
+            [zx, xbc] + ([] if cache is None else [cache["ssm"]]))
+        return y, {"conv": tail, "ssm": ssm}
+
     # ---------------------------------------------------- the model's ends
     def _head(self):
         m = self.model
@@ -745,6 +1121,21 @@ class ShardedOps:
         return self._lmap(fn, ins, out)(xg, dg, head, *ws)
 
 
+def ssm_serves_activations(cfg, rows: int) -> bool:
+    """Whether a prefill's Mamba2 block on ``rows`` rows a rank (gathered
+    over ``"model"``) gathers its projected activations there rather than
+    the layer's weights: the rows' [z | x, B, C | dt] and conv output,
+    ``rows · (cols + C)`` elements, against ``in_proj``, ``conv_w`` and
+    ``conv_b``, ``d · cols + (K + 1) · C`` (C the conv channels).  A decode
+    step always gathers activations (its B rows' against the weights and
+    the conv cache); training always gathers the weights, whose gradients
+    reduce-scatter back (at jamba's train_4k on (16, 16) the activations
+    are 2.18 GB, the weights 136 MB)."""
+    di, n = cfg.ssm_d_inner, cfg.ssm_state
+    cols, cd = 2 * di + 2 * n + cfg.ssm_heads, di + 2 * n
+    return rows * (cols + cd) < cfg.d_model * cols + (cfg.ssm_conv + 1) * cd
+
+
 # ---------------------------------------------------------------------------
 # the collectives' bytes in closed form
 # ---------------------------------------------------------------------------
@@ -776,9 +1167,18 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     divide it, else each block all-reduced), its output gathered once, a
     cross-attention block in each decoder layer (its gradient summed back
     once, not checkpointed) and in decode the ``"cross"`` cache gathered
-    where it splits the encoder sequence.  Covers a batch split over all
-    the data axes; with ``cfg.remat`` the backward replays each decoder
-    layer's forward up to its last saved input (the layer's last block's
+    where it splits the encoder sequence.  An MoE block adds the experts'
+    counts (E int64) gathered over the data axes a call and, in training,
+    the Switch auxiliary's (2, E) f32 sums all-reduced over every dim that
+    splits the rows or the experts; a Mamba2 block gathers ``in_proj``,
+    ``conv_w`` and ``conv_b`` over ``"model"`` a call in training (their
+    gradients summed back as attention's gathered projections') and in a
+    prefill where :func:`ssm_serves_activations` says so, else (decode
+    too) the rows' projected activations and conv output, and it
+    all-reduces the rows' f32 mean square over ``"model"`` where its
+    heads split there (forward, replay and backward).  Covers a batch split over all the data
+    axes; with ``cfg.remat`` the backward replays each decoder layer's
+    forward up to its last saved input (the layer's last block's
     collective is not replayed)."""
     from .transformer import Transformer
 
@@ -791,6 +1191,7 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     d, hkv, dh = cfg.d_model, cfg.num_kv_heads, cfg.resolved_head_dim
     meta = Transformer(cfg, device="meta")
     shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    size = {n: p.element_size() for n, p in meta.named_parameters()}
     specs = policy.param_specs(shapes)
 
     def sharded(name):
@@ -826,7 +1227,15 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
                     or (n.endswith((".wk", ".wv", ".b_k", ".b_v"))
                         and not lay.kv_local))]
 
-    dec_g = gathered("layers.0.", lay)
+    # a Mamba2 layer gathers in_proj and the conv's weights every call of
+    # training (and of a prefill where they are the fewer bytes); serving
+    # otherwise gathers the projected activations
+    ssm_w = [n for n in shapes if n.startswith("layers.") and m > 1
+             and sharded(n) and n.endswith((".mamba.in_proj",
+                                            ".mamba.conv_w", ".mamba.conv_b"))]
+    ssm_acts = kind == "decode" or (kind == "prefill" and ssm_serves_activations(
+        cfg, b * (seq + cfg.prefix_tokens)))
+    dec_g = gathered("layers.", lay) + ([] if ssm_acts else ssm_w)
     if kind == "decode":
         # a decode's cross-attention projects its query alone
         dec_g = [n for n in dec_g if ".cross." not in n
@@ -835,9 +1244,30 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     enc_g = gathered("encoder.0.", lay_enc) if n_enc else []
 
     def w_gather(names):
-        return sum(e * numel(n) // m * (1 + m) for n in names)
+        return sum(size[n] * numel(n) // m * (1 + m) for n in names)
+
+    def gather_over(nbytes, dims):
+        """An all-gather over several mesh dims, the inner one first."""
+        tot = 0
+        for k in reversed(dims):
+            tot += nbytes * (1 + k)
+            nbytes *= k
+        return tot
 
     n_layers = cfg.num_layers
+    subs = list(cfg.super_block) * cfg.num_repeats
+    n_attn = sum(sl.mixer == "attention" for sl in subs)
+    n_ssm = len(subs) - n_attn
+    n_moe = sum(sl.ffn == "moe" for sl in subs)
+    # MoE: the experts' counts (E int64) gathered over the data axes; the
+    # Switch auxiliary's (2, E) f32 sums all-reduced over every dim that
+    # splits the rows or the experts (training)
+    moe_count = gather_over(8 * cfg.num_experts, dsplit) if n_moe else 0
+    moe_aux = 2 * 8 * cfg.num_experts * (len(dsplit) + int(m > 1))
+    # Mamba2 with its heads over "model": the rows' mean square (f32)
+    # all-reduced over "model" a call
+    ssm_split = bool(n_ssm) and m > 1 and cfg.ssm_heads % m == 0
+    ssm_ms = 2 * 4 * b * sd if ssm_split else 0
     # blocks a decoder layer runs: its mixer, cross-attention, FFN
     per_rep = sum(1 + sl.cross_attention + (sl.ffn != "none")
                   for sl in cfg.super_block)
@@ -864,11 +1294,24 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     if kind in ("prefill", "decode"):
         if reduced:
             out["all_reduce"] += blocks * act
+        out["all_gather"] += n_moe * moe_count
+        out["all_reduce"] += n_ssm * ssm_ms
+        if ssm_acts and n_ssm:
+            # the rows' [z | x, B, C | dt] and the conv's SiLU'd output
+            # gathered over "model" where in_proj's columns and the conv's
+            # channels are cut there, a Mamba2 layer
+            di, ns = cfg.ssm_d_inner, cfg.ssm_state
+            for tail, width in ((".mamba.in_proj",
+                                 2 * di + 2 * ns + cfg.ssm_heads),
+                                (".mamba.conv_w", di + 2 * ns)):
+                if any(n.endswith(tail) for n in ssm_w):
+                    out["all_gather"] += n_ssm * e * b * sd * (
+                        width // m) * (1 + m)
         if kind == "decode":
             if m > 1 and not lay.kv_local and cache_width and \
                     cache_width % m == 0 and hkv % m:
                 # the context-parallel cache gathered, k and v, a layer
-                out["all_gather"] += n_layers * 2 * e * b * hkv * dh * (
+                out["all_gather"] += n_attn * 2 * e * b * hkv * dh * (
                     cache_width // m + cache_width)
             if m > 1 and hkv % m and se % m == 0:
                 # the cross cache split over the encoder's sequence
@@ -877,7 +1320,7 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
         elif not reduced:
             out["reduce_scatter"] += blocks * act
             out["all_gather"] += (n_blocks + 2) * act   # + x, delta
-        out["all_gather"] += n_layers * w_gather(dec_g)
+        out["all_gather"] += w_gather(dec_g)
         if kind == "prefill" and n_enc:
             if enc_split:
                 # two blocks a layer, then the output gathered once
@@ -906,12 +1349,16 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
         else:
             out["all_reduce"] += (4 * n_enc + 1) * act_e
     reps = 1 + int(cfg.remat)
-    out["all_gather"] += n_layers * reps * w_gather(dec_g) \
-        + n_enc * w_gather(enc_g)
+    # the MoE's count exchange and auxiliary, the Mamba2 mean square: each
+    # layer's forward and its replay; the mean square's gradient too
+    out["all_gather"] += n_moe * reps * moe_count
+    out["all_reduce"] += n_moe * reps * moe_aux + n_ssm * (
+        reps + 1) * ssm_ms
+    out["all_gather"] += reps * w_gather(dec_g) + n_enc * w_gather(enc_g)
     # the gathered weights' gradients: summed over the data ranks whole,
     # then reduce-scattered over "model"
-    full = sum(e * numel(n) for n in dec_g) * n_layers + sum(
-        e * numel(n) for n in enc_g) * n_enc
+    full = sum(size[n] * numel(n) for n in dec_g) + sum(
+        size[n] * numel(n) for n in enc_g) * n_enc
     out["all_reduce"] += 2 * full * len(dsplit)
     out["reduce_scatter"] += full + full // m if m > 1 else 0
     head = "embed" if cfg.tie_embeddings else "lm_head"
@@ -936,8 +1383,7 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
     # the loss's sum and count: one all-reduce a dim that splits the rows
     out["all_reduce"] += 2 * 8 * (len(dsplit) + int(m > 1 and sp))
     # the other gradients summed into their parameters' placements
-    gset = {f"layers.{i}.{n[len('layers.0.'):]}" for n in dec_g
-            for i in range(n_layers)} | {
+    gset = set(dec_g) | {
         f"encoder.{i}.{n[len('encoder.0.'):]}" for n in enc_g
         for i in range(n_enc)}
     for n in shapes:
@@ -945,15 +1391,16 @@ def step_collective_bytes(cfg, kind: str, batch: int, seq: int, policy,
             continue
         norm = (".norm" in n and n.endswith(("scale", "bias"))) \
             or n.startswith(("final_norm", "encoder_norm"))
-        pb = numel(n) * (4 if norm else e)
+        pb = numel(n) * size[n]
         if sharded(n):
             out["all_reduce"] += 2 * pb // m * len(dsplit)
             continue
         # replicated over "model": its gradient is a partial sum over every
         # rank of a block that splits the work there (an attention, cross-
-        # attention or MLP block always does; a norm's rows, or a whole
-        # embedding's lookup, only with the rows split)
-        in_block = any(g in n for g in (".attn.", ".mlp.", ".cross."))
+        # attention, MLP, MoE or Mamba2 block always does; a norm's rows, or
+        # a whole embedding's lookup, only with the rows split)
+        in_block = any(g in n for g in (".attn.", ".mlp.", ".cross.",
+                                        ".moe.", ".mamba."))
         rows = enc_split if n.startswith("encoder") else sp
         if n == "embed":
             rows = sp and not cfg.prefix_tokens

@@ -47,8 +47,7 @@ from . import layers as L
 from .config import ModelConfig, SubLayer
 from .sharding import NO_SHARDING
 
-__all__ = ["Transformer", "chunked_ce_loss", "chunked_ce_sum",
-           "check_shardable"]
+__all__ = ["Transformer", "chunked_ce_loss", "chunked_ce_sum"]
 
 
 def _chunks(t: int, chunk: int):
@@ -57,8 +56,9 @@ def _chunks(t: int, chunk: int):
 
 def _chunk_nll(hx, w32, lx):
     """Summed masked NLL of one token chunk and its softmax: the chunk's
-    f32 logits ``hx @ W`` exist only inside this call."""
-    logp = torch.log_softmax(hx.float() @ w32, dim=-1)
+    f32 logits ``hx @ W`` (f64 for a float64 model) exist only inside this
+    call."""
+    logp = torch.log_softmax(hx.to(w32.dtype) @ w32, dim=-1)
     wgt = (lx >= 0).to(torch.float32)
     nll = -logp.gather(1, lx.clamp_min(0)[:, None])[:, 0]
     return (nll * wgt).sum(), wgt, logp
@@ -73,11 +73,13 @@ class _ChunkedCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w_head, labels, chunk, mean=True):
         t = h.shape[0]
-        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        acc = torch.promote_types(h.dtype, torch.float32)
+        tot = torch.zeros((), dtype=acc, device=h.device)
         cnt = torch.zeros((), dtype=torch.float32, device=h.device)
         for lo, hi in _chunks(t, chunk):
             # the head is cast to f32 per chunk, as the reference casts it
-            part, wgt, _ = _chunk_nll(h[lo:hi], w_head.float(), labels[lo:hi])
+            part, wgt, _ = _chunk_nll(h[lo:hi], w_head.to(acc),
+                                      labels[lo:hi])
             tot, cnt = tot + part, cnt + wgt.sum()
         denom = torch.clamp_min(cnt, 1.0)
         ctx.save_for_backward(h, w_head, labels, denom)
@@ -87,24 +89,24 @@ class _ChunkedCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, w_head, labels, denom = ctx.saved_tensors
+        acc = torch.promote_types(h.dtype, torch.float32)
         dh = torch.empty_like(h) if ctx.needs_input_grad[0] else None
-        dw = (torch.zeros(w_head.shape, dtype=torch.float32,
-                          device=w_head.device)
+        dw = (torch.zeros(w_head.shape, dtype=acc, device=w_head.device)
               if ctx.needs_input_grad[1] else None)
         scale = g / denom if ctx.mean else g
         for lo, hi in _chunks(h.shape[0], ctx.chunk):
             hx, lx = h[lo:hi], labels[lo:hi]
-            w32 = w_head.float()
+            w32 = w_head.to(acc)
             _, wgt, logp = _chunk_nll(hx, w32, lx)
             # d(sum nll * wgt)/dlogits = (softmax - onehot) * wgt
             dlog = torch.exp(logp)
             dlog.scatter_add_(1, lx.clamp_min(0)[:, None],
-                              -torch.ones_like(wgt)[:, None])
+                              -torch.ones_like(dlog[:, :1]))
             dlog *= (wgt * scale)[:, None]
             if dh is not None:
                 dh[lo:hi] = (dlog @ w32.T).to(h.dtype)
             if dw is not None:
-                dw += hx.float().T @ dlog
+                dw += hx.to(acc).T @ dlog
         return (dh, None if dw is None else dw.to(w_head.dtype), None, None,
                 None)
 
@@ -133,22 +135,6 @@ def chunked_ce_sum(h: torch.Tensor, w_head: torch.Tensor,
     tot = _ChunkedCE.apply(h, w_head, labels,
                            max(1, min(chunk, h.shape[0])), False)
     return tot, (labels >= 0).to(torch.float32).sum()
-
-
-def check_shardable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the sharded steps do not
-    run yet: a mesh runs attention + MLP layers (the dense decoders, the
-    encoder-decoder and the prefix-LM), not the Mamba2 mixer or the MoE
-    FFN."""
-    todo = sorted({f"the {sl.mixer} mixer" for sl in cfg.super_block
-                   if sl.mixer != "attention"}
-                  | {f"the {sl.ffn} ffn" for sl in cfg.super_block
-                     if sl.ffn not in ("mlp", "none")})
-    if todo:
-        raise NotImplementedError(
-            f"{cfg.name}: running {' and '.join(todo)} on a mesh is not "
-            "ported yet (ROADMAP item 15.7b, the sharded MoE and Mamba2 "
-            "families); the port runs them on one card")
 
 
 def _params(params: dict) -> nn.ParameterDict:
@@ -194,8 +180,8 @@ class _Layer(nn.Module):
         cfg = ops.cfg
         if self.mixer == "mamba2":
             if cache is None:
-                return L.mamba2_apply(self.mamba, h, cfg)
-            return L.mamba2_decode(self.mamba, h, cache, cfg)
+                return ops.mamba2(self.mamba, h)
+            return ops.mamba2_decode(self.mamba, h, cache)
         if cache is None:
             return ops.attention_prefill(
                 self.attn, h, window=cfg.sliding_window,
@@ -212,7 +198,6 @@ class _Layer(nn.Module):
         stashes as the cache's ``"cross"`` entry for the decode.  ``ops``
         runs the sub-layers (:class:`_LocalOps`, or on a mesh
         ``models/sharded.py::ShardedOps``)."""
-        cfg = ops.cfg
         x, h = ops.add_norm(self.norm_mix, x, delta)
         prefill = cache is None
         mix, cache = self._mix(h, ops, cache, cache_len, cache_size, rolling,
@@ -231,7 +216,7 @@ class _Layer(nn.Module):
             return x, mix, cache
         x, h = ops.add_norm(self.norm_ffn, x, mix)
         if self.ffn == "moe":
-            return x, L.moe_apply(self.moe, h, cfg)[0], cache
+            return x, ops.residual(ops.moe(self.moe, h, aux=False)[0]), cache
         return x, ops.residual(ops.mlp(self.mlp, h)), cache
 
     def train_forward(self, x, delta, ops, causal=True, prefix_len=0,
@@ -247,7 +232,7 @@ class _Layer(nn.Module):
         cfg = ops.cfg
         x, h = ops.add_norm(self.norm_mix, x, delta)
         if self.mixer == "mamba2":
-            mix = L.mamba2_apply(self.mamba, h, cfg)[0]
+            mix = ops.mamba2(self.mamba, h, cache=False)[0]
         else:
             mix = ops.attention(self.attn, h, causal=causal,
                                 window=cfg.sliding_window if causal else None,
@@ -260,7 +245,7 @@ class _Layer(nn.Module):
             return x, mix, None
         x, h = ops.add_norm(self.norm_ffn, x, mix)
         if self.ffn == "moe":
-            y, aux = L.moe_apply(self.moe, h, cfg)
+            y, aux = ops.moe(self.moe, h)
             return x, ops.residual(y), aux
         return x, ops.residual(ops.mlp(self.mlp, h)), None
 
@@ -327,6 +312,15 @@ class _LocalOps:
 
     def mlp(self, p, h):
         return L.mlp_apply(p, h, self.cfg)
+
+    def moe(self, p, h, aux=True):
+        return L.moe_apply(p, h, self.cfg)
+
+    def mamba2(self, p, h, cache=True):
+        return L.mamba2_apply(p, h, self.cfg)
+
+    def mamba2_decode(self, p, h, cache):
+        return L.mamba2_decode(p, h, cache, self.cfg)
 
     def encoder_input(self, enc_embeds):
         x = self.model._embeds(enc_embeds, "enc_embeds")
@@ -395,9 +389,8 @@ class Transformer(nn.Module):
     :meth:`distribute` places the parameters on one as DTensors, after
     which the same layer loop of :meth:`train_loss`, :meth:`prefill` and
     :meth:`decode_step` runs its sub-layers through
-    ``models/sharded.py::ShardedOps`` in place of :class:`_LocalOps`: the
-    dense decoders, the encoder-decoder and the prefix-LM, not the Mamba2
-    mixer or the MoE FFN (:func:`check_shardable`).
+    ``models/sharded.py::ShardedOps`` in place of :class:`_LocalOps`, every
+    family of the zoo.
     """
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -453,7 +446,6 @@ class Transformer(nn.Module):
 
         if not self.policy.enabled:
             raise ValueError("distribute needs an enabled ShardingPolicy")
-        check_shardable(self.cfg)
         for name, pl in sharded.param_placements(self, mesh).items():
             owner, _, key = name.rpartition(".")
             mod = self.get_submodule(owner) if owner else self

@@ -19,9 +19,11 @@ runs it), every step on ``meta`` tensors.
   gathered-projection path), whisper's 1,500 frames stay replicated over
   it and its vocabulary whole, paligemma's one KV head makes its decode
   cache the context-parallel one;
-- an MoE arch ``skipped`` naming ROADMAP item 15.7b, a full-attention arch
-  at long_500k without ``swa`` skipped by the reference's rule (whisper
-  and paligemma too), every run's exit code 0.
+- the MoE and Mamba2 families (ROADMAP item 15.7b, part 2): phi3.5-moe at
+  train_4k and mamba2-370m at decode_32k ``ok``, each equal to its closed
+  form; a full-attention arch at long_500k without ``swa`` skipped by the
+  reference's rule (phi3.5-moe, whisper and paligemma too), every run's
+  exit code 0.
 """
 import json
 import os
@@ -47,6 +49,7 @@ GROUPS = [
      "--no-measure", "--tag", "no-constrain-attn"],
     ["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "train_4k"],
     ["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "long_500k"],
+    ["--arch", "mamba2-370m", "--shape", "decode_32k"],
     ["--arch", "qwen2-0.5b", "--shape", "long_500k"],
     ["--arch", "whisper-small", "--shape", "all"],
     ["--arch", "paligemma-3b", "--shape", "all"],
@@ -177,12 +180,21 @@ def test_the_policy_options(run):
 
 
 def test_skipped_rows(run):
+    """The MoE and Mamba2 families run on a mesh: phi3.5-moe's train step
+    (its 16 experts over the 16 model ranks, the count exchange and the
+    Switch auxiliary's sums over the 16 data ranks) and mamba2-370m's
+    decode step (its 32 heads over "model", the conv cache gathered) give
+    ``ok`` rows equal to their closed forms; only the reference's
+    long-context rule skips: phi3.5-moe is full attention."""
     rows = run[1]
-    moe = _row(rows, "phi3.5-moe-42b-a6.6b", "train_4k", status="skipped")
-    assert "15.7b" in moe["reason"] and "moe" in moe["reason"]
-    # a family no mesh runs is skipped as such at long_500k too
+    for arch, shape in (("phi3.5-moe-42b-a6.6b", "train_4k"),
+                        ("mamba2-370m", "decode_32k")):
+        r = _row(rows, arch, shape)
+        assert r["chips"] == 256 and r["fits"], (arch, shape)
+        assert closed_form_holds(r), (r["coll_in_out"],
+                                      r["coll_closed_form"])
     moe = _row(rows, "phi3.5-moe-42b-a6.6b", "long_500k", status="skipped")
-    assert "15.7b" in moe["reason"]
+    assert moe["reason"] == "full attention; run with --variant swa"
     # the reference's skipped rows carry no tag
     full = _row(rows, "qwen2-0.5b", "long_500k", status="skipped")
     assert full["reason"] == "full attention; run with --variant swa"

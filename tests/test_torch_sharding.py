@@ -14,11 +14,11 @@ item 15.7) against the reference's, with no world of ranks:
   path), the port's one cache dict per layer against the reference's
   stacked tree;
 - ``placements``: a tuple entry nests its mesh dims in mesh order;
-- the refusals: the families a mesh does not run yet, the Mamba2 mixer and
-  the MoE FFN (``NotImplementedError`` naming ROADMAP item 15.7b), a mesh
-  outside a process group (``ValueError``); the encoder-decoder and the
-  prefix-LM built and distributed on the dry run's fake (16, 16) world in
-  a process of its own;
+- the refusal of a mesh outside a process group (``ValueError``); the
+  encoder-decoder, the prefix-LM, the MoE and the Mamba2 families (whisper,
+  paligemma, phi3.5-moe, qwen3-moe, mamba2-370m, jamba) built and
+  distributed on the dry run's fake (16, 16) world in a process of its
+  own;
 - the example ``examples/llm_entropy_sharding_torch.py`` at ``--steps 2
   --device cpu``.
 
@@ -206,31 +206,6 @@ def test_tuple_entries_nest_in_mesh_order():
         placements(P("model", "model"), Mesh())
 
 
-FAMILIES_OUTSIDE = [("mamba2-370m", "mamba2 mixer"),
-                    ("phi3.5-moe-42b-a6.6b", "moe ffn"),
-                    ("jamba-v0.1-52b", "mamba2 mixer")]
-
-
-@pytest.mark.parametrize("arch,what", FAMILIES_OUTSIDE)
-def test_families_outside_the_slice_raise(arch, what):
-    """A mesh runs attention + MLP layers; the Mamba2 mixer and the MoE FFN
-    raise before any collective, naming item 15.7b and nothing that a mesh
-    runs (jamba names both of its own)."""
-    from repro_torch.launch.steps import build_step
-    from repro_torch.models.sharding import ShardingPolicy
-
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=r"15\.7b") as e:
-        build_step(cfg, SHAPES["train_4k"], object())
-    assert what in str(e.value)
-    for ran in ("encoder", "cross", "prefix", "sinusoidal", "prefix-LM"):
-        assert ran not in str(e.value), ran
-    model = Transformer(cfg, device="meta", policy=ShardingPolicy(
-        axis_sizes={"data": 1, "model": 1}))
-    with pytest.raises(NotImplementedError, match=r"15\.7b"):
-        model.distribute(None)
-
-
 # run in a process of its own: the fake world of the dry run is its only
 # process group.  Each arch at full width on ``meta``: build_step's four
 # step kinds on the (16, 16) mesh, and the model distributed by the train
@@ -242,13 +217,11 @@ from repro_torch.launch.mesh import make_dryrun_world
 from repro_torch.launch.steps import build_step
 from repro_torch.models import Transformer
 from repro_torch.models.sharded import param_placements
-from repro_torch.models.transformer import check_shardable
 
 mesh = make_dryrun_world()
 out = {}
 for arch in sys.argv[1:]:
     cfg = get_config(arch)
-    check_shardable(cfg)
     built = {}
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         built[shape] = build_step(cfg, SHAPES[shape], mesh).name
@@ -273,7 +246,7 @@ print(json.dumps(out))
 def shardable():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO_ROOT, "src"),
                OMP_NUM_THREADS="1")
-    r = subprocess.run([sys.executable, "-c", _SHARDABLE, *ENCDEC],
+    r = subprocess.run([sys.executable, "-c", _SHARDABLE, *ENCDEC, *ZOO],
                        capture_output=True, text=True, env=env,
                        cwd=REPO_ROOT, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -282,6 +255,8 @@ def shardable():
 
 
 ENCDEC = ["whisper-small", "paligemma-3b"]
+ZOO = ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b", "mamba2-370m",
+       "jamba-v0.1-52b"]
 
 
 @pytest.mark.parametrize("arch", ENCDEC)
@@ -307,6 +282,32 @@ def test_encdec_and_prefix_lm_run_on_a_mesh(shardable, arch):
         assert got["placed"]["layers.0.cross.wq"] == ["R", "S(1)"]
     else:
         assert got["placed"]["embed"] == ["R", "S(0)"]
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_moe_and_mamba2_run_on_a_mesh(shardable, arch):
+    """The MoE and Mamba2 families at full width on ``meta``: ``build_step``
+    builds their four step kinds on the (16, 16) mesh and ``distribute``
+    places every parameter by the policy: the experts over ``"model"``
+    (16 or 128 of them), the router whole, Mamba2's ``in_proj`` columns,
+    ``out_proj`` rows and per-head parameters over ``"model"``."""
+    got = shardable[arch]
+    assert got["built"] == {
+        "train_4k": f"train:{arch}:train_4k",
+        "prefill_32k": f"prefill:{arch}:prefill_32k",
+        "decode_32k": f"serve:{arch}:decode_32k",
+        "personalize": f"train-personalize:{arch}:train_4k"}
+    assert sorted(got["placed"]) == sorted(got["params"])
+    placed = got["placed"]
+    if "moe" in arch or "jamba" in arch:
+        layer = 1 if "jamba" in arch else 0
+        assert placed[f"layers.{layer}.moe.expert_gate"] == ["R", "S(0)"]
+        assert placed[f"layers.{layer}.moe.router"] == ["R", "R"]
+    if "mamba" in arch or "jamba" in arch:
+        layer = 1 if "jamba" in arch else 0
+        assert placed[f"layers.{layer}.mamba.in_proj"] == ["R", "S(1)"]
+        assert placed[f"layers.{layer}.mamba.out_proj"] == ["R", "S(0)"]
+        assert placed[f"layers.{layer}.mamba.a_log"] == ["R", "S(0)"]
 
 
 def test_mesh_outside_a_group_raises():
